@@ -1,0 +1,31 @@
+"""repro_torch.core: the working-set + Anderson-CD solver (port of
+``repro.core``, dense single-device path)."""
+from .datafits import Logistic, Quadratic, QuadraticSVC
+from .penalties import MCP, SCAD, L05, L23, L1, L1L2, Box, soft_threshold
+from .solver import SolveResult, make_engine, normalize_weights, solve
+from .engine import (DenseDesign, EngineConfig, GramSolver, SolveEngine,
+                     SubproblemSolver, XbSolver, as_design)
+from .anderson import anderson_extrapolate
+from .working_set import (BucketPolicy, fixed_point_score, grow_ws_size,
+                          select_working_set, violation_scores)
+from .api import (elastic_net, enet_gap, l05_regression, l23_regression,
+                  lambda_max, lasso, lasso_gap, logreg_gap, mcp_regression,
+                  scad_regression, sparse_logreg, svc_dual)
+from .estimators import (ElasticNet, GeneralizedLinearEstimator, Lasso,
+                         LinearSVC, MCPRegression, SCADRegression,
+                         SparseLogisticRegression)
+
+__all__ = [
+    "Quadratic", "Logistic", "QuadraticSVC",
+    "L1", "L1L2", "MCP", "SCAD", "L05", "L23", "Box", "soft_threshold",
+    "solve", "SolveResult", "make_engine", "normalize_weights",
+    "EngineConfig", "SolveEngine", "SubproblemSolver", "GramSolver",
+    "XbSolver", "DenseDesign", "as_design",
+    "BucketPolicy", "anderson_extrapolate", "violation_scores",
+    "fixed_point_score", "select_working_set", "grow_ws_size",
+    "lambda_max", "lasso_gap", "enet_gap", "logreg_gap", "lasso",
+    "elastic_net", "mcp_regression", "scad_regression", "l05_regression",
+    "l23_regression", "sparse_logreg", "svc_dual",
+    "GeneralizedLinearEstimator", "Lasso", "ElasticNet", "MCPRegression",
+    "SCADRegression", "SparseLogisticRegression", "LinearSVC",
+]

@@ -1,0 +1,4 @@
+"""Synthetic data generators (numpy; own copies of ``repro.data.synth``)."""
+from .synth import make_classification, make_correlated_design
+
+__all__ = ["make_correlated_design", "make_classification"]

@@ -1,0 +1,93 @@
+"""The penalty-parameter codec shared by the kernels (port of
+``repro.kernels.common``).
+
+The codec is exact-arity: ``penalty_params`` packs every scalar
+hyper-parameter of a registered penalty class into an ``(arity,)`` float64
+vector and ``make_penalty`` rebuilds the penalty from it. The CUDA kernels
+take the class as an integer id (``PENALTY_IDS``, the ``switch`` in
+``csrc/prox.cuh``) plus that vector. Unregistered classes and array-valued
+(per-coordinate) hyper-parameters raise ``UnsupportedPenaltyError`` instead
+of being silently truncated.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core import penalties as _pen
+
+__all__ = ["UnsupportedPenaltyError", "PENALTY_FIELDS", "PENALTY_IDS",
+           "SCALAR_COORD_PENALTIES", "penalty_arity", "check_kernel_penalty",
+           "check_score_kernel_penalty", "penalty_params", "make_penalty"]
+
+
+class UnsupportedPenaltyError(TypeError):
+    """Penalty cannot be encoded for kernel use (unregistered class, or
+    array-valued / per-coordinate hyper-parameters)."""
+
+
+# class -> ordered scalar hyper-parameter field names
+PENALTY_FIELDS: dict = {
+    cls: tuple(f.name for f in dataclasses.fields(cls))
+    for cls in (_pen.L1, _pen.L1L2, _pen.MCP, _pen.SCAD, _pen.L05, _pen.L23,
+                _pen.Box)}
+
+# class -> the penalty id the CUDA prox switches on (csrc/prox.cuh)
+PENALTY_IDS = {_pen.L1: 0, _pen.L1L2: 1, _pen.MCP: 2, _pen.SCAD: 3,
+               _pen.L05: 4, _pen.L23: 5, _pen.Box: 6}
+
+# penalties whose prox acts on scalar coordinates (all of this slice's)
+SCALAR_COORD_PENALTIES = frozenset(PENALTY_IDS)
+
+
+def penalty_arity(cls) -> int:
+    """Number of scalar hyper-parameters the codec packs for `cls`."""
+    try:
+        return len(PENALTY_FIELDS[cls])
+    except KeyError:
+        raise UnsupportedPenaltyError(
+            f"{cls.__name__} is not registered with the kernel penalty "
+            "codec") from None
+
+
+def check_kernel_penalty(cls):
+    """Raise unless `cls` can run inside the scalar-coordinate CD kernels."""
+    penalty_arity(cls)
+    if cls not in SCALAR_COORD_PENALTIES:
+        raise UnsupportedPenaltyError(
+            f"{cls.__name__} has block (non-scalar-coordinate) proxes and "
+            "cannot run inside the scalar CD kernels")
+
+
+def check_score_kernel_penalty(cls):
+    """Raise unless `cls` can run inside the fused working-set kernel (any
+    codec-registered penalty)."""
+    penalty_arity(cls)
+
+
+def penalty_params(penalty) -> torch.Tensor:
+    """Pack a penalty's hyper-parameters into an ``(arity,)`` float64 CPU
+    tensor. Raises UnsupportedPenaltyError for unregistered classes and for
+    array-valued hyper-parameters."""
+    fields = PENALTY_FIELDS.get(type(penalty))
+    if fields is None:
+        raise UnsupportedPenaltyError(
+            f"{type(penalty).__name__} is not registered with the kernel "
+            "penalty codec")
+    vals = []
+    for name in fields:
+        v = getattr(penalty, name)
+        if getattr(v, "ndim", 0) != 0:
+            raise UnsupportedPenaltyError(
+                f"{type(penalty).__name__}.{name} is array-valued "
+                "(per-coordinate hyper-parameters are not kernel-encodable)")
+        vals.append(float(v))
+    return torch.tensor(vals, dtype=torch.float64)
+
+
+def make_penalty(cls, params):
+    """Rebuild a penalty object from a parameter vector (inverse of
+    ``penalty_params``)."""
+    arity = penalty_arity(cls)
+    return cls(*(float(params[i]) for i in range(arity)))

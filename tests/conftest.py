@@ -45,3 +45,9 @@ def multitask_data():
 
 def rng(seed=0):
     return np.random.default_rng(seed)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's kernels); skips "
+        "with a reason where there is none")
