@@ -8,22 +8,38 @@ Phases, each of which must pass (any failure exits non-zero):
 1. device: the card's name and power limit (nvidia-smi); TF32 off.
 2. build: nvcc builds every kernel source of ``src/repro_torch/csrc`` at
    first use; the ptxas register / shared-memory report is printed.
-3. kernels: K1 (``cd_epoch_gram``), K2 (``cd_epoch_xb``) and K3
-   (``fused_ws``) on the card against their plain torch versions on the same
-   inputs, at main-path shapes, float64. Tolerances are those of the
-   reference's kernel tests: |err| <= 1e-12 + 1e-5 |ref| for K1,
-   1e-11 + 1e-8 |ref| for K2, 1e-12 + 1e-11 |ref| (scores) and
+3. dense kernels: K1 (``cd_epoch_gram``), K2 (``cd_epoch_xb``), K3
+   (``fused_ws``) and K4 (``ws_score``) on the card against their plain
+   torch versions on the same inputs, at main-path shapes, float64.
+   Tolerances are those of the reference's kernel tests: |err| <=
+   1e-12 + 1e-5 |ref| for K1, 1e-11 + 1e-8 |ref| for K2 (also at
+   n = 50,000, its global-memory branch), 1e-12 + 1e-11 |ref| (scores) and
    1e-12 + 1e-10 |ref| (grad) for K3, whose working set must be identical
-   and whose gathered columns must be bit-exact.
-4. main path: four fits through the estimators at full width, each on the
-   kernel route (launch counts reset just before, read just after; each of
-   its kernels must have launched) and on the plain-torch route on the same
-   card; each must converge at tol 1e-6 and the two routes must agree to
-   1e-6 on the coefficients.
-5. times: each kernel at main-path shapes (CUDA events, warm), its plain
+   and whose gathered columns must be bit-exact, and the K3 score bound for
+   K4 (7 penalties x fixed-point x weights).
+4. dense main path: four fits through the estimators at full width, each
+   on the kernel route (the estimators' default arguments on the card;
+   launch counts reset just before, read just after; each of its kernels
+   must have launched) and on the plain-torch route (``use_kernels=False``)
+   on the same card; each must converge at tol 1e-6 and the two routes
+   must agree to 1e-6 on the coefficients.
+5. sparse path: the repo's full-size sparse configuration (``sparse_fig2``
+   "small" of ``benchmarks/bench_engine.py``: n = 50,000, p = 200,000,
+   density 1e-3), built on the host once as a CSC design with the ELL
+   flag. K5 (``csc_score``) and K5s (``csc_weighted_col_sq``) against their
+   plain versions within 1e-12 + 1e-12 |ref|, run twice (the kernel must
+   be deterministic), on it and on a small design with empty columns and
+   columns at the window cap. Then, on both routes with the checks of
+   phase 4, a Lasso at lambda_max/10 and a weighted sparse logistic
+   regression at lambda_max/3, the same two at lambda_max/300 and
+   lambda_max/30 (working sets of 2048 and 4096 columns), and a LinearSVC
+   on a scipy sparse X (label-signed Z^T converted by the estimator): the
+   kernel route must launch K5 on every outer head, K5s once in each
+   weighted fit, K1 (Lasso, SVC) or K2 (logistic), and never K3.
+6. times: each kernel at main-path shapes (CUDA events, warm), its plain
    version, its bound (bytes over 3.35 TB/s or operations over 67 TF/s
-   float64, the larger) and, for K3, ``torch.mv(Xt, r)`` as a partial
-   library yardstick for its gradient part.
+   float64, the larger) and, where one PyTorch call computes the same
+   function (or a part of it), that call's time.
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -44,9 +60,15 @@ TOL = 1e-6
 PENALTY_SPECS = [("L1", (0.11,)), ("L1L2", (0.11, 0.6)), ("MCP", (0.11, 3.0)),
                  ("SCAD", (0.11, 3.7)), ("L05", (0.05,)), ("L23", (0.05,)),
                  ("Box", (0.8,))]
-FULL = dict(k1_sizes=(256, 1024), k2_K=512, k2_n=10_000, k3_n=10_000,
-            k3_p=20_000, k3_ws=(64, 1024), reg_n=10_000, reg_p=20_000,
-            reg_nnz=150, svc_n=2000, svc_p=1000, svc_nnz=100, reps=20)
+FULL = dict(k1_sizes=(256, 1024), k2_K=512, k2_n=10_000, k2_big_n=50_000,
+            k3_n=10_000, k3_p=20_000, k3_ws=(64, 1024), reg_n=10_000,
+            reg_p=20_000, reg_nnz=150, svc_n=2000, svc_p=1000, svc_nnz=100,
+            sparse=dict(n=50_000, p=200_000, density=1e-3, n_nonzero=200,
+                        seed=0, snr=5.0),
+            sparse_small=dict(n=2000, p=8000, density=5e-3, n_nonzero=40,
+                              seed=1),
+            sparse_lam=((10, 3), (300, 30)),  # lambda_max / (Lasso, logistic)
+            reps=20)
 
 
 def log(*a):
@@ -234,17 +256,107 @@ def check_kernels(dev, cfg):
     return errs, fails
 
 
-# --------------------------------------------------------------- main path
-def _fit(make, design, y, dev, kernels):
+def check_k2_big_and_k4(dev, cfg, errs):
+    """K2 at n = 50,000 (its global-memory branch) and K4 against their
+    plain versions; updates `errs`, returns the failures."""
+    import torch
+    from repro_torch.core.penalties import L1
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cd_epoch import cd_epoch_xb_plain
+    from repro_torch.kernels.common import penalty_params
+    from repro_torch.kernels.ws_score import ws_score_plain
+    fails = []
+    errs.update(ws_score=0.0)
+
+    K, n = cfg["k2_K"], cfg["k2_big_n"]
+    Xt, y, w, beta0, Xb0, L, off = xb_inputs(K, n, "logistic", dev, seed=9)
+    args = (Xt, y, beta0, Xb0, L, off, L1, penalty_params(L1(0.002)),
+            "logistic")
+    for wt in (None, w):
+        bk, xk = ops.cd_epoch_xb(*args, w=wt, epochs=2)
+        br, xr = cd_epoch_xb_plain(*args, w=wt, epochs=2)
+        moved = int(torch.sum(bk != beta0))
+        for a, b in ((bk, br), (xk, xr)):
+            ok, e = close(a, b, 1e-11, 1e-8)
+            errs["cd_epoch_xb"] = max(errs["cd_epoch_xb"], e)
+            if not ok:
+                fails.append(f"K2 n={n} logistic w={wt is not None} "
+                             f"err={e:.3e}")
+        log(f"  K2 at K={K}, n={n}, w={wt is not None}: {moved} "
+            f"coordinates moved")
+    del Xt
+
+    n, p = cfg["k3_n"], cfg["k3_p"]
+    Xt, r, beta, L, off = fused_inputs(n, p, dev, seed=5)
+    g = torch.Generator(device=dev).manual_seed(5)
+    w = 2.0 * torch.rand(n, generator=g, device=dev, dtype=torch.float64)
+    for pen in penalties():
+        for fp in (False, True):
+            for wt in (None, w):
+                args = (Xt, r, beta, L, off, type(pen), penalty_params(pen))
+                sk = ops.ws_score(*args, w=wt, use_fp=fp)
+                sr = ws_score_plain(*args, w=wt, use_fp=fp)
+                ok, e = close(sk, sr, 1e-12, 1e-11)
+                errs["ws_score"] = max(errs["ws_score"], e)
+                if not ok:
+                    fails.append(f"K4 {type(pen).__name__} fp={fp} "
+                                 f"w={wt is not None} err={e:.3e}")
+    del Xt
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return fails
+
+
+def check_k5(dev, designs, errs):
+    """K5 and K5s against their plain versions (and K5 against the ELL
+    reference), twice each to check that the kernel is deterministic;
+    updates `errs`, returns the failures."""
     import torch
     from repro_torch.kernels import ops
-    est = make(use_kernels=kernels, tol=TOL)
+    from repro_torch.kernels.csc_score import csc_score_plain
+    fails = []
+    errs.update(csc_score=0.0, csc_weighted_col_sq=0.0)
+    for label, d in designs:
+        g = torch.Generator(device=dev).manual_seed(11)
+        raw = torch.randn(d.n_rows, generator=g, device=dev,
+                          dtype=torch.float64)
+        w = torch.rand(d.n_rows, generator=g, device=dev,
+                       dtype=torch.float64) + 0.5
+        args = (d.data, d.indices, d.col_ids, d.indptr)
+        for name, tag, v, square in (("csc_score", "K5", raw, False),
+                                     ("csc_weighted_col_sq", "K5s", w,
+                                      True)):
+            fn = getattr(ops, name)
+            k = fn(*args, v)
+            ok, e = close(k, csc_score_plain(*args, v, square=square),
+                          1e-12, 1e-12)
+            same = bool(torch.equal(k, fn(*args, v)))
+            if not square:
+                ok2, e2 = close(k, d.score_ell_reference(v), 1e-12, 1e-12)
+                ok, e = ok and ok2, max(e, e2)
+            errs[name] = max(errs[name], e)
+            if not (ok and same):
+                fails.append(f"{tag} {label} err={e:.3e} "
+                             f"deterministic={same}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return fails
+
+
+# --------------------------------------------------------------- main path
+def _fit(make, design, y, dev, kernels, sample_weight=None):
+    import torch
+    from repro_torch.kernels import ops
+    # the kernel route is the estimators' default on the card
+    est = make(tol=TOL) if kernels else make(use_kernels=False, tol=TOL)
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t = time.perf_counter()
-    est.fit(design, y, device=dev)
+    est.fit(design, y, sample_weight=sample_weight, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t
@@ -254,42 +366,57 @@ def _fit(make, design, y, dev, kernels):
         if dev.type == "cuda" else float("nan")
     log(f"  {'kernels' if kernels else 'plain  '}: wall {wall:.3f} s, "
         f"converged {res.converged}, kkt {res.kkt:.3e}, outer "
-        f"{res.n_outer}, epochs {res.n_epochs}, host syncs "
+        f"{res.n_outer}, epochs {res.n_epochs}, ws {res.ws_history}, "
+        f"host syncs "
         f"{res.n_host_syncs} ({res.n_host_syncs / max(1, len(res.kkt_history)):.1f} "
         f"per outer), peak mem {peak:.2f} GiB, launches {counts}")
     return est, counts
 
 
-def main_path(dev, cfg):
-    """The four fits; returns (launch counts summed over the kernel-route
-    fits, failures)."""
+def fit_both(label, make, design, y, dev, total, fails, needs, *,
+             sample_weight=None, exact=None, per_head=None):
+    """One fit on the kernel route and on the plain route. Fails unless
+    both converge, the coefficients agree to TOL, each kernel in `needs`
+    launched, each in `exact` launched exactly that often, and `per_head`
+    launched at least once per outer head. Adds the kernel route's launch
+    counts to `total`."""
     import numpy as np
+    log(f"fit {label}")
+    ek, counts = _fit(make, design, y, dev, True, sample_weight)
+    ep, _ = _fit(make, design, y, dev, False, sample_weight)
+    for k in total:
+        total[k] += counts[k]
+    heads = len(ek.result_.kkt_history)
+    diff = float(np.max(np.abs(ek.coef_ - ep.coef_)))
+    ok = (ek.converged_ and ep.converged_ and diff <= TOL
+          and np.all(np.isfinite(ek.coef_))
+          and all(counts[k] > 0 for k in needs)
+          and all(counts[k] == v for k, v in (exact or {}).items())
+          and (per_head is None or counts[per_head] >= heads))
+    log(f"  max |coef kernels - coef plain| = {diff:.3e}, "
+        f"nnz {int(np.sum(ek.coef_ != 0))}, outer heads {heads}, ok {ok}")
+    if not ok:
+        fails.append(f"{label}: converged {ek.converged_}/"
+                     f"{ep.converged_}, diff {diff:.3e}, heads {heads}, "
+                     f"launches {counts}")
+    return ek
+
+
+def main_path(dev, cfg):
+    """The four dense fits; returns (launch counts summed over the
+    kernel-route fits, failures)."""
     import torch
     from repro_torch.core import (Lasso, LinearSVC, Logistic, MCPRegression,
                                   SparseLogisticRegression, lambda_max)
     from repro_torch.core.api import lasso_gap
     from repro_torch.core.engine import DenseDesign
     from repro_torch.data import make_classification, make_correlated_design
-    total = {"cd_epoch_gram": 0, "cd_epoch_xb": 0, "fused_ws": 0}
+    from repro_torch.kernels import ops
+    total = dict.fromkeys(ops.launch_counts(), 0)
     fails = []
 
     def run(label, make, design, y, needs):
-        log(f"fit {label}")
-        ek, counts = _fit(make, design, y, dev, kernels=True)
-        ep, _ = _fit(make, design, y, dev, kernels=False)
-        for k in total:
-            total[k] += counts[k]
-        diff = float(np.max(np.abs(ek.coef_ - ep.coef_)))
-        ok = (ek.converged_ and ep.converged_ and diff <= TOL
-              and np.all(np.isfinite(ek.coef_))
-              and all(counts[k] > 0 for k in needs))
-        log(f"  max |coef kernels - coef plain| = {diff:.3e}, "
-            f"nnz {int(np.sum(ek.coef_ != 0))}, ok {ok}")
-        if not ok:
-            fails.append(f"{label}: converged {ek.converged_}/"
-                         f"{ep.converged_}, diff {diff:.3e}, "
-                         f"launches {counts}")
-        return ek
+        return fit_both(label, make, design, y, dev, total, fails, needs)
 
     X, y, _ = make_correlated_design(n=cfg["reg_n"], p=cfg["reg_p"],
                                      n_nonzero=cfg["reg_nnz"], rho=0.5,
@@ -327,8 +454,92 @@ def main_path(dev, cfg):
     return total, fails
 
 
+def sparse_designs(dev, cfg):
+    """The full-size sparse problem (a CSC design with the ELL flag, built
+    on the host and moved to `dev`, and its target) and a small design with
+    empty columns and columns at the window cap."""
+    import numpy as np
+    import torch
+    from repro_torch.data import make_sparse_design
+    from repro_torch.sparse import CSCDesign
+    t = time.perf_counter()
+    X, y, _ = make_sparse_design(**cfg["sparse"])
+    t_gen = time.perf_counter() - t
+    t = time.perf_counter()
+    d = CSCDesign.from_scipy(X, ell=True, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    col = np.diff(X.indptr)
+    n, p = X.shape
+    csc_b = X.nnz * 12 + (p + 1) * 8
+    ell_b = p * d.max_col_nnz * 12
+    log(f"sparse design {cfg['sparse']}: nnz {X.nnz}, max column nnz "
+        f"{d.max_col_nnz}, median {int(np.median(col))}, generated in "
+        f"{t_gen:.1f} s, CSC design (ELL flag) built and moved in "
+        f"{time.perf_counter() - t:.1f} s; CSC arrays {csc_b / 1e6:.1f} MB "
+        f"on the card, the ELL layout would hold {ell_b / 1e6:.1f} MB (not "
+        f"stored)")
+    Xs = make_sparse_design(**cfg["sparse_small"])[0].tolil()
+    Xs[:, 3:9] = 0.0                              # six empty columns
+    Xs = Xs.tocsc()
+    Xs.eliminate_zeros()
+    small = CSCDesign.from_scipy(Xs, ell=True, device=dev)
+    cap = int(cfg["sparse_small"]["n"] * 0.02)
+    log(f"small sparse design: {Xs.shape}, nnz {Xs.nnz}, empty columns "
+        f"{int(np.sum(np.diff(Xs.indptr) == 0))}, columns at the cap "
+        f"({cap}) {int(np.sum(np.diff(Xs.indptr) == cap))}")
+    return d, y, small
+
+
+def sparse_path(dev, cfg, d, y):
+    """The sparse fits: Lasso and weighted logistic on the full-size design
+    at two depths each, and LinearSVC on a scipy sparse X; returns (launch
+    counts summed over the kernel-route fits, failures)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (Lasso, LinearSVC, Logistic,
+                                  SparseLogisticRegression, lambda_max)
+    from repro_torch.data import make_sparse_design
+    from repro_torch.kernels import ops
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    fails = []
+    # which columns set lambda_max (plain score, not counted)
+    corr = torch.abs(d.score(torch.as_tensor(y, device=dev))) / d.n_rows
+    top = torch.argsort(corr, descending=True)[:5]
+    nnz = (d.indptr[1:] - d.indptr[:-1])[top]
+    lmax = lambda_max(d, y, device=dev)
+    log(f"sparse lambda_max {lmax:.6f}: set by columns {top.tolist()} of "
+        f"nnz {nnz.tolist()}; columns with |X_j^T y|/n >= lambda_max/k: "
+        + ", ".join(f"k={k}: {int(torch.sum(corr >= lmax / k))}"
+                    for k, _ in cfg["sparse_lam"]))
+    ys = np.sign(y)
+    w = np.random.default_rng(1).uniform(0.5, 1.5, d.n_rows)
+    lmax_log = lambda_max(d, ys, Logistic(), sample_weight=w, device=dev)
+    for k_lasso, k_log in cfg["sparse_lam"]:
+        fit_both(f"sparse Lasso(lmax/{k_lasso})",
+                 lambda **k: Lasso(alpha=lmax / k_lasso, **k),
+                 d, y, dev, total, fails, ("csc_score", "cd_epoch_gram"),
+                 exact={"fused_ws": 0, "csc_weighted_col_sq": 0},
+                 per_head="csc_score")
+        fit_both(f"sparse SparseLogisticRegression(lmax/{k_log}, weighted)",
+                 lambda **k: SparseLogisticRegression(alpha=lmax_log / k_log,
+                                                      **k),
+                 d, ys, dev, total, fails, ("csc_score", "cd_epoch_xb"),
+                 sample_weight=w,
+                 exact={"fused_ws": 0, "csc_weighted_col_sq": 1},
+                 per_head="csc_score")
+    Xs, ysvc, _ = make_sparse_design(**cfg["sparse_small"])
+    fit_both(f"sparse LinearSVC(C=1) on scipy X {Xs.shape}",
+             lambda **k: LinearSVC(C=1.0, max_outer=100, **k), Xs,
+             np.sign(ysvc), dev, total, fails,
+             ("csc_score", "cd_epoch_gram"),
+             exact={"fused_ws": 0, "csc_weighted_col_sq": 0},
+             per_head="csc_score")
+    return total, fails
+
+
 # ------------------------------------------------------------------- times
-def kernel_times(dev, cfg, launches, errs, card):
+def kernel_times(dev, cfg, launches, errs, card, sparse_design):
     import torch
     from repro_torch.core.penalties import L1
     from repro_torch.kernels import ops
@@ -400,6 +611,7 @@ def kernel_times(dev, cfg, launches, errs, card):
             rows.append(row)
         else:
             log(f"K3 at ws={ws_size}: {json.dumps(row)}")
+    rows += sparse_times(dev, cfg, launches, errs, sparse_design)
     for row in rows:
         log(f"time {row['name']} [{row['shape']}] on {card}: kernel "
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
@@ -408,6 +620,89 @@ def kernel_times(dev, cfg, launches, errs, card):
     log("K1 and K2 are bound by the chain of dependent coordinate steps "
         "(one barrier-separated prox per coordinate), not by bytes: their "
         "bound_ms is the byte/operation floor only.")
+    return rows
+
+
+def sparse_times(dev, cfg, launches, errs, d):
+    """The rows of K4 (dense, n x p of K3, weighted), K5 and K5s (the
+    full-size sparse design); also logs K2's time at n = 50,000."""
+    import torch
+    from repro_torch.core.penalties import L1
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cd_epoch import cd_epoch_xb_plain
+    from repro_torch.kernels.common import penalty_params
+    from repro_torch.kernels.csc_score import csc_score_plain
+    from repro_torch.kernels.ws_score import ws_score_plain
+    reps = cfg["reps"]
+    rows = []
+
+    K, n = cfg["k2_K"], cfg["k2_big_n"]
+    Xt, y, w, beta0, Xb0, L, off = xb_inputs(K, n, "logistic", dev, seed=9)
+    args = (Xt, y, beta0, Xb0, L, off, L1, penalty_params(L1(0.002)),
+            "logistic")
+    ms = time_ms(lambda: ops.cd_epoch_xb(*args, w=w), dev, 3)
+    plain = time_ms(lambda: cd_epoch_xb_plain(*args, w=w), dev, 1)
+    log(f"time cd_epoch_xb at K={K}, n={n}, logistic, weighted, 1 epoch "
+        f"(global-memory branch): kernel {ms:.4f} ms, plain {plain:.4f} ms")
+    del Xt
+
+    n, p = cfg["k3_n"], cfg["k3_p"]
+    Xt, r, beta, L, off = fused_inputs(n, p, dev, seed=5)
+    g = torch.Generator(device=dev).manual_seed(5)
+    w = 2.0 * torch.rand(n, generator=g, device=dev, dtype=torch.float64)
+    prm = penalty_params(L1(0.11))
+    args = (Xt, r, beta, L, off, L1, prm)
+    ms = time_ms(lambda: ops.ws_score(*args, w=w), dev, reps)
+    plain = time_ms(lambda: ws_score_plain(*args, w=w), dev, reps)
+    lib = time_ms(lambda: torch.mv(Xt, r * w), dev, reps)
+    b = bound(8 * (p * n + 2 * n + 4 * p), 2 * p * n + n)
+    rows.append(dict(name="ws_score", route="cuda",
+                     source="src/repro_torch/csrc/fused_ws.cu",
+                     replaces="src/repro/kernels/ws_score.py:57",
+                     launches=launches["ws_score"],
+                     max_abs_err=errs["ws_score"], ms=ms, plain_ms=plain,
+                     bound_ms=b[0], bound_by=b[1], library_ms=lib,
+                     library_call="torch.mv(Xt, r * w): the gradient part "
+                                  "only",
+                     shape=f"n={n}, p={p}, L1, weighted"))
+    del Xt
+
+    n, p = d.shape
+    nnz = d.nnz
+    g = torch.Generator(device=dev).manual_seed(11)
+    raw = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+    w = torch.rand(n, generator=g, device=dev, dtype=torch.float64) + 0.5
+    cargs = (d.data, d.indices, d.col_ids, d.indptr)
+    nbytes = nnz * 12 + (p + 1) * 8 + n * 8 + p * 8
+    ell = bound(p * d.max_col_nnz * 12 + n * 8 + p * 8, 2 * p * d.max_col_nnz)
+    log(f"K5 byte bound with the ELL layout (m={d.max_col_nnz}): "
+        f"{ell[0]:.4f} ms")
+    for name, v, square, nops in (("csc_score", raw, False, 2 * nnz),
+                                  ("csc_weighted_col_sq", w, True,
+                                   3 * nnz)):
+        fn = getattr(ops, name)
+        ms = time_ms(lambda: fn(*cargs, v), dev, reps)
+        plain = time_ms(lambda: csc_score_plain(*cargs, v, square=square),
+                        dev, reps)
+        # a yardstick only, never a route; a failure fails the run
+        lib, call = None, "torch.sparse_csr_tensor(X^T) @ v (cuSPARSE)"
+        if dev.type == "cuda":
+            vals = d.data[:nnz] * d.data[:nnz] if square else d.data[:nnz]
+            A = torch.sparse_csr_tensor(d.indptr.to(torch.int32),
+                                        d.indices[:nnz], vals, size=(p, n),
+                                        check_invariants=True)
+            lib = time_ms(lambda: A @ v, dev, reps)
+            del A, vals
+        b = bound(nbytes, nops)
+        rows.append(dict(name=name, route="cuda",
+                         source="src/repro_torch/csrc/csc_score.cu",
+                         replaces="src/repro/sparse/ops.py:156" if not square
+                         else "src/repro/sparse/ops.py:201",
+                         launches=launches[name], max_abs_err=errs[name],
+                         ms=ms, plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+                         library_ms=lib, library_call=call,
+                         shape=f"n={n}, p={p}, nnz={nnz}, CSC walk"
+                               + (", square" if square else "")))
     return rows
 
 
@@ -431,24 +726,45 @@ def run(dev, cfg):
                                            "Compiling entry")):
                     log(f"  [{name}] {line.strip()}")
 
+    def report(what, t, fails, kernels):
+        log(f"{what} vs plain ({time.perf_counter() - t:.1f} s): "
+            + json.dumps({k: {"ok": not any(f.startswith(tag + " ")
+                                            for f in fails),
+                              "max_abs_err": errs[k]}
+                          for k, tag in kernels}))
+        for f in fails:
+            log(f"  FAIL {f}")
+
     t = time.perf_counter()
     errs, fails = check_kernels(dev, cfg)
+    fails += check_k2_big_and_k4(dev, cfg, errs)
     failures += fails
-    log(f"kernels vs plain ({time.perf_counter() - t:.1f} s): "
-        + json.dumps({k: {"ok": not any(f.startswith(p) for f in fails),
-                          "max_abs_err": errs[k]}
-                      for k, p in (("cd_epoch_gram", "K1"),
-                                   ("cd_epoch_xb", "K2"),
-                                   ("fused_ws", "K3"))}))
-    for f in fails:
-        log(f"  FAIL {f}")
+    report("dense kernels", t, fails,
+           (("cd_epoch_gram", "K1"), ("cd_epoch_xb", "K2"),
+            ("fused_ws", "K3"), ("ws_score", "K4")))
 
     t = time.perf_counter()
     launches, fails = main_path(dev, cfg)
     failures += fails
-    log(f"main path ({time.perf_counter() - t:.1f} s): launches {launches}")
+    log(f"dense main path ({time.perf_counter() - t:.1f} s): launches "
+        f"{launches}")
 
-    rows = kernel_times(dev, cfg, launches, errs, card)
+    design, y, small = sparse_designs(dev, cfg)
+    t = time.perf_counter()
+    fails = check_k5(dev, (("sparse_fig2", design), ("small", small)), errs)
+    failures += fails
+    report("sparse kernels", t, fails,
+           (("csc_score", "K5"), ("csc_weighted_col_sq", "K5s")))
+    del small
+    t = time.perf_counter()
+    sparse_launches, fails = sparse_path(dev, cfg, design, y)
+    failures += fails
+    log(f"sparse main path ({time.perf_counter() - t:.1f} s): launches "
+        f"{sparse_launches}")
+    for k in launches:
+        launches[k] += sparse_launches[k]
+
+    rows = kernel_times(dev, cfg, launches, errs, card, design)
     return rows, failures
 
 

@@ -2,13 +2,16 @@
 
 The JAX package's objects reach this module as plain values (class names,
 dataclass field values, numpy arrays); nothing of ``repro`` or ``jax`` is
-imported. Three kinds of state carry over:
+imported. Four kinds of state carry over:
 
 * a penalty or datafit, given by class name plus its dataclass fields
   (``penalty_from``, ``datafit_from``; ``from_reference`` reads both off an
   object by duck typing);
 * a fitted estimator's ``coef_`` and ``intercept_`` (``load_fitted``);
-* a warm-start ``beta0`` (``warm_start``).
+* a warm-start ``beta0`` (``warm_start``);
+* a sparse design, from the arrays of a reference ``CSCDesign``
+  (``csc_design_from_reference``), so both packages solve on the same
+  padded arrays.
 """
 from __future__ import annotations
 
@@ -20,9 +23,11 @@ import torch
 from . import resolve_device
 from .core import datafits as _df
 from .core import penalties as _pen
+from .sparse.matrix import CSCDesign
 
 __all__ = ["PENALTIES", "DATAFITS", "penalty_from", "datafit_from",
-           "from_reference", "load_fitted", "warm_start"]
+           "from_reference", "load_fitted", "warm_start",
+           "csc_design_from_reference"]
 
 PENALTIES = {cls.__name__: cls for cls in (
     _pen.L1, _pen.L1L2, _pen.MCP, _pen.SCAD, _pen.L05, _pen.L23, _pen.Box)}
@@ -83,3 +88,25 @@ def load_fitted(estimator, coef, intercept=0.0, *, dual_coef=None):
     if dual_coef is not None:
         estimator.dual_coef_ = np.array(dual_coef, dtype=np.float64)
     return estimator
+
+
+def csc_design_from_reference(arrays, *, device=None):
+    """The port's ``CSCDesign`` holding a reference ``CSCDesign``'s arrays.
+
+    `arrays` maps ``data``, ``indices``, ``col_ids``, ``indptr`` and
+    ``col_sq`` (numpy, window-padded as the reference built them),
+    ``shape`` (n, p), ``max_col_nnz`` and, for the ELL layout, ``rows`` and
+    ``vals`` ([p, m]; absent or None without it). The port derives the ELL
+    layout from the CSC arrays, so ``rows`` only sets the ELL flag. Index
+    arrays are cast to the port's dtypes (int32 indices and column ids,
+    int64 indptr).
+    """
+    device = resolve_device(device)
+    put = lambda a, dtype=None: torch.as_tensor(np.array(a, dtype=dtype),
+                                                device=device)
+    n, p = (int(v) for v in arrays["shape"])
+    return CSCDesign(put(arrays["data"]), put(arrays["indices"], np.int32),
+                     put(arrays["col_ids"], np.int32),
+                     put(arrays["indptr"], np.int64), put(arrays["col_sq"]),
+                     (n, p), int(arrays["max_col_nnz"]),
+                     arrays.get("rows") is not None)

@@ -20,8 +20,9 @@ __all__ = ["lambda_max", "lasso_gap", "enet_gap", "logreg_gap",
 
 def lambda_max(X, y, datafit=None, sample_weight=None, device=None):
     """Smallest lambda with solution 0: ||X^T F'(X 0)||_inf (paper §3.1).
-    `sample_weight` (rescaled to sum to n, as in :func:`solve`) weights the
-    raw gradient."""
+    `X` may be dense, a scipy sparse matrix or a design (the sparse score
+    pass never densifies X). `sample_weight` (rescaled to sum to n, as in
+    :func:`solve`) weights the raw gradient."""
     device = resolve_device(device)
     datafit = Quadratic() if datafit is None else datafit
     design = as_design(X, device)

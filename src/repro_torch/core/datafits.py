@@ -5,6 +5,9 @@ Each datafit is a frozen dataclass whose methods work on tensors:
   value(Xb, y, w)      -> 0-d tensor F(Xb)
   raw_grad(Xb, y, w)   -> F'(Xb) per sample, shape like Xb
   lipschitz(X, w)      -> per-coordinate L_j of nabla_j f
+  lipschitz_cols(col_sq, n)
+                       -> the same L_j from the (weighted) squared column
+                          norms, for designs that cache them (CSC)
   grad_offset(p, dtype, device)
                        -> constant linear term added to X^T raw_grad (0 for
                           most; -1 for the dual SVM)
@@ -50,6 +53,9 @@ class Quadratic:
         n = X.shape[0]
         return torch.sum(_wmul(X * X, w), dim=0) / n
 
+    def lipschitz_cols(self, col_sq, n):
+        return col_sq / n
+
     def grad_offset(self, p, dtype, device):
         return torch.zeros((p,), dtype=dtype, device=device)
 
@@ -81,6 +87,9 @@ class Logistic:
         n = X.shape[0]
         return torch.sum(_wmul(X * X, w), dim=0) / (4.0 * n)
 
+    def lipschitz_cols(self, col_sq, n):
+        return col_sq / (4.0 * n)
+
     def grad_offset(self, p, dtype, device):
         return torch.zeros((p,), dtype=dtype, device=device)
 
@@ -111,6 +120,10 @@ class QuadraticSVC:
     def lipschitz(self, X, w=None):
         del w
         return torch.sum(X * X, dim=0)
+
+    def lipschitz_cols(self, col_sq, n):
+        del n                        # un-normalized sum datafit
+        return col_sq
 
     def grad_offset(self, p, dtype, device):
         return -torch.ones((p,), dtype=dtype, device=device)

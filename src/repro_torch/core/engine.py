@@ -1,4 +1,4 @@
-"""The solve engine, dense and single-device (port of ``repro.core.engine``).
+"""The solve engine, single-device (port of ``repro.core.engine``).
 
 One outer iteration of Algorithm 1 is ``SolveEngine.step``: score pass,
 working-set selection, gather, inner Anderson-CD solve, scatter. It runs
@@ -14,8 +14,11 @@ Layering (bottom-up):
                         ``use_kernels``, the kernel wrappers K1 / K2
                         (kernels/ops.py).
   SolveEngine           the outer step; with ``use_kernels`` its head is the
-                        fused kernel K3 (one pass over X yields the scores,
-                        the gradient and the candidate columns).
+                        fused kernel K3 on a dense design (one pass over X
+                        yields the scores, the gradient and the candidate
+                        columns), and on a CSC design the sparse score
+                        kernel K5 followed by the selection and the window
+                        gather (the reference's two-pass sparse head).
 
 Host reads: the reference runs the inner loop as a device ``while_loop``
 and reads back once per outer iteration. Eager torch must read the inner
@@ -24,10 +27,14 @@ objective, support count, coverage flag, in one transfer) plus one per
 inner Anderson block (that block's kkt and support count). Every such read
 is counted in ``StepResult.n_syncs``.
 
-The design keeps one feature-major copy of X: ``DenseDesign.Xt`` is a
+Designs: ``DenseDesign`` keeps one feature-major copy of X (``Xt`` is a
 contiguous [p, n] tensor, so the score pass, the kernels' per-feature dots
 and the working-set gathers all read contiguous rows; ``X`` is its
-transposed view.
+transposed view). ``repro_torch.sparse.CSCDesign`` keeps the window-padded
+CSC arrays and densifies only the working-set columns. Both offer
+``score``, ``gather_ws`` (-> ``(Xt_ws [K, n], aux)``), ``update_xb``,
+``matvec`` and ``lipschitz``; ``aux`` is None for a dense design and the
+(rows, vals) column windows for a CSC one.
 """
 from __future__ import annotations
 
@@ -45,7 +52,7 @@ from .working_set import (candidate_columns, scatter_ws, select_working_set,
 
 __all__ = ["EngineConfig", "SolveEngine", "SubproblemSolver", "GramSolver",
            "XbSolver", "KERNEL_DATAFIT_KINDS", "DenseDesign", "as_design",
-           "WorkingSetContext", "StepResult"]
+           "WorkingSetContext", "StepResult", "PALLAS_SPARSE_ELL_ERROR"]
 
 
 # datafit class name -> kernels/cd_epoch.py datafit kind (K2 hard-codes the
@@ -55,6 +62,13 @@ KERNEL_DATAFIT_KINDS = {
     "Logistic": "logistic",
     "QuadraticSVC": "svc",
 }
+
+# the reference's rejection of a kernel solve on a sparse design without
+# the ELL layout, word for word (repro.core.engine.PALLAS_SPARSE_ELL_ERROR)
+PALLAS_SPARSE_ELL_ERROR = (
+    "backend='pallas' on a sparse design requires the ELL score layout: "
+    "build it with CSCDesign.from_scipy(X, ell=True); see the supported-path "
+    "matrix in README.md (Pallas column) and DESIGN.md §8.4")
 
 
 @dataclass(frozen=True)
@@ -97,15 +111,15 @@ class DenseDesign:
     def width(self):
         return self.Xt.shape[0]
 
-    def score(self, raw):
-        """X.T @ raw."""
+    def score(self, raw, use_kernels=False):
+        """X.T @ raw (the dense kernel head is K3, in the engine)."""
         return self.Xt @ raw
 
     def gather_ws(self, ws):
-        """Feature-major working-set columns Xt[ws] -> [K, n]."""
-        return self.Xt[ws]
+        """Feature-major working-set columns (Xt[ws] [K, n], None)."""
+        return self.Xt[ws], None
 
-    def update_xb(self, Xb, Xt_ws, delta):
+    def update_xb(self, Xb, Xt_ws, aux, delta):
         """Xb + X_ws @ delta."""
         return Xb + delta @ Xt_ws
 
@@ -113,7 +127,7 @@ class DenseDesign:
         """X @ beta."""
         return self.Xt.T @ beta
 
-    def lipschitz(self, datafit, w=None):
+    def lipschitz(self, datafit, w=None, use_kernels=False):
         return datafit.lipschitz(self.X) if w is None \
             else datafit.lipschitz(self.X, w)
 
@@ -123,13 +137,17 @@ def is_scipy_sparse(X) -> bool:
     return hasattr(X, "tocsc") and hasattr(X, "nnz")
 
 
-def as_design(X, device) -> DenseDesign:
-    """A DenseDesign on `device` (an existing one is moved if needed)."""
+def as_design(X, device, ell=False):
+    """A design on `device`: designs pass through (moved if needed), scipy
+    sparse matrices convert to a CSCDesign (with the ELL flag `ell`),
+    anything else is a dense array."""
     if isinstance(X, DenseDesign):
         return X if X.device == device else DenseDesign(X.Xt.to(device))
+    if getattr(X, "KIND", None) == "csc":
+        return X if X.device == device else X.to(device)
     if is_scipy_sparse(X):
-        raise NotImplementedError(
-            "sparse (CSC) designs are not ported yet; pass a dense array")
+        from ..sparse.matrix import CSCDesign
+        return CSCDesign.from_scipy(X, ell=ell, device=device)
     return DenseDesign.from_dense(X, device)
 
 
@@ -335,12 +353,13 @@ class SolveEngine:
 
     def _head(self, bucket, design, y, w, beta, Xb, L, offset, datafit,
               penalty):
-        """score -> select -> gather. Returns (grad, ws, Xt_ws, kkt, gsupp)
-        as device tensors."""
+        """score -> select -> gather. Returns (grad, ws, Xt_ws, aux, kkt,
+        gsupp) as device tensors (aux: the design's gather windows)."""
         cfg = self.config
         raw = _df_raw(datafit, Xb, y, w)
         gsupp = penalty.generalized_support(beta)
-        if cfg.use_kernels:
+        aux = None
+        if cfg.use_kernels and design.KIND == "dense":
             # fused head K3: ONE pass over X yields the scores, the
             # offset-corrected gradient AND the candidate columns; the merge
             # is select_working_set on the emitted scores plus a
@@ -352,12 +371,14 @@ class SolveEngine:
             Xt_ws = candidate_columns(cand_idx, cand_cols, ws,
                                       design.width).T
         else:
-            grad = design.score(raw) + offset
+            # two-pass head; on a CSC design with use_kernels the score
+            # pass is K5
+            grad = design.score(raw, use_kernels=cfg.use_kernels) + offset
             scores = violation_scores(penalty, beta, grad, L,
                                       use_fixed_point=cfg.use_fp_score)
             ws = select_working_set(scores, gsupp, bucket)
-            Xt_ws = design.gather_ws(ws)
-        return grad, ws, Xt_ws, torch.max(scores), gsupp
+            Xt_ws, aux = design.gather_ws(ws)
+        return grad, ws, Xt_ws, aux, torch.max(scores), gsupp
 
     def step(self, bucket, design, y, beta, Xb, L, offset, datafit, penalty,
              tol, eps_frac, w=None) -> StepResult:
@@ -365,7 +386,7 @@ class SolveEngine:
         scatter. The inner solve is skipped when the incoming iterate
         already passes `tol`."""
         cfg = self.config
-        grad, ws, Xt_ws, kkt_d, gsupp = self._head(
+        grad, ws, Xt_ws, aux, kkt_d, gsupp = self._head(
             bucket, design, y, w, beta, Xb, L, offset, datafit, penalty)
         gcount0 = torch.sum(gsupp)
         obj_d = self._objective(datafit, penalty, Xb, y, w, offset, beta)
@@ -396,7 +417,7 @@ class SolveEngine:
             res = inner.solve(ctx, beta_ws0, eps_in, aux0=q0)
             # incremental residual: exact even when a nonzero coordinate
             # sits outside ws
-            Xb_new = design.update_xb(Xb, Xt_ws, res.beta - beta_ws0)
+            Xb_new = design.update_xb(Xb, Xt_ws, aux, res.beta - beta_ws0)
         else:
             # Xb_base carries the residual of nonzero coordinates OUTSIDE ws
             # so Anderson refresh cannot drop them
@@ -413,7 +434,8 @@ class SolveEngine:
     def probe(self, design, y, beta, Xb, L, offset, datafit, penalty,
               w=None):
         """(kkt, |gsupp|, obj) of an initial iterate, in one host read."""
-        grad = design.score(_df_raw(datafit, Xb, y, w)) + offset
+        grad = design.score(_df_raw(datafit, Xb, y, w),
+                            use_kernels=self.config.use_kernels) + offset
         scores = violation_scores(penalty, beta, grad, L,
                                   use_fixed_point=self.config.use_fp_score)
         kkt, gcount, obj = _read(
@@ -422,7 +444,7 @@ class SolveEngine:
             self._objective(datafit, penalty, Xb, y, w, offset, beta))
         return kkt, int(gcount), obj
 
-    def validate(self, datafit, penalty, weighted=False):
+    def validate(self, datafit, penalty, weighted=False, design=None):
         """Static feasibility checks, raised at ``solve()`` entry with the
         reference's messages."""
         if weighted and not getattr(datafit, "SUPPORTS_WEIGHTS", False):
@@ -432,6 +454,9 @@ class SolveEngine:
                 f"SUPPORTS_WEIGHTS=True and accept w in "
                 f"value/raw_grad/lipschitz/make_gram)")
         if self.config.use_kernels:
+            if design is not None and design.KIND == "csc" and \
+                    not design.has_ell:
+                raise NotImplementedError(PALLAS_SPARSE_ELL_ERROR)
             check_score_kernel_penalty(type(penalty))
             penalty_params(penalty)       # raises on per-coordinate params
             if not self.config.gram and \

@@ -6,7 +6,9 @@ Any datafit pairs with any penalty through ``GeneralizedLinearEstimator``;
 in trailing-underscore attributes (``coef_``, ``intercept_``, ...).
 ``fit`` takes ``device`` (``None``: the estimator's, whose default is CUDA,
 raising without a card), ``sample_weight`` and, for quadratic datafits,
-``fit_intercept`` centering.
+``fit_intercept`` centering. ``X`` may be dense, a scipy sparse matrix or a
+``repro_torch.sparse.CSCDesign``: sparse fits run CSC-native, without
+densifying, and reject ``fit_intercept`` (centering would densify X).
 """
 from __future__ import annotations
 
@@ -33,14 +35,34 @@ def _host(X):
         X = X.X
     if torch.is_tensor(X):
         return X.detach().cpu().numpy()
-    if is_scipy_sparse(X):
-        raise NotImplementedError("sparse (CSC) designs are not ported yet")
     return np.asarray(X)
+
+
+def _is_sparse_input(X):
+    """True for inputs with no dense [n, p] representation to center."""
+    return getattr(X, "KIND", "dense") != "dense" or is_scipy_sparse(X)
+
+
+def _design_matmul(X, coef):
+    """X @ coef (numpy) for dense arrays, scipy sparse matrices or
+    designs."""
+    if getattr(X, "KIND", None) == "csc":
+        beta = torch.as_tensor(coef, dtype=X.dtype, device=X.device)
+        return X.matvec(beta).cpu().numpy()
+    if is_scipy_sparse(X):
+        return np.asarray(X @ coef)
+    return _host(X) @ coef
 
 
 def _center_data(X, y, sample_weight):
     """(X - X_mean, y - y_mean, X_mean, y_mean), with weighted means when
-    sample_weight is given."""
+    sample_weight is given; sparse inputs reject (centering would densify
+    the design)."""
+    if _is_sparse_input(X):
+        raise NotImplementedError(
+            "fit_intercept=True would densify a sparse design "
+            "(column centering); pre-center or add a constant "
+            "feature instead")
     Xd, yd = _host(X), _host(y)
     if sample_weight is None:
         X_mean, y_mean = Xd.mean(axis=0), yd.mean(axis=0)
@@ -111,10 +133,11 @@ class GeneralizedLinearEstimator:
         return self
 
     def _linear(self, X):
-        return _host(X) @ self.coef_ + self.intercept_
+        return _design_matmul(X, self.coef_) + self.intercept_
 
     def predict(self, X):
-        """Linear predictions ``X @ coef_ + intercept_`` (numpy)."""
+        """Linear predictions ``X @ coef_ + intercept_`` (numpy; dense,
+        scipy sparse or design input)."""
         return self._linear(X)
 
     def score(self, X, y):
@@ -182,7 +205,8 @@ class SparseLogisticRegression(_Classifier):
 
 class LinearSVC(_Classifier):
     """Dual SVM with hinge loss (paper Eq. 33-35): solves for alpha on the
-    label-signed design Z^T = (y * X)^T, then coef_ = Z^T alpha."""
+    label-signed design Z^T = (y * X)^T, then coef_ = Z^T alpha. A scipy
+    sparse X keeps Z^T sparse."""
 
     def __init__(self, C=1.0, **kw):
         super().__init__(QuadraticSVC(), Box(C), **kw)
@@ -197,12 +221,23 @@ class LinearSVC(_Classifier):
                 "constraint, not the smooth datafit; pass a weighted Box "
                 "penalty instead")
         dev = resolve_device(self.device if device is None else device)
-        X = torch.as_tensor(_host(X), device=dev)
-        yt = torch.as_tensor(_host(y), dtype=X.dtype, device=dev)
-        Zt = (yt[:, None] * X).T                         # [d, n]
-        res = self._solve(Zt, yt, dev)
+        if is_scipy_sparse(X):
+            yn = _host(y)
+            Zt = X.multiply(yn[:, None]).T.tocsc()       # [d, n] sparse
+            res = self._solve(Zt, yn, dev)
+            coef = _design_matmul(Zt, res.beta.detach().cpu().numpy())
+        elif _is_sparse_input(X):
+            raise NotImplementedError(
+                "LinearSVC: pass a sparse X as a scipy sparse matrix (the "
+                "label-signed design is built from it)")
+        else:
+            X = torch.as_tensor(_host(X), device=dev)
+            yt = torch.as_tensor(_host(y), dtype=X.dtype, device=dev)
+            Zt = (yt[:, None] * X).T                     # [d, n]
+            res = self._solve(Zt, yt, dev)
+            coef = (Zt @ res.beta).detach().cpu().numpy()
         self.intercept_ = 0.0
         self.dual_coef_ = res.beta.detach().cpu().numpy()   # alpha
-        self.coef_ = (Zt @ res.beta).detach().cpu().numpy()  # Eq. 35
+        self.coef_ = coef                                # Eq. 35
         self._store(res)
         return self

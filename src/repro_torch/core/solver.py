@@ -1,12 +1,14 @@
 """The skglm solver: paper Algorithm 1 (working sets) + Algorithm 2
-(Anderson-CD), port of ``repro.core.solver`` (dense, single device).
+(Anderson-CD), port of ``repro.core.solver`` (single device, dense or CSC
+designs).
 
 The host loop over ``SolveEngine``: per outer iteration one
 ``engine.step`` (score pass, working-set selection, gather, inner
 Anderson-CD solve, scatter). Quadratic datafits use the Gram inner solver,
-general datafits the Xb inner solver. ``use_kernels`` switches the fused
-head and the CD epochs to the CUDA kernels K1-K3; on a CUDA device it
-defaults to them.
+general datafits the Xb inner solver. ``use_kernels`` switches the head and
+the CD epochs to the CUDA kernels (K3 on dense designs, K5 on CSC ones, K1
+or K2 inside, K5s for weighted sparse Lipschitz constants); on a CUDA
+device it defaults to them.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from .engine import EngineConfig, SolveEngine, as_design, is_scipy_sparse
+from .engine import EngineConfig, SolveEngine, as_design
 from .working_set import BucketPolicy
 
 __all__ = ["solve", "SolveResult", "make_engine", "normalize_weights"]
@@ -94,12 +96,15 @@ def solve(X, y, datafit, penalty, *, device=None, tol=1e-6, max_outer=50,
     """Solve Problem (1): ``argmin_beta F(X beta) + sum_j g_j(beta_j)``.
 
     Parameters follow ``repro.core.solve``. ``X`` is a dense ``[n, p]``
-    array or tensor, or a :class:`DenseDesign`; ``device=None`` means
-    ``"cuda"`` and raises without a card (pass ``device="cpu"`` for the
-    plain torch versions). The dtype follows ``X``. ``use_kernels``
-    (default: on a CUDA device) runs the fused head K3 and the CD-epoch
-    kernels K1/K2. Observability, mesh mode, sparse designs and multitask
-    targets are not ported yet and raise at entry.
+    array or tensor, a :class:`DenseDesign`, a scipy sparse matrix or a
+    ``repro_torch.sparse.CSCDesign``; ``device=None`` means ``"cuda"`` and
+    raises without a card (pass ``device="cpu"`` for the plain torch
+    versions). The dtype follows ``X``. ``use_kernels`` (default: on a CUDA
+    device) runs the head kernel (K3 dense, K5 sparse) and the CD-epoch
+    kernels K1/K2. K5 needs the ELL flag, as in the reference: a scipy
+    ``X`` converts with it, a ``CSCDesign`` must have been built with
+    ``CSCDesign.from_scipy(X, ell=True)``. Observability, mesh mode and
+    multitask targets are not ported yet and raise at entry.
 
     Returns a :class:`SolveResult`.
     """
@@ -109,9 +114,6 @@ def solve(X, y, datafit, penalty, *, device=None, tol=1e-6, max_outer=50,
     if mesh is not None:
         raise NotImplementedError("solve(mesh=...): mesh mode is not "
                                   "ported yet")
-    if is_scipy_sparse(X):
-        raise NotImplementedError("sparse (CSC) designs are not ported yet; "
-                                  "pass a dense array")
     if n_tasks or getattr(y, "ndim", 1) == 2:
         raise NotImplementedError("multitask (2-D) targets are not ported "
                                   "yet")
@@ -121,17 +123,18 @@ def solve(X, y, datafit, penalty, *, device=None, tol=1e-6, max_outer=50,
                              use_fp_score=use_fp_score, use_gram=use_gram,
                              use_kernels=use_kernels)
     device = engine.device
-    design = as_design(X, device)
+    design = as_design(X, device, ell=engine.config.use_kernels)
     n_rows, p = design.shape
     y = torch.as_tensor(y, dtype=design.dtype, device=device)
     if not use_ws:
         p0 = p
-    engine.validate(datafit, penalty, weighted=sample_weight is not None)
+    engine.validate(datafit, penalty, weighted=sample_weight is not None,
+                    design=design)
     policy = bucket_policy or BucketPolicy(p0=p0)
 
     w = None if sample_weight is None \
         else normalize_weights(sample_weight, n_rows, design.dtype, device)
-    L = design.lipschitz(datafit, w)
+    L = design.lipschitz(datafit, w, use_kernels=engine.config.use_kernels)
     offset = datafit.grad_offset(p, design.dtype, device)
     beta = torch.zeros(p, dtype=design.dtype, device=device) \
         if beta0 is None else \

@@ -1,4 +1,4 @@
-// K3: the fused working-set head.
+// K3: the fused working-set head, and K4: the two-pass score head.
 //
 // Replaces repro/kernels/fused_ws.py:fused_ws_pallas (body _fused_kernel,
 // tile width _pick_bp), scalar coordinates. From the feature-major design
@@ -28,6 +28,13 @@
 // The TPU kernel copies the candidate columns out of its VMEM-resident tile;
 // an SM cannot hold a tile of X (bp*n*8 bytes), so here the selected rows
 // are read again from device memory (or L2), kc*n values per tile.
+//
+// K4 (ws_score) replaces repro/kernels/ws_score.py:ws_score_pallas (body
+// _score_kernel): the score pass alone, with optional sample weights fused
+// into the load, grad_j = Xt[j] . (r * w) + offset_j, and only the scores
+// written. It is bound by bytes (X read once). It is K3's score launch with
+// the weight product in the inner loop and neither gradient nor priority
+// stored.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -45,12 +52,21 @@ __device__ __forceinline__ bool before(T pa, int ia, T pb, int ib) {
   return (pa > pb) || (pa == pb && ia < ib);
 }
 
-template <typename T>
+// the residual entry the score pass multiplies by: r_i, or r_i * w_i
+template <typename T, bool HAS_W>
+__device__ __forceinline__ T resid(const T* __restrict__ r, const T* __restrict__ w, int i) {
+  if (HAS_W) return r[i] * w[i];
+  return r[i];
+}
+
+// one warp per feature: scores (and, where the pointers are given, the
+// gradient and the selection priority under the generalized support)
+template <typename T, bool HAS_W>
 __global__ void score_kernel(const T* __restrict__ Xt, const T* __restrict__ r,
-                             const T* __restrict__ beta, const T* __restrict__ L,
-                             const T* __restrict__ offset, const uint8_t* __restrict__ gsupp,
-                             T* scores, T* grad, T* pri, int n, int p, int pen, int use_fp,
-                             T p0, T p1) {
+                             const T* __restrict__ w, const T* __restrict__ beta,
+                             const T* __restrict__ L, const T* __restrict__ offset,
+                             const uint8_t* __restrict__ gsupp, T* scores, T* grad, T* pri,
+                             int n, int p, int pen, int use_fp, T p0, T p1) {
   const int lane = threadIdx.x & 31;
   const long long j = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (j >= p) return;  // the whole warp leaves together
@@ -58,20 +74,20 @@ __global__ void score_kernel(const T* __restrict__ Xt, const T* __restrict__ r,
   T a0 = T(0), a1 = T(0), a2 = T(0), a3 = T(0);
   int i = lane;
   for (; i + 96 < n; i += 128) {
-    a0 = a0 + x[i] * r[i];
-    a1 = a1 + x[i + 32] * r[i + 32];
-    a2 = a2 + x[i + 64] * r[i + 64];
-    a3 = a3 + x[i + 96] * r[i + 96];
+    a0 = a0 + x[i] * resid<T, HAS_W>(r, w, i);
+    a1 = a1 + x[i + 32] * resid<T, HAS_W>(r, w, i + 32);
+    a2 = a2 + x[i + 64] * resid<T, HAS_W>(r, w, i + 64);
+    a3 = a3 + x[i + 96] * resid<T, HAS_W>(r, w, i + 96);
   }
-  for (; i < n; i += 32) a0 = a0 + x[i] * r[i];
+  for (; i < n; i += 32) a0 = a0 + x[i] * resid<T, HAS_W>(r, w, i);
   T acc = (a0 + a1) + (a2 + a3);
   for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
   if (lane == 0) {
     const T g = acc + offset[j];
     const T sc = rt::violation_score(pen, use_fp, beta[j], g, L[j], p0, p1);
-    grad[j] = g;
     scores[j] = sc;
-    pri[j] = (gsupp[j] ? (T)INFINITY : sc) + T(0);  // +0 folds -0.0 into +0.0
+    if (grad) grad[j] = g;
+    if (pri) pri[j] = (gsupp[j] ? (T)INFINITY : sc) + T(0);  // +0 folds -0.0 into +0.0
   }
 }
 
@@ -136,8 +152,9 @@ int launch_fused(const T* Xt, const T* r, const T* beta, const T* L, const T* of
                  double p1, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int per_cta = kScoreThreads / 32;
-  score_kernel<T><<<(p + per_cta - 1) / per_cta, kScoreThreads, 0, st>>>(
-      Xt, r, beta, L, offset, gsupp, scores, grad, pri, n, p, pen, use_fp, (T)p0, (T)p1);
+  score_kernel<T, false><<<(p + per_cta - 1) / per_cta, kScoreThreads, 0, st>>>(
+      Xt, r, nullptr, beta, L, offset, gsupp, scores, grad, pri, n, p, pen, use_fp, (T)p0,
+      (T)p1);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
 
@@ -153,9 +170,43 @@ int launch_fused(const T* Xt, const T* r, const T* beta, const T* L, const T* of
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_ws_score(const T* Xt, const T* r, const T* w, const T* beta, const T* L,
+                    const T* offset, T* scores, int n, int p, int pen, int use_fp, double p0,
+                    double p1, void* stream) {
+  if (p <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int per_cta = kScoreThreads / 32;
+  const int ctas = (p + per_cta - 1) / per_cta;
+  if (w) {
+    score_kernel<T, true><<<ctas, kScoreThreads, 0, st>>>(
+        Xt, r, w, beta, L, offset, nullptr, scores, nullptr, nullptr, n, p, pen, use_fp,
+        (T)p0, (T)p1);
+  } else {
+    score_kernel<T, false><<<ctas, kScoreThreads, 0, st>>>(
+        Xt, r, nullptr, beta, L, offset, nullptr, scores, nullptr, nullptr, n, p, pen,
+        use_fp, (T)p0, (T)p1);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+int ws_score_f64(const double* Xt, const double* r, const double* w, const double* beta,
+                 const double* L, const double* offset, double* scores, int n, int p, int pen,
+                 int use_fp, double p0, double p1, void* stream) {
+  return launch_ws_score<double>(Xt, r, w, beta, L, offset, scores, n, p, pen, use_fp, p0,
+                                 p1, stream);
+}
+
+int ws_score_f32(const float* Xt, const float* r, const float* w, const float* beta,
+                 const float* L, const float* offset, float* scores, int n, int p, int pen,
+                 int use_fp, double p0, double p1, void* stream) {
+  return launch_ws_score<float>(Xt, r, w, beta, L, offset, scores, n, p, pen, use_fp, p0, p1,
+                                stream);
+}
 
 int fused_ws_f64(const double* Xt, const double* r, const double* beta, const double* L,
                  const double* offset, const uint8_t* gsupp, double* scores, double* grad,

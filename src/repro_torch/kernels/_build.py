@@ -29,7 +29,7 @@ from pathlib import Path
 __all__ = ["CSRC", "SOURCES", "BuildCache", "BUILD", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("cd_epoch", "fused_ws")
+SOURCES = ("cd_epoch", "fused_ws", "csc_score")
 _REPO_ROOT = Path(__file__).resolve().parents[3]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
@@ -119,6 +119,10 @@ _SIGNATURES = {
     "fused_ws": {
         "fused_ws": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                      _I, _I, _I, _D, _D, _P],
+        "ws_score": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _P],
+    },
+    "csc_score": {
+        "csc_score": [_P, _P, _P, _P, _P, _I, _I, _P],
     },
 }
 

@@ -1,11 +1,18 @@
-"""Public, checked wrappers of the kernels K1-K3, with launch counters.
+"""Public, checked wrappers of the kernels K1-K5, with launch counters.
 
 Each wrapper checks device, dtype, shape and contiguity, then routes by the
 device of its tensors: on the CPU it runs the kernel's plain torch version;
 on a CUDA device it launches the CUDA kernel (built at first use) and adds
 one to its ``launches`` count, or raises. There is no fallback from the
 kernel to the plain version. ``launches`` is a plain int on the wrapper;
-``reset_launch_counts`` and ``launch_counts`` cover all three.
+``reset_launch_counts`` and ``launch_counts`` cover all of them:
+
+  cd_epoch_gram        K1, CD epochs on the Gram subproblem
+  cd_epoch_xb          K2, CD epochs on the Xb state
+  fused_ws             K3, the fused working-set head (dense designs)
+  ws_score             K4, the two-pass score head (dense designs)
+  csc_score            K5, the sparse score pass X.T @ raw (CSC designs)
+  csc_weighted_col_sq  K5s, K5 in square mode: sum_i w_i x_ij^2
 """
 from __future__ import annotations
 
@@ -15,9 +22,12 @@ from .cd_epoch import (KIND_IDS, cd_epoch_gram_cuda, cd_epoch_gram_plain,
                        cd_epoch_xb_cuda, cd_epoch_xb_plain)
 from .common import (UnsupportedPenaltyError, check_kernel_penalty,
                      check_score_kernel_penalty, make_penalty, penalty_params)
+from .csc_score import csc_score_cuda, csc_score_plain
 from .fused_ws import fused_ws_cuda, fused_ws_plain
+from .ws_score import ws_score_cuda, ws_score_plain
 
-__all__ = ["cd_epoch_gram", "cd_epoch_xb", "fused_ws", "KERNELS",
+__all__ = ["cd_epoch_gram", "cd_epoch_xb", "fused_ws", "ws_score",
+           "csc_score", "csc_weighted_col_sq", "KERNELS",
            "launch_counts", "reset_launch_counts", "penalty_params",
            "make_penalty", "check_kernel_penalty",
            "check_score_kernel_penalty", "UnsupportedPenaltyError"]
@@ -119,7 +129,81 @@ def fused_ws(Xt, r, beta, L, offset, gsupp, penalty_cls, params, ws_size, *,
     return out
 
 
-KERNELS = (cd_epoch_gram, cd_epoch_xb, fused_ws)
+def ws_score(Xt, r, beta, L, offset, penalty_cls, params, *, w=None,
+             use_fp=False):
+    """K4: violation scores of every feature from ``Xt @ (r * w) +
+    offset`` over the feature-major design Xt [p, n] (contiguous). r (and
+    w): [n]; beta, L, offset: [p]. Returns the scores [p]."""
+    check_kernel_penalty(penalty_cls)
+    extra = {} if w is None else {"w": w}
+    on_card = _route("ws_score", Xt=Xt, r=r, beta=beta, L=L, offset=offset,
+                     **extra)
+    if Xt.ndim != 2 or not Xt.is_contiguous():
+        raise ValueError("ws_score: Xt must be a contiguous [p, n] matrix, "
+                         f"got shape {tuple(Xt.shape)}")
+    p, n = Xt.shape
+    _check_vec("ws_score", n, r=r, **extra)
+    _check_vec("ws_score", p, beta=beta, L=L, offset=offset)
+    if not on_card:
+        return ws_score_plain(Xt, r, beta, L, offset, penalty_cls, params,
+                              w=w, use_fp=use_fp)
+    out = ws_score_cuda(Xt, r, beta, L, offset, penalty_cls, params, w=w,
+                        use_fp=use_fp)
+    ws_score.launches += 1
+    return out
+
+
+def _check_csc(name, data, indices, col_ids, indptr, v):
+    """Check a CSC kernel call's arrays; True when it goes to the card."""
+    on_card = _route(name, data=data, v=v)
+    for key, t, dtype in (("indices", indices, torch.int32),
+                          ("col_ids", col_ids, torch.int32),
+                          ("indptr", indptr, torch.int64)):
+        if t.dtype != dtype or t.device != data.device or t.ndim != 1 \
+                or not t.is_contiguous():
+            raise TypeError(f"{name}: {key} must be a contiguous 1-D "
+                            f"{dtype} tensor on {data.device}, got "
+                            f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if data.ndim != 1 or not data.is_contiguous():
+        raise ValueError(f"{name}: data must be a contiguous 1-D vector")
+    if indices.shape != data.shape or col_ids.shape != data.shape:
+        raise ValueError(f"{name}: data, indices and col_ids must have one "
+                         f"length, got {data.shape[0]}, {indices.shape[0]},"
+                         f" {col_ids.shape[0]}")
+    if indptr.shape[0] < 1:
+        raise ValueError(f"{name}: indptr must hold p + 1 entries")
+    if v.ndim != 1 or not v.is_contiguous():
+        raise ValueError(f"{name}: the [n] vector must be contiguous 1-D, "
+                         f"got shape {tuple(v.shape)}")
+    return on_card
+
+
+def csc_score(data, indices, col_ids, indptr, raw):
+    """K5: ``X.T @ raw`` -> [p] over the window-padded CSC arrays of a
+    ``CSCDesign`` (data, int32 indices and col_ids, int64 indptr [p + 1]);
+    raw: [n]."""
+    on_card = _check_csc("csc_score", data, indices, col_ids, indptr, raw)
+    if not on_card:
+        return csc_score_plain(data, indices, col_ids, indptr, raw)
+    out = csc_score_cuda(data, indices, col_ids, indptr, raw)
+    csc_score.launches += 1
+    return out
+
+
+def csc_weighted_col_sq(data, indices, col_ids, indptr, w):
+    """K5s: ``sum_i w_i x_ij^2`` -> [p] over the same CSC arrays; w: [n]."""
+    on_card = _check_csc("csc_weighted_col_sq", data, indices, col_ids,
+                         indptr, w)
+    if not on_card:
+        return csc_score_plain(data, indices, col_ids, indptr, w,
+                               square=True)
+    out = csc_score_cuda(data, indices, col_ids, indptr, w, square=True)
+    csc_weighted_col_sq.launches += 1
+    return out
+
+
+KERNELS = (cd_epoch_gram, cd_epoch_xb, fused_ws, ws_score, csc_score,
+           csc_weighted_col_sq)
 
 
 def reset_launch_counts():

@@ -30,7 +30,8 @@ def _imported_modules(path):
 
 def test_port_files_exist():
     names = {p.name for p in PORT_FILES}
-    assert {"engine.py", "solver.py", "ops.py", "chip_smoke.py"} <= names
+    assert {"engine.py", "solver.py", "ops.py", "matrix.py",
+            "csc_score.py", "ws_score.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -42,10 +43,16 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 
 def _entry_points():
+    import scipy.sparse as sp
     import repro_torch.core as tc
+    from repro_torch.sparse import CSCDesign
     X = np.random.default_rng(0).standard_normal((20, 10))
     y = X[:, 0]
+    Xs = sp.random(20, 10, density=0.3, random_state=0, format="csc")
     return {
+        "CSCDesign.from_scipy": lambda: CSCDesign.from_scipy(Xs),
+        "sparse solve": lambda: tc.solve(Xs, y, tc.Quadratic(), tc.L1(0.1)),
+        "sparse lambda_max": lambda: tc.lambda_max(Xs, y),
         "solve": lambda: tc.solve(X, y, tc.Quadratic(), tc.L1(0.1)),
         "make_engine": lambda: tc.make_engine(tc.L1(0.1), tc.Quadratic()),
         "lambda_max": lambda: tc.lambda_max(X, y),
@@ -55,7 +62,9 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["solve", "make_engine", "lambda_max",
-                                  "Lasso.fit", "LinearSVC.fit"])
+                                  "Lasso.fit", "LinearSVC.fit",
+                                  "CSCDesign.from_scipy", "sparse solve",
+                                  "sparse lambda_max"])
 def test_default_device_is_cuda_and_raises_without_card(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device runs")

@@ -211,4 +211,5 @@ def test_cpu_route_launches_nothing():
     from repro_torch.core.penalties import L1
     ops.cd_epoch_gram(G, c, beta0, q0, L, L1, penalty_params(L1(0.1)))
     assert ops.launch_counts() == {"cd_epoch_gram": 0, "cd_epoch_xb": 0,
-                                   "fused_ws": 0}
+                                   "fused_ws": 0, "ws_score": 0,
+                                   "csc_score": 0, "csc_weighted_col_sq": 0}
