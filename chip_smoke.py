@@ -36,7 +36,28 @@ Phases, each of which must pass (any failure exits non-zero):
    on a scipy sparse X (label-signed Z^T converted by the estimator): the
    kernel route must launch K5 on every outer head, K5s once in each
    weighted fit, K1 (Lasso, SVC) or K2 (logistic), and never K3.
-6. times: each kernel at main-path shapes (CUDA events, warm), its plain
+6. block kernels: K3b (``fused_ws_block``) over BlockL1 and BlockMCP x
+   fixed-point at n = 10,000, p = 20,000, T = 20, ws = 512 (scores within
+   1e-12 + 1e-12 |ref|, gradient within 1e-12 + 1e-10 |ref|, identical
+   working set, bit-exact columns), K1b (``cd_epoch_gram_block``) at
+   K = 256 (state in shared memory) and K = 2048 (global memory), T = 20,
+   within the K1 bound, and K5b (``csc_score_block``) on the full-size
+   sparse design and the small one with raw [n, 20], within the K5 bound and
+   deterministic; all against their plain versions.
+7. multitask path, each fit on both routes with the checks of phase 4:
+   MultiTaskLasso and MultiTaskMCP(gamma=3) at lambda_max/10 on the M/EEG
+   leadfield at the width of a real MEG forward model (n = 305 sensors,
+   p = 7498 sources, T = 50; whether each fit finds one source per
+   hemisphere is printed), the same Lasso with ``use_gram=False`` (its
+   inner epochs are the plain block Xb epoch on both routes: no kernel
+   exists for it), a dense MultiTaskLasso at lambda_max/10 on
+   ``make_multitask(n=10000, p=20000, n_tasks=20)`` (working set >= 512)
+   and a sparse MultiTaskLasso at lambda_max/300 on the scipy X of the
+   full-size sparse design with Y = X W + noise, T = 20 (working set
+   >= 1024), unweighted and with weights in [0.5, 1.5]. The kernel route
+   must launch K3b (dense) or K5b (sparse) on every outer head, K1b on
+   every Gram epoch, K5s once per weighted fit, and no scalar K1/K3/K5.
+8. times: each kernel at main-path shapes (CUDA events, warm), its plain
    version, its bound (bytes over 3.35 TB/s or operations over 67 TF/s
    float64, the larger) and, where one PyTorch call computes the same
    function (or a part of it), that call's time.
@@ -68,6 +89,13 @@ FULL = dict(k1_sizes=(256, 1024), k2_K=512, k2_n=10_000, k2_big_n=50_000,
             sparse_small=dict(n=2000, p=8000, density=5e-3, n_nonzero=40,
                               seed=1),
             sparse_lam=((10, 3), (300, 30)),  # lambda_max / (Lasso, logistic)
+            k3b=dict(n=10_000, p=20_000, T=20, ws=512), k1b_sizes=(256, 2048),
+            k1b_T=20, k1b_time_K=(1024, 2048, 4096), k5b_T=20,
+            meeg=dict(n=305, p_per_hemi=3749, T=50, seed=0), meeg_frac=10,
+            mt_dense=dict(n=10_000, p=20_000, n_tasks=20, n_nonzero=150,
+                          seed=0),
+            mt_dense_frac=10, mt_dense_min_ws=512,
+            mt_sparse_T=20, mt_sparse_frac=300, mt_sparse_min_ws=1024,
             reps=20)
 
 
@@ -374,12 +402,14 @@ def _fit(make, design, y, dev, kernels, sample_weight=None):
 
 
 def fit_both(label, make, design, y, dev, total, fails, needs, *,
-             sample_weight=None, exact=None, per_head=None):
+             sample_weight=None, exact=None, per_head=None, per_epoch=None,
+             min_ws=None):
     """One fit on the kernel route and on the plain route. Fails unless
     both converge, the coefficients agree to TOL, each kernel in `needs`
-    launched, each in `exact` launched exactly that often, and `per_head`
-    launched at least once per outer head. Adds the kernel route's launch
-    counts to `total`."""
+    launched, each in `exact` launched exactly that often, `per_head`
+    launched at least once per outer head, `per_epoch` launched once per
+    inner epoch, and (with `min_ws`) the working set reached `min_ws`.
+    Adds the kernel route's launch counts to `total`."""
     import numpy as np
     log(f"fit {label}")
     ek, counts = _fit(make, design, y, dev, True, sample_weight)
@@ -388,17 +418,21 @@ def fit_both(label, make, design, y, dev, total, fails, needs, *,
         total[k] += counts[k]
     heads = len(ek.result_.kkt_history)
     diff = float(np.max(np.abs(ek.coef_ - ep.coef_)))
+    ws_max = max(ek.result_.ws_history, default=0)
     ok = (ek.converged_ and ep.converged_ and diff <= TOL
           and np.all(np.isfinite(ek.coef_))
           and all(counts[k] > 0 for k in needs)
           and all(counts[k] == v for k, v in (exact or {}).items())
-          and (per_head is None or counts[per_head] >= heads))
+          and (per_head is None or counts[per_head] >= heads)
+          and (per_epoch is None
+               or counts[per_epoch] == ek.result_.n_epochs)
+          and (min_ws is None or ws_max >= min_ws))
     log(f"  max |coef kernels - coef plain| = {diff:.3e}, "
         f"nnz {int(np.sum(ek.coef_ != 0))}, outer heads {heads}, ok {ok}")
     if not ok:
         fails.append(f"{label}: converged {ek.converged_}/"
                      f"{ep.converged_}, diff {diff:.3e}, heads {heads}, "
-                     f"launches {counts}")
+                     f"max ws {ws_max}, launches {counts}")
     return ek
 
 
@@ -455,15 +489,15 @@ def main_path(dev, cfg):
 
 
 def sparse_designs(dev, cfg):
-    """The full-size sparse problem (a CSC design with the ELL flag, built
-    on the host and moved to `dev`, and its target) and a small design with
-    empty columns and columns at the window cap."""
+    """The full-size sparse problem (its scipy X and ground truth on the
+    host, a CSC design of it with the ELL flag on `dev`, and its target) and
+    a small design with empty columns and columns at the window cap."""
     import numpy as np
     import torch
     from repro_torch.data import make_sparse_design
     from repro_torch.sparse import CSCDesign
     t = time.perf_counter()
-    X, y, _ = make_sparse_design(**cfg["sparse"])
+    X, y, beta_true = make_sparse_design(**cfg["sparse"])
     t_gen = time.perf_counter() - t
     t = time.perf_counter()
     d = CSCDesign.from_scipy(X, ell=True, device=dev)
@@ -488,7 +522,7 @@ def sparse_designs(dev, cfg):
     log(f"small sparse design: {Xs.shape}, nnz {Xs.nnz}, empty columns "
         f"{int(np.sum(np.diff(Xs.indptr) == 0))}, columns at the cap "
         f"({cap}) {int(np.sum(np.diff(Xs.indptr) == cap))}")
-    return d, y, small
+    return X, beta_true, d, y, small
 
 
 def sparse_path(dev, cfg, d, y):
@@ -535,6 +569,216 @@ def sparse_path(dev, cfg, d, y):
              ("csc_score", "cd_epoch_gram"),
              exact={"fused_ws": 0, "csc_weighted_col_sq": 0},
              per_head="csc_score")
+    return total, fails
+
+
+# ------------------------------------------------------ multitask (blocks)
+def block_pens():
+    from repro_torch.core.penalties import BlockL1, BlockMCP
+    return [BlockL1(0.11), BlockMCP(0.11, 3.0)]
+
+
+def block_inputs(n, p, T, dev, seed):
+    """Xt [p, n], R [n, T] (scaled like a raw gradient), beta [p, T] with
+    30% of its rows nonzero at norms on both sides of gamma * lam, L, and
+    a small offset."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f64 = dict(generator=g, device=dev, dtype=torch.float64)
+    Xt = torch.randn(p, n, **f64)
+    R = torch.randn(n, T, **f64) / n ** 0.5
+    beta = torch.randn(p, T, **f64) * (torch.rand(p, 1, **f64) < 0.3) * \
+        (0.2 * torch.rand(p, 1, **f64))
+    L = torch.sum(Xt * Xt, dim=1) / n
+    return Xt, R, beta, L, 0.01 * torch.randn(p, **f64)
+
+
+def gram_block_inputs(K, T, dev, seed):
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n = 3 * K
+    X = torch.randn(n, K, generator=g, dtype=torch.float64).to(dev)
+    Y = torch.randn(n, T, generator=g, dtype=torch.float64).to(dev)
+    G = (X.T @ X / n).t().contiguous().t()      # column-major, as the engine
+    mask = (torch.rand(K, 1, generator=g, dtype=torch.float64) < 0.5)
+    beta0 = (0.1 * torch.randn(K, T, generator=g, dtype=torch.float64)
+             * mask).to(dev)
+    return G, X.T @ Y / n, beta0, G @ beta0, torch.diagonal(G).contiguous()
+
+
+def check_block_kernels(dev, cfg, errs, designs):
+    """K3b, K1b and K5b against their plain versions; updates `errs`,
+    returns the failures."""
+    import torch
+    from repro_torch.core.working_set import (candidate_columns,
+                                              select_working_set)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cd_epoch import cd_epoch_gram_plain
+    from repro_torch.kernels.common import penalty_params
+    from repro_torch.kernels.csc_score import csc_score_plain
+    from repro_torch.kernels.fused_ws import fused_ws_plain
+    fails = []
+    errs.update(fused_ws_block=0.0, cd_epoch_gram_block=0.0,
+                csc_score_block=0.0)
+
+    c = cfg["k3b"]
+    Xt, R, beta, L, off = block_inputs(c["n"], c["p"], c["T"], dev, seed=13)
+    for pen in block_pens():
+        gs = pen.generalized_support(beta)
+        for fp in (False, True):
+            args = (Xt, R, beta, L, off, gs, type(pen), penalty_params(pen),
+                    c["ws"])
+            sk, gk, ik, ck = ops.fused_ws_block(*args, use_fp=fp)
+            sr, gr, _, _ = fused_ws_plain(*args, use_fp=fp)
+            ok1, e1 = close(sk, sr, 1e-12, 1e-12)
+            ok2, e2 = close(gk, gr, 1e-12, 1e-10)
+            ws_k = select_working_set(sk, gs, c["ws"])
+            same_ws = bool(torch.equal(ws_k, select_working_set(sr, gs,
+                                                                c["ws"])))
+            exact = bool(torch.equal(candidate_columns(ik, ck, ws_k, c["p"]),
+                                     Xt[ws_k].T))
+            errs["fused_ws_block"] = max(errs["fused_ws_block"], e1, e2)
+            if not (ok1 and ok2 and same_ws and exact):
+                fails.append(f"K3b {type(pen).__name__} fp={fp} "
+                             f"scores={e1:.3e} grad={e2:.3e} "
+                             f"same_ws={same_ws} exact_cols={exact}")
+            del ck
+    del Xt
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    for K in cfg["k1b_sizes"]:
+        G, cc, beta0, q0, L = gram_block_inputs(K, cfg["k1b_T"], dev, seed=K)
+        for pen in block_pens():
+            for epochs in (1, 3):
+                args = (G, cc, beta0, q0, L, type(pen), penalty_params(pen))
+                bk, qk = ops.cd_epoch_gram_block(*args, epochs=epochs)
+                br, qr = cd_epoch_gram_plain(*args, epochs=epochs)
+                moved = int(torch.sum(torch.any(bk != beta0, dim=1)))
+                for a, b in ((bk, br), (qk, qr)):
+                    ok, e = close(a, b, 1e-12, 1e-5)
+                    errs["cd_epoch_gram_block"] = max(
+                        errs["cd_epoch_gram_block"], e)
+                    if not ok or moved == 0:
+                        fails.append(f"K1b K={K} {type(pen).__name__} "
+                                     f"epochs={epochs} err={e:.3e} "
+                                     f"moved={moved}")
+        log(f"  K1b at K={K}, T={cfg['k1b_T']}: state in "
+            f"{'shared' if K * cfg['k1b_T'] * 8 <= 225 * 1024 else 'global'}"
+            f" memory")
+
+    for label, d in designs:
+        g = torch.Generator(device=dev).manual_seed(17)
+        raw = torch.randn(d.n_rows, cfg["k5b_T"], generator=g, device=dev,
+                          dtype=torch.float64)
+        args = (d.data, d.indices, d.col_ids, d.indptr)
+        k = ops.csc_score_block(*args, raw)
+        ok, e = close(k, csc_score_plain(*args, raw), 1e-12, 1e-12)
+        same = bool(torch.equal(k, ops.csc_score_block(*args, raw)))
+        errs["csc_score_block"] = max(errs["csc_score_block"], e)
+        if not (ok and same):
+            fails.append(f"K5b {label} err={e:.3e} deterministic={same}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return fails
+
+
+def multitask_path(dev, cfg, X_sparse, beta_true):
+    """The multitask fits (M/EEG leadfield, dense, sparse); returns (launch
+    counts summed over the kernel-route fits, failures)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (MultiTaskLasso, MultiTaskMCP,
+                                  MultitaskQuadratic, lambda_max)
+    from repro_torch.core.engine import DenseDesign
+    from repro_torch.data import make_leadfield, make_multitask
+    from repro_torch.kernels import ops
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    fails = []
+    scalar0 = {"cd_epoch_gram": 0, "cd_epoch_xb": 0, "fused_ws": 0,
+               "csc_score": 0}
+
+    def dense_fit(label, make, X, Y, **kw):
+        return fit_both(label, make, X, Y, dev, total, fails,
+                        ("fused_ws_block", "cd_epoch_gram_block"),
+                        exact=dict(scalar0, csc_score_block=0,
+                                   csc_weighted_col_sq=0),
+                        per_head="fused_ws_block",
+                        per_epoch="cd_epoch_gram_block", **kw)
+
+    # the M/EEG inverse problem at the width of a MEG forward model
+    m = cfg["meeg"]
+    X, Y, _, true_rows = make_leadfield(**m)
+    p_hemi = m["p_per_hemi"]
+    frac = cfg["meeg_frac"]
+    lmax = lambda_max(X, Y, MultitaskQuadratic(), device=dev)
+    log(f"M/EEG leadfield {m}: X {X.shape}, true source rows {true_rows}, "
+        f"lambda_max {lmax:.6f}")
+    for name, make in (
+            ("MultiTaskLasso", lambda **k: MultiTaskLasso(alpha=lmax / frac,
+                                                          **k)),
+            ("MultiTaskMCP(gamma=3)",
+             lambda **k: MultiTaskMCP(alpha=lmax / frac, gamma=3.0, **k))):
+        est = dense_fit(f"M/EEG {name}(lmax/{frac})", make, X, Y)
+        act = np.flatnonzero(np.linalg.norm(est.coef_, axis=1))
+        log(f"  sources found: {act.tolist()[:12]}"
+            f"{' ...' if len(act) > 12 else ''} ({len(act)}); one per "
+            f"hemisphere: {bool(np.any(act < p_hemi))}/"
+            f"{bool(np.any(act >= p_hemi))}; exactly the two true rows: "
+            f"{sorted(act.tolist()) == sorted(true_rows)}")
+    # the Xb form: the plain block epoch runs on both routes (no kernel)
+    est = fit_both(f"M/EEG MultiTaskLasso(lmax/{frac}, use_gram=False)",
+                   lambda **k: MultiTaskLasso(alpha=lmax / frac,
+                                              use_gram=False, **k),
+                   X, Y, dev, total, fails, ("fused_ws_block",),
+                   exact=dict(scalar0, csc_score_block=0,
+                              cd_epoch_gram_block=0, csc_weighted_col_sq=0),
+                   per_head="fused_ws_block")
+    log(f"  plain block Xb epochs on the kernel route: "
+        f"{est.result_.n_epochs} (not a kernel; counted in no launch)")
+
+    # a dense fit that loads the head and K1b at K >= 512
+    t = time.perf_counter()
+    X, Y, _ = make_multitask(**cfg["mt_dense"])
+    design = DenseDesign.from_dense(X, dev)
+    del X
+    frac = cfg["mt_dense_frac"]
+    lmax = lambda_max(design, Y, MultitaskQuadratic(), device=dev)
+    log(f"dense multitask {cfg['mt_dense']}: built in "
+        f"{time.perf_counter() - t:.1f} s, lambda_max {lmax:.6f}")
+    dense_fit(f"dense MultiTaskLasso(lmax/{frac})",
+              lambda **k: MultiTaskLasso(alpha=lmax / frac, **k), design, Y,
+              min_ws=cfg["mt_dense_min_ws"])
+    del design
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the full-size sparse design, T tasks on the generator's true columns
+    T = cfg["mt_sparse_T"]
+    rng = np.random.default_rng(0)
+    supp = np.flatnonzero(beta_true)
+    W = np.zeros((X_sparse.shape[1], T))
+    W[supp] = rng.standard_normal((len(supp), T))
+    signal = np.asarray(X_sparse @ W)
+    noise = rng.standard_normal(signal.shape)
+    noise *= np.linalg.norm(signal) / (5.0 * np.linalg.norm(noise))
+    Y = signal + noise
+    frac = cfg["mt_sparse_frac"]
+    w = np.random.default_rng(1).uniform(0.5, 1.5, X_sparse.shape[0])
+    for sw in (None, w):
+        lmax = lambda_max(X_sparse, Y, MultitaskQuadratic(), sample_weight=sw,
+                          device=dev)
+        fit_both(f"sparse MultiTaskLasso(lmax/{frac}, T={T}"
+                 f"{', weighted' if sw is not None else ''}) on scipy X",
+                 lambda **k: MultiTaskLasso(alpha=lmax / frac, **k),
+                 X_sparse, Y, dev, total, fails,
+                 ("csc_score_block", "cd_epoch_gram_block"),
+                 sample_weight=sw,
+                 exact=dict(scalar0, fused_ws_block=0,
+                            csc_weighted_col_sq=0 if sw is None else 1),
+                 per_head="csc_score_block", per_epoch="cd_epoch_gram_block",
+                 min_ws=cfg["mt_sparse_min_ws"])
     return total, fails
 
 
@@ -706,6 +950,104 @@ def sparse_times(dev, cfg, launches, errs, d):
     return rows
 
 
+def block_times(dev, cfg, launches, errs, card, d):
+    """The rows of K3b, K5b (full-size sparse design) and K1b."""
+    import torch
+    from repro_torch.core.penalties import BlockL1
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cd_epoch import cd_epoch_gram_plain
+    from repro_torch.kernels.common import penalty_params
+    from repro_torch.kernels.csc_score import csc_score_plain
+    from repro_torch.kernels.fused_ws import fused_ws_plain, pick_bp
+    reps = cfg["reps"]
+    pen = BlockL1(0.11)
+    prm = penalty_params(pen)
+    rows = []
+
+    c = cfg["k3b"]
+    n, p, T, ws = c["n"], c["p"], c["T"], c["ws"]
+    Xt, R, beta, L, off = block_inputs(n, p, T, dev, seed=13)
+    gs = pen.generalized_support(beta)
+    args = (Xt, R, beta, L, off, gs, BlockL1, prm, ws)
+    ms = time_ms(lambda: ops.fused_ws_block(*args), dev, reps)
+    plain = time_ms(lambda: fused_ws_plain(*args), dev, 3)
+    lib = time_ms(lambda: torch.mm(Xt, R), dev, reps)
+    bp = pick_bp(p)
+    C = -(-p // bp) * min(bp, ws)
+    b = bound(8 * (p * n + n * T + 2 * p * T + 4 * p + C * n) + p + 4 * C,
+              2 * p * n * T)
+    rows.append(dict(name="fused_ws_block", route="cuda",
+                     source="src/repro_torch/csrc/fused_ws.cu",
+                     replaces="src/repro/kernels/fused_ws.py:71",
+                     launches=launches["fused_ws_block"],
+                     max_abs_err=errs["fused_ws_block"], ms=ms,
+                     plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+                     library_ms=lib,
+                     library_call="torch.mm(Xt, R): the gradient part only",
+                     shape=f"n={n}, p={p}, T={T}, ws={ws}, bp={bp}, C={C}, "
+                           f"BlockL1"))
+    del Xt
+
+    n, p = d.shape
+    nnz = d.nnz
+    T = cfg["k5b_T"]
+    g = torch.Generator(device=dev).manual_seed(17)
+    raw = torch.randn(n, T, generator=g, device=dev, dtype=torch.float64)
+    cargs = (d.data, d.indices, d.col_ids, d.indptr)
+    ms = time_ms(lambda: ops.csc_score_block(*cargs, raw), dev, reps)
+    plain = time_ms(lambda: csc_score_plain(*cargs, raw), dev, reps)
+    # a yardstick only, never a route; a failure fails the run
+    lib = None
+    if dev.type == "cuda":
+        A = torch.sparse_csr_tensor(d.indptr.to(torch.int32),
+                                    d.indices[:nnz], d.data[:nnz],
+                                    size=(p, n), check_invariants=True)
+        lib = time_ms(lambda: A @ raw, dev, reps)
+        del A
+    b = bound(nnz * 12 + (p + 1) * 8 + n * T * 8 + p * T * 8, 2 * nnz * T)
+    rows.append(dict(name="csc_score_block", route="cuda",
+                     source="src/repro_torch/csrc/csc_score.cu",
+                     replaces="src/repro/sparse/ops.py:156",
+                     launches=launches["csc_score_block"],
+                     max_abs_err=errs["csc_score_block"], ms=ms,
+                     plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+                     library_ms=lib,
+                     library_call="torch.sparse_csr_tensor(X^T) @ raw "
+                                  "(cuSPARSE SpMM)",
+                     shape=f"n={n}, p={p}, nnz={nnz}, T={T}, CSC walk"))
+
+    T = cfg["k1b_T"]
+    for K in cfg["k1b_time_K"]:
+        G, cc, beta0, q0, L = gram_block_inputs(K, T, dev, seed=K)
+        args = (G, cc, beta0, q0, L, BlockL1, prm)
+        ms = time_ms(lambda: ops.cd_epoch_gram_block(*args), dev, reps)
+        plain = time_ms(lambda: cd_epoch_gram_plain(*args), dev, 1)
+        moved = int(torch.sum(torch.any(
+            ops.cd_epoch_gram_block(*args)[0] != beta0, dim=1)))
+        b = bound(8 * (moved * K + 5 * K * T + K), 2 * moved * K * T)
+        row = dict(name="cd_epoch_gram_block", route="cuda",
+                   source="src/repro_torch/csrc/cd_epoch.cu",
+                   replaces="src/repro/core/cd.py:66 (jax epoch; no TPU "
+                            "kernel)",
+                   launches=launches["cd_epoch_gram_block"],
+                   max_abs_err=errs["cd_epoch_gram_block"], ms=ms,
+                   plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+                   library_ms=None, library_call="none: no single call",
+                   shape=f"K={K}, T={T}, epochs=1, BlockL1, {moved} rows "
+                         f"moved")
+        if K == cfg["k1b_time_K"][0]:
+            rows.append(row)
+        else:
+            log(f"K1b at K={K} (global memory): {json.dumps(row)}")
+        del G
+    for row in rows:
+        log(f"time {row['name']} [{row['shape']}] on {card}: kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library "
+            f"{row['library_ms']}")
+    return rows
+
+
 def run(dev, cfg):
     """All phases on `dev`; returns (kernels rows, failures)."""
     import torch
@@ -749,13 +1091,12 @@ def run(dev, cfg):
     log(f"dense main path ({time.perf_counter() - t:.1f} s): launches "
         f"{launches}")
 
-    design, y, small = sparse_designs(dev, cfg)
+    X_sparse, beta_true, design, y, small = sparse_designs(dev, cfg)
     t = time.perf_counter()
     fails = check_k5(dev, (("sparse_fig2", design), ("small", small)), errs)
     failures += fails
     report("sparse kernels", t, fails,
            (("csc_score", "K5"), ("csc_weighted_col_sq", "K5s")))
-    del small
     t = time.perf_counter()
     sparse_launches, fails = sparse_path(dev, cfg, design, y)
     failures += fails
@@ -764,7 +1105,25 @@ def run(dev, cfg):
     for k in launches:
         launches[k] += sparse_launches[k]
 
+    t = time.perf_counter()
+    fails = check_block_kernels(dev, cfg, errs,
+                                (("sparse_fig2", design), ("small", small)))
+    failures += fails
+    report("block kernels", t, fails,
+           (("fused_ws_block", "K3b"), ("cd_epoch_gram_block", "K1b"),
+            ("csc_score_block", "K5b")))
+    del small
+    t = time.perf_counter()
+    mt_launches, fails = multitask_path(dev, cfg, X_sparse, beta_true)
+    failures += fails
+    log(f"multitask path ({time.perf_counter() - t:.1f} s): launches "
+        f"{mt_launches}")
+    for k in launches:
+        launches[k] += mt_launches[k]
+    del X_sparse
+
     rows = kernel_times(dev, cfg, launches, errs, card, design)
+    rows += block_times(dev, cfg, launches, errs, card, design)
     return rows, failures
 
 
@@ -797,3 +1156,4 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(main())
+

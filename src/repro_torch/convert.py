@@ -7,8 +7,9 @@ imported. Four kinds of state carry over:
 * a penalty or datafit, given by class name plus its dataclass fields
   (``penalty_from``, ``datafit_from``; ``from_reference`` reads both off an
   object by duck typing);
-* a fitted estimator's ``coef_`` and ``intercept_`` (``load_fitted``);
-* a warm-start ``beta0`` (``warm_start``);
+* a fitted estimator's ``coef_`` and ``intercept_`` (``load_fitted``;
+  ``coef_ [p, T]`` and ``intercept_ [T]`` for a multitask fit);
+* a warm-start ``beta0`` (``warm_start``; ``[p]`` or ``[p, T]``);
 * a sparse design, from the arrays of a reference ``CSCDesign``
   (``csc_design_from_reference``), so both packages solve on the same
   padded arrays.
@@ -30,9 +31,10 @@ __all__ = ["PENALTIES", "DATAFITS", "penalty_from", "datafit_from",
            "csc_design_from_reference"]
 
 PENALTIES = {cls.__name__: cls for cls in (
-    _pen.L1, _pen.L1L2, _pen.MCP, _pen.SCAD, _pen.L05, _pen.L23, _pen.Box)}
+    _pen.L1, _pen.L1L2, _pen.MCP, _pen.SCAD, _pen.L05, _pen.L23, _pen.Box,
+    _pen.BlockL1, _pen.BlockMCP)}
 DATAFITS = {cls.__name__: cls for cls in (
-    _df.Quadratic, _df.Logistic, _df.QuadraticSVC)}
+    _df.Quadratic, _df.Logistic, _df.QuadraticSVC, _df.MultitaskQuadratic)}
 
 
 def _build(registry, kind, name, fields):
@@ -73,7 +75,8 @@ def from_reference(obj):
 
 
 def warm_start(beta, *, dtype=torch.float64, device=None) -> torch.Tensor:
-    """A reference coefficient vector as the port's ``beta0``."""
+    """A reference coefficient vector ([p], or [p, T] multitask) as the
+    port's ``beta0``."""
     return torch.as_tensor(np.asarray(beta), dtype=dtype,
                            device=resolve_device(device))
 

@@ -1,7 +1,9 @@
 """repro_torch.core: the working-set + Anderson-CD solver (port of
-``repro.core``, dense single-device path)."""
-from .datafits import Logistic, Quadratic, QuadraticSVC
-from .penalties import MCP, SCAD, L05, L23, L1, L1L2, Box, soft_threshold
+``repro.core``, single-device path: dense and CSC designs, scalar and
+multitask block coordinates)."""
+from .datafits import Logistic, MultitaskQuadratic, Quadratic, QuadraticSVC
+from .penalties import (MCP, SCAD, L05, L23, L1, L1L2, BlockL1, BlockMCP,
+                        Box, soft_threshold)
 from .solver import SolveResult, make_engine, normalize_weights, solve
 from .engine import (DenseDesign, EngineConfig, GramSolver, SolveEngine,
                      SubproblemSolver, XbSolver, as_design)
@@ -10,14 +12,17 @@ from .working_set import (BucketPolicy, fixed_point_score, grow_ws_size,
                           select_working_set, violation_scores)
 from .api import (elastic_net, enet_gap, l05_regression, l23_regression,
                   lambda_max, lasso, lasso_gap, logreg_gap, mcp_regression,
-                  scad_regression, sparse_logreg, svc_dual)
+                  multitask_lasso, multitask_mcp, scad_regression,
+                  sparse_logreg, svc_dual)
 from .estimators import (ElasticNet, GeneralizedLinearEstimator, Lasso,
-                         LinearSVC, MCPRegression, SCADRegression,
+                         LinearSVC, MCPRegression, MultiTaskLasso,
+                         MultiTaskMCP, SCADRegression,
                          SparseLogisticRegression)
 
 __all__ = [
-    "Quadratic", "Logistic", "QuadraticSVC",
-    "L1", "L1L2", "MCP", "SCAD", "L05", "L23", "Box", "soft_threshold",
+    "Quadratic", "Logistic", "QuadraticSVC", "MultitaskQuadratic",
+    "L1", "L1L2", "MCP", "SCAD", "L05", "L23", "Box", "BlockL1", "BlockMCP",
+    "soft_threshold",
     "solve", "SolveResult", "make_engine", "normalize_weights",
     "EngineConfig", "SolveEngine", "SubproblemSolver", "GramSolver",
     "XbSolver", "DenseDesign", "as_design",
@@ -25,7 +30,9 @@ __all__ = [
     "fixed_point_score", "select_working_set", "grow_ws_size",
     "lambda_max", "lasso_gap", "enet_gap", "logreg_gap", "lasso",
     "elastic_net", "mcp_regression", "scad_regression", "l05_regression",
-    "l23_regression", "sparse_logreg", "svc_dual",
+    "l23_regression", "sparse_logreg", "svc_dual", "multitask_lasso",
+    "multitask_mcp",
     "GeneralizedLinearEstimator", "Lasso", "ElasticNet", "MCPRegression",
     "SCADRegression", "SparseLogisticRegression", "LinearSVC",
+    "MultiTaskLasso", "MultiTaskMCP",
 ]

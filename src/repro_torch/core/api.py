@@ -1,5 +1,5 @@
 """Convenience API: lambda_max, duality gaps, and named solvers (port of
-``repro.core.api``, scalar datafits). Every function takes ``device``
+``repro.core.api``). Every function takes ``device``
 (``None`` means CUDA, as for ``solve``); the named solvers forward their
 keyword arguments, ``device`` included, to :func:`solve`.
 """
@@ -8,32 +8,37 @@ from __future__ import annotations
 import torch
 
 from .. import resolve_device
-from .datafits import Logistic, Quadratic, QuadraticSVC
+from .datafits import Logistic, MultitaskQuadratic, Quadratic, QuadraticSVC
 from .engine import as_design
-from .penalties import MCP, SCAD, L05, L23, L1, L1L2, Box
+from .penalties import MCP, SCAD, L05, L23, L1, L1L2, BlockL1, BlockMCP, Box
 from .solver import normalize_weights, solve
 
 __all__ = ["lambda_max", "lasso_gap", "enet_gap", "logreg_gap",
            "lasso", "elastic_net", "mcp_regression", "scad_regression",
-           "l05_regression", "l23_regression", "sparse_logreg", "svc_dual"]
+           "l05_regression", "l23_regression", "sparse_logreg", "svc_dual",
+           "multitask_lasso", "multitask_mcp"]
 
 
 def lambda_max(X, y, datafit=None, sample_weight=None, device=None):
     """Smallest lambda with solution 0: ||X^T F'(X 0)||_inf (paper §3.1).
     `X` may be dense, a scipy sparse matrix or a design (the sparse score
     pass never densifies X). `sample_weight` (rescaled to sum to n, as in
-    :func:`solve`) weights the raw gradient."""
+    :func:`solve`) weights the raw gradient. For a multitask target
+    ``y [n, T]`` it is the largest row norm of ``X^T F'(X 0)``."""
     device = resolve_device(device)
     datafit = Quadratic() if datafit is None else datafit
     design = as_design(X, device)
     y = torch.as_tensor(y, dtype=design.dtype, device=device)
-    Xb0 = torch.zeros(design.n_rows, dtype=design.dtype, device=device)
+    Xb0 = torch.zeros((design.n_rows,) + tuple(y.shape[1:]),
+                      dtype=design.dtype, device=device)
     if sample_weight is None:
         grad0 = design.score(datafit.raw_grad(Xb0, y))
     else:
         w = normalize_weights(sample_weight, design.n_rows, design.dtype,
                               device)
         grad0 = design.score(datafit.raw_grad(Xb0, y, w))
+    if grad0.ndim == 2:
+        return float(torch.max(torch.sqrt(torch.sum(grad0 ** 2, dim=-1))))
     return float(torch.max(torch.abs(grad0)))
 
 
@@ -139,3 +144,16 @@ def svc_dual(X, y, C=1.0, **kw):
     Z = y[:, None] * X
     res = solve(Z.T, y, QuadraticSVC(), Box(C), **kw)
     return res, Z.T @ res.beta
+
+
+def multitask_lasso(X, Y, lam, **kw):
+    """Multitask Lasso: Frobenius datafit + row-block l_{2,1} penalty.
+    ``Y`` is ``[n, T]``; the solution is ``[p, T]`` with whole zero rows
+    (shared support across tasks: the M/EEG model, paper Fig. 4)."""
+    return solve(X, Y, MultitaskQuadratic(), BlockL1(lam), **kw)
+
+
+def multitask_mcp(X, Y, lam, gamma=3.0, **kw):
+    """Multitask MCP: the block non-convex penalty on the row norms, which
+    localizes sources the convex l_{2,1} misses (paper Fig. 4)."""
+    return solve(X, Y, MultitaskQuadratic(), BlockMCP(lam, gamma), **kw)

@@ -1,20 +1,32 @@
 """Coordinate-descent epochs (paper Algorithm 3), plain torch (port of
-``repro.core.cd``, scalar coordinates).
+``repro.core.cd``).
 
   * cd_epoch_xb:   general datafits. Maintains Xb = X_ws @ beta_ws; each
                    coordinate update costs O(n) (dot + axpy).
   * cd_epoch_gram: quadratic datafits. Maintains q = G @ beta_ws on the
                    working-set Gram G = X_ws^T X_ws; each update is O(K).
 
-These are the plain references that the CUDA kernels K1 (Gram) and K2 (Xb)
-mirror. Every step stays on the tensor's device: no host read. The inputs
-are not modified; the updates run in place on copies.
+Both take scalar coordinates (beta_ws [K]) and multitask blocks
+(beta_ws [K, T], with a block penalty whose prox acts on a row). These are
+the plain references that the CUDA kernels K1 and K1b (Gram) and K2 (Xb,
+scalar) mirror; the block Xb epoch has no kernel and runs as it is on
+every device. Every step stays on the tensor's device: no host read. The
+inputs are not modified; the updates run in place on copies.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ["cd_epoch_gram", "cd_epoch_xb"]
+
+
+def _axpy_(carrier, vec, delta):
+    """carrier += vec (x) delta in place, for scalar and block
+    coordinates."""
+    if delta.ndim == 0:
+        carrier.add_(vec * delta)
+    else:
+        carrier.add_(vec[:, None] * delta[None, :])
 
 
 def _coord_step(penalty, bj, gj, Lj):
@@ -36,7 +48,7 @@ def cd_epoch_xb(Xt_ws, y, beta_ws, Xb, L_ws, offset_ws, datafit, penalty,
         gj = xj @ raw + offset_ws[i]
         bj = beta[i].clone()
         new = _coord_step(penalty, bj, gj, L_ws[i])
-        Xb.add_(xj * (new - bj))
+        _axpy_(Xb, xj, new - bj)
         beta[i] = new
     return beta, Xb
 
@@ -47,6 +59,6 @@ def cd_epoch_gram(G, c, beta_ws, q, L_ws, penalty):
     for i in range(G.shape[0]):
         bj = beta[i].clone()
         new = _coord_step(penalty, bj, q[i] - c[i], L_ws[i])
-        q.add_(G[:, i] * (new - bj))
+        _axpy_(q, G[:, i], new - bj)
         beta[i] = new
     return beta, q

@@ -23,7 +23,7 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["Quadratic", "Logistic", "QuadraticSVC"]
+__all__ = ["Quadratic", "Logistic", "QuadraticSVC", "MultitaskQuadratic"]
 
 
 def _wmul(x, w):
@@ -133,4 +133,42 @@ class QuadraticSVC:
         G = X_ws.T @ X_ws
         c = torch.ones((X_ws.shape[1],), dtype=X_ws.dtype,
                        device=X_ws.device)
+        return G, c
+
+
+@dataclass(frozen=True)
+class MultitaskQuadratic:
+    """F(XW) = sum_i w_i ||Y_i - (XW)_i||^2 / (2 n); blocks = rows of W
+    (paper Appendix D).
+
+    Y is [n, T] and the coefficients W are [p, T]: the engine treats the
+    rows W_j: as block coordinates; pair it with BlockL1 / BlockMCP. Sample
+    weights ``w`` stay [n] (one weight per sample, shared by the tasks).
+    """
+    HAS_GRAM = True
+    SAMPLE_MEAN = True
+    SUPPORTS_WEIGHTS = True
+
+    def value(self, Xb, y, w=None):
+        n = y.shape[0]
+        return torch.sum(_wmul((y - Xb) ** 2, w)) / (2.0 * n)
+
+    def raw_grad(self, Xb, y, w=None):
+        n = y.shape[0]
+        return _wmul(Xb - y, w) / n
+
+    def lipschitz(self, X, w=None):
+        n = X.shape[0]
+        return torch.sum(_wmul(X ** 2, w), dim=0) / n
+
+    def lipschitz_cols(self, col_sq, n):
+        return col_sq / n
+
+    def grad_offset(self, p, dtype, device):
+        return torch.zeros((p,), dtype=dtype, device=device)
+
+    def make_gram(self, X_ws, y, w=None):
+        n = y.shape[0]
+        G = X_ws.T @ _wmul(X_ws, w) / n
+        c = X_ws.T @ _wmul(y, w) / n          # [K, T]
         return G, c

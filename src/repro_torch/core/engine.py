@@ -20,6 +20,14 @@ Layering (bottom-up):
                         kernel K5 followed by the selection and the window
                         gather (the reference's two-pass sparse head).
 
+Multitask block coordinates (DESIGN.md §8): with MultitaskQuadratic and a
+block penalty, beta is [p, T] and Xb, y are [n, T]; the same step runs on
+rows of beta (scores, supports and selections stay [p]). The kernel route
+then runs the block forms: K3b (dense head) or K5b (CSC score pass), and
+K1b in the Gram inner solve. The Xb inner solve of a block problem runs
+the plain block epoch on every route, as the reference runs its jax epoch
+there: no kernel exists for it.
+
 Host reads: the reference runs the inner loop as a device ``while_loop``
 and reads back once per outer iteration. Eager torch must read the inner
 stopping test on the host, so a step costs one read for its head (kkt,
@@ -44,7 +52,8 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels import ops as kops
-from ..kernels.common import check_score_kernel_penalty, penalty_params
+from ..kernels.common import (SCALAR_COORD_PENALTIES,
+                              check_score_kernel_penalty, penalty_params)
 from .anderson import anderson_extrapolate
 from .cd import cd_epoch_gram, cd_epoch_xb
 from .working_set import (candidate_columns, scatter_ws, select_working_set,
@@ -120,11 +129,11 @@ class DenseDesign:
         return self.Xt[ws], None
 
     def update_xb(self, Xb, Xt_ws, aux, delta):
-        """Xb + X_ws @ delta."""
-        return Xb + delta @ Xt_ws
+        """Xb + X_ws @ delta (delta [K] or [K, T])."""
+        return Xb + _apply_T(Xt_ws, delta)
 
     def matvec(self, beta):
-        """X @ beta."""
+        """X @ beta ([p] or [p, T] coefficients)."""
         return self.Xt.T @ beta
 
     def lipschitz(self, datafit, w=None, use_kernels=False):
@@ -149,6 +158,31 @@ def as_design(X, device, ell=False):
         from ..sparse.matrix import CSCDesign
         return CSCDesign.from_scipy(X, ell=ell, device=device)
     return DenseDesign.from_dense(X, device)
+
+
+def _lin(offset, beta):
+    """The linear term offset . beta, for scalar and block coefficients."""
+    if beta.ndim == 2:
+        return torch.sum(offset[:, None] * beta)
+    return torch.dot(offset, beta)
+
+
+def _vdot(a, b):
+    """Sum of elementwise products of two equal-shape tensors."""
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def _apply_T(Xt_ws, beta):
+    """X_ws @ beta given X stored feature-major [K, n]; beta [K] or
+    [K, T]."""
+    if beta.ndim == 2:
+        return Xt_ws.T @ beta                      # [n, T]
+    return beta @ Xt_ws
+
+
+def _bcast(offset, like):
+    """offset [p] shaped to add to a gradient like `like` ([p] or [p, T])."""
+    return offset[:, None] if like.ndim == 2 else offset
 
 
 def _df_value(datafit, Xb, y, w):
@@ -185,13 +219,13 @@ class EngineConfig:
 class WorkingSetContext:
     """Gathered per-working-set tensors consumed by a SubproblemSolver."""
     Xt_ws: torch.Tensor              # [K, n] gathered design, feature-major
-    y: torch.Tensor
+    y: torch.Tensor                  # [n] (or [n, T] multitask)
     L_ws: torch.Tensor               # [K]
     offset_ws: torch.Tensor          # [K]
     datafit: object
     penalty: object
     G: torch.Tensor = None           # [K, K] column-major (Gram solvers only)
-    c: torch.Tensor = None           # [K] (Gram solvers only)
+    c: torch.Tensor = None           # [K] or [K, T] (Gram solvers only)
     w: torch.Tensor = None           # per-sample weights (Xb solvers only;
                                      # the Gram form bakes w into G)
     Xb_base: torch.Tensor = None     # Xb0 - X_ws beta_ws0: residual of the
@@ -274,13 +308,15 @@ class GramSolver(SubproblemSolver):
 
     def epoch(self, ctx, beta, aux):
         if self.config.use_kernels:
-            return kops.cd_epoch_gram(ctx.G, ctx.c, beta, aux, ctx.L_ws,
-                                      type(ctx.penalty),
-                                      penalty_params(ctx.penalty), epochs=1)
+            # K1 on scalar coordinates, K1b on blocks [K, T]
+            kern = kops.cd_epoch_gram_block if beta.ndim == 2 \
+                else kops.cd_epoch_gram
+            return kern(ctx.G, ctx.c, beta, aux, ctx.L_ws, type(ctx.penalty),
+                        penalty_params(ctx.penalty), epochs=1)
         return cd_epoch_gram(ctx.G, ctx.c, beta, aux, ctx.L_ws, ctx.penalty)
 
     def objective(self, ctx, beta, aux):
-        return (0.5 * torch.dot(beta, aux) - torch.dot(ctx.c, beta)
+        return (0.5 * _vdot(beta, aux) - _vdot(ctx.c, beta)
                 + ctx.penalty.value(beta))
 
     def gradient(self, ctx, beta, aux):
@@ -293,7 +329,7 @@ class XbSolver(SubproblemSolver):
     the working set, so Anderson candidates rebuilt by `refresh` keep it)."""
 
     def _rebuild(self, ctx, beta):
-        Xb = beta @ ctx.Xt_ws
+        Xb = _apply_T(ctx.Xt_ws, beta)
         return Xb if ctx.Xb_base is None else ctx.Xb_base + Xb
 
     def prepare(self, ctx, beta0):
@@ -303,7 +339,9 @@ class XbSolver(SubproblemSolver):
         return self._rebuild(ctx, beta)
 
     def epoch(self, ctx, beta, aux):
-        if self.config.use_kernels:
+        # block coordinates have no Xb kernel: their plain epoch runs on
+        # every route, as the reference runs its jax epoch there
+        if self.config.use_kernels and beta.ndim == 1:
             kind = KERNEL_DATAFIT_KINDS[type(ctx.datafit).__name__]
             return kops.cd_epoch_xb(ctx.Xt_ws, ctx.y, beta, aux, ctx.L_ws,
                                     ctx.offset_ws, type(ctx.penalty),
@@ -314,11 +352,11 @@ class XbSolver(SubproblemSolver):
 
     def objective(self, ctx, beta, aux):
         return (_df_value(ctx.datafit, aux, ctx.y, ctx.w)
-                + torch.dot(ctx.offset_ws, beta) + ctx.penalty.value(beta))
+                + _lin(ctx.offset_ws, beta) + ctx.penalty.value(beta))
 
     def gradient(self, ctx, beta, aux):
-        return ctx.Xt_ws @ _df_raw(ctx.datafit, aux, ctx.y, ctx.w) + \
-            ctx.offset_ws
+        grad = ctx.Xt_ws @ _df_raw(ctx.datafit, aux, ctx.y, ctx.w)
+        return grad + _bcast(ctx.offset_ws, grad)
 
 
 @dataclass
@@ -348,7 +386,7 @@ class SolveEngine:
         return GramSolver(cfg) if cfg.gram else XbSolver(cfg)
 
     def _objective(self, datafit, penalty, Xb, y, w, offset, beta):
-        return _df_value(datafit, Xb, y, w) + torch.dot(offset, beta) + \
+        return _df_value(datafit, Xb, y, w) + _lin(offset, beta) + \
             penalty.value(beta)
 
     def _head(self, bucket, design, y, w, beta, Xb, L, offset, datafit,
@@ -360,11 +398,12 @@ class SolveEngine:
         gsupp = penalty.generalized_support(beta)
         aux = None
         if cfg.use_kernels and design.KIND == "dense":
-            # fused head K3: ONE pass over X yields the scores, the
-            # offset-corrected gradient AND the candidate columns; the merge
-            # is select_working_set on the emitted scores plus a
-            # candidate-row lookup
-            scores, grad, cand_idx, cand_cols = kops.fused_ws(
+            # fused head K3 (K3b for blocks): ONE pass over X yields the
+            # scores, the offset-corrected gradient AND the candidate
+            # columns; the merge is select_working_set on the emitted scores
+            # plus a candidate-row lookup
+            kern = kops.fused_ws_block if beta.ndim == 2 else kops.fused_ws
+            scores, grad, cand_idx, cand_cols = kern(
                 design.Xt, raw, beta, L, offset, gsupp, type(penalty),
                 penalty_params(penalty), bucket, use_fp=cfg.use_fp_score)
             ws = select_working_set(scores, gsupp, bucket)
@@ -372,8 +411,9 @@ class SolveEngine:
                                       design.width).T
         else:
             # two-pass head; on a CSC design with use_kernels the score
-            # pass is K5
-            grad = design.score(raw, use_kernels=cfg.use_kernels) + offset
+            # pass is K5 (K5b for a raw gradient [n, T])
+            grad = design.score(raw, use_kernels=cfg.use_kernels)
+            grad = grad + _bcast(offset, grad)
             scores = violation_scores(penalty, beta, grad, L,
                                       use_fixed_point=cfg.use_fp_score)
             ws = select_working_set(scores, gsupp, bucket)
@@ -423,7 +463,7 @@ class SolveEngine:
             # so Anderson refresh cannot drop them
             ctx = WorkingSetContext(Xt_ws, y, L_ws, offset_ws, datafit,
                                     penalty, w=w,
-                                    Xb_base=Xb - beta_ws0 @ Xt_ws)
+                                    Xb_base=Xb - _apply_T(Xt_ws, beta_ws0))
             res = inner.solve(ctx, beta_ws0, eps_in, aux0=Xb)
             Xb_new = res.aux
         # coordinates outside ws are unchanged and (coverage) outside the
@@ -435,7 +475,8 @@ class SolveEngine:
               w=None):
         """(kkt, |gsupp|, obj) of an initial iterate, in one host read."""
         grad = design.score(_df_raw(datafit, Xb, y, w),
-                            use_kernels=self.config.use_kernels) + offset
+                            use_kernels=self.config.use_kernels)
+        grad = grad + _bcast(offset, grad)
         scores = violation_scores(penalty, beta, grad, L,
                                   use_fixed_point=self.config.use_fp_score)
         kkt, gcount, obj = _read(
@@ -444,22 +485,31 @@ class SolveEngine:
             self._objective(datafit, penalty, Xb, y, w, offset, beta))
         return kkt, int(gcount), obj
 
-    def validate(self, datafit, penalty, weighted=False, design=None):
+    def validate(self, datafit, penalty, n_tasks=0, weighted=False,
+                 design=None):
         """Static feasibility checks, raised at ``solve()`` entry with the
-        reference's messages."""
+        reference's messages. ``n_tasks > 0`` marks a multitask solve
+        (2-D coefficients), which needs a block penalty on every route."""
         if weighted and not getattr(datafit, "SUPPORTS_WEIGHTS", False):
             raise NotImplementedError(
                 f"sample_weight=...: datafit {type(datafit).__name__} "
                 f"does not support sample weights (declare "
                 f"SUPPORTS_WEIGHTS=True and accept w in "
                 f"value/raw_grad/lipschitz/make_gram)")
+        if n_tasks and type(penalty) in SCALAR_COORD_PENALTIES:
+            raise NotImplementedError(
+                f"multitask (2-D coefficients) solves need a block "
+                f"penalty (BlockL1/BlockMCP): "
+                f"{type(penalty).__name__} scores coordinates "
+                f"elementwise and cannot rank feature rows; see the "
+                f"supported-path matrix in README.md")
         if self.config.use_kernels:
             if design is not None and design.KIND == "csc" and \
                     not design.has_ell:
                 raise NotImplementedError(PALLAS_SPARSE_ELL_ERROR)
             check_score_kernel_penalty(type(penalty))
             penalty_params(penalty)       # raises on per-coordinate params
-            if not self.config.gram and \
+            if not self.config.gram and n_tasks == 0 and \
                     type(datafit).__name__ not in KERNEL_DATAFIT_KINDS:
                 raise ValueError(
                     f"backend='pallas' has no Xb kernel for datafit "

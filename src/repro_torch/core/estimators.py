@@ -16,17 +16,17 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from .datafits import Logistic, Quadratic, QuadraticSVC
+from .datafits import Logistic, MultitaskQuadratic, Quadratic, QuadraticSVC
 from .engine import DenseDesign, is_scipy_sparse
-from .penalties import MCP, SCAD, L1, L1L2, Box
+from .penalties import MCP, SCAD, L1, L1L2, BlockL1, BlockMCP, Box
 from .solver import solve
 
 __all__ = ["GeneralizedLinearEstimator", "Lasso", "ElasticNet",
            "MCPRegression", "SCADRegression", "SparseLogisticRegression",
-           "LinearSVC"]
+           "LinearSVC", "MultiTaskLasso", "MultiTaskMCP"]
 
 # datafits whose fit supports fit_intercept=True via X/y centering
-_CENTERABLE_DATAFITS = (Quadratic,)
+_CENTERABLE_DATAFITS = (Quadratic, MultitaskQuadratic)
 
 
 def _host(X):
@@ -77,7 +77,8 @@ class GeneralizedLinearEstimator:
     """Composable estimator: any datafit x any separable penalty.
 
     `fit_intercept=True` (quadratic datafits only) fits on centered X/y and
-    exposes the un-centered `intercept_`; `predict` adds it back.
+    exposes the un-centered `intercept_` (``[T]`` for multitask targets);
+    `predict` adds it back.
     """
 
     def __init__(self, datafit=None, penalty=None, *, tol=1e-6, max_outer=50,
@@ -241,3 +242,24 @@ class LinearSVC(_Classifier):
         self.coef_ = coef                                # Eq. 35
         self._store(res)
         return self
+
+
+class MultiTaskLasso(GeneralizedLinearEstimator):
+    """Multitask Lasso: ``MultitaskQuadratic() + BlockL1(alpha)``.
+    ``fit(X, Y)`` takes targets ``[n, T]`` and produces ``coef_ [p, T]``
+    with whole zero rows (support shared by the tasks); ``predict`` returns
+    ``[n, T]``."""
+
+    def __init__(self, alpha=1.0, **kw):
+        super().__init__(MultitaskQuadratic(), BlockL1(alpha), **kw)
+        self.alpha = alpha
+
+
+class MultiTaskMCP(GeneralizedLinearEstimator):
+    """Multitask MCP: ``MultitaskQuadratic() + BlockMCP(alpha, gamma)``,
+    the block non-convex penalty that localizes sources the convex
+    l_{2,1} misses (paper Fig. 4)."""
+
+    def __init__(self, alpha=1.0, gamma=3.0, **kw):
+        super().__init__(MultitaskQuadratic(), BlockMCP(alpha, gamma), **kw)
+        self.alpha, self.gamma = alpha, gamma

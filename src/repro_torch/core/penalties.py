@@ -1,8 +1,8 @@
 """Separable penalties g(beta) = sum_j g_j(beta_j) for Problem (1) of the paper.
 
-Port of ``repro.core.penalties`` (the seven scalar penalties). Each penalty
-is a frozen dataclass whose hyper-parameters are plain floats and whose
-methods work on tensors:
+Port of ``repro.core.penalties`` (the seven scalar penalties and the two
+block ones). Each penalty is a frozen dataclass whose hyper-parameters are
+plain floats and whose methods work on tensors:
 
   value(beta)               -> 0-d tensor penalty value
   prox(x, step)             -> elementwise prox_{step * g_j}(x)
@@ -11,6 +11,11 @@ methods work on tensors:
   HAS_SUBDIFF               -> False when the subdifferential score is
                                uninformative (l_q, 0<q<1) and the fixed-point
                                score must be used instead.
+
+The block penalties ``BlockL1`` and ``BlockMCP`` (multitask, paper
+Appendix D) act on the rows W_j: of coefficients W [p, T]: their prox acts
+on the last axis, and ``subdiff_dist`` / ``generalized_support`` return one
+value per row.
 
 The arithmetic is written op by op in the order the CUDA prox
 (``csrc/prox.cuh``) uses, so the kernels and these plain versions round
@@ -23,8 +28,8 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["L1", "L1L2", "MCP", "SCAD", "L05", "L23", "Box", "soft_threshold",
-           "cbrt"]
+__all__ = ["L1", "L1L2", "MCP", "SCAD", "L05", "L23", "Box", "BlockL1",
+           "BlockMCP", "soft_threshold", "cbrt"]
 
 _TWO_PI_3 = 2.0 * math.pi / 3.0
 
@@ -275,3 +280,69 @@ class Box:
 
     def generalized_support(self, beta):
         return (beta > 0.0) & (beta < self.C)
+
+
+def _row_norms(W):
+    return torch.sqrt(torch.sum(W ** 2, dim=-1))
+
+
+@dataclass(frozen=True)
+class BlockL1:
+    """Multitask l_{2,1}: g_j(W_j:) = lam * ||W_j:||_2 (paper Appendix D)."""
+    lam: float
+    HAS_SUBDIFF = True
+
+    def value(self, W):
+        return self.lam * torch.sum(_row_norms(W))
+
+    def prox(self, x, step):
+        # x: [..., T] one block (or a batch of blocks); Proposition 18
+        nrm = torch.sqrt(torch.sum(x ** 2, dim=-1, keepdim=True))
+        scale = torch.clamp(nrm - step * self.lam, min=0.0) / \
+            torch.clamp(nrm, min=1e-30)
+        return x * scale
+
+    def subdiff_dist(self, grad, W):
+        # grad, W: [p, T]
+        gn = _row_norms(grad)
+        wn = _row_norms(W)
+        at0 = torch.clamp(gn - self.lam, min=0.0)
+        away = _row_norms(grad + self.lam * W
+                          / torch.clamp(wn, min=1e-30)[:, None])
+        return torch.where(wn == 0.0, at0, away)
+
+    def generalized_support(self, W):
+        return _row_norms(W) != 0.0
+
+
+@dataclass(frozen=True)
+class BlockMCP:
+    """Multitask MCP: g_j(W_j:) = MCP_{lam,gamma}(||W_j:||), Proposition 18
+    (the scalar MCP on the row norm)."""
+    lam: float
+    gamma: float
+    HAS_SUBDIFF = True
+
+    def _scalar(self):
+        return MCP(self.lam, self.gamma)
+
+    def value(self, W):
+        return self._scalar().value(_row_norms(W))
+
+    def prox(self, x, step):
+        nrm = torch.sqrt(torch.sum(x ** 2, dim=-1, keepdim=True))
+        p = self._scalar().prox(nrm, step)
+        return x * p / torch.clamp(nrm, min=1e-30)
+
+    def subdiff_dist(self, grad, W):
+        wn = _row_norms(W)
+        gn = _row_norms(grad)
+        at0 = torch.clamp(gn - self.lam, min=0.0)
+        dirn = W / torch.clamp(wn, min=1e-30)[:, None]
+        mid = _row_norms(grad + (self.lam - wn / self.gamma)[:, None] * dirn)
+        flat = gn
+        return torch.where(wn == 0.0, at0,
+                           torch.where(wn < self.gamma * self.lam, mid, flat))
+
+    def generalized_support(self, W):
+        return _row_norms(W) != 0.0

@@ -7,8 +7,8 @@ The host loop over ``SolveEngine``: per outer iteration one
 Anderson-CD solve, scatter). Quadratic datafits use the Gram inner solver,
 general datafits the Xb inner solver. ``use_kernels`` switches the head and
 the CD epochs to the CUDA kernels (K3 on dense designs, K5 on CSC ones, K1
-or K2 inside, K5s for weighted sparse Lipschitz constants); on a CUDA
-device it defaults to them.
+or K2 inside, K5s for weighted sparse Lipschitz constants; K3b, K5b and K1b
+for multitask targets ``y [n, T]``); on a CUDA device it defaults to them.
 """
 from __future__ import annotations
 
@@ -103,8 +103,12 @@ def solve(X, y, datafit, penalty, *, device=None, tol=1e-6, max_outer=50,
     device) runs the head kernel (K3 dense, K5 sparse) and the CD-epoch
     kernels K1/K2. K5 needs the ELL flag, as in the reference: a scipy
     ``X`` converts with it, a ``CSCDesign`` must have been built with
-    ``CSCDesign.from_scipy(X, ell=True)``. Observability, mesh mode and
-    multitask targets are not ported yet and raise at entry.
+    ``CSCDesign.from_scipy(X, ell=True)``. A target ``y [n, T]`` (or
+    ``n_tasks=T``) is a multitask solve: it needs ``MultitaskQuadratic``
+    and a block penalty (``BlockL1``/``BlockMCP``), ``beta0`` and the
+    result's ``beta`` are ``[p, T]``, and the kernel route runs the block
+    kernels K3b/K5b and K1b. Observability and mesh mode are not ported
+    yet and raise at entry.
 
     Returns a :class:`SolveResult`.
     """
@@ -114,9 +118,8 @@ def solve(X, y, datafit, penalty, *, device=None, tol=1e-6, max_outer=50,
     if mesh is not None:
         raise NotImplementedError("solve(mesh=...): mesh mode is not "
                                   "ported yet")
-    if n_tasks or getattr(y, "ndim", 1) == 2:
-        raise NotImplementedError("multitask (2-D) targets are not ported "
-                                  "yet")
+    if n_tasks is None:
+        n_tasks = y.shape[1] if getattr(y, "ndim", 1) == 2 else 0
     if engine is None:
         engine = make_engine(penalty, datafit, device=device, M=M,
                              max_epochs=max_epochs, accel=accel,
@@ -128,15 +131,16 @@ def solve(X, y, datafit, penalty, *, device=None, tol=1e-6, max_outer=50,
     y = torch.as_tensor(y, dtype=design.dtype, device=device)
     if not use_ws:
         p0 = p
-    engine.validate(datafit, penalty, weighted=sample_weight is not None,
-                    design=design)
+    engine.validate(datafit, penalty, n_tasks,
+                    weighted=sample_weight is not None, design=design)
     policy = bucket_policy or BucketPolicy(p0=p0)
 
     w = None if sample_weight is None \
         else normalize_weights(sample_weight, n_rows, design.dtype, device)
     L = design.lipschitz(datafit, w, use_kernels=engine.config.use_kernels)
     offset = datafit.grad_offset(p, design.dtype, device)
-    beta = torch.zeros(p, dtype=design.dtype, device=device) \
+    bshape = (p, n_tasks) if n_tasks else (p,)
+    beta = torch.zeros(bshape, dtype=design.dtype, device=device) \
         if beta0 is None else \
         torch.as_tensor(beta0, dtype=design.dtype, device=device).clone()
     Xb = design.matvec(beta)

@@ -26,9 +26,15 @@ __all__ = ["fixed_point_score", "violation_scores", "grow_ws_size",
 
 
 def fixed_point_score(penalty, beta, grad, L):
-    """score^cd_j = |beta_j - prox_{g_j/L_j}(beta_j - grad_j / L_j)|."""
+    """score^cd_j = |beta_j - prox_{g_j/L_j}(beta_j - grad_j / L_j)|; for
+    block coefficients [p, T] the row norm of the difference."""
     step = 1.0 / torch.clamp(L, min=1e-30)
-    return torch.abs(beta - penalty.prox(beta - grad * step, step))
+    if beta.ndim == 2:
+        step = step[:, None]
+    diff = beta - penalty.prox(beta - grad * step, step)
+    if beta.ndim == 2:
+        return torch.sqrt(torch.sum(diff ** 2, dim=-1))
+    return torch.abs(diff)
 
 
 def violation_scores(penalty, beta, grad, L, use_fixed_point=None):
@@ -100,8 +106,11 @@ def scatter_ws(vec, ws, vals):
 
 def ws_occupancy(beta_ws):
     """Fraction of the working-set slots holding a nonzero coefficient after
-    the inner solve (0-d tensor)."""
-    return torch.mean((beta_ws != 0).to(beta_ws.dtype))
+    the inner solve (0-d tensor); a block [K, T] counts as occupied when any
+    task coefficient is nonzero."""
+    nz = torch.any(beta_ws != 0, dim=-1) if beta_ws.ndim == 2 \
+        else (beta_ws != 0)
+    return torch.mean(nz.to(beta_ws.dtype))
 
 
 def candidate_columns(cand_idx, cand_cols, ws, p: int):

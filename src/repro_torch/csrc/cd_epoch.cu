@@ -5,6 +5,13 @@
 // subproblem. For each j: g = q_j - c_j, beta_j <- prox(beta_j - g/L_j,
 // 1/L_j) (unchanged where L_j = 0), then q += delta * G[:, j].
 //
+// K1b (cd_gram_block_kernel) is K1 on multitask blocks: beta, q and c are
+// [K, T] (row-major), the penalty is BlockL1 or BlockMCP. For each j:
+// g = q_j - c_j (a T-row), beta_j <- block prox of beta_j - g/L_j (its norm
+// is a reduction over T), unchanged where L_j = 0, then q += G[:, j] (x)
+// delta_j. The TPU has no kernel for it: the reference runs its jax epoch
+// (repro/core/cd.py:cd_epoch_gram with beta [K, T]) there.
+//
 // K2 (cd_xb_kernel) replaces cd_epoch_xb_pallas (body _cd_xb_kernel): the
 // same epochs on the residual state Xb [n]. g_j = x_j . raw(Xb) + off_j
 // with the raw gradient of the datafit kind (quadratic, logistic, svc, with
@@ -25,7 +32,13 @@
 // memory (L2-resident at n = 10k); each coordinate is one block reduction
 // of x_j . raw over n, a prox on one thread, and an axpy. Coordinates whose
 // delta is 0 skip the axpy. Splitting K2's n axis over a thread-block
-// cluster (DSMEM) or a grid-wide sync is later work.
+// cluster (DSMEM) or a grid-wide sync is later work. K1b keeps q [K, T] in
+// shared memory while K * T values fit (K = 1024 at T = 20 is 160 KB),
+// else in global memory, and beta in global memory (one row is touched per
+// coordinate). Per coordinate, warp 0 computes the row prox (lanes over the
+// tasks, the norm by a fixed shuffle tree) and writes delta_j to shared
+// memory; then every thread walks its share of the flat [K, T] update, so
+// neighbouring threads touch neighbouring q entries.
 //
 // Built with -fmad=false: every multiply and add rounds on its own, as the
 // plain torch versions do, so the Gram axpy matches them exactly.
@@ -89,6 +102,76 @@ __global__ void cd_gram_kernel(const T* __restrict__ G, long long s_row, long lo
       beta_out[i] = beta[i];
       q_out[i] = q[i];
     }
+  }
+}
+
+template <typename T>
+__global__ void cd_gram_block_kernel(const T* __restrict__ G, long long s_row, long long s_col,
+                                     const T* __restrict__ c, const T* __restrict__ L,
+                                     const T* __restrict__ beta0, const T* __restrict__ q0,
+                                     T* beta, T* q_out, int K, int nt, int epochs, int pen, T p0,
+                                     T p1, int use_smem) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_nz;
+  T* s_delta = reinterpret_cast<T*>(smem_raw);  // [nt]
+  T* q = use_smem ? s_delta + nt : q_out;       // [K, nt]
+  const int KT = K * nt;
+  for (int e = threadIdx.x; e < KT; e += blockDim.x) {
+    q[e] = q0[e];
+    beta[e] = beta0[e];
+  }
+  // this thread's flat walk over [K, nt]: start (i, t), step (di, dt)
+  const int i_start = threadIdx.x / nt, t_start = threadIdx.x % nt;
+  const int di = blockDim.x / nt, dt = blockDim.x % nt;
+  const int lane = threadIdx.x & 31;
+  __syncthreads();
+  for (int e = 0; e < epochs; ++e) {
+    for (int j = 0; j < K; ++j) {
+      if (threadIdx.x < 32) {
+        const T Lj = L[j];
+        const T step = T(1.0) / rt::clamp_min(Lj, T(1e-30));
+        T* bj = beta + (long long)j * nt;
+        const T* qj = q + (long long)j * nt;
+        const T* cj = c + (long long)j * nt;
+        T part = T(0);
+        for (int t = lane; t < nt; t += 32) {
+          const T x = bj[t] - (qj[t] - cj[t]) * step;
+          part = part + x * x;
+        }
+        for (int o = 16; o > 0; o >>= 1) part += __shfl_down_sync(0xffffffffu, part, o);
+        const T nrm = sqrt(__shfl_sync(0xffffffffu, part, 0));
+        const rt::BlockProx<T> bp = rt::block_prox(pen, nrm, step, p0, p1);
+        int nz = 0;
+        for (int t = lane; t < nt; t += 32) {
+          const T b = bj[t];
+          const T nw = (Lj > T(0)) ? bp.apply(b - (qj[t] - cj[t]) * step) : b;
+          const T d = nw - b;
+          s_delta[t] = d;
+          bj[t] = nw;
+          nz |= (d != T(0));
+        }
+        nz = __any_sync(0xffffffffu, nz);
+        if (lane == 0) s_nz = nz;
+      }
+      __syncthreads();
+      if (s_nz) {
+        const T* col = G + (long long)j * s_col;
+        int i = i_start, t = t_start;
+        for (int k = threadIdx.x; k < KT; k += blockDim.x) {
+          q[k] = q[k] + col[(long long)i * s_row] * s_delta[t];
+          i += di;
+          t += dt;
+          if (t >= nt) {
+            t -= nt;
+            ++i;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (use_smem) {
+    for (int k = threadIdx.x; k < KT; k += blockDim.x) q_out[k] = q[k];
   }
 }
 
@@ -181,6 +264,22 @@ int launch_gram(const T* G, long long sr, long long sc, const T* c, const T* L, 
 }
 
 template <typename T>
+int launch_gram_block(const T* G, long long sr, long long sc, const T* c, const T* L,
+                      const T* beta0, const T* q0, T* beta, T* q, int K, int nt, int epochs,
+                      int pen, double p0, double p1, void* stream) {
+  if (K <= 0 || nt <= 0) return (int)cudaErrorInvalidValue;
+  const size_t delta = (size_t)nt * sizeof(T);
+  const size_t state = (size_t)K * nt * sizeof(T);
+  const int use_smem = delta + state <= (size_t)kMaxSmem;
+  const size_t dyn = use_smem ? delta + state : delta;
+  cudaFuncSetAttribute(cd_gram_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)dyn);
+  cd_gram_block_kernel<T><<<1, threads_for(K * nt), dyn, (cudaStream_t)stream>>>(
+      G, sr, sc, c, L, beta0, q0, beta, q, K, nt, epochs, pen, (T)p0, (T)p1, use_smem);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_xb(const T* Xt, const T* y, const T* w, const T* L, const T* off, const T* beta0,
               const T* Xb0, T* beta, T* Xb, int K, int n, int epochs, int kind, int pen,
               double p0, double p1, void* stream) {
@@ -211,6 +310,22 @@ int cd_epoch_gram_f32(const float* G, long long sr, long long sc, const float* c
                       void* stream) {
   return launch_gram<float>(G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, pen, p0, p1,
                             stream);
+}
+
+int cd_epoch_gram_block_f64(const double* G, long long sr, long long sc, const double* c,
+                            const double* L, const double* beta0, const double* q0,
+                            double* beta, double* q, int K, int nt, int epochs, int pen,
+                            double p0, double p1, void* stream) {
+  return launch_gram_block<double>(G, sr, sc, c, L, beta0, q0, beta, q, K, nt, epochs, pen, p0,
+                                   p1, stream);
+}
+
+int cd_epoch_gram_block_f32(const float* G, long long sr, long long sc, const float* c,
+                            const float* L, const float* beta0, const float* q0, float* beta,
+                            float* q, int K, int nt, int epochs, int pen, double p0, double p1,
+                            void* stream) {
+  return launch_gram_block<float>(G, sr, sc, c, L, beta0, q0, beta, q, K, nt, epochs, pen, p0,
+                                  p1, stream);
 }
 
 int cd_epoch_xb_f64(const double* Xt, const double* y, const double* w, const double* L,

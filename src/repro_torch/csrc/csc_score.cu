@@ -1,4 +1,4 @@
-// K5 and K5s: the sparse score pass over a CSC design.
+// K5, K5s and K5b: the sparse score pass over a CSC design.
 //
 // Replaces repro/sparse/ops.py:csc_score_pallas (body _score_kernel) and its
 // square-mode wrapper csc_weighted_col_sq_pallas, for a raw vector [n]. For
@@ -24,6 +24,18 @@
 // an atomic scatter). Short columns leave most lanes idle: on a power-law
 // design most columns hold a few entries and a handful hold ~1000, so the
 // load is uneven; balancing the work over nnz is later work.
+//
+// K5b replaces csc_score_pallas for a multitask raw gradient [n, T]
+// (row-major): out[j, t] = sum_k x_kj * raw[row_k, t], out [p, T]. One warp
+// per column again. Its lanes cover the tasks: a group of G lanes (G = 8,
+// 16 or 32, the smallest >= min(T, 32)) reads the T-row raw[row_k, :] of one
+// entry with neighbouring lanes on neighbouring addresses, and the 32 / G
+// groups of the warp take the entries k = start + group, + 32 / G, ... .
+// Tasks past 32 run in further passes of 32. Each lane sums in f64 in
+// entry order; the groups are then summed by a fixed shuffle tree, so the
+// result is deterministic. Bound: the HBM bytes are data and indices once,
+// raw once and the [p, T] output; the raw rows are gathered through L2
+// (T * 8 bytes per entry, 1.6 GB of L2 reads at sparse_fig2 with T = 20).
 #include <cuda_runtime.h>
 
 namespace {
@@ -54,6 +66,41 @@ __global__ void csc_score_kernel(const T* __restrict__ data, const int* __restri
 }
 
 template <typename T>
+__global__ void csc_score_block_kernel(const T* __restrict__ data,
+                                       const int* __restrict__ indices,
+                                       const long long* __restrict__ indptr,
+                                       const T* __restrict__ raw, T* __restrict__ out, int p,
+                                       int nt, int gsz) {
+  const int lane = threadIdx.x & 31;
+  const long long j = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (j >= p) return;  // the whole warp leaves together
+  const int grp = lane / gsz, tl = lane % gsz, ngrp = 32 / gsz;
+  const long long start = indptr[j], end = indptr[j + 1];
+  for (int t0 = 0; t0 < nt; t0 += gsz) {
+    const int t = t0 + tl;
+    double acc = 0.0;
+    if (t < nt) {
+      for (long long k = start + grp; k < end; k += ngrp)
+        acc = acc + (double)(data[k] * raw[(long long)indices[k] * nt + t]);
+    }
+    for (int o = 16; o >= gsz; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
+    if (grp == 0 && t < nt) out[j * nt + t] = (T)acc;
+  }
+}
+
+template <typename T>
+int launch_block(const T* data, const int* indices, const long long* indptr, const T* raw,
+                 T* out, int p, int nt, void* stream) {
+  if (p <= 0) return 0;
+  if (nt <= 0) return (int)cudaErrorInvalidValue;
+  const int gsz = nt <= 8 ? 8 : (nt <= 16 ? 16 : 32);
+  const int per_cta = kThreads / 32;
+  csc_score_block_kernel<T><<<(p + per_cta - 1) / per_cta, kThreads, 0, (cudaStream_t)stream>>>(
+      data, indices, indptr, raw, out, p, nt, gsz);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch(const T* data, const int* indices, const long long* indptr, const T* v, T* out,
            int p, int square, void* stream) {
   if (p <= 0) return 0;
@@ -75,6 +122,16 @@ int csc_score_f64(const double* data, const int* indices, const long long* indpt
 int csc_score_f32(const float* data, const int* indices, const long long* indptr,
                   const float* v, float* out, int p, int square, void* stream) {
   return launch<float>(data, indices, indptr, v, out, p, square, stream);
+}
+
+int csc_score_block_f64(const double* data, const int* indices, const long long* indptr,
+                        const double* raw, double* out, int p, int nt, void* stream) {
+  return launch_block<double>(data, indices, indptr, raw, out, p, nt, stream);
+}
+
+int csc_score_block_f32(const float* data, const int* indices, const long long* indptr,
+                        const float* raw, float* out, int p, int nt, void* stream) {
+  return launch_block<float>(data, indices, indptr, raw, out, p, nt, stream);
 }
 
 }  // extern "C"

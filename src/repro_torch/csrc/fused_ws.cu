@@ -29,6 +29,27 @@
 // an SM cannot hold a tile of X (bp*n*8 bytes), so here the selected rows
 // are read again from device memory (or L2), kc*n values per tile.
 //
+// K3b (fused_ws_block) replaces the block branch of the same Pallas kernel
+// (multitask coefficients beta [p, T], raw gradient R [n, T], a block
+// penalty). Its score launch computes grad = Xt @ R + offset (a [p, T]
+// product) and the row score of each feature; its select + copy launch is
+// K3's, on the row scores. Bound on the H100: bytes (X read once, 1.6 GB
+// at n = 10,000, p = 20,000), with T = 20 products per X element close
+// behind in float64. The trouble is the reuse of R: a warp per feature
+// streaming R would read it from L2 once per feature (p * n * T * 8 bytes,
+// 32 GB at that size). So a CTA takes a tile of 64 features and walks n in
+// chunks of 64: the X tile [64, 64] and the R chunk [64, T] are staged in
+// shared memory, and each of 256 threads keeps 2 features x ceil(T/8)
+// tasks of partial sums in registers (tasks past 64 run in further passes).
+// R then crosses L2 once per CTA (p / 64 times). There are only ~2.4 CTAs
+// per SM at p = 20,000, so each thread loads its share of the next chunk
+// into registers before it computes on the current one: the global loads
+// are in flight during the products instead of between two barriers. The products accumulate
+// with explicit fma(): the plain version's product (torch.mm) sums in
+// another order anyway, and fma halves the float64 instruction count. The
+// row epilogue (norms over T, the block prox or subdifferential) runs on
+// one thread per feature from the gradient rows the CTA just wrote.
+//
 // K4 (ws_score) replaces repro/kernels/ws_score.py:ws_score_pallas (body
 // _score_kernel): the score pass alone, with optional sample weights fused
 // into the load, grad_j = Xt[j] . (r * w) + offset_j, and only the scores
@@ -46,6 +67,9 @@ namespace {
 constexpr int kScoreThreads = 256;   // 8 warps: 8 features per CTA
 constexpr int kSelectThreads = 512;
 constexpr int kTargetCtas = 528;     // 4 CTAs per SM on 132 SMs
+constexpr int kBlkFeat = 64;         // K3b: features per CTA (2 per thread)
+constexpr int kBlkN = 64;            // K3b: samples per staged chunk
+constexpr int kBlkThreads = 256;     // K3b: 32 feature pairs x 8 task lanes
 
 template <typename T>
 __device__ __forceinline__ bool before(T pa, int ia, T pb, int ib) {
@@ -145,6 +169,143 @@ __global__ void select_kernel(const T* __restrict__ Xt, const T* __restrict__ pr
   }
 }
 
+// K3b's score launch: A task slots of 8 lanes each per pass (TC = 8A
+// tasks), tasks t0 .. t0 + TC - 1 of every pass
+template <typename T, int A>
+__global__ void __launch_bounds__(kBlkThreads)
+    block_score_kernel(const T* __restrict__ Xt, const T* __restrict__ R,
+                       const T* __restrict__ beta, const T* __restrict__ L,
+                       const T* __restrict__ offset, const uint8_t* __restrict__ gsupp,
+                       T* scores, T* grad, T* pri, int n, int p, int nt, int pen, int use_fp,
+                       T p0, T p1) {
+  constexpr int TC = 8 * A;
+  constexpr int XS = kBlkN + 1;  // padded X tile row: the 4 feature pairs of a
+                                 // warp read 4 different banks
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int XPER = kBlkFeat * kBlkN / kBlkThreads;  // X values per thread
+  constexpr int RPER = kBlkN * TC / kBlkThreads;        // R values per thread
+  T* xs = reinterpret_cast<T*>(smem_raw);  // [kBlkFeat][XS]
+  T* rs = xs + kBlkFeat * XS;              // [kBlkN][TC]
+  const int tid = threadIdx.x;
+  const int s = tid & 7, g = tid >> 3;     // task lane, feature pair
+  const long long f0 = (long long)blockIdx.x * kBlkFeat;
+  const long long j0 = f0 + g, j1 = f0 + g + 32;
+  // this thread's share of a chunk: X elements (xf + 4k, xi), R elements
+  // tid + 256 k of the [kBlkN, TC] chunk
+  const int xi = tid % kBlkN, xf = tid / kBlkN;
+  T xr[XPER], rr[RPER];
+  for (int t0 = 0; t0 < nt; t0 += TC) {
+    const int tc = min(TC, nt - t0);
+    auto fetch = [&](int i0) {  // chunk i0 into xr / rr
+      const int nc = min(kBlkN, n - i0);
+#pragma unroll
+      for (int k = 0; k < XPER; ++k) {
+        const long long j = f0 + xf + k * (kBlkThreads / kBlkN);
+        xr[k] = (j < p && xi < nc) ? Xt[j * n + i0 + xi] : T(0);
+      }
+#pragma unroll
+      for (int k = 0; k < RPER; ++k) {
+        const int e = tid + k * kBlkThreads, i = e / TC, t = e % TC;
+        rr[k] = (i < nc && t < tc) ? R[(long long)(i0 + i) * nt + t0 + t] : T(0);
+      }
+    };
+    T acc0[A], acc1[A];
+#pragma unroll
+    for (int a = 0; a < A; ++a) acc0[a] = acc1[a] = T(0);
+    fetch(0);
+    for (int i0 = 0; i0 < n; i0 += kBlkN) {
+#pragma unroll
+      for (int k = 0; k < XPER; ++k) xs[(xf + k * (kBlkThreads / kBlkN)) * XS + xi] = xr[k];
+#pragma unroll
+      for (int k = 0; k < RPER; ++k) rs[tid + k * kBlkThreads] = rr[k];
+      __syncthreads();
+      if (i0 + kBlkN < n) fetch(i0 + kBlkN);  // in flight during the products
+#pragma unroll 4
+      for (int i = 0; i < kBlkN; ++i) {
+        const T x0 = xs[g * XS + i];
+        const T x1 = xs[(g + 32) * XS + i];
+#pragma unroll
+        for (int a = 0; a < A; ++a) {
+          const T rv = rs[i * TC + s + 8 * a];
+          acc0[a] = fma(x0, rv, acc0[a]);
+          acc1[a] = fma(x1, rv, acc1[a]);
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      const int t = s + 8 * a;
+      if (t < tc) {
+        if (j0 < p) grad[j0 * nt + t0 + t] = acc0[a] + offset[j0];
+        if (j1 < p) grad[j1 * nt + t0 + t] = acc1[a] + offset[j1];
+      }
+    }
+  }
+  __syncthreads();  // the CTA's gradient rows are written
+  if (tid < kBlkFeat) {
+    const long long j = f0 + tid;
+    if (j < p) {
+      const T sc = rt::block_violation_score(pen, use_fp, beta + j * nt, grad + j * nt, nt,
+                                             L[j], p0, p1);
+      scores[j] = sc;
+      pri[j] = (gsupp[j] ? (T)INFINITY : sc) + T(0);  // +0 folds -0.0 into +0.0
+    }
+  }
+}
+
+template <typename T, int A>
+int launch_block_score_a(const T* Xt, const T* R, const T* beta, const T* L, const T* offset,
+                         const uint8_t* gsupp, T* scores, T* grad, T* pri, int n, int p, int nt,
+                         int pen, int use_fp, double p0, double p1, cudaStream_t st) {
+  const size_t dyn = ((size_t)kBlkFeat * (kBlkN + 1) + (size_t)kBlkN * 8 * A) * sizeof(T);
+  cudaFuncSetAttribute(block_score_kernel<T, A>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)dyn);
+  block_score_kernel<T, A><<<(p + kBlkFeat - 1) / kBlkFeat, kBlkThreads, dyn, st>>>(
+      Xt, R, beta, L, offset, gsupp, scores, grad, pri, n, p, nt, pen, use_fp, (T)p0, (T)p1);
+  return (int)cudaGetLastError();
+}
+
+// A = ceil(T / 8) task slots for T <= 64, else passes of 64 tasks
+template <typename T>
+int launch_block_score(const T* Xt, const T* R, const T* beta, const T* L, const T* offset,
+                       const uint8_t* gsupp, T* scores, T* grad, T* pri, int n, int p, int nt,
+                       int pen, int use_fp, double p0, double p1, cudaStream_t st) {
+  const int a = nt >= 64 ? 8 : (nt + 7) / 8;
+#define RT_BLOCK_SCORE(A_)                                                                    \
+  case A_:                                                                                    \
+    return launch_block_score_a<T, A_>(Xt, R, beta, L, offset, gsupp, scores, grad, pri, n, \
+                                       p, nt, pen, use_fp, p0, p1, st);
+  switch (a) {
+    RT_BLOCK_SCORE(1)
+    RT_BLOCK_SCORE(2)
+    RT_BLOCK_SCORE(3)
+    RT_BLOCK_SCORE(4)
+    RT_BLOCK_SCORE(5)
+    RT_BLOCK_SCORE(6)
+    RT_BLOCK_SCORE(7)
+    RT_BLOCK_SCORE(8)
+  }
+#undef RT_BLOCK_SCORE
+  return (int)cudaErrorInvalidValue;
+}
+
+// the select + copy launch shared by K3 and K3b, on the priorities `pri`
+template <typename T>
+int launch_select(const T* Xt, const T* pri, int* cand_idx, T* cand_cols, int n, int p, int bp,
+                  int kc, cudaStream_t st) {
+  int sortn = 1;
+  while (sortn < bp) sortn <<= 1;
+  const size_t dyn = (size_t)sortn * (sizeof(T) + sizeof(int));
+  const int tiles = (p + bp - 1) / bp;
+  int parts = (kTargetCtas + tiles - 1) / tiles;
+  if (parts > kc) parts = kc;
+  cudaFuncSetAttribute(select_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  select_kernel<T><<<dim3(tiles, parts), kSelectThreads, dyn, st>>>(
+      Xt, pri, cand_idx, cand_cols, n, p, bp, kc, sortn);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_fused(const T* Xt, const T* r, const T* beta, const T* L, const T* offset,
                  const uint8_t* gsupp, T* scores, T* grad, T* pri, int* cand_idx,
@@ -157,17 +318,20 @@ int launch_fused(const T* Xt, const T* r, const T* beta, const T* L, const T* of
       (T)p1);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
+  return launch_select(Xt, pri, cand_idx, cand_cols, n, p, bp, kc, st);
+}
 
-  int sortn = 1;
-  while (sortn < bp) sortn <<= 1;
-  const size_t dyn = (size_t)sortn * (sizeof(T) + sizeof(int));
-  const int tiles = (p + bp - 1) / bp;
-  int parts = (kTargetCtas + tiles - 1) / tiles;
-  if (parts > kc) parts = kc;
-  cudaFuncSetAttribute(select_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-  select_kernel<T><<<dim3(tiles, parts), kSelectThreads, dyn, st>>>(
-      Xt, pri, cand_idx, cand_cols, n, p, bp, kc, sortn);
-  return (int)cudaGetLastError();
+template <typename T>
+int launch_fused_block(const T* Xt, const T* R, const T* beta, const T* L, const T* offset,
+                       const uint8_t* gsupp, T* scores, T* grad, T* pri, int* cand_idx,
+                       T* cand_cols, int n, int p, int nt, int bp, int kc, int pen, int use_fp,
+                       double p0, double p1, void* stream) {
+  if (p <= 0 || nt <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  int rc = launch_block_score(Xt, R, beta, L, offset, gsupp, scores, grad, pri, n, p, nt, pen,
+                              use_fp, p0, p1, st);
+  if (rc != 0) return rc;
+  return launch_select(Xt, pri, cand_idx, cand_cols, n, p, bp, kc, st);
 }
 
 template <typename T>
@@ -222,6 +386,25 @@ int fused_ws_f32(const float* Xt, const float* r, const float* beta, const float
                  int pen, int use_fp, double p0, double p1, void* stream) {
   return launch_fused<float>(Xt, r, beta, L, offset, gsupp, scores, grad, pri, cand_idx,
                              cand_cols, n, p, bp, kc, pen, use_fp, p0, p1, stream);
+}
+
+int fused_ws_block_f64(const double* Xt, const double* R, const double* beta, const double* L,
+                       const double* offset, const uint8_t* gsupp, double* scores,
+                       double* grad, double* pri, int* cand_idx, double* cand_cols, int n,
+                       int p, int nt, int bp, int kc, int pen, int use_fp, double p0, double p1,
+                       void* stream) {
+  return launch_fused_block<double>(Xt, R, beta, L, offset, gsupp, scores, grad, pri,
+                                    cand_idx, cand_cols, n, p, nt, bp, kc, pen, use_fp, p0, p1,
+                                    stream);
+}
+
+int fused_ws_block_f32(const float* Xt, const float* R, const float* beta, const float* L,
+                       const float* offset, const uint8_t* gsupp, float* scores, float* grad,
+                       float* pri, int* cand_idx, float* cand_cols, int n, int p, int nt,
+                       int bp, int kc, int pen, int use_fp, double p0, double p1,
+                       void* stream) {
+  return launch_fused_block<float>(Xt, R, beta, L, offset, gsupp, scores, grad, pri, cand_idx,
+                                   cand_cols, n, p, nt, bp, kc, pen, use_fp, p0, p1, stream);
 }
 
 }  // extern "C"

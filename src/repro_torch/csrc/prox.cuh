@@ -1,7 +1,8 @@
-// Scalar penalties on the device: prox, subdifferential distance and the
+// Penalties on the device: prox, subdifferential distance and the
 // violation score, for the seven scalar penalties of
 // repro_torch/core/penalties.py, selected by the codec's penalty id
-// (repro_torch/kernels/common.py: PENALTY_IDS).
+// (repro_torch/kernels/common.py: PENALTY_IDS), and the row forms of the two
+// block penalties BlockL1 and BlockMCP (ids 7 and 8) on a row of T values.
 //
 // Every branch, threshold and `where` guard mirrors the torch version op by
 // op (same operand order, and the library is built with -fmad=false), so a
@@ -21,6 +22,8 @@ enum PenaltyId {
   PEN_L05 = 4,
   PEN_L23 = 5,
   PEN_BOX = 6,
+  PEN_BLOCK_L1 = 7,
+  PEN_BLOCK_MCP = 8,
 };
 
 template <typename T>
@@ -186,6 +189,77 @@ __device__ __forceinline__ T coord_step(int pen, T bj, T gj, T Lj, T p0, T p1) {
   const T step = T(1.0) / clamp_min(Lj, T(1e-30));
   const T nw = prox(pen, bj - gj * step, step, p0, p1);
   return (Lj > T(0)) ? nw : bj;
+}
+
+// ---------------------------------------------------------------- blocks
+// The block prox of a row x of norm nrm (Proposition 18), in the plain
+// version's order: BlockL1  x * (max(nrm - step lam, 0) / max(nrm, 1e-30)),
+//                  BlockMCP (x * prox_mcp(nrm, step)) / max(nrm, 1e-30).
+template <typename T>
+struct BlockProx {
+  int pen;
+  T s;
+  T den;
+  __device__ __forceinline__ T apply(T x) const {
+    return (pen == PEN_BLOCK_L1) ? x * s : (x * s) / den;
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ BlockProx<T> block_prox(int pen, T nrm, T step, T p0, T p1) {
+  BlockProx<T> b;
+  b.pen = pen;
+  b.den = clamp_min(nrm, T(1e-30));
+  b.s = (pen == PEN_BLOCK_L1) ? clamp_min(nrm - step * p0, T(0)) / b.den
+                              : prox(PEN_MCP, nrm, step, p0, p1);
+  return b;
+}
+
+// the violation score of one row (b: beta_j, g: grad_j, nt values each):
+// the row norm of the fixed-point difference b - prox(b - g/L, 1/L), or the
+// block subdifferential distance of BlockL1 / BlockMCP (lam = p0,
+// gamma = p1). One thread walks the row; the sums run in index order.
+template <typename T>
+__device__ T block_violation_score(int pen, int use_fp, const T* b, const T* g, int nt, T Lj,
+                                   T p0, T p1) {
+  if (use_fp) {
+    const T step = T(1.0) / clamp_min(Lj, T(1e-30));
+    T s2 = T(0);
+    for (int t = 0; t < nt; ++t) {
+      const T x = b[t] - g[t] * step;
+      s2 = s2 + x * x;
+    }
+    const BlockProx<T> bp = block_prox(pen, sqrt(s2), step, p0, p1);
+    T d2 = T(0);
+    for (int t = 0; t < nt; ++t) {
+      const T d = b[t] - bp.apply(b[t] - g[t] * step);
+      d2 = d2 + d * d;
+    }
+    return sqrt(d2);
+  }
+  T g2 = T(0), w2 = T(0);
+  for (int t = 0; t < nt; ++t) {
+    g2 = g2 + g[t] * g[t];
+    w2 = w2 + b[t] * b[t];
+  }
+  const T gn = sqrt(g2), wn = sqrt(w2);
+  if (wn == T(0)) return clamp_min(gn - p0, T(0));
+  const T wnc = clamp_min(wn, T(1e-30));
+  T a2 = T(0);
+  if (pen == PEN_BLOCK_L1) {
+    for (int t = 0; t < nt; ++t) {
+      const T a = g[t] + (p0 * b[t]) / wnc;
+      a2 = a2 + a * a;
+    }
+    return sqrt(a2);
+  }
+  if (!(wn < p1 * p0)) return gn;  // BlockMCP's flat part
+  const T coef = p0 - wn / p1;
+  for (int t = 0; t < nt; ++t) {
+    const T a = g[t] + coef * (b[t] / wnc);
+    a2 = a2 + a * a;
+  }
+  return sqrt(a2);
 }
 
 }  // namespace rt

@@ -1,8 +1,8 @@
 """Synthetic sparse-GLM data generators (numpy, seeded).
 
 Own copies of ``repro.data.synth.make_correlated_design``,
-``make_classification`` and ``make_sparse_design``: the same seed gives the
-same arrays, bit for bit.
+``make_classification``, ``make_sparse_design``, ``make_multitask`` and
+``make_leadfield``: the same seed gives the same arrays, bit for bit.
 ``make_correlated_design`` follows the paper's §E.5 setup: X with
 corr(X_j, X_j') = rho^{|j-j'|} (AR(1) process), a sparse ground truth, and
 Gaussian noise at a prescribed signal-to-noise ratio.
@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["make_correlated_design", "make_classification",
-           "make_sparse_design"]
+           "make_sparse_design", "make_multitask", "make_leadfield"]
 
 
 def make_correlated_design(n=1000, p=2000, n_nonzero=200, rho=0.6, snr=5.0,
@@ -90,3 +90,48 @@ def make_sparse_design(n=10000, p=50000, density=1e-3, n_nonzero=100,
         noise *= nrm / (snr * np.linalg.norm(noise))
     y = (signal + noise).astype(dtype)
     return X, y, beta_true
+
+
+def make_multitask(n=300, p=600, n_tasks=10, n_nonzero=20, snr=3.0, seed=0,
+                   dtype=np.float64):
+    """Gaussian X [n, p], a row-sparse ground truth W [p, n_tasks] with
+    ``n_nonzero`` standard-normal rows, Y = X W + noise at the prescribed
+    SNR. Returns (X, Y, W)."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, p))
+    W = np.zeros((p, n_tasks))
+    supp = rng.choice(p, size=n_nonzero, replace=False)
+    W[supp] = rng.standard_normal((n_nonzero, n_tasks))
+    signal = X @ W
+    noise = rng.standard_normal((n, n_tasks))
+    noise *= np.linalg.norm(signal) / (snr * np.linalg.norm(noise))
+    Y = signal + noise
+    return X.astype(dtype), Y.astype(dtype), W.astype(dtype)
+
+
+def make_leadfield(n=60, p_per_hemi=150, T=20, *, coherence=0.98, snr=1.5,
+                   seed=0):
+    """The Figure 4 M/EEG-analog forward problem: two "hemisphere" blocks of
+    highly column-coherent leadfield-like features hide one true source row
+    each (the second 4x weaker). Returns (X [n, 2*p_per_hemi], Y [n, T],
+    W_true, true_rows)."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    true_rows = []
+    for h in range(2):
+        base = rng.standard_normal((n, 1))
+        block = (coherence * base
+                 + np.sqrt(1 - coherence ** 2)
+                 * rng.standard_normal((n, p_per_hemi)))
+        cols.append(block)
+        true_rows.append(int(h * p_per_hemi + rng.integers(0, p_per_hemi)))
+    X = np.concatenate(cols, axis=1)
+    X /= np.linalg.norm(X, axis=0) / np.sqrt(n)
+    W = np.zeros((2 * p_per_hemi, T))
+    t = np.linspace(0, 1, T)
+    W[true_rows[0]] = np.sin(2 * np.pi * 5 * t)
+    W[true_rows[1]] = np.cos(2 * np.pi * 3 * t) * 0.25
+    signal = X @ W
+    noise = rng.standard_normal((n, T))
+    noise *= np.linalg.norm(signal) / (snr * np.linalg.norm(noise))
+    return X, signal + noise, W, true_rows

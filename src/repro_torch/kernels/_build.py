@@ -115,14 +115,19 @@ _SIGNATURES = {
                           _D, _D, _P],
         "cd_epoch_xb": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _D, _D, _P],
+        "cd_epoch_gram_block": [_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _D, _D, _P],
     },
     "fused_ws": {
         "fused_ws": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                      _I, _I, _I, _D, _D, _P],
         "ws_score": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _P],
+        "fused_ws_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _I, _I, _I, _I, _D, _D, _P],
     },
     "csc_score": {
         "csc_score": [_P, _P, _P, _P, _P, _I, _I, _P],
+        "csc_score_block": [_P, _P, _P, _P, _P, _I, _I, _P],
     },
 }
 

@@ -5,7 +5,8 @@ The codec is exact-arity: ``penalty_params`` packs every scalar
 hyper-parameter of a registered penalty class into an ``(arity,)`` float64
 vector and ``make_penalty`` rebuilds the penalty from it. The CUDA kernels
 take the class as an integer id (``PENALTY_IDS``, the ``switch`` in
-``csrc/prox.cuh``) plus that vector. Unregistered classes and array-valued
+``csrc/prox.cuh``; 7 and 8 are the block penalties, whose row proxes run
+in the block kernels only) plus that vector. Unregistered classes and array-valued
 (per-coordinate) hyper-parameters raise ``UnsupportedPenaltyError`` instead
 of being silently truncated.
 """
@@ -18,8 +19,9 @@ import torch
 from ..core import penalties as _pen
 
 __all__ = ["UnsupportedPenaltyError", "PENALTY_FIELDS", "PENALTY_IDS",
-           "SCALAR_COORD_PENALTIES", "penalty_arity", "check_kernel_penalty",
-           "check_score_kernel_penalty", "penalty_params", "make_penalty"]
+           "SCALAR_COORD_PENALTIES", "BLOCK_PENALTIES", "penalty_arity",
+           "check_kernel_penalty", "check_score_kernel_penalty",
+           "check_block_kernel_penalty", "penalty_params", "make_penalty"]
 
 
 class UnsupportedPenaltyError(TypeError):
@@ -31,14 +33,21 @@ class UnsupportedPenaltyError(TypeError):
 PENALTY_FIELDS: dict = {
     cls: tuple(f.name for f in dataclasses.fields(cls))
     for cls in (_pen.L1, _pen.L1L2, _pen.MCP, _pen.SCAD, _pen.L05, _pen.L23,
-                _pen.Box)}
+                _pen.Box, _pen.BlockL1, _pen.BlockMCP)}
 
 # class -> the penalty id the CUDA prox switches on (csrc/prox.cuh)
 PENALTY_IDS = {_pen.L1: 0, _pen.L1L2: 1, _pen.MCP: 2, _pen.SCAD: 3,
-               _pen.L05: 4, _pen.L23: 5, _pen.Box: 6}
+               _pen.L05: 4, _pen.L23: 5, _pen.Box: 6, _pen.BlockL1: 7,
+               _pen.BlockMCP: 8}
 
-# penalties whose prox acts on scalar coordinates (all of this slice's)
-SCALAR_COORD_PENALTIES = frozenset(PENALTY_IDS)
+# penalties whose prox acts on scalar coordinates: the set the scalar CD
+# and score kernels (K1-K4) instantiate
+SCALAR_COORD_PENALTIES = frozenset(
+    (_pen.L1, _pen.L1L2, _pen.MCP, _pen.SCAD, _pen.L05, _pen.L23, _pen.Box))
+
+# penalties with row-block proxes on [p, T] coefficients: the set the
+# block kernels (K1b, K3b) instantiate
+BLOCK_PENALTIES = frozenset((_pen.BlockL1, _pen.BlockMCP))
 
 
 def penalty_arity(cls) -> int:
@@ -61,9 +70,18 @@ def check_kernel_penalty(cls):
 
 
 def check_score_kernel_penalty(cls):
-    """Raise unless `cls` can run inside the fused working-set kernel (any
-    codec-registered penalty)."""
+    """Raise unless `cls` can run inside the fused working-set head (any
+    codec-registered penalty: scalar ones in K3, block ones in K3b)."""
     penalty_arity(cls)
+
+
+def check_block_kernel_penalty(cls):
+    """Raise unless `cls` can run inside the block kernels (K1b, K3b)."""
+    penalty_arity(cls)
+    if cls not in BLOCK_PENALTIES:
+        raise UnsupportedPenaltyError(
+            f"{cls.__name__} has scalar-coordinate proxes and cannot run "
+            "inside the block kernels")
 
 
 def penalty_params(penalty) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""K3: the fused working-set head (``csrc/fused_ws.cu``, a score launch
-and a select+copy launch), its CUDA launcher and its plain torch version.
+"""K3 and K3b: the fused working-set head (``csrc/fused_ws.cu``, a score
+launch and a select+copy launch), its CUDA launchers and its plain torch
+version.
 
-Replaces ``repro/kernels/fused_ws.py:fused_ws_pallas`` (scalar form): one
+K3 replaces ``repro/kernels/fused_ws.py:fused_ws_pallas`` (scalar form): one
 pass over feature tiles of the feature-major design Xt [p, n] yields the
 violation scores, the offset-corrected gradient, each tile's top-``kc``
 candidates (``kc = min(bp, ws_size)``) under the ``lax.top_k`` order with
@@ -9,6 +10,13 @@ the generalized support pinned to +inf, and exact copies of the candidate
 columns. The final working set is ``select_working_set`` on the emitted
 scores, and ``candidate_columns`` recovers ``X[:, ws]`` from the buffer.
 Exhausted slots emit index p with a zero column.
+
+K3b replaces the block branch of the same kernel (multitask coefficients
+beta [p, T], raw gradient R [n, T], a block penalty): the gradient is
+[p, T] and each feature's score is its row score (``subdiff_dist`` of the
+block penalty, or the row norm of the fixed-point difference). Its score
+launch is a tiled product ``Xt @ R`` with the row epilogue; the select+copy
+launch is K3's. The plain version below covers both forms.
 """
 from __future__ import annotations
 
@@ -19,7 +27,8 @@ from ._build import BUILD
 from .cd_epoch import _check_rc, _suffix, kernel_params
 from .common import make_penalty
 
-__all__ = ["pick_bp", "fused_ws_plain", "fused_ws_cuda"]
+__all__ = ["pick_bp", "fused_ws_plain", "fused_ws_cuda",
+           "fused_ws_block_cuda"]
 
 
 def pick_bp(p: int, cap: int = 1024) -> int:
@@ -42,7 +51,8 @@ def fused_ws_plain(Xt, r, beta, L, offset, gsupp, penalty_cls, params,
                    ws_size, *, use_fp=False, bp=None):
     p, n = Xt.shape
     bp, tiles, kc = _tiling(p, ws_size, bp)
-    grad = Xt @ r + offset
+    grad = Xt @ r
+    grad = grad + (offset[:, None] if grad.ndim == 2 else offset)
     scores = violation_scores(make_penalty(penalty_cls, params), beta, grad,
                               L, use_fixed_point=use_fp)
     pri = torch.full((tiles * bp,), -torch.inf, dtype=Xt.dtype,
@@ -78,4 +88,28 @@ def fused_ws_cuda(Xt, r, beta, L, offset, gsupp, penalty_cls, params,
                 cand_cols.data_ptr(),
                 n, p, bp, kc, pid, int(bool(use_fp)), p0, p1, stream)
     _check_rc(rc, "fused_ws")
+    return scores, grad, cand_idx, cand_cols
+
+
+def fused_ws_block_cuda(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
+                        ws_size, *, use_fp=False, bp=None):
+    """Launch K3b on the tensors' stream; Xt is contiguous [p, n], R and
+    beta are contiguous [n, T] and [p, T]."""
+    fn = getattr(BUILD.lib("fused_ws"), f"fused_ws_block_{_suffix(Xt)}")
+    p, n = Xt.shape
+    T = R.shape[1]
+    bp, tiles, kc = _tiling(p, ws_size, bp)
+    pid, p0, p1 = kernel_params(penalty_cls, params)
+    scores, pri = torch.empty_like(L), torch.empty_like(L)
+    grad = torch.empty_like(beta)
+    cand_idx = torch.empty(tiles * kc, dtype=torch.int32, device=Xt.device)
+    cand_cols = torch.empty((tiles * kc, n), dtype=Xt.dtype, device=Xt.device)
+    with torch.cuda.device(Xt.device):
+        stream = torch.cuda.current_stream(Xt.device).cuda_stream
+        rc = fn(Xt.data_ptr(), R.data_ptr(), beta.data_ptr(), L.data_ptr(),
+                offset.data_ptr(), gsupp.data_ptr(), scores.data_ptr(),
+                grad.data_ptr(), pri.data_ptr(), cand_idx.data_ptr(),
+                cand_cols.data_ptr(), n, p, T, bp, kc, pid, int(bool(use_fp)),
+                p0, p1, stream)
+    _check_rc(rc, "fused_ws_block")
     return scores, grad, cand_idx, cand_cols

@@ -1,4 +1,5 @@
-"""Public, checked wrappers of the kernels K1-K5, with launch counters.
+"""Public, checked wrappers of the kernels K1-K5 and their block forms, with
+launch counters.
 
 Each wrapper checks device, dtype, shape and contiguity, then routes by the
 device of its tensors: on the CPU it runs the kernel's plain torch version;
@@ -13,21 +14,30 @@ kernel to the plain version. ``launches`` is a plain int on the wrapper;
   ws_score             K4, the two-pass score head (dense designs)
   csc_score            K5, the sparse score pass X.T @ raw (CSC designs)
   csc_weighted_col_sq  K5s, K5 in square mode: sum_i w_i x_ij^2
+  cd_epoch_gram_block  K1b, K1 on multitask blocks beta [K, T]
+  fused_ws_block       K3b, K3 on blocks: raw [n, T], beta [p, T]
+  csc_score_block      K5b, K5 on a raw gradient [n, T] -> [p, T]
+
+The block forms have counters of their own, so a run can tell the block
+launches from the scalar ones.
 """
 from __future__ import annotations
 
 import torch
 
-from .cd_epoch import (KIND_IDS, cd_epoch_gram_cuda, cd_epoch_gram_plain,
+from .cd_epoch import (KIND_IDS, cd_epoch_gram_block_cuda,
+                       cd_epoch_gram_cuda, cd_epoch_gram_plain,
                        cd_epoch_xb_cuda, cd_epoch_xb_plain)
-from .common import (UnsupportedPenaltyError, check_kernel_penalty,
-                     check_score_kernel_penalty, make_penalty, penalty_params)
-from .csc_score import csc_score_cuda, csc_score_plain
-from .fused_ws import fused_ws_cuda, fused_ws_plain
+from .common import (UnsupportedPenaltyError, check_block_kernel_penalty,
+                     check_kernel_penalty, check_score_kernel_penalty,
+                     make_penalty, penalty_params)
+from .csc_score import csc_score_block_cuda, csc_score_cuda, csc_score_plain
+from .fused_ws import fused_ws_block_cuda, fused_ws_cuda, fused_ws_plain
 from .ws_score import ws_score_cuda, ws_score_plain
 
 __all__ = ["cd_epoch_gram", "cd_epoch_xb", "fused_ws", "ws_score",
-           "csc_score", "csc_weighted_col_sq", "KERNELS",
+           "csc_score", "csc_weighted_col_sq", "cd_epoch_gram_block",
+           "fused_ws_block", "csc_score_block", "KERNELS",
            "launch_counts", "reset_launch_counts", "penalty_params",
            "make_penalty", "check_kernel_penalty",
            "check_score_kernel_penalty", "UnsupportedPenaltyError"]
@@ -56,6 +66,15 @@ def _check_vec(name, n, **vecs):
                              f"vector, got shape {tuple(v.shape)}")
 
 
+def _check_mat(name, rows, cols, **mats):
+    for key, m in mats.items():
+        if m.ndim != 2 or tuple(m.shape) != (rows, cols) or \
+                not m.is_contiguous():
+            raise ValueError(f"{name}: {key} must be a contiguous "
+                             f"[{rows}, {cols}] matrix, got shape "
+                             f"{tuple(m.shape)}")
+
+
 def cd_epoch_gram(G, c, beta0, q0, L, penalty_cls, params, *, epochs=1):
     """K1: `epochs` cyclic CD epochs on the Gram subproblem. G: [K, K] (any
     strides; column-major makes the kernel's column reads contiguous);
@@ -72,6 +91,34 @@ def cd_epoch_gram(G, c, beta0, q0, L, penalty_cls, params, *, epochs=1):
     out = cd_epoch_gram_cuda(G, c, beta0, q0, L, penalty_cls, params,
                              epochs=epochs)
     cd_epoch_gram.launches += 1
+    return out
+
+
+def cd_epoch_gram_block(G, c, beta0, q0, L, penalty_cls, params, *,
+                        epochs=1):
+    """K1b: `epochs` cyclic block-CD epochs on the Gram subproblem of
+    multitask coefficients. G: [K, K] (any strides; column-major makes the
+    kernel's column reads contiguous); c, beta0, q0: contiguous [K, T];
+    L: [K]; a block penalty. Returns (beta, q)."""
+    check_block_kernel_penalty(penalty_cls)
+    on_card = _route("cd_epoch_gram_block", G=G, c=c, beta0=beta0, q0=q0,
+                     L=L)
+    K = G.shape[0]
+    if G.ndim != 2 or G.shape[1] != K:
+        raise ValueError(f"cd_epoch_gram_block: G must be [K, K], got "
+                         f"{tuple(G.shape)}")
+    if beta0.ndim != 2:
+        raise ValueError("cd_epoch_gram_block: beta0 must be [K, T], got "
+                         f"shape {tuple(beta0.shape)}")
+    _check_mat("cd_epoch_gram_block", K, beta0.shape[1], c=c, beta0=beta0,
+               q0=q0)
+    _check_vec("cd_epoch_gram_block", K, L=L)
+    if not on_card:
+        return cd_epoch_gram_plain(G, c, beta0, q0, L, penalty_cls, params,
+                                   epochs=epochs)
+    out = cd_epoch_gram_block_cuda(G, c, beta0, q0, L, penalty_cls, params,
+                                   epochs=epochs)
+    cd_epoch_gram_block.launches += 1
     return out
 
 
@@ -129,6 +176,42 @@ def fused_ws(Xt, r, beta, L, offset, gsupp, penalty_cls, params, ws_size, *,
     return out
 
 
+def fused_ws_block(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
+                   ws_size, *, use_fp=False, bp=None):
+    """K3b: the fused head of K3 on multitask blocks, over the
+    feature-major design Xt [p, n] (contiguous). R: contiguous [n, T];
+    beta: contiguous [p, T]; L, offset: [p]; gsupp: bool [p]; a block
+    penalty. Returns ``(scores [p], grad [p, T], cand_idx [C] int32,
+    cand_cols [C, n])``."""
+    check_block_kernel_penalty(penalty_cls)
+    on_card = _route("fused_ws_block", Xt=Xt, R=R, beta=beta, L=L,
+                     offset=offset)
+    if Xt.ndim != 2 or not Xt.is_contiguous():
+        raise ValueError("fused_ws_block: Xt must be a contiguous [p, n] "
+                         f"matrix, got shape {tuple(Xt.shape)}")
+    p, n = Xt.shape
+    if R.ndim != 2:
+        raise ValueError("fused_ws_block: R must be [n, T], got shape "
+                         f"{tuple(R.shape)}")
+    T = R.shape[1]
+    _check_mat("fused_ws_block", n, T, R=R)
+    _check_mat("fused_ws_block", p, T, beta=beta)
+    _check_vec("fused_ws_block", p, L=L, offset=offset, gsupp=gsupp)
+    if gsupp.dtype != torch.bool or gsupp.device != Xt.device:
+        raise TypeError("fused_ws_block: gsupp must be a bool mask on Xt's "
+                        "device")
+    if not 1 <= ws_size <= p:
+        raise ValueError(f"fused_ws_block: ws_size must be in [1, {p}], got "
+                         f"{ws_size}")
+    if not on_card:
+        return fused_ws_plain(Xt, R, beta, L, offset, gsupp, penalty_cls,
+                              params, ws_size, use_fp=use_fp, bp=bp)
+    out = fused_ws_block_cuda(Xt, R, beta, L, offset, gsupp, penalty_cls,
+                              params, ws_size, use_fp=use_fp, bp=bp)
+    fused_ws_block.launches += 1
+    return out
+
+
 def ws_score(Xt, r, beta, L, offset, penalty_cls, params, *, w=None,
              use_fp=False):
     """K4: violation scores of every feature from ``Xt @ (r * w) +
@@ -153,8 +236,9 @@ def ws_score(Xt, r, beta, L, offset, penalty_cls, params, *, w=None,
     return out
 
 
-def _check_csc(name, data, indices, col_ids, indptr, v):
-    """Check a CSC kernel call's arrays; True when it goes to the card."""
+def _check_csc(name, data, indices, col_ids, indptr, v, block=False):
+    """Check a CSC kernel call's arrays; True when it goes to the card.
+    `v` is a contiguous [n] vector, or with `block` an [n, T] matrix."""
     on_card = _route(name, data=data, v=v)
     for key, t, dtype in (("indices", indices, torch.int32),
                           ("col_ids", col_ids, torch.int32),
@@ -172,8 +256,9 @@ def _check_csc(name, data, indices, col_ids, indptr, v):
                          f" {col_ids.shape[0]}")
     if indptr.shape[0] < 1:
         raise ValueError(f"{name}: indptr must hold p + 1 entries")
-    if v.ndim != 1 or not v.is_contiguous():
-        raise ValueError(f"{name}: the [n] vector must be contiguous 1-D, "
+    want, what = (2, "[n, T] matrix") if block else (1, "[n] vector")
+    if v.ndim != want or not v.is_contiguous():
+        raise ValueError(f"{name}: the {what} must be contiguous {want}-D, "
                          f"got shape {tuple(v.shape)}")
     return on_card
 
@@ -202,8 +287,21 @@ def csc_weighted_col_sq(data, indices, col_ids, indptr, w):
     return out
 
 
+def csc_score_block(data, indices, col_ids, indptr, raw):
+    """K5b: ``X.T @ raw`` -> [p, T] over the same CSC arrays; raw:
+    contiguous [n, T]."""
+    on_card = _check_csc("csc_score_block", data, indices, col_ids, indptr,
+                         raw, block=True)
+    if not on_card:
+        return csc_score_plain(data, indices, col_ids, indptr, raw)
+    out = csc_score_block_cuda(data, indices, col_ids, indptr, raw)
+    csc_score_block.launches += 1
+    return out
+
+
 KERNELS = (cd_epoch_gram, cd_epoch_xb, fused_ws, ws_score, csc_score,
-           csc_weighted_col_sq)
+           csc_weighted_col_sq, cd_epoch_gram_block, fused_ws_block,
+           csc_score_block)
 
 
 def reset_launch_counts():

@@ -167,14 +167,16 @@ class CSCDesign:
                               self.indptr, self.max_col_nnz)
 
     def score(self, raw, use_kernels: bool = False):
-        """X.T @ raw without dense X; ``use_kernels`` runs K5 (raw [n])."""
+        """X.T @ raw without dense X; ``use_kernels`` runs K5 (raw [n]) or
+        K5b (raw [n, T], out [p, T])."""
         if use_kernels:
             if not self.has_ell:
                 # defensive twin of SolveEngine.validate's entry check
                 from ..core.engine import PALLAS_SPARSE_ELL_ERROR
                 raise NotImplementedError(PALLAS_SPARSE_ELL_ERROR)
-            return kops.csc_score(self.data, self.indices, self.col_ids,
-                                  self.indptr, raw)
+            kern = kops.csc_score_block if raw.ndim == 2 else kops.csc_score
+            return kern(self.data, self.indices, self.col_ids, self.indptr,
+                        raw)
         return csc_score(self.data, self.indices, self.col_ids, raw,
                          self.width)
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels K1-K5 on a card, against their plain versions.
+"""The port's CUDA kernels K1-K5 and their block forms K1b, K3b and K5b on
+a card, against their plain versions.
 
 Each ``gpu``-marked test launches one CUDA kernel (through the checked,
 counted wrapper of ``repro_torch.kernels.ops``) and its plain torch version
@@ -8,8 +9,9 @@ tests' (``tests/test_kernels.py``): 1e-12 absolute + 1e-5 relative for K1,
 within 1e-12 + 1e-10 relative, an identical working set and bit-exact
 gathered columns. K4's scores are held as K3's; K5 and K5s within
 1e-12 absolute + 1e-12 relative (the plain segment sum adds with atomics on
-the card, in another order than the kernel). Without a card they skip: the
-CUDA kernels have no CPU or interpret mode.
+the card, in another order than the kernel). The block forms are held as
+their scalar ones: K1b as K1, K3b as K3, K5b as K5. Without a card they
+skip: the CUDA kernels have no CPU or interpret mode.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed::
@@ -294,3 +296,144 @@ def test_sparse_estimators_on_card_default_route(cuda):
         assert counts["csc_score"] == len(ek.result_.kkt_history)
         assert counts[inner] > 0 and counts["fused_ws"] == 0
         np.testing.assert_allclose(ek.coef_, ep.coef_, atol=1e-6)
+
+
+BLOCK_PENALTIES = [P.BlockL1(0.11), P.BlockMCP(0.11, 3.0)]
+BLOCK_IDS = [type(p).__name__ for p in BLOCK_PENALTIES]
+
+
+def _gram_block_inputs(K, T, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((3 * K, K))
+    G = X.T @ X / (3 * K)
+    beta0 = rng.standard_normal((K, T)) * 0.1 * (rng.random((K, 1)) < 0.5)
+    c = X.T @ rng.standard_normal((3 * K, T)) / (3 * K)
+    G, c, beta0, q0, L = _on(dev, G, c, beta0, G @ beta0, np.diag(G))
+    return G.t().contiguous().t(), c, beta0, q0, L
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pen", BLOCK_PENALTIES, ids=BLOCK_IDS)
+@pytest.mark.parametrize("K,T", [(64, 5), (256, 20), (2048, 20), (40, 50)])
+def test_k1b_cuda_matches_plain(cuda, pen, K, T):
+    """K1b in shared memory (K * T values fit) and in global memory
+    (K = 2048, T = 20)."""
+    G, c, beta0, q0, L = _gram_block_inputs(K, T, cuda)
+    args = (G, c, beta0, q0, L, type(pen), penalty_params(pen))
+    for epochs in (1, 3):
+        n0 = ops.cd_epoch_gram_block.launches
+        bk, qk = ops.cd_epoch_gram_block(*args, epochs=epochs)
+        assert ops.cd_epoch_gram_block.launches == n0 + 1
+        br, qr = cd_epoch_gram_plain(*args, epochs=epochs)
+        torch.testing.assert_close(bk, br, atol=1e-12, rtol=1e-5)
+        torch.testing.assert_close(qk, qr, atol=1e-12, rtol=1e-5)
+        assert torch.any(bk != beta0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pen", BLOCK_PENALTIES, ids=BLOCK_IDS)
+@pytest.mark.parametrize("use_fp", [False, True], ids=["sd", "fp"])
+@pytest.mark.parametrize("n,p,T", [(500, 5000, 20), (301, 777, 3),
+                                   (200, 1500, 70)])
+def test_k3b_cuda_matches_plain(cuda, pen, use_fp, n, p, T):
+    rng = np.random.default_rng(6)
+    X = rng.standard_normal((n, p))
+    beta = rng.standard_normal((p, T)) * (rng.random((p, 1)) < 0.3)
+    Xt, R, beta, L, off = _on(cuda, X.T, rng.standard_normal((n, T)), beta,
+                              np.sum(X * X, axis=0) / n,
+                              rng.standard_normal(p) * 0.01)
+    gs = pen.generalized_support(beta)
+    for ws in (64, 512):
+        args = (Xt, R, beta, L, off, gs, type(pen), penalty_params(pen),
+                min(ws, p))
+        n0 = ops.fused_ws_block.launches
+        sk, gk, ik, ck = ops.fused_ws_block(*args, use_fp=use_fp)
+        assert ops.fused_ws_block.launches == n0 + 1
+        sr, gr, _, _ = fused_ws_plain(*args, use_fp=use_fp)
+        torch.testing.assert_close(sk, sr, atol=1e-12, rtol=1e-11)
+        torch.testing.assert_close(gk, gr, atol=1e-12, rtol=1e-10)
+        ws_k = select_working_set(sk, gs, min(ws, p))
+        assert torch.equal(ws_k, select_working_set(sr, gs, min(ws, p)))
+        assert torch.equal(candidate_columns(ik, ck, ws_k, p), Xt[ws_k].T)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [3, 20, 50])
+def test_k5b_cuda_matches_plain(cuda, T):
+    from repro_torch.sparse import CSCDesign
+    rng = np.random.default_rng(7)
+    for X in _sparse_cases():
+        d = CSCDesign.from_scipy(X, ell=True, device=cuda)
+        (raw,) = _on(cuda, rng.standard_normal((X.shape[0], T)))
+        args = (d.data, d.indices, d.col_ids, d.indptr)
+        n0 = ops.csc_score_block.launches
+        got = ops.csc_score_block(*args, raw)
+        assert ops.csc_score_block.launches == n0 + 1
+        torch.testing.assert_close(got, csc_score_plain(*args, raw),
+                                   atol=1e-12, rtol=1e-12)
+        assert torch.equal(got, ops.csc_score_block(*args, raw))
+        torch.testing.assert_close(got, torch.as_tensor(
+            X.T @ raw.cpu().numpy(), device=cuda), atol=1e-12, rtol=1e-12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "csc"])
+def test_multitask_solve_on_card_uses_block_kernels(cuda, sparse):
+    """A small multitask Lasso on the card: the kernel route runs K3b
+    (dense) or K5b (CSC) on every outer head and K1b inside, never the
+    scalar K1/K3/K5, and agrees with the plain route to 1e-6."""
+    from repro_torch.core import (BlockL1, MultitaskQuadratic, lambda_max,
+                                  solve)
+    from repro_torch.data import make_multitask
+    from repro_torch.sparse import CSCDesign
+    X, Y, _ = make_multitask(n=300, p=1200, n_tasks=8, n_nonzero=20)
+    if sparse:
+        import scipy.sparse as sp
+        X = sp.csc_matrix(X * (np.random.default_rng(0).random(X.shape)
+                               < 0.2))
+        X = CSCDesign.from_scipy(X, ell=True, device=cuda)
+    lam = lambda_max(X, Y, MultitaskQuadratic(), device=cuda) / 10
+    ops.reset_launch_counts()
+    res_k = solve(X, Y, MultitaskQuadratic(), BlockL1(lam), tol=1e-8)
+    counts = ops.launch_counts()
+    res_p = solve(X, Y, MultitaskQuadratic(), BlockL1(lam), tol=1e-8,
+                  use_kernels=False)
+    head = "csc_score_block" if sparse else "fused_ws_block"
+    assert counts[head] == len(res_k.kkt_history)
+    assert counts["cd_epoch_gram_block"] == res_k.n_epochs > 0
+    assert counts["cd_epoch_gram"] == counts["fused_ws"] == \
+        counts["csc_score"] == 0
+    assert res_k.converged and res_p.converged
+    assert res_k.beta.shape == (1200, 8)
+    torch.testing.assert_close(res_k.beta, res_p.beta, atol=1e-6, rtol=0)
+
+
+@pytest.mark.gpu
+def test_multitask_estimators_on_card_default_route(cuda):
+    """MultiTaskLasso and MultiTaskMCP with their default arguments fit and
+    predict on the card, on a dense and on a scipy sparse X: the kernel
+    route runs K3b or K5b on every head and K1b on every epoch, and each
+    fit agrees with the plain route."""
+    import scipy.sparse as sp
+    from repro_torch.core import (MultiTaskLasso, MultiTaskMCP,
+                                  MultitaskQuadratic, lambda_max)
+    from repro_torch.data import make_multitask
+    X, Y, _ = make_multitask(n=300, p=1200, n_tasks=8, n_nonzero=20)
+    Xs = sp.csr_matrix(X * (np.random.default_rng(0).random(X.shape)
+                            < 0.2))
+    for Xin, head in ((X, "fused_ws_block"), (Xs, "csc_score_block")):
+        lam = lambda_max(Xin, Y, MultitaskQuadratic(), device=cuda) / 10
+        for make in (lambda **k: MultiTaskLasso(alpha=lam, **k),
+                     lambda **k: MultiTaskMCP(alpha=lam, gamma=3.0, **k)):
+            ops.reset_launch_counts()
+            ek = make().fit(Xin, Y)
+            counts = ops.launch_counts()
+            ep = make(use_kernels=False).fit(Xin, Y)
+            assert ek.converged_ and ep.converged_
+            assert counts[head] == len(ek.result_.kkt_history)
+            assert counts["cd_epoch_gram_block"] == ek.result_.n_epochs
+            assert ek.coef_.shape == (1200, 8)
+            np.testing.assert_allclose(ek.coef_, ep.coef_, atol=1e-6)
+            pred = ek.predict(Xin)
+            assert pred.shape == (300, 8)
+            np.testing.assert_allclose(pred, ep.predict(Xin), atol=1e-5)

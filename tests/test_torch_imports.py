@@ -31,7 +31,12 @@ def _imported_modules(path):
 def test_port_files_exist():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "solver.py", "ops.py", "matrix.py",
-            "csc_score.py", "ws_score.py", "chip_smoke.py"} <= names
+            "csc_score.py", "ws_score.py", "fused_ws.py", "cd_epoch.py",
+            "penalties.py", "datafits.py", "synth.py", "convert.py",
+            "chip_smoke.py"} <= names
+    csrc = ROOT / "src" / "repro_torch" / "csrc"
+    assert {"prox.cuh", "cd_epoch.cu", "fused_ws.cu", "csc_score.cu"} <= \
+        {p.name for p in csrc.iterdir()}
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -48,8 +53,15 @@ def _entry_points():
     from repro_torch.sparse import CSCDesign
     X = np.random.default_rng(0).standard_normal((20, 10))
     y = X[:, 0]
+    Y = X[:, :3]
     Xs = sp.random(20, 10, density=0.3, random_state=0, format="csc")
     return {
+        "multitask solve": lambda: tc.solve(X, Y, tc.MultitaskQuadratic(),
+                                            tc.BlockL1(0.1)),
+        "multitask lambda_max": lambda: tc.lambda_max(
+            Xs, Y, tc.MultitaskQuadratic()),
+        "multitask_mcp": lambda: tc.multitask_mcp(Xs, Y, 0.1),
+        "MultiTaskLasso.fit": lambda: tc.MultiTaskLasso(alpha=0.1).fit(X, Y),
         "CSCDesign.from_scipy": lambda: CSCDesign.from_scipy(Xs),
         "sparse solve": lambda: tc.solve(Xs, y, tc.Quadratic(), tc.L1(0.1)),
         "sparse lambda_max": lambda: tc.lambda_max(Xs, y),
@@ -64,7 +76,9 @@ def _entry_points():
 @pytest.mark.parametrize("name", ["solve", "make_engine", "lambda_max",
                                   "Lasso.fit", "LinearSVC.fit",
                                   "CSCDesign.from_scipy", "sparse solve",
-                                  "sparse lambda_max"])
+                                  "sparse lambda_max", "multitask solve",
+                                  "multitask lambda_max", "multitask_mcp",
+                                  "MultiTaskLasso.fit"])
 def test_default_device_is_cuda_and_raises_without_card(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device runs")

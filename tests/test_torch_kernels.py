@@ -210,6 +210,13 @@ def test_cpu_route_launches_nothing():
     G, c, beta0, q0, L = map(_t, _gram_inputs(8))
     from repro_torch.core.penalties import L1
     ops.cd_epoch_gram(G, c, beta0, q0, L, L1, penalty_params(L1(0.1)))
+    from repro_torch.core.penalties import BlockL1
+    B = torch.stack([beta0, beta0], 1)
+    ops.cd_epoch_gram_block(G, B, B, B, L, BlockL1,
+                            penalty_params(BlockL1(0.1)))
     assert ops.launch_counts() == {"cd_epoch_gram": 0, "cd_epoch_xb": 0,
                                    "fused_ws": 0, "ws_score": 0,
-                                   "csc_score": 0, "csc_weighted_col_sq": 0}
+                                   "csc_score": 0, "csc_weighted_col_sq": 0,
+                                   "cd_epoch_gram_block": 0,
+                                   "fused_ws_block": 0,
+                                   "csc_score_block": 0}

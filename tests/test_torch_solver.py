@@ -186,7 +186,7 @@ def test_jax_warm_start_converges_at_first_outer(use_kernels):
 
 def test_entry_rejections():
     X, y = _data(False)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match="need a block penalty"):
         tc.solve(X, np.stack([y, y], 1), tc.Quadratic(), tc.L1(0.1),
                  device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
