@@ -12,8 +12,11 @@ Phases, each of which must pass (any failure exits non-zero):
    (``fused_ws``) and K4 (``ws_score``) on the card against their plain
    torch versions on the same inputs, at main-path shapes, float64.
    Tolerances are those of the reference's kernel tests: |err| <=
-   1e-12 + 1e-5 |ref| for K1, 1e-11 + 1e-8 |ref| for K2 (also at
-   n = 50,000, its global-memory branch), 1e-12 + 1e-11 |ref| (scores) and
+   1e-12 + 1e-5 |ref| for K1, 1e-11 + 1e-8 |ref| for K2 (at n = 10,000,
+   at the sparse fits' n = 50,000 with K = 512 and the deep fit's 4096, at
+   n = 1000 and at n = 160,003, where the slices leave shared memory: each
+   branch of its plan, each launched twice and equal bit for bit),
+   1e-12 + 1e-11 |ref| (scores) and
    1e-12 + 1e-10 |ref| (grad) for K3, whose working set must be identical
    and whose gathered columns must be bit-exact, and the K3 score bound for
    K4 (7 penalties x fixed-point x weights).
@@ -35,13 +38,16 @@ Phases, each of which must pass (any failure exits non-zero):
    lambda_max/30 (working sets of 2048 and 4096 columns), and a LinearSVC
    on a scipy sparse X (label-signed Z^T converted by the estimator): the
    kernel route must launch K5 on every outer head, K5s once in each
-   weighted fit, K1 (Lasso, SVC) or K2 (logistic), and never K3.
+   weighted fit, K1 (Lasso, SVC) or K2 (logistic, on a cluster), and never
+   K3.
 6. block kernels: K3b (``fused_ws_block``) over BlockL1 and BlockMCP x
    fixed-point at n = 10,000, p = 20,000, T = 20, ws = 512 (scores within
    1e-12 + 1e-12 |ref|, gradient within 1e-12 + 1e-10 |ref|, identical
    working set, bit-exact columns), K1b (``cd_epoch_gram_block``) at
-   K = 256 (state in shared memory) and K = 2048 (global memory), T = 20,
-   within the K1 bound, and K5b (``csc_score_block``) on the full-size
+   (K, T) = (64, 50), (256, 20), (2049, 1), (2048, 20), (4096, 20) and
+   (2048, 240) (one CTA, a cluster with q's rows in shared memory and in
+   global memory), within the K1 bound and twice, bit for bit, and K5b
+   (``csc_score_block``) on the full-size
    sparse design and the small one with raw [n, 20], within the K5 bound and
    deterministic; all against their plain versions.
 7. multitask path, each fit on both routes with the checks of phase 4:
@@ -56,11 +62,16 @@ Phases, each of which must pass (any failure exits non-zero):
    full-size sparse design with Y = X W + noise, T = 20 (working set
    >= 1024), unweighted and with weights in [0.5, 1.5]. The kernel route
    must launch K3b (dense) or K5b (sparse) on every outer head, K1b on
-   every Gram epoch, K5s once per weighted fit, and no scalar K1/K3/K5.
+   every Gram epoch (on a cluster in the sparse fits), K5s once per
+   weighted fit, and no scalar K1/K3/K5.
 8. times: each kernel at main-path shapes (CUDA events, warm), its plain
    version, its bound (bytes over 3.35 TB/s or operations over 67 TF/s
    float64, the larger) and, where one PyTorch call computes the same
-   function (or a part of it), that call's time.
+   function (or a part of it), that call's time. K2 has rows at
+   (K, n) = (512, 10,000), (512, 50,000) and (4096, 50,000), K1b at
+   K = 1024, 2048 and 4096 (T = 20), each with its plan's branch, cluster
+   size, launches by branch, and chain floor (K cluster-barrier round
+   trips on its cluster, measured by a launch of barriers alone).
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -81,7 +92,10 @@ TOL = 1e-6
 PENALTY_SPECS = [("L1", (0.11,)), ("L1L2", (0.11, 0.6)), ("MCP", (0.11, 3.0)),
                  ("SCAD", (0.11, 3.7)), ("L05", (0.05,)), ("L23", (0.05,)),
                  ("Box", (0.8,))]
-FULL = dict(k1_sizes=(256, 1024), k2_K=512, k2_n=10_000, k2_big_n=50_000,
+FULL = dict(k1_sizes=(256, 1024), k2_K=512, k2_n=10_000,
+            k2_big=((512, 50_000), (4096, 50_000), (512, 1000),
+                    (128, 160_003)),
+            k2_time=((512, 50_000), (4096, 50_000)),
             k3_n=10_000, k3_p=20_000, k3_ws=(64, 1024), reg_n=10_000,
             reg_p=20_000, reg_nnz=150, svc_n=2000, svc_p=1000, svc_nnz=100,
             sparse=dict(n=50_000, p=200_000, density=1e-3, n_nonzero=200,
@@ -89,7 +103,9 @@ FULL = dict(k1_sizes=(256, 1024), k2_K=512, k2_n=10_000, k2_big_n=50_000,
             sparse_small=dict(n=2000, p=8000, density=5e-3, n_nonzero=40,
                               seed=1),
             sparse_lam=((10, 3), (300, 30)),  # lambda_max / (Lasso, logistic)
-            k3b=dict(n=10_000, p=20_000, T=20, ws=512), k1b_sizes=(256, 2048),
+            k3b=dict(n=10_000, p=20_000, T=20, ws=512),
+            k1b_shapes=((64, 50), (256, 20), (2049, 1), (2048, 20),
+                        (4096, 20), (2048, 240)),
             k1b_T=20, k1b_time_K=(1024, 2048, 4096), k5b_T=20,
             meeg=dict(n=305, p_per_hemi=3749, T=50, seed=0), meeg_frac=10,
             mt_dense=dict(n=10_000, p=20_000, n_tasks=20, n_nonzero=150,
@@ -199,6 +215,35 @@ def fused_inputs(n, p, dev, seed, ties=False):
 
 
 # ----------------------------------------------------------- kernel checks
+def check_epoch(name, tag, args, kw, plain, atol, rtol, errs, fails):
+    """K2 or K1b (`name`, the ops wrapper) against its plain version, and
+    a second launch bit for bit equal to the first (a race between the
+    CTAs of a cluster would show as a difference). On the card the launch
+    must count on the branch its shape's plan names. Returns (the kernel's
+    output, the branch)."""
+    import torch
+    from repro_torch.kernels import ops
+    fn = getattr(ops, name)
+    before = ops.branch_counts()[name]
+    out = fn(*args, **kw)
+    again = fn(*args, **kw)
+    after = ops.branch_counts()[name]
+    moved = {b for b in after if after[b] != before[b]}
+    branch = moved.pop() if len(moved) == 1 else "cpu"
+    same = all(torch.equal(a, b) for a, b in zip(out, again))
+    ref = plain(*args, **kw)
+    err = 0.0
+    ok = same and (branch != "cpu" or out[0].device.type == "cpu")
+    for a, b in zip(out, ref):
+        ok_i, e = close(a, b, atol, rtol)
+        ok, err = ok and ok_i, max(err, e)
+    errs[name] = max(errs[name], err)
+    if not ok:
+        fails.append(f"{tag} err={err:.3e} repeat_equal={same} "
+                     f"branch={branch}")
+    return out, branch
+
+
 def check_kernels(dev, cfg):
     import torch
     from repro_torch.kernels import ops
@@ -212,6 +257,7 @@ def check_kernels(dev, cfg):
     errs, fails = {"cd_epoch_gram": 0.0, "cd_epoch_xb": 0.0,
                    "fused_ws": 0.0}, []
 
+    t = time.perf_counter()
     for K in cfg["k1_sizes"]:
         G, c, beta0, q0, L = gram_inputs(K, dev, seed=K)
         for pen in penalties():
@@ -226,6 +272,9 @@ def check_kernels(dev, cfg):
                         fails.append(f"K1 K={K} {type(pen).__name__} "
                                      f"epochs={epochs} err={e:.3e}")
 
+    log(f"  K1 checks: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
     K, n = cfg["k2_K"], cfg["k2_n"]
     for kind, pens in (("quadratic", (L1(0.07), MCP(0.07, 3.0))),
                        ("logistic", (L1(0.07), MCP(0.07, 3.0))),
@@ -235,16 +284,14 @@ def check_kernels(dev, cfg):
             for wt in ((None,) if kind == "svc" else (None, w)):
                 args = (Xt, y, beta0, Xb0, L, off, type(pen),
                         penalty_params(pen), kind)
-                bk, xk = ops.cd_epoch_xb(*args, w=wt, epochs=2)
-                br, xr = cd_epoch_xb_plain(*args, w=wt, epochs=2)
-                for a, b in ((bk, br), (xk, xr)):
-                    ok, e = close(a, b, 1e-11, 1e-8)
-                    errs["cd_epoch_xb"] = max(errs["cd_epoch_xb"], e)
-                    if not ok:
-                        fails.append(f"K2 {kind} {type(pen).__name__} "
-                                     f"w={wt is not None} err={e:.3e}")
+                check_epoch("cd_epoch_xb", f"K2 {kind} {type(pen).__name__}"
+                            f" w={wt is not None}", args,
+                            dict(w=wt, epochs=2), cd_epoch_xb_plain, 1e-11,
+                            1e-8, errs, fails)
         del Xt
+    log(f"  K2 checks at n={n}: {time.perf_counter() - t:.1f} s")
 
+    t = time.perf_counter()
     n, p = cfg["k3_n"], cfg["k3_p"]
     for ties in (False, True):
         Xt, r, beta, L, off = fused_inputs(n, p, dev, seed=3, ties=ties)
@@ -281,12 +328,15 @@ def check_kernels(dev, cfg):
             torch.cuda.empty_cache()
     if dev.type == "cuda":
         torch.cuda.synchronize()
+    log(f"  K3 checks: {time.perf_counter() - t:.1f} s")
     return errs, fails
 
 
 def check_k2_big_and_k4(dev, cfg, errs):
-    """K2 at n = 50,000 (its global-memory branch) and K4 against their
-    plain versions; updates `errs`, returns the failures."""
+    """K2 at the sparse fits' n = 50,000 (K = 512 and the deep fit's
+    K = 4096), at n = 1000 and past the cluster's shared memory
+    (n = 160,003), weighted and not, and K4 against their plain versions;
+    updates `errs`, returns the failures."""
     import torch
     from repro_torch.core.penalties import L1
     from repro_torch.kernels import ops
@@ -296,23 +346,23 @@ def check_k2_big_and_k4(dev, cfg, errs):
     fails = []
     errs.update(ws_score=0.0)
 
-    K, n = cfg["k2_K"], cfg["k2_big_n"]
-    Xt, y, w, beta0, Xb0, L, off = xb_inputs(K, n, "logistic", dev, seed=9)
-    args = (Xt, y, beta0, Xb0, L, off, L1, penalty_params(L1(0.002)),
-            "logistic")
-    for wt in (None, w):
-        bk, xk = ops.cd_epoch_xb(*args, w=wt, epochs=2)
-        br, xr = cd_epoch_xb_plain(*args, w=wt, epochs=2)
-        moved = int(torch.sum(bk != beta0))
-        for a, b in ((bk, br), (xk, xr)):
-            ok, e = close(a, b, 1e-11, 1e-8)
-            errs["cd_epoch_xb"] = max(errs["cd_epoch_xb"], e)
-            if not ok:
-                fails.append(f"K2 n={n} logistic w={wt is not None} "
-                             f"err={e:.3e}")
-        log(f"  K2 at K={K}, n={n}, w={wt is not None}: {moved} "
-            f"coordinates moved")
-    del Xt
+    for K, n in cfg["k2_big"]:
+        t = time.perf_counter()
+        Xt, y, w, beta0, Xb0, L, off = xb_inputs(K, n, "logistic", dev,
+                                                 seed=9)
+        args = (Xt, y, beta0, Xb0, L, off, L1, penalty_params(L1(0.002)),
+                "logistic")
+        for wt in (None, w):
+            (bk, _), branch = check_epoch(
+                "cd_epoch_xb", f"K2 K={K} n={n} logistic w={wt is not None}",
+                args, dict(w=wt, epochs=2), cd_epoch_xb_plain, 1e-11, 1e-8,
+                errs, fails)
+            log(f"  K2 at K={K}, n={n}, w={wt is not None}: "
+                f"{int(torch.sum(bk != beta0))} coordinates moved, branch "
+                f"{branch} ({time.perf_counter() - t:.1f} s with the inputs)")
+        del Xt, args
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
 
     n, p = cfg["k3_n"], cfg["k3_p"]
     Xt, r, beta, L, off = fused_inputs(n, p, dev, seed=5)
@@ -374,6 +424,20 @@ def check_k5(dev, designs, errs):
 
 
 # --------------------------------------------------------------- main path
+def all_counts():
+    """The launch counts of every kernel, and those of K2 and K1b by branch
+    under "<kernel>/<branch>"."""
+    from repro_torch.kernels import ops
+    counts = ops.launch_counts()
+    for k, per in ops.branch_counts().items():
+        counts.update({f"{k}/{b}": v for b, v in per.items()})
+    return counts
+
+
+def cluster_launches(counts, kernel):
+    return counts[kernel] - counts[f"{kernel}/single"]
+
+
 def _fit(make, design, y, dev, kernels, sample_weight=None):
     import torch
     from repro_torch.kernels import ops
@@ -388,7 +452,7 @@ def _fit(make, design, y, dev, kernels, sample_weight=None):
     if dev.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    counts = ops.launch_counts()
+    counts = all_counts()
     res = est.result_
     peak = torch.cuda.max_memory_allocated() / 2**30 \
         if dev.type == "cuda" else float("nan")
@@ -397,19 +461,21 @@ def _fit(make, design, y, dev, kernels, sample_weight=None):
         f"{res.n_outer}, epochs {res.n_epochs}, ws {res.ws_history}, "
         f"host syncs "
         f"{res.n_host_syncs} ({res.n_host_syncs / max(1, len(res.kkt_history)):.1f} "
-        f"per outer), peak mem {peak:.2f} GiB, launches {counts}")
+        f"per outer), peak mem {peak:.2f} GiB, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
     return est, counts
 
 
 def fit_both(label, make, design, y, dev, total, fails, needs, *,
              sample_weight=None, exact=None, per_head=None, per_epoch=None,
-             min_ws=None):
+             min_ws=None, cluster=None):
     """One fit on the kernel route and on the plain route. Fails unless
     both converge, the coefficients agree to TOL, each kernel in `needs`
     launched, each in `exact` launched exactly that often, `per_head`
     launched at least once per outer head, `per_epoch` launched once per
-    inner epoch, and (with `min_ws`) the working set reached `min_ws`.
-    Adds the kernel route's launch counts to `total`."""
+    inner epoch, (with `min_ws`) the working set reached `min_ws`, and
+    (with `cluster`) that kernel launched on a cluster branch. Adds the
+    kernel route's launch counts to `total`."""
     import numpy as np
     log(f"fit {label}")
     ek, counts = _fit(make, design, y, dev, True, sample_weight)
@@ -426,13 +492,15 @@ def fit_both(label, make, design, y, dev, total, fails, needs, *,
           and (per_head is None or counts[per_head] >= heads)
           and (per_epoch is None
                or counts[per_epoch] == ek.result_.n_epochs)
-          and (min_ws is None or ws_max >= min_ws))
+          and (min_ws is None or ws_max >= min_ws)
+          and (cluster is None or cluster_launches(counts, cluster) > 0))
     log(f"  max |coef kernels - coef plain| = {diff:.3e}, "
         f"nnz {int(np.sum(ek.coef_ != 0))}, outer heads {heads}, ok {ok}")
     if not ok:
         fails.append(f"{label}: converged {ek.converged_}/"
                      f"{ep.converged_}, diff {diff:.3e}, heads {heads}, "
-                     f"max ws {ws_max}, launches {counts}")
+                     f"max ws {ws_max}, launches "
+                     f"{ {k: v for k, v in counts.items() if v} }")
     return ek
 
 
@@ -445,8 +513,7 @@ def main_path(dev, cfg):
     from repro_torch.core.api import lasso_gap
     from repro_torch.core.engine import DenseDesign
     from repro_torch.data import make_classification, make_correlated_design
-    from repro_torch.kernels import ops
-    total = dict.fromkeys(ops.launch_counts(), 0)
+    total = dict.fromkeys(all_counts(), 0)
     fails = []
 
     def run(label, make, design, y, needs):
@@ -534,8 +601,7 @@ def sparse_path(dev, cfg, d, y):
     from repro_torch.core import (Lasso, LinearSVC, Logistic,
                                   SparseLogisticRegression, lambda_max)
     from repro_torch.data import make_sparse_design
-    from repro_torch.kernels import ops
-    total = dict.fromkeys(ops.launch_counts(), 0)
+    total = dict.fromkeys(all_counts(), 0)
     fails = []
     # which columns set lambda_max (plain score, not counted)
     corr = torch.abs(d.score(torch.as_tensor(y, device=dev))) / d.n_rows
@@ -561,7 +627,7 @@ def sparse_path(dev, cfg, d, y):
                  d, ys, dev, total, fails, ("csc_score", "cd_epoch_xb"),
                  sample_weight=w,
                  exact={"fused_ws": 0, "csc_weighted_col_sq": 1},
-                 per_head="csc_score")
+                 per_head="csc_score", cluster="cd_epoch_xb")
     Xs, ysvc, _ = make_sparse_design(**cfg["sparse_small"])
     fit_both(f"sparse LinearSVC(C=1) on scipy X {Xs.shape}",
              lambda **k: LinearSVC(C=1.0, max_outer=100, **k), Xs,
@@ -647,25 +713,22 @@ def check_block_kernels(dev, cfg, errs, designs):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    for K in cfg["k1b_sizes"]:
-        G, cc, beta0, q0, L = gram_block_inputs(K, cfg["k1b_T"], dev, seed=K)
+    for K, T in cfg["k1b_shapes"]:
+        t = time.perf_counter()
+        G, cc, beta0, q0, L = gram_block_inputs(K, T, dev, seed=K)
         for pen in block_pens():
             for epochs in (1, 3):
                 args = (G, cc, beta0, q0, L, type(pen), penalty_params(pen))
-                bk, qk = ops.cd_epoch_gram_block(*args, epochs=epochs)
-                br, qr = cd_epoch_gram_plain(*args, epochs=epochs)
+                tag = f"K1b K={K} T={T} {type(pen).__name__} epochs={epochs}"
+                (bk, _), branch = check_epoch(
+                    "cd_epoch_gram_block", tag, args, dict(epochs=epochs),
+                    cd_epoch_gram_plain, 1e-12, 1e-5, errs, fails)
                 moved = int(torch.sum(torch.any(bk != beta0, dim=1)))
-                for a, b in ((bk, br), (qk, qr)):
-                    ok, e = close(a, b, 1e-12, 1e-5)
-                    errs["cd_epoch_gram_block"] = max(
-                        errs["cd_epoch_gram_block"], e)
-                    if not ok or moved == 0:
-                        fails.append(f"K1b K={K} {type(pen).__name__} "
-                                     f"epochs={epochs} err={e:.3e} "
-                                     f"moved={moved}")
-        log(f"  K1b at K={K}, T={cfg['k1b_T']}: state in "
-            f"{'shared' if K * cfg['k1b_T'] * 8 <= 225 * 1024 else 'global'}"
-            f" memory")
+                if moved == 0:
+                    fails.append(f"{tag} moved no row")
+        log(f"  K1b at K={K}, T={T}: branch {branch} "
+            f"({time.perf_counter() - t:.1f} s)")
+        del G
 
     for label, d in designs:
         g = torch.Generator(device=dev).manual_seed(17)
@@ -693,8 +756,7 @@ def multitask_path(dev, cfg, X_sparse, beta_true):
                                   MultitaskQuadratic, lambda_max)
     from repro_torch.core.engine import DenseDesign
     from repro_torch.data import make_leadfield, make_multitask
-    from repro_torch.kernels import ops
-    total = dict.fromkeys(ops.launch_counts(), 0)
+    total = dict.fromkeys(all_counts(), 0)
     fails = []
     scalar0 = {"cd_epoch_gram": 0, "cd_epoch_xb": 0, "fused_ws": 0,
                "csc_score": 0}
@@ -778,17 +840,69 @@ def multitask_path(dev, cfg, X_sparse, beta_true):
                  exact=dict(scalar0, fused_ws_block=0,
                             csc_weighted_col_sq=0 if sw is None else 1),
                  per_head="csc_score_block", per_epoch="cd_epoch_gram_block",
-                 min_ws=cfg["mt_sparse_min_ws"])
+                 min_ws=cfg["mt_sparse_min_ws"], cluster="cd_epoch_gram_block")
     return total, fails
 
 
 # ------------------------------------------------------------------- times
+_FLOOR_US = {}
+
+
+def plan_fields(dev, name, plan, K, launches):
+    """A K2 or K1b row's branch, cluster size, threads, main-path launches
+    by branch, and chain floor: K cluster-barrier round trips (one epoch;
+    measured once per cluster size and thread count; none for one CTA)."""
+    from repro_torch.kernels.cd_epoch import BRANCHES
+    floor = None
+    if plan.cluster > 1 and dev.type == "cuda":
+        key = (plan.cluster, plan.threads)
+        if key not in _FLOOR_US:
+            _FLOOR_US[key] = chain_floor_us(dev, *key, 10_000)
+        floor = _FLOOR_US[key] * K / 1e3
+    return dict(branch=plan.branch, cluster=plan.cluster,
+                threads=plan.threads, chain_floor_ms=floor,
+                launches_by_branch={b: launches[f"{name}/{b}"]
+                                    for b in BRANCHES})
+
+
+def xb_row(dev, K, n, weighted, lam, seed, launches, errs, reps):
+    """K2's row at (K, n): logistic, 1 epoch, L1(lam); bound: X_ws, y,
+    (w), Xb0 read and Xb written once; 2 K n operations for the dot
+    products and 4 n per moved coordinate (axpy and raw update)."""
+    import torch
+    from repro_torch.core.penalties import L1
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cd_epoch import cd_epoch_xb_plain, xb_plan
+    from repro_torch.kernels.common import penalty_params
+    Xt, y, w, beta0, Xb0, L, off = xb_inputs(K, n, "logistic", dev,
+                                             seed=seed)
+    wt = w if weighted else None
+    args = (Xt, y, beta0, Xb0, L, off, L1, penalty_params(L1(lam)),
+            "logistic")
+    ms = time_ms(lambda: ops.cd_epoch_xb(*args, w=wt), dev, reps)
+    plain = time_ms(lambda: cd_epoch_xb_plain(*args, w=wt), dev, 1)
+    moved = int(torch.sum(ops.cd_epoch_xb(*args, w=wt)[0] != beta0))
+    b = bound(8 * (K * n + (4 if weighted else 3) * n + 5 * K),
+              2 * K * n + 4 * moved * n)
+    plan = xb_plan(n, weighted, torch.float64)
+    return dict(name="cd_epoch_xb", route="cuda",
+                source="src/repro_torch/csrc/cd_epoch.cu",
+                replaces="src/repro/kernels/cd_epoch.py:128",
+                launches=launches["cd_epoch_xb"],
+                max_abs_err=errs["cd_epoch_xb"], ms=ms, plain_ms=plain,
+                bound_ms=b[0], bound_by=b[1], library_ms=None,
+                library_call="none: no single call",
+                shape=f"K={K}, n={n}, logistic, "
+                      f"{'weighted, ' if weighted else ''}epochs=1, "
+                      f"L1({lam}), {moved} coordinates moved",
+                **plan_fields(dev, "cd_epoch_xb", plan, K, launches))
+
+
 def kernel_times(dev, cfg, launches, errs, card, sparse_design):
     import torch
     from repro_torch.core.penalties import L1
     from repro_torch.kernels import ops
-    from repro_torch.kernels.cd_epoch import (cd_epoch_gram_plain,
-                                              cd_epoch_xb_plain)
+    from repro_torch.kernels.cd_epoch import cd_epoch_gram_plain
     from repro_torch.kernels.common import penalty_params
     from repro_torch.kernels.fused_ws import fused_ws_plain, pick_bp
     reps = cfg["reps"]
@@ -813,24 +927,8 @@ def kernel_times(dev, cfg, launches, errs, card, sparse_design):
                      shape=f"K={K}, epochs=1, L1, {moved} coordinates moved"))
     del G
 
-    K, n = cfg["k2_K"], cfg["k2_n"]
-    Xt, y, _, beta0, Xb0, L, off = xb_inputs(K, n, "logistic", dev, seed=7)
-    args = (Xt, y, beta0, Xb0, L, off, L1, penalty_params(L1(0.07)),
-            "logistic")
-    ms = time_ms(lambda: ops.cd_epoch_xb(*args), dev, reps)
-    plain = time_ms(lambda: cd_epoch_xb_plain(*args), dev, 1)
-    moved = int(torch.sum(ops.cd_epoch_xb(*args)[0] != beta0))
-    b = bound(8 * (K * n + 3 * n + 5 * K), K * n * 8 + moved * 2 * n)
-    rows.append(dict(name="cd_epoch_xb", route="cuda",
-                     source="src/repro_torch/csrc/cd_epoch.cu",
-                     replaces="src/repro/kernels/cd_epoch.py:128",
-                     launches=launches["cd_epoch_xb"],
-                     max_abs_err=errs["cd_epoch_xb"], ms=ms,
-                     plain_ms=plain, bound_ms=b[0], bound_by=b[1],
-                     library_ms=None,
-                     shape=f"K={K}, n={n}, logistic, epochs=1, L1, "
-                           f"{moved} coordinates moved"))
-    del Xt
+    rows.append(xb_row(dev, cfg["k2_K"], cfg["k2_n"], False, 0.07, 7,
+                       launches, errs, reps))
 
     n, p = cfg["k3_n"], cfg["k3_p"]
     Xt, r, beta, L, off = fused_inputs(n, p, dev, seed=3)
@@ -856,39 +954,42 @@ def kernel_times(dev, cfg, launches, errs, card, sparse_design):
         else:
             log(f"K3 at ws={ws_size}: {json.dumps(row)}")
     rows += sparse_times(dev, cfg, launches, errs, sparse_design)
-    for row in rows:
-        log(f"time {row['name']} [{row['shape']}] on {card}: kernel "
-            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library "
-            f"{row['library_ms']}")
-    log("K1 and K2 are bound by the chain of dependent coordinate steps "
-        "(one barrier-separated prox per coordinate), not by bytes: their "
-        "bound_ms is the byte/operation floor only.")
+    log_rows(rows, card)
+    log("K1, K1b and K2 are bound by the chain of dependent coordinate "
+        "steps (one barrier-separated prox per coordinate), not by bytes: "
+        "their bound_ms is the byte/operation floor only; chain_floor_ms is "
+        "K cluster-barrier round trips on the row's cluster.")
     return rows
 
 
+def log_rows(rows, card):
+    for row in rows:
+        extra = "" if "branch" not in row else (
+            f", branch {row['branch']} (C={row['cluster']}), chain floor "
+            f"{row['chain_floor_ms']} ms")
+        log(f"time {row['name']} [{row['shape']}] on {card}: kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}){extra}, library "
+            f"{row['library_ms']}")
+
+
 def sparse_times(dev, cfg, launches, errs, d):
-    """The rows of K4 (dense, n x p of K3, weighted), K5 and K5s (the
-    full-size sparse design); also logs K2's time at n = 50,000."""
+    """The rows of K2 at the sparse fits' n = 50,000, weighted (K = 512 and
+    the deep fit's 4096), K4 (dense, n x p of K3, weighted), K5 and K5s
+    (the full-size sparse design)."""
     import torch
     from repro_torch.core.penalties import L1
     from repro_torch.kernels import ops
-    from repro_torch.kernels.cd_epoch import cd_epoch_xb_plain
     from repro_torch.kernels.common import penalty_params
     from repro_torch.kernels.csc_score import csc_score_plain
     from repro_torch.kernels.ws_score import ws_score_plain
     reps = cfg["reps"]
     rows = []
 
-    K, n = cfg["k2_K"], cfg["k2_big_n"]
-    Xt, y, w, beta0, Xb0, L, off = xb_inputs(K, n, "logistic", dev, seed=9)
-    args = (Xt, y, beta0, Xb0, L, off, L1, penalty_params(L1(0.002)),
-            "logistic")
-    ms = time_ms(lambda: ops.cd_epoch_xb(*args, w=w), dev, 3)
-    plain = time_ms(lambda: cd_epoch_xb_plain(*args, w=w), dev, 1)
-    log(f"time cd_epoch_xb at K={K}, n={n}, logistic, weighted, 1 epoch "
-        f"(global-memory branch): kernel {ms:.4f} ms, plain {plain:.4f} ms")
-    del Xt
+    for K, n in cfg["k2_time"]:
+        rows.append(xb_row(dev, K, n, True, 0.002, 9, launches, errs, 3))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
 
     n, p = cfg["k3_n"], cfg["k3_p"]
     Xt, r, beta, L, off = fused_inputs(n, p, dev, seed=5)
@@ -955,7 +1056,8 @@ def block_times(dev, cfg, launches, errs, card, d):
     import torch
     from repro_torch.core.penalties import BlockL1
     from repro_torch.kernels import ops
-    from repro_torch.kernels.cd_epoch import cd_epoch_gram_plain
+    from repro_torch.kernels.cd_epoch import (cd_epoch_gram_plain,
+                                              gram_block_plan)
     from repro_torch.kernels.common import penalty_params
     from repro_torch.kernels.csc_score import csc_score_plain
     from repro_torch.kernels.fused_ws import fused_ws_plain, pick_bp
@@ -1025,33 +1127,49 @@ def block_times(dev, cfg, launches, errs, card, d):
         moved = int(torch.sum(torch.any(
             ops.cd_epoch_gram_block(*args)[0] != beta0, dim=1)))
         b = bound(8 * (moved * K + 5 * K * T + K), 2 * moved * K * T)
-        row = dict(name="cd_epoch_gram_block", route="cuda",
-                   source="src/repro_torch/csrc/cd_epoch.cu",
-                   replaces="src/repro/core/cd.py:66 (jax epoch; no TPU "
-                            "kernel)",
-                   launches=launches["cd_epoch_gram_block"],
-                   max_abs_err=errs["cd_epoch_gram_block"], ms=ms,
-                   plain_ms=plain, bound_ms=b[0], bound_by=b[1],
-                   library_ms=None, library_call="none: no single call",
-                   shape=f"K={K}, T={T}, epochs=1, BlockL1, {moved} rows "
-                         f"moved")
-        if K == cfg["k1b_time_K"][0]:
-            rows.append(row)
-        else:
-            log(f"K1b at K={K} (global memory): {json.dumps(row)}")
+        rows.append(dict(
+            name="cd_epoch_gram_block", route="cuda",
+            source="src/repro_torch/csrc/cd_epoch.cu",
+            replaces="src/repro/core/cd.py:66 (jax epoch; no TPU kernel)",
+            launches=launches["cd_epoch_gram_block"],
+            max_abs_err=errs["cd_epoch_gram_block"], ms=ms,
+            plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+            library_ms=None, library_call="none: no single call",
+            shape=f"K={K}, T={T}, epochs=1, BlockL1, {moved} rows moved",
+            **plan_fields(dev, "cd_epoch_gram_block",
+                          gram_block_plan(K, T, torch.float64), K,
+                          launches)))
         del G
-    for row in rows:
-        log(f"time {row['name']} [{row['shape']}] on {card}: kernel "
-            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library "
-            f"{row['library_ms']}")
+    log_rows(rows, card)
     return rows
+
+
+def chain_floor_us(dev, C, threads, iters):
+    """One cluster barrier's round trip in microseconds: a launch of
+    `iters` barriers on one cluster of C CTAs, over `iters` (CUDA
+    events, warm; the launch itself is spread over the iterations)."""
+    from repro_torch.kernels.cd_epoch import cluster_barrier_cuda
+    return time_ms(lambda: cluster_barrier_cuda(C, threads, iters, dev), dev,
+                   3) * 1e3 / iters
+
+
+def build_report():
+    """Build every kernel source (nvcc, in parallel) and print the ptxas
+    report: registers, shared memory and spills of each kernel."""
+    from repro_torch.kernels._build import BUILD
+    t = time.perf_counter()
+    BUILD.build_all()
+    log(f"build: {time.perf_counter() - t:.1f} s")
+    for name, text in BUILD.logs.items():
+        for line in text.splitlines():
+            if any(k in line for k in ("registers", "spill", "error",
+                                       "Compiling entry")):
+                log(f"  [{name}] {line.strip()}")
 
 
 def run(dev, cfg):
     """All phases on `dev`; returns (kernels rows, failures)."""
     import torch
-    from repro_torch.kernels._build import BUILD
     card = card_line() if dev.type == "cuda" else "cpu"
     log(f"device: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1059,14 +1177,7 @@ def run(dev, cfg):
     failures = []
 
     if dev.type == "cuda":
-        t = time.perf_counter()
-        BUILD.build_all()
-        log(f"build: {time.perf_counter() - t:.1f} s")
-        for name, text in BUILD.logs.items():
-            for line in text.splitlines():
-                if any(k in line for k in ("registers", "spill", "error",
-                                           "Compiling entry")):
-                    log(f"  [{name}] {line.strip()}")
+        build_report()
 
     def report(what, t, fails, kernels):
         log(f"{what} vs plain ({time.perf_counter() - t:.1f} s): "

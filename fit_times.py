@@ -1,0 +1,97 @@
+#!/usr/bin/env python3
+"""Time the kernel route of the small-K fits of ``chip_smoke.py`` several
+times on one CUDA card, to compare two trees of the port.
+
+    python3 fit_times.py [SRC]
+
+SRC is the ``src`` directory whose ``repro_torch`` is timed (default: this
+checkout's). The fits are those of ``chip_smoke.py`` at its full sizes: the
+M/EEG MultiTaskLasso and MultiTaskMCP(gamma=3) at lambda_max/10, the dense
+MultiTaskLasso at lambda_max/10 and the dense SparseLogisticRegression at
+lambda_max/3. Each is fitted once to warm up and then ``REPS`` times; the
+wall times (synchronized) are printed, with their median, as one JSON line.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+import chip_smoke as cs
+
+REPS = 7
+
+
+def main() -> int:
+    here = Path(__file__).resolve().parent
+    src = Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else here / "src"
+    sys.path.insert(0, str(src))
+    import torch
+    if not torch.cuda.is_available():
+        print("fit_times: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.core import (Logistic, MultiTaskLasso, MultiTaskMCP,
+                                  MultitaskQuadratic,
+                                  SparseLogisticRegression, lambda_max)
+    from repro_torch.core.engine import DenseDesign
+    from repro_torch.data import (make_classification, make_leadfield,
+                                  make_multitask)
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    cfg = cs.FULL
+    out = dict(src=str(src), card=cs.card_line(), fits={})
+
+    def timed(label, make, X, Y):
+        walls = []
+        for i in range(REPS + 1):
+            est = make()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            est.fit(X, Y, device=dev)
+            torch.cuda.synchronize()
+            if i:
+                walls.append(time.perf_counter() - t)
+        out["fits"][label] = dict(
+            walls=walls, median=statistics.median(walls),
+            converged=bool(est.converged_),
+            launches={k: v for k, v in ops.launch_counts().items() if v})
+        cs.log(f"{label}: median {statistics.median(walls):.4f} s, walls "
+               f"{[round(w, 4) for w in walls]}")
+
+    m = cfg["meeg"]
+    X, Y, _, _ = make_leadfield(**m)
+    lmax = lambda_max(X, Y, MultitaskQuadratic(), device=dev)
+    frac = cfg["meeg_frac"]
+    timed("M/EEG MultiTaskLasso",
+          lambda: MultiTaskLasso(alpha=lmax / frac, tol=cs.TOL), X, Y)
+    timed("M/EEG MultiTaskMCP",
+          lambda: MultiTaskMCP(alpha=lmax / frac, gamma=3.0, tol=cs.TOL),
+          X, Y)
+
+    X, Y, _ = make_multitask(**cfg["mt_dense"])
+    design = DenseDesign.from_dense(X, dev)
+    del X
+    lmax = lambda_max(design, Y, MultitaskQuadratic(), device=dev)
+    frac = cfg["mt_dense_frac"]
+    timed("dense MultiTaskLasso",
+          lambda: MultiTaskLasso(alpha=lmax / frac, tol=cs.TOL), design, Y)
+    del design
+    torch.cuda.empty_cache()
+
+    X, y, _ = make_classification(n=cfg["reg_n"], p=cfg["reg_p"],
+                                  n_nonzero=cfg["reg_nnz"], seed=0)
+    design = DenseDesign.from_dense(X, dev)
+    del X
+    lmax = lambda_max(design, y, Logistic(), device=dev)
+    timed("dense SparseLogisticRegression",
+          lambda: SparseLogisticRegression(alpha=lmax / 3, tol=cs.TOL),
+          design, y)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

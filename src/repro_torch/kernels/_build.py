@@ -113,10 +113,10 @@ _SIGNATURES = {
     "cd_epoch": {
         "cd_epoch_gram": [_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _D, _D, _P],
-        "cd_epoch_xb": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _I, _D, _D, _P],
+        "cd_epoch_xb": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _D, _D, _I, _I, _I, _I, _I, _P],
         "cd_epoch_gram_block": [_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _D, _D, _P],
+                                _I, _I, _D, _D, _I, _I, _I, _I, _I, _P],
     },
     "fused_ws": {
         "fused_ws": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -132,12 +132,21 @@ _SIGNATURES = {
 }
 
 
+# entry points without an f32/f64 pair
+_PLAIN_SIGNATURES = {
+    "cd_epoch": {"cluster_barrier_loop": [_I, _I, _I, _P]},
+}
+
+
 def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
-    for fn, argtypes in _SIGNATURES[name].items():
-        for suffix in ("f32", "f64"):
-            f = getattr(lib, f"{fn}_{suffix}")
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
+    fns = [(f"{fn}_{suffix}", argtypes)
+           for fn, argtypes in _SIGNATURES[name].items()
+           for suffix in ("f32", "f64")]
+    fns += list(_PLAIN_SIGNATURES.get(name, {}).items())
+    for fn, argtypes in fns:
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
     return lib
 
 

@@ -19,15 +19,20 @@ kernel to the plain version. ``launches`` is a plain int on the wrapper;
   csc_score_block      K5b, K5 on a raw gradient [n, T] -> [p, T]
 
 The block forms have counters of their own, so a run can tell the block
-launches from the scalar ones.
+launches from the scalar ones. K2 and K1b also count their launches by the
+branch their shape's plan took (``kernels/cd_epoch.py``: ``xb_plan``,
+``gram_block_plan``) in ``branch_launches``, a dict over ``BRANCHES``
+("single", "cluster-shared", "cluster-global"); ``branch_counts`` reads
+them.
 """
 from __future__ import annotations
 
 import torch
 
-from .cd_epoch import (KIND_IDS, cd_epoch_gram_block_cuda,
+from .cd_epoch import (BRANCHES, KIND_IDS, cd_epoch_gram_block_cuda,
                        cd_epoch_gram_cuda, cd_epoch_gram_plain,
-                       cd_epoch_xb_cuda, cd_epoch_xb_plain)
+                       cd_epoch_xb_cuda, cd_epoch_xb_plain, gram_block_plan,
+                       xb_plan)
 from .common import (UnsupportedPenaltyError, check_block_kernel_penalty,
                      check_kernel_penalty, check_score_kernel_penalty,
                      make_penalty, penalty_params)
@@ -38,7 +43,8 @@ from .ws_score import ws_score_cuda, ws_score_plain
 __all__ = ["cd_epoch_gram", "cd_epoch_xb", "fused_ws", "ws_score",
            "csc_score", "csc_weighted_col_sq", "cd_epoch_gram_block",
            "fused_ws_block", "csc_score_block", "KERNELS",
-           "launch_counts", "reset_launch_counts", "penalty_params",
+           "launch_counts", "reset_launch_counts", "branch_counts",
+           "penalty_params",
            "make_penalty", "check_kernel_penalty",
            "check_score_kernel_penalty", "UnsupportedPenaltyError"]
 
@@ -116,9 +122,11 @@ def cd_epoch_gram_block(G, c, beta0, q0, L, penalty_cls, params, *,
     if not on_card:
         return cd_epoch_gram_plain(G, c, beta0, q0, L, penalty_cls, params,
                                    epochs=epochs)
+    plan = gram_block_plan(K, beta0.shape[1], G.dtype)
     out = cd_epoch_gram_block_cuda(G, c, beta0, q0, L, penalty_cls, params,
-                                   epochs=epochs)
+                                   epochs=epochs, plan=plan)
     cd_epoch_gram_block.launches += 1
+    cd_epoch_gram_block.branch_launches[plan.branch] += 1
     return out
 
 
@@ -143,9 +151,12 @@ def cd_epoch_xb(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls, params,
     if not on_card:
         return cd_epoch_xb_plain(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls,
                                  params, datafit_kind, w=w, epochs=epochs)
+    plan = xb_plan(n, w is not None, Xt_ws.dtype)
     out = cd_epoch_xb_cuda(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls,
-                           params, datafit_kind, w=w, epochs=epochs)
+                           params, datafit_kind, w=w, epochs=epochs,
+                           plan=plan)
     cd_epoch_xb.launches += 1
+    cd_epoch_xb.branch_launches[plan.branch] += 1
     return out
 
 
@@ -302,15 +313,24 @@ def csc_score_block(data, indices, col_ids, indptr, raw):
 KERNELS = (cd_epoch_gram, cd_epoch_xb, fused_ws, ws_score, csc_score,
            csc_weighted_col_sq, cd_epoch_gram_block, fused_ws_block,
            csc_score_block)
+# the kernels with more than one launch branch
+BRANCHED = (cd_epoch_xb, cd_epoch_gram_block)
 
 
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
+    for k in BRANCHED:
+        k.branch_launches = dict.fromkeys(BRANCHES, 0)
 
 
 def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def branch_counts() -> dict:
+    """{kernel name: {branch: launches}} for K2 and K1b."""
+    return {k.__name__: dict(k.branch_launches) for k in BRANCHED}
 
 
 reset_launch_counts()

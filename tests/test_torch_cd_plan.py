@@ -1,0 +1,153 @@
+"""The launch plans of K2 (``xb_plan``) and K1b (``gram_block_plan``).
+
+The plans choose, from a call's shape alone, the layout of a K2 or K1b
+launch: K1b's one CTA or a thread-block cluster, the state's slices in
+shared or in global memory, the dynamic shared memory of each CTA, the
+threads and the register path. These tests hold them to what the kernels
+of ``csrc/cd_epoch.cu`` need: a cluster at the main path's shapes, every
+shared-memory branch within the card's 232,448 bytes per CTA, thread counts
+the kernels can launch, and the single-CTA and global branches where the
+plan's thresholds put them. They run on the CPU: the plans are plain
+Python.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import ops  # noqa: F401  (before the submodule)
+from repro_torch.kernels import cd_epoch as cd
+
+F64, F32 = torch.float64, torch.float32
+CARD_SMEM = 232_448
+
+
+def _xb_state(n, C, weighted, item):
+    """What K2's cluster kernel keeps per CTA in dynamic shared memory: Xb,
+    the raw gradient, y (and w) for ceil(n / C) samples."""
+    return -(-n // C) * (4 if weighted else 3) * item
+
+
+def _gram_block_state(K, T, C, item):
+    """K1b's cluster kernel: two parity slots and the local copy of delta_j
+    and its flag (3 (T + 1) values), then ceil(K / C) rows of q."""
+    return (3 * (T + 1) + -(-K // C) * T) * item
+
+
+def _threads_ok(plan):
+    assert 32 <= plan.threads <= 1024 and plan.threads % 32 == 0
+    # the register paths run on at most PER_THREADS threads (the kernels'
+    # launch bounds)
+    assert plan.per == 0 or plan.threads <= cd.PER_THREADS
+
+
+@pytest.mark.parametrize("n,weighted", [(10_000, False), (10_000, True),
+                                        (50_000, False), (50_000, True)])
+def test_xb_plan_clusters_the_main_path(n, weighted):
+    """K2 at the main path's shapes (512 x 10,000 dense logistic; up to
+    4096 x 50,000 weighted sparse logistic) runs on a cluster with its
+    slices in shared memory."""
+    plan = cd.xb_plan(n, weighted, F64)
+    assert plan.cluster == cd.CLUSTER >= 2
+    assert plan.branch == "cluster-shared"
+    assert plan.dyn_bytes == _xb_state(n, plan.cluster, weighted, 8)
+    assert plan.dyn_bytes <= cd.SMEM_DYN_MAX < CARD_SMEM
+
+
+@pytest.mark.parametrize("K", [1024, 2048, 4096])
+def test_gram_block_plan_clusters_the_main_path(K):
+    """K1b at the sparse multitask fit's working sets (T = 20) runs on a
+    cluster with q's rows in shared memory."""
+    plan = cd.gram_block_plan(K, 20, F64)
+    assert plan.cluster == cd.CLUSTER >= 2
+    assert plan.branch == "cluster-shared"
+    assert plan.dyn_bytes == _gram_block_state(K, 20, plan.cluster, 8)
+    assert plan.dyn_bytes <= cd.SMEM_DYN_MAX
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("n", [1, 7, 255, 2048, 2049, 10_001, 77_000,
+                               100_003, 1_000_000])
+def test_xb_plan_fits_the_card(n, weighted, dtype):
+    """K2 always runs on a cluster; the shared branch holds the whole slice
+    within the card's shared memory, the global one holds none of it."""
+    plan = cd.xb_plan(n, weighted, dtype)
+    item = torch.empty((), dtype=dtype).element_size()
+    assert plan.cluster == cd.CLUSTER
+    assert plan.branch in cd.BRANCHES
+    _threads_ok(plan)
+    full = _xb_state(n, plan.cluster, weighted, item)
+    assert plan.smem == (full <= cd.SMEM_DYN_MAX)
+    assert plan.dyn_bytes == (full if plan.smem else 0)
+    # the register path covers the slice: per samples a thread
+    if plan.per:
+        assert plan.per * plan.threads >= -(-n // plan.cluster)
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("K,T", [(1, 1), (64, 20), (64, 50), (512, 20),
+                                 (1024, 20), (2049, 1), (4096, 50),
+                                 (20_000, 20), (3, 500)])
+def test_gram_block_plan_fits_the_card(K, T, dtype):
+    plan = cd.gram_block_plan(K, T, dtype)
+    item = torch.empty((), dtype=dtype).element_size()
+    assert plan.branch in cd.BRANCHES
+    _threads_ok(plan)
+    if plan.cluster == 1:
+        # one CTA holds delta_j and all of q in shared memory
+        assert plan.smem and plan.per == 0
+        assert plan.dyn_bytes == (T + K * T) * item <= cd.SMEM_DYN_MAX
+    else:
+        full = _gram_block_state(K, T, plan.cluster, item)
+        assert plan.smem == (full <= cd.SMEM_DYN_MAX)
+        assert plan.dyn_bytes == (full if plan.smem else 3 * (T + 1) * item)
+        assert plan.dyn_bytes <= cd.SMEM_DYN_MAX
+        if plan.per:
+            assert plan.per * plan.threads >= -(-K // plan.cluster) * T
+
+
+def test_plans_take_every_branch_where_they_say():
+    """K1b on one CTA at or below its single-CTA threshold and on a cluster
+    above it; K2 and K1b on the global-memory branch of a cluster past C
+    slices of shared memory (float32 halves the bytes: the shared branch
+    reaches twice as far)."""
+    kt = cd.GRAM_BLOCK_SINGLE_MAX_KT
+    assert cd.gram_block_plan(kt, 1, F64).branch == "single"
+    assert cd.gram_block_plan(kt + 1, 1, F64).cluster == cd.CLUSTER
+    assert cd.gram_block_plan(2048, 240, F64).branch == "cluster-global"
+    assert cd.gram_block_plan(2048, 240, F32).branch == "cluster-shared"
+    assert cd.xb_plan(1, True, F64).branch == "cluster-shared"
+    for weighted in (False, True):
+        assert cd.xb_plan(160_003, weighted, F64).branch == "cluster-global"
+        assert cd.xb_plan(160_003, weighted, F32).branch == "cluster-shared"
+
+
+def test_forced_cluster_sizes():
+    """`cluster=` forces C (K1b's 1 is its one-CTA kernel) and keeps the
+    shared-memory rule."""
+    for C in (1, 8, 16):
+        assert cd.xb_plan(50_000, True, F64, cluster=C).cluster == C
+        assert cd.gram_block_plan(4096, 20, F64, cluster=C).cluster == C
+    assert not cd.xb_plan(50_000, True, F64, cluster=1).smem
+    assert cd.xb_plan(50_000, True, F64, cluster=16).smem
+    assert cd.gram_block_plan(4096, 20, F64, cluster=1).branch == "single"
+
+
+def test_branch_counts_start_at_zero_and_cpu_counts_nothing():
+    """The per-branch counters cover every branch, are reset with the
+    launch counts, and the CPU route (the plain versions) counts none."""
+    ops.reset_launch_counts()
+    counts = ops.branch_counts()
+    assert set(counts) == {"cd_epoch_xb", "cd_epoch_gram_block"}
+    for per in counts.values():
+        assert per == dict.fromkeys(cd.BRANCHES, 0)
+    from repro_torch.core.penalties import L1
+    g = torch.Generator().manual_seed(0)
+    Xt = torch.randn(4, 300, generator=g, dtype=F64)
+    y = torch.sign(torch.randn(300, generator=g, dtype=F64))
+    z = torch.zeros(4, dtype=F64)
+    ops.cd_epoch_xb(Xt, y, z, torch.zeros(300, dtype=F64),
+                    torch.sum(Xt * Xt, 1) / 1200, z, L1,
+                    ops.penalty_params(L1(0.01)), "logistic")
+    assert ops.branch_counts()["cd_epoch_xb"] == \
+        dict.fromkeys(cd.BRANCHES, 0)
+    assert ops.launch_counts()["cd_epoch_xb"] == 0

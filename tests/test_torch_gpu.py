@@ -10,8 +10,14 @@ within 1e-12 + 1e-10 relative, an identical working set and bit-exact
 gathered columns. K4's scores are held as K3's; K5 and K5s within
 1e-12 absolute + 1e-12 relative (the plain segment sum adds with atomics on
 the card, in another order than the kernel). The block forms are held as
-their scalar ones: K1b as K1, K3b as K3, K5b as K5. Without a card they
-skip: the CUDA kernels have no CPU or interpret mode.
+their scalar ones: K1b as K1, K3b as K3, K5b as K5. K2 and K1b are also
+run at shapes that take each branch of their launch plans (K1b's one CTA,
+a cluster with its slices in shared memory, a cluster in global memory),
+at fewer samples or rows than CTAs and at splits that are not even, and
+at forced cluster sizes; each of those launches twice and must repeat bit
+for bit (a race between the CTAs of a cluster would show as a difference),
+and the plan's branch counter must move. Without a card they skip: the
+CUDA kernels have no CPU or interpret mode.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed::
@@ -437,3 +443,169 @@ def test_multitask_estimators_on_card_default_route(cuda):
             pred = ek.predict(Xin)
             assert pred.shape == (300, 8)
             np.testing.assert_allclose(pred, ep.predict(Xin), atol=1e-5)
+
+
+# ---------------------------------------------- K2 and K1b on every branch
+def _xb_case(kind, weighted, K, n, dev, seed=8):
+    """K2 inputs with an L1 level (a Box for svc) that moves about half of
+    the coordinates in the first epoch."""
+    rng = np.random.default_rng(seed)
+    Xt = rng.standard_normal((K, n))
+    y = np.sign(rng.standard_normal(n))
+    beta0 = rng.standard_normal(K) * 0.05
+    w = rng.random(n) * 2.0
+    w = w * (n / w.sum()) if weighted else np.ones(n)
+    Xb0 = beta0 @ Xt
+    if kind == "quadratic":
+        L, raw = np.sum(Xt * Xt, 1) / n, w * (Xb0 - y) / n
+    elif kind == "logistic":
+        L = np.sum(Xt * Xt, 1) / (4 * n)
+        raw = w * (-y / (1.0 + np.exp(y * Xb0))) / n
+    else:
+        L, raw = np.sum(Xt * Xt, 1), Xb0
+    off = -np.ones(K) if kind == "svc" else np.zeros(K)
+    pen = P.Box(0.9) if kind == "svc" else \
+        P.L1(0.5 * float(np.median(np.abs(Xt @ raw))))
+    Xt, y, beta0, Xb0, L, off, w = _on(dev, Xt, y, beta0, Xb0, L, off, w)
+    return (Xt, y, beta0, Xb0, L, off, type(pen), penalty_params(pen),
+            kind), (w if weighted else None)
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [7, 200, 1001, 10_000, 50_000, 160_003])
+@pytest.mark.parametrize("kind,weighted", XB_CASES,
+                         ids=[f"{k}-w{int(w)}" for k, w in XB_CASES])
+def test_k2_plan_branch_matches_plain(cuda, kind, weighted, n):
+    """K2 through the counted wrapper at the branch its plan names for n
+    (fewer samples than CTAs, fewer than 32 a CTA, n not a multiple of C,
+    a cluster in shared memory, a cluster in global memory): within the
+    plain version's tolerance, two launches equal bit for bit, and the
+    plan's branch counter moved."""
+    from repro_torch.kernels.cd_epoch import xb_plan
+    K = 128 if n <= 20_000 else 64 if n <= 100_003 else 32
+    args, wt = _xb_case(kind, weighted, K, n, cuda)
+    plan = xb_plan(n, weighted, torch.float64)
+    for epochs in (1, 3):
+        c0 = ops.branch_counts()["cd_epoch_xb"]
+        got = ops.cd_epoch_xb(*args, w=wt, epochs=epochs)
+        again = ops.cd_epoch_xb(*args, w=wt, epochs=epochs)
+        c1 = ops.branch_counts()["cd_epoch_xb"]
+        assert c1[plan.branch] == c0[plan.branch] + 2
+        assert sum(c1.values()) == sum(c0.values()) + 2
+        assert _same(got, again)
+        br, xr = cd_epoch_xb_plain(*args, w=wt, epochs=epochs)
+        torch.testing.assert_close(got[0], br, atol=1e-11, rtol=1e-8)
+        torch.testing.assert_close(got[1], xr, atol=1e-11, rtol=1e-8)
+        assert torch.any(got[0] != args[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,C", [(7, 8), (200, 8), (1001, 2), (10_001, 8),
+                                 (50_000, 1), (100_003, 8)])
+@pytest.mark.parametrize("kind,weighted", XB_CASES,
+                         ids=[f"{k}-w{int(w)}" for k, w in XB_CASES])
+def test_k2_cluster_edges_match_plain(cuda, kind, weighted, n, C):
+    """The cluster kernel at forced sizes: fewer samples than CTAs, fewer
+    than C * 32, n not a multiple of C, the portable 8 CTAs, one CTA, the
+    global branch at C = 8."""
+    from repro_torch.kernels.cd_epoch import cd_epoch_xb_cuda, xb_plan
+    args, wt = _xb_case(kind, weighted, 32, n, cuda)
+    plan = xb_plan(n, weighted, torch.float64, cluster=C)
+    for epochs in (1, 3):
+        got = cd_epoch_xb_cuda(*args, w=wt, epochs=epochs, plan=plan)
+        assert _same(got, cd_epoch_xb_cuda(*args, w=wt, epochs=epochs,
+                                           plan=plan))
+        br, xr = cd_epoch_xb_plain(*args, w=wt, epochs=epochs)
+        torch.testing.assert_close(got[0], br, atol=1e-11, rtol=1e-8)
+        torch.testing.assert_close(got[1], xr, atol=1e-11, rtol=1e-8)
+
+
+def _gram_block_case(K, T, dev, seed=0):
+    """K1b inputs made on the card (the Gram of a 3K x K Gaussian design)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f64 = dict(generator=g, device=dev, dtype=torch.float64)
+    X = torch.randn(3 * K, K, **f64)
+    G = (X.T @ X / (3 * K)).t().contiguous().t()
+    beta0 = 0.1 * torch.randn(K, T, **f64) * (torch.rand(K, 1, **f64) < 0.5)
+    c = X.T @ torch.randn(3 * K, T, **f64) / (3 * K)
+    return G, c, beta0, G @ beta0, torch.diagonal(G).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,T", [(K, T) for K in (64, 2049, 4096)
+                                 for T in (1, 20, 50)] + [(2048, 240)])
+@pytest.mark.parametrize("pen", BLOCK_PENALTIES, ids=BLOCK_IDS)
+def test_k1b_plan_branch_matches_plain(cuda, pen, K, T):
+    """K1b through the counted wrapper at the branch its plan names (one
+    CTA, a cluster with q's rows in shared memory, in global memory at
+    (2048, 240)): within the plain version's tolerance, two launches equal
+    bit for bit, and the plan's branch counter moved."""
+    from repro_torch.kernels.cd_epoch import gram_block_plan
+    G, c, beta0, q0, L = _gram_block_case(K, T, cuda)
+    args = (G, c, beta0, q0, L, type(pen), penalty_params(pen))
+    plan = gram_block_plan(K, T, torch.float64)
+    for epochs in (1, 3):
+        c0 = ops.branch_counts()["cd_epoch_gram_block"]
+        got = ops.cd_epoch_gram_block(*args, epochs=epochs)
+        again = ops.cd_epoch_gram_block(*args, epochs=epochs)
+        c1 = ops.branch_counts()["cd_epoch_gram_block"]
+        assert c1[plan.branch] == c0[plan.branch] + 2
+        assert _same(got, again)
+        br, qr = cd_epoch_gram_plain(*args, epochs=epochs)
+        torch.testing.assert_close(got[0], br, atol=1e-12, rtol=1e-5)
+        torch.testing.assert_close(got[1], qr, atol=1e-12, rtol=1e-5)
+        assert torch.any(got[0] != beta0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,T,C", [(5, 3, 8), (64, 50, 8), (2049, 1, 16),
+                                   (1000, 20, 2), (300, 50, 16),
+                                   (4096, 20, 2)])
+def test_k1b_cluster_equals_single_cta(cuda, K, T, C):
+    """The cluster kernel at forced sizes (fewer rows than CTAs, 8 CTAs,
+    ragged rows, q's rows in global memory) gives the single-CTA kernel's
+    beta and q bit for bit, or the 16-CTA cluster's where one CTA cannot
+    hold q: the q update has no cross-CTA reduction."""
+    from repro_torch.kernels.cd_epoch import (SMEM_DYN_MAX,
+                                              cd_epoch_gram_block_cuda,
+                                              gram_block_plan)
+    G, c, beta0, q0, L = _gram_block_case(K, T, cuda, seed=K)
+    args = (G, c, beta0, q0, L, P.BlockMCP, penalty_params(
+        P.BlockMCP(0.11, 3.0)))
+    single = gram_block_plan(K, T, torch.float64, cluster=1)
+    if single.dyn_bytes > SMEM_DYN_MAX:
+        single = gram_block_plan(K, T, torch.float64, cluster=16)
+    for epochs in (1, 3):
+        one = cd_epoch_gram_block_cuda(*args, epochs=epochs, plan=single)
+        many = cd_epoch_gram_block_cuda(*args, epochs=epochs,
+                                        plan=gram_block_plan(
+                                            K, T, torch.float64, cluster=C))
+        assert _same(one, many)
+        br, qr = cd_epoch_gram_plain(*args, epochs=epochs)
+        torch.testing.assert_close(many[0], br, atol=1e-12, rtol=1e-5)
+        torch.testing.assert_close(many[1], qr, atol=1e-12, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_refused_plan_raises(cuda):
+    """A launch the card refuses (more shared memory than a CTA can have)
+    raises; nothing retries on another layout."""
+    from repro_torch.kernels.cd_epoch import (EpochPlan,
+                                              cd_epoch_gram_block_cuda,
+                                              cd_epoch_xb_cuda)
+    too_big = 300_000
+    args, wt = _xb_case("logistic", True, 16, 10_000, cuda)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        cd_epoch_xb_cuda(*args, w=wt, plan=EpochPlan(16, True, too_big, 256,
+                                                     0))
+    G, c, beta0, q0, L = _gram_block_case(512, 20, cuda)
+    for C in (1, 16):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            cd_epoch_gram_block_cuda(G, c, beta0, q0, L, P.BlockL1,
+                                     penalty_params(P.BlockL1(0.1)),
+                                     plan=EpochPlan(C, True, too_big, 256,
+                                                    0))
