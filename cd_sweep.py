@@ -1,19 +1,32 @@
 #!/usr/bin/env python3
-"""Time K2 (``cd_epoch_xb``) and K1b (``cd_epoch_gram_block``) at fixed
-cluster sizes on one CUDA card.
+"""Time K1 (``cd_epoch_gram``) at fixed thread counts, and K2
+(``cd_epoch_xb``) and K1b (``cd_epoch_gram_block``) at fixed cluster sizes,
+on one CUDA card.
 
-    python3 cd_sweep.py
+    python3 cd_sweep.py [k1|k2|k1b ...]
 
-For each shape of ``SWEEP`` and each cluster size C in (1, 8, 16) it
-launches the kernel with the plan of that C (``xb_plan`` /
+With names, only those kernels are swept (default: all three). K1, for each
+K of ``SWEEP["k1"]`` and each (cluster size, threads) of
+``SWEEP["k1_layouts"]`` (``gram_plan`` of ``repro_torch/kernels/cd_epoch.py``
+with ``cluster=`` and ``threads=``; None: the plan's own; clusters only
+where K > 64): one L1 epoch on the Gram inputs of ``chip_smoke.py`` (every
+coordinate moves), checked against its plain version and against the first
+layout's result (bit for bit) and launched again for the same bits, timed
+(CUDA events, warm), beside the same epoch with nothing moving (the chain
+and the staging alone) and K1's chain floor on one CTA of that many
+threads (K chain steps of a shuffle and a multiply-add, a handoff every
+32).
+
+K2 and K1b: for each shape of ``SWEEP`` and each cluster size C in
+(1, 8, 16) it launches the kernel with the plan of that C (``xb_plan`` /
 ``gram_block_plan`` of ``repro_torch/kernels/cd_epoch.py`` with
 ``cluster=C``; C = 1 is K1b's one-CTA kernel and K2's cluster kernel on one
 CTA), checks it against its plain version (K2, and K1b up to K = 1024) and
 against the first C's result (K1b, bit for bit; C = 1 only where one CTA
 holds q in shared memory), launches it again and requires
 the same bits, and times one epoch (CUDA events, warm). It also times the
-cluster barrier's round trip. The plans' cluster size and K1b's single-CTA
-threshold rest on these numbers. Every record is printed; all of them go
+cluster barrier's round trip. The plans' thread counts, cluster size and
+K1b's single-CTA threshold rest on these numbers. Every record is printed; all of them go
 to ``build/cd_sweep.json`` in the checkout. It exits non-zero if any launch
 raised or any check failed.
 """
@@ -26,7 +39,11 @@ from pathlib import Path
 
 import chip_smoke as cs
 
-SWEEP = dict(k2_n=(1000, 2000, 10_000, 50_000, 160_003), k2_K=512,
+SWEEP = dict(k1=(64, 128, 256, 512, 1024, 2048, 4096),
+             k1_layouts=((1, None), (1, 64), (1, 128), (1, 256), (1, 512),
+                         (4, None), (8, None), (16, None), (16, 64),
+                         (16, 128), (16, 256), (16, 512)),
+             k2_n=(1000, 2000, 10_000, 50_000, 160_003), k2_K=512,
              k2_deep=(4096, 50_000),
              k1b=((64, 50), (64, 20), (128, 20), (256, 20), (512, 20),
                   (1024, 20), (2048, 20), (4096, 20)),
@@ -46,7 +63,63 @@ def _record(out, fails, key, rec, run):
     cs.log(f"sweep {key} {json.dumps(rec)}")
 
 
-def sweep(dev, cfg=SWEEP):
+def floor_ms(dev, K, threads):
+    """K1's chain floor on one CTA of `threads` threads, in ms an epoch
+    (CUDA events over a launch of enough epochs that the launch itself is
+    spread thin)."""
+    from repro_torch.kernels.cd_epoch import gram_chain_floor_cuda
+    epochs = max(1, 200_000 // K)
+    return cs.time_ms(lambda: gram_chain_floor_cuda(K, epochs, threads, dev),
+                      dev, 3) / epochs
+
+
+def sweep_k1(dev, cfg, out, fails):
+    import torch
+    from repro_torch.core.penalties import L1
+    from repro_torch.kernels.cd_epoch import (cd_epoch_gram_cuda,
+                                              cd_epoch_gram_plain, gram_plan)
+    from repro_torch.kernels.common import penalty_params
+    for K in cfg["k1"]:
+        G, c, beta0, q0, L = cs.gram_inputs(K, dev, seed=K)
+        args = (G, c, beta0, q0, L, L1, penalty_params(L1(0.11)))
+        zero = torch.zeros_like(beta0)
+        still = (G, c, zero, zero, L, L1, penalty_params(L1(1e6)))
+        br, qr = cd_epoch_gram_plain(*args)
+        moved = int(torch.sum(br != beta0))
+        first = []
+        for C, threads in cfg["k1_layouts"]:
+            if C > 1 and K <= 64:
+                continue
+            plan = gram_plan(K, torch.float64, cluster=C, threads=threads)
+
+            def run(rec, plan=plan):
+                bk, qk = cd_epoch_gram_cuda(*args, plan=plan)
+                bk2, qk2 = cd_epoch_gram_cuda(*args, plan=plan)
+                torch.cuda.synchronize()
+                ok_b, e_b = cs.close(bk, br, 1e-12, 1e-5)
+                ok_q, e_q = cs.close(qk, qr, 1e-12, 1e-5)
+                same = bool(torch.equal(bk, bk2) and torch.equal(qk, qk2))
+                if not first:
+                    first.extend((bk, qk))
+                eq1 = bool(torch.equal(bk, first[0])
+                           and torch.equal(qk, first[1]))
+                rec.update(
+                    ok=ok_b and ok_q and same and eq1, err=max(e_b, e_q),
+                    repeat_equal=same, equals_first=eq1,
+                    ms=cs.time_ms(lambda: cd_epoch_gram_cuda(
+                        *args, plan=plan), dev, cfg["reps"]),
+                    still_ms=cs.time_ms(lambda: cd_epoch_gram_cuda(
+                        *still, plan=plan), dev, cfg["reps"]),
+                    floor_ms=floor_ms(dev, K, plan.threads))
+            _record(out, fails, "k1",
+                    dict(K=K, C=plan.cluster, threads=plan.threads,
+                         branch=plan.branch, dyn_bytes=plan.dyn_bytes,
+                         moved=moved), run)
+        del G
+        torch.cuda.empty_cache()
+
+
+def sweep(dev, cfg=SWEEP, kernels=("k1", "k2", "k1b")):
     """Returns (records, failures)."""
     import torch
     from repro_torch.core.penalties import L1, BlockL1
@@ -54,8 +127,12 @@ def sweep(dev, cfg=SWEEP):
         SMEM_DYN_MAX, cd_epoch_gram_block_cuda, cd_epoch_gram_plain,
         cd_epoch_xb_cuda, cd_epoch_xb_plain, gram_block_plan, xb_plan)
     from repro_torch.kernels.common import penalty_params
-    out = dict(barrier=[], k2=[], k1b=[])
+    out = dict(barrier=[], k1=[], k2=[], k1b=[])
     fails = []
+    if "k1" in kernels:
+        sweep_k1(dev, cfg, out, fails)
+    if "k2" not in kernels and "k1b" not in kernels:
+        return out, fails
     for C in cfg["clusters"]:
         for threads in (128, 1024):
             us = cs.chain_floor_us(dev, C, threads, cfg["barrier_iters"])
@@ -64,8 +141,9 @@ def sweep(dev, cfg=SWEEP):
 
     shapes = [(kind, wt, cfg["k2_K"], n) for kind, wt in
               (("logistic", True), ("quadratic", False))
-              for n in cfg["k2_n"]]
-    shapes.append(("logistic", True) + cfg["k2_deep"])
+              for n in cfg["k2_n"]] if "k2" in kernels else []
+    if shapes:
+        shapes.append(("logistic", True) + cfg["k2_deep"])
     for kind, weighted, K, n in shapes:
         Xt, y, w, beta0, Xb0, L, off = cs.xb_inputs(K, n, kind, dev, seed=n)
         wt = w if weighted else None
@@ -97,7 +175,7 @@ def sweep(dev, cfg=SWEEP):
         torch.cuda.empty_cache()
 
     prm = penalty_params(BlockL1(0.11))
-    for K, T in cfg["k1b"]:
+    for K, T in cfg["k1b"] if "k1b" in kernels else ():
         G, cc, beta0, q0, L = cs.gram_block_inputs(K, T, dev, seed=K)
         args = (G, cc, beta0, q0, L, BlockL1, prm)
         ref = cd_epoch_gram_plain(*args) if K <= 1024 else None
@@ -147,7 +225,8 @@ def main() -> int:
     card = cs.card_line()
     cs.log(f"device: {card}")
     cs.build_report()
-    records, failures = sweep(torch.device("cuda"))
+    kernels = tuple(sys.argv[1:]) or ("k1", "k2", "k1b")
+    records, failures = sweep(torch.device("cuda"), kernels=kernels)
     out = here / "build" / "cd_sweep.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(card=card, **records), indent=1))

@@ -12,7 +12,13 @@ Phases, each of which must pass (any failure exits non-zero):
    (``fused_ws``) and K4 (``ws_score``) on the card against their plain
    torch versions on the same inputs, at main-path shapes, float64.
    Tolerances are those of the reference's kernel tests: |err| <=
-   1e-12 + 1e-5 |ref| for K1, 1e-11 + 1e-8 |ref| for K2 (at n = 10,000,
+   1e-12 + 1e-5 |ref| for K1 (at K = 256 and 1024, and at the blocked
+   kernel's edges K = 1, 31, 33, 1023, 1025, 2049, 4096: one block and
+   many, ragged and whole, one CTA and the cluster, all seven penalties,
+   epochs 1 and 3, G column-major and row-major, each launched twice and
+   equal bit for bit on its plan's branch; the global-memory branches,
+   forced, at K = 2049; a block with L = 0 and a level at which nothing
+   moves at K = 1025), 1e-11 + 1e-8 |ref| for K2 (at n = 10,000,
    at the sparse fits' n = 50,000 with K = 512 and the deep fit's 4096, at
    n = 1000 and at n = 160,003, where the slices leave shared memory: each
    branch of its plan, each launched twice and equal bit for bit),
@@ -25,7 +31,9 @@ Phases, each of which must pass (any failure exits non-zero):
    launch counts reset just before, read just after; each of its kernels
    must have launched) and on the plain-torch route (``use_kernels=False``)
    on the same card; each must converge at tol 1e-6 and the two routes
-   must agree to 1e-6 on the coefficients.
+   must agree to 1e-6 on the coefficients. The Lasso, the MCP and the
+   LinearSVC (the dual's Gram epochs) must launch K1 once for every inner
+   epoch.
 5. sparse path: the repo's full-size sparse configuration (``sparse_fig2``
    "small" of ``benchmarks/bench_engine.py``: n = 50,000, p = 200,000,
    density 1e-3), built on the host once as a CSC design with the ELL
@@ -38,8 +46,8 @@ Phases, each of which must pass (any failure exits non-zero):
    lambda_max/30 (working sets of 2048 and 4096 columns), and a LinearSVC
    on a scipy sparse X (label-signed Z^T converted by the estimator): the
    kernel route must launch K5 on every outer head, K5s once in each
-   weighted fit, K1 (Lasso, SVC) or K2 (logistic, on a cluster), and never
-   K3.
+   weighted fit, K1 (Lasso, SVC: once for every inner epoch) or K2
+   (logistic, on a cluster), and never K3.
 6. block kernels: K3b (``fused_ws_block``) over BlockL1 and BlockMCP x
    fixed-point at n = 10,000, p = 20,000, T = 20, ws = 512 (scores within
    1e-12 + 1e-12 |ref|, gradient within 1e-12 + 1e-10 |ref|, identical
@@ -67,11 +75,13 @@ Phases, each of which must pass (any failure exits non-zero):
 8. times: each kernel at main-path shapes (CUDA events, warm), its plain
    version, its bound (bytes over 3.35 TB/s or operations over 67 TF/s
    float64, the larger) and, where one PyTorch call computes the same
-   function (or a part of it), that call's time. K2 has rows at
-   (K, n) = (512, 10,000), (512, 50,000) and (4096, 50,000), K1b at
-   K = 1024, 2048 and 4096 (T = 20), each with its plan's branch, cluster
-   size, launches by branch, and chain floor (K cluster-barrier round
-   trips on its cluster, measured by a launch of barriers alone).
+   function (or a part of it), that call's time. K1 has rows at K = 1024
+   and 2048, K2 at (K, n) = (512, 10,000), (512, 50,000) and (4096,
+   50,000), K1b at K = 1024, 2048 and 4096 (T = 20), each with its plan's
+   branch, cluster size, threads, launches by branch, and chain floor (K1:
+   K chain steps of a shuffle and a multiply-add with a handoff every 32,
+   measured by a launch of that chain alone; K2, K1b: K cluster-barrier
+   round trips on its cluster, measured by a launch of barriers alone).
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -92,7 +102,9 @@ TOL = 1e-6
 PENALTY_SPECS = [("L1", (0.11,)), ("L1L2", (0.11, 0.6)), ("MCP", (0.11, 3.0)),
                  ("SCAD", (0.11, 3.7)), ("L05", (0.05,)), ("L23", (0.05,)),
                  ("Box", (0.8,))]
-FULL = dict(k1_sizes=(256, 1024), k2_K=512, k2_n=10_000,
+FULL = dict(k1_sizes=(256, 1024),
+            k1_blocked=(1, 31, 33, 1023, 1025, 2049, 4096), k1_frozen_K=1025, k1_time_K=(1024, 2048),
+            k2_K=512, k2_n=10_000,
             k2_big=((512, 50_000), (4096, 50_000), (512, 1000),
                     (128, 160_003)),
             k2_time=((512, 50_000), (4096, 50_000)),
@@ -332,6 +344,114 @@ def check_kernels(dev, cfg):
     return errs, fails
 
 
+def k1_inputs(K, dev, seed):
+    """K1 inputs made on the card: the Gram of a 3K x K Gaussian design
+    plus a small non-symmetric part (a transposed read of G would show),
+    column-major as the engine keeps G; half of beta0 zero."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f64 = dict(generator=g, device=dev, dtype=torch.float64)
+    X = torch.randn(3 * K, K, **f64)
+    G = X.T @ X / (3 * K) + 0.01 * torch.randn(K, K, **f64)
+    del X
+    G = G.t().contiguous().t()
+    beta0 = 0.1 * torch.randn(K, **f64) * (torch.rand(K, **f64) < 0.5)
+    c = torch.randn(K, **f64) / 3
+    L = torch.clamp(torch.diagonal(G), min=1e-3).contiguous()
+    return G, c, beta0, G @ beta0, L
+
+
+def check_k1_blocked(dev, cfg, errs):
+    """K1 at the blocked kernel's edges against its plain version (epochs
+    1 and 3 from one plain run of 3 epochs), each launched twice through
+    the counted wrapper (on the branch its plan names) and equal bit for
+    bit, with G column-major and row-major, every SM's shared memory filled
+    with NaN before each launch (a read of a staged tile's unwritten part
+    would show); then a block with L = 0 and a level at which nothing moves,
+    where the kernel's outputs must keep the frozen values bit for bit.
+    Updates `errs`, returns the failures."""
+    import torch
+    from repro_torch.core.penalties import L1
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cd_epoch import (cd_epoch_gram_plain,
+                                              fill_shared_memory_cuda,
+                                              gram_plan)
+    from repro_torch.kernels.common import penalty_params
+    fails = []
+    f64 = torch.float64
+
+    def refs_of(args):
+        out, st = {}, args[2:4]
+        for e in (1, 2):
+            st = cd_epoch_gram_plain(args[0], args[1], *st, *args[4:],
+                                     epochs=e)
+            out[1 if e == 1 else 3] = st
+        return out
+
+    def launch(args, epochs):
+        if dev.type == "cuda":
+            fill_shared_memory_cuda(dev)
+        return ops.cd_epoch_gram(*args, epochs=epochs)
+
+    def check(tag, args, refs):
+        """The kernel's (beta, q) for each number of epochs in `refs`."""
+        outs = {}
+        for epochs, ref in refs.items():
+            before = ops.branch_counts()["cd_epoch_gram"]
+            got = launch(args, epochs)
+            again = launch(args, epochs)
+            after = ops.branch_counts()["cd_epoch_gram"]
+            want = gram_plan(args[0].shape[0], f64).branch
+            counted = dev.type != "cuda" or after[want] == before[want] + 2
+            outs[epochs] = got
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            ok, err = same and counted, 0.0
+            for a, b in zip(got, ref):
+                ok_i, e = close(a, b, 1e-12, 1e-5)
+                ok, err = ok and ok_i, max(err, e)
+            errs["cd_epoch_gram"] = max(errs["cd_epoch_gram"], err)
+            if not ok:
+                fails.append(f"K1 {tag} epochs={epochs} err={err:.3e} "
+                             f"repeat_equal={same} counted={counted}")
+        return outs
+
+    for K in cfg["k1_blocked"]:
+        t = time.perf_counter()
+        G, c, beta0, q0, L = k1_inputs(K, dev, seed=K)
+        Grow = G.contiguous()
+        for pen in penalties():
+            prm = penalty_params(pen)
+            args = (G, c, beta0, q0, L, type(pen), prm)
+            refs = refs_of(args)
+            name = type(pen).__name__
+            check(f"K={K} {name} col-major", args, refs)
+            check(f"K={K} {name} row-major", (Grow,) + args[1:], refs)
+        log(f"  K1 at K={K}: branch {gram_plan(K, f64).branch} "
+            f"({time.perf_counter() - t:.1f} s)")
+        del G, Grow
+
+    K = cfg["k1_frozen_K"]
+    G, c, beta0, _, L = k1_inputs(K, dev, seed=9)
+    L = L.clone()
+    L[32:64] = 0.0
+    for pen, b0 in ((L1(0.11), beta0), (L1(1e6), torch.zeros_like(beta0))):
+        args = (G, c, b0, G @ b0, L, L1, penalty_params(pen))
+        refs = refs_of(args)
+        outs = check(f"K={K} L=0 on rows 32..63, L1({pen.lam})", args, refs)
+        # the kernel's outputs, not the plain version's
+        kept = all(torch.equal(b[32:64], b0[32:64]) for b, _ in outs.values())
+        if pen.lam > 1:
+            kept = kept and all(torch.equal(b, b0) and torch.equal(q, args[3])
+                                for b, q in outs.values())
+        if not kept:
+            fails.append(f"K1 K={K} L1({pen.lam}): a frozen coordinate moved")
+    del G
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return fails
+
+
 def check_k2_big_and_k4(dev, cfg, errs):
     """K2 at the sparse fits' n = 50,000 (K = 512 and the deep fit's
     K = 4096), at n = 1000 and past the cluster's shared memory
@@ -425,8 +545,8 @@ def check_k5(dev, designs, errs):
 
 # --------------------------------------------------------------- main path
 def all_counts():
-    """The launch counts of every kernel, and those of K2 and K1b by branch
-    under "<kernel>/<branch>"."""
+    """The launch counts of every kernel, and those of K1, K2 and K1b by
+    branch under "<kernel>/<branch>"."""
     from repro_torch.kernels import ops
     counts = ops.launch_counts()
     for k, per in ops.branch_counts().items():
@@ -435,7 +555,8 @@ def all_counts():
 
 
 def cluster_launches(counts, kernel):
-    return counts[kernel] - counts[f"{kernel}/single"]
+    return counts[f"{kernel}/cluster-shared"] + \
+        counts[f"{kernel}/cluster-global"]
 
 
 def _fit(make, design, y, dev, kernels, sample_weight=None):
@@ -516,8 +637,9 @@ def main_path(dev, cfg):
     total = dict.fromkeys(all_counts(), 0)
     fails = []
 
-    def run(label, make, design, y, needs):
-        return fit_both(label, make, design, y, dev, total, fails, needs)
+    def run(label, make, design, y, needs, **kw):
+        return fit_both(label, make, design, y, dev, total, fails, needs,
+                        **kw)
 
     X, y, _ = make_correlated_design(n=cfg["reg_n"], p=cfg["reg_p"],
                                      n_nonzero=cfg["reg_nnz"], rho=0.5,
@@ -526,12 +648,13 @@ def main_path(dev, cfg):
     del X
     lmax = lambda_max(design, y, device=dev)
     est = run("Lasso(lmax/20)", lambda **k: Lasso(alpha=lmax / 20, **k),
-              design, y, ("fused_ws", "cd_epoch_gram"))
+              design, y, ("fused_ws", "cd_epoch_gram"),
+              per_epoch="cd_epoch_gram")
     gap, primal = lasso_gap(design.X, y, est.coef_, lmax / 20, device=dev)
     log(f"  Lasso duality gap {gap:.3e} (primal {primal:.6f})")
     run("MCPRegression(lmax/10, gamma=3)",
         lambda **k: MCPRegression(alpha=lmax / 10, gamma=3.0, **k),
-        design, y, ("fused_ws", "cd_epoch_gram"))
+        design, y, ("fused_ws", "cd_epoch_gram"), per_epoch="cd_epoch_gram")
     del design
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -551,7 +674,7 @@ def main_path(dev, cfg):
     X, y, _ = make_classification(n=cfg["svc_n"], p=cfg["svc_p"],
                                   n_nonzero=cfg["svc_nnz"], seed=0)
     run("LinearSVC(C=1)", lambda **k: LinearSVC(C=1.0, max_outer=100, **k),
-        X, y, ("fused_ws", "cd_epoch_gram"))
+        X, y, ("fused_ws", "cd_epoch_gram"), per_epoch="cd_epoch_gram")
     return total, fails
 
 
@@ -620,7 +743,7 @@ def sparse_path(dev, cfg, d, y):
                  lambda **k: Lasso(alpha=lmax / k_lasso, **k),
                  d, y, dev, total, fails, ("csc_score", "cd_epoch_gram"),
                  exact={"fused_ws": 0, "csc_weighted_col_sq": 0},
-                 per_head="csc_score")
+                 per_head="csc_score", per_epoch="cd_epoch_gram")
         fit_both(f"sparse SparseLogisticRegression(lmax/{k_log}, weighted)",
                  lambda **k: SparseLogisticRegression(alpha=lmax_log / k_log,
                                                       **k),
@@ -634,7 +757,7 @@ def sparse_path(dev, cfg, d, y):
              np.sign(ysvc), dev, total, fails,
              ("csc_score", "cd_epoch_gram"),
              exact={"fused_ws": 0, "csc_weighted_col_sq": 0},
-             per_head="csc_score")
+             per_head="csc_score", per_epoch="cd_epoch_gram")
     return total, fails
 
 
@@ -865,6 +988,46 @@ def plan_fields(dev, name, plan, K, launches):
                                     for b in BRANCHES})
 
 
+def gram_row(dev, K, launches, errs, reps):
+    """K1's row at K: one L1 epoch on `gram_inputs` (every coordinate
+    moves); bound: the moved columns of G, c, L, beta0, q0 read and beta, q
+    written once, 2 K operations per moved coordinate; chain floor: K chain
+    steps of a shuffle and a multiply-add with a handoff every 32 on one
+    CTA of the plan's threads (a launch of that chain alone, over enough
+    epochs to spread the launch)."""
+    import torch
+    from repro_torch.core.penalties import L1
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cd_epoch import (BRANCHES, cd_epoch_gram_plain,
+                                              gram_chain_floor_cuda,
+                                              gram_plan)
+    from repro_torch.kernels.common import penalty_params
+    G, c, beta0, q0, L = gram_inputs(K, dev, seed=K)
+    args = (G, c, beta0, q0, L, L1, penalty_params(L1(0.11)))
+    ms = time_ms(lambda: ops.cd_epoch_gram(*args), dev, reps)
+    plain = time_ms(lambda: cd_epoch_gram_plain(*args), dev, 1)
+    moved = int(torch.sum(ops.cd_epoch_gram(*args)[0] != beta0))
+    b = bound(8 * (moved * K + 6 * K), 2 * moved * K)
+    plan = gram_plan(K, torch.float64)
+    floor = None
+    if dev.type == "cuda":
+        epochs = max(1, 200_000 // K)
+        floor = time_ms(lambda: gram_chain_floor_cuda(K, epochs, plan.threads,
+                                                      dev), dev, 3) / epochs
+    return dict(name="cd_epoch_gram", route="cuda",
+                source="src/repro_torch/csrc/cd_epoch.cu",
+                replaces="src/repro/kernels/cd_epoch.py:52",
+                launches=launches["cd_epoch_gram"],
+                max_abs_err=errs["cd_epoch_gram"], ms=ms, plain_ms=plain,
+                bound_ms=b[0], bound_by=b[1], library_ms=None,
+                library_call="none: no single call",
+                shape=f"K={K}, epochs=1, L1, {moved} coordinates moved",
+                branch=plan.branch, cluster=plan.cluster,
+                threads=plan.threads, chain_floor_ms=floor,
+                launches_by_branch={br: launches[f"cd_epoch_gram/{br}"]
+                                    for br in BRANCHES})
+
+
 def xb_row(dev, K, n, weighted, lam, seed, launches, errs, reps):
     """K2's row at (K, n): logistic, 1 epoch, L1(lam); bound: X_ws, y,
     (w), Xb0 read and Xb written once; 2 K n operations for the dot
@@ -902,7 +1065,6 @@ def kernel_times(dev, cfg, launches, errs, card, sparse_design):
     import torch
     from repro_torch.core.penalties import L1
     from repro_torch.kernels import ops
-    from repro_torch.kernels.cd_epoch import cd_epoch_gram_plain
     from repro_torch.kernels.common import penalty_params
     from repro_torch.kernels.fused_ws import fused_ws_plain, pick_bp
     reps = cfg["reps"]
@@ -910,22 +1072,10 @@ def kernel_times(dev, cfg, launches, errs, card, sparse_design):
     prm = penalty_params(pen)
     rows = []
 
-    K = max(cfg["k1_sizes"])
-    G, c, beta0, q0, L = gram_inputs(K, dev, seed=K)
-    args = (G, c, beta0, q0, L, L1, prm)
-    ms = time_ms(lambda: ops.cd_epoch_gram(*args), dev, reps)
-    plain = time_ms(lambda: cd_epoch_gram_plain(*args), dev, 1)
-    moved = int(torch.sum(ops.cd_epoch_gram(*args)[0] != beta0))
-    b = bound(8 * (moved * K + 6 * K), 2 * moved * K)
-    rows.append(dict(name="cd_epoch_gram", route="cuda",
-                     source="src/repro_torch/csrc/cd_epoch.cu",
-                     replaces="src/repro/kernels/cd_epoch.py:52",
-                     launches=launches["cd_epoch_gram"],
-                     max_abs_err=errs["cd_epoch_gram"], ms=ms,
-                     plain_ms=plain, bound_ms=b[0], bound_by=b[1],
-                     library_ms=None,
-                     shape=f"K={K}, epochs=1, L1, {moved} coordinates moved"))
-    del G
+    for K in cfg["k1_time_K"]:
+        rows.append(gram_row(dev, K, launches, errs, reps))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
 
     rows.append(xb_row(dev, cfg["k2_K"], cfg["k2_n"], False, 0.07, 7,
                        launches, errs, reps))
@@ -956,9 +1106,10 @@ def kernel_times(dev, cfg, launches, errs, card, sparse_design):
     rows += sparse_times(dev, cfg, launches, errs, sparse_design)
     log_rows(rows, card)
     log("K1, K1b and K2 are bound by the chain of dependent coordinate "
-        "steps (one barrier-separated prox per coordinate), not by bytes: "
-        "their bound_ms is the byte/operation floor only; chain_floor_ms is "
-        "K cluster-barrier round trips on the row's cluster.")
+        "steps, not by bytes: their bound_ms is the byte/operation floor "
+        "only; chain_floor_ms is, for K1, K chain steps (a shuffle and a "
+        "multiply-add) with a handoff every 32, for K2 and K1b K "
+        "cluster-barrier round trips on the row's cluster.")
     return rows
 
 
@@ -1190,6 +1341,9 @@ def run(dev, cfg):
 
     t = time.perf_counter()
     errs, fails = check_kernels(dev, cfg)
+    t1 = time.perf_counter()
+    fails += check_k1_blocked(dev, cfg, errs)
+    log(f"  K1 blocked-kernel checks: {time.perf_counter() - t1:.1f} s")
     fails += check_k2_big_and_k4(dev, cfg, errs)
     failures += fails
     report("dense kernels", t, fails,

@@ -3,13 +3,22 @@
 times on one CUDA card, to compare two trees of the port.
 
     python3 fit_times.py [SRC]
+    python3 fit_times.py --pool LOG [LOG ...]
 
 SRC is the ``src`` directory whose ``repro_torch`` is timed (default: this
 checkout's). The fits are those of ``chip_smoke.py`` at its full sizes: the
 M/EEG MultiTaskLasso and MultiTaskMCP(gamma=3) at lambda_max/10, the dense
-MultiTaskLasso at lambda_max/10 and the dense SparseLogisticRegression at
-lambda_max/3. Each is fitted once to warm up and then ``REPS`` times; the
-wall times (synchronized) are printed, with their median, as one JSON line.
+MultiTaskLasso at lambda_max/10, the dense SparseLogisticRegression at
+lambda_max/3, and the two fits whose time is mostly K1's Gram epochs: the
+dense LinearSVC(C=1) at the fig. 9 size (n = 2000, p = 1000) and the
+LinearSVC(C=1) on the scipy sparse X of ``sparse_small`` (2000 x 8000).
+Each is fitted once to warm up and then ``REPS`` times; the wall times
+(synchronized) are printed, with their median, as one JSON line.
+
+``--pool`` reads the JSON lines of several such runs (one process each,
+alternating between two trees in one call) and prints, for each tree (its
+``src``) and fit, the median and interquartile range of all its walls and
+the range of the per-process medians.
 """
 from __future__ import annotations
 
@@ -24,7 +33,30 @@ import chip_smoke as cs
 REPS = 7
 
 
+def pool(paths) -> int:
+    runs = {}
+    for path in paths:
+        line = Path(path).read_text().strip().splitlines()[-1]
+        rec = json.loads(line)
+        for label, fit in rec["fits"].items():
+            runs.setdefault(rec["src"], {}).setdefault(label, []).append(
+                fit["walls"])
+    for src, fits in runs.items():
+        print(src)
+        for label, procs in fits.items():
+            walls = sorted(w for p in procs for w in p)
+            q1, med, q3 = statistics.quantiles(walls, n=4)
+            meds = [statistics.median(p) for p in procs]
+            print(f"  {label}: {len(procs)} processes, median "
+                  f"{1e3 * med:.1f} ms (IQR {1e3 * q1:.1f}-{1e3 * q3:.1f}), "
+                  f"process medians {1e3 * min(meds):.1f}-"
+                  f"{1e3 * max(meds):.1f} ms")
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--pool"]:
+        return pool(sys.argv[2:])
     here = Path(__file__).resolve().parent
     src = Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else here / "src"
     sys.path.insert(0, str(src))
@@ -32,12 +64,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("fit_times: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.core import (Logistic, MultiTaskLasso, MultiTaskMCP,
-                                  MultitaskQuadratic,
+    import numpy as np
+    from repro_torch.core import (LinearSVC, Logistic, MultiTaskLasso,
+                                  MultiTaskMCP, MultitaskQuadratic,
                                   SparseLogisticRegression, lambda_max)
     from repro_torch.core.engine import DenseDesign
     from repro_torch.data import (make_classification, make_leadfield,
-                                  make_multitask)
+                                  make_multitask, make_sparse_design)
     from repro_torch.kernels import ops
     dev = torch.device("cuda")
     cfg = cs.FULL
@@ -89,6 +122,16 @@ def main() -> int:
     timed("dense SparseLogisticRegression",
           lambda: SparseLogisticRegression(alpha=lmax / 3, tol=cs.TOL),
           design, y)
+    del design
+    torch.cuda.empty_cache()
+
+    X, y, _ = make_classification(n=cfg["svc_n"], p=cfg["svc_p"],
+                                  n_nonzero=cfg["svc_nnz"], seed=0)
+    timed("dense LinearSVC", lambda: LinearSVC(C=1.0, max_outer=100,
+                                               tol=cs.TOL), X, y)
+    Xs, ys, _ = make_sparse_design(**cfg["sparse_small"])
+    timed("sparse LinearSVC", lambda: LinearSVC(C=1.0, max_outer=100,
+                                                tol=cs.TOL), Xs, np.sign(ys))
     print(json.dumps(out))
     return 0
 

@@ -21,19 +21,37 @@
 //
 // What bounds them on the H100: the chain of dependent coordinate steps,
 // not bytes or operations. Coordinate j+1 reads the state that coordinate j
-// wrote, so an epoch is K serial steps, each a barrier-separated prox and
-// an O(K) or O(n) vector update. The byte bound (G or X_ws read once) is
-// far below that latency chain; what one step costs is set by how many SMs
-// share its vector work and how far its state is from them.
+// wrote, so an epoch is K serial steps. The byte bound (G or X_ws read
+// once) is far below that latency chain; what one step costs is set by
+// what sits on the chain (a barrier, a global load, a reduction) and how
+// many SMs share its vector work.
 //
-// Single-CTA design (K1, and K1b at the small shapes where
-// kernels/cd_epoch.py's plan keeps it): one CTA keeps the whole state on
-// chip for all epochs of a launch, as the TPU kernel keeps it in VMEM. K1
-// holds beta and q in shared memory while they fit (K <= ~12k in f64), else
-// works in global memory with the same loop. K1b holds q in shared memory;
-// warp 0 computes the row prox (lanes over the tasks, the norm by a fixed
-// shuffle tree) and every thread walks its share of the flat [K, T] update,
-// neighbouring threads on neighbouring q entries.
+// K1's design: a blocked chain with a lookahead update on one CTA. Step j
+// needs only q_j, so a block of B = 32 coordinates runs in one warp: lane
+// b holds row j0 + b's q, c, L, step and beta; step b is lane b's prox, a
+// shuffle of its delta and q_l + G[j0 + l, j0 + b] * delta on every lane,
+// with the diagonal tile staged in shared memory: no CTA barrier and no
+// global load inside a block (the old kernel paid one global load and two
+// CTA barriers a coordinate, ~0.65 us). The other warps apply the previous
+// block's moved deltas to every other row meanwhile, the next block's rows
+// first, and stage the next block's tiles (cp.async) and c, L, step; the
+// chain warp applies that block's deltas to its own rows from a staged
+// tile. One handoff each way per block, on named barriers. Each q_i still
+// takes q_i + G[i, j] * delta_j one j at a time, in ascending order, delta
+// = 0 skipped, so K1 rounds as its plain version under -fmad=false (up to
+// the sign of a zero). What is left on the chain: K dependent prox +
+// shuffle + multiply-add steps, and a handoff every B; beside it the
+// update warps stream G (K^2 values an epoch when every coordinate moves)
+// through one SM. q and beta live in shared memory: the plan keeps one CTA
+// for small K only, and past it a cluster whose update CTAs hold q's rows
+// (up to ~360k float64 coordinates, where G alone would take ~1 PB).
+//
+// K1b's single-CTA design (the small shapes where kernels/cd_epoch.py's
+// plan keeps it): one CTA keeps the whole state on chip for all epochs of
+// a launch, as the TPU kernel keeps it in VMEM. It holds q in shared
+// memory; warp 0 computes the row prox (lanes over the tasks, the norm by a
+// fixed shuffle tree) and every thread walks its share of the flat [K, T]
+// update, neighbouring threads on neighbouring q entries.
 //
 // Cluster design (K2 always, K1b past the plan's single-CTA shapes): one
 // launch is one thread-block cluster of C CTAs on one GPC. CTA r owns the
@@ -68,8 +86,8 @@
 //
 // The launch layout (cluster size, shared or global slices, dynamic shared
 // bytes, threads, register path) is the wrapper's plan
-// (kernels/cd_epoch.py: xb_plan, gram_block_plan); the launchers take it as
-// given.
+// (kernels/cd_epoch.py: gram_plan, xb_plan, gram_block_plan); the launchers
+// take it as given.
 //
 // Built with -fmad=false: every multiply and add rounds on its own, as the
 // plain torch versions do, so the Gram axpy matches them exactly.
@@ -84,8 +102,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// K1's dynamic shared memory budget (beyond it K1 works in global memory)
-constexpr int kMaxSmem = 225 * 1024;
 // returned when no GPC of the card can place the cluster
 constexpr int kErrClusterUnplaceable = -1;
 
@@ -106,43 +122,502 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.L2 [%0];\n" ::"l"(p));
 }
 
+// ------------------------------------------------------------------ K1
+// K1's layout constants (kernels/cd_epoch.py: gram_plan mirrors them): a
+// block of kGramB coordinates is one chain warp's lanes; an update thread
+// keeps a row's kGramB loads of G in flight, which takes the registers of
+// at most kGramMaxThreads threads. The head of dynamic shared memory holds,
+// in T values, the tiles [2 parities][diag, sub][B][B], the staged c, L,
+// step and beta [4][2 parities][B], the deltas of the last three blocks by
+// lane [3][B] and compacted [3][B], and the next block's q rows [2][B];
+// then q and beta (one CTA) or the CTA's q rows (a cluster's update CTAs).
+constexpr int kGramB = 32;
+constexpr int kGramMaxThreads = 512;
+constexpr int kGramTile = kGramB * kGramB;
+constexpr int kGramHead = 4 * kGramTile + 16 * kGramB;
+// named barriers (0 is __syncthreads): kBarDone + parity, the chain warp's
+// "block s is done" to the warps that stage; kBarReady + parity, their
+// "block s+1's inputs are ready" to the chain warp
+constexpr int kBarDone = 1;
+constexpr int kBarReady = 3;
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
 template <typename T>
-__global__ void cd_gram_kernel(const T* __restrict__ G, long long s_row, long long s_col,
-                               const T* __restrict__ c, const T* __restrict__ L,
-                               const T* __restrict__ beta0, const T* __restrict__ q0,
-                               T* beta_out, T* q_out, int K, int epochs, int pen, T p0,
-                               T p1, int use_smem) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T s_delta;
-  T* beta = use_smem ? reinterpret_cast<T*>(smem_raw) : beta_out;
-  T* q = use_smem ? reinterpret_cast<T*>(smem_raw) + K : q_out;
-  for (int i = threadIdx.x; i < K; i += blockDim.x) {
-    beta[i] = beta0[i];
-    q[i] = q0[i];
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "n"(sizeof(T))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count)
+               : "memory");
+}
+
+// arrive, with release at cluster scope, on the mbarrier `b` of cluster
+// rank `rank` (b is the address of the same barrier in this CTA)
+__device__ __forceinline__ void mbar_arrive_remote(unsigned long long* b, unsigned rank) {
+  asm volatile(
+      "{\n .reg .b32 ra;\n mapa.shared::cluster.u32 ra, %0, %1;\n"
+      " mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}\n" ::"r"(smem_u32(b)),
+      "r"(rank)
+      : "memory");
+}
+
+// wait, with acquire at cluster scope, until the phase of parity `par` of
+// this CTA's mbarrier `b` has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* b, unsigned par) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(b)), "r"(par)
+        : "memory");
+}
+
+// K1's shared state: the staged inputs of a chain step, the published
+// deltas of a block and the next block's q rows
+template <typename T>
+struct GramShared {
+  T* tiles;  // [2][2][B][B]: parity, (diag G[rows, rows], sub G[rows, prev cols]), col b, row l
+  T* sc;     // [2][B] c of the staged block's rows
+  T* sL;     // [2][B] L
+  T* sst;    // [2][B] step = 1 / max(L, 1e-30)
+  T* sbeta;  // [2][B] beta (cluster)
+  T* dlane;  // [3][B] the block's deltas by lane (0 where not moved)
+  T* dcomp;  // [3][B] the moved deltas, compacted in coordinate order
+  T* qbuf;   // [2][B] the chain block's q rows, from their owner (cluster)
+  int* list;       // [3][B] the moved deltas' lanes
+  unsigned* mask;  // [3] the moved mask
+
+  __device__ GramShared(T* base, int* s_list, unsigned* s_mask)
+      : tiles(base),
+        sc(base + 4 * kGramTile),
+        sL(sc + 2 * kGramB),
+        sst(sL + 2 * kGramB),
+        sbeta(sst + 2 * kGramB),
+        dlane(sbeta + 2 * kGramB),
+        dcomp(dlane + 3 * kGramB),
+        qbuf(dcomp + 3 * kGramB),
+        list(s_list),
+        mask(s_mask) {}
+};
+
+// Stage chain step t's inputs into parity t & 1: the diagonal tile of
+// block kb, the tile G[block kb, block kp] (kp >= 0: the previous block,
+// whose deltas the chain applies first) by cp.async, and c, L, step (and,
+// with `beta`, beta) of kb's rows. Thread u of nu takes its share.
+template <typename T>
+__device__ __forceinline__ void gram_stage(const GramShared<T>& sh, const T* __restrict__ G,
+                                           long long s_row, long long s_col,
+                                           const T* __restrict__ c, const T* __restrict__ L,
+                                           const T* beta, int K, int t, int kb, int kp, int u,
+                                           int nu) {
+  const int par = t & 1;
+  T* tile = sh.tiles + par * 2 * kGramTile;
+  const int n = kp >= 0 ? 2 * kGramTile : kGramTile;
+  for (int e = u; e < n; e += nu) {
+    const int which = e / kGramTile, r = e % kGramTile;
+    const int b = r / kGramB, l = r % kGramB;
+    const int i = kb * kGramB + l, j = (which ? kp : kb) * kGramB + b;
+    if (i < K && j < K) cp_async(tile + e, G + (long long)i * s_row + (long long)j * s_col);
   }
-  __syncthreads();
-  for (int e = 0; e < epochs; ++e) {
-    for (int j = 0; j < K; ++j) {
-      if (threadIdx.x == 0) {
-        const T bj = beta[j];
-        const T nw = rt::coord_step(pen, bj, q[j] - c[j], L[j], p0, p1);
-        s_delta = nw - bj;
-        beta[j] = nw;
-      }
-      __syncthreads();
-      const T d = s_delta;
-      if (d != T(0)) {
-        const T* col = G + (long long)j * s_col;
-        for (int i = threadIdx.x; i < K; i += blockDim.x)
-          q[i] = q[i] + col[(long long)i * s_row] * d;
-      }
-      __syncthreads();
+  for (int l = u; l < kGramB; l += nu) {
+    const int i = kb * kGramB + l;
+    if (i < K) {
+      const T Li = L[i];
+      sh.sc[par * kGramB + l] = c[i];
+      sh.sL[par * kGramB + l] = Li;
+      sh.sst[par * kGramB + l] = T(1.0) / rt::clamp_min(Li, T(1e-30));
+      if (beta) sh.sbeta[par * kGramB + l] = beta[i];
     }
   }
-  if (use_smem) {
-    for (int i = threadIdx.x; i < K; i += blockDim.x) {
-      beta_out[i] = beta[i];
-      q_out[i] = q[i];
+}
+
+// *qi += G[i, jp0 + list[t]] * d[t] for the nm moved coordinates of one
+// block, in coordinate order. All nm loads of G are issued before the
+// first add (one round trip a row) and bypass L1 (ld.global.cg): a CTA's
+// rows x 32 lines in flight would thrash it.
+template <typename T>
+__device__ __forceinline__ void gram_apply_row(T* qi, const T* __restrict__ G, long long s_row,
+                                               long long s_col, int i, int jp0, int nm,
+                                               const int* list, const T* d) {
+  const T* Gi = G + (long long)i * s_row;
+  T g[kGramB];
+#pragma unroll
+  for (int t = 0; t < kGramB; ++t)
+    if (t < nm) g[t] = __ldcg(Gi + (long long)(jp0 + list[t]) * s_col);
+  T v = *qi;
+#pragma unroll
+  for (int t = 0; t < kGramB; ++t)
+    if (t < nm) v = v + g[t] * d[t];
+  *qi = v;
+}
+
+// One block on the chain warp, lane l holding row j0 + l (q ql, beta bl,
+// c, L, step): first the previous block's Bp deltas dp[b] (by lane;
+// nullptr: none) with the staged tile `sub` = G[block, previous block], in
+// coordinate order (gram_stage writes only columns b < Bp: a ragged last
+// block leaves the rest of the tile unwritten, so the loop must not read
+// it); then the block's Bk coordinates: lane b's prox, a
+// shuffle of its delta, q_l + G[j0 + l, j0 + b] * delta on every lane (the
+// staged diagonal tile `diag`). No CTA barrier and no global load. The
+// chain adds G * delta for every delta, 0 included, as the plain version
+// does: a branch on delta would keep the tile's shared loads from running
+// ahead of the chain. Returns lane l's delta (0 where it did not move) and
+// updates ql, bl.
+template <typename T, int PEN>
+__device__ __forceinline__ T gram_chain_block(const T* diag, const T* sub, const T* dp, int Bp,
+                                              int Bk, int lane, T& ql, T& bl, T cl, T Ll, T stl,
+                                              T p0, T p1) {
+  if (dp) {
+#pragma unroll 8
+    for (int b = 0; b < kGramB; ++b) {
+      if (b >= Bp) break;
+      ql = ql + sub[b * kGramB + lane] * dp[b];
+    }
+  }
+  T myd = T(0);
+#pragma unroll 8
+  for (int b = 0; b < kGramB; ++b) {
+    if (b >= Bk) break;
+    const T g = ql - cl;
+    const T nw0 = rt::prox(PEN, bl - g * stl, stl, p0, p1);
+    const T nw = (Ll > T(0)) ? nw0 : bl;
+    const T d = __shfl_sync(0xffffffffu, nw - bl, b);
+    if (lane == b) {
+      bl = nw;
+      myd = d;
+    }
+    ql = ql + diag[b * kGramB + lane] * d;
+  }
+  return myd;
+}
+
+// Publish a block's deltas into this CTA's slot: by lane, compacted in
+// coordinate order with their lanes, and the moved mask.
+template <typename T>
+__device__ __forceinline__ void gram_publish(const GramShared<T>& sh, int slot, int lane, T myd) {
+  const bool moved = myd != T(0);
+  const unsigned mv = __ballot_sync(0xffffffffu, moved);
+  sh.dlane[slot * kGramB + lane] = myd;
+  if (moved) {
+    const int pos = __popc(mv & ((1u << lane) - 1u));
+    sh.list[slot * kGramB + pos] = lane;
+    sh.dcomp[slot * kGramB + pos] = myd;
+  }
+  if (lane == 0) sh.mask[slot] = mv;
+}
+
+// K1 on one CTA: `epochs` cyclic passes over K coordinates in blocks of
+// B = 32, on a chain warp (warp 0) and update warps (the rest). The epochs
+// are one sequence of S = epochs * nb chain steps, step s on block s % nb.
+//   chain warp, step s: wait for kBarReady (s - 1); load the block's q and
+//   beta (lane l: row j0 + l) and its staged c, L, step; run
+//   gram_chain_block (the previous block's deltas D_{s-1} first); write q
+//   and beta back; publish D_s; arrive at kBarDone (s).
+//   update warps, step s (while chain s runs): wait for kBarDone (s - 1);
+//   stage chain s + 1's tiles and c, L, step; apply D_{s-1} to block
+//   s + 1's rows (warp 1); arrive at kBarReady (s); apply D_{s-1} to every
+//   other row outside blocks s - 1 (its own chain applied it), s (chain s
+//   applies it first) and s + 1. A last step drains D_{S-1}.
+// Every row therefore takes the deltas one at a time in coordinate order,
+// as the plain epoch does; the update warps skip Delta = 0 (the plain
+// epoch adds 0 * G there; the chain adds it too).
+// Three delta slots and two tile parities keep a writer off the slot a
+// reader still holds; the named barriers alternate by parity so a phase
+// never takes the next phase's arrivals.
+template <typename T, int PEN>
+__global__ void __launch_bounds__(kGramMaxThreads)
+    cd_gram_kernel(const T* __restrict__ G, long long s_row, long long s_col,
+                   const T* __restrict__ c, const T* __restrict__ L, const T* __restrict__ beta0,
+                   const T* __restrict__ q0, T* beta_out, T* q_out, int K, int epochs, T p0,
+                   T p1) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_list[3 * kGramB];
+  __shared__ unsigned s_mask[3];
+  T* base = reinterpret_cast<T*>(smem_raw);
+  const GramShared<T> sh(base, s_list, s_mask);
+  T* q = base + kGramHead;
+  T* beta = base + kGramHead + K;
+  const int tid = threadIdx.x, bd = blockDim.x;
+  const int nb = (K + kGramB - 1) / kGramB;
+  const int S = epochs * nb;
+  for (int i = tid; i < K; i += bd) {
+    q[i] = q0[i];
+    beta[i] = beta0[i];
+  }
+  if (S > 0) gram_stage(sh, G, s_row, s_col, c, L, (const T*)nullptr, K, 0, 0, -1, tid, bd);
+  cp_async_wait_all();
+  __syncthreads();
+  if (tid < kGramB) {
+    const int lane = tid;
+    for (int s = 0; s < S; ++s) {
+      const int kb = s % nb, par = s & 1, j0 = kb * kGramB;
+      const int Bk = min(kGramB, K - j0);
+      const int Bp = min(kGramB, K - ((s + nb - 1) % nb) * kGramB);  // block s - 1's length
+      const bool act = lane < Bk;
+      if (s > 0) bar_sync(kBarReady + ((s - 1) & 1), bd);
+      const T* tile = sh.tiles + par * 2 * kGramTile;
+      T ql = act ? q[j0 + lane] : T(0);
+      T bl = act ? beta[j0 + lane] : T(0);
+      const T myd = gram_chain_block<T, PEN>(
+          tile, tile + kGramTile, s > 0 && nb > 1 ? sh.dlane + ((s - 1) % 3) * kGramB : nullptr,
+          Bp, Bk, lane, ql, bl, sh.sc[par * kGramB + lane], sh.sL[par * kGramB + lane],
+          sh.sst[par * kGramB + lane], p0, p1);
+      if (act) {
+        q[j0 + lane] = ql;
+        beta[j0 + lane] = bl;
+      }
+      gram_publish(sh, s % 3, lane, myd);
+      __syncwarp();
+      bar_arrive(kBarDone + par, bd);
+    }
+  } else {
+    const int u = tid - kGramB, nu = bd - kGramB;
+    for (int s = 0; s <= S; ++s) {
+      if (s > 0) bar_sync(kBarDone + ((s - 1) & 1), bd);
+      const int kp = s > 0 ? (s - 1) % nb : -1;       // D_{s-1}'s block
+      const int kc = s < S ? s % nb : -1;             // chain s's block
+      const int kn = s + 1 < S ? (s + 1) % nb : -1;   // chain s+1's block
+      int nm = 0;
+      const int* list = nullptr;
+      const T* d = nullptr;
+      if (s > 0) {
+        const int slot = (s - 1) % 3;
+        nm = __popc(sh.mask[slot]);
+        list = sh.list + slot * kGramB;
+        d = sh.dcomp + slot * kGramB;
+      }
+      const int jp0 = kp * kGramB;
+      if (kn >= 0) {
+        gram_stage(sh, G, s_row, s_col, c, L, (const T*)nullptr, K, s + 1, kn,
+                   kn != kc ? kc : -1, u, nu);
+        // the next chain's rows first
+        const int i = kn * kGramB + u;
+        if (nm && u < kGramB && kn != kp && kn != kc && i < K)
+          gram_apply_row(q + i, G, s_row, s_col, i, jp0, nm, list, d);
+        cp_async_wait_all();
+        bar_arrive(kBarReady + (s & 1), bd);
+      }
+      if (nm) {
+        for (int i = u; i < K; i += nu) {
+          const int kb = i / kGramB;
+          if (kb == kp || kb == kc || kb == kn) continue;
+          gram_apply_row(q + i, G, s_row, s_col, i, jp0, nm, list, d);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < K; i += bd) {
+    beta_out[i] = beta[i];
+    q_out[i] = q[i];
+  }
+}
+
+// the cluster rank (1..C-1) whose rows hold block k of nb: the update CTAs
+// split the blocks as split_lo does
+__device__ __forceinline__ int gram_owner(int k, int nb, int C) {
+  return 1 + (int)(((long long)(C - 1) * (k + 1) - 1) / nb);
+}
+
+// K1 on a thread-block cluster of C CTAs (nb >= 3 blocks): the chain keeps
+// its SM to itself, and C - 1 SMs share the stream of G.
+//   rank 0: the chain warp runs the one-CTA kernel's chain steps on q rows
+//   it receives (blocks 0 and 1 from q0); its other warps stage each next
+//   step's tiles and c, L, step, beta (named barriers as there). beta
+//   lives in beta_out. After chain s the chain
+//   warp writes the block's q rows back to their owner (DSMEM), publishes
+//   D_s in its own slot s % 3 (after every update CTA has released that
+//   slot: mbarrier empty); after a warp barrier lane r arrives on rank
+//   r's mbarrier full (release, cluster scope).
+//   rank r >= 1: owns blocks [split_lo(nb, C-1, r-1), split_lo(nb, C-1, r))
+//   of q, in its shared memory. Step s: wait full (D_{s-1});
+//   copy D_{s-1} from rank 0; if it owns block s + 1, warp 0 applies
+//   D_{s-1} to those rows first, sends them to rank 0's qbuf and arrives on
+//   rank 0's mbarrier ready (chain s + 1 waits for it from s + 1 = 2 on);
+//   then D_{s-1} on its other rows outside blocks
+//   s - 1, s and s + 1 (as on one CTA); then one arrival on rank 0's empty.
+// The per-row order of additions is the one-CTA kernel's. A cluster
+// barrier after the mbarriers' initialisation and one before exit keep
+// every remote access inside the CTAs' lifetimes.
+template <typename T, int PEN>
+__global__ void __launch_bounds__(kGramMaxThreads)
+    cd_gram_cluster_kernel(const T* __restrict__ G, long long s_row, long long s_col,
+                           const T* __restrict__ c, const T* __restrict__ L,
+                           const T* __restrict__ beta0, const T* __restrict__ q0, T* beta_out,
+                           T* q_out, int K, int epochs, T p0, T p1) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_list[3 * kGramB];
+  __shared__ unsigned s_mask[3];
+  __shared__ __align__(8) unsigned long long bar_full[3], bar_empty[3], bar_ready[2];
+  T* base = reinterpret_cast<T*>(smem_raw);
+  const GramShared<T> sh(base, s_list, s_mask);
+  const int tid = threadIdx.x, bd = blockDim.x;
+  const int nb = (K + kGramB - 1) / kGramB;
+  const int S = epochs * nb;
+  if (tid == 0) {
+    for (int m = 0; m < 3; ++m) {
+      mbar_init(&bar_full[m], 1);
+      mbar_init(&bar_empty[m], C - 1);
+    }
+    for (int m = 0; m < 2; ++m) mbar_init(&bar_ready[m], kGramB);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_arrive_release();
+  cluster_wait_acquire();
+  if (rank == 0) {
+    for (int i = tid; i < K; i += bd) beta_out[i] = beta0[i];
+    __syncthreads();
+    if (S > 0) {
+      // blocks 0 and 1 start from q0 (block 1 takes D_0 in chain 1)
+      gram_stage(sh, G, s_row, s_col, c, L, (const T*)beta_out, K, 0, 0, -1, tid, bd);
+      for (int l = tid; l < 2 * kGramB; l += bd) sh.qbuf[l] = q0[l];
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if (tid < kGramB) {
+      const int lane = tid;
+      T* qrows = base + kGramHead;  // the owners' q rows, at the same offset
+      for (int s = 0; s < S; ++s) {
+        const int kb = s % nb, par = s & 1, j0 = kb * kGramB;
+        const int Bk = min(kGramB, K - j0);
+        const int Bp = min(kGramB, K - ((s + nb - 1) % nb) * kGramB);  // block s - 1's length
+        const bool act = lane < Bk;
+        if (s > 0) bar_sync(kBarReady + ((s - 1) & 1), bd);
+        if (s > 1) mbar_wait(&bar_ready[par], ((s - 2) >> 1) & 1);
+        const T* tile = sh.tiles + par * 2 * kGramTile;
+        T ql = sh.qbuf[par * kGramB + lane];
+        T bl = sh.sbeta[par * kGramB + lane];
+        const T myd = gram_chain_block<T, PEN>(
+            tile, tile + kGramTile, s > 0 ? sh.dlane + ((s - 1) % 3) * kGramB : nullptr, Bp, Bk,
+            lane, ql, bl, sh.sc[par * kGramB + lane], sh.sL[par * kGramB + lane],
+            sh.sst[par * kGramB + lane], p0, p1);
+        const int slot = s % 3;
+        if (s >= 3) mbar_wait(&bar_empty[slot], ((s - 3) / 3) & 1);
+        const int o = gram_owner(kb, nb, C);
+        if (act) {
+          beta_out[j0 + lane] = bl;
+          const int r0 = split_lo(nb, C - 1, o - 1) * kGramB;
+          *cluster.map_shared_rank(qrows + (j0 + lane - r0), o) = ql;
+        }
+        gram_publish(sh, slot, lane, myd);
+        // lane r releases the warp's writes to rank r (one arrival each;
+        // the warp barrier orders every lane's writes before it)
+        __syncwarp();
+        if (lane >= 1 && lane < C) mbar_arrive_remote(&bar_full[slot], lane);
+        if (s + 2 < S) bar_arrive(kBarDone + par, bd);
+      }
+    } else {
+      const int u = tid - kGramB, nu = bd - kGramB;
+      for (int s = 0; s + 1 < S; ++s) {
+        if (s > 0) bar_sync(kBarDone + ((s - 1) & 1), bd);
+        gram_stage(sh, G, s_row, s_col, c, L, (const T*)beta_out, K, s + 1, (s + 1) % nb,
+                   s % nb, u, nu);
+        cp_async_wait_all();
+        bar_arrive(kBarReady + (s & 1), bd);
+      }
+    }
+  } else {
+    const int kb_lo = split_lo(nb, C - 1, rank - 1), kb_hi = split_lo(nb, C - 1, rank);
+    const int lo = kb_lo * kGramB, hi = min(K, kb_hi * kGramB);
+    T* q = base + kGramHead;  // rows lo..hi-1
+    for (int i = tid; i < hi - lo; i += bd) q[i] = q0[lo + i];
+    __syncthreads();
+    const int* r_list = cluster.map_shared_rank(s_list, 0);
+    const T* r_dcomp = cluster.map_shared_rank(sh.dcomp, 0);
+    const unsigned* r_mask = cluster.map_shared_rank(s_mask, 0);
+    for (int s = 1; s <= S; ++s) {
+      const int slot = (s - 1) % 3;
+      mbar_wait(&bar_full[slot], ((s - 1) / 3) & 1);
+      if (tid < kGramB) {
+        sh.list[slot * kGramB + tid] = r_list[slot * kGramB + tid];
+        sh.dcomp[slot * kGramB + tid] = r_dcomp[slot * kGramB + tid];
+        if (tid == 0) sh.mask[slot] = r_mask[slot];
+      }
+      __syncthreads();
+      const int kp = (s - 1) % nb;                    // D_{s-1}'s block
+      const int kc = s < S ? s % nb : -1;             // chain s's block
+      const int kn = s + 1 < S ? (s + 1) % nb : -1;   // chain s+1's block
+      const int nm = __popc(sh.mask[slot]);
+      const int* list = sh.list + slot * kGramB;
+      const T* d = sh.dcomp + slot * kGramB;
+      const int jp0 = kp * kGramB;
+      if (kn >= kb_lo && kn < kb_hi && tid < kGramB) {
+        // the next chain's rows first, sent to rank 0
+        const int i = kn * kGramB + tid;
+        if (i < K) {
+          if (nm) gram_apply_row(q + (i - lo), G, s_row, s_col, i, jp0, nm, list, d);
+          *cluster.map_shared_rank(sh.qbuf + ((s + 1) & 1) * kGramB + tid, 0) = q[i - lo];
+        }
+        mbar_arrive_remote(&bar_ready[(s + 1) & 1], 0);
+      }
+      if (nm) {
+        for (int i = lo + tid; i < hi; i += bd) {
+          const int kb = i / kGramB;
+          if (kb == kp || kb == kc || kb == kn) continue;
+          gram_apply_row(q + (i - lo), G, s_row, s_col, i, jp0, nm, list, d);
+        }
+      }
+      __syncthreads();
+      if (tid == 0) mbar_arrive_remote(&bar_empty[slot], 0);
+    }
+    for (int i = tid; i < hi - lo; i += bd) q_out[lo + i] = q[i];
+  }
+  // no CTA leaves while another may still reach its shared memory
+  cluster_arrive_release();
+  cluster_wait_acquire();
+}
+
+// K1's chain floor: the one-CTA kernel's handoffs, with a chain step of
+// one shuffle and one multiply-add and no update work. `scale` = 0 keeps v
+// finite; the compiler cannot know it.
+template <typename T>
+__global__ void __launch_bounds__(kGramMaxThreads)
+    gram_chain_floor_kernel(int K, int epochs, T scale, T* out) {
+  const int tid = threadIdx.x, bd = blockDim.x;
+  const int nb = (K + kGramB - 1) / kGramB;
+  const int S = epochs * nb;
+  if (tid < kGramB) {
+    T v = T(tid);
+    for (int s = 0; s < S; ++s) {
+      const int Bk = min(kGramB, K - (s % nb) * kGramB);
+      if (s > 0) bar_sync(kBarReady + ((s - 1) & 1), bd);
+#pragma unroll 8
+      for (int b = 0; b < kGramB; ++b) {
+        if (b >= Bk) break;
+        const T d = __shfl_sync(0xffffffffu, v, b);
+        v = v + scale * d;
+      }
+      __syncwarp();
+      bar_arrive(kBarDone + (s & 1), bd);
+    }
+    out[tid] = v;
+  } else {
+    for (int s = 0; s <= S; ++s) {
+      if (s > 0) bar_sync(kBarDone + ((s - 1) & 1), bd);
+      if (s + 1 < S) bar_arrive(kBarReady + (s & 1), bd);
     }
   }
 }
@@ -534,31 +1009,20 @@ __global__ void __launch_bounds__(PER > 0 ? kPerThreads : 1024)
   cluster_wait_acquire();
 }
 
+// every word of this CTA's dynamic shared memory set to all ones
+// (volatile: the stores are never read back here, and must not be dropped)
+__global__ void fill_shared_kernel(int words) {
+  extern __shared__ unsigned fill_words[];
+  volatile unsigned* w = fill_words;
+  for (int i = threadIdx.x; i < words; i += blockDim.x) w[i] = 0xffffffffu;
+}
+
 // the chain floor: `iters` cluster barriers and nothing else
 __global__ void cluster_barrier_loop_kernel(int iters) {
   for (int k = 0; k < iters; ++k) {
     cluster_arrive_release();
     cluster_wait_acquire();
   }
-}
-
-int threads_for(int m) {
-  int t = ((m + 31) / 32) * 32;
-  return t < 32 ? 32 : (t > 1024 ? 1024 : t);
-}
-
-template <typename T>
-int launch_gram(const T* G, long long sr, long long sc, const T* c, const T* L, const T* beta0,
-                const T* q0, T* beta, T* q, int K, int epochs, int pen, double p0, double p1,
-                void* stream) {
-  const size_t bytes = 2 * (size_t)K * sizeof(T);
-  const int use_smem = bytes <= (size_t)kMaxSmem;
-  const size_t dyn = use_smem ? bytes : 0;
-  cudaFuncSetAttribute(cd_gram_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)dyn);
-  cd_gram_kernel<T><<<1, threads_for(K), dyn, (cudaStream_t)stream>>>(
-      G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, pen, (T)p0, (T)p1, use_smem);
-  return (int)cudaGetLastError();
 }
 
 // Launch `kernel` as one cluster of C CTAs (grid = cluster = C) through
@@ -594,6 +1058,55 @@ int launch_cluster(void (*kernel)(ExpTypes...), int C, int threads, size_t dyn, 
   err = cudaLaunchKernelEx(&cfg, kernel, std::forward<ActTypes>(args)...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <typename T, int PEN>
+int launch_gram_pen(const T* G, long long sr, long long sc, const T* c, const T* L,
+                    const T* beta0, const T* q0, T* beta, T* q, int K, int epochs, double p0,
+                    double p1, int cluster, int dyn, int threads, void* stream) {
+  if (cluster > 1)
+    return launch_cluster(cd_gram_cluster_kernel<T, PEN>, cluster, threads, (size_t)dyn, stream,
+                          G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, (T)p0, (T)p1);
+  cudaError_t err = cudaFuncSetAttribute(cd_gram_kernel<T, PEN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (err != cudaSuccess) return (int)err;
+  cd_gram_kernel<T, PEN><<<1, threads, dyn, (cudaStream_t)stream>>>(
+      G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, (T)p0, (T)p1);
+  return (int)cudaGetLastError();
+}
+
+// K1 with the wrapper's plan (kernels/cd_epoch.py: gram_plan): one CTA
+// (cluster == 1) or a cluster of `cluster` CTAs (K > 2 blocks), `dyn`
+// bytes of dynamic shared memory a CTA, `threads` a CTA (the chain warp and
+// at least one more warp). Refuses a plan whose `dyn` cannot hold the head
+// and the state (one CTA: q and beta; a cluster: an update CTA's q rows).
+template <typename T>
+int launch_gram(const T* G, long long sr, long long sc, const T* c, const T* L, const T* beta0,
+                const T* q0, T* beta, T* q, int K, int epochs, int pen, double p0, double p1,
+                int cluster, int dyn, int threads, void* stream) {
+  if (threads < 2 * kGramB || threads % 32 || threads > kGramMaxThreads || cluster < 1 ||
+      cluster > 16 || (cluster > 1 && K <= 2 * kGramB))
+    return (int)cudaErrorInvalidValue;
+  const long long nb = (K + kGramB - 1) / kGramB;
+  const long long state =
+      cluster == 1 ? 2LL * K : (nb + cluster - 2) / (cluster - 1) * kGramB;  // values
+  if ((long long)dyn < (kGramHead + state) * (long long)sizeof(T))
+    return (int)cudaErrorInvalidValue;
+#define K1_CASE(ID)                                                                        \
+  case ID:                                                                                 \
+    return launch_gram_pen<T, ID>(G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, p0, p1, \
+                                  cluster, dyn, threads, stream);
+  switch (pen) {
+    K1_CASE(rt::PEN_L1)
+    K1_CASE(rt::PEN_L1L2)
+    K1_CASE(rt::PEN_MCP)
+    K1_CASE(rt::PEN_SCAD)
+    K1_CASE(rt::PEN_L05)
+    K1_CASE(rt::PEN_L23)
+    K1_CASE(rt::PEN_BOX)
+  }
+#undef K1_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // K1b with the wrapper's plan (kernels/cd_epoch.py: gram_block_plan): one
@@ -643,18 +1156,18 @@ extern "C" {
 
 int cd_epoch_gram_f64(const double* G, long long sr, long long sc, const double* c,
                       const double* L, const double* beta0, const double* q0, double* beta,
-                      double* q, int K, int epochs, int pen, double p0, double p1,
-                      void* stream) {
+                      double* q, int K, int epochs, int pen, double p0, double p1, int cluster,
+                      int dyn, int threads, void* stream) {
   return launch_gram<double>(G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, pen, p0, p1,
-                             stream);
+                             cluster, dyn, threads, stream);
 }
 
 int cd_epoch_gram_f32(const float* G, long long sr, long long sc, const float* c,
                       const float* L, const float* beta0, const float* q0, float* beta,
-                      float* q, int K, int epochs, int pen, double p0, double p1,
-                      void* stream) {
+                      float* q, int K, int epochs, int pen, double p0, double p1, int cluster,
+                      int dyn, int threads, void* stream) {
   return launch_gram<float>(G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, pen, p0, p1,
-                            stream);
+                            cluster, dyn, threads, stream);
 }
 
 int cd_epoch_gram_block_f64(const double* G, long long sr, long long sc, const double* c,
@@ -697,6 +1210,34 @@ int cd_epoch_xb_f32(const float* Xt, const float* y, const float* w, const float
 // the chain floor of the cluster kernels
 int cluster_barrier_loop(int cluster, int threads, int iters, void* stream) {
   return launch_cluster(cluster_barrier_loop_kernel, cluster, threads, 0, stream, iters);
+}
+
+// K1's chain floor in float64 on one CTA of `threads` threads: `epochs`
+// passes of K chain steps (a shuffle and a multiply-add each) with K1's
+// handoff every kGramB steps; `out` takes kGramB doubles
+int gram_chain_floor(int K, int epochs, int threads, double* out, void* stream) {
+  if (threads < 2 * kGramB || threads % 32 || threads > kGramMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  gram_chain_floor_kernel<double><<<1, threads, 0, (cudaStream_t)stream>>>(K, epochs, 0.0, out);
+  return (int)cudaGetLastError();
+}
+
+// Fill the shared memory of every SM with 0xFF bytes (NaN in float32 and
+// float64): two waves of one CTA an SM, each taking all the dynamic shared
+// memory a CTA may have. A kernel launched next on the stream that reads
+// shared memory it never wrote then reads NaN there and shows it.
+int fill_shared_memory(void* stream) {
+  int dev = 0, sms = 0, bytes = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fill_shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+  if (err != cudaSuccess) return (int)err;
+  fill_shared_kernel<<<2 * sms, 1024, bytes, (cudaStream_t)stream>>>(bytes / 4);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

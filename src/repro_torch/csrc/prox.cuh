@@ -26,9 +26,11 @@ enum PenaltyId {
   PEN_BLOCK_MCP = 8,
 };
 
+// (x > 0) - (x < 0) as a T: +-1, or +0 for zeros and NaN (by selects, with
+// no conversion from int on the chain)
 template <typename T>
 __device__ __forceinline__ T sgn(T x) {
-  return (T)((x > T(0)) - (x < T(0)));
+  return (x > T(0)) ? T(1) : ((x < T(0)) ? T(-1) : T(0));
 }
 
 // torch.clamp(x, min=lo): NaN passes through

@@ -112,7 +112,7 @@ _P, _I, _D, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, \
 _SIGNATURES = {
     "cd_epoch": {
         "cd_epoch_gram": [_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                          _D, _D, _P],
+                          _D, _D, _I, _I, _I, _P],
         "cd_epoch_xb": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _D, _D, _I, _I, _I, _I, _I, _P],
         "cd_epoch_gram_block": [_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -134,7 +134,9 @@ _SIGNATURES = {
 
 # entry points without an f32/f64 pair
 _PLAIN_SIGNATURES = {
-    "cd_epoch": {"cluster_barrier_loop": [_I, _I, _I, _P]},
+    "cd_epoch": {"cluster_barrier_loop": [_I, _I, _I, _P],
+                 "gram_chain_floor": [_I, _I, _I, _P, _P],
+                 "fill_shared_memory": [_P]},
 }
 
 

@@ -11,15 +11,18 @@ epochs through ``kernels/ref.py`` (``cd_epoch_gram_plain`` covers both
 forms) and are what the CPU takes; the public, checked and counted
 wrappers are in ``kernels/ops.py``.
 
-K2 runs on a thread-block cluster of C CTAs that split the epoch state,
-K1b on one CTA at small shapes and on a cluster above them
-(``csrc/cd_epoch.cu`` describes both designs). ``xb_plan`` and
-``gram_block_plan`` are the one place that chooses a call's launch layout,
-from its shape alone: the cluster size C, whether the state's slices live in
-shared or in global memory, the dynamic shared memory per CTA, the threads
-and the register path. The wrappers hand the plan to the C launchers as
-ints; a launch that the card refuses raises, and nothing retries on another
-layout.
+K1 runs a blocked chain (a chain warp over blocks of 32 coordinates; the
+previous block's deltas applied to the other rows beside it) on one CTA at
+small K and on a thread-block cluster above, K2 on a thread-block cluster
+of C CTAs that split the epoch state, K1b on one CTA at small shapes and
+on a cluster above them
+(``csrc/cd_epoch.cu`` describes the designs). ``gram_plan``, ``xb_plan``
+and ``gram_block_plan`` are the one place that chooses a call's launch
+layout, from its shape alone: the cluster size C, the threads, whether the
+state lives in shared or in global memory (K1's always in shared memory),
+the dynamic shared memory per CTA and the register path. The wrappers hand the plan to the C
+launchers as ints; a launch that the card refuses raises, and nothing
+retries on another layout.
 """
 from __future__ import annotations
 
@@ -34,9 +37,10 @@ from .ref import cd_epoch_gram_ref, cd_epoch_xb_ref
 
 __all__ = ["KIND_IDS", "cd_epoch_gram_plain", "cd_epoch_xb_plain",
            "cd_epoch_gram_cuda", "cd_epoch_gram_block_cuda",
-           "cd_epoch_xb_cuda", "kernel_params", "EpochPlan", "xb_plan",
-           "gram_block_plan", "BRANCHES", "SMEM_DYN_MAX",
-           "cluster_barrier_cuda"]
+           "cd_epoch_xb_cuda", "kernel_params", "EpochPlan", "GramPlan",
+           "gram_plan", "xb_plan", "gram_block_plan", "BRANCHES",
+           "SMEM_DYN_MAX", "cluster_barrier_cuda", "gram_chain_floor_cuda",
+           "fill_shared_memory_cuda"]
 
 # dynamic shared memory a CTA may take: the H100's 232,448 bytes per CTA
 # less 1 KB for the kernels' few static shared values
@@ -51,6 +55,25 @@ GRAM_BLOCK_SINGLE_MAX_KT = 256 * 20
 # values a thread keeps in registers on the register paths (K2's samples,
 # K1b's q entries), which the kernels run on at most PER_THREADS threads
 XB_PER, GRAM_PER, PER_THREADS = 4, 8, 768
+# K1: coordinates a block (the chain warp's lanes: csrc/cd_epoch.cu's
+# kGramB, which the kernel alone sets); the head of its dynamic shared
+# memory in values (tiles [2][2][32][32], staged c, L, step, beta [4][2][32],
+# deltas by lane and compacted [2][3][32], the chain block's q rows [2][32];
+# kGramHead); the most threads a CTA (each update thread holds a row's 32
+# loads of G in registers); the cluster size and the largest K that keeps
+# one CTA (measured on the H100 by `cd_sweep.py`; the numbers are in
+# PERF.md)
+GRAM_B = 32
+GRAM_HEAD = 4 * GRAM_B * GRAM_B + 16 * GRAM_B
+GRAM_MAX_THREADS = 512
+GRAM_CLUSTER = 16
+GRAM_SINGLE_MAX_K = 256
+# a K1 CTA, on one CTA or in the cluster, runs at least this many threads:
+# with fewer, the warps that stage each block's tiles (one CTA) or apply
+# the deltas to an update CTA's rows fall behind the chain (`cd_sweep.py`:
+# 128 threads cost 28% more at K = 256 on one CTA, 44% more at K = 2048 on
+# the cluster; 512 gain nothing below K = 4096; PERF.md)
+GRAM_MIN_THREADS = 256
 BRANCHES = ("single", "cluster-shared", "cluster-global")
 _ERR_CLUSTER_UNPLACEABLE = -1
 
@@ -71,6 +94,51 @@ class EpochPlan(NamedTuple):
         if self.cluster == 1:
             return "single"
         return "cluster-shared" if self.smem else "cluster-global"
+
+
+class GramPlan(NamedTuple):
+    """How one K1 launch runs: on one CTA (``cluster`` = 1: the chain warp
+    and update warps, q and beta in shared memory) or on a cluster of
+    ``cluster`` CTAs (rank 0 the chain, the others q's rows in their shared
+    memory), ``threads`` a CTA, ``dyn_bytes`` of dynamic shared memory a
+    CTA."""
+    cluster: int
+    dyn_bytes: int
+    threads: int
+
+    @property
+    def branch(self) -> str:
+        return "single" if self.cluster == 1 else "cluster-shared"
+
+
+def gram_plan(K: int, dtype, cluster: int | None = None,
+              threads: int | None = None) -> GramPlan:
+    """K1's layout for K coordinates in blocks of GRAM_B: one CTA for
+    K <= GRAM_SINGLE_MAX_K, holding q and beta (2 K values) beside the head
+    in shared memory; above, a cluster of GRAM_CLUSTER CTAs whose C - 1
+    update CTAs hold ceil(nb / (C - 1)) blocks of q's rows each. One thread
+    a row (one warp a block on one CTA, beside the chain warp),
+    GRAM_MIN_THREADS to GRAM_MAX_THREADS. `cluster` and `threads` force a
+    size (``cd_sweep.py`` times them to set GRAM_SINGLE_MAX_K and
+    GRAM_MIN_THREADS); a cluster needs K > 2 GRAM_B. Raises ValueError
+    where the state does not fit a CTA's shared memory (past ~360k float64
+    coordinates on the cluster, where G alone would take ~1 PB)."""
+    item = dtype.itemsize
+    if cluster is None:
+        cluster = 1 if K <= GRAM_SINGLE_MAX_K else GRAM_CLUSTER
+    if cluster == 1:
+        state, rows = 2 * K, GRAM_B + K
+    else:
+        nb = -(-K // GRAM_B)
+        state = rows = -(-nb // (cluster - 1)) * GRAM_B
+    dyn = (GRAM_HEAD + state) * item
+    if dyn > SMEM_DYN_MAX:
+        raise ValueError(f"cd_epoch_gram: K = {K} needs {dyn} bytes of shared "
+                         f"memory a CTA on {cluster} CTA(s); a CTA has "
+                         f"{SMEM_DYN_MAX}")
+    if threads is None:
+        threads = min(GRAM_MAX_THREADS, max(GRAM_MIN_THREADS, _threads(rows)))
+    return GramPlan(cluster, dyn, threads)
 
 
 def _threads(m: int) -> int:
@@ -151,8 +219,9 @@ def cd_epoch_xb_plain(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls, params,
 
 
 def cd_epoch_gram_cuda(G, c, beta0, q0, L, penalty_cls, params, *,
-                       epochs=1):
-    """Launch K1 on the tensors' stream; G may have any strides."""
+                       plan, epochs=1):
+    """Launch K1 on the tensors' stream with `plan` (a ``gram_plan``); G
+    may have any strides. Returns (beta, q)."""
     fn = getattr(BUILD.lib("cd_epoch"), f"cd_epoch_gram_{_suffix(G)}")
     pid, p0, p1 = kernel_params(penalty_cls, params)
     beta, q = torch.empty_like(beta0), torch.empty_like(q0)
@@ -161,8 +230,8 @@ def cd_epoch_gram_cuda(G, c, beta0, q0, L, penalty_cls, params, *,
         rc = fn(G.data_ptr(), G.stride(0), G.stride(1), c.data_ptr(),
                 L.data_ptr(), beta0.data_ptr(), q0.data_ptr(),
                 beta.data_ptr(), q.data_ptr(), G.shape[0], epochs, pid, p0,
-                p1, stream)
-    _check_rc(rc, "cd_epoch_gram")
+                p1, plan.cluster, plan.dyn_bytes, plan.threads, stream)
+    _check_rc(rc, "cd_epoch_gram", plan)
     return beta, q
 
 
@@ -221,3 +290,28 @@ def cluster_barrier_cuda(cluster, threads, iters, device):
         rc = lib.cluster_barrier_loop(cluster, threads, iters, stream)
     _check_rc(rc, "cluster_barrier_loop", EpochPlan(cluster, False, 0,
                                                     threads, 0))
+
+
+def gram_chain_floor_cuda(K, epochs, threads, device):
+    """Enqueue K1's chain floor in float64: `epochs` passes of K chain
+    steps (a shuffle and a multiply-add each) with K1's handoff every
+    GRAM_B steps, on one CTA of `threads` threads (counted in no launch
+    count)."""
+    lib = BUILD.lib("cd_epoch")
+    out = torch.empty(GRAM_B, dtype=torch.float64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.gram_chain_floor(K, epochs, threads, out.data_ptr(), stream)
+    _check_rc(rc, "gram_chain_floor")
+
+
+def fill_shared_memory_cuda(device):
+    """Enqueue a fill of every SM's shared memory with 0xFF bytes (NaN in
+    float32 and float64), so that a kernel launched next which reads shared
+    memory it never wrote shows it (the gpu tests and ``chip_smoke.py``;
+    counted in no launch count)."""
+    lib = BUILD.lib("cd_epoch")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.fill_shared_memory(stream)
+    _check_rc(rc, "fill_shared_memory")

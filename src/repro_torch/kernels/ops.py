@@ -19,11 +19,11 @@ kernel to the plain version. ``launches`` is a plain int on the wrapper;
   csc_score_block      K5b, K5 on a raw gradient [n, T] -> [p, T]
 
 The block forms have counters of their own, so a run can tell the block
-launches from the scalar ones. K2 and K1b also count their launches by the
-branch their shape's plan took (``kernels/cd_epoch.py``: ``xb_plan``,
-``gram_block_plan``) in ``branch_launches``, a dict over ``BRANCHES``
-("single", "cluster-shared", "cluster-global"); ``branch_counts`` reads
-them.
+launches from the scalar ones. K1, K2 and K1b also count their launches by
+the branch their shape's plan took (``kernels/cd_epoch.py``:
+``gram_plan``, ``xb_plan``, ``gram_block_plan``) in ``branch_launches``, a
+dict over ``BRANCHES`` ("single", "cluster-shared", "cluster-global");
+``branch_counts`` reads them.
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ import torch
 from .cd_epoch import (BRANCHES, KIND_IDS, cd_epoch_gram_block_cuda,
                        cd_epoch_gram_cuda, cd_epoch_gram_plain,
                        cd_epoch_xb_cuda, cd_epoch_xb_plain, gram_block_plan,
-                       xb_plan)
+                       gram_plan, xb_plan)
 from .common import (UnsupportedPenaltyError, check_block_kernel_penalty,
                      check_kernel_penalty, check_score_kernel_penalty,
                      make_penalty, penalty_params)
@@ -94,9 +94,11 @@ def cd_epoch_gram(G, c, beta0, q0, L, penalty_cls, params, *, epochs=1):
     if not on_card:
         return cd_epoch_gram_plain(G, c, beta0, q0, L, penalty_cls, params,
                                    epochs=epochs)
+    plan = gram_plan(K, G.dtype)
     out = cd_epoch_gram_cuda(G, c, beta0, q0, L, penalty_cls, params,
-                             epochs=epochs)
+                             epochs=epochs, plan=plan)
     cd_epoch_gram.launches += 1
+    cd_epoch_gram.branch_launches[plan.branch] += 1
     return out
 
 
@@ -314,7 +316,7 @@ KERNELS = (cd_epoch_gram, cd_epoch_xb, fused_ws, ws_score, csc_score,
            csc_weighted_col_sq, cd_epoch_gram_block, fused_ws_block,
            csc_score_block)
 # the kernels with more than one launch branch
-BRANCHED = (cd_epoch_xb, cd_epoch_gram_block)
+BRANCHED = (cd_epoch_gram, cd_epoch_xb, cd_epoch_gram_block)
 
 
 def reset_launch_counts():
@@ -329,7 +331,7 @@ def launch_counts() -> dict:
 
 
 def branch_counts() -> dict:
-    """{kernel name: {branch: launches}} for K2 and K1b."""
+    """{kernel name: {branch: launches}} for K1, K2 and K1b."""
     return {k.__name__: dict(k.branch_launches) for k in BRANCHED}
 
 

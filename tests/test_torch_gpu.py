@@ -609,3 +609,177 @@ def test_refused_plan_raises(cuda):
                                      penalty_params(P.BlockL1(0.1)),
                                      plan=EpochPlan(C, True, too_big, 256,
                                                     0))
+
+
+# ------------------------------------------ K1's blocked chain on its plan
+def _k1_case(K, dev, seed=0):
+    """K1 inputs made on the card: the Gram of a 3K x K Gaussian design
+    plus a small non-symmetric part (a transposed read of G would show),
+    column-major as the engine keeps G; half of beta0 zero."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f64 = dict(generator=g, device=dev, dtype=torch.float64)
+    X = torch.randn(3 * K, K, **f64)
+    G = X.T @ X / (3 * K) + 0.01 * torch.randn(K, K, **f64)
+    del X
+    G = G.t().contiguous().t()
+    beta0 = 0.1 * torch.randn(K, **f64) * (torch.rand(K, **f64) < 0.5)
+    c = torch.randn(K, **f64) / 3
+    L = torch.clamp(torch.diagonal(G), min=1e-3).contiguous()
+    return G, c, beta0, G @ beta0, L
+
+
+def _k1_refs(args, epochs_list):
+    """The plain version's (beta, q) after each number of epochs."""
+    out, state, done = {}, args[2:4], 0
+    for epochs in sorted(epochs_list):
+        state = cd_epoch_gram_plain(args[0], args[1], state[0], state[1],
+                                    *args[4:], epochs=epochs - done)
+        done = epochs
+        out[epochs] = state
+    return out
+
+
+def _k1_check(args, refs, plan=None, fill=False):
+    """Launch K1 for each number of epochs in `refs` (through the counted
+    wrapper, or `cd_epoch_gram_cuda` with `plan`), twice: within the K1
+    bound of the plain version and equal bit for bit. With `fill`, every
+    SM's shared memory is set to NaN before each launch. Returns the
+    outputs."""
+    from repro_torch.kernels.cd_epoch import (cd_epoch_gram_cuda,
+                                              fill_shared_memory_cuda)
+
+    def launch(epochs):
+        if fill:
+            fill_shared_memory_cuda(args[0].device)
+        if plan is None:
+            return ops.cd_epoch_gram(*args, epochs=epochs)
+        return cd_epoch_gram_cuda(*args, epochs=epochs, plan=plan)
+
+    outs = {}
+    for epochs, ref in refs.items():
+        got = launch(epochs)
+        again = launch(epochs)
+        assert _same(got, again)
+        torch.testing.assert_close(got[0], ref[0], atol=1e-12, rtol=1e-5)
+        torch.testing.assert_close(got[1], ref[1], atol=1e-12, rtol=1e-5)
+        outs[epochs] = got
+    return outs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 31, 33, 1023, 1025, 2049, 4096])
+@pytest.mark.parametrize("pen", PENALTIES, ids=IDS)
+def test_k1_plan_matches_plain(cuda, pen, K):
+    """K1 through the counted wrapper at ragged and whole blocks, one block
+    and many, epochs 1 and 3 (the last block of an epoch carries into the
+    first of the next), G column-major and row-major: within the plain
+    version's bound, each launched twice and equal bit for bit, on the
+    plan's branch."""
+    from repro_torch.kernels.cd_epoch import gram_plan
+    G, c, beta0, q0, L = _k1_case(K, cuda, seed=K)
+    prm = penalty_params(pen)
+    refs = _k1_refs((G, c, beta0, q0, L, type(pen), prm), (1, 3))
+    branch = gram_plan(K, torch.float64).branch
+    for layout in (G, G.contiguous()):
+        c0 = ops.branch_counts()["cd_epoch_gram"]
+        _k1_check((layout, c, beta0, q0, L, type(pen), prm), refs)
+        c1 = ops.branch_counts()["cd_epoch_gram"]
+        assert c1[branch] == c0[branch] + 4
+    assert torch.any(refs[1][0] != beta0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [33, 63, 1025, 2049])
+@pytest.mark.parametrize("pen", PENALTIES, ids=IDS)
+def test_k1_reads_no_unwritten_shared_memory(cuda, pen, K):
+    """A ragged last block leaves part of its staged tiles unwritten (no
+    coordinate there); the chain that follows it, in the next epoch, must
+    not read those entries. Every SM's shared memory is filled with NaN
+    before each launch; one CTA (K = 33, 63) and the cluster (1025, 2049),
+    epochs 1 and 3, stay within the plain version's bound and equal bit
+    for bit."""
+    G, c, beta0, q0, L = _k1_case(K, cuda, seed=K + 7)
+    args = (G, c, beta0, q0, L, type(pen), penalty_params(pen))
+    _k1_check(args, _k1_refs(args, (1, 3)), fill=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [33, 65, 1025])
+@pytest.mark.parametrize("pen", PENALTIES, ids=IDS)
+def test_k1_forced_layouts_equal(cuda, pen, K):
+    """One CTA and clusters of 2, 8 and 16 CTAs and other thread counts
+    give the default plan's beta and q bit for bit:
+    the layout leaves every row's order of additions alone (a cluster
+    needs K > 64)."""
+    from repro_torch.kernels.cd_epoch import cd_epoch_gram_cuda, gram_plan
+    G, c, beta0, q0, L = _k1_case(K, cuda, seed=K + 1)
+    args = (G, c, beta0, q0, L, type(pen), penalty_params(pen))
+    f64 = torch.float64
+    plans = [gram_plan(K, f64, cluster=1),
+             gram_plan(K, f64, cluster=1, threads=64),
+             gram_plan(K, f64, cluster=1, threads=512)]
+    if K > 64:
+        plans += [gram_plan(K, f64, cluster=C) for C in (2, 8, 16)]
+        plans += [gram_plan(K, f64, cluster=8, threads=512),
+                  gram_plan(K, f64, cluster=16, threads=64)]
+    for epochs in (1, 3):
+        want = ops.cd_epoch_gram(*args, epochs=epochs)
+        for plan in plans:
+            assert _same(cd_epoch_gram_cuda(*args, epochs=epochs, plan=plan),
+                         want), plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [64, 1025])
+def test_k1_blocks_without_moves(cuda, K):
+    """A block where no coordinate moves (L = 0 on rows 32..63: beta kept),
+    and a level at which nothing moves at all (q and beta come back as
+    they went in)."""
+    G, c, beta0, _, L = _k1_case(K, cuda, seed=9)
+    L = L.clone()
+    L[32:64] = 0.0
+    for pen, b0 in ((P.L1(0.11), beta0), (P.L1(1e6), torch.zeros_like(beta0))):
+        args = (G, c, b0, G @ b0, L, P.L1, penalty_params(pen))
+        outs = _k1_check(args, _k1_refs(args, (1, 3)))
+        for beta, q in outs.values():
+            assert torch.equal(beta[32:64], b0[32:64])
+            if pen.lam > 1:
+                assert torch.equal(beta, b0) and torch.equal(q, args[3])
+
+
+@pytest.mark.gpu
+def test_k1_float32_matches_plain(cuda):
+    """float32 on the same schedule, against the float32 plain version."""
+    G, c, beta0, q0, L = (t.float() for t in _k1_case(1025, cuda, seed=4))
+    G = G.t().contiguous().t()
+    args = (G, c, beta0, q0, L, P.MCP, penalty_params(P.MCP(0.11, 3.0)))
+    for epochs in (1, 3):
+        got = ops.cd_epoch_gram(*args, epochs=epochs)
+        assert _same(got, ops.cd_epoch_gram(*args, epochs=epochs))
+        ref = cd_epoch_gram_plain(*args, epochs=epochs)
+        torch.testing.assert_close(got[0], ref[0], atol=1e-5, rtol=1e-4)
+        torch.testing.assert_close(got[1], ref[1], atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_k1_refused_plan_raises(cuda):
+    """A thread count the kernel cannot run, a cluster on fewer than three
+    blocks or of more than 16 CTAs, more shared memory than a CTA has, or
+    less than the state needs (one CTA and cluster) is refused, and the
+    wrapper raises."""
+    from repro_torch.kernels.cd_epoch import cd_epoch_gram_cuda, gram_plan
+    f64 = torch.float64
+    for K in (64, 1025):
+        G, c, beta0, q0, L = _k1_case(K, cuda)
+        args = (G, c, beta0, q0, L, P.L1, penalty_params(P.L1(0.1)))
+        plan = gram_plan(K, f64)
+        bad = [plan._replace(threads=32), plan._replace(threads=1024),
+               plan._replace(dyn_bytes=300_000),
+               plan._replace(dyn_bytes=plan.dyn_bytes - 8)]
+        if K == 64:
+            bad.append(plan._replace(cluster=8))
+        else:
+            bad.append(gram_plan(K, f64)._replace(cluster=17))
+        for b in bad:
+            with pytest.raises(RuntimeError, match="cudaError"):
+                cd_epoch_gram_cuda(*args, plan=b)
