@@ -21,7 +21,10 @@ Phases, each of which must pass (any failure exits non-zero):
    moves at K = 1025), 1e-11 + 1e-8 |ref| for K2 (at n = 10,000,
    at the sparse fits' n = 50,000 with K = 512 and the deep fit's 4096, at
    n = 1000 and at n = 160,003, where the slices leave shared memory: each
-   branch of its plan, each launched twice and equal bit for bit),
+   branch of its plan, each launched twice and equal bit for bit;
+   K1 at K = 1024, K1b at K = 1024, T = 20 and K2 at (512, 10,000) at
+   each cluster size the plans step down through, 1, 2, 4, 8 and 16: K1
+   and K1b bit for bit, K2 within its bound),
    1e-12 + 1e-11 |ref| (scores) and
    1e-12 + 1e-10 |ref| (grad) for K3, whose working set must be identical
    and whose gathered columns must be bit-exact, and the K3 score bound for
@@ -31,9 +34,16 @@ Phases, each of which must pass (any failure exits non-zero):
    launch counts reset just before, read just after; each of its kernels
    must have launched) and on the plain-torch route (``use_kernels=False``)
    on the same card; each must converge at tol 1e-6 and the two routes
-   must agree to 1e-6 on the coefficients. The Lasso, the MCP and the
-   LinearSVC (the dual's Gram epochs) must launch K1 once for every inner
-   epoch.
+   must agree to 1e-6 on the coefficients. Every kernel-route fit (here
+   and in phases 5 and 7) must read the host once per outer step
+   (``n_host_syncs == len(kkt_history)``: each step a replayed CUDA
+   graph). The Lasso, the MCP and the LinearSVC (the dual's Gram epochs)
+   must launch K1 once for every inner epoch. The LinearSVC runs again
+   with its inner loop on the host (``make_engine(capture=False)``, the
+   eager oracle), whose coefficients and epochs the captured fit must
+   equal bit for bit, and again with a placement test that refuses 16
+   CTAs: its plans must step down to 8 (``ops.cluster_counts``) and the
+   fit equal the 16-CTA one bit for bit.
 5. sparse path: the repo's full-size sparse configuration (``sparse_fig2``
    "small" of ``benchmarks/bench_engine.py``: n = 50,000, p = 200,000,
    density 1e-3), built on the host once as a CSC design with the ELL
@@ -47,11 +57,17 @@ Phases, each of which must pass (any failure exits non-zero):
    on a scipy sparse X (label-signed Z^T converted by the estimator): the
    kernel route must launch K5 on every outer head, K5s once in each
    weighted fit, K1 (Lasso, SVC: once for every inner epoch) or K2
-   (logistic, on a cluster), and never K3.
+   (logistic, on a cluster), and never K3. The deep logistic fit is held
+   to its eager oracle bit for bit; the shallow one is run with 16 CTAs
+   refused (K2 on 8, within 1e-6 of the 16-CTA fit).
 6. block kernels: K3b (``fused_ws_block``) over BlockL1 and BlockMCP x
-   fixed-point at n = 10,000, p = 20,000, T = 20, ws = 512 (scores within
-   1e-12 + 1e-12 |ref|, gradient within 1e-12 + 1e-10 |ref|, identical
-   working set, bit-exact columns), K1b (``cd_epoch_gram_block``) at
+   fixed-point at n = 10,000, p = 20,000, T = 20, ws = 512 and at an odd
+   n with a ragged last feature tile (n = 10,001, p = 4963), every SM's
+   shared memory set to NaN before each launch (scores within 1e-12 +
+   1e-12 |ref|, gradient within 1e-12 + 1e-10 |ref|, cand_idx exact, an
+   identical working set, its rows of X bit for bit those that
+   ``candidate_columns`` recovers from the plain candidate buffer), K1b
+   (``cd_epoch_gram_block``) at
    (K, T) = (64, 50), (256, 20), (2049, 1), (2048, 20), (4096, 20) and
    (2048, 240) (one CTA, a cluster with q's rows in shared memory and in
    global memory), within the K1 bound and twice, bit for bit, and K5b
@@ -71,7 +87,9 @@ Phases, each of which must pass (any failure exits non-zero):
    >= 1024), unweighted and with weights in [0.5, 1.5]. The kernel route
    must launch K3b (dense) or K5b (sparse) on every outer head, K1b on
    every Gram epoch (on a cluster in the sparse fits), K5s once per
-   weighted fit, and no scalar K1/K3/K5.
+   weighted fit, and no scalar K1/K3/K5. The dense MultiTaskLasso is held
+   to its eager oracle bit for bit, and run with 16 CTAs refused (K1b on
+   8, bit for bit).
 8. times: each kernel at main-path shapes (CUDA events, warm), its plain
    version, its bound (bytes over 3.35 TB/s or operations over 67 TF/s
    float64, the larger) and, where one PyTorch call computes the same
@@ -506,6 +524,58 @@ def check_k2_big_and_k4(dev, cfg, errs):
     return fails
 
 
+def check_step_down(dev, cfg, errs):
+    """K1 (K = 1024), K2 (K = 512, n = 10,000, weighted logistic) and K1b
+    (K = 1024, T = 20) at each cluster size a plan steps down through
+    (1, 2, 4, 8, 16), against their plain versions: K1 and K1b bit for bit
+    (each row takes its updates in the same order at every size), K2
+    within its bound (its partial sums follow the ranks). Returns the
+    failures."""
+    import torch
+    from repro_torch.core.penalties import L1, BlockL1
+    from repro_torch.kernels.cd_epoch import (
+        STEP_DOWN, cd_epoch_gram_block_cuda, cd_epoch_gram_cuda,
+        cd_epoch_gram_plain, cd_epoch_xb_cuda, cd_epoch_xb_plain,
+        gram_block_plan, gram_plan, xb_plan)
+    from repro_torch.kernels.common import penalty_params
+    f64 = torch.float64
+    fails = []
+    t = time.perf_counter()
+    G, c, beta0, q0, L = gram_inputs(1024, dev, seed=3)
+    k1 = (G, c, beta0, q0, L, L1, penalty_params(L1(0.11)))
+    G, cb, bb, qb, Lb = gram_block_inputs(1024, cfg["k1b_T"], dev, seed=4)
+    k1b = (G, cb, bb, qb, Lb, BlockL1, penalty_params(BlockL1(0.11)))
+    Xt, y, w, b2, xb, L2, off = xb_inputs(cfg["k2_K"], cfg["k2_n"],
+                                          "logistic", dev, seed=5)
+    k2 = (Xt, y, b2, xb, L2, off, L1, penalty_params(L1(0.002)),
+          "logistic")
+    refs = (cd_epoch_gram_plain(*k1), cd_epoch_gram_plain(*k1b),
+            cd_epoch_xb_plain(*k2, w=w))
+    for C in STEP_DOWN:
+        got = (cd_epoch_gram_cuda(*k1, plan=gram_plan(1024, f64, cluster=C)),
+               cd_epoch_gram_block_cuda(*k1b, plan=gram_block_plan(
+                   1024, cfg["k1b_T"], f64, cluster=C)),
+               cd_epoch_xb_cuda(*k2, w=w, plan=xb_plan(cfg["k2_n"], True, f64,
+                                                       cluster=C)))
+        for name, (bk, sk), (br, sr) in zip(
+                ("cd_epoch_gram", "cd_epoch_gram_block", "cd_epoch_xb"),
+                got, refs):
+            if name == "cd_epoch_xb":
+                ok1, e1 = close(bk, br, 1e-11, 1e-8)
+                ok2, e2 = close(sk, sr, 1e-11, 1e-8)
+                ok = ok1 and ok2
+            else:
+                ok = bool(torch.equal(bk, br) and torch.equal(sk, sr))
+                e1, e2 = close(bk, br, 0, 0)[1], close(sk, sr, 0, 0)[1]
+            errs[name] = max(errs.get(name, 0.0), e1, e2)
+            if not ok:
+                fails.append(f"{name} at C={C}: err {max(e1, e2):.3e}"
+                             f"{'' if name == 'cd_epoch_xb' else ' (not bit for bit)'}")
+    log(f"  K1 / K1b / K2 at C = {STEP_DOWN} against plain "
+        f"({time.perf_counter() - t:.1f} s): {len(fails)} failures")
+    return fails
+
+
 def check_k5(dev, designs, errs):
     """K5 and K5s against their plain versions (and K5 against the ELL
     reference), twice each to check that the kernel is deterministic;
@@ -559,11 +629,16 @@ def cluster_launches(counts, kernel):
         counts[f"{kernel}/cluster-global"]
 
 
-def _fit(make, design, y, dev, kernels, sample_weight=None):
+def _fit(make, design, y, dev, kernels, sample_weight=None, capture=True):
     import torch
+    from repro_torch.core import make_engine
     from repro_torch.kernels import ops
-    # the kernel route is the estimators' default on the card
+    # the kernel route is the estimators' default on the card; without
+    # `capture`, the kernel route's eager oracle (the inner loop on the host)
     est = make(tol=TOL) if kernels else make(use_kernels=False, tol=TOL)
+    if not capture:
+        est = make(tol=TOL, engine=make_engine(est.penalty, est.datafit,
+                                               device=dev, capture=False))
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -577,7 +652,8 @@ def _fit(make, design, y, dev, kernels, sample_weight=None):
     res = est.result_
     peak = torch.cuda.max_memory_allocated() / 2**30 \
         if dev.type == "cuda" else float("nan")
-    log(f"  {'kernels' if kernels else 'plain  '}: wall {wall:.3f} s, "
+    route = ("kernels" if capture else "oracle ") if kernels else "plain  "
+    log(f"  {route}: wall {wall:.3f} s, "
         f"converged {res.converged}, kkt {res.kkt:.3e}, outer "
         f"{res.n_outer}, epochs {res.n_epochs}, ws {res.ws_history}, "
         f"host syncs "
@@ -589,24 +665,38 @@ def _fit(make, design, y, dev, kernels, sample_weight=None):
 
 def fit_both(label, make, design, y, dev, total, fails, needs, *,
              sample_weight=None, exact=None, per_head=None, per_epoch=None,
-             min_ws=None, cluster=None):
+             min_ws=None, cluster=None, oracle=False):
     """One fit on the kernel route and on the plain route. Fails unless
-    both converge, the coefficients agree to TOL, each kernel in `needs`
-    launched, each in `exact` launched exactly that often, `per_head`
-    launched at least once per outer head, `per_epoch` launched once per
-    inner epoch, (with `min_ws`) the working set reached `min_ws`, and
-    (with `cluster`) that kernel launched on a cluster branch. Adds the
-    kernel route's launch counts to `total`."""
+    both converge, the kernel route read the host once per outer step
+    (``n_host_syncs == len(kkt_history)``, the reference's contract), the
+    coefficients agree to TOL, each kernel in `needs` launched, each in
+    `exact` launched exactly that often, `per_head` launched at least once
+    per outer head, `per_epoch` launched once per inner epoch, (with
+    `min_ws`) the working set reached `min_ws`, and (with `cluster`) that
+    kernel launched on a cluster branch. With `oracle`, the kernel route
+    runs a third time with its inner loop on the host (``capture=False``)
+    and its beta must equal the captured fit's bit for bit, with the same
+    epochs. Adds the kernel route's launch counts to `total`."""
     import numpy as np
+    import torch
     log(f"fit {label}")
     ek, counts = _fit(make, design, y, dev, True, sample_weight)
     ep, _ = _fit(make, design, y, dev, False, sample_weight)
+    same = True
+    if oracle:
+        eo, _ = _fit(make, design, y, dev, True, sample_weight,
+                     capture=False)
+        same = (torch.equal(ek.result_.beta, eo.result_.beta)
+                and ek.result_.n_epochs == eo.result_.n_epochs)
+        log(f"  captured step == eager oracle bit for bit: {same}")
+    one_read = ek.result_.n_host_syncs == len(ek.result_.kkt_history)
     for k in total:
         total[k] += counts[k]
     heads = len(ek.result_.kkt_history)
     diff = float(np.max(np.abs(ek.coef_ - ep.coef_)))
     ws_max = max(ek.result_.ws_history, default=0)
-    ok = (ek.converged_ and ep.converged_ and diff <= TOL
+    ok = (ek.converged_ and ep.converged_ and diff <= TOL and same
+          and one_read
           and np.all(np.isfinite(ek.coef_))
           and all(counts[k] > 0 for k in needs)
           and all(counts[k] == v for k, v in (exact or {}).items())
@@ -620,9 +710,39 @@ def fit_both(label, make, design, y, dev, total, fails, needs, *,
     if not ok:
         fails.append(f"{label}: converged {ek.converged_}/"
                      f"{ep.converged_}, diff {diff:.3e}, heads {heads}, "
+                     f"one read a step {one_read}, equal to the oracle "
+                     f"{same}, "
                      f"max ws {ws_max}, launches "
                      f"{ {k: v for k, v in counts.items() if v} }")
     return ek
+
+
+def fit_refused(label, make, design, y, dev, ref, kernel, fails,
+                sample_weight=None):
+    """The kernel-route fit `ref` again under a placement test that refuses
+    16 CTAs: its plans must step down to 8 (``ops.cluster_counts``: no
+    16-CTA launch of `kernel`, some 8-CTA ones), and the fit must equal
+    `ref` bit for bit (K1, K1b: each row takes its updates in the same
+    order at every cluster size) or within TOL (K2: its partial sums
+    follow the ranks)."""
+    import numpy as np
+    from repro_torch.kernels import cd_epoch, ops
+    log(f"fit {label}, 16 CTAs refused")
+    with cd_epoch.placement(lambda k, plan, dt: plan.cluster <= 8):
+        est, _ = _fit(make, design, y, dev, True, sample_weight)
+    sizes = ops.cluster_counts()[kernel]
+    if kernel == "cd_epoch_xb":
+        same = float(np.max(np.abs(est.coef_ - ref.coef_))) <= TOL
+    else:
+        same = bool(np.array_equal(est.coef_, ref.coef_))
+    ok = (est.converged_ and same and sizes.get(8, 0) > 0
+          and 16 not in sizes)
+    log(f"  {kernel} launches by cluster size {sizes}; equal to the "
+        f"16-CTA fit ({'within TOL' if kernel == 'cd_epoch_xb' else 'bit for bit'}): "
+        f"{same}, ok {ok}")
+    if not ok:
+        fails.append(f"{label} with 16 CTAs refused: converged "
+                     f"{est.converged_}, equal {same}, sizes {sizes}")
 
 
 def main_path(dev, cfg):
@@ -673,8 +793,11 @@ def main_path(dev, cfg):
 
     X, y, _ = make_classification(n=cfg["svc_n"], p=cfg["svc_p"],
                                   n_nonzero=cfg["svc_nnz"], seed=0)
-    run("LinearSVC(C=1)", lambda **k: LinearSVC(C=1.0, max_outer=100, **k),
-        X, y, ("fused_ws", "cd_epoch_gram"), per_epoch="cd_epoch_gram")
+    make = lambda **k: LinearSVC(C=1.0, max_outer=100, **k)  # noqa: E731
+    est = run("LinearSVC(C=1)", make, X, y, ("fused_ws", "cd_epoch_gram"),
+              per_epoch="cd_epoch_gram", oracle=True)
+    fit_refused("LinearSVC(C=1)", make, X, y, dev, est, "cd_epoch_gram",
+                fails)
     return total, fails
 
 
@@ -739,18 +862,22 @@ def sparse_path(dev, cfg, d, y):
     w = np.random.default_rng(1).uniform(0.5, 1.5, d.n_rows)
     lmax_log = lambda_max(d, ys, Logistic(), sample_weight=w, device=dev)
     for k_lasso, k_log in cfg["sparse_lam"]:
+        make_log = lambda **k: SparseLogisticRegression(  # noqa: E731
+            alpha=lmax_log / k_log, **k)
         fit_both(f"sparse Lasso(lmax/{k_lasso})",
                  lambda **k: Lasso(alpha=lmax / k_lasso, **k),
                  d, y, dev, total, fails, ("csc_score", "cd_epoch_gram"),
                  exact={"fused_ws": 0, "csc_weighted_col_sq": 0},
                  per_head="csc_score", per_epoch="cd_epoch_gram")
-        fit_both(f"sparse SparseLogisticRegression(lmax/{k_log}, weighted)",
-                 lambda **k: SparseLogisticRegression(alpha=lmax_log / k_log,
-                                                      **k),
-                 d, ys, dev, total, fails, ("csc_score", "cd_epoch_xb"),
-                 sample_weight=w,
-                 exact={"fused_ws": 0, "csc_weighted_col_sq": 1},
-                 per_head="csc_score", cluster="cd_epoch_xb")
+        label = f"sparse SparseLogisticRegression(lmax/{k_log}, weighted)"
+        est = fit_both(label, make_log, d, ys, dev, total, fails,
+                       ("csc_score", "cd_epoch_xb"), sample_weight=w,
+                       exact={"fused_ws": 0, "csc_weighted_col_sq": 1},
+                       per_head="csc_score", cluster="cd_epoch_xb",
+                       oracle=k_log == cfg["sparse_lam"][-1][1])
+        if k_log == cfg["sparse_lam"][0][1]:
+            fit_refused(label, make_log, d, ys, dev, est, "cd_epoch_xb",
+                        fails, sample_weight=w)
     Xs, ysvc, _ = make_sparse_design(**cfg["sparse_small"])
     fit_both(f"sparse LinearSVC(C=1) on scipy X {Xs.shape}",
              lambda **k: LinearSVC(C=1.0, max_outer=100, **k), Xs,
@@ -802,37 +929,44 @@ def check_block_kernels(dev, cfg, errs, designs):
     from repro_torch.core.working_set import (candidate_columns,
                                               select_working_set)
     from repro_torch.kernels import ops
-    from repro_torch.kernels.cd_epoch import cd_epoch_gram_plain
+    from repro_torch.kernels.cd_epoch import (cd_epoch_gram_plain,
+                                              fill_shared_memory_cuda)
     from repro_torch.kernels.common import penalty_params
     from repro_torch.kernels.csc_score import csc_score_plain
     from repro_torch.kernels.fused_ws import fused_ws_plain
     fails = []
-    errs.update(fused_ws_block=0.0, cd_epoch_gram_block=0.0,
-                csc_score_block=0.0)
+    for name in ("fused_ws_block", "cd_epoch_gram_block", "csc_score_block"):
+        errs.setdefault(name, 0.0)
 
     c = cfg["k3b"]
-    Xt, R, beta, L, off = block_inputs(c["n"], c["p"], c["T"], dev, seed=13)
-    for pen in block_pens():
-        gs = pen.generalized_support(beta)
-        for fp in (False, True):
-            args = (Xt, R, beta, L, off, gs, type(pen), penalty_params(pen),
-                    c["ws"])
-            sk, gk, ik, ck = ops.fused_ws_block(*args, use_fp=fp)
-            sr, gr, _, _ = fused_ws_plain(*args, use_fp=fp)
-            ok1, e1 = close(sk, sr, 1e-12, 1e-12)
-            ok2, e2 = close(gk, gr, 1e-12, 1e-10)
-            ws_k = select_working_set(sk, gs, c["ws"])
-            same_ws = bool(torch.equal(ws_k, select_working_set(sr, gs,
-                                                                c["ws"])))
-            exact = bool(torch.equal(candidate_columns(ik, ck, ws_k, c["p"]),
-                                     Xt[ws_k].T))
-            errs["fused_ws_block"] = max(errs["fused_ws_block"], e1, e2)
-            if not (ok1 and ok2 and same_ws and exact):
-                fails.append(f"K3b {type(pen).__name__} fp={fp} "
-                             f"scores={e1:.3e} grad={e2:.3e} "
-                             f"same_ws={same_ws} exact_cols={exact}")
-            del ck
-    del Xt
+    # the smoke shape, then an odd n (8-byte copies) and a ragged last
+    # feature tile; shared memory NaN-filled before each launch
+    for n, p in ((c["n"], c["p"]), (c["n"] + 1, c["p"] // 4 - 37)):
+        Xt, R, beta, L, off = block_inputs(n, p, c["T"], dev, seed=13)
+        for pen in block_pens():
+            gs = pen.generalized_support(beta)
+            for fp in (False, True):
+                args = (Xt, R, beta, L, off, gs, type(pen),
+                        penalty_params(pen), c["ws"])
+                if dev.type == "cuda":
+                    fill_shared_memory_cuda(dev)
+                sk, gk, ik, wk, xk = ops.fused_ws_block(*args, use_fp=fp)
+                sr, gr, ir, cr = fused_ws_plain(*args, use_fp=fp)
+                ok1, e1 = close(sk, sr, 1e-12, 1e-12)
+                ok2, e2 = close(gk, gr, 1e-12, 1e-10)
+                same_idx = bool(torch.equal(ik, ir))
+                same_ws = bool(torch.equal(
+                    wk, select_working_set(sr, gs, c["ws"])))
+                exact = bool(torch.equal(
+                    xk, candidate_columns(ir, cr, wk, p).T))
+                errs["fused_ws_block"] = max(errs["fused_ws_block"], e1, e2)
+                if not (ok1 and ok2 and same_idx and same_ws and exact):
+                    fails.append(f"K3b n={n} p={p} {type(pen).__name__} "
+                                 f"fp={fp} scores={e1:.3e} grad={e2:.3e} "
+                                 f"cand_idx={same_idx} same_ws={same_ws} "
+                                 f"exact_rows={exact}")
+                del cr
+        del Xt
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -932,9 +1066,11 @@ def multitask_path(dev, cfg, X_sparse, beta_true):
     lmax = lambda_max(design, Y, MultitaskQuadratic(), device=dev)
     log(f"dense multitask {cfg['mt_dense']}: built in "
         f"{time.perf_counter() - t:.1f} s, lambda_max {lmax:.6f}")
-    dense_fit(f"dense MultiTaskLasso(lmax/{frac})",
-              lambda **k: MultiTaskLasso(alpha=lmax / frac, **k), design, Y,
-              min_ws=cfg["mt_dense_min_ws"])
+    make = lambda **k: MultiTaskLasso(alpha=lmax / frac, **k)  # noqa: E731
+    est = dense_fit(f"dense MultiTaskLasso(lmax/{frac})", make, design, Y,
+                    min_ws=cfg["mt_dense_min_ws"], oracle=True)
+    fit_refused(f"dense MultiTaskLasso(lmax/{frac})", make, design, Y, dev,
+                est, "cd_epoch_gram_block", fails)
     del design
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -1211,7 +1347,7 @@ def block_times(dev, cfg, launches, errs, card, d):
                                               gram_block_plan)
     from repro_torch.kernels.common import penalty_params
     from repro_torch.kernels.csc_score import csc_score_plain
-    from repro_torch.kernels.fused_ws import fused_ws_plain, pick_bp
+    from repro_torch.kernels.fused_ws import _mma_splits, fused_ws_plain, pick_bp
     reps = cfg["reps"]
     pen = BlockL1(0.11)
     prm = penalty_params(pen)
@@ -1227,8 +1363,10 @@ def block_times(dev, cfg, launches, errs, card, d):
     lib = time_ms(lambda: torch.mm(Xt, R), dev, reps)
     bp = pick_bp(p)
     C = -(-p // bp) * min(bp, ws)
-    b = bound(8 * (p * n + n * T + 2 * p * T + 4 * p + C * n) + p + 4 * C,
-              2 * p * n * T)
+    # X, R and beta read once; grad, scores and the ws rows of X written
+    # once (no candidate buffer); L, offset, gsupp, ws and cand_idx
+    b = bound(8 * (p * n + n * T + 2 * p * T + 3 * p + ws * n + ws) + p
+              + 4 * C, 2 * p * n * T)
     rows.append(dict(name="fused_ws_block", route="cuda",
                      source="src/repro_torch/csrc/fused_ws.cu",
                      replaces="src/repro/kernels/fused_ws.py:71",
@@ -1238,7 +1376,8 @@ def block_times(dev, cfg, launches, errs, card, d):
                      library_ms=lib,
                      library_call="torch.mm(Xt, R): the gradient part only",
                      shape=f"n={n}, p={p}, T={T}, ws={ws}, bp={bp}, C={C}, "
-                           f"BlockL1"))
+                           f"BlockL1, sample spans "
+                           f"{_mma_splits(Xt) if dev.type == 'cuda' else 1}"))
     del Xt
 
     n, p = d.shape
@@ -1345,6 +1484,7 @@ def run(dev, cfg):
     fails += check_k1_blocked(dev, cfg, errs)
     log(f"  K1 blocked-kernel checks: {time.perf_counter() - t1:.1f} s")
     fails += check_k2_big_and_k4(dev, cfg, errs)
+    fails += check_step_down(dev, cfg, errs)
     failures += fails
     report("dense kernels", t, fails,
            (("cd_epoch_gram", "K1"), ("cd_epoch_xb", "K2"),

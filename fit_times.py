@@ -2,7 +2,7 @@
 """Time the kernel route of the small-K fits of ``chip_smoke.py`` several
 times on one CUDA card, to compare two trees of the port.
 
-    python3 fit_times.py [SRC]
+    python3 fit_times.py [--deep] [SRC]
     python3 fit_times.py --pool LOG [LOG ...]
 
 SRC is the ``src`` directory whose ``repro_torch`` is timed (default: this
@@ -12,8 +12,13 @@ MultiTaskLasso at lambda_max/10, the dense SparseLogisticRegression at
 lambda_max/3, and the two fits whose time is mostly K1's Gram epochs: the
 dense LinearSVC(C=1) at the fig. 9 size (n = 2000, p = 1000) and the
 LinearSVC(C=1) on the scipy sparse X of ``sparse_small`` (2000 x 8000).
-Each is fitted once to warm up and then ``REPS`` times; the wall times
-(synchronized) are printed, with their median, as one JSON line.
+``--deep`` adds the deep weighted sparse logistic regression of
+``chip_smoke.py`` (``sparse_fig2`` at lambda_max/30, K2 at K = 4096;
+3 repeats). Each is fitted once to warm up and then ``REPS`` times; the
+wall times (synchronized), with their median, the outer steps, the host
+reads, the peak device memory of a fit and the host seconds of the CUDA
+graph captures (a tree without them reports none) are printed as one JSON
+line.
 
 ``--pool`` reads the JSON lines of several such runs (one process each,
 alternating between two trees in one call) and prints, for each tree (its
@@ -31,6 +36,7 @@ from pathlib import Path
 import chip_smoke as cs
 
 REPS = 7
+DEEP = False
 
 
 def pool(paths) -> int:
@@ -55,10 +61,14 @@ def pool(paths) -> int:
 
 
 def main() -> int:
+    global DEEP
     if sys.argv[1:2] == ["--pool"]:
         return pool(sys.argv[2:])
+    args = sys.argv[1:]
+    DEEP = "--deep" in args
+    args = [a for a in args if a != "--deep"]
     here = Path(__file__).resolve().parent
-    src = Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else here / "src"
+    src = Path(args[0]).resolve() if args else here / "src"
     sys.path.insert(0, str(src))
     import torch
     if not torch.cuda.is_available():
@@ -72,27 +82,38 @@ def main() -> int:
     from repro_torch.data import (make_classification, make_leadfield,
                                   make_multitask, make_sparse_design)
     from repro_torch.kernels import ops
+    from repro_torch.sparse import CSCDesign
     dev = torch.device("cuda")
     cfg = cs.FULL
     out = dict(src=str(src), card=cs.card_line(), fits={})
 
-    def timed(label, make, X, Y):
-        walls = []
-        for i in range(REPS + 1):
+    def timed(label, make, X, Y, sample_weight=None, reps=REPS):
+        walls, peaks = [], []
+        for i in range(reps + 1):
             est = make()
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             ops.reset_launch_counts()
             t = time.perf_counter()
-            est.fit(X, Y, device=dev)
+            est.fit(X, Y, sample_weight=sample_weight, device=dev)
             torch.cuda.synchronize()
             if i:
                 walls.append(time.perf_counter() - t)
+                peaks.append(torch.cuda.max_memory_allocated())
+        res = est.result_
+        capture = res.diagnostics.get("capture_s", [])
         out["fits"][label] = dict(
             walls=walls, median=statistics.median(walls),
             converged=bool(est.converged_),
+            outer_steps=len(res.kkt_history), host_reads=res.n_host_syncs,
+            peak_bytes=max(peaks), captures=len(capture),
+            capture_s=[float(c) for c in capture],
             launches={k: v for k, v in ops.launch_counts().items() if v})
         cs.log(f"{label}: median {statistics.median(walls):.4f} s, walls "
-               f"{[round(w, 4) for w in walls]}")
+               f"{[round(w, 4) for w in walls]}, outer steps "
+               f"{len(res.kkt_history)}, host reads {res.n_host_syncs}, "
+               f"peak {max(peaks) / 2**30:.3f} GiB, captures "
+               f"{[round(float(c), 4) for c in capture]} s")
 
     m = cfg["meeg"]
     X, Y, _, _ = make_leadfield(**m)
@@ -132,6 +153,19 @@ def main() -> int:
     Xs, ys, _ = make_sparse_design(**cfg["sparse_small"])
     timed("sparse LinearSVC", lambda: LinearSVC(C=1.0, max_outer=100,
                                                 tol=cs.TOL), Xs, np.sign(ys))
+    if DEEP:
+        # the deep weighted sparse logistic fit (K2 at K = 4096)
+        X, y, _ = make_sparse_design(**cfg["sparse"])
+        d = CSCDesign.from_scipy(X, ell=True, device=dev)
+        del X
+        ys = np.sign(y)
+        w = np.random.default_rng(1).uniform(0.5, 1.5, d.n_rows)
+        lmax = lambda_max(d, ys, Logistic(), sample_weight=w, device=dev)
+        k_log = cfg["sparse_lam"][-1][1]
+        timed(f"sparse SparseLogisticRegression(lmax/{k_log}, weighted)",
+              lambda: SparseLogisticRegression(alpha=lmax / k_log,
+                                               tol=cs.TOL),
+              d, ys, sample_weight=w, reps=3)
     print(json.dumps(out))
     return 0
 

@@ -1,8 +1,8 @@
 """The solve engine, single-device (port of ``repro.core.engine``).
 
 One outer iteration of Algorithm 1 is ``SolveEngine.step``: score pass,
-working-set selection, gather, inner Anderson-CD solve, scatter. It runs
-eagerly on the design's device.
+working-set selection, gather, inner Anderson-CD solve, scatter, on the
+design's device.
 
 Layering (bottom-up):
 
@@ -16,9 +16,11 @@ Layering (bottom-up):
   SolveEngine           the outer step; with ``use_kernels`` its head is the
                         fused kernel K3 on a dense design (one pass over X
                         yields the scores, the gradient and the candidate
-                        columns), and on a CSC design the sparse score
-                        kernel K5 followed by the selection and the window
-                        gather (the reference's two-pass sparse head).
+                        columns; K3b for blocks yields the scores and the
+                        gradient, and the working set's rows are gathered),
+                        and on a CSC design the sparse score kernel K5
+                        followed by the selection and the window gather
+                        (the reference's two-pass sparse head).
 
 Multitask block coordinates (DESIGN.md §8): with MultitaskQuadratic and a
 block penalty, beta is [p, T] and Xb, y are [n, T]; the same step runs on
@@ -28,12 +30,18 @@ K1b in the Gram inner solve. The Xb inner solve of a block problem runs
 the plain block epoch on every route, as the reference runs its jax epoch
 there: no kernel exists for it.
 
-Host reads: the reference runs the inner loop as a device ``while_loop``
-and reads back once per outer iteration. Eager torch must read the inner
-stopping test on the host, so a step costs one read for its head (kkt,
-objective, support count, coverage flag, in one transfer) plus one per
-inner Anderson block (that block's kkt and support count). Every such read
-is counted in ``StepResult.n_syncs``.
+Host reads: the reference runs the step as one XLA program, its inner
+solve under a ``lax.cond`` and its Anderson blocks in a
+``lax.while_loop``, and reads back once per outer iteration. ``step``
+writes the step once against a flow (``core/flow.py``) and ends in ONE
+read of (kkt, objective, |gsupp|, epochs, coverage). On the kernel route
+on a card the step is a CUDA graph, captured once per bucket and replayed:
+the skip decision is an IF node and the blocks a WHILE node whose
+condition the device sets, so nothing else reads the host. On the CPU the
+same step tests its conditions in host memory, which is no device
+transfer and is not counted. On a card with ``capture=False`` (the tests'
+oracle) and on the plain route, the conditions are blocking reads, each
+counted in ``StepResult.n_syncs``.
 
 Designs: ``DenseDesign`` keeps one feature-major copy of X (``Xt`` is a
 contiguous [p, n] tensor, so the score pass, the kernels' per-feature dots
@@ -47,6 +55,7 @@ CSC arrays and densifies only the working-set columns. Both offer
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 
 import torch
@@ -56,7 +65,8 @@ from ..kernels.common import (SCALAR_COORD_PENALTIES,
                               check_score_kernel_penalty, penalty_params)
 from .anderson import anderson_extrapolate
 from .cd import cd_epoch_gram, cd_epoch_xb
-from .working_set import (candidate_columns, scatter_ws, select_working_set,
+from .flow import CapturedFlow, GraphPools, HostFlow
+from .working_set import (candidate_columns, select_working_set,
                           violation_scores)
 
 __all__ = ["EngineConfig", "SolveEngine", "SubproblemSolver", "GramSolver",
@@ -78,6 +88,10 @@ PALLAS_SPARSE_ELL_ERROR = (
     "backend='pallas' on a sparse design requires the ELL score layout: "
     "build it with CSCDesign.from_scipy(X, ell=True); see the supported-path "
     "matrix in README.md (Pallas column) and DESIGN.md §8.4")
+
+
+# the most of X a Lipschitz temporary covers (DenseDesign.lipschitz)
+LIPSCHITZ_CHUNK_BYTES = 64 * 2**20
 
 
 @dataclass(frozen=True)
@@ -137,8 +151,15 @@ class DenseDesign:
         return self.Xt.T @ beta
 
     def lipschitz(self, datafit, w=None, use_kernels=False):
-        return datafit.lipschitz(self.X) if w is None \
-            else datafit.lipschitz(self.X, w)
+        """The datafit's per-coordinate Lipschitz constants, taken over
+        feature chunks of at most LIPSCHITZ_CHUNK_BYTES of X: the datafits
+        square X elementwise, and over all of X that temporary (as large
+        as X) set the fits' peak memory."""
+        rows = max(1, LIPSCHITZ_CHUNK_BYTES
+                   // max(1, self.n_rows * self.Xt.element_size()))
+        return torch.cat([
+            datafit.lipschitz(c.T) if w is None else datafit.lipschitz(c.T, w)
+            for c in torch.split(self.Xt, rows)])
 
 
 def is_scipy_sparse(X) -> bool:
@@ -209,6 +230,8 @@ class EngineConfig:
     use_fp_score: bool = False
     gram: bool = True
     use_kernels: bool = False       # K1-K3 (the counterpart of "pallas")
+    capture: bool = True            # on a card: captured steps; False runs
+                                    # the host loop (the tests' oracle)
 
     @property
     def max_blocks(self) -> int:
@@ -234,20 +257,12 @@ class WorkingSetContext:
                                      # empty generalized support)
 
 
-@dataclass
-class InnerResult:
-    beta: torch.Tensor
-    aux: torch.Tensor
-    n_epochs: int
-    kkt: float
-    gcount: int                      # |gsupp(beta)| of the returned beta
-    n_syncs: int
-
-
 class SubproblemSolver:
     """Algorithm 2 on a fixed working set: blocks of M cyclic CD epochs, one
-    guarded Anderson extrapolation per block, loop until the restricted KKT
-    violation drops under eps (one host read per block)."""
+    guarded Anderson extrapolation per block, run while blocks are left and
+    the restricted KKT violation is above eps. ``run`` drives the blocks
+    under a flow (``core/flow.py``): a host loop, or a WHILE node of a
+    captured graph."""
 
     def __init__(self, config: EngineConfig):
         self.config = config
@@ -267,33 +282,41 @@ class SubproblemSolver:
     def gradient(self, ctx, beta, aux):
         raise NotImplementedError
 
-    def solve(self, ctx, beta0, eps, aux0=None) -> InnerResult:
+    def block(self, ctx, beta, aux):
+        """One Anderson block: M epochs, the guarded extrapolation, and the
+        restricted kkt of the kept iterate. Returns (beta, aux, kkt)."""
         cfg = self.config
-        beta = beta0
-        aux = self.prepare(ctx, beta0) if aux0 is None else aux0
-        k, kkt, gcount = 0, math.inf, 0
-        while k < cfg.max_blocks and kkt > eps:
-            hist = [beta]
-            for _ in range(cfg.M):
-                beta, aux = self.epoch(ctx, beta, aux)
-                hist.append(beta)
-            if cfg.accel:
-                be = ctx.penalty.prox(anderson_extrapolate(torch.stack(hist)),
-                                      0.0)
-                auxe = self.refresh(ctx, be)
-                take = self.objective(ctx, be, auxe) < \
-                    self.objective(ctx, beta, aux)
-                beta = torch.where(take, be, beta)
-                aux = torch.where(take, auxe, aux)
-            grad = self.gradient(ctx, beta, aux)
-            kkt_d = torch.max(violation_scores(
-                ctx.penalty, beta, grad, ctx.L_ws,
-                use_fixed_point=cfg.use_fp_score))
-            gs = torch.sum(ctx.penalty.generalized_support(beta))
-            kkt, gcount = _read(kkt_d, gs)
-            gcount = int(gcount)
-            k += 1
-        return InnerResult(beta, aux, k * cfg.M, kkt, gcount, k)
+        hist = [beta]
+        for _ in range(cfg.M):
+            beta, aux = self.epoch(ctx, beta, aux)
+            hist.append(beta)
+        if cfg.accel:
+            be = ctx.penalty.prox(anderson_extrapolate(torch.stack(hist)), 0.0)
+            auxe = self.refresh(ctx, be)
+            take = self.objective(ctx, be, auxe) < \
+                self.objective(ctx, beta, aux)
+            beta = torch.where(take, be, beta)
+            aux = torch.where(take, auxe, aux)
+        grad = self.gradient(ctx, beta, aux)
+        kkt = torch.max(violation_scores(ctx.penalty, beta, grad, ctx.L_ws,
+                                         use_fixed_point=cfg.use_fp_score))
+        return beta, aux, kkt
+
+    def run(self, flow, ctx, beta, aux, blocks, eps):
+        """Blocks on the carries `beta` and `aux` (updated in place) while
+        ``blocks < max_blocks`` and the last block's kkt > `eps` (a 0-d
+        tensor); `blocks` (0-d int64, in place) counts them. The first
+        block always runs, as the reference's loop starts from kkt = inf."""
+        go = torch.ones((), dtype=torch.bool, device=beta.device)
+
+        def body():
+            b, a, kkt = self.block(ctx, beta, aux)
+            beta.copy_(b)
+            aux.copy_(a)
+            blocks.add_(1)
+            go.copy_((blocks < self.config.max_blocks) & (kkt > eps))
+
+        flow.loop(go, body)
 
 
 class GramSolver(SubproblemSolver):
@@ -363,7 +386,8 @@ class XbSolver(SubproblemSolver):
 class StepResult:
     """One outer iteration: the new iterate, the kkt/objective of the
     INCOMING iterate, |gsupp| of the new one, the inner epochs run, whether
-    the working set covered the generalized support, and the host reads."""
+    the working set covered the generalized support, and the blocking
+    device-to-host reads the step made."""
     beta: torch.Tensor
     Xb: torch.Tensor
     kkt: float
@@ -374,12 +398,52 @@ class StepResult:
     n_syncs: int
 
 
+class _StepGraph:
+    """One captured outer step: the graph, its static inputs (``bind``
+    copies a new tensor in), the design it reads in place (held: its id is
+    in the graph's key), its outputs, and the kernel launches of the step
+    (``head``) and of each conditional body (``scopes``)."""
+
+    def __init__(self, inputs, design):
+        self.inputs = inputs
+        self.design = design
+        self._bound = {}
+        self.graph = torch.cuda.CUDAGraph()
+        self.outputs = None
+        self.head = []
+        self.scopes = []
+
+    def bind(self, name, tensor):
+        """Copy `tensor` into the static input `name` unless it is the
+        tensor last bound there (y, w, L and offset stay bound for a
+        whole solve)."""
+        if self._bound.get(name) is not tensor:
+            self.inputs[name].copy_(tensor)
+            self._bound[name] = tensor
+
+
 class SolveEngine:
-    """Outer iteration of Algorithm 1 on one device."""
+    """Outer iteration of Algorithm 1 on one device.
+
+    On the kernel route on a card (``EngineConfig.capture``, the default)
+    each outer step is captured once per (working-set bucket, design,
+    shapes, datafit, penalty, tol) into a CUDA graph and replayed, with the
+    skip decision and the inner loop on the card (``core/flow.py``);
+    ``captures`` counts the captures per key (the counterpart of the
+    reference's ``engine.retraces``) and ``capture_s`` their host seconds.
+    The graphs share the engine's memory pools and live until
+    ``release_graphs`` (``solve`` calls it when it made the engine)."""
 
     def __init__(self, config: EngineConfig, device):
         self.config = config
-        self.device = torch.device(device)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self.captures: dict = {}
+        self.capture_s: list = []
+        self._graphs: dict = {}
+        self._pools = None
 
     def _make_inner(self):
         cfg = self.config
@@ -397,13 +461,19 @@ class SolveEngine:
         raw = _df_raw(datafit, Xb, y, w)
         gsupp = penalty.generalized_support(beta)
         aux = None
-        if cfg.use_kernels and design.KIND == "dense":
-            # fused head K3 (K3b for blocks): ONE pass over X yields the
-            # scores, the offset-corrected gradient AND the candidate
-            # columns; the merge is select_working_set on the emitted scores
-            # plus a candidate-row lookup
-            kern = kops.fused_ws_block if beta.ndim == 2 else kops.fused_ws
-            scores, grad, cand_idx, cand_cols = kern(
+        if cfg.use_kernels and design.KIND == "dense" and beta.ndim == 2:
+            # fused block head K3b: one pass over X yields the scores and
+            # the offset-corrected gradient; it hands back the working set
+            # and its K rows of X (no candidate buffer)
+            scores, grad, _, ws, Xt_ws = kops.fused_ws_block(
+                design.Xt, raw, beta, L, offset, gsupp, type(penalty),
+                penalty_params(penalty), bucket, use_fp=cfg.use_fp_score)
+        elif cfg.use_kernels and design.KIND == "dense":
+            # fused head K3: ONE pass over X yields the scores, the
+            # offset-corrected gradient AND the candidate columns; the
+            # merge is select_working_set on the emitted scores plus a
+            # candidate-row lookup
+            scores, grad, cand_idx, cand_cols = kops.fused_ws(
                 design.Xt, raw, beta, L, offset, gsupp, type(penalty),
                 penalty_params(penalty), bucket, use_fp=cfg.use_fp_score)
             ws = select_working_set(scores, gsupp, bucket)
@@ -420,56 +490,162 @@ class SolveEngine:
             Xt_ws, aux = design.gather_ws(ws)
         return grad, ws, Xt_ws, aux, torch.max(scores), gsupp
 
-    def step(self, bucket, design, y, beta, Xb, L, offset, datafit, penalty,
-             tol, eps_frac, w=None) -> StepResult:
-        """One outer iteration: score -> select -> gather -> inner solve ->
-        scatter. The inner solve is skipped when the incoming iterate
-        already passes `tol`."""
+    def _step_core(self, flow, bucket, design, y, w, beta, Xb, L, offset,
+                   datafit, penalty, tol, eps_frac):
+        """The outer step, written once for every flow: score -> select ->
+        gather, then, when the incoming iterate fails `tol` and the working
+        set covers the generalized support, Gram formation -> inner
+        Anderson-CD loop -> scatter. Returns (beta_new, Xb_new, rd); rd
+        holds, in beta's dtype, the kkt and objective of the incoming
+        iterate, |gsupp| of the new one, the inner epochs and the coverage
+        flag: what the host reads back, once."""
         cfg = self.config
-        grad, ws, Xt_ws, aux, kkt_d, gsupp = self._head(
+        grad, ws, Xt_ws, aux, kkt, gsupp = self._head(
             bucket, design, y, w, beta, Xb, L, offset, datafit, penalty)
         gcount0 = torch.sum(gsupp)
-        obj_d = self._objective(datafit, penalty, Xb, y, w, offset, beta)
-        cov_d = torch.sum(gsupp[ws]) == gcount0
-        kkt, obj, gcount0, cov = _read(kkt_d, obj_d, gcount0, cov_d)
-        covered = bool(cov)
-        if kkt <= tol or not covered:
-            return StepResult(beta, Xb, kkt, obj, int(gcount0), 0, covered, 1)
+        obj = self._objective(datafit, penalty, Xb, y, w, offset, beta)
+        cov = torch.sum(gsupp[ws]) == gcount0
+        # the reference's lax.cond and eps_in, on the device (an uncovered
+        # step skips too: solve() raises on it)
+        run = (kkt > tol) & cov
+        eps_in = torch.clamp(eps_frac * kkt, min=0.1 * tol)
+        # the skipped step's results, overwritten when the inner solve runs
+        beta_new, Xb_new = beta.clone(), Xb.clone()
+        gcount = gcount0.clone()
+        blocks = torch.zeros((), dtype=torch.int64, device=beta.device)
 
-        L_ws, offset_ws = L[ws], offset[ws]
-        beta_ws0, grad_ws0 = beta[ws], grad[ws]
-        eps_in = max(eps_frac * kkt, 0.1 * tol)
-        inner = self._make_inner()
-        if cfg.gram:
-            X_ws = Xt_ws.T
-            G, _ = datafit.make_gram(X_ws, y) if w is None \
-                else datafit.make_gram(X_ws, y, w)
-            # column-major, so K1 reads each column G[:, j] contiguously
-            G = G.t().contiguous().t()
-            # linearize at the incoming iterate: grad_ws(b) = G (b - b0) +
-            # grad0_ws, exact for quadratic datafits even when nonzero
-            # coordinates live outside ws (Box pins coords at C with empty
-            # generalized support)
-            q0 = G @ beta_ws0
-            c = q0 - grad_ws0
-            ctx = WorkingSetContext(Xt_ws, y, L_ws, offset_ws, datafit,
-                                    penalty, G=G, c=c)
-            res = inner.solve(ctx, beta_ws0, eps_in, aux0=q0)
-            # incremental residual: exact even when a nonzero coordinate
-            # sits outside ws
-            Xb_new = design.update_xb(Xb, Xt_ws, aux, res.beta - beta_ws0)
-        else:
-            # Xb_base carries the residual of nonzero coordinates OUTSIDE ws
-            # so Anderson refresh cannot drop them
-            ctx = WorkingSetContext(Xt_ws, y, L_ws, offset_ws, datafit,
-                                    penalty, w=w,
-                                    Xb_base=Xb - _apply_T(Xt_ws, beta_ws0))
-            res = inner.solve(ctx, beta_ws0, eps_in, aux0=Xb)
-            Xb_new = res.aux
-        # coordinates outside ws are unchanged and (coverage) outside the
-        # generalized support, so |gsupp(beta_new)| = |gsupp(beta_ws)|
-        return StepResult(scatter_ws(beta, ws, res.beta), Xb_new, kkt, obj,
-                          res.gcount, res.n_epochs, True, 1 + res.n_syncs)
+        def inner():
+            L_ws, offset_ws = L[ws], offset[ws]
+            beta_ws0, grad_ws0 = beta[ws], grad[ws]
+            if cfg.gram:
+                X_ws = Xt_ws.T
+                G, _ = datafit.make_gram(X_ws, y) if w is None \
+                    else datafit.make_gram(X_ws, y, w)
+                # column-major, so K1 reads each column G[:, j] contiguously
+                G = G.t().contiguous().t()
+                # linearize at the incoming iterate: grad_ws(b) = G (b - b0)
+                # + grad0_ws, exact for quadratic datafits even when nonzero
+                # coordinates live outside ws (Box pins coords at C with
+                # empty generalized support)
+                state = G @ beta_ws0
+                ctx = WorkingSetContext(Xt_ws, y, L_ws, offset_ws, datafit,
+                                        penalty, G=G, c=state - grad_ws0)
+            else:
+                # Xb_base carries the residual of nonzero coordinates
+                # OUTSIDE ws so Anderson refresh cannot drop them
+                ctx = WorkingSetContext(
+                    Xt_ws, y, L_ws, offset_ws, datafit, penalty, w=w,
+                    Xb_base=Xb - _apply_T(Xt_ws, beta_ws0))
+                state = Xb.clone()
+            beta_ws = beta_ws0.clone()
+            self._make_inner().run(flow, ctx, beta_ws, state, blocks, eps_in)
+            if cfg.gram:
+                # incremental residual: exact even when a nonzero coordinate
+                # sits outside ws
+                state = design.update_xb(Xb, Xt_ws, aux, beta_ws - beta_ws0)
+            Xb_new.copy_(state)
+            beta_new[ws] = beta_ws
+            # coordinates outside ws are unchanged and (coverage) outside
+            # the generalized support, so |gsupp(beta_new)| = |gsupp(beta_ws)|
+            gcount.copy_(torch.sum(penalty.generalized_support(beta_ws)))
+
+        flow.branch(run, inner)
+        rd = torch.stack([v.to(beta.dtype) for v in
+                          (kkt, obj, gcount, blocks * cfg.M, cov)])
+        return beta_new, Xb_new, rd
+
+    @property
+    def captured(self) -> bool:
+        """Whether steps run as captured graphs: the kernel route on a
+        card. The plain route's epochs are Python loops over the working
+        set (a graph of them takes longer to capture than to run), so on a
+        card it tests its conditions on the host, as ``capture=False``
+        does."""
+        return self.device.type == "cuda" and self.config.capture and \
+            self.config.use_kernels
+
+    def step(self, bucket, design, y, beta, Xb, L, offset, datafit, penalty,
+             tol, eps_frac, w=None) -> StepResult:
+        """One outer iteration, ending in the step's one blocking read: a
+        replay of the captured step on the kernel route on a card, the same
+        step under a host flow elsewhere (on a card that flow reads once
+        more per condition: the plain route, and the eager oracle of
+        ``capture=False``)."""
+        args = (bucket, design, y, w, beta, Xb, L, offset, datafit, penalty,
+                tol, eps_frac)
+        if self.captured:
+            return self._replay(*args)
+        flow = HostFlow()
+        beta_new, Xb_new, rd = self._step_core(flow, *args)
+        kkt, obj, gcount, n_ep, cov = rd.tolist()
+        return StepResult(beta_new, Xb_new, kkt, obj, int(gcount), int(n_ep),
+                          bool(cov), 1 + flow.reads)
+
+    def _replay(self, bucket, design, y, w, beta, Xb, L, offset, datafit,
+                penalty, tol, eps_frac):
+        key = (bucket, id(design), tuple(y.shape), w is None,
+               tuple(beta.shape), beta.dtype, datafit, penalty, float(tol),
+               float(eps_frac))
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._capture(key, bucket, design, y, w, beta, Xb, L, offset,
+                              datafit, penalty, tol, eps_frac)
+        for name, t in (("y", y), ("w", w), ("L", L), ("offset", offset)):
+            if t is not None:
+                g.bind(name, t)
+        g.inputs["beta"].copy_(beta)
+        g.inputs["Xb"].copy_(Xb)
+        g.graph.replay()
+        beta_out, Xb_out, rd = g.outputs
+        # copies: a later replay of this or another graph of the engine
+        # reuses the outputs' memory
+        beta_new, Xb_new = beta_out.clone(), Xb_out.clone()
+        kkt, obj, gcount, n_ep, cov = rd.tolist()      # the one host read
+        blocks = int(n_ep) // self.config.M
+        kops.add_launches(g.head)
+        for kind, launches in g.scopes:
+            kops.add_launches(launches,
+                              blocks if kind == "loop" else int(blocks > 0))
+        return StepResult(beta_new, Xb_new, kkt, obj, int(gcount), int(n_ep),
+                          bool(cov), 1)
+
+    def _capture(self, key, bucket, design, y, w, beta, Xb, L, offset,
+                 datafit, penalty, tol, eps_frac):
+        """Capture the step for `key` into a graph on the engine's pools
+        (the design is read in place; the other tensors through static
+        inputs)."""
+        t0 = time.perf_counter()
+        if self._pools is None:
+            self._pools = GraphPools(self.device)
+        named = {"beta": beta, "Xb": Xb, "y": y, "w": w, "L": L,
+                 "offset": offset}
+        g = _StepGraph({k: torch.empty_like(t) for k, t in named.items()
+                        if t is not None}, design)
+        ins = g.inputs
+        flow = CapturedFlow(self.device, self._pools)
+        with torch.cuda.stream(flow.capture_stream), \
+                kops.deferred_launches() as head:
+            g.graph.capture_begin(pool=self._pools.ids[0],
+                                  capture_error_mode="thread_local")
+            try:
+                g.outputs = self._step_core(
+                    flow, bucket, design, ins["y"], ins.get("w"),
+                    ins["beta"], ins["Xb"], ins["L"], ins["offset"], datafit,
+                    penalty, tol, eps_frac)
+            finally:
+                g.graph.capture_end()
+        g.head, g.scopes = head, flow.scopes
+        self._graphs[key] = g
+        self.captures[key] = self.captures.get(key, 0) + 1
+        self.capture_s.append(time.perf_counter() - t0)
+        return g
+
+    def release_graphs(self):
+        """Drop the captured steps and hand their memory back."""
+        self._graphs.clear()
+        if self._pools is not None:
+            self._pools.release()
+            self._pools = None
 
     def probe(self, design, y, beta, Xb, L, offset, datafit, penalty,
               w=None):

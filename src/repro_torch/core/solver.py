@@ -4,7 +4,9 @@ designs).
 
 The host loop over ``SolveEngine``: per outer iteration one
 ``engine.step`` (score pass, working-set selection, gather, inner
-Anderson-CD solve, scatter). Quadratic datafits use the Gram inner solver,
+Anderson-CD solve, scatter) and one host read; on the kernel route on a
+card the step is a replay of a captured CUDA graph with the inner loop on
+the device. Quadratic datafits use the Gram inner solver,
 general datafits the Xb inner solver. ``use_kernels`` switches the head and
 the CD epochs to the CUDA kernels (K3 on dense designs, K5 on CSC ones, K1
 or K2 inside, K5s for weighted sparse Lipschitz constants; K3b, K5b and K1b
@@ -53,9 +55,15 @@ class SolveResult:
     """Result of one :func:`solve` call.
 
     ``beta`` stays on the solve's device. ``n_host_syncs`` counts every
-    blocking device-to-host read of the solve: one per outer step head, one
-    per inner Anderson block, plus one probe for an unsized warm start.
-    ``diagnostics`` holds the per-outer curves (kkt, obj, ws_size, time_s).
+    blocking device-to-host read of the solve, as the reference does: one
+    per outer step (the step's one read of kkt, objective, |gsupp|, epochs
+    and coverage), plus one probe for an unsized warm start. On the CPU the
+    step's conditions are tested in host memory, which is no transfer; its
+    one read at the end of the step is counted all the same. The plain
+    route on a card (``use_kernels=False``) tests them on the host: one
+    read more for the skip decision and for each inner Anderson block.
+    ``diagnostics`` holds the per-outer curves (kkt, obj, ws_size, time_s)
+    and the host seconds of each step the solve captured (capture_s).
     """
     beta: torch.Tensor
     kkt: float
@@ -72,10 +80,13 @@ class SolveResult:
 
 def make_engine(penalty, datafit, *, device=None, M=5, max_epochs=1000,
                 accel=True, use_fp_score=None, use_gram="auto",
-                use_kernels=None):
+                use_kernels=None, capture=True):
     """Build a SolveEngine for a (datafit, penalty) family on `device`
     (``None`` means CUDA; raises without a card). ``use_kernels=None``
-    means the kernels on a CUDA device and plain torch on the CPU."""
+    means the kernels on a CUDA device and plain torch on the CPU.
+    ``capture=False`` runs each step's inner loop on the host on a card
+    too, reading its stopping test after every Anderson block: the oracle
+    that the captured step is held to, not a path for fits."""
     device = resolve_device(device)
     if use_fp_score is None:
         use_fp_score = not penalty.HAS_SUBDIFF
@@ -84,7 +95,7 @@ def make_engine(penalty, datafit, *, device=None, M=5, max_epochs=1000,
     gram = datafit.HAS_GRAM if use_gram == "auto" else bool(use_gram)
     cfg = EngineConfig(M=M, max_epochs=max_epochs, accel=accel,
                        use_fp_score=use_fp_score, gram=gram,
-                       use_kernels=bool(use_kernels))
+                       use_kernels=bool(use_kernels), capture=capture)
     return SolveEngine(cfg, device)
 
 
@@ -120,7 +131,8 @@ def solve(X, y, datafit, penalty, *, device=None, tol=1e-6, max_outer=50,
                                   "ported yet")
     if n_tasks is None:
         n_tasks = y.shape[1] if getattr(y, "ndim", 1) == 2 else 0
-    if engine is None:
+    own_engine = engine is None
+    if own_engine:
         engine = make_engine(penalty, datafit, device=device, M=M,
                              max_epochs=max_epochs, accel=accel,
                              use_fp_score=use_fp_score, use_gram=use_gram,
@@ -147,6 +159,7 @@ def solve(X, y, datafit, penalty, *, device=None, tol=1e-6, max_outer=50,
 
     res = SolveResult(beta=beta, kkt=float("inf"), converged=False,
                       n_outer=0, n_epochs=0)
+    n_captured = len(engine.capture_s)
     t0 = time.perf_counter()
     # first-bucket sizing: cold starts have an empty generalized support;
     # warm starts probe it once (one read per solve)
@@ -182,6 +195,9 @@ def solve(X, y, datafit, penalty, *, device=None, tol=1e-6, max_outer=50,
         res.n_outer = t + 1
         bucket = policy.next_bucket(bucket, out.gcount, p)
 
+    if own_engine:
+        # a caller's engine keeps its captured steps for its next solves
+        engine.release_graphs()
     res.beta = beta
     res.kkt = res.kkt_history[-1] if res.kkt_history else float("inf")
     res.diagnostics = {
@@ -189,5 +205,7 @@ def solve(X, y, datafit, penalty, *, device=None, tol=1e-6, max_outer=50,
         "obj": np.asarray(res.obj_history),
         "ws_size": np.asarray(res.ws_history, dtype=np.int64),
         "time_s": np.asarray(res.time_history),
+        # host seconds of each step captured into a CUDA graph in this solve
+        "capture_s": np.asarray(engine.capture_s[n_captured:]),
     }
     return res

@@ -1025,32 +1025,54 @@ __global__ void cluster_barrier_loop_kernel(int iters) {
   }
 }
 
+// The launch configuration of one cluster of C CTAs (grid = cluster = C)
+// of `kernel`, with `dyn` bytes of dynamic shared memory a CTA; `attr`
+// holds the cluster attribute the configuration points to.
+template <typename... ExpTypes>
+cudaError_t cluster_config(void (*kernel)(ExpTypes...), int C, int threads, size_t dyn,
+                           void* stream, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)dyn);
+  if (err != cudaSuccess) return err;
+  if (C > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  *cfg = {};
+  cfg->gridDim = dim3(C, 1, 1);
+  cfg->blockDim = dim3(threads, 1, 1);
+  cfg->dynamicSmemBytes = dyn;
+  cfg->stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// How many clusters of C CTAs of `kernel` the card can place at once.
+template <typename... ExpTypes>
+int cluster_capacity_of(void (*kernel)(ExpTypes...), int C, int threads, int dyn, int* active) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config(kernel, C, threads, (size_t)dyn, nullptr, &cfg, &attr);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(active, (void*)kernel, &cfg);
+  return (int)err;
+}
+
 // Launch `kernel` as one cluster of C CTAs (grid = cluster = C) through
 // cudaLaunchKernelEx. Refuses, with kErrClusterUnplaceable, a cluster that no
 // GPC of the card can place with this shared memory per CTA; never falls
-// back to another shape.
+// back to another shape (the plans step down beforehand: cluster_capacity).
 template <typename... ExpTypes, typename... ActTypes>
 int launch_cluster(void (*kernel)(ExpTypes...), int C, int threads, size_t dyn, void* stream,
                    ActTypes&&... args) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)dyn);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config(kernel, C, threads, dyn, stream, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
-  if (C > 8) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, 1, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = dyn;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
   int active = 0;
   err = cudaOccupancyMaxActiveClusters(&active, (void*)kernel, &cfg);
   if (err != cudaSuccess) return (int)err;
@@ -1058,6 +1080,31 @@ int launch_cluster(void (*kernel)(ExpTypes...), int C, int threads, size_t dyn, 
   err = cudaLaunchKernelEx(&cfg, kernel, std::forward<ActTypes>(args)...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The plans' placement query (kernels/cd_epoch.py: card_placeable): how many
+// clusters of C CTAs of `threads` threads and `dyn` bytes of dynamic shared
+// memory the card can place at once, for the cluster kernel of K1
+// (which == 0), K2 (1) or K1b (2) in float64 (f64) or float32, on the
+// register path (per != 0) or not. K1's kernel is instantiated per
+// penalty; the query takes the L1 instance: every instance declares the
+// same __launch_bounds__, and a cluster puts one CTA on each SM, which any
+// of them fits with the plan's shared memory.
+template <typename T>
+int cluster_capacity_t(int which, int per, int C, int threads, int dyn, int* active) {
+  switch (which) {
+    case 0:
+      return cluster_capacity_of(cd_gram_cluster_kernel<T, rt::PEN_L1>, C, threads, dyn, active);
+    case 1:
+      return per ? cluster_capacity_of(cd_xb_cluster_kernel<T, kXbPer>, C, threads, dyn, active)
+                 : cluster_capacity_of(cd_xb_cluster_kernel<T, 0>, C, threads, dyn, active);
+    case 2:
+      return per ? cluster_capacity_of(cd_gram_block_cluster_kernel<T, kGramPer>, C, threads,
+                                       dyn, active)
+                 : cluster_capacity_of(cd_gram_block_cluster_kernel<T, 0>, C, threads, dyn,
+                                       active);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int PEN>
@@ -1204,6 +1251,12 @@ int cd_epoch_xb_f32(const float* Xt, const float* y, const float* w, const float
                     int per, void* stream) {
   return launch_xb<float>(Xt, y, w, L, off, beta0, Xb0, beta, Xb, scratch, K, n, epochs, kind,
                           pen, p0, p1, cluster, use_smem, dyn, threads, per, stream);
+}
+
+int cluster_capacity(int which, int f64, int per, int cluster, int threads, int dyn,
+                     int* active) {
+  return f64 ? cluster_capacity_t<double>(which, per, cluster, threads, dyn, active)
+             : cluster_capacity_t<float>(which, per, cluster, threads, dyn, active);
 }
 
 // `iters` cluster barriers on one cluster of C CTAs of `threads` threads:

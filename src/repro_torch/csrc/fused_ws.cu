@@ -31,24 +31,37 @@
 //
 // K3b (fused_ws_block) replaces the block branch of the same Pallas kernel
 // (multitask coefficients beta [p, T], raw gradient R [n, T], a block
-// penalty). Its score launch computes grad = Xt @ R + offset (a [p, T]
-// product) and the row score of each feature; its select + copy launch is
-// K3's, on the row scores. Bound on the H100: bytes (X read once, 1.6 GB
-// at n = 10,000, p = 20,000), with T = 20 products per X element close
-// behind in float64. The trouble is the reuse of R: a warp per feature
-// streaming R would read it from L2 once per feature (p * n * T * 8 bytes,
-// 32 GB at that size). So a CTA takes a tile of 64 features and walks n in
-// chunks of 64: the X tile [64, 64] and the R chunk [64, T] are staged in
-// shared memory, and each of 256 threads keeps 2 features x ceil(T/8)
-// tasks of partial sums in registers (tasks past 64 run in further passes).
-// R then crosses L2 once per CTA (p / 64 times). There are only ~2.4 CTAs
-// per SM at p = 20,000, so each thread loads its share of the next chunk
-// into registers before it computes on the current one: the global loads
-// are in flight during the products instead of between two barriers. The products accumulate
-// with explicit fma(): the plain version's product (torch.mm) sums in
-// another order anyway, and fma halves the float64 instruction count. The
-// row epilogue (norms over T, the block prox or subdifferential) runs on
-// one thread per feature from the gradient rows the CTA just wrote.
+// penalty): grad = Xt @ R + offset (a [p, T] product), the row score of
+// each feature, and each tile's top-kc candidates (cand_idx) in the
+// lax.top_k order. It copies no candidate rows: the wrapper
+// (kernels/fused_ws.py) takes the working set from the scores and gathers
+// just those rows of Xt. The TPU kernel copies candidates out of a tile it
+// holds in VMEM; an SM cannot hold such a tile, so a copy here is a second
+// pass over HBM, and the [tiles * kc, n] buffer of K3 reached the size of
+// X at ws >= bp.
+// Bound on the H100: bytes (X read once, 1.6 GB at n = 10,000,
+// p = 20,000: 0.48 ms at 3.35 TB/s); the 2 p n T products (8 GFLOP at
+// T = 20) take 0.12 ms on the float64 tensor cores (67 TF/s), so they must
+// overlap the stream of X. Design, float64:
+//  1. product launch: mma.sync m8n8k4 f64 (DMMA). A CTA of 4 warps takes
+//     64 features (a warp 16 = two m-tiles) x 24 tasks (three n-tiles of
+//     8; T > 24 runs in passes) over one span of the samples. X [64, 32]
+//     and R [32, 24] tiles stream into shared memory with cp.async, two
+//     stages, so the next tile is in flight while the tensor cores work on
+//     this one; rows are padded (36 and 28 values) so that the fragment
+//     loads of a half-warp fall in 16 distinct banks. At ~51 KB of shared
+//     memory four CTAs share an SM. The samples split into S spans, S
+//     chosen so that (feature tiles x S) CTAs fill whole waves of the
+//     card; each CTA writes its partial product, unreduced, to a scratch
+//     [S, p, 24].
+//  2. reduce launch: grad = the S partials summed in span order (the same
+//     order on every run: the result is deterministic) + offset.
+//  3. score launch: the row epilogue, one thread a feature (norms over T,
+//     the block prox or subdifferential, the priority with the generalized
+//     support pinned to +inf).
+//  4. select launch: K3's tile sort, emitting cand_idx only.
+// float32 keeps the scalar product (block_score_kernel): the tensor cores
+// have no float32 path of this precision.
 //
 // K4 (ws_score) replaces repro/kernels/ws_score.py:ws_score_pallas (body
 // _score_kernel): the score pass alone, with optional sample weights fused
@@ -70,6 +83,18 @@ constexpr int kTargetCtas = 528;     // 4 CTAs per SM on 132 SMs
 constexpr int kBlkFeat = 64;         // K3b: features per CTA (2 per thread)
 constexpr int kBlkN = 64;            // K3b: samples per staged chunk
 constexpr int kBlkThreads = 256;     // K3b: 32 feature pairs x 8 task lanes
+// K3b float64 (DMMA): features and samples a CTA tile, tasks a pass, padded
+// shared-memory rows, threads, the most sample spans and the fewest
+// samples a span
+constexpr int kMmaM = 64;
+constexpr int kMmaK = 32;
+constexpr int kMmaT = 24;
+constexpr int kMmaXS = kMmaK + 4;
+constexpr int kMmaRS = kMmaT + 4;
+constexpr int kMmaThreads = 128;
+constexpr int kMmaMaxSplits = 16;
+constexpr int kMmaMinSpan = 512;
+constexpr size_t kMmaSmem = 2 * (kMmaM * kMmaXS + kMmaK * kMmaRS) * sizeof(double);
 
 template <typename T>
 __device__ __forceinline__ bool before(T pa, int ia, T pb, int ib) {
@@ -154,6 +179,14 @@ __global__ void select_kernel(const T* __restrict__ Xt, const T* __restrict__ pr
   }
 
   const long long row0 = (long long)blockIdx.x * kc;
+  if (cand_cols == nullptr) {  // K3b: the candidates' indices only
+    for (int k = threadIdx.x; k < kc; k += blockDim.x) {
+      const int sel = idx[k];
+      const long long j = base + sel;
+      cand_idx[row0 + k] = (sel < bp && j < p) ? (int)j : p;
+    }
+    return;
+  }
   for (int k = blockIdx.y; k < kc; k += gridDim.y) {
     const int sel = idx[k];
     const long long j = base + sel;
@@ -254,6 +287,206 @@ __global__ void __launch_bounds__(kBlkThreads)
   }
 }
 
+// cp.async of `B` bytes (8 or 16) from global to shared memory; a source
+// size of 0 fills the destination with zeros
+template <int B>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (B == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// d += a b on an 8x8x4 float64 tile (a: A[gid][tig], b: B[tig][gid],
+// d: D[gid][2 tig + 0, 1] with gid = lane / 4, tig = lane % 4)
+__device__ __forceinline__ void dmma(double& d0, double& d1, double a, double b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, {%0,%1};\n"
+               : "+d"(d0), "+d"(d1)
+               : "d"(a), "d"(b));
+}
+
+// K3b float64, product launch: the partial product of 64 features
+// (blockIdx.x) and tasks t0 .. t0 + tc - 1 over the samples of span
+// blockIdx.y, into part [S, p, kMmaT]. VEC: bytes a cp.async moves of X
+// (16 when rows are 16-byte aligned, i.e. n even; else 8).
+template <int VEC>
+__global__ void __launch_bounds__(kMmaThreads)
+    block_mma_kernel(const double* __restrict__ Xt, const double* __restrict__ R,
+                     double* __restrict__ part, int n, int p, int nt, int t0, int tc,
+                     int span) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* xs = reinterpret_cast<double*>(smem_raw);  // [2][kMmaM][kMmaXS]
+  double* rs = xs + 2 * kMmaM * kMmaXS;              // [2][kMmaK][kMmaRS]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const long long f0 = (long long)blockIdx.x * kMmaM;
+  const int i_begin = blockIdx.y * span;
+  const int i_end = min(n, i_begin + span);
+  constexpr int XV = VEC / 8;                  // values a copy
+  constexpr int XCOPIES = kMmaM * kMmaK / XV;  // copies of an X tile
+  auto load = [&](int buf, int k0) {
+    double* xb = xs + buf * kMmaM * kMmaXS;
+    for (int c = tid; c < XCOPIES; c += kMmaThreads) {
+      const int row = c / (kMmaK / XV), col = (c % (kMmaK / XV)) * XV;
+      const long long j = f0 + row;
+      const int i = k0 + col;
+      const bool ok = j < p && i < i_end;
+      cp_async<VEC>(xb + row * kMmaXS + col, ok ? Xt + j * n + i : Xt, ok ? VEC : 0);
+    }
+    double* rb = rs + buf * kMmaK * kMmaRS;
+    for (int c = tid; c < kMmaK * kMmaT; c += kMmaThreads) {
+      const int r = c / kMmaT, t = c % kMmaT;
+      const int i = k0 + r;
+      const bool ok = i < i_end && t < tc;
+      cp_async<8>(rb + r * kMmaRS + t, ok ? R + (long long)i * nt + t0 + t : R, ok ? 8 : 0);
+    }
+    cp_async_commit();
+  };
+  double acc[2][3][2];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int q = 0; q < 3; ++q) acc[m][q][0] = acc[m][q][1] = 0.0;
+  if (i_begin < i_end) load(0, i_begin);
+  int buf = 0;
+  for (int k0 = i_begin; k0 < i_end; k0 += kMmaK, buf ^= 1) {
+    if (k0 + kMmaK < i_end) {
+      load(buf ^ 1, k0 + kMmaK);  // in flight during this tile's products
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const double* xb = xs + buf * kMmaM * kMmaXS + (warp * 16 + gid) * kMmaXS + tig;
+    const double* rb = rs + buf * kMmaK * kMmaRS + tig * kMmaRS + gid;
+#pragma unroll
+    for (int kk = 0; kk < kMmaK; kk += 4) {
+      const double a0 = xb[kk], a1 = xb[8 * kMmaXS + kk];
+      const double b0 = rb[kk * kMmaRS], b1 = rb[kk * kMmaRS + 8], b2 = rb[kk * kMmaRS + 16];
+      dmma(acc[0][0][0], acc[0][0][1], a0, b0);
+      dmma(acc[0][1][0], acc[0][1][1], a0, b1);
+      dmma(acc[0][2][0], acc[0][2][1], a0, b2);
+      dmma(acc[1][0][0], acc[1][0][1], a1, b0);
+      dmma(acc[1][1][0], acc[1][1][1], a1, b1);
+      dmma(acc[1][2][0], acc[1][2][1], a1, b2);
+    }
+    __syncthreads();  // this buffer is free before it is loaded again
+  }
+  double* out = part + (long long)blockIdx.y * p * kMmaT;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const long long j = f0 + warp * 16 + m * 8 + gid;
+    if (j >= p) continue;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const int t = q * 8 + 2 * tig;
+      if (t < tc) out[j * kMmaT + t] = acc[m][q][0];
+      if (t + 1 < tc) out[j * kMmaT + t + 1] = acc[m][q][1];
+    }
+  }
+}
+
+// K3b float64, reduce launch: grad[:, t0 .. t0 + tc - 1] = the S partials
+// summed in span order + offset, one thread a (feature, task)
+__global__ void block_reduce_kernel(const double* __restrict__ part,
+                                    const double* __restrict__ offset, double* grad, int p,
+                                    int nt, int t0, int tc, int splits) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (long long)p * tc) return;
+  const long long j = e / tc;
+  const int t = (int)(e % tc);
+  double sum = part[j * kMmaT + t];
+  for (int s = 1; s < splits; ++s) sum += part[((long long)s * p + j) * kMmaT + t];
+  grad[j * nt + t0 + t] = sum + offset[j];
+}
+
+// K3b, score launch: the row score and the selection priority of each
+// feature from its gradient row, one thread a feature
+template <typename T>
+__global__ void block_epilogue_kernel(const T* __restrict__ beta, const T* __restrict__ grad,
+                                      const T* __restrict__ L, const uint8_t* __restrict__ gsupp,
+                                      T* scores, T* pri, int p, int nt, int pen, int use_fp,
+                                      T p0, T p1) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= p) return;
+  const T sc = rt::block_violation_score(pen, use_fp, beta + j * nt, grad + j * nt, nt, L[j],
+                                         p0, p1);
+  scores[j] = sc;
+  pri[j] = (gsupp[j] ? (T)INFINITY : sc) + T(0);  // +0 folds -0.0 into +0.0
+}
+
+// The number of sample spans S of K3b's float64 product launch: the one
+// (up to kMmaMaxSplits, spans of at least kMmaMinSpan samples) whose
+// (feature tiles x S) CTAs fill the card's resident slots in the whole
+// waves best, the fewest spans among equals.
+int mma_splits(int n, int p) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return -1;
+  cudaFuncSetAttribute(block_mma_kernel<16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)kMmaSmem);
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, block_mma_kernel<16>, kMmaThreads,
+                                                    kMmaSmem) != cudaSuccess ||
+      per_sm < 1)
+    return -1;
+  const long long slots = (long long)sms * per_sm;
+  const long long tiles = (p + kMmaM - 1) / kMmaM;
+  int best = 1;
+  double best_fill = 0.0;
+  for (int S = 1; S <= kMmaMaxSplits; ++S) {
+    if (S > 1 && (long long)S * kMmaMinSpan > n) break;
+    const long long ctas = tiles * S;
+    const double fill = (double)ctas / (double)(((ctas + slots - 1) / slots) * slots);
+    if (fill > best_fill + 1e-9) {
+      best = S;
+      best_fill = fill;
+    }
+  }
+  return best;
+}
+
+// K3b float64: the product, reduce and score launches (part: the scratch of
+// `splits` spans from mma_splits)
+int launch_block_score_mma(const double* Xt, const double* R, const double* beta,
+                           const double* L, const double* offset, const uint8_t* gsupp,
+                           double* scores, double* grad, double* pri, double* part, int splits,
+                           int n, int p, int nt, int pen, int use_fp, double p0, double p1,
+                           cudaStream_t st) {
+  if (splits < 1 || splits > kMmaMaxSplits) return (int)cudaErrorInvalidValue;
+  const int span = ((n + splits - 1) / splits + kMmaK - 1) / kMmaK * kMmaK;
+  const bool aligned = (n % 2 == 0) && ((uintptr_t)Xt % 16 == 0);
+  auto kernel = aligned ? block_mma_kernel<16> : block_mma_kernel<8>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kMmaSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p + kMmaM - 1) / kMmaM, splits);
+  for (int t0 = 0; t0 < nt; t0 += kMmaT) {
+    const int tc = min(kMmaT, nt - t0);
+    kernel<<<grid, kMmaThreads, kMmaSmem, st>>>(Xt, R, part, n, p, nt, t0, tc, span);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const long long e = (long long)p * tc;
+    block_reduce_kernel<<<(unsigned)((e + 255) / 256), 256, 0, st>>>(part, offset, grad, p, nt,
+                                                                      t0, tc, splits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  block_epilogue_kernel<double><<<(p + 255) / 256, 256, 0, st>>>(
+      beta, grad, L, gsupp, scores, pri, p, nt, pen, use_fp, p0, p1);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int A>
 int launch_block_score_a(const T* Xt, const T* R, const T* beta, const T* L, const T* offset,
                          const uint8_t* gsupp, T* scores, T* grad, T* pri, int n, int p, int nt,
@@ -290,7 +523,9 @@ int launch_block_score(const T* Xt, const T* R, const T* beta, const T* L, const
   return (int)cudaErrorInvalidValue;
 }
 
-// the select + copy launch shared by K3 and K3b, on the priorities `pri`
+// the select launch of K3 and K3b on the priorities `pri`: K3 copies the
+// candidate rows too (split over `parts` CTAs a tile); K3b passes no
+// cand_cols and takes one CTA a tile
 template <typename T>
 int launch_select(const T* Xt, const T* pri, int* cand_idx, T* cand_cols, int n, int p, int bp,
                   int kc, cudaStream_t st) {
@@ -300,6 +535,7 @@ int launch_select(const T* Xt, const T* pri, int* cand_idx, T* cand_cols, int n,
   const int tiles = (p + bp - 1) / bp;
   int parts = (kTargetCtas + tiles - 1) / tiles;
   if (parts > kc) parts = kc;
+  if (cand_cols == nullptr) parts = 1;  // K3b: no copies to share out
   cudaFuncSetAttribute(select_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   select_kernel<T><<<dim3(tiles, parts), kSelectThreads, dyn, st>>>(
       Xt, pri, cand_idx, cand_cols, n, p, bp, kc, sortn);
@@ -321,17 +557,25 @@ int launch_fused(const T* Xt, const T* r, const T* beta, const T* L, const T* of
   return launch_select(Xt, pri, cand_idx, cand_cols, n, p, bp, kc, st);
 }
 
+// K3b: the score launches (DMMA in float64, with `part` the scratch of
+// `splits` spans; the scalar product in float32), then the select launch
+// emitting cand_idx only
 template <typename T>
 int launch_fused_block(const T* Xt, const T* R, const T* beta, const T* L, const T* offset,
                        const uint8_t* gsupp, T* scores, T* grad, T* pri, int* cand_idx,
-                       T* cand_cols, int n, int p, int nt, int bp, int kc, int pen, int use_fp,
-                       double p0, double p1, void* stream) {
+                       T* part, int splits, int n, int p, int nt, int bp, int kc, int pen,
+                       int use_fp, double p0, double p1, void* stream) {
   if (p <= 0 || nt <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int rc = launch_block_score(Xt, R, beta, L, offset, gsupp, scores, grad, pri, n, p, nt, pen,
-                              use_fp, p0, p1, st);
+  int rc;
+  if constexpr (sizeof(T) == 8)
+    rc = launch_block_score_mma(Xt, R, beta, L, offset, gsupp, scores, grad, pri, part, splits,
+                                n, p, nt, pen, use_fp, p0, p1, st);
+  else
+    rc = launch_block_score(Xt, R, beta, L, offset, gsupp, scores, grad, pri, n, p, nt, pen,
+                            use_fp, p0, p1, st);
   if (rc != 0) return rc;
-  return launch_select(Xt, pri, cand_idx, cand_cols, n, p, bp, kc, st);
+  return launch_select<T>(Xt, pri, cand_idx, nullptr, n, p, bp, kc, st);
 }
 
 template <typename T>
@@ -390,21 +634,25 @@ int fused_ws_f32(const float* Xt, const float* r, const float* beta, const float
 
 int fused_ws_block_f64(const double* Xt, const double* R, const double* beta, const double* L,
                        const double* offset, const uint8_t* gsupp, double* scores,
-                       double* grad, double* pri, int* cand_idx, double* cand_cols, int n,
-                       int p, int nt, int bp, int kc, int pen, int use_fp, double p0, double p1,
-                       void* stream) {
+                       double* grad, double* pri, int* cand_idx, double* part, int splits,
+                       int n, int p, int nt, int bp, int kc, int pen, int use_fp, double p0,
+                       double p1, void* stream) {
   return launch_fused_block<double>(Xt, R, beta, L, offset, gsupp, scores, grad, pri,
-                                    cand_idx, cand_cols, n, p, nt, bp, kc, pen, use_fp, p0, p1,
-                                    stream);
+                                    cand_idx, part, splits, n, p, nt, bp, kc, pen, use_fp, p0,
+                                    p1, stream);
 }
 
 int fused_ws_block_f32(const float* Xt, const float* R, const float* beta, const float* L,
                        const float* offset, const uint8_t* gsupp, float* scores, float* grad,
-                       float* pri, int* cand_idx, float* cand_cols, int n, int p, int nt,
-                       int bp, int kc, int pen, int use_fp, double p0, double p1,
+                       float* pri, int* cand_idx, float* part, int splits, int n, int p,
+                       int nt, int bp, int kc, int pen, int use_fp, double p0, double p1,
                        void* stream) {
   return launch_fused_block<float>(Xt, R, beta, L, offset, gsupp, scores, grad, pri, cand_idx,
-                                   cand_cols, n, p, nt, bp, kc, pen, use_fp, p0, p1, stream);
+                                   part, splits, n, p, nt, bp, kc, pen, use_fp, p0, p1, stream);
 }
+
+// The sample spans of K3b's float64 product launch at (n, p), which size
+// its scratch [S, p, 24] (-1 if the card cannot say)
+int fused_ws_block_splits(int n, int p) { return mma_splits(n, p); }
 
 }  // extern "C"

@@ -29,7 +29,7 @@ from pathlib import Path
 __all__ = ["CSRC", "SOURCES", "BuildCache", "BUILD", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("cd_epoch", "fused_ws", "csc_score")
+SOURCES = ("cd_epoch", "fused_ws", "csc_score", "graph_ctl")
 _REPO_ROOT = Path(__file__).resolve().parents[3]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
@@ -123,7 +123,7 @@ _SIGNATURES = {
                      _I, _I, _I, _D, _D, _P],
         "ws_score": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _P],
         "fused_ws_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                           _I, _I, _I, _I, _I, _D, _D, _P],
+                           _I, _I, _I, _I, _I, _I, _D, _D, _P],
     },
     "csc_score": {
         "csc_score": [_P, _P, _P, _P, _P, _I, _I, _P],
@@ -136,13 +136,18 @@ _SIGNATURES = {
 _PLAIN_SIGNATURES = {
     "cd_epoch": {"cluster_barrier_loop": [_I, _I, _I, _P],
                  "gram_chain_floor": [_I, _I, _I, _P, _P],
-                 "fill_shared_memory": [_P]},
+                 "fill_shared_memory": [_P],
+                 "cluster_capacity": [_I, _I, _I, _I, _I, _I, _P]},
+    "fused_ws": {"fused_ws_block_splits": [_I, _I]},
+    "graph_ctl": {"cond_begin": [_P, _P, _I, _P, _P],
+                  "cond_end": [_P, ctypes.c_ulonglong, _P],
+                  "runtime_version": []},
 }
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     fns = [(f"{fn}_{suffix}", argtypes)
-           for fn, argtypes in _SIGNATURES[name].items()
+           for fn, argtypes in _SIGNATURES.get(name, {}).items()
            for suffix in ("f32", "f64")]
     fns += list(_PLAIN_SIGNATURES.get(name, {}).items())
     for fn, argtypes in fns:

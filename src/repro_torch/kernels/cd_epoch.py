@@ -23,9 +23,20 @@ state lives in shared or in global memory (K1's always in shared memory),
 the dynamic shared memory per CTA and the register path. The wrappers hand the plan to the C
 launchers as ints; a launch that the card refuses raises, and nothing
 retries on another layout.
+
+A plan's cluster must be one the card can place: 16 CTAs is beyond the
+portable 8, and a MIG slice or a GPC with SMs taken may not hold it. Each
+plan function asks a placement test (by default ``card_placeable``, the
+card's own answer through ``cudaOccupancyMaxActiveClusters`` for that
+kernel, cluster size, threads and shared memory, cached) and steps down
+16 -> 8 -> 4 -> 2 -> one CTA until the test passes, laying the state out
+again by the same rules at each size. A forced ``cluster=`` is taken as
+given.
 """
 from __future__ import annotations
 
+import ctypes
+from contextlib import contextmanager
 from typing import NamedTuple
 
 import torch
@@ -40,7 +51,8 @@ __all__ = ["KIND_IDS", "cd_epoch_gram_plain", "cd_epoch_xb_plain",
            "cd_epoch_xb_cuda", "kernel_params", "EpochPlan", "GramPlan",
            "gram_plan", "xb_plan", "gram_block_plan", "BRANCHES",
            "SMEM_DYN_MAX", "cluster_barrier_cuda", "gram_chain_floor_cuda",
-           "fill_shared_memory_cuda"]
+           "fill_shared_memory_cuda", "card_placeable", "placement",
+           "STEP_DOWN"]
 
 # dynamic shared memory a CTA may take: the H100's 232,448 bytes per CTA
 # less 1 KB for the kernels' few static shared values
@@ -48,8 +60,9 @@ SMEM_DYN_MAX = 232_448 - 1024
 # the cluster size, and the largest K1b shape that keeps one CTA because
 # the cluster barrier costs more there than the split saves (measured on the
 # H100 by `cd_sweep.py` at the root of the checkout; the numbers are in
-# PERF.md). 16 CTAs is beyond the portable 8: the launcher asks the card
-# whether a GPC can place them and raises if not.
+# PERF.md). 16 CTAs is beyond the portable 8: the plans step down where the
+# card cannot place them (STEP_DOWN), and the launcher still refuses a
+# cluster no GPC can place.
 CLUSTER = 16
 GRAM_BLOCK_SINGLE_MAX_KT = 256 * 20
 # values a thread keeps in registers on the register paths (K2's samples,
@@ -76,6 +89,63 @@ GRAM_SINGLE_MAX_K = 256
 GRAM_MIN_THREADS = 256
 BRANCHES = ("single", "cluster-shared", "cluster-global")
 _ERR_CLUSTER_UNPLACEABLE = -1
+# the cluster sizes a plan steps down through while the card cannot place
+# its cluster (8 is the portable size, 1 one CTA)
+STEP_DOWN = (16, 8, 4, 2, 1)
+# kernel name -> csrc/cd_epoch.cu cluster_capacity's kernel id
+_CAPACITY_IDS = {"cd_epoch_gram": 0, "cd_epoch_xb": 1,
+                 "cd_epoch_gram_block": 2}
+_PLACEABLE: dict = {}
+
+
+def card_placeable(kernel: str, plan, dtype) -> bool:
+    """Whether the current card can place one cluster of `plan` for
+    `kernel` ("cd_epoch_gram", "cd_epoch_xb" or "cd_epoch_gram_block"), as
+    ``cudaOccupancyMaxActiveClusters`` answers for that kernel's cluster
+    size, threads and dynamic shared memory; cached per (device, kernel,
+    dtype, shape). One CTA always places. Without a card there is nothing
+    to ask and every plan passes: no launch follows on this host."""
+    if plan.cluster == 1 or not torch.cuda.is_available():
+        return True
+    per = getattr(plan, "per", 0)
+    key = (torch.cuda.current_device(), kernel, dtype, plan.cluster,
+           plan.threads, plan.dyn_bytes, per)
+    if key not in _PLACEABLE:
+        active = ctypes.c_int(0)
+        rc = BUILD.lib("cd_epoch").cluster_capacity(
+            _CAPACITY_IDS[kernel], int(dtype == torch.float64), per,
+            plan.cluster, plan.threads, plan.dyn_bytes, ctypes.byref(active))
+        _check_rc(rc, f"{kernel} placement query", plan)
+        _PLACEABLE[key] = active.value >= 1
+    return _PLACEABLE[key]
+
+
+_PLACEMENT = [card_placeable]
+
+
+@contextmanager
+def placement(test):
+    """Within: `test(kernel, plan, dtype) -> bool` is the plans' default
+    placement test instead of the card's (a check can refuse a cluster size
+    the card would place, to drive the step-down)."""
+    _PLACEMENT.append(test)
+    try:
+        yield test
+    finally:
+        _PLACEMENT.pop()
+
+
+def _step_down(kernel, first, dtype, layout, placeable):
+    """The first layout(C) from cluster size `first` down through
+    STEP_DOWN whose shared memory a CTA can hold and that the placement
+    test accepts."""
+    test = _PLACEMENT[-1] if placeable is None else placeable
+    for C in (first,) + tuple(c for c in STEP_DOWN if c < first):
+        plan = layout(C)
+        if plan.dyn_bytes <= SMEM_DYN_MAX and test(kernel, plan, dtype):
+            return plan
+    raise RuntimeError(f"{kernel}: no cluster size of {STEP_DOWN} that the "
+                       f"card places holds the state")
 
 
 class EpochPlan(NamedTuple):
@@ -112,7 +182,7 @@ class GramPlan(NamedTuple):
 
 
 def gram_plan(K: int, dtype, cluster: int | None = None,
-              threads: int | None = None) -> GramPlan:
+              threads: int | None = None, placeable=None) -> GramPlan:
     """K1's layout for K coordinates in blocks of GRAM_B: one CTA for
     K <= GRAM_SINGLE_MAX_K, holding q and beta (2 K values) beside the head
     in shared memory; above, a cluster of GRAM_CLUSTER CTAs whose C - 1
@@ -120,12 +190,17 @@ def gram_plan(K: int, dtype, cluster: int | None = None,
     a row (one warp a block on one CTA, beside the chain warp),
     GRAM_MIN_THREADS to GRAM_MAX_THREADS. `cluster` and `threads` force a
     size (``cd_sweep.py`` times them to set GRAM_SINGLE_MAX_K and
-    GRAM_MIN_THREADS); a cluster needs K > 2 GRAM_B. Raises ValueError
-    where the state does not fit a CTA's shared memory (past ~360k float64
-    coordinates on the cluster, where G alone would take ~1 PB)."""
-    item = dtype.itemsize
+    GRAM_MIN_THREADS); a cluster needs K > 2 GRAM_B. Unforced, the
+    cluster steps down while `placeable` (default: the card's answer,
+    ``card_placeable``) refuses it. Raises ValueError where the state does
+    not fit a CTA's shared memory (past ~360k float64 coordinates on the
+    cluster, where G alone would take ~1 PB)."""
     if cluster is None:
-        cluster = 1 if K <= GRAM_SINGLE_MAX_K else GRAM_CLUSTER
+        first = 1 if K <= GRAM_SINGLE_MAX_K else GRAM_CLUSTER
+        return _step_down("cd_epoch_gram", first, dtype,
+                          lambda C: gram_plan(K, dtype, C, threads),
+                          placeable)
+    item = dtype.itemsize
     if cluster == 1:
         state, rows = 2 * K, GRAM_B + K
     else:
@@ -146,11 +221,16 @@ def _threads(m: int) -> int:
     return min(1024, max(32, -(-m // 32) * 32))
 
 
-def xb_plan(n: int, weighted: bool, dtype, cluster: int = CLUSTER
-            ) -> EpochPlan:
-    """K2's layout for n samples: each of `cluster` CTAs holds a slice of
+def xb_plan(n: int, weighted: bool, dtype, cluster: int | None = None,
+            placeable=None) -> EpochPlan:
+    """K2's layout for n samples: each of `cluster` CTAs (CLUSTER unless
+    forced, stepping down while `placeable` refuses it) holds a slice of
     ceil(n / C) samples of Xb, the raw gradient, y (and w), in shared memory
     while they fit, and takes about XB_PER samples a thread."""
+    if cluster is None:
+        return _step_down("cd_epoch_xb", CLUSTER, dtype,
+                          lambda C: xb_plan(n, weighted, dtype, C),
+                          placeable)
     m = -(-n // cluster)
     state = m * dtype.itemsize * (4 if weighted else 3)
     smem = state <= SMEM_DYN_MAX
@@ -159,15 +239,22 @@ def xb_plan(n: int, weighted: bool, dtype, cluster: int = CLUSTER
                      XB_PER if threads <= PER_THREADS else 0)
 
 
-def gram_block_plan(K: int, T: int, dtype, cluster: int | None = None
-                    ) -> EpochPlan:
+def gram_block_plan(K: int, T: int, dtype, cluster: int | None = None,
+                    placeable=None) -> EpochPlan:
     """K1b's layout for q [K, T]: one CTA holding delta_j and all of q for
-    K * T <= GRAM_BLOCK_SINGLE_MAX_KT; above, a cluster of CLUSTER CTAs,
-    each holding the slots of 3 (T + 1) values and ceil(K / C) rows of q
-    (in shared memory while they fit), about GRAM_PER entries a thread.
-    `cluster` forces C."""
+    K * T <= GRAM_BLOCK_SINGLE_MAX_KT; above, a cluster of CLUSTER CTAs
+    (stepping down while `placeable` refuses it), each holding the slots of
+    3 (T + 1) values and ceil(K / C) rows of q (in shared memory while they
+    fit), about GRAM_PER entries a thread. `cluster` forces C (a forced
+    single CTA may ask for more shared memory than a CTA has: the launch
+    then fails)."""
+    if cluster is None:
+        first = 1 if K * T <= GRAM_BLOCK_SINGLE_MAX_KT else CLUSTER
+        return _step_down("cd_epoch_gram_block", first, dtype,
+                          lambda C: gram_block_plan(K, T, dtype, C),
+                          placeable)
     item = dtype.itemsize
-    C = cluster or (1 if K * T <= GRAM_BLOCK_SINGLE_MAX_KT else CLUSTER)
+    C = cluster
     if C == 1:
         return EpochPlan(1, True, (T + K * T) * item, _threads(K * T), 0)
     rows = -(-K // C)

@@ -14,9 +14,13 @@ Exhausted slots emit index p with a zero column.
 K3b replaces the block branch of the same kernel (multitask coefficients
 beta [p, T], raw gradient R [n, T], a block penalty): the gradient is
 [p, T] and each feature's score is its row score (``subdiff_dist`` of the
-block penalty, or the row norm of the fixed-point difference). Its score
-launch is a tiled product ``Xt @ R`` with the row epilogue; the select+copy
-launch is K3's. The plain version below covers both forms.
+block penalty, or the row norm of the fixed-point difference). In float64
+its product runs on the tensor cores (DMMA), and its select launch emits
+``cand_idx`` without copying candidate rows: the wrapper
+(``kernels/ops.py``) picks the working set from the scores and gathers
+those K rows of Xt, so no [tiles * kc, n] buffer exists on its path. The
+plain version below covers both forms and keeps the four outputs
+(``cand_cols`` included): it is the oracle both heads are held to.
 """
 from __future__ import annotations
 
@@ -28,7 +32,10 @@ from .cd_epoch import _check_rc, _suffix, kernel_params
 from .common import make_penalty
 
 __all__ = ["pick_bp", "fused_ws_plain", "fused_ws_cuda",
-           "fused_ws_block_cuda"]
+           "fused_ws_block_cuda", "MMA_TASKS"]
+
+# tasks a pass of K3b's float64 product launch (csrc/fused_ws.cu: kMmaT)
+MMA_TASKS = 24
 
 
 def pick_bp(p: int, cap: int = 1024) -> int:
@@ -91,10 +98,29 @@ def fused_ws_cuda(Xt, r, beta, L, offset, gsupp, penalty_cls, params,
     return scores, grad, cand_idx, cand_cols
 
 
+_SPLITS: dict = {}
+
+
+def _mma_splits(Xt):
+    """The sample spans of K3b's float64 product launch at Xt's shape on
+    its card (csrc/fused_ws.cu: mma_splits), cached."""
+    p, n = Xt.shape
+    key = (Xt.device, n, p)
+    if key not in _SPLITS:
+        with torch.cuda.device(Xt.device):
+            splits = BUILD.lib("fused_ws").fused_ws_block_splits(n, p)
+        if splits < 1:
+            raise RuntimeError("fused_ws_block: the card did not report its "
+                               "occupancy")
+        _SPLITS[key] = splits
+    return _SPLITS[key]
+
+
 def fused_ws_block_cuda(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
                         ws_size, *, use_fp=False, bp=None):
     """Launch K3b on the tensors' stream; Xt is contiguous [p, n], R and
-    beta are contiguous [n, T] and [p, T]."""
+    beta are contiguous [n, T] and [p, T]. Returns (scores, grad,
+    cand_idx): no candidate rows are copied."""
     fn = getattr(BUILD.lib("fused_ws"), f"fused_ws_block_{_suffix(Xt)}")
     p, n = Xt.shape
     T = R.shape[1]
@@ -103,13 +129,16 @@ def fused_ws_block_cuda(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
     scores, pri = torch.empty_like(L), torch.empty_like(L)
     grad = torch.empty_like(beta)
     cand_idx = torch.empty(tiles * kc, dtype=torch.int32, device=Xt.device)
-    cand_cols = torch.empty((tiles * kc, n), dtype=Xt.dtype, device=Xt.device)
+    # float64: the partial products of the sample spans [S, p, 24]
+    splits = _mma_splits(Xt) if Xt.dtype == torch.float64 else 1
+    part = torch.empty(splits * p * MMA_TASKS if Xt.dtype == torch.float64
+                       else 1, dtype=Xt.dtype, device=Xt.device)
     with torch.cuda.device(Xt.device):
         stream = torch.cuda.current_stream(Xt.device).cuda_stream
         rc = fn(Xt.data_ptr(), R.data_ptr(), beta.data_ptr(), L.data_ptr(),
                 offset.data_ptr(), gsupp.data_ptr(), scores.data_ptr(),
                 grad.data_ptr(), pri.data_ptr(), cand_idx.data_ptr(),
-                cand_cols.data_ptr(), n, p, T, bp, kc, pid, int(bool(use_fp)),
-                p0, p1, stream)
+                part.data_ptr(), splits, n, p, T, bp, kc, pid,
+                int(bool(use_fp)), p0, p1, stream)
     _check_rc(rc, "fused_ws_block")
-    return scores, grad, cand_idx, cand_cols
+    return scores, grad, cand_idx

@@ -15,17 +15,26 @@ kernel to the plain version. ``launches`` is a plain int on the wrapper;
   csc_score            K5, the sparse score pass X.T @ raw (CSC designs)
   csc_weighted_col_sq  K5s, K5 in square mode: sum_i w_i x_ij^2
   cd_epoch_gram_block  K1b, K1 on multitask blocks beta [K, T]
-  fused_ws_block       K3b, K3 on blocks: raw [n, T], beta [p, T]
+  fused_ws_block       K3b, K3 on blocks: raw [n, T], beta [p, T], with
+                       the working set's rows in place of the candidates
   csc_score_block      K5b, K5 on a raw gradient [n, T] -> [p, T]
 
 The block forms have counters of their own, so a run can tell the block
 launches from the scalar ones. K1, K2 and K1b also count their launches by
 the branch their shape's plan took (``kernels/cd_epoch.py``:
 ``gram_plan``, ``xb_plan``, ``gram_block_plan``) in ``branch_launches``, a
-dict over ``BRANCHES`` ("single", "cluster-shared", "cluster-global");
-``branch_counts`` reads them.
+dict over ``BRANCHES`` ("single", "cluster-shared", "cluster-global"),
+and by the plan's cluster size in ``cluster_launches``;
+``branch_counts`` and ``cluster_counts`` read them.
+
+A kernel captured into a CUDA graph launches at each replay of the graph:
+inside ``deferred_launches`` the wrappers record their launches instead of
+counting them, and the graph's owner counts them with ``add_launches``
+after each replay, as often as the replay ran them (``core/flow.py``).
 """
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import torch
 
@@ -37,6 +46,7 @@ from .common import (UnsupportedPenaltyError, check_block_kernel_penalty,
                      check_kernel_penalty, check_score_kernel_penalty,
                      make_penalty, penalty_params)
 from .csc_score import csc_score_block_cuda, csc_score_cuda, csc_score_plain
+from ..core.working_set import candidate_columns, select_working_set
 from .fused_ws import fused_ws_block_cuda, fused_ws_cuda, fused_ws_plain
 from .ws_score import ws_score_cuda, ws_score_plain
 
@@ -44,9 +54,50 @@ __all__ = ["cd_epoch_gram", "cd_epoch_xb", "fused_ws", "ws_score",
            "csc_score", "csc_weighted_col_sq", "cd_epoch_gram_block",
            "fused_ws_block", "csc_score_block", "KERNELS",
            "launch_counts", "reset_launch_counts", "branch_counts",
+           "cluster_counts", "deferred_launches", "add_launches",
            "penalty_params",
            "make_penalty", "check_kernel_penalty",
            "check_score_kernel_penalty", "UnsupportedPenaltyError"]
+
+
+# the launch records of the CUDA graph bodies being captured, innermost
+# last (deferred_launches)
+_DEFERRED: list = []
+
+
+def _count(wrapper, plan=None, times=1):
+    """Add a launch to `wrapper`'s counts (and to its plan's branch and
+    cluster size), or, while a graph captures, record it for the replays
+    (a captured kernel launches when its graph replays, not when the
+    wrapper runs)."""
+    if _DEFERRED:
+        _DEFERRED[-1].append((wrapper, plan))
+        return
+    wrapper.launches += times
+    if plan is not None:
+        wrapper.branch_launches[plan.branch] += times
+        sizes = wrapper.cluster_launches
+        sizes[plan.cluster] = sizes.get(plan.cluster, 0) + times
+
+
+@contextmanager
+def deferred_launches():
+    """Within: the wrappers record their launches in the yielded list
+    instead of counting them; ``add_launches`` counts them per replay."""
+    records = []
+    _DEFERRED.append(records)
+    try:
+        yield records
+    finally:
+        _DEFERRED.pop()
+
+
+def add_launches(records, times=1):
+    """Count the launches in `records` (from ``deferred_launches``)
+    `times` times over."""
+    if times:
+        for wrapper, plan in records:
+            _count(wrapper, plan, times)
 
 
 def _route(name, **tensors) -> bool:
@@ -97,8 +148,7 @@ def cd_epoch_gram(G, c, beta0, q0, L, penalty_cls, params, *, epochs=1):
     plan = gram_plan(K, G.dtype)
     out = cd_epoch_gram_cuda(G, c, beta0, q0, L, penalty_cls, params,
                              epochs=epochs, plan=plan)
-    cd_epoch_gram.launches += 1
-    cd_epoch_gram.branch_launches[plan.branch] += 1
+    _count(cd_epoch_gram, plan)
     return out
 
 
@@ -127,8 +177,7 @@ def cd_epoch_gram_block(G, c, beta0, q0, L, penalty_cls, params, *,
     plan = gram_block_plan(K, beta0.shape[1], G.dtype)
     out = cd_epoch_gram_block_cuda(G, c, beta0, q0, L, penalty_cls, params,
                                    epochs=epochs, plan=plan)
-    cd_epoch_gram_block.launches += 1
-    cd_epoch_gram_block.branch_launches[plan.branch] += 1
+    _count(cd_epoch_gram_block, plan)
     return out
 
 
@@ -157,8 +206,7 @@ def cd_epoch_xb(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls, params,
     out = cd_epoch_xb_cuda(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls,
                            params, datafit_kind, w=w, epochs=epochs,
                            plan=plan)
-    cd_epoch_xb.launches += 1
-    cd_epoch_xb.branch_launches[plan.branch] += 1
+    _count(cd_epoch_xb, plan)
     return out
 
 
@@ -185,7 +233,7 @@ def fused_ws(Xt, r, beta, L, offset, gsupp, penalty_cls, params, ws_size, *,
                               params, ws_size, use_fp=use_fp, bp=bp)
     out = fused_ws_cuda(Xt, r, beta, L, offset, gsupp, penalty_cls, params,
                         ws_size, use_fp=use_fp, bp=bp)
-    fused_ws.launches += 1
+    _count(fused_ws)
     return out
 
 
@@ -195,7 +243,11 @@ def fused_ws_block(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
     feature-major design Xt [p, n] (contiguous). R: contiguous [n, T];
     beta: contiguous [p, T]; L, offset: [p]; gsupp: bool [p]; a block
     penalty. Returns ``(scores [p], grad [p, T], cand_idx [C] int32,
-    cand_cols [C, n])``."""
+    ws [ws_size], Xt_ws [ws_size, n])``: the working set
+    (``select_working_set`` on the scores) and its rows of Xt. On the card
+    the select launch copies no candidates and the K rows are gathered
+    from Xt; on the CPU they come from the plain version's candidate
+    buffer, as ``candidate_columns`` recovers them."""
     check_block_kernel_penalty(penalty_cls)
     on_card = _route("fused_ws_block", Xt=Xt, R=R, beta=beta, L=L,
                      offset=offset)
@@ -217,12 +269,18 @@ def fused_ws_block(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
         raise ValueError(f"fused_ws_block: ws_size must be in [1, {p}], got "
                          f"{ws_size}")
     if not on_card:
-        return fused_ws_plain(Xt, R, beta, L, offset, gsupp, penalty_cls,
-                              params, ws_size, use_fp=use_fp, bp=bp)
-    out = fused_ws_block_cuda(Xt, R, beta, L, offset, gsupp, penalty_cls,
-                              params, ws_size, use_fp=use_fp, bp=bp)
-    fused_ws_block.launches += 1
-    return out
+        scores, grad, cand_idx, cand_cols = fused_ws_plain(
+            Xt, R, beta, L, offset, gsupp, penalty_cls, params, ws_size,
+            use_fp=use_fp, bp=bp)
+        ws = select_working_set(scores, gsupp, ws_size)
+        return (scores, grad, cand_idx, ws,
+                candidate_columns(cand_idx, cand_cols, ws, p).T)
+    scores, grad, cand_idx = fused_ws_block_cuda(
+        Xt, R, beta, L, offset, gsupp, penalty_cls, params, ws_size,
+        use_fp=use_fp, bp=bp)
+    _count(fused_ws_block)
+    ws = select_working_set(scores, gsupp, ws_size)
+    return scores, grad, cand_idx, ws, Xt.index_select(0, ws)
 
 
 def ws_score(Xt, r, beta, L, offset, penalty_cls, params, *, w=None,
@@ -245,7 +303,7 @@ def ws_score(Xt, r, beta, L, offset, penalty_cls, params, *, w=None,
                               w=w, use_fp=use_fp)
     out = ws_score_cuda(Xt, r, beta, L, offset, penalty_cls, params, w=w,
                         use_fp=use_fp)
-    ws_score.launches += 1
+    _count(ws_score)
     return out
 
 
@@ -284,7 +342,7 @@ def csc_score(data, indices, col_ids, indptr, raw):
     if not on_card:
         return csc_score_plain(data, indices, col_ids, indptr, raw)
     out = csc_score_cuda(data, indices, col_ids, indptr, raw)
-    csc_score.launches += 1
+    _count(csc_score)
     return out
 
 
@@ -296,7 +354,7 @@ def csc_weighted_col_sq(data, indices, col_ids, indptr, w):
         return csc_score_plain(data, indices, col_ids, indptr, w,
                                square=True)
     out = csc_score_cuda(data, indices, col_ids, indptr, w, square=True)
-    csc_weighted_col_sq.launches += 1
+    _count(csc_weighted_col_sq)
     return out
 
 
@@ -308,7 +366,7 @@ def csc_score_block(data, indices, col_ids, indptr, raw):
     if not on_card:
         return csc_score_plain(data, indices, col_ids, indptr, raw)
     out = csc_score_block_cuda(data, indices, col_ids, indptr, raw)
-    csc_score_block.launches += 1
+    _count(csc_score_block)
     return out
 
 
@@ -324,6 +382,7 @@ def reset_launch_counts():
         k.launches = 0
     for k in BRANCHED:
         k.branch_launches = dict.fromkeys(BRANCHES, 0)
+        k.cluster_launches = {}
 
 
 def launch_counts() -> dict:
@@ -333,6 +392,13 @@ def launch_counts() -> dict:
 def branch_counts() -> dict:
     """{kernel name: {branch: launches}} for K1, K2 and K1b."""
     return {k.__name__: dict(k.branch_launches) for k in BRANCHED}
+
+
+def cluster_counts() -> dict:
+    """{kernel name: {cluster size: launches}} for K1, K2 and K1b (1: one
+    CTA): where the plans stepped down, it shows."""
+    return {k.__name__: dict(sorted(k.cluster_launches.items()))
+            for k in BRANCHED}
 
 
 reset_launch_counts()

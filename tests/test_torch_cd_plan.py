@@ -152,3 +152,71 @@ def test_branch_counts_start_at_zero_and_cpu_counts_nothing():
     assert ops.branch_counts()["cd_epoch_xb"] == \
         dict.fromkeys(cd.BRANCHES, 0)
     assert ops.launch_counts()["cd_epoch_xb"] == 0
+
+
+# ------------------------------------------- plans the card can place
+# placement tests that refuse 16 CTAs, everything above 2, and every
+# cluster, with the size each plan must step down to
+REFUSALS = {"no-16": (lambda kernel, plan, dtype: plan.cluster <= 8, 8),
+            "above-2": (lambda kernel, plan, dtype: plan.cluster <= 2, 2),
+            "every-cluster": (lambda kernel, plan, dtype: plan.cluster == 1,
+                              1)}
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("refusal", list(REFUSALS))
+def test_plans_step_down_to_a_placeable_cluster(refusal, dtype):
+    """Where the placement test refuses their cluster, K1, K2 and K1b step
+    down 16 -> 8 -> 4 -> 2 -> one CTA and come back with the layout of the
+    plan forced to the first size it accepts (the same rows a CTA, state
+    in shared memory by the same rule, threads in range), having asked
+    the sizes from the top down. K1b on one CTA cannot hold q at K = 4096,
+    T = 20: with every cluster refused, that plan raises."""
+    test, C = REFUSALS[refusal]
+    item = torch.empty((), dtype=dtype).element_size()
+    asked = []
+
+    def spy(kernel, plan, dt):
+        asked.append(plan.cluster)
+        return test(kernel, plan, dt)
+
+    def sizes_from_the_top():
+        want = [c for c in cd.STEP_DOWN if c >= C]
+        assert asked == want, (asked, want)
+        asked.clear()
+
+    for K in (257, 1024, 4096):
+        plan = cd.gram_plan(K, dtype, placeable=spy)
+        sizes_from_the_top()
+        assert plan == cd.gram_plan(K, dtype, cluster=C)
+        assert plan.dyn_bytes <= cd.SMEM_DYN_MAX
+        assert cd.GRAM_MIN_THREADS <= plan.threads <= cd.GRAM_MAX_THREADS
+    for n, weighted in ((10_000, False), (50_000, True), (160_003, True)):
+        plan = cd.xb_plan(n, weighted, dtype, placeable=spy)
+        sizes_from_the_top()
+        assert plan == cd.xb_plan(n, weighted, dtype, cluster=C)
+        assert plan.dyn_bytes <= cd.SMEM_DYN_MAX
+        _threads_ok(plan)
+    for K, T in ((1024, 20), (2048, 20), (4096, 20)):
+        if C == 1 and (T + K * T) * item > cd.SMEM_DYN_MAX:
+            with pytest.raises(RuntimeError, match="no cluster size"):
+                cd.gram_block_plan(K, T, dtype, placeable=spy)
+            asked.clear()
+            continue
+        plan = cd.gram_block_plan(K, T, dtype, placeable=spy)
+        sizes_from_the_top()
+        assert plan == cd.gram_block_plan(K, T, dtype, cluster=C)
+        assert plan.dyn_bytes <= cd.SMEM_DYN_MAX
+        _threads_ok(plan)
+
+
+def test_placement_swaps_the_default_test():
+    """``placement`` makes its test the plans' default within it (how a
+    solve is run with 16 CTAs refused); a forced ``cluster=`` is never
+    stepped down."""
+    with cd.placement(REFUSALS["no-16"][0]):
+        assert cd.gram_plan(2048, F64).cluster == 8
+        assert cd.xb_plan(10_000, False, F64).cluster == 8
+        assert cd.gram_block_plan(4096, 20, F64).cluster == 8
+        assert cd.xb_plan(10_000, False, F64, cluster=16).cluster == 16
+    assert cd.gram_plan(2048, F64).cluster == cd.GRAM_CLUSTER

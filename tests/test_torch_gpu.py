@@ -16,8 +16,11 @@ a cluster with its slices in shared memory, a cluster in global memory),
 at fewer samples or rows than CTAs and at splits that are not even, and
 at forced cluster sizes; each of those launches twice and must repeat bit
 for bit (a race between the CTAs of a cluster would show as a difference),
-and the plan's branch counter must move. Without a card they skip: the
-CUDA kernels have no CPU or interpret mode.
+and the plan's branch counter must move. The solve tests hold the captured
+outer step (a CUDA graph a bucket, one host read a step) to the per-block
+host loop bit for bit, and the cluster plans' step-down (a placement test
+refusing 16 CTAs) to the 16-CTA fits. Without a card they skip: the CUDA
+kernels have no CPU or interpret mode.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed::
@@ -342,6 +345,16 @@ def test_k1b_cuda_matches_plain(cuda, pen, K, T):
 @pytest.mark.parametrize("n,p,T", [(500, 5000, 20), (301, 777, 3),
                                    (200, 1500, 70)])
 def test_k3b_cuda_matches_plain(cuda, pen, use_fp, n, p, T):
+    """K3b (the float64 tensor-core product, the select launch emitting
+    cand_idx only, the gather of the working set's rows) against the plain
+    version's four outputs, with every SM's shared memory set to NaN
+    before each launch (a read of a staged tile's unwritten part shows):
+    scores and gradient within K3's bounds, cand_idx exact, the working
+    set identical and its rows bit for bit those that
+    ``candidate_columns`` recovers from the plain candidate buffer. The
+    shapes take a ragged last feature tile, an odd n (8-byte copies) and
+    T > 24 (several task passes)."""
+    from repro_torch.kernels.cd_epoch import fill_shared_memory_cuda
     rng = np.random.default_rng(6)
     X = rng.standard_normal((n, p))
     beta = rng.standard_normal((p, T)) * (rng.random((p, 1)) < 0.3)
@@ -353,14 +366,18 @@ def test_k3b_cuda_matches_plain(cuda, pen, use_fp, n, p, T):
         args = (Xt, R, beta, L, off, gs, type(pen), penalty_params(pen),
                 min(ws, p))
         n0 = ops.fused_ws_block.launches
-        sk, gk, ik, ck = ops.fused_ws_block(*args, use_fp=use_fp)
+        fill_shared_memory_cuda(cuda)
+        sk, gk, ik, ws_k, xk = ops.fused_ws_block(*args, use_fp=use_fp)
         assert ops.fused_ws_block.launches == n0 + 1
-        sr, gr, _, _ = fused_ws_plain(*args, use_fp=use_fp)
+        sr, gr, ir, cr = fused_ws_plain(*args, use_fp=use_fp)
         torch.testing.assert_close(sk, sr, atol=1e-12, rtol=1e-11)
         torch.testing.assert_close(gk, gr, atol=1e-12, rtol=1e-10)
-        ws_k = select_working_set(sk, gs, min(ws, p))
+        assert torch.equal(ik, ir)
         assert torch.equal(ws_k, select_working_set(sr, gs, min(ws, p)))
-        assert torch.equal(candidate_columns(ik, ck, ws_k, p), Xt[ws_k].T)
+        assert torch.equal(xk, candidate_columns(ir, cr, ws_k, p).T)
+        fill_shared_memory_cuda(cuda)
+        assert _same(ops.fused_ws_block(*args, use_fp=use_fp),
+                     (sk, gk, ik, ws_k, xk))
 
 
 @pytest.mark.gpu
@@ -783,3 +800,162 @@ def test_k1_refused_plan_raises(cuda):
         for b in bad:
             with pytest.raises(RuntimeError, match="cudaError"):
                 cd_epoch_gram_cuda(*args, plan=b)
+
+
+# ------------------------------------------ the captured outer step (P1)
+def _step_case(name, dev):
+    """(X, y, datafit, penalty, sample_weight) of a small fit of each
+    inner route: the SVC dual (K1 on a dense design), a deep weighted
+    sparse logistic regression (K5 head, K2 on a cluster) and a dense
+    multitask Lasso (K3b head, K1b)."""
+    from repro_torch.core import (BlockL1, Box, L1, Logistic,
+                                  MultitaskQuadratic, QuadraticSVC,
+                                  lambda_max)
+    from repro_torch.data import (make_classification, make_multitask,
+                                  make_sparse_design)
+    from repro_torch.sparse import CSCDesign
+    if name == "svc":
+        X, y, _ = make_classification(n=400, p=200, n_nonzero=20, seed=0)
+        return (y[:, None] * X).T.copy(), y, QuadraticSVC(), Box(1.0), None
+    if name == "sparse-logistic":
+        X, y, _ = make_sparse_design(n=1000, p=4000, density=5e-3,
+                                     n_nonzero=40)
+        d = CSCDesign.from_scipy(X, ell=True, device=dev)
+        w = np.random.default_rng(1).uniform(0.5, 1.5, 1000)
+        ys = np.sign(y)
+        lam = lambda_max(d, ys, Logistic(), sample_weight=w, device=dev)
+        return d, ys, Logistic(), L1(lam / 30), w
+    X, Y, _ = make_multitask(n=300, p=1200, n_tasks=8, n_nonzero=20)
+    lam = lambda_max(X, Y, MultitaskQuadratic(), device=dev)
+    return X, Y, MultitaskQuadratic(), BlockL1(lam / 10), None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["svc", "sparse-logistic", "multitask"])
+def test_captured_step_equals_eager_loop(cuda, name):
+    """The captured outer step (a CUDA graph replayed once a step, the
+    skip decision in an IF node and the Anderson blocks in a WHILE node)
+    against the card's eager oracle, the same step with its conditions
+    read on the host after every block (``capture=False``): beta bit for
+    bit, the same outer steps and epochs, the kernel launches counted per
+    replay equal to the eager ones, and one host read a step."""
+    from repro_torch.core import make_engine, solve
+    X, y, datafit, penalty, w = _step_case(name, cuda)
+    out = {}
+    for capture in (True, False):
+        eng = make_engine(penalty, datafit, device=cuda, capture=capture)
+        ops.reset_launch_counts()
+        res = solve(X, y, datafit, penalty, tol=1e-8, engine=eng,
+                    sample_weight=w)
+        out[capture] = (res, ops.launch_counts(), ops.branch_counts())
+        eng.release_graphs()
+    (rc, cc, bc), (re, ce, be) = out[True], out[False]
+    assert rc.converged and re.converged
+    assert torch.equal(rc.beta, re.beta)
+    assert (rc.n_outer, rc.n_epochs) == (re.n_outer, re.n_epochs)
+    assert rc.kkt_history == re.kkt_history
+    assert cc == ce and bc == be
+    assert rc.n_host_syncs == len(rc.kkt_history)
+    assert re.n_host_syncs > rc.n_host_syncs
+
+
+@pytest.mark.gpu
+def test_captured_step_warm_start_and_reuse(cuda):
+    """A warm start on the card reads once more (its probe); an engine
+    passed to two solves captures each step once and replays it in the
+    second solve, with the same result."""
+    from repro_torch.core import L1, Quadratic, lambda_max, make_engine, solve
+    from repro_torch.core.engine import DenseDesign
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((200, 400))
+    y = X[:, :5].sum(1) + 0.1 * rng.standard_normal(200)
+    X = DenseDesign.from_dense(X, cuda)
+    lam = lambda_max(X, y, device=cuda) / 10
+    eng = make_engine(L1(lam), Quadratic(), device=cuda)
+    r1 = solve(X, y, Quadratic(), L1(lam), tol=1e-8, engine=eng)
+    n_graphs = len(eng.captures)
+    r2 = solve(X, y, Quadratic(), L1(lam), tol=1e-8, engine=eng)
+    assert len(eng.captures) == n_graphs and set(eng.captures.values()) == {1}
+    assert torch.equal(r1.beta, r2.beta)
+    warm = solve(X, y, Quadratic(), L1(lam), tol=1e-8, beta0=r1.beta)
+    assert r1.n_host_syncs == len(r1.kkt_history)
+    assert warm.n_host_syncs == len(warm.kkt_history) + 1
+    eng.release_graphs()
+
+
+# ------------------------------- cluster plans that step down (P2)
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 2, 4, 8, 16])
+def test_forced_cluster_sizes_match_plain(cuda, C):
+    """K1 (K = 1024), K1b (K = 1024, T = 20) and K2 (K = 512, n = 10,000)
+    at each cluster size a plan steps down through: K1 and K1b equal the
+    plain version bit for bit (each row takes its updates in the same
+    order at every C), K2 within its tolerance (it sums its partials in
+    rank order, so its rounding moves with C)."""
+    from repro_torch.kernels.cd_epoch import (cd_epoch_gram_block_cuda,
+                                              cd_epoch_gram_cuda,
+                                              cd_epoch_xb_cuda,
+                                              gram_block_plan, gram_plan,
+                                              xb_plan)
+    f64 = torch.float64
+    args = _k1_case(1024, cuda) + (P.L1, penalty_params(P.L1(0.05)))
+    got = cd_epoch_gram_cuda(*args, epochs=3,
+                             plan=gram_plan(1024, f64, cluster=C))
+    assert _same(got, cd_epoch_gram_plain(*args, epochs=3))
+    bargs = _gram_block_case(1024, 20, cuda) + (
+        P.BlockL1, penalty_params(P.BlockL1(0.11)))
+    got = cd_epoch_gram_block_cuda(*bargs, epochs=3, plan=gram_block_plan(
+        1024, 20, f64, cluster=C))
+    assert _same(got, cd_epoch_gram_plain(*bargs, epochs=3))
+    xargs, wt = _xb_case("logistic", True, 512, 10_000, cuda)
+    got = cd_epoch_xb_cuda(*xargs, w=wt, epochs=3,
+                           plan=xb_plan(10_000, True, f64, cluster=C))
+    br, xr = cd_epoch_xb_plain(*xargs, w=wt, epochs=3)
+    torch.testing.assert_close(got[0], br, atol=1e-11, rtol=1e-8)
+    torch.testing.assert_close(got[1], xr, atol=1e-11, rtol=1e-8)
+
+
+@pytest.mark.gpu
+def test_solves_step_down_where_16_ctas_cannot_be_placed(cuda):
+    """With a placement test that refuses 16 CTAs, a dense Lasso (K1 on a
+    cluster), a logistic regression (K2) and a multitask Lasso (K1b on a
+    cluster) complete on 8 CTAs (``ops.cluster_counts``): the Lasso and
+    the multitask fit equal the 16-CTA fits bit for bit, the logistic fit
+    agrees with it to 1e-6."""
+    from repro_torch.core import (BlockL1, L1, Logistic, MultitaskQuadratic,
+                                  Quadratic, lambda_max, solve)
+    from repro_torch.data import (make_classification,
+                                  make_correlated_design, make_multitask)
+    from repro_torch.kernels import cd_epoch as cd
+    X, y, _ = make_correlated_design(n=600, p=2000, n_nonzero=100, rho=0.5,
+                                     snr=5.0, seed=0)
+    Xl, yl, _ = make_classification(n=600, p=2000, n_nonzero=50, seed=0)
+    Xm, Ym, _ = make_multitask(n=400, p=1500, n_tasks=20, n_nonzero=60,
+                               seed=0)
+    cases = [("cd_epoch_gram", X, y, Quadratic(),
+              L1(lambda_max(X, y, device=cuda) / 20)),
+             ("cd_epoch_xb", Xl, yl, Logistic(),
+              L1(lambda_max(Xl, yl, Logistic(), device=cuda) / 5)),
+             ("cd_epoch_gram_block", Xm, Ym, MultitaskQuadratic(),
+              BlockL1(lambda_max(Xm, Ym, MultitaskQuadratic(),
+                                 device=cuda) / 20))]
+    for kernel, Xc, yc, datafit, penalty in cases:
+        runs = {}
+        for refuse in (False, True):
+            ops.reset_launch_counts()
+            if refuse:
+                with cd.placement(lambda k, plan, dt: plan.cluster <= 8):
+                    res = solve(Xc, yc, datafit, penalty, tol=1e-8)
+            else:
+                res = solve(Xc, yc, datafit, penalty, tol=1e-8)
+            runs[refuse] = (res, ops.cluster_counts()[kernel])
+        (r16, c16), (r8, c8) = runs[False], runs[True]
+        assert r16.converged and r8.converged
+        assert c16.get(16, 0) > 0 and 8 not in c16
+        assert c8.get(8, 0) > 0 and 16 not in c8
+        assert sum(c8.values()) == sum(c16.values()) or kernel == \
+            "cd_epoch_xb"
+        if kernel == "cd_epoch_xb":
+            torch.testing.assert_close(r8.beta, r16.beta, atol=1e-6, rtol=0)
+        else:
+            assert torch.equal(r8.beta, r16.beta)

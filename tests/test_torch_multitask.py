@@ -30,6 +30,7 @@ The reference's own Pallas dense path does not run on this JAX version
 import dataclasses
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -54,6 +55,7 @@ from repro_torch.core.working_set import (candidate_columns,
                                           select_working_set, ws_occupancy)
 from repro_torch.data import make_leadfield, make_multitask
 from repro_torch.kernels import ops
+from repro_torch.kernels.fused_ws import fused_ws_plain
 from repro_torch.kernels.common import (BLOCK_PENALTIES, PENALTY_IDS,
                                         UnsupportedPenaltyError,
                                         check_block_kernel_penalty,
@@ -202,16 +204,52 @@ def test_k3b_plain_matches_two_pass(jp, use_fp, n, p, T, ws, bp):
         jnp.asarray(gsupp), ws, use_fp)
     tp = from_reference(jp)
     gs = torch.as_tensor(gsupp.copy())
-    sc, gr, ci, cc = ops.fused_ws_block(
+    sc, gr, _, ws_idx, Xt_ws = ops.fused_ws_block(
         _t(X.T).contiguous(), _t(R), _t(beta), _t(L), _t(offset), gs,
         type(tp), penalty_params(tp), ws, use_fp=use_fp, bp=bp)
     assert sc.shape == (p,) and gr.shape == (p, T)
     _close(sc, sc_ref, atol=1e-12, rtol=1e-11)
     _close(gr, gr_ref, atol=1e-12, rtol=1e-10)
-    ws_idx = select_working_set(sc, gs, ws)
     np.testing.assert_array_equal(ws_idx.numpy(), np.asarray(ws_ref))
-    np.testing.assert_array_equal(
-        candidate_columns(ci, cc, ws_idx, p).numpy(), np.asarray(Xws_ref))
+    np.testing.assert_array_equal(Xt_ws.T.numpy(), np.asarray(Xws_ref))
+
+
+@pytest.mark.parametrize("n,p,T,ws,bp", [
+    (40, 80, 6, 12, None),      # one tile
+    (64, 256, 5, 32, 64),       # several even tiles
+    (48, 100, 3, 16, 32),       # bp does not divide p: padded tail tile
+    (30, 90, 2, 90, 32),        # ws >= bp: every row a candidate
+])
+def test_k3b_head_rows_equal_candidate_columns(n, p, T, ws, bp):
+    """The K3b head hands back the working set and its K rows of X (no
+    candidate buffer on the card): those rows equal, bit for bit,
+    ``candidate_columns`` of the plain version's four outputs, which stay
+    the oracle; ``cand_idx`` is each tile's top-kc in ``lax.top_k`` order
+    (the reference's own primitive, on the same priorities), padding slots
+    index p."""
+    X, R, beta, L, offset = _block_inputs(n, p, T, seed=3 * p + ws)
+    jp = jc.BlockL1(0.05)
+    gsupp = np.asarray(jp.generalized_support(jnp.asarray(beta)))
+    tp = from_reference(jp)
+    args = (_t(X.T).contiguous(), _t(R), _t(beta), _t(L), _t(offset),
+            torch.as_tensor(gsupp.copy()), type(tp), penalty_params(tp), ws)
+    sc, gr, ci, ws_idx, Xt_ws = ops.fused_ws_block(*args, bp=bp)
+    sr, grr, cir, ccr = fused_ws_plain(*args, bp=bp)
+    assert torch.equal(sc, sr) and torch.equal(gr, grr)
+    assert torch.equal(ws_idx, select_working_set(sr, args[5], ws))
+    assert torch.equal(Xt_ws, candidate_columns(cir, ccr, ws_idx, p).T)
+    assert torch.equal(Xt_ws, args[0][ws_idx])
+    # cand_idx: lax.top_k per tile of the priorities, padded with -inf
+    bp_ = p if bp is None else bp
+    tiles = -(-p // bp_)
+    kc = min(bp_, ws)
+    pri = np.full(tiles * bp_, -np.inf)
+    pri[:p] = np.where(gsupp, np.inf, sr.numpy()) + 0.0
+    top = np.asarray(jax.lax.top_k(jnp.asarray(pri.reshape(tiles, bp_)),
+                                   kc)[1]) + bp_ * np.arange(tiles)[:, None]
+    want = np.where(top < p, top, p).reshape(-1)
+    np.testing.assert_array_equal(ci.numpy(), want)
+    np.testing.assert_array_equal(cir.numpy(), want)
 
 
 @pytest.mark.parametrize("T", [1, 4, 20])
@@ -384,7 +422,7 @@ def test_multitask_solve_matches_jax(pen_name, kind, gram, use_kernels,
         want["fused_ws_block" if dense else "csc_score_block"] = heads
         want["cd_epoch_gram_block"] = res.n_epochs if gram else 0
     assert calls == want
-    assert res.n_host_syncs == heads + res.n_epochs // 5
+    assert res.n_host_syncs == heads
 
 
 @pytest.mark.parametrize("use_kernels", [False, True],
