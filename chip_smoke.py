@@ -26,9 +26,13 @@ Phases, each of which must pass (any failure exits non-zero):
    each cluster size the plans step down through, 1, 2, 4, 8 and 16: K1
    and K1b bit for bit, K2 within its bound),
    1e-12 + 1e-11 |ref| (scores) and
-   1e-12 + 1e-10 |ref| (grad) for K3, whose working set must be identical
-   and whose gathered columns must be bit-exact, and the K3 score bound for
-   K4 (7 penalties x fixed-point x weights).
+   1e-12 + 1e-10 |ref| (grad) for K3 (7 penalties x fixed-point x ws 64
+   and 1024, and tied integer data at ws 64, 1024, 8192 and p, where the
+   merge launch keeps its lists in global memory), whose cand_idx must be
+   exact, whose working set must equal ``select_working_set`` of the plain
+   scores and whose gathered rows must be bit-exact against
+   ``candidate_columns`` of the plain four outputs, and
+   the K3 score bound for K4 (7 penalties x fixed-point x weights).
 4. dense main path: four fits through the estimators at full width, each
    on the kernel route (the estimators' default arguments on the card;
    launch counts reset just before, read just after; each of its kernels
@@ -38,12 +42,20 @@ Phases, each of which must pass (any failure exits non-zero):
    and in phases 5 and 7) must read the host once per outer step
    (``n_host_syncs == len(kkt_history)``: each step a replayed CUDA
    graph). The Lasso, the MCP and the LinearSVC (the dual's Gram epochs)
-   must launch K1 once for every inner epoch. The LinearSVC runs again
+   must launch K1 once for every inner epoch. Each of the four runs again
    with its inner loop on the host (``make_engine(capture=False)``, the
    eager oracle), whose coefficients and epochs the captured fit must
-   equal bit for bit, and again with a placement test that refuses 16
-   CTAs: its plans must step down to 8 (``ops.cluster_counts``) and the
-   fit equal the 16-CTA one bit for bit.
+   equal bit for bit; the LinearSVC again with a placement test that
+   refuses 16 CTAs: its plans must step down to 8 (``ops.cluster_counts``)
+   and the fit equal the 16-CTA one bit for bit.
+4b. large dense design: the kernel route of ``solve(X, y, Quadratic(),
+   L1(lambda_max/10))`` at tol 1e-6 on a design that takes at least 55%
+   of the card's memory (n = 10,000, p from ``mem_get_info``, ~596,000 on
+   an 80 GB card), made on the card from a seed; no plain route. Its
+   plain-torch KKT violation, recomputed over X in chunks, must be <= tol
+   and agree with the solver's kkt, and the peak of allocated memory, less
+   X's bytes, must stay <= 10% of X's bytes: K3 copies no candidate rows,
+   so the dense path holds X once.
 5. sparse path: the repo's full-size sparse configuration (``sparse_fig2``
    "small" of ``benchmarks/bench_engine.py``: n = 50,000, p = 200,000,
    density 1e-3), built on the host once as a CSC design with the ELL
@@ -93,7 +105,15 @@ Phases, each of which must pass (any failure exits non-zero):
 8. times: each kernel at main-path shapes (CUDA events, warm), its plain
    version, its bound (bytes over 3.35 TB/s or operations over 67 TF/s
    float64, the larger) and, where one PyTorch call computes the same
-   function (or a part of it), that call's time. K1 has rows at K = 1024
+   function (or a part of it), that call's time. K3's row splits the head
+   into its score launch, select launch, merge launch and gather (and the
+   stable sort the merge replaced), each launched and as a replayed CUDA
+   graph. The sparse rows (K5, K5s, K5b) keep their HBM byte bound and
+   print beside it the floor of their design, a walk of CSC columns that
+   gathers raw's rows from L2: ``l2_gather_probe`` timed on nnz gathers
+   of raw's rows (8 bytes, a 32-byte sector, for K5/K5s; T values for
+   K5b). It is not a bound of the function: a design that blocks by rows
+   could reuse raw on chip. K1 has rows at K = 1024
    and 2048, K2 at (K, n) = (512, 10,000), (512, 50,000) and (4096,
    50,000), K1b at K = 1024, 2048 and 4096 (T = 20), each with its plan's
    branch, cluster size, threads, launches by branch, and chain floor (K1:
@@ -126,7 +146,8 @@ FULL = dict(k1_sizes=(256, 1024),
             k2_big=((512, 50_000), (4096, 50_000), (512, 1000),
                     (128, 160_003)),
             k2_time=((512, 50_000), (4096, 50_000)),
-            k3_n=10_000, k3_p=20_000, k3_ws=(64, 1024), reg_n=10_000,
+            k3_n=10_000, k3_p=20_000, k3_ws=(64, 1024),
+            k3_ws_merge=(8192, 20_000), reg_n=10_000,
             reg_p=20_000, reg_nnz=150, svc_n=2000, svc_p=1000, svc_nnz=100,
             sparse=dict(n=50_000, p=200_000, density=1e-3, n_nonzero=200,
                         seed=0, snr=5.0),
@@ -141,6 +162,9 @@ FULL = dict(k1_sizes=(256, 1024),
             mt_dense=dict(n=10_000, p=20_000, n_tasks=20, n_nonzero=150,
                           seed=0),
             mt_dense_frac=10, mt_dense_min_ws=512,
+            large=dict(n=10_000, frac=0.56, headroom=8 * 2**30, seed=0,
+                       n_nonzero=150, snr=5.0, frac_lambda=10,
+                       cpu_bytes=2**27),
             mt_sparse_T=20, mt_sparse_frac=300, mt_sparse_min_ws=1024,
             reps=20)
 
@@ -182,6 +206,26 @@ def time_ms(fn, dev, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, dev, reps):
+    """Mean ms of one replay of `fn` captured into a CUDA graph, warm: the
+    device time without the host's launch cost, as the captured outer step
+    runs it (None without a card)."""
+    import torch
+    if dev.type != "cuda":
+        return None
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_ms(graph.replay, dev, reps)
+    del graph
+    return ms
 
 
 def bound(nbytes, nops):
@@ -332,27 +376,30 @@ def check_kernels(dev, cfg):
                      (Box(0.8), False)]
         for pen, fp in cases:
             gs = pen.generalized_support(beta)
-            for ws_size in cfg["k3_ws"]:
+            # on ties also the merge's working sets in global memory
+            for ws_size in dict.fromkeys(min(w, p) for w in cfg["k3_ws"] + (
+                    cfg["k3_ws_merge"] if ties else ())):
                 args = (Xt, r, beta, L, off, gs, type(pen),
                         penalty_params(pen), ws_size)
-                sk, gk, ik, ck = ops.fused_ws(*args, use_fp=fp)
-                sr, gr, _, _ = fused_ws_plain(*args, use_fp=fp)
+                sk, gk, ik, wk, xk = ops.fused_ws(*args, use_fp=fp)
+                sr, gr, ir, cr = fused_ws_plain(*args, use_fp=fp)
                 ok1, e1 = close(sk, sr, 1e-12, 1e-11)
                 ok2, e2 = close(gk, gr, 1e-12, 1e-10)
-                ws_k = select_working_set(sk, gs, ws_size)
-                ws_r = select_working_set(sr, gs, ws_size)
-                same_ws = bool(torch.equal(ws_k, ws_r))
-                cols = candidate_columns(ik, ck, ws_k, p)
-                exact = bool(torch.equal(cols, Xt[ws_k].T))
+                same_idx = bool(torch.equal(ik, ir))
+                same_ws = bool(torch.equal(
+                    wk, select_working_set(sr, gs, ws_size)))
+                exact = bool(torch.equal(
+                    xk, candidate_columns(ir, cr, wk, p).T))
                 if ties:
                     same_ws = same_ws and bool(torch.equal(sk, sr))
                 errs["fused_ws"] = max(errs["fused_ws"], e1, e2)
-                if not (ok1 and ok2 and same_ws and exact):
+                if not (ok1 and ok2 and same_idx and same_ws and exact):
                     fails.append(
                         f"K3 {type(pen).__name__} fp={fp} ws={ws_size} "
                         f"ties={ties} scores={e1:.3e} grad={e2:.3e} "
-                        f"same_ws={same_ws} exact_cols={exact}")
-                del ck, cols
+                        f"cand_idx={same_idx} same_ws={same_ws} "
+                        f"exact_rows={exact}")
+                del cr, xk
         del Xt
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -650,15 +697,17 @@ def _fit(make, design, y, dev, kernels, sample_weight=None, capture=True):
     wall = time.perf_counter() - t
     counts = all_counts()
     res = est.result_
-    peak = torch.cuda.max_memory_allocated() / 2**30 \
-        if dev.type == "cuda" else float("nan")
+    peak, reserved = (torch.cuda.max_memory_allocated() / 2**30,
+                      torch.cuda.memory_reserved() / 2**30) \
+        if dev.type == "cuda" else (float("nan"), float("nan"))
     route = ("kernels" if capture else "oracle ") if kernels else "plain  "
     log(f"  {route}: wall {wall:.3f} s, "
         f"converged {res.converged}, kkt {res.kkt:.3e}, outer "
         f"{res.n_outer}, epochs {res.n_epochs}, ws {res.ws_history}, "
         f"host syncs "
         f"{res.n_host_syncs} ({res.n_host_syncs / max(1, len(res.kkt_history)):.1f} "
-        f"per outer), peak mem {peak:.2f} GiB, launches "
+        f"per outer), peak mem {peak:.3f} GiB (reserved {reserved:.3f}), "
+        f"launches "
         f"{ {k: v for k, v in counts.items() if v} }")
     return est, counts
 
@@ -769,12 +818,13 @@ def main_path(dev, cfg):
     lmax = lambda_max(design, y, device=dev)
     est = run("Lasso(lmax/20)", lambda **k: Lasso(alpha=lmax / 20, **k),
               design, y, ("fused_ws", "cd_epoch_gram"),
-              per_epoch="cd_epoch_gram")
+              per_epoch="cd_epoch_gram", oracle=True)
     gap, primal = lasso_gap(design.X, y, est.coef_, lmax / 20, device=dev)
     log(f"  Lasso duality gap {gap:.3e} (primal {primal:.6f})")
     run("MCPRegression(lmax/10, gamma=3)",
         lambda **k: MCPRegression(alpha=lmax / 10, gamma=3.0, **k),
-        design, y, ("fused_ws", "cd_epoch_gram"), per_epoch="cd_epoch_gram")
+        design, y, ("fused_ws", "cd_epoch_gram"), per_epoch="cd_epoch_gram",
+        oracle=True)
     del design
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -786,7 +836,7 @@ def main_path(dev, cfg):
     lmax = lambda_max(design, y, Logistic(), device=dev)
     run("SparseLogisticRegression(lmax/3)",
         lambda **k: SparseLogisticRegression(alpha=lmax / 3, **k),
-        design, y, ("fused_ws", "cd_epoch_xb"))
+        design, y, ("fused_ws", "cd_epoch_xb"), oracle=True)
     del design
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -799,6 +849,117 @@ def main_path(dev, cfg):
     fit_refused("LinearSVC(C=1)", make, X, y, dev, est, "cd_epoch_gram",
                 fails)
     return total, fails
+
+
+def large_design(dev, cfg):
+    """The kernel route of ``solve(X, y, Quadratic(), L1(lambda_max/10))``
+    at tol 1e-6 on a dense design that takes at least 55% of the card's
+    memory (n = 10,000, p a multiple of 1000 from ``mem_get_info``): Xt
+    [p, n] and y = X beta* + noise (150 nonzeros, SNR 5) made on the card
+    from a CUDA generator in chunks, passed as a ``DenseDesign``; no plain
+    route, no numpy copy. Checked without an oracle: a plain-torch pass
+    over X in chunks recomputes the final gradient and the L1
+    subdifferential distance, whose max must be <= tol and agree with the
+    solver's reported kkt to 1e-9 relative to max(kkt, lambda) and to
+    1e-12 lambda absolute; the peak of allocated memory during the solve, less X's bytes, must stay <= 10% of X's bytes (no
+    X-sized temporary on the kernel route). Returns (launch counts,
+    failures)."""
+    import torch
+    from repro_torch.core import L1, Quadratic, lambda_max, solve
+    from repro_torch.core.engine import DenseDesign
+    from repro_torch.kernels import ops
+    c = cfg["large"]
+    n, f64 = c["n"], torch.float64
+    fails = []
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(dev)
+    else:
+        free = total = c["cpu_bytes"]
+    p = -(-int(c["frac"] * total) // (8 * n * 1000)) * 1000
+    x_bytes = p * n * 8
+    log(f"large dense design: n={n}, p={p}, X {x_bytes / 1e9:.3f} GB = "
+        f"{x_bytes / total:.1%} of the card's {total / 1e9:.3f} GB "
+        f"({free / 1e9:.3f} GB free)")
+    if x_bytes > free - c["headroom"]:
+        return {}, [f"large design: X {x_bytes} B does not fit beside "
+                    f"{c['headroom']} B of headroom in {free} B free"]
+    t = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(c["seed"])
+    Xt = torch.empty((p, n), dtype=f64, device=dev)
+    rows = max(1, 2**28 // (8 * n))
+    for j in range(0, p, rows):
+        Xt[j:j + rows].normal_(generator=g)
+    supp = torch.randperm(p, generator=g, device=dev)[:c["n_nonzero"]]
+    bstar = torch.randn(c["n_nonzero"], generator=g, device=dev, dtype=f64)
+    signal = bstar @ Xt[supp]
+    noise = torch.randn(n, generator=g, device=dev, dtype=f64)
+    y = signal + noise * (torch.linalg.norm(signal)
+                          / (c["snr"] * torch.linalg.norm(noise)))
+    design = DenseDesign(Xt)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    log(f"  built on the card in {time.perf_counter() - t:.2f} s")
+    lmax = lambda_max(design, y, device=dev)
+    lam = lmax / c["frac_lambda"]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    res = solve(design, y, Quadratic(), L1(lam), tol=TOL, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = all_counts()
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else x_bytes
+    reserved = torch.cuda.memory_reserved(dev) if dev.type == "cuda" else 0
+    # the KKT violation in plain torch, over X in chunks
+    beta = res.beta
+    r = (Xt.T @ beta - y) / n
+    kkt = torch.zeros((), dtype=f64, device=dev)
+    for j in range(0, p, rows):
+        gj = Xt[j:j + rows] @ r
+        bj = beta[j:j + rows]
+        dist = torch.where(bj == 0, torch.clamp(torch.abs(gj) - lam, min=0),
+                           torch.abs(gj + lam * torch.sign(bj)))
+        kkt = torch.maximum(kkt, torch.max(dist))
+    kkt = float(kkt)
+    # both are the max of distances computed from gradients of size ~lam:
+    # their difference is rounding (summation order, the solver's
+    # incrementally kept Xb), a few 1e-17, so it is taken relative to
+    # max(kkt, lam), and held to 1e-12 lam absolute (the rounding scale of
+    # such gradients), so a solver that reported a wrong kkt below tol
+    # would still fail; relative to a kkt far below tol it is printed too
+    diff = abs(kkt - res.kkt)
+    rel = diff / max(res.kkt, lam)
+    over = (peak - x_bytes) / x_bytes
+    log(f"  fit: {wall:.3f} s, converged {res.converged}, outer steps "
+        f"{len(res.kkt_history)}, ws {res.ws_history}, host reads "
+        f"{res.n_host_syncs}, nnz {int(torch.sum(beta != 0))}, X bytes "
+        f"{x_bytes}, max_memory_allocated {peak} B ({over:.2%} of X above "
+        f"X), memory_reserved {reserved} B, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    log(f"  plain recomputed kkt {kkt:.6e}, solver kkt {res.kkt:.6e}, "
+        f"difference {diff:.3e} ({diff / lam:.3e} of lam): relative to "
+        f"max(kkt, lam = {lam:.6e}) {rel:.3e}, to kkt "
+        f"{diff / max(res.kkt, 1e-300):.3e}")
+    ok = (res.converged and kkt <= TOL and rel <= 1e-9
+          and diff <= 1e-12 * lam
+          and res.n_host_syncs == len(res.kkt_history)
+          and counts["fused_ws"] >= len(res.kkt_history)
+          and counts["cd_epoch_gram"] == res.n_epochs
+          and over <= 0.10 and dev.type == "cuda")
+    if not ok:
+        fails.append(f"large design p={p}: converged {res.converged}, "
+                     f"kkt {kkt:.3e} (solver {res.kkt:.3e}, rel {rel:.2e}), "
+                     f"peak above X {over:.2%}, launches {counts}")
+    del design, Xt
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return counts, fails
 
 
 def sparse_designs(dev, cfg):
@@ -1202,7 +1363,10 @@ def kernel_times(dev, cfg, launches, errs, card, sparse_design):
     from repro_torch.core.penalties import L1
     from repro_torch.kernels import ops
     from repro_torch.kernels.common import penalty_params
-    from repro_torch.kernels.fused_ws import fused_ws_plain, pick_bp
+    from repro_torch.core.working_set import select_working_set
+    from repro_torch.kernels.fused_ws import (fused_ws_plain, merge_cuda,
+                                              pick_bp, score_cuda,
+                                              select_cuda)
     reps = cfg["reps"]
     pen = L1(0.11)
     prm = penalty_params(pen)
@@ -1225,8 +1389,34 @@ def kernel_times(dev, cfg, launches, errs, card, sparse_design):
         plain = time_ms(lambda: fused_ws_plain(*args), dev, 3)
         lib = time_ms(lambda: torch.mv(Xt, r), dev, reps)
         bp = pick_bp(p)
-        C = -(-p // bp) * min(bp, ws_size)
-        b = bound(8 * (p * n + n + 4 * p + 2 * p + C * n) + 4 * C, 2 * p * n)
+        kc = min(bp, ws_size)
+        C = -(-p // bp) * kc
+        # X, r, beta, L, offset and gsupp read once; scores, grad, cand_idx
+        # and ws written; the K rows of X read and written once (the
+        # gather; no candidate buffer)
+        b = bound(8 * (p * n + n + 3 * p + 2 * p + ws_size
+                       + 2 * ws_size * n) + p + 4 * C, 2 * p * n)
+        split = {}
+        if dev.type == "cuda":
+            # the head and each of its parts alone, launched (eager) and as
+            # a replayed CUDA graph (as the captured outer step runs them):
+            # the score launch, the select launch, the merge launch (the working set), the
+            # gather of its rows, and the stable sort that the merge
+            # replaces (select_working_set)
+            sc, _, pri = score_cuda(Xt, r, beta, L, off, L1, prm, gsupp=gs)
+            cidx = select_cuda(pri, bp, kc)
+            wsel = merge_cuda(pri, cidx, bp, ws_size)
+            parts = dict(
+                head=lambda: ops.fused_ws(*args),
+                score=lambda: score_cuda(Xt, r, beta, L, off, L1, prm,
+                                         gsupp=gs),
+                select=lambda: select_cuda(pri, bp, kc),
+                merge=lambda: merge_cuda(pri, cidx, bp, ws_size),
+                gather=lambda: Xt.index_select(0, wsel),
+                sort=lambda: select_working_set(sc, gs, ws_size))
+            split = {k: dict(eager=time_ms(f, dev, reps),
+                             graph=graph_ms(f, dev, reps))
+                     for k, f in parts.items()}
         row = dict(name="fused_ws", route="cuda",
                    source="src/repro_torch/csrc/fused_ws.cu",
                    replaces="src/repro/kernels/fused_ws.py:125",
@@ -1234,11 +1424,13 @@ def kernel_times(dev, cfg, launches, errs, card, sparse_design):
                    max_abs_err=errs["fused_ws"], ms=ms, plain_ms=plain,
                    bound_ms=b[0], bound_by=b[1], library_ms=lib,
                    library_call="torch.mv(Xt, r): the gradient part only",
+                   split_ms=split,
                    shape=f"n={n}, p={p}, ws={ws_size}, bp={bp}, C={C}, L1")
         if ws_size == max(cfg["k3_ws"]):
             rows.append(row)
         else:
             log(f"K3 at ws={ws_size}: {json.dumps(row)}")
+    del Xt
     rows += sparse_times(dev, cfg, launches, errs, sparse_design)
     log_rows(rows, card)
     log("K1, K1b and K2 are bound by the chain of dependent coordinate "
@@ -1254,10 +1446,38 @@ def log_rows(rows, card):
         extra = "" if "branch" not in row else (
             f", branch {row['branch']} (C={row['cluster']}), chain floor "
             f"{row['chain_floor_ms']} ms")
+        if row.get("split_ms"):
+            extra += f", split (ms) {json.dumps(row['split_ms'])}"
+        if row.get("walk_floor_ms") is not None:
+            extra += (f", floor of the CSC-walk design (its L2 gathers, "
+                      f"not a bound of the function) "
+                      f"{row['walk_floor_ms']:.4f} ms "
+                      f"({row['l2_bytes'] / 1e9:.3f} GB of L2 reads)")
         log(f"time {row['name']} [{row['shape']}] on {card}: kernel "
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}){extra}, library "
             f"{row['library_ms']}")
+
+
+def l2_floor(dev, rows, width, gathers, reps):
+    """The time of `gathers` hashed gathers of raw's rows ([rows, width]
+    float64, made on the card) through L2: ``l2_gather_probe`` timed
+    (None without a card)."""
+    import torch
+    if dev.type != "cuda":
+        return None
+    from repro_torch.kernels.csc_score import l2_gather_probe_cuda
+    buf = torch.rand(rows, width, dtype=torch.float64, device=dev)
+    return time_ms(lambda: l2_gather_probe_cuda(buf, gathers), dev, reps)
+
+
+def with_l2(row, floor, l2_bytes):
+    """`row` with, beside its HBM byte bound (which stays its bound), the
+    floor of its CSC-walk design: the L2 gathers of raw's rows that a walk
+    of CSC columns makes (a design that blocks by rows could reuse raw on
+    chip and move fewer)."""
+    row.update(walk_floor_ms=floor, l2_bytes=l2_bytes)
+    return row
 
 
 def sparse_times(dev, cfg, launches, errs, d):
@@ -1309,6 +1529,11 @@ def sparse_times(dev, cfg, launches, errs, d):
     ell = bound(p * d.max_col_nnz * 12 + n * 8 + p * 8, 2 * p * d.max_col_nnz)
     log(f"K5 byte bound with the ELL layout (m={d.max_col_nnz}): "
         f"{ell[0]:.4f} ms")
+    # the gathers of v through L2: one 32-byte sector an entry
+    floor = l2_floor(dev, n, 1, nnz, reps)
+    log(f"L2 gather probe: {nnz} gathers of 8-byte rows of a [{n}] vector "
+        f"{floor} ms; of a [{20 * n}] vector (8 MB) "
+        f"{l2_floor(dev, 20 * n, 1, nnz, reps)} ms")
     for name, v, square, nops in (("csc_score", raw, False, 2 * nnz),
                                   ("csc_weighted_col_sq", w, True,
                                    3 * nnz)):
@@ -1326,7 +1551,7 @@ def sparse_times(dev, cfg, launches, errs, d):
             lib = time_ms(lambda: A @ v, dev, reps)
             del A, vals
         b = bound(nbytes, nops)
-        rows.append(dict(name=name, route="cuda",
+        rows.append(with_l2(dict(name=name, route="cuda",
                          source="src/repro_torch/csrc/csc_score.cu",
                          replaces="src/repro/sparse/ops.py:156" if not square
                          else "src/repro/sparse/ops.py:201",
@@ -1334,7 +1559,8 @@ def sparse_times(dev, cfg, launches, errs, d):
                          ms=ms, plain_ms=plain, bound_ms=b[0], bound_by=b[1],
                          library_ms=lib, library_call=call,
                          shape=f"n={n}, p={p}, nnz={nnz}, CSC walk"
-                               + (", square" if square else "")))
+                               + (", square" if square else "")),
+                                floor, 32 * nnz))
     return rows
 
 
@@ -1397,7 +1623,9 @@ def block_times(dev, cfg, launches, errs, card, d):
         lib = time_ms(lambda: A @ raw, dev, reps)
         del A
     b = bound(nnz * 12 + (p + 1) * 8 + n * T * 8 + p * T * 8, 2 * nnz * T)
-    rows.append(dict(name="csc_score_block", route="cuda",
+    # the gathers of raw's rows through L2: T values an entry
+    floor = l2_floor(dev, n, T, nnz, reps)
+    rows.append(with_l2(dict(name="csc_score_block", route="cuda",
                      source="src/repro_torch/csrc/csc_score.cu",
                      replaces="src/repro/sparse/ops.py:156",
                      launches=launches["csc_score_block"],
@@ -1406,7 +1634,8 @@ def block_times(dev, cfg, launches, errs, card, d):
                      library_ms=lib,
                      library_call="torch.sparse_csr_tensor(X^T) @ raw "
                                   "(cuSPARSE SpMM)",
-                     shape=f"n={n}, p={p}, nnz={nnz}, T={T}, CSC walk"))
+                     shape=f"n={n}, p={p}, nnz={nnz}, T={T}, CSC walk"),
+                        floor, 8 * T * nnz))
 
     T = cfg["k1b_T"]
     for K in cfg["k1b_time_K"]:
@@ -1495,6 +1724,13 @@ def run(dev, cfg):
     failures += fails
     log(f"dense main path ({time.perf_counter() - t:.1f} s): launches "
         f"{launches}")
+    t = time.perf_counter()
+    large_launches, fails = large_design(dev, cfg)
+    failures += fails
+    log(f"large dense design ({time.perf_counter() - t:.1f} s): launches "
+        f"{large_launches}")
+    for k in large_launches:
+        launches[k] += large_launches[k]
 
     X_sparse, beta_true, design, y, small = sparse_designs(dev, cfg)
     t = time.perf_counter()

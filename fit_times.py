@@ -8,17 +8,21 @@ times on one CUDA card, to compare two trees of the port.
 SRC is the ``src`` directory whose ``repro_torch`` is timed (default: this
 checkout's). The fits are those of ``chip_smoke.py`` at its full sizes: the
 M/EEG MultiTaskLasso and MultiTaskMCP(gamma=3) at lambda_max/10, the dense
-MultiTaskLasso at lambda_max/10, the dense SparseLogisticRegression at
-lambda_max/3, and the two fits whose time is mostly K1's Gram epochs: the
-dense LinearSVC(C=1) at the fig. 9 size (n = 2000, p = 1000) and the
-LinearSVC(C=1) on the scipy sparse X of ``sparse_small`` (2000 x 8000).
+MultiTaskLasso at lambda_max/10, the dense Lasso at lambda_max/20 and
+MCPRegression(gamma=3) at lambda_max/10 on the ``cv_fig`` design
+(n = 10,000, p = 20,000: the fits that run K3 most), the dense
+SparseLogisticRegression at lambda_max/3, and the two fits whose time is
+mostly K1's Gram epochs: the dense LinearSVC(C=1) at the fig. 9 size
+(n = 2000, p = 1000) and the LinearSVC(C=1) on the scipy sparse X of
+``sparse_small`` (2000 x 8000).
 ``--deep`` adds the deep weighted sparse logistic regression of
 ``chip_smoke.py`` (``sparse_fig2`` at lambda_max/30, K2 at K = 4096;
 3 repeats). Each is fitted once to warm up and then ``REPS`` times; the
 wall times (synchronized), with their median, the outer steps, the host
-reads, the peak device memory of a fit and the host seconds of the CUDA
-graph captures (a tree without them reports none) are printed as one JSON
-line.
+reads, the peak allocated device memory of a fit, the peak reserved
+memory of the warm-up fit (the allocator's cache emptied before it) and
+the host seconds of the CUDA graph captures (a tree without them reports
+none) are printed as one JSON line.
 
 ``--pool`` reads the JSON lines of several such runs (one process each,
 alternating between two trees in one call) and prints, for each tree (its
@@ -45,18 +49,21 @@ def pool(paths) -> int:
         line = Path(path).read_text().strip().splitlines()[-1]
         rec = json.loads(line)
         for label, fit in rec["fits"].items():
-            runs.setdefault(rec["src"], {}).setdefault(label, []).append(
-                fit["walls"])
+            runs.setdefault(rec["src"], {}).setdefault(label, []).append(fit)
     for src, fits in runs.items():
         print(src)
         for label, procs in fits.items():
-            walls = sorted(w for p in procs for w in p)
+            walls = sorted(w for p in procs for w in p["walls"])
             q1, med, q3 = statistics.quantiles(walls, n=4)
-            meds = [statistics.median(p) for p in procs]
+            meds = [statistics.median(p["walls"]) for p in procs]
+            mem = [(p["peak_bytes"], p.get("reserved_bytes", 0))
+                   for p in procs]
             print(f"  {label}: {len(procs)} processes, median "
                   f"{1e3 * med:.1f} ms (IQR {1e3 * q1:.1f}-{1e3 * q3:.1f}), "
                   f"process medians {1e3 * min(meds):.1f}-"
-                  f"{1e3 * max(meds):.1f} ms")
+                  f"{1e3 * max(meds):.1f} ms, peak allocated "
+                  f"{max(a for a, _ in mem) / 2**30:.3f} GiB, peak "
+                  f"reserved {max(r for _, r in mem) / 2**30:.3f} GiB")
     return 0
 
 
@@ -75,11 +82,13 @@ def main() -> int:
         print("fit_times: no CUDA device", file=sys.stderr)
         return 2
     import numpy as np
-    from repro_torch.core import (LinearSVC, Logistic, MultiTaskLasso,
+    from repro_torch.core import (Lasso, LinearSVC, Logistic,
+                                  MCPRegression, MultiTaskLasso,
                                   MultiTaskMCP, MultitaskQuadratic,
                                   SparseLogisticRegression, lambda_max)
     from repro_torch.core.engine import DenseDesign
-    from repro_torch.data import (make_classification, make_leadfield,
+    from repro_torch.data import (make_classification,
+                                  make_correlated_design, make_leadfield,
                                   make_multitask, make_sparse_design)
     from repro_torch.kernels import ops
     from repro_torch.sparse import CSCDesign
@@ -92,6 +101,8 @@ def main() -> int:
         for i in range(reps + 1):
             est = make()
             torch.cuda.synchronize()
+            if not i:
+                torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             ops.reset_launch_counts()
             t = time.perf_counter()
@@ -100,19 +111,23 @@ def main() -> int:
             if i:
                 walls.append(time.perf_counter() - t)
                 peaks.append(torch.cuda.max_memory_allocated())
+            else:
+                reserved = torch.cuda.max_memory_reserved()
         res = est.result_
         capture = res.diagnostics.get("capture_s", [])
         out["fits"][label] = dict(
             walls=walls, median=statistics.median(walls),
             converged=bool(est.converged_),
             outer_steps=len(res.kkt_history), host_reads=res.n_host_syncs,
-            peak_bytes=max(peaks), captures=len(capture),
+            peak_bytes=max(peaks), reserved_bytes=reserved,
+            captures=len(capture),
             capture_s=[float(c) for c in capture],
             launches={k: v for k, v in ops.launch_counts().items() if v})
         cs.log(f"{label}: median {statistics.median(walls):.4f} s, walls "
                f"{[round(w, 4) for w in walls]}, outer steps "
                f"{len(res.kkt_history)}, host reads {res.n_host_syncs}, "
-               f"peak {max(peaks) / 2**30:.3f} GiB, captures "
+               f"peak {max(peaks) / 2**30:.3f} GiB, reserved "
+               f"{reserved / 2**30:.3f} GiB, captures "
                f"{[round(float(c), 4) for c in capture]} s")
 
     m = cfg["meeg"]
@@ -132,6 +147,20 @@ def main() -> int:
     frac = cfg["mt_dense_frac"]
     timed("dense MultiTaskLasso",
           lambda: MultiTaskLasso(alpha=lmax / frac, tol=cs.TOL), design, Y)
+    del design
+    torch.cuda.empty_cache()
+
+    X, y, _ = make_correlated_design(n=cfg["reg_n"], p=cfg["reg_p"],
+                                     n_nonzero=cfg["reg_nnz"], rho=0.5,
+                                     snr=5.0, seed=0)
+    design = DenseDesign.from_dense(X, dev)
+    del X
+    lmax = lambda_max(design, y, device=dev)
+    timed("dense Lasso", lambda: Lasso(alpha=lmax / 20, tol=cs.TOL),
+          design, y)
+    timed("dense MCPRegression",
+          lambda: MCPRegression(alpha=lmax / 10, gamma=3.0, tol=cs.TOL),
+          design, y)
     del design
     torch.cuda.empty_cache()
 

@@ -14,11 +14,11 @@ Layering (bottom-up):
                         ``use_kernels``, the kernel wrappers K1 / K2
                         (kernels/ops.py).
   SolveEngine           the outer step; with ``use_kernels`` its head is the
-                        fused kernel K3 on a dense design (one pass over X
-                        yields the scores, the gradient and the candidate
-                        columns; K3b for blocks yields the scores and the
-                        gradient, and the working set's rows are gathered),
-                        and on a CSC design the sparse score kernel K5
+                        fused kernel K3 (K3b for blocks) on a dense design
+                        (one pass over X yields the scores and the
+                        gradient; the working set's rows are gathered, and
+                        no candidate buffer exists), and on a CSC design
+                        the sparse score kernel K5
                         followed by the selection and the window gather
                         (the reference's two-pass sparse head).
 
@@ -66,8 +66,7 @@ from ..kernels.common import (SCALAR_COORD_PENALTIES,
 from .anderson import anderson_extrapolate
 from .cd import cd_epoch_gram, cd_epoch_xb
 from .flow import CapturedFlow, GraphPools, HostFlow
-from .working_set import (candidate_columns, select_working_set,
-                          violation_scores)
+from .working_set import select_working_set, violation_scores
 
 __all__ = ["EngineConfig", "SolveEngine", "SubproblemSolver", "GramSolver",
            "XbSolver", "KERNEL_DATAFIT_KINDS", "DenseDesign", "as_design",
@@ -90,8 +89,8 @@ PALLAS_SPARSE_ELL_ERROR = (
     "matrix in README.md (Pallas column) and DESIGN.md §8.4")
 
 
-# the most of X a Lipschitz temporary covers (DenseDesign.lipschitz)
-LIPSCHITZ_CHUNK_BYTES = 64 * 2**20
+# the most of X a temporary covers (DenseDesign.from_dense, .lipschitz)
+X_CHUNK_BYTES = 32 * 2**20
 
 
 @dataclass(frozen=True)
@@ -104,11 +103,25 @@ class DenseDesign:
 
     @classmethod
     def from_dense(cls, X, device):
-        """Design of an [n, p] array or tensor, on `device`, dtype kept."""
-        X = torch.as_tensor(X, device=device)
+        """Design of an [n, p] array or tensor, on `device`, dtype kept.
+        A row-major X is moved in row chunks of at most X_CHUNK_BYTES,
+        each transposed on `device` into its columns of Xt, so `device`
+        holds X once and a chunk, never a copy of X beside it; an X whose
+        transpose is contiguous is moved as it is."""
+        X = torch.as_tensor(X)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
         if X.ndim != 2:
             raise ValueError(f"X must be 2-D [n, p], got shape {tuple(X.shape)}")
-        return cls(X.t().contiguous())
+        if X.t().is_contiguous():
+            return cls(X.t().to(device))
+        n, p = X.shape
+        Xt = torch.empty((p, n), dtype=X.dtype, device=device)
+        rows = max(1, X_CHUNK_BYTES // max(1, p * X.element_size()))
+        for i in range(0, n, rows):
+            Xt[:, i:i + rows].copy_(X[i:i + rows].to(device).T)
+        return cls(Xt)
 
     @property
     def X(self):
@@ -152,10 +165,10 @@ class DenseDesign:
 
     def lipschitz(self, datafit, w=None, use_kernels=False):
         """The datafit's per-coordinate Lipschitz constants, taken over
-        feature chunks of at most LIPSCHITZ_CHUNK_BYTES of X: the datafits
+        feature chunks of at most X_CHUNK_BYTES of X: the datafits
         square X elementwise, and over all of X that temporary (as large
         as X) set the fits' peak memory."""
-        rows = max(1, LIPSCHITZ_CHUNK_BYTES
+        rows = max(1, X_CHUNK_BYTES
                    // max(1, self.n_rows * self.Xt.element_size()))
         return torch.cat([
             datafit.lipschitz(c.T) if w is None else datafit.lipschitz(c.T, w)
@@ -461,24 +474,14 @@ class SolveEngine:
         raw = _df_raw(datafit, Xb, y, w)
         gsupp = penalty.generalized_support(beta)
         aux = None
-        if cfg.use_kernels and design.KIND == "dense" and beta.ndim == 2:
-            # fused block head K3b: one pass over X yields the scores and
-            # the offset-corrected gradient; it hands back the working set
-            # and its K rows of X (no candidate buffer)
-            scores, grad, _, ws, Xt_ws = kops.fused_ws_block(
+        if cfg.use_kernels and design.KIND == "dense":
+            # fused head K3 (K3b for blocks): one pass over X yields the
+            # scores and the offset-corrected gradient; it hands back the
+            # working set and its K rows of X (no candidate buffer)
+            head = kops.fused_ws_block if beta.ndim == 2 else kops.fused_ws
+            scores, grad, _, ws, Xt_ws = head(
                 design.Xt, raw, beta, L, offset, gsupp, type(penalty),
                 penalty_params(penalty), bucket, use_fp=cfg.use_fp_score)
-        elif cfg.use_kernels and design.KIND == "dense":
-            # fused head K3: ONE pass over X yields the scores, the
-            # offset-corrected gradient AND the candidate columns; the
-            # merge is select_working_set on the emitted scores plus a
-            # candidate-row lookup
-            scores, grad, cand_idx, cand_cols = kops.fused_ws(
-                design.Xt, raw, beta, L, offset, gsupp, type(penalty),
-                penalty_params(penalty), bucket, use_fp=cfg.use_fp_score)
-            ws = select_working_set(scores, gsupp, bucket)
-            Xt_ws = candidate_columns(cand_idx, cand_cols, ws,
-                                      design.width).T
         else:
             # two-pass head; on a CSC design with use_kernels the score
             # pass is K5 (K5b for a raw gradient [n, T])

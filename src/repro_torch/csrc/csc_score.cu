@@ -36,7 +36,18 @@
 // result is deterministic. Bound: the HBM bytes are data and indices once,
 // raw once and the [p, T] output; the raw rows are gathered through L2
 // (T * 8 bytes per entry, 1.6 GB of L2 reads at sparse_fig2 with T = 20).
+//
+// l2_gather_probe times those gathers as this design makes them (it is no
+// kernel of the solver): `gathers` reads of rows of WIDTH values at hashed
+// (random, uniform) row indices of a buffer [rows, WIDTH] that stays in
+// L2: a warp reads whole rows with neighbouring lanes on neighbouring
+// values (at WIDTH = 20, 8 rows with 5 reads a lane; at WIDTH = 1, 128
+// rows with 4), every lane keeping its reads in flight. Its time for nnz
+// gathers of raw's rows is the floor of this CSC-walk design of K5
+// (WIDTH = 1: a 32-byte sector an entry) and K5b (WIDTH = T), not a bound
+// of the function: a design that blocks by rows could reuse raw on chip.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -110,9 +121,64 @@ int launch(const T* data, const int* indices, const long long* indptr, const T* 
   return (int)cudaGetLastError();
 }
 
+// a hashed row of [0, rows) for gather g: uniform and free of memory reads
+__device__ __forceinline__ unsigned gather_row(unsigned long long g, unsigned rows) {
+  unsigned h = (unsigned)g * 0x9E3779B1u + (unsigned)(g >> 32);
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return (unsigned)(((unsigned long long)h * rows) >> 32);
+}
+
+// M reads a lane an iteration: a warp reads 32 M / WIDTH whole rows
+template <int WIDTH, int M>
+__global__ void l2_gather_kernel(const double* __restrict__ buf, unsigned rows,
+                                 long long gathers, double* out) {
+  static_assert((32 * M) % WIDTH == 0, "a warp reads whole rows");
+  constexpr int RPI = 32 * M / WIDTH;
+  const int lane = threadIdx.x & 31;
+  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
+  int rr[M], cc[M];  // this lane's row within the iteration and value in it
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    rr[m] = (lane + 32 * m) / WIDTH;
+    cc[m] = (lane + 32 * m) % WIDTH;
+  }
+  double acc = 0.0;
+  for (long long g0 = warp * RPI; g0 < gathers; g0 += warps * RPI) {
+    double v[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const long long g = g0 + rr[m];
+      v[m] = g < gathers ? buf[(long long)gather_row(g, rows) * WIDTH + cc[m]] : 0.0;
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) acc += v[m];
+  }
+  if (acc == -1.0) out[0] = acc;  // keeps the reads; buf holds no negatives
+}
+
 }  // namespace
 
 extern "C" {
+
+// `gathers` hashed row reads of buf [rows, width] (width 1 or 20) on
+// `blocks` CTAs of 256 threads
+int l2_gather_probe(const double* buf, int rows, int width, long long gathers, int blocks,
+                    double* out, void* stream) {
+  if (rows <= 0 || gathers < 0 || blocks <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (width == 1)
+    l2_gather_kernel<1, 4><<<blocks, 256, 0, st>>>(buf, (unsigned)rows, gathers, out);
+  else if (width == 20)
+    l2_gather_kernel<20, 5><<<blocks, 256, 0, st>>>(buf, (unsigned)rows, gathers, out);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
 
 int csc_score_f64(const double* data, const int* indices, const long long* indptr,
                   const double* v, double* out, int p, int square, void* stream) {

@@ -8,37 +8,39 @@
 // then, for every tile of bp features, the tile's top-kc features under the
 // lax.top_k order (priority descending, lowest index first on ties,
 // generalized support pinned to +inf; slots past the tile's valid rows emit
-// index p and a zero row), and copies those rows of Xt out as exact
-// candidate columns.
+// index p).
 //
-// What bounds it on the H100: bytes. X is read once (p*n values) and the
-// candidate rows are written once (tiles*kc*n values); the score, sort and
-// index work is small beside that.
+// The TPU kernel copies the candidate columns out of the tile it holds in
+// VMEM. An SM cannot hold a tile of X (bp*n*8 bytes), so a copy here is a
+// second pass over device memory, and its [tiles * kc, n] buffer is as
+// large as X once ws >= bp. So no candidate row is copied: the working set
+// is merged from the tiles' sorted candidate lists, and the wrapper
+// (kernels/ops.py) gathers just its K rows of Xt.
 //
-// Design: two launches on the caller's stream.
-//  1. score pass: one warp per feature over p/8 CTAs, each lane streaming
-//     contiguous elements of the feature's row with four independent
-//     partial sums so loads stay in flight; the score epilogue runs in
-//     registers on lane 0, which also writes the selection priority.
-//  2. select + copy: a (tiles x parts) grid. Every CTA of a tile sorts the
-//     tile's (priority, index) pairs in shared memory with a bitonic
-//     network whose comparison is the lax.top_k total order (the sort is
-//     repeated per CTA; it is small beside the copies), then copies its
-//     share of the kc selected rows with coalesced loads and stores.
-// The TPU kernel copies the candidate columns out of its VMEM-resident tile;
-// an SM cannot hold a tile of X (bp*n*8 bytes), so here the selected rows
-// are read again from device memory (or L2), kc*n values per tile.
+// What bounds it on the H100: bytes. X is read once (p*n values); the
+// score, sort and index work is small beside that.
+//
+// Design: three launches on the caller's stream, no host read.
+//  1. score launch: one warp a feature, each lane streaming contiguous
+//     elements of the feature's row with four independent partial sums so
+//     loads stay in flight; the score epilogue runs in registers on lane 0,
+//     which writes the gradient, the score and the selection priority.
+//  2. select launch: one CTA a tile sorts the tile's (priority, index)
+//     pairs in shared memory with a bitonic network whose comparison is the
+//     lax.top_k total order and writes the first kc indices (cand_idx).
+//  3. merge launch: the working set, the first K of that order over all
+//     features, is the first K of the merged tile lists (a feature in it
+//     is within its tile's first kc = min(bp, K)). ceil(sqrt(tiles)) CTAs
+//     each merge a run of tiles into their first K (merge path: each
+//     thread finds its run of outputs by a binary search, then merges it),
+//     and the last CTA to finish merges those lists. It replaces a stable
+//     sort of all p priorities (several launches, a sixth of the head).
 //
 // K3b (fused_ws_block) replaces the block branch of the same Pallas kernel
 // (multitask coefficients beta [p, T], raw gradient R [n, T], a block
 // penalty): grad = Xt @ R + offset (a [p, T] product), the row score of
 // each feature, and each tile's top-kc candidates (cand_idx) in the
-// lax.top_k order. It copies no candidate rows: the wrapper
-// (kernels/fused_ws.py) takes the working set from the scores and gathers
-// just those rows of Xt. The TPU kernel copies candidates out of a tile it
-// holds in VMEM; an SM cannot hold such a tile, so a copy here is a second
-// pass over HBM, and the [tiles * kc, n] buffer of K3 reached the size of
-// X at ws >= bp.
+// lax.top_k order. Like K3 it copies no candidate rows.
 // Bound on the H100: bytes (X read once, 1.6 GB at n = 10,000,
 // p = 20,000: 0.48 ms at 3.35 TB/s); the 2 p n T products (8 GFLOP at
 // T = 20) take 0.12 ms on the float64 tensor cores (67 TF/s), so they must
@@ -59,7 +61,7 @@
 //  3. score launch: the row epilogue, one thread a feature (norms over T,
 //     the block prox or subdifferential, the priority with the generalized
 //     support pinned to +inf).
-//  4. select launch: K3's tile sort, emitting cand_idx only.
+//  4. select launch: K3's tile sort (cand_idx).
 // float32 keeps the scalar product (block_score_kernel): the tensor cores
 // have no float32 path of this precision.
 //
@@ -79,7 +81,9 @@ namespace {
 
 constexpr int kScoreThreads = 256;   // 8 warps: 8 features per CTA
 constexpr int kSelectThreads = 512;
-constexpr int kTargetCtas = 528;     // 4 CTAs per SM on 132 SMs
+constexpr int kMergeThreads = 512;
+constexpr int kMergeSmemK = 6144;    // the largest K whose merge buffers
+                                     // (3 K entries) fit in shared memory
 constexpr int kBlkFeat = 64;         // K3b: features per CTA (2 per thread)
 constexpr int kBlkN = 64;            // K3b: samples per staged chunk
 constexpr int kBlkThreads = 256;     // K3b: 32 feature pairs x 8 task lanes
@@ -140,9 +144,10 @@ __global__ void score_kernel(const T* __restrict__ Xt, const T* __restrict__ r,
   }
 }
 
+// one CTA a tile of bp features: the tile's top-kc indices (cand_idx) in
+// the lax.top_k order of the priorities
 template <typename T>
-__global__ void select_kernel(const T* __restrict__ Xt, const T* __restrict__ pri_in,
-                              int* cand_idx, T* cand_cols, int n, int p, int bp, int kc,
+__global__ void select_kernel(const T* __restrict__ pri_in, int* cand_idx, int p, int bp, int kc,
                               int sortn) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* pri = reinterpret_cast<T*>(smem_raw);
@@ -179,27 +184,138 @@ __global__ void select_kernel(const T* __restrict__ Xt, const T* __restrict__ pr
   }
 
   const long long row0 = (long long)blockIdx.x * kc;
-  if (cand_cols == nullptr) {  // K3b: the candidates' indices only
-    for (int k = threadIdx.x; k < kc; k += blockDim.x) {
-      const int sel = idx[k];
-      const long long j = base + sel;
-      cand_idx[row0 + k] = (sel < bp && j < p) ? (int)j : p;
-    }
-    return;
-  }
-  for (int k = blockIdx.y; k < kc; k += gridDim.y) {
+  for (int k = threadIdx.x; k < kc; k += blockDim.x) {
     const int sel = idx[k];
     const long long j = base + sel;
-    const bool valid = sel < bp && j < p;
-    if (threadIdx.x == 0) cand_idx[row0 + k] = valid ? (int)j : p;
-    T* dst = cand_cols + (row0 + k) * (long long)n;
-    if (valid) {
-      const T* src = Xt + j * (long long)n;
-      for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-    } else {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = T(0);
+    cand_idx[row0 + k] = (sel < bp && j < p) ? (int)j : p;
+  }
+}
+
+// the position i in A of the d-th output of merge(A, B) (ties take A first):
+// the first d outputs are A[0, i) and B[0, d - i)
+template <typename T>
+__device__ int merge_path(const T* ap, const int* ai, int la, const T* bq, const int* bi, int lb,
+                          int d) {
+  int lo = max(0, d - lb), hi = min(d, la);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const int j = d - mid - 1;
+    if (before(bq[j], bi[j], ap[mid], ai[mid]))
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+// C[0, lc) = the first lc outputs of merge(A, B), by every thread of the
+// CTA (each a contiguous run found by merge_path); ends with a barrier
+template <typename T>
+__device__ void merge_into(const T* ap, const int* ai, int la, const T* bq, const int* bi, int lb,
+                           T* cp, int* ci, int lc) {
+  const int per = (lc + blockDim.x - 1) / blockDim.x;
+  const int d0 = min(lc, (int)threadIdx.x * per), d1 = min(lc, d0 + per);
+  if (d0 < d1) {
+    int i = merge_path(ap, ai, la, bq, bi, lb, d0), j = d0 - i;
+    for (int d = d0; d < d1; ++d) {
+      if (j >= lb || (i < la && !before(bq[j], bi[j], ap[i], ai[i]))) {
+        cp[d] = ap[i];
+        ci[d] = ai[i];
+        ++i;
+      } else {
+        cp[d] = bq[j];
+        ci[d] = bi[j];
+        ++j;
+      }
     }
   }
+  __syncthreads();
+}
+
+// K3's working set: the first K features of the lax.top_k order of the
+// priorities, from the tiles' sorted top-kc lists (cand_idx). Every CTA
+// merges the lists of `per_cta` consecutive tiles into its top K (a
+// tile whose first candidate comes after the K-th kept one is skipped),
+// writes them to part [gridDim.x, K] (sentinels past the candidates it
+// has), and the last CTA to finish merges those partial lists and writes
+// ws. The buffers A, C (K entries each, the kept list and the merge
+// output) and B (K entries, the list merged in) lie in shared memory, or
+// where `gbuf_pri` is given in that global scratch [gridDim.x, 3, K].
+template <typename T>
+__global__ void __launch_bounds__(kMergeThreads)
+    ws_merge_kernel(const T* __restrict__ pri, const int* __restrict__ cand_idx, T* part_pri,
+                    int* part_idx, T* gbuf_pri, int* gbuf_idx, unsigned* counter, long long* ws,
+                    int p, int bp, int kc, int K, int per_cta) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int last;
+  T* bufp;
+  int* bufi;
+  if (gbuf_pri) {
+    bufp = gbuf_pri + (long long)blockIdx.x * 3 * K;
+    bufi = gbuf_idx + (long long)blockIdx.x * 3 * K;
+  } else {
+    bufp = reinterpret_cast<T*>(smem_raw);
+    bufi = reinterpret_cast<int*>(bufp + 3 * K);
+  }
+  T *ap = bufp, *cp = bufp + K, *bq = bufp + 2 * K;
+  int *ai = bufi, *ci = bufi + K, *bi = bufi + 2 * K;
+  const int tid = threadIdx.x;
+  const int tiles = (p + bp - 1) / bp;
+  int la = 0;
+  const int t1 = min(tiles, (int)(blockIdx.x + 1) * per_cta);
+  for (int t = blockIdx.x * per_cta; t < t1; ++t) {
+    const int lb = min(kc, p - t * bp);  // the tile's real candidates
+    const int* src = cand_idx + (long long)t * kc;
+    if (la == K && !before(pri[src[0]], src[0], ap[K - 1], ai[K - 1])) continue;
+    for (int k = tid; k < lb; k += blockDim.x) {
+      const int j = src[k];
+      bi[k] = j;
+      bq[k] = pri[j];
+    }
+    __syncthreads();
+    const int lc = min(K, la + lb);
+    merge_into(ap, ai, la, bq, bi, lb, cp, ci, lc);
+    T* tp = ap;
+    ap = cp;
+    cp = tp;
+    int* ti = ai;
+    ai = ci;
+    ci = ti;
+    la = lc;
+  }
+  T* mp = part_pri + (long long)blockIdx.x * K;
+  int* mi = part_idx + (long long)blockIdx.x * K;
+  for (int k = tid; k < K; k += blockDim.x) {
+    mp[k] = k < la ? ap[k] : (T)(-INFINITY);
+    mi[k] = k < la ? ai[k] : 0x7fffffff;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  // the last CTA: merge the partial lists (read past L1: other SMs wrote them)
+  la = 0;
+  for (int g = 0; g < (int)gridDim.x; ++g) {
+    const T* gp = part_pri + (long long)g * K;
+    const int* gi = part_idx + (long long)g * K;
+    if (la == K && !before(__ldcg(gp), __ldcg(gi), ap[K - 1], ai[K - 1])) continue;
+    for (int k = tid; k < K; k += blockDim.x) {
+      bq[k] = __ldcg(gp + k);
+      bi[k] = __ldcg(gi + k);
+    }
+    __syncthreads();
+    const int lc = min(K, la + K);
+    merge_into(ap, ai, la, bq, bi, K, cp, ci, lc);
+    T* tp = ap;
+    ap = cp;
+    cp = tp;
+    int* ti = ai;
+    ai = ci;
+    ci = ti;
+    la = lc;
+  }
+  for (int k = tid; k < K; k += blockDim.x) ws[k] = ai[k];
 }
 
 // K3b's score launch: A task slots of 8 lanes each per pass (TC = 8A
@@ -523,43 +639,65 @@ int launch_block_score(const T* Xt, const T* R, const T* beta, const T* L, const
   return (int)cudaErrorInvalidValue;
 }
 
-// the select launch of K3 and K3b on the priorities `pri`: K3 copies the
-// candidate rows too (split over `parts` CTAs a tile); K3b passes no
-// cand_cols and takes one CTA a tile
+// the select launch of K3 and K3b on the priorities `pri`: one CTA a tile
 template <typename T>
-int launch_select(const T* Xt, const T* pri, int* cand_idx, T* cand_cols, int n, int p, int bp,
-                  int kc, cudaStream_t st) {
+int launch_select(const T* pri, int* cand_idx, int p, int bp, int kc, cudaStream_t st) {
+  if (p <= 0 || bp <= 0 || kc <= 0 || kc > bp) return (int)cudaErrorInvalidValue;
   int sortn = 1;
   while (sortn < bp) sortn <<= 1;
   const size_t dyn = (size_t)sortn * (sizeof(T) + sizeof(int));
   const int tiles = (p + bp - 1) / bp;
-  int parts = (kTargetCtas + tiles - 1) / tiles;
-  if (parts > kc) parts = kc;
-  if (cand_cols == nullptr) parts = 1;  // K3b: no copies to share out
-  cudaFuncSetAttribute(select_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-  select_kernel<T><<<dim3(tiles, parts), kSelectThreads, dyn, st>>>(
-      Xt, pri, cand_idx, cand_cols, n, p, bp, kc, sortn);
+  cudaError_t err =
+      cudaFuncSetAttribute(select_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (err != cudaSuccess) return (int)err;
+  select_kernel<T><<<tiles, kSelectThreads, dyn, st>>>(pri, cand_idx, p, bp, kc, sortn);
   return (int)cudaGetLastError();
 }
 
+// K3's merge launch: ws [K] from the priorities and the select launch's
+// cand_idx; part [ctas, K] and, for K > kMergeSmemK, gbuf [ctas, 3, K] are
+// the caller's scratch, counter one zeroed unsigned
 template <typename T>
-int launch_fused(const T* Xt, const T* r, const T* beta, const T* L, const T* offset,
-                 const uint8_t* gsupp, T* scores, T* grad, T* pri, int* cand_idx,
-                 T* cand_cols, int n, int p, int bp, int kc, int pen, int use_fp, double p0,
-                 double p1, void* stream) {
+int launch_merge(const T* pri, const int* cand_idx, T* part_pri, int* part_idx, T* gbuf_pri,
+                 int* gbuf_idx, unsigned* counter, long long* ws, int p, int bp, int kc, int K,
+                 int ctas, cudaStream_t st) {
+  const int tiles = (p + bp - 1) / bp;
+  if (p <= 0 || K <= 0 || K > p || kc <= 0 || kc > bp || ctas <= 0 || ctas > tiles ||
+      (K > kMergeSmemK) != (gbuf_pri != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int per_cta = (tiles + ctas - 1) / ctas;
+  const size_t dyn = K > kMergeSmemK ? 0 : (size_t)3 * K * (sizeof(T) + sizeof(int));
+  cudaError_t err = cudaFuncSetAttribute(ws_merge_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (err != cudaSuccess) return (int)err;
+  ws_merge_kernel<T><<<ctas, kMergeThreads, dyn, st>>>(pri, cand_idx, part_pri, part_idx,
+                                                       gbuf_pri, gbuf_idx, counter, ws, p, bp, kc,
+                                                       K, per_cta);
+  return (int)cudaGetLastError();
+}
+
+// the score launch of K3 (gsupp, grad and pri given) and K4 (w optional;
+// gsupp, grad and pri null)
+template <typename T>
+int launch_score(const T* Xt, const T* r, const T* w, const T* beta, const T* L,
+                 const T* offset, const uint8_t* gsupp, T* scores, T* grad, T* pri, int n, int p,
+                 int pen, int use_fp, double p0, double p1, void* stream) {
+  if (p <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   const int per_cta = kScoreThreads / 32;
-  score_kernel<T, false><<<(p + per_cta - 1) / per_cta, kScoreThreads, 0, st>>>(
-      Xt, r, nullptr, beta, L, offset, gsupp, scores, grad, pri, n, p, pen, use_fp, (T)p0,
-      (T)p1);
-  int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  return launch_select(Xt, pri, cand_idx, cand_cols, n, p, bp, kc, st);
+  const int ctas = (p + per_cta - 1) / per_cta;
+  if (w)
+    score_kernel<T, true><<<ctas, kScoreThreads, 0, st>>>(
+        Xt, r, w, beta, L, offset, gsupp, scores, grad, pri, n, p, pen, use_fp, (T)p0, (T)p1);
+  else
+    score_kernel<T, false><<<ctas, kScoreThreads, 0, st>>>(
+        Xt, r, nullptr, beta, L, offset, gsupp, scores, grad, pri, n, p, pen, use_fp, (T)p0,
+        (T)p1);
+  return (int)cudaGetLastError();
 }
 
 // K3b: the score launches (DMMA in float64, with `part` the scratch of
 // `splits` spans; the scalar product in float32), then the select launch
-// emitting cand_idx only
 template <typename T>
 int launch_fused_block(const T* Xt, const T* R, const T* beta, const T* L, const T* offset,
                        const uint8_t* gsupp, T* scores, T* grad, T* pri, int* cand_idx,
@@ -575,61 +713,52 @@ int launch_fused_block(const T* Xt, const T* R, const T* beta, const T* L, const
     rc = launch_block_score(Xt, R, beta, L, offset, gsupp, scores, grad, pri, n, p, nt, pen,
                             use_fp, p0, p1, st);
   if (rc != 0) return rc;
-  return launch_select<T>(Xt, pri, cand_idx, nullptr, n, p, bp, kc, st);
-}
-
-template <typename T>
-int launch_ws_score(const T* Xt, const T* r, const T* w, const T* beta, const T* L,
-                    const T* offset, T* scores, int n, int p, int pen, int use_fp, double p0,
-                    double p1, void* stream) {
-  if (p <= 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int per_cta = kScoreThreads / 32;
-  const int ctas = (p + per_cta - 1) / per_cta;
-  if (w) {
-    score_kernel<T, true><<<ctas, kScoreThreads, 0, st>>>(
-        Xt, r, w, beta, L, offset, nullptr, scores, nullptr, nullptr, n, p, pen, use_fp,
-        (T)p0, (T)p1);
-  } else {
-    score_kernel<T, false><<<ctas, kScoreThreads, 0, st>>>(
-        Xt, r, nullptr, beta, L, offset, nullptr, scores, nullptr, nullptr, n, p, pen,
-        use_fp, (T)p0, (T)p1);
-  }
-  return (int)cudaGetLastError();
+  return launch_select<T>(pri, cand_idx, p, bp, kc, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-int ws_score_f64(const double* Xt, const double* r, const double* w, const double* beta,
-                 const double* L, const double* offset, double* scores, int n, int p, int pen,
-                 int use_fp, double p0, double p1, void* stream) {
-  return launch_ws_score<double>(Xt, r, w, beta, L, offset, scores, n, p, pen, use_fp, p0,
-                                 p1, stream);
+// K3's score launch and K4
+int score_f64(const double* Xt, const double* r, const double* w, const double* beta,
+              const double* L, const double* offset, const uint8_t* gsupp, double* scores,
+              double* grad, double* pri, int n, int p, int pen, int use_fp, double p0, double p1,
+              void* stream) {
+  return launch_score<double>(Xt, r, w, beta, L, offset, gsupp, scores, grad, pri, n, p, pen,
+                              use_fp, p0, p1, stream);
 }
 
-int ws_score_f32(const float* Xt, const float* r, const float* w, const float* beta,
-                 const float* L, const float* offset, float* scores, int n, int p, int pen,
-                 int use_fp, double p0, double p1, void* stream) {
-  return launch_ws_score<float>(Xt, r, w, beta, L, offset, scores, n, p, pen, use_fp, p0, p1,
-                                stream);
+int score_f32(const float* Xt, const float* r, const float* w, const float* beta,
+              const float* L, const float* offset, const uint8_t* gsupp, float* scores,
+              float* grad, float* pri, int n, int p, int pen, int use_fp, double p0, double p1,
+              void* stream) {
+  return launch_score<float>(Xt, r, w, beta, L, offset, gsupp, scores, grad, pri, n, p, pen,
+                             use_fp, p0, p1, stream);
 }
 
-int fused_ws_f64(const double* Xt, const double* r, const double* beta, const double* L,
-                 const double* offset, const uint8_t* gsupp, double* scores, double* grad,
-                 double* pri, int* cand_idx, double* cand_cols, int n, int p, int bp, int kc,
-                 int pen, int use_fp, double p0, double p1, void* stream) {
-  return launch_fused<double>(Xt, r, beta, L, offset, gsupp, scores, grad, pri, cand_idx,
-                              cand_cols, n, p, bp, kc, pen, use_fp, p0, p1, stream);
+// K3's merge launch
+int merge_f64(const double* pri, const int* cand_idx, double* part_pri, int* part_idx,
+              double* gbuf_pri, int* gbuf_idx, unsigned* counter, long long* ws, int p, int bp,
+              int kc, int K, int ctas, void* stream) {
+  return launch_merge<double>(pri, cand_idx, part_pri, part_idx, gbuf_pri, gbuf_idx, counter, ws,
+                              p, bp, kc, K, ctas, (cudaStream_t)stream);
 }
 
-int fused_ws_f32(const float* Xt, const float* r, const float* beta, const float* L,
-                 const float* offset, const uint8_t* gsupp, float* scores, float* grad,
-                 float* pri, int* cand_idx, float* cand_cols, int n, int p, int bp, int kc,
-                 int pen, int use_fp, double p0, double p1, void* stream) {
-  return launch_fused<float>(Xt, r, beta, L, offset, gsupp, scores, grad, pri, cand_idx,
-                             cand_cols, n, p, bp, kc, pen, use_fp, p0, p1, stream);
+int merge_f32(const float* pri, const int* cand_idx, float* part_pri, int* part_idx,
+              float* gbuf_pri, int* gbuf_idx, unsigned* counter, long long* ws, int p, int bp,
+              int kc, int K, int ctas, void* stream) {
+  return launch_merge<float>(pri, cand_idx, part_pri, part_idx, gbuf_pri, gbuf_idx, counter, ws,
+                             p, bp, kc, K, ctas, (cudaStream_t)stream);
+}
+
+// K3's select launch
+int select_f64(const double* pri, int* cand_idx, int p, int bp, int kc, void* stream) {
+  return launch_select<double>(pri, cand_idx, p, bp, kc, (cudaStream_t)stream);
+}
+
+int select_f32(const float* pri, int* cand_idx, int p, int bp, int kc, void* stream) {
+  return launch_select<float>(pri, cand_idx, p, bp, kc, (cudaStream_t)stream);
 }
 
 int fused_ws_block_f64(const double* Xt, const double* R, const double* beta, const double* L,

@@ -119,9 +119,10 @@ _SIGNATURES = {
                                 _I, _I, _D, _D, _I, _I, _I, _I, _I, _P],
     },
     "fused_ws": {
-        "fused_ws": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                     _I, _I, _I, _D, _D, _P],
-        "ws_score": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _P],
+        "score": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D,
+                  _D, _P],
+        "select": [_P, _P, _I, _I, _I, _P],
+        "merge": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "fused_ws_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                            _I, _I, _I, _I, _I, _I, _D, _D, _P],
     },
@@ -139,6 +140,7 @@ _PLAIN_SIGNATURES = {
                  "fill_shared_memory": [_P],
                  "cluster_capacity": [_I, _I, _I, _I, _I, _I, _P]},
     "fused_ws": {"fused_ws_block_splits": [_I, _I]},
+    "csc_score": {"l2_gather_probe": [_P, _I, _I, _LL, _I, _P, _P]},
     "graph_ctl": {"cond_begin": [_P, _P, _I, _P, _P],
                   "cond_end": [_P, ctypes.c_ulonglong, _P],
                   "runtime_version": []},

@@ -21,7 +21,8 @@ import torch
 from ._build import BUILD
 from .cd_epoch import _check_rc, _suffix
 
-__all__ = ["csc_score_plain", "csc_score_cuda", "csc_score_block_cuda"]
+__all__ = ["csc_score_plain", "csc_score_cuda", "csc_score_block_cuda",
+           "l2_gather_probe_cuda"]
 
 
 def csc_score_plain(data, indices, col_ids, indptr, v, *, square=False):
@@ -60,3 +61,18 @@ def csc_score_block_cuda(data, indices, col_ids, indptr, raw):
                 raw.data_ptr(), out.data_ptr(), p, T, stream)
     _check_rc(rc, "csc_score_block")
     return out
+
+
+def l2_gather_probe_cuda(buf, gathers, blocks=132 * 8):
+    """Enqueue `gathers` reads of rows of `buf` [rows, width] (float64,
+    width 1 or 20) at hashed row indices: the floor of the gathers of raw
+    through L2 that K5's and K5b's CSC column walk makes (counted in no
+    launch count)."""
+    lib = BUILD.lib("csc_score")
+    rows, width = buf.shape
+    out = torch.empty(1, dtype=torch.float64, device=buf.device)
+    with torch.cuda.device(buf.device):
+        stream = torch.cuda.current_stream(buf.device).cuda_stream
+        rc = lib.l2_gather_probe(buf.data_ptr(), rows, width, gathers, blocks,
+                                 out.data_ptr(), stream)
+    _check_rc(rc, "l2_gather_probe")

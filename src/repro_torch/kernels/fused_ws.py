@@ -1,28 +1,33 @@
-"""K3 and K3b: the fused working-set head (``csrc/fused_ws.cu``, a score
-launch and a select+copy launch), its CUDA launchers and its plain torch
-version.
+"""K3 and K3b: the fused working-set head (``csrc/fused_ws.cu``), its CUDA
+launchers and its plain torch version.
 
 K3 replaces ``repro/kernels/fused_ws.py:fused_ws_pallas`` (scalar form): one
-pass over feature tiles of the feature-major design Xt [p, n] yields the
-violation scores, the offset-corrected gradient, each tile's top-``kc``
-candidates (``kc = min(bp, ws_size)``) under the ``lax.top_k`` order with
-the generalized support pinned to +inf, and exact copies of the candidate
-columns. The final working set is ``select_working_set`` on the emitted
-scores, and ``candidate_columns`` recovers ``X[:, ws]`` from the buffer.
-Exhausted slots emit index p with a zero column.
+pass over the feature-major design Xt [p, n] yields the violation scores,
+the offset-corrected gradient and each tile's top-``kc`` candidates
+(``kc = min(bp, ws_size)``) under the ``lax.top_k`` order with the
+generalized support pinned to +inf; exhausted slots emit index p. On the
+card it is three launches: the score launch (``score_cuda``, which K4
+shares), the select launch (``select_cuda``) and the merge launch
+(``merge_cuda``), which merges the tiles' sorted lists into the working
+set, equal to ``select_working_set`` on the scores. None copies a
+candidate row: the wrapper (``kernels/ops.py``) gathers the working set's
+K rows of Xt, so no [tiles * kc, n] buffer exists on the card.
 
 K3b replaces the block branch of the same kernel (multitask coefficients
 beta [p, T], raw gradient R [n, T], a block penalty): the gradient is
 [p, T] and each feature's score is its row score (``subdiff_dist`` of the
 block penalty, or the row norm of the fixed-point difference). In float64
-its product runs on the tensor cores (DMMA), and its select launch emits
-``cand_idx`` without copying candidate rows: the wrapper
-(``kernels/ops.py``) picks the working set from the scores and gathers
-those K rows of Xt, so no [tiles * kc, n] buffer exists on its path. The
-plain version below covers both forms and keeps the four outputs
-(``cand_cols`` included): it is the oracle both heads are held to.
+its product runs on the tensor cores (DMMA); its select launch is K3's,
+and its wrapper takes the working set with ``select_working_set``.
+
+The plain version below covers both forms and keeps the four outputs
+(``cand_cols``, the candidates' rows of Xt, included): it is the oracle
+both heads are held to, and ``candidate_columns`` recovers the working
+set's rows from it.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -31,11 +36,15 @@ from ._build import BUILD
 from .cd_epoch import _check_rc, _suffix, kernel_params
 from .common import make_penalty
 
-__all__ = ["pick_bp", "fused_ws_plain", "fused_ws_cuda",
-           "fused_ws_block_cuda", "MMA_TASKS"]
+__all__ = ["pick_bp", "fused_ws_plain", "fused_ws_cuda", "score_cuda",
+           "select_cuda", "merge_cuda", "fused_ws_block_cuda", "MMA_TASKS",
+           "MERGE_SMEM_K"]
 
 # tasks a pass of K3b's float64 product launch (csrc/fused_ws.cu: kMmaT)
 MMA_TASKS = 24
+# the largest working set whose merge lists fit in shared memory
+# (csrc/fused_ws.cu: kMergeSmemK)
+MERGE_SMEM_K = 6144
 
 
 def pick_bp(p: int, cap: int = 1024) -> int:
@@ -76,26 +85,94 @@ def fused_ws_plain(Xt, r, beta, L, offset, gsupp, penalty_cls, params,
     return scores, grad, cand_idx, cand_cols
 
 
-def fused_ws_cuda(Xt, r, beta, L, offset, gsupp, penalty_cls, params,
-                  ws_size, *, use_fp=False, bp=None):
-    """Launch K3 on the tensors' stream; Xt is contiguous [p, n]."""
-    fn = getattr(BUILD.lib("fused_ws"), f"fused_ws_{_suffix(Xt)}")
+def score_cuda(Xt, r, beta, L, offset, penalty_cls, params, *, w=None,
+               gsupp=None, use_fp=False):
+    """Launch the score pass on the tensors' stream (Xt contiguous [p, n]):
+    K4's scores, or with `gsupp` K3's (scores, grad, pri), pri the
+    selection priorities."""
+    fn = getattr(BUILD.lib("fused_ws"), f"score_{_suffix(Xt)}")
     p, n = Xt.shape
-    bp, tiles, kc = _tiling(p, ws_size, bp)
     pid, p0, p1 = kernel_params(penalty_cls, params)
-    # pri: the selection priorities, scratch between the two launches
-    scores, grad, pri = (torch.empty_like(beta) for _ in range(3))
-    cand_idx = torch.empty(tiles * kc, dtype=torch.int32, device=Xt.device)
-    cand_cols = torch.empty((tiles * kc, n), dtype=Xt.dtype, device=Xt.device)
+    scores = torch.empty_like(beta)
+    grad = pri = None
+    if gsupp is not None:
+        grad, pri = torch.empty_like(beta), torch.empty_like(beta)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(Xt.device):
         stream = torch.cuda.current_stream(Xt.device).cuda_stream
-        rc = fn(Xt.data_ptr(), r.data_ptr(), beta.data_ptr(), L.data_ptr(),
-                offset.data_ptr(), gsupp.data_ptr(), scores.data_ptr(),
-                grad.data_ptr(), pri.data_ptr(), cand_idx.data_ptr(),
-                cand_cols.data_ptr(),
-                n, p, bp, kc, pid, int(bool(use_fp)), p0, p1, stream)
-    _check_rc(rc, "fused_ws")
-    return scores, grad, cand_idx, cand_cols
+        rc = fn(Xt.data_ptr(), r.data_ptr(), ptr(w), beta.data_ptr(),
+                L.data_ptr(), offset.data_ptr(), ptr(gsupp),
+                scores.data_ptr(), ptr(grad), ptr(pri), n, p, pid,
+                int(bool(use_fp)), p0, p1, stream)
+    _check_rc(rc, "score")
+    return scores if gsupp is None else (scores, grad, pri)
+
+
+def select_cuda(pri, bp, kc):
+    """Launch the select pass on `pri` [p]'s stream: each tile of `bp`
+    features' top-`kc` indices in the ``lax.top_k`` order, padded with p
+    ([tiles * kc] int32)."""
+    fn = getattr(BUILD.lib("fused_ws"), f"select_{_suffix(pri)}")
+    p = pri.shape[0]
+    cand_idx = torch.empty(-(-p // bp) * kc, dtype=torch.int32,
+                           device=pri.device)
+    with torch.cuda.device(pri.device):
+        stream = torch.cuda.current_stream(pri.device).cuda_stream
+        rc = fn(pri.data_ptr(), cand_idx.data_ptr(), p, bp, kc, stream)
+    _check_rc(rc, "select")
+    return cand_idx
+
+
+def merge_cuda(pri, cand_idx, bp, ws_size):
+    """Launch the merge pass on `pri` [p]'s stream: the working set, the
+    first `ws_size` features of the ``lax.top_k`` order of the priorities,
+    merged from the tiles' sorted top-kc lists `cand_idx` (int64
+    [ws_size]; its plain version is ``select_working_set``). Its
+    ceil(sqrt(tiles)) CTAs each merge a run of tiles, the last to finish
+    merges their lists; past MERGE_SMEM_K the lists lie in global
+    scratch."""
+    fn = getattr(BUILD.lib("fused_ws"), f"merge_{_suffix(pri)}")
+    p = pri.shape[0]
+    tiles = -(-p // bp)
+    kc = cand_idx.shape[0] // tiles
+    ctas = min(tiles, math.ceil(math.sqrt(tiles)))
+    dev = pri.device
+
+    def scratch(entries):
+        return (torch.empty(entries, dtype=pri.dtype, device=dev),
+                torch.empty(entries, dtype=torch.int32, device=dev))
+
+    part_pri, part_idx = scratch(ctas * ws_size)
+    gbuf_pri = gbuf_idx = None
+    if ws_size > MERGE_SMEM_K:
+        gbuf_pri, gbuf_idx = scratch(3 * ctas * ws_size)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    ws = torch.empty(ws_size, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(pri.data_ptr(), cand_idx.data_ptr(), part_pri.data_ptr(),
+                part_idx.data_ptr(),
+                None if gbuf_pri is None else gbuf_pri.data_ptr(),
+                None if gbuf_idx is None else gbuf_idx.data_ptr(),
+                counter.data_ptr(), ws.data_ptr(), p, bp, kc, ws_size, ctas,
+                stream)
+    _check_rc(rc, "merge")
+    return ws
+
+
+def fused_ws_cuda(Xt, r, beta, L, offset, gsupp, penalty_cls, params,
+                  ws_size, *, use_fp=False, bp=None):
+    """Launch K3 (the score, select and merge launches) on the tensors'
+    stream; Xt is contiguous [p, n]. Returns (scores, grad, cand_idx, ws):
+    no candidate rows are copied."""
+    bp, _, kc = _tiling(Xt.shape[0], ws_size, bp)
+    scores, grad, pri = score_cuda(Xt, r, beta, L, offset, penalty_cls,
+                                   params, gsupp=gsupp, use_fp=use_fp)
+    cand_idx = select_cuda(pri, bp, kc)
+    return scores, grad, cand_idx, merge_cuda(pri, cand_idx, bp, ws_size)
 
 
 _SPLITS: dict = {}

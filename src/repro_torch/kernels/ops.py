@@ -10,13 +10,14 @@ kernel to the plain version. ``launches`` is a plain int on the wrapper;
 
   cd_epoch_gram        K1, CD epochs on the Gram subproblem
   cd_epoch_xb          K2, CD epochs on the Xb state
-  fused_ws             K3, the fused working-set head (dense designs)
+  fused_ws             K3, the fused working-set head (dense designs),
+                       with the working set's rows in place of the
+                       candidates
   ws_score             K4, the two-pass score head (dense designs)
   csc_score            K5, the sparse score pass X.T @ raw (CSC designs)
   csc_weighted_col_sq  K5s, K5 in square mode: sum_i w_i x_ij^2
   cd_epoch_gram_block  K1b, K1 on multitask blocks beta [K, T]
-  fused_ws_block       K3b, K3 on blocks: raw [n, T], beta [p, T], with
-                       the working set's rows in place of the candidates
+  fused_ws_block       K3b, K3 on blocks: raw [n, T], beta [p, T]
   csc_score_block      K5b, K5 on a raw gradient [n, T] -> [p, T]
 
 The block forms have counters of their own, so a run can tell the block
@@ -47,8 +48,9 @@ from .common import (UnsupportedPenaltyError, check_block_kernel_penalty,
                      make_penalty, penalty_params)
 from .csc_score import csc_score_block_cuda, csc_score_cuda, csc_score_plain
 from ..core.working_set import candidate_columns, select_working_set
-from .fused_ws import fused_ws_block_cuda, fused_ws_cuda, fused_ws_plain
-from .ws_score import ws_score_cuda, ws_score_plain
+from .fused_ws import (fused_ws_block_cuda, fused_ws_cuda, fused_ws_plain,
+                       score_cuda)
+from .ws_score import ws_score_plain
 
 __all__ = ["cd_epoch_gram", "cd_epoch_xb", "fused_ws", "ws_score",
            "csc_score", "csc_weighted_col_sq", "cd_epoch_gram_block",
@@ -210,12 +212,31 @@ def cd_epoch_xb(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls, params,
     return out
 
 
+def _plain_head(Xt, r, beta, L, offset, gsupp, penalty_cls, params,
+                ws_size, use_fp, bp):
+    """The CPU route of K3 and K3b: the plain version's four outputs, the
+    working set (``select_working_set`` on the scores) and its rows of Xt
+    recovered from the candidate buffer (``candidate_columns``)."""
+    scores, grad, cand_idx, cand_cols = fused_ws_plain(
+        Xt, r, beta, L, offset, gsupp, penalty_cls, params, ws_size,
+        use_fp=use_fp, bp=bp)
+    ws = select_working_set(scores, gsupp, ws_size)
+    return (scores, grad, cand_idx, ws,
+            candidate_columns(cand_idx, cand_cols, ws, Xt.shape[0]).T)
+
+
 def fused_ws(Xt, r, beta, L, offset, gsupp, penalty_cls, params, ws_size, *,
              use_fp=False, bp=None):
-    """K3: fused score + per-tile top-kc + candidate-column copy in one pass
-    over the feature-major design Xt [p, n] (contiguous). r: [n]; beta, L,
-    offset: [p]; gsupp: bool [p]. Returns ``(scores [p], grad [p],
-    cand_idx [C] int32, cand_cols [C, n])``."""
+    """K3: the fused head over the feature-major design Xt [p, n]
+    (contiguous): the scores, the offset-corrected gradient and each tile's
+    top-kc candidates in one pass over X. r: [n]; beta, L, offset: [p];
+    gsupp: bool [p]. Returns ``(scores [p], grad [p], cand_idx [C] int32,
+    ws [ws_size], Xt_ws [ws_size, n])``: the working set
+    (``select_working_set`` on the scores; on the card the merge launch
+    computes it) and its rows of Xt. On the card no candidate row is
+    copied: the K rows are gathered from Xt; on the CPU they come from the
+    plain version's candidate buffer, as ``candidate_columns`` recovers
+    them."""
     check_kernel_penalty(penalty_cls)          # scalar form only in this port
     on_card = _route("fused_ws", Xt=Xt, r=r, beta=beta, L=L, offset=offset)
     if Xt.ndim != 2 or not Xt.is_contiguous():
@@ -229,12 +250,13 @@ def fused_ws(Xt, r, beta, L, offset, gsupp, penalty_cls, params, ws_size, *,
     if not 1 <= ws_size <= p:
         raise ValueError(f"fused_ws: ws_size must be in [1, {p}], got {ws_size}")
     if not on_card:
-        return fused_ws_plain(Xt, r, beta, L, offset, gsupp, penalty_cls,
-                              params, ws_size, use_fp=use_fp, bp=bp)
-    out = fused_ws_cuda(Xt, r, beta, L, offset, gsupp, penalty_cls, params,
-                        ws_size, use_fp=use_fp, bp=bp)
+        return _plain_head(Xt, r, beta, L, offset, gsupp, penalty_cls,
+                           params, ws_size, use_fp, bp)
+    scores, grad, cand_idx, ws = fused_ws_cuda(
+        Xt, r, beta, L, offset, gsupp, penalty_cls, params, ws_size,
+        use_fp=use_fp, bp=bp)
     _count(fused_ws)
-    return out
+    return scores, grad, cand_idx, ws, Xt.index_select(0, ws)
 
 
 def fused_ws_block(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
@@ -243,11 +265,7 @@ def fused_ws_block(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
     feature-major design Xt [p, n] (contiguous). R: contiguous [n, T];
     beta: contiguous [p, T]; L, offset: [p]; gsupp: bool [p]; a block
     penalty. Returns ``(scores [p], grad [p, T], cand_idx [C] int32,
-    ws [ws_size], Xt_ws [ws_size, n])``: the working set
-    (``select_working_set`` on the scores) and its rows of Xt. On the card
-    the select launch copies no candidates and the K rows are gathered
-    from Xt; on the CPU they come from the plain version's candidate
-    buffer, as ``candidate_columns`` recovers them."""
+    ws [ws_size], Xt_ws [ws_size, n])``, as K3 returns them."""
     check_block_kernel_penalty(penalty_cls)
     on_card = _route("fused_ws_block", Xt=Xt, R=R, beta=beta, L=L,
                      offset=offset)
@@ -269,12 +287,8 @@ def fused_ws_block(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
         raise ValueError(f"fused_ws_block: ws_size must be in [1, {p}], got "
                          f"{ws_size}")
     if not on_card:
-        scores, grad, cand_idx, cand_cols = fused_ws_plain(
-            Xt, R, beta, L, offset, gsupp, penalty_cls, params, ws_size,
-            use_fp=use_fp, bp=bp)
-        ws = select_working_set(scores, gsupp, ws_size)
-        return (scores, grad, cand_idx, ws,
-                candidate_columns(cand_idx, cand_cols, ws, p).T)
+        return _plain_head(Xt, R, beta, L, offset, gsupp, penalty_cls,
+                           params, ws_size, use_fp, bp)
     scores, grad, cand_idx = fused_ws_block_cuda(
         Xt, R, beta, L, offset, gsupp, penalty_cls, params, ws_size,
         use_fp=use_fp, bp=bp)
@@ -301,8 +315,8 @@ def ws_score(Xt, r, beta, L, offset, penalty_cls, params, *, w=None,
     if not on_card:
         return ws_score_plain(Xt, r, beta, L, offset, penalty_cls, params,
                               w=w, use_fp=use_fp)
-    out = ws_score_cuda(Xt, r, beta, L, offset, penalty_cls, params, w=w,
-                        use_fp=use_fp)
+    out = score_cuda(Xt, r, beta, L, offset, penalty_cls, params, w=w,
+                     use_fp=use_fp)
     _count(ws_score)
     return out
 

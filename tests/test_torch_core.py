@@ -202,3 +202,28 @@ def test_ws_occupancy_and_scatter_match_reference():
 def test_jax_runs_in_x64():
     """The parity tests compare float64 on both sides."""
     assert jax.config.jax_enable_x64
+
+
+@pytest.mark.parametrize("src", ["numpy", "tensor", "f32", "view"])
+@pytest.mark.parametrize("chunk", [32 * 2**20, 3 * 8 * 23])
+def test_dense_design_from_dense_equals_transposed_copy(monkeypatch, src,
+                                                        chunk):
+    """``DenseDesign.from_dense`` moves X in row chunks (at 3 rows a chunk
+    here, a ragged last one included) and equals the one-shot
+    construction ``X.t().contiguous()`` bit for bit, dtype kept; a tensor
+    whose transpose is contiguous is taken as it is, without a copy."""
+    from repro_torch.core import engine
+    monkeypatch.setattr(engine, "X_CHUNK_BYTES", chunk)
+    X = np.random.default_rng(0).standard_normal((40, 23))
+    if src == "f32":
+        X = X.astype(np.float32)
+    if src in ("tensor", "view"):
+        X = torch.as_tensor(X)
+    if src == "view":
+        X = X.t().contiguous().t()
+    d = engine.DenseDesign.from_dense(X, "cpu")
+    want = torch.as_tensor(X).t().contiguous()
+    assert d.Xt.is_contiguous() and d.Xt.dtype == want.dtype
+    assert torch.equal(d.Xt, want) and d.shape == (40, 23)
+    if src == "view":
+        assert d.Xt.data_ptr() == X.data_ptr()

@@ -32,12 +32,13 @@ import pytest
 import torch
 
 from repro_torch.core import penalties as P
-from repro_torch.core.working_set import candidate_columns, select_working_set
+from repro_torch.core.working_set import (candidate_columns, priorities,
+                                          select_working_set)
 from repro_torch.kernels import ops
 from repro_torch.kernels.cd_epoch import cd_epoch_gram_plain, cd_epoch_xb_plain
 from repro_torch.kernels.common import penalty_params
 from repro_torch.kernels.csc_score import csc_score_plain
-from repro_torch.kernels.fused_ws import fused_ws_plain
+from repro_torch.kernels.fused_ws import fused_ws_plain, pick_bp
 from repro_torch.kernels.ws_score import ws_score_plain
 
 PENALTIES = [P.L1(0.11), P.L1L2(0.11, 0.6), P.MCP(0.11, 3.0),
@@ -106,6 +107,27 @@ def test_k2_cuda_matches_plain(cuda, kind, weighted):
     torch.testing.assert_close(xk, xr, atol=1e-11, rtol=1e-8)
 
 
+def _k3_check(args, use_fp=False, exact=False):
+    """K3 (the score and select launches, the working set and the gather of
+    its rows) against the plain version's four outputs: scores and
+    gradient within K3's bounds (equal with `exact`), cand_idx exact, the
+    working set identical and its rows bit for bit those that
+    ``candidate_columns`` recovers from the plain candidate buffer."""
+    Xt, gs, ws = args[0], args[5], args[8]
+    n0 = ops.fused_ws.launches
+    sk, gk, ik, ws_k, xk = ops.fused_ws(*args, use_fp=use_fp)
+    assert ops.fused_ws.launches == n0 + 1
+    sr, gr, ir, cr = fused_ws_plain(*args, use_fp=use_fp)
+    if exact:
+        assert torch.equal(sk, sr) and torch.equal(gk, gr)
+    torch.testing.assert_close(sk, sr, atol=1e-12, rtol=1e-11)
+    torch.testing.assert_close(gk, gr, atol=1e-12, rtol=1e-10)
+    assert torch.equal(ik, ir)
+    assert torch.equal(ws_k, select_working_set(sr, gs, ws))
+    assert torch.equal(xk, candidate_columns(ir, cr, ws_k, Xt.shape[0]).T)
+    assert torch.equal(xk, Xt[ws_k])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("pen", PENALTIES, ids=IDS)
 @pytest.mark.parametrize("use_fp", [False, True], ids=["sd", "fp"])
@@ -118,36 +140,131 @@ def test_k3_cuda_matches_plain(cuda, pen, use_fp):
                               np.sum(X * X, axis=0) / n, np.zeros(p))
     gs = pen.generalized_support(beta)
     for ws in (64, 1024):
-        args = (Xt, r, beta, L, off, gs, type(pen), penalty_params(pen), ws)
-        sk, gk, ik, ck = ops.fused_ws(*args, use_fp=use_fp)
-        sr, gr, _, _ = fused_ws_plain(*args, use_fp=use_fp)
-        torch.testing.assert_close(sk, sr, atol=1e-12, rtol=1e-11)
-        torch.testing.assert_close(gk, gr, atol=1e-12, rtol=1e-10)
-        ws_k = select_working_set(sk, gs, ws)
-        assert torch.equal(ws_k, select_working_set(sr, gs, ws))
-        assert torch.equal(candidate_columns(ik, ck, ws_k, p), Xt[ws_k].T)
+        _k3_check((Xt, r, beta, L, off, gs, type(pen), penalty_params(pen),
+                   ws), use_fp=use_fp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p", [(500, 5000), (301, 777), (64, 3), (1, 5)])
+def test_k3_cuda_score_launch_matches_plain(cuda, n, p):
+    """The score launch at odd and tiny shapes (a CTA with warps past p,
+    rows shorter than a warp) against the plain scores and gradient, and
+    K4 on it with weights; the select launch then gives the plain
+    cand_idx."""
+    from repro_torch.kernels.fused_ws import score_cuda, select_cuda
+    rng = np.random.default_rng(9)
+    X = rng.standard_normal((n, p))
+    Xt, r, beta, L, off, w = _on(
+        cuda, X.T, rng.standard_normal(n), rng.standard_normal(p) *
+        (rng.random(p) < 0.3), np.sum(X * X, axis=0) / n,
+        rng.standard_normal(p) * 0.01, rng.random(n) + 0.5)
+    pen = P.MCP(0.11, 3.0)
+    gs = pen.generalized_support(beta)
+    args = (Xt, r, beta, L, off, P.MCP, penalty_params(pen))
+    sk, gk, pk = score_cuda(*args, gsupp=gs)
+    sr, gr, ir, _ = fused_ws_plain(*args[:5], gs, *args[5:], min(64, p))
+    torch.testing.assert_close(sk, sr, atol=1e-12, rtol=1e-11)
+    torch.testing.assert_close(gk, gr, atol=1e-12, rtol=1e-10)
+    assert torch.equal(pk, priorities(sk, gs))
+    bp = pick_bp(p)
+    assert torch.equal(select_cuda(pk, bp, min(bp, 64)), ir)
+    torch.testing.assert_close(
+        score_cuda(*args, w=w),
+        ws_score_plain(*args, w=w), atol=1e-12, rtol=1e-11)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,bp,ws", [
+    (20_000, None, 1024),     # the main path's shape: 20 tiles, ws >= bp
+    (20_000, None, 64),
+    (5000, 777, 4096),        # a ragged last tile
+    (30_000, None, 8192),     # past MERGE_SMEM_K: lists in global memory
+    (3000, None, 3000),       # ws = p
+    (700, None, 700),         # one tile
+    (1, None, 1),
+])
+@pytest.mark.parametrize("levels", [3, 1_000_000], ids=["ties", "spread"])
+def test_k3_cuda_merge_matches_select_working_set(cuda, p, bp, ws, levels):
+    """K3's merge launch gives ``select_working_set`` exactly, order and
+    ties included: priorities of a few integer levels (ties everywhere,
+    broken by the lowest index) or spread, 2% of them pinned to +inf."""
+    from repro_torch.kernels.fused_ws import merge_cuda, select_cuda
+    g = torch.Generator(device=cuda).manual_seed(p + ws + levels)
+    scores = torch.randint(0, levels, (p,), generator=g, device=cuda).to(
+        torch.float64)
+    gs = torch.rand(p, generator=g, device=cuda) < 0.02
+    pri = priorities(scores, gs)
+    bp = pick_bp(p) if bp is None else bp
+    got = merge_cuda(pri, select_cuda(pri, bp, min(bp, ws)), bp, ws)
+    assert got.dtype == torch.int64
+    assert torch.equal(got, select_working_set(scores, gs, ws))
 
 
 @pytest.mark.gpu
 def test_k3_cuda_exact_ties(cuda):
     """Duplicated integer columns tie exactly: identical scores, the
-    lax.top_k lowest-index choice, bit-exact columns."""
+    lax.top_k lowest-index choice in cand_idx and in the working set,
+    bit-exact rows, for every penalty x {sd, fp} x ws in {64, 1024}; the
+    penalties whose score arithmetic is not exact on integer data are held
+    to K3's bounds, with cand_idx and the working set still exact."""
     rng = np.random.default_rng(7)
-    n, p, ws = 64, 3000, 256
+    n, p = 64, 3000
     half = rng.integers(-3, 4, size=(n, p // 2)).astype(np.float64)
     X = np.concatenate([half, half], axis=1)
     beta = np.where(rng.random(p) < 0.02, 1.0, 0.0)
     Xt, r, beta, L, off = _on(cuda, X.T, rng.integers(-2, 3, n), beta,
                               np.maximum(np.sum(X * X, 0) / n, 1e-12),
                               np.zeros(p))
-    pen = P.L1(0.5)
+    # the first three: score arithmetic exact on integer data
+    pens = [P.L1(0.5), P.L1L2(0.5, 0.5), P.Box(0.8)] + PENALTIES
+    for i, pen in enumerate(pens):
+        gs = pen.generalized_support(beta)
+        for use_fp in (False, True):
+            for ws in (64, 1024):
+                _k3_check((Xt, r, beta, L, off, gs, type(pen),
+                           penalty_params(pen), ws), use_fp=use_fp,
+                          exact=i < 3 and not use_fp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p,ws", [(2000, 6000, 1024), (1001, 5000, 1024)])
+def test_k3_cuda_allocates_no_candidate_buffer(cuda, n, p, ws):
+    """At ws >= bp the old candidate buffer [tiles * kc, n] was as large as
+    X: one K3 call now raises the peak of allocated memory by less than a
+    quarter of X's bytes (the scores, the gradient, the priorities,
+    cand_idx, the working set and its K rows)."""
+    rng = np.random.default_rng(11)
+    Xt, r, beta, L, off = _on(cuda, rng.standard_normal((p, n)),
+                              rng.standard_normal(n), np.zeros(p),
+                              np.ones(p), np.zeros(p))
+    pen = P.L1(0.1)
     gs = pen.generalized_support(beta)
     args = (Xt, r, beta, L, off, gs, P.L1, penalty_params(pen), ws)
-    sk, _, ik, ck = ops.fused_ws(*args)
-    sr, _, _, _ = fused_ws_plain(*args)
-    assert torch.equal(sk, sr)
-    ws_k = select_working_set(sk, gs, ws)
-    assert torch.equal(candidate_columns(ik, ck, ws_k, p), Xt[ws_k].T)
+    assert pick_bp(p) <= ws
+    ops.fused_ws(*args)                           # builds the library
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = ops.fused_ws(*args)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    assert rise < Xt.numel() * Xt.element_size() / 4, rise
+    assert out[4].shape == (ws, n)
+
+
+@pytest.mark.gpu
+def test_dense_design_from_dense_holds_x_once(cuda):
+    """From a numpy X the card holds X once while the design is built:
+    the peak rises by at most X's bytes + 64 MiB, and Xt equals X.T."""
+    from repro_torch.core.engine import DenseDesign
+    X = np.random.default_rng(12).standard_normal((3000, 20_000))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    d = DenseDesign.from_dense(X, cuda)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= X.nbytes + 2**26
+    assert torch.equal(d.Xt.cpu(), torch.as_tensor(X.T))
 
 
 @pytest.mark.gpu

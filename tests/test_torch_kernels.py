@@ -5,10 +5,11 @@ K1's plain version is held against ``repro.kernels.ref.cd_epoch_gram_ref``
 and K2's against ``cd_epoch_xb_ref`` (or the reference epoch with weights),
 at the tolerances of the reference's kernel tests (``tests/test_kernels.py``:
 1e-12 absolute + 1e-5 relative for the Gram epoch; 1e-11 + 1e-8 for the Xb
-epoch). K3's plain version is held against ``_two_pass`` of
-``tests/test_fused_ws.py`` on its shapes: identical working sets, bit-exact
-gathered columns, scores within 1e-12 + 1e-11 relative and gradients within
-1e-12 + 1e-10 relative. The reference Pallas kernels themselves are not the
+epoch). K3's head (the plain version with the working set taken from its scores
+and its rows recovered from its candidate buffer) is held against
+``_two_pass`` of ``tests/test_fused_ws.py`` on its shapes: identical working
+sets, bit-exact gathered rows, scores within 1e-12 + 1e-11 relative and
+gradients within 1e-12 + 1e-10 relative. The reference Pallas kernels themselves are not the
 oracle: they do not run on this JAX version.
 
 The CUDA kernels themselves are held against these plain versions on the
@@ -27,6 +28,7 @@ from repro_torch.convert import from_reference
 from repro_torch.core.working_set import candidate_columns, select_working_set
 from repro_torch.kernels import ops
 from repro_torch.kernels.common import penalty_params
+from repro_torch.kernels.fused_ws import fused_ws_plain, pick_bp
 from test_fused_ws import _two_pass
 
 J_PENALTIES = [jpen.L1(0.11), jpen.L1L2(0.11, 0.6), jpen.MCP(0.11, 3.0),
@@ -142,19 +144,17 @@ def _check_fused(X, r, beta, L, offset, jp, ws, bp, use_fp, exact=False):
     tp = from_reference(jp)
     Xt = _t(X.T).contiguous()
     gs = torch.as_tensor(gsupp)
-    sc, gr, ci, cc = ops.fused_ws(Xt, _t(r), _t(beta), _t(L), _t(offset), gs,
-                                  type(tp), penalty_params(tp), ws,
-                                  use_fp=use_fp, bp=bp)
+    sc, gr, _, ws_idx, Xt_ws = ops.fused_ws(
+        Xt, _t(r), _t(beta), _t(L), _t(offset), gs, type(tp),
+        penalty_params(tp), ws, use_fp=use_fp, bp=bp)
     if exact:
         np.testing.assert_array_equal(sc.numpy(), np.asarray(sc_ref))
     np.testing.assert_allclose(sc.numpy(), np.asarray(sc_ref), atol=1e-12,
                                rtol=1e-11)
     np.testing.assert_allclose(gr.numpy(), np.asarray(gr_ref), atol=1e-12,
                                rtol=1e-10)
-    ws_idx = select_working_set(sc, gs, ws)
     np.testing.assert_array_equal(ws_idx.numpy(), np.asarray(ws_ref))
-    Xws = candidate_columns(ci, cc, ws_idx, X.shape[1])
-    np.testing.assert_array_equal(Xws.numpy(), np.asarray(Xws_ref))
+    np.testing.assert_array_equal(Xt_ws.T.numpy(), np.asarray(Xws_ref))
 
 
 @pytest.mark.parametrize("jp", J_PENALTIES, ids=IDS)
@@ -184,6 +184,49 @@ def test_k3_plain_exact_ties():
                                                     1.0, 0.0), 24)):
         _check_fused(X, r, beta, L, np.zeros(p), jpen.L1(0.5), ws, bp,
                      use_fp=False, exact=True)
+
+
+@pytest.mark.parametrize("n,p,ws,bp", [
+    (64, 256, 32, None),      # one tile
+    (48, 100, 16, 32),        # bp does not divide p: ragged last tile
+    (40, 90, 90, 32),         # ws >= bp: every row a candidate
+    (30, 70, 24, 32),         # ragged last tile of 6 rows: exhausted slots
+    (33, 1500, 600, None),    # several tiles (pick_bp), kc = ws
+])
+def test_k3_head_rows_equal_candidate_columns(n, p, ws, bp):
+    """The K3 head hands back the working set and its K rows of X (no
+    candidate buffer on the card): the working set is
+    ``select_working_set`` of the plain scores, its rows equal, bit for
+    bit, ``candidate_columns`` of the plain version's four outputs, which
+    stay the oracle, and ``cand_idx`` is each tile's top-kc in
+    ``lax.top_k`` order (the reference's own primitive, on the same
+    priorities), exhausted slots indexing p."""
+    import jax
+    X, r, beta, L, offset = _dense_inputs(n, p, seed=3 * p + ws)
+    jp = jpen.MCP(0.11, 3.0)
+    gsupp = np.asarray(jp.generalized_support(jnp.asarray(beta)))
+    tp = from_reference(jp)
+    args = (_t(X.T).contiguous(), _t(r), _t(beta), _t(L), _t(offset),
+            torch.as_tensor(gsupp.copy()), type(tp), penalty_params(tp), ws)
+    sc, gr, ci, ws_idx, Xt_ws = ops.fused_ws(*args, bp=bp)
+    sr, grr, cir, ccr = fused_ws_plain(*args, bp=bp)
+    assert torch.equal(sc, sr) and torch.equal(gr, grr)
+    assert torch.equal(ws_idx, select_working_set(sr, args[5], ws))
+    assert torch.equal(Xt_ws, candidate_columns(cir, ccr, ws_idx, p).T)
+    assert torch.equal(Xt_ws, args[0][ws_idx])
+    assert Xt_ws.shape == (ws, n) and Xt_ws.is_contiguous()
+    bp_ = pick_bp(p) if bp is None else min(bp, p)
+    tiles = -(-p // bp_)
+    kc = min(bp_, ws)
+    pri = np.full(tiles * bp_, -np.inf)
+    pri[:p] = np.where(gsupp, np.inf, sr.numpy()) + 0.0
+    top = np.asarray(jax.lax.top_k(jnp.asarray(pri.reshape(tiles, bp_)),
+                                   kc)[1]) + bp_ * np.arange(tiles)[:, None]
+    want = np.where(top < p, top, p).reshape(-1)
+    np.testing.assert_array_equal(ci.numpy(), want)
+    np.testing.assert_array_equal(cir.numpy(), want)
+    if p % bp_ and kc > p % bp_:
+        assert int(torch.sum(ci == p)) == kc - p % bp_
 
 
 def test_wrappers_reject_bad_input():
