@@ -3,9 +3,10 @@
 (``cd_epoch_xb``) and K1b (``cd_epoch_gram_block``) at fixed cluster sizes,
 on one CUDA card.
 
-    python3 cd_sweep.py [k1|k2|k1b ...]
+    python3 cd_sweep.py [k1|k2|k1b|csc ...]
 
-With names, only those kernels are swept (default: all three). K1, for each
+With names, only those kernels are swept (default: k1, k2, k1b; ``csc``,
+the sparse score pass, only when named: ``sweep_csc``). K1, for each
 K of ``SWEEP["k1"]`` and each (cluster size, threads) of
 ``SWEEP["k1_layouts"]`` (``gram_plan`` of ``repro_torch/kernels/cd_epoch.py``
 with ``cluster=`` and ``threads=``; None: the plan's own; clusters only
@@ -47,7 +48,8 @@ SWEEP = dict(k1=(64, 128, 256, 512, 1024, 2048, 4096),
              k2_deep=(4096, 50_000),
              k1b=((64, 50), (64, 20), (128, 20), (256, 20), (512, 20),
                   (1024, 20), (2048, 20), (4096, 20)),
-             clusters=(1, 8, 16), barrier_iters=10_000, reps=5)
+             clusters=(1, 8, 16), barrier_iters=10_000, reps=5,
+             csc_T=20)
 
 
 def _record(out, fails, key, rec, run):
@@ -119,6 +121,60 @@ def sweep_k1(dev, cfg, out, fails):
         torch.cuda.empty_cache()
 
 
+def sweep_csc(dev, cfg, out, fails):
+    """K5, K5s and K5b (``csrc/csc_score.cu``) on the full-size sparse
+    design of ``chip_smoke.py`` (``sparse_fig2``, float64; K5b at T = 20),
+    each checked against its plain version (1e-12 + 1e-12 |ref|), launched
+    twice for the same bits, and timed (CUDA events, warm; launched, and
+    replayed from a CUDA graph), beside the L2 gather floor of its walk
+    (``l2_gather_probe``: nnz hashed reads of raw's rows)."""
+    import torch
+    from repro_torch.data import make_sparse_design
+    from repro_torch.kernels.csc_score import (csc_score_plain, csc_walk_cuda,
+                                               l2_gather_probe_cuda, lane_plan)
+    from repro_torch.sparse import CSCDesign
+    X = make_sparse_design(**cs.FULL["sparse"])[0]
+    d = CSCDesign.from_scipy(X, ell=True, device=dev)
+    del X
+    n, p = d.shape
+    nnz = d.nnz
+    g = torch.Generator(device=dev).manual_seed(11)
+    args = (d.data, d.indices, d.col_ids, d.indptr)
+    f64 = torch.float64
+    for T in (1, cfg["csc_T"]):
+        raw = torch.randn(n, T, generator=g, device=dev, dtype=f64)
+        v = raw[:, 0].contiguous() if T == 1 else raw
+        w = torch.rand(n, generator=g, device=dev, dtype=f64) + 0.5
+        for square in ((False, True) if T == 1 else (False,)):
+            x = w if square else v
+            ref = csc_score_plain(*args, x, square=square)
+
+            def call(square=square, x=x):
+                return csc_walk_cuda(d.data, d.indices, d.indptr, x,
+                                     square=square)
+
+            def run(rec, call=call, ref=ref):
+                k1, k2 = call(), call()
+                torch.cuda.synchronize()
+                ok, err = cs.close(k1, ref, 1e-12, 1e-12)
+                same = bool(torch.equal(k1, k2))
+                rec.update(ok=ok and same, err=err, repeat_equal=same,
+                           ms=cs.time_ms(call, dev, cfg["reps"]),
+                           graph_ms=cs.graph_ms(call, dev, cfg["reps"]))
+            V, G, E = lane_plan(T)
+            _record(out, fails, "csc",
+                    dict(T=T, square=square, n=n, p=p, nnz=nnz, V=V, G=G,
+                         E=E), run)
+        buf = torch.rand(n, T, dtype=f64, device=dev)
+        floor = cs.time_ms(lambda: l2_gather_probe_cuda(buf, nnz), dev,
+                           cfg["reps"])
+        out["csc"].append(dict(T=T, kind="l2_floor", ms=floor))
+        cs.log(f"sweep csc T={T} L2 gather floor {floor:.4f} ms")
+        del raw, buf
+    del d
+    torch.cuda.empty_cache()
+
+
 def sweep(dev, cfg=SWEEP, kernels=("k1", "k2", "k1b")):
     """Returns (records, failures)."""
     import torch
@@ -127,10 +183,12 @@ def sweep(dev, cfg=SWEEP, kernels=("k1", "k2", "k1b")):
         SMEM_DYN_MAX, cd_epoch_gram_block_cuda, cd_epoch_gram_plain,
         cd_epoch_xb_cuda, cd_epoch_xb_plain, gram_block_plan, xb_plan)
     from repro_torch.kernels.common import penalty_params
-    out = dict(barrier=[], k1=[], k2=[], k1b=[])
+    out = dict(barrier=[], k1=[], k2=[], k1b=[], csc=[])
     fails = []
     if "k1" in kernels:
         sweep_k1(dev, cfg, out, fails)
+    if "csc" in kernels:
+        sweep_csc(dev, cfg, out, fails)
     if "k2" not in kernels and "k1b" not in kernels:
         return out, fails
     for C in cfg["clusters"]:

@@ -60,9 +60,12 @@ Phases, each of which must pass (any failure exits non-zero):
    "small" of ``benchmarks/bench_engine.py``: n = 50,000, p = 200,000,
    density 1e-3), built on the host once as a CSC design with the ELL
    flag. K5 (``csc_score``) and K5s (``csc_weighted_col_sq``) against their
-   plain versions within 1e-12 + 1e-12 |ref|, run twice (the kernel must
-   be deterministic), on it and on a small design with empty columns and
-   columns at the window cap. Then, on both routes with the checks of
+   plain versions within 1e-12 + 1e-12 |ref|, every SM's shared memory
+   NaN-filled before the first launch, run twice (the kernel must be
+   deterministic), on it and on a small design with empty columns and
+   columns at the window cap, where each must also equal the torch
+   emulation of its summation order (``csc_score.emulate``) bit for bit.
+   Then, on both routes with the checks of
    phase 4, a Lasso at lambda_max/10 and a weighted sparse logistic
    regression at lambda_max/3, the same two at lambda_max/300 and
    lambda_max/30 (working sets of 2048 and 4096 columns), and a LinearSVC
@@ -85,7 +88,9 @@ Phases, each of which must pass (any failure exits non-zero):
    global memory), within the K1 bound and twice, bit for bit, and K5b
    (``csc_score_block``) on the full-size
    sparse design and the small one with raw [n, 20], within the K5 bound and
-   deterministic; all against their plain versions.
+   deterministic (on the small design also the emulation of its order,
+   bit for bit; shared memory NaN-filled before the first launch); all
+   against their plain versions.
 7. multitask path, each fit on both routes with the checks of phase 4:
    MultiTaskLasso and MultiTaskMCP(gamma=3) at lambda_max/10 on the M/EEG
    leadfield at the width of a real MEG forward model (n = 305 sensors,
@@ -112,8 +117,7 @@ Phases, each of which must pass (any failure exits non-zero):
    print beside it the floor of their design, a walk of CSC columns that
    gathers raw's rows from L2: ``l2_gather_probe`` timed on nnz gathers
    of raw's rows (8 bytes, a 32-byte sector, for K5/K5s; T values for
-   K5b). It is not a bound of the function: a design that blocks by rows
-   could reuse raw on chip. K1 has rows at K = 1024
+   K5b). It is not a bound of the function. K1 has rows at K = 1024
    and 2048, K2 at (K, n) = (512, 10,000), (512, 50,000) and (4096,
    50,000), K1b at K = 1024, 2048 and 4096 (T = 20), each with its plan's
    branch, cluster size, threads, launches by branch, and chain floor (K1:
@@ -625,11 +629,14 @@ def check_step_down(dev, cfg, errs):
 
 def check_k5(dev, designs, errs):
     """K5 and K5s against their plain versions (and K5 against the ELL
-    reference), twice each to check that the kernel is deterministic;
+    reference), twice each to check that the kernel is deterministic, every
+    SM's shared memory NaN-filled before the first launch, and on the small
+    design bit for bit against the emulation of the kernel's order;
     updates `errs`, returns the failures."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.csc_score import csc_score_plain
+    from repro_torch.kernels.cd_epoch import fill_shared_memory_cuda
+    from repro_torch.kernels.csc_score import csc_score_plain, emulate
     fails = []
     errs.update(csc_score=0.0, csc_weighted_col_sq=0.0)
     for label, d in designs:
@@ -643,10 +650,15 @@ def check_k5(dev, designs, errs):
                                      ("csc_weighted_col_sq", "K5s", w,
                                       True)):
             fn = getattr(ops, name)
+            if dev.type == "cuda":
+                fill_shared_memory_cuda(dev)
             k = fn(*args, v)
             ok, e = close(k, csc_score_plain(*args, v, square=square),
                           1e-12, 1e-12)
             same = bool(torch.equal(k, fn(*args, v)))
+            if label == "small":
+                same = same and bool(torch.equal(k, emulate(
+                    d.data, d.indices, d.indptr, v, square=square)))
             if not square:
                 ok2, e2 = close(k, d.score_ell_reference(v), 1e-12, 1e-12)
                 ok, e = ok and ok2, max(e, e2)
@@ -1093,7 +1105,7 @@ def check_block_kernels(dev, cfg, errs, designs):
     from repro_torch.kernels.cd_epoch import (cd_epoch_gram_plain,
                                               fill_shared_memory_cuda)
     from repro_torch.kernels.common import penalty_params
-    from repro_torch.kernels.csc_score import csc_score_plain
+    from repro_torch.kernels.csc_score import csc_score_plain, emulate
     from repro_torch.kernels.fused_ws import fused_ws_plain
     fails = []
     for name in ("fused_ws_block", "cd_epoch_gram_block", "csc_score_block"):
@@ -1153,9 +1165,14 @@ def check_block_kernels(dev, cfg, errs, designs):
         raw = torch.randn(d.n_rows, cfg["k5b_T"], generator=g, device=dev,
                           dtype=torch.float64)
         args = (d.data, d.indices, d.col_ids, d.indptr)
+        if dev.type == "cuda":
+            fill_shared_memory_cuda(dev)
         k = ops.csc_score_block(*args, raw)
         ok, e = close(k, csc_score_plain(*args, raw), 1e-12, 1e-12)
         same = bool(torch.equal(k, ops.csc_score_block(*args, raw)))
+        if label == "small":
+            same = same and bool(torch.equal(k, emulate(
+                d.data, d.indices, d.indptr, raw)))
         errs["csc_score_block"] = max(errs["csc_score_block"], e)
         if not (ok and same):
             fails.append(f"K5b {label} err={e:.3e} deterministic={same}")
@@ -1480,6 +1497,16 @@ def with_l2(row, floor, l2_bytes):
     return row
 
 
+def walk_layout(T):
+    """A K5/K5b row's layout: the walk's lanes at T tasks."""
+    from repro_torch.kernels.csc_score import lane_plan
+    V, G, E = lane_plan(T)
+    if T == 1:
+        return f"CSC walk, {G} lanes a column, {32 // G} columns a warp"
+    return (f"CSC walk, {G} lanes an entry, {V} values a lane, {E} entries "
+            f"a warp iteration")
+
+
 def sparse_times(dev, cfg, launches, errs, d):
     """The rows of K2 at the sparse fits' n = 50,000, weighted (K = 512 and
     the deep fit's 4096), K4 (dense, n x p of K3, weighted), K5 and K5s
@@ -1529,11 +1556,9 @@ def sparse_times(dev, cfg, launches, errs, d):
     ell = bound(p * d.max_col_nnz * 12 + n * 8 + p * 8, 2 * p * d.max_col_nnz)
     log(f"K5 byte bound with the ELL layout (m={d.max_col_nnz}): "
         f"{ell[0]:.4f} ms")
+    layout = walk_layout(1)
     # the gathers of v through L2: one 32-byte sector an entry
     floor = l2_floor(dev, n, 1, nnz, reps)
-    log(f"L2 gather probe: {nnz} gathers of 8-byte rows of a [{n}] vector "
-        f"{floor} ms; of a [{20 * n}] vector (8 MB) "
-        f"{l2_floor(dev, 20 * n, 1, nnz, reps)} ms")
     for name, v, square, nops in (("csc_score", raw, False, 2 * nnz),
                                   ("csc_weighted_col_sq", w, True,
                                    3 * nnz)):
@@ -1558,9 +1583,9 @@ def sparse_times(dev, cfg, launches, errs, d):
                          launches=launches[name], max_abs_err=errs[name],
                          ms=ms, plain_ms=plain, bound_ms=b[0], bound_by=b[1],
                          library_ms=lib, library_call=call,
-                         shape=f"n={n}, p={p}, nnz={nnz}, CSC walk"
+                         shape=f"n={n}, p={p}, nnz={nnz}, {layout}"
                                + (", square" if square else "")),
-                                floor, 32 * nnz))
+                            floor, 32 * nnz))
     return rows
 
 
@@ -1634,7 +1659,8 @@ def block_times(dev, cfg, launches, errs, card, d):
                      library_ms=lib,
                      library_call="torch.sparse_csr_tensor(X^T) @ raw "
                                   "(cuSPARSE SpMM)",
-                     shape=f"n={n}, p={p}, nnz={nnz}, T={T}, CSC walk"),
+                     shape=f"n={n}, p={p}, nnz={nnz}, T={T}, "
+                           f"{walk_layout(T)}"),
                         floor, 8 * T * nnz))
 
     T = cfg["k1b_T"]

@@ -2,7 +2,7 @@
 """Time the kernel route of the small-K fits of ``chip_smoke.py`` several
 times on one CUDA card, to compare two trees of the port.
 
-    python3 fit_times.py [--deep] [SRC]
+    python3 fit_times.py [--deep] [--sparse] [SRC]
     python3 fit_times.py --pool LOG [LOG ...]
 
 SRC is the ``src`` directory whose ``repro_torch`` is timed (default: this
@@ -17,7 +17,11 @@ mostly K1's Gram epochs: the dense LinearSVC(C=1) at the fig. 9 size
 ``sparse_small`` (2000 x 8000).
 ``--deep`` adds the deep weighted sparse logistic regression of
 ``chip_smoke.py`` (``sparse_fig2`` at lambda_max/30, K2 at K = 4096;
-3 repeats). Each is fitted once to warm up and then ``REPS`` times; the
+3 repeats). ``--sparse`` times only the two fits that run the sparse
+score pass most, on ``sparse_fig2`` (n = 50,000, p = 200,000): the Lasso
+at lambda_max/300 (K5 on every outer head) and the MultiTaskLasso at
+lambda_max/300 on T = 20 tasks of ``chip_smoke.py``'s multitask phase (K5b
+on every head), 5 repeats each. Each is fitted once to warm up and then ``REPS`` times; the
 wall times (synchronized), with their median, the outer steps, the host
 reads, the peak allocated device memory of a fit, the peak reserved
 memory of the warm-up fit (the allocator's cache emptied before it) and
@@ -41,6 +45,7 @@ import chip_smoke as cs
 
 REPS = 7
 DEEP = False
+SPARSE = False
 
 
 def pool(paths) -> int:
@@ -68,12 +73,13 @@ def pool(paths) -> int:
 
 
 def main() -> int:
-    global DEEP
+    global DEEP, SPARSE
     if sys.argv[1:2] == ["--pool"]:
         return pool(sys.argv[2:])
     args = sys.argv[1:]
     DEEP = "--deep" in args
-    args = [a for a in args if a != "--deep"]
+    SPARSE = "--sparse" in args
+    args = [a for a in args if a not in ("--deep", "--sparse")]
     here = Path(__file__).resolve().parent
     src = Path(args[0]).resolve() if args else here / "src"
     sys.path.insert(0, str(src))
@@ -129,6 +135,11 @@ def main() -> int:
                f"peak {max(peaks) / 2**30:.3f} GiB, reserved "
                f"{reserved / 2**30:.3f} GiB, captures "
                f"{[round(float(c), 4) for c in capture]} s")
+
+    if SPARSE:
+        sparse_fits(cfg, dev, timed)
+        print(json.dumps(out))
+        return 0
 
     m = cfg["meeg"]
     X, Y, _, _ = make_leadfield(**m)
@@ -197,6 +208,39 @@ def main() -> int:
               d, ys, sample_weight=w, reps=3)
     print(json.dumps(out))
     return 0
+
+
+def sparse_fits(cfg, dev, timed):
+    """The sparse Lasso and the sparse MultiTaskLasso (T = 20) at
+    lambda_max/300 on ``sparse_fig2``, as ``chip_smoke.py`` builds them,
+    both on one CSC design built once (so no fit converts X)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (Lasso, MultiTaskLasso, MultitaskQuadratic,
+                                  lambda_max)
+    from repro_torch.data import make_sparse_design
+    from repro_torch.sparse import CSCDesign
+    X, y, beta_true = make_sparse_design(**cfg["sparse"])
+    d = CSCDesign.from_scipy(X, ell=True, device=dev)
+    k_lasso = cfg["sparse_lam"][-1][0]
+    lmax = lambda_max(d, y, device=dev)
+    timed(f"sparse Lasso(lmax/{k_lasso})",
+          lambda: Lasso(alpha=lmax / k_lasso, tol=cs.TOL), d, y, reps=5)
+    torch.cuda.empty_cache()
+    T = cfg["mt_sparse_T"]
+    rng = np.random.default_rng(0)
+    supp = np.flatnonzero(beta_true)
+    W = np.zeros((X.shape[1], T))
+    W[supp] = rng.standard_normal((len(supp), T))
+    signal = np.asarray(X @ W)
+    noise = rng.standard_normal(signal.shape)
+    noise *= np.linalg.norm(signal) / (5.0 * np.linalg.norm(noise))
+    Y = signal + noise
+    frac = cfg["mt_sparse_frac"]
+    lmax = lambda_max(d, Y, MultitaskQuadratic(), device=dev)
+    timed(f"sparse MultiTaskLasso(lmax/{frac}, T={T})",
+          lambda: MultiTaskLasso(alpha=lmax / frac, tol=cs.TOL), d, Y,
+          reps=5)
 
 
 if __name__ == "__main__":

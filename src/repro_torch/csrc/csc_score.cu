@@ -1,123 +1,183 @@
 // K5, K5s and K5b: the sparse score pass over a CSC design.
 //
 // Replaces repro/sparse/ops.py:csc_score_pallas (body _score_kernel) and its
-// square-mode wrapper csc_weighted_col_sq_pallas, for a raw vector [n]. For
-// every column j of X:
+// square-mode wrapper csc_weighted_col_sq_pallas. For every column j of X:
 //   K5  (square = 0): out_j = sum_k x_kj * v[row_k]       (X.T @ raw)
 //   K5s (square = 1): out_j = sum_k (x_kj * x_kj) * v[row_k]
 //                                                 (sum_i w_i x_ij^2)
+//   K5b:  out[j, t] = sum_k x_kj * raw[row_k, t]   (raw [n, T] row-major)
+// The TPU kernel reads the ELL layout rows/vals [p, m]; here each column's
+// entries are its CSC segment data/indices[indptr[j] .. indptr[j+1]), so
+// the bytes read are nnz entries, not p * m. Products are rounded in the
+// value type (built with -fmad=false), sums are taken in float64 and the
+// result is rounded to the value type once.
 //
-// Layout: the TPU kernel reads the ELL layout rows/vals [p, m], which Pallas
-// needs for rectangular tiles. Here each column walks its own CSC segment
-// data/indices[indptr[j] .. indptr[j+1]), so the kernel reads nnz entries
-// and not p * m: on a power-law design (max column nnz m far above the
-// median) that is many times fewer bytes.
+// What bounds them on the H100: bytes. data and indices are read once (12
+// bytes an entry in f64), raw once and the output written once. The TPU
+// kernel holds raw whole in VMEM across its grid. Here raw's rows are
+// gathered through L2 (a 32-byte sector an entry at T = 1, T values an
+// entry for K5b: 1.6 GB of L2 reads at sparse_fig2 with T = 20), whose
+// floor l2_gather_probe measures. Designs that staged raw in shared memory
+// (row bands streamed by bulk copies through a ring shared by a cluster;
+// raw held whole across a cluster, read over distributed shared memory)
+// ran slower on the H100 than this walk at sparse_fig2's shapes (PERF.md
+// section 6): they run one CTA an SM, and the walk's cost is the
+// latency of each column's chain of loads, which 64 resident warps an SM
+// hide and 16 to 32 do not.
 //
-// What bounds it on the H100: bytes. data and indices are read once (12
-// bytes an entry in f64), v is gathered through L2 (n values; 400 KB at
-// n = 50k, far under the 50 MB L2), and p values are written.
+// Design: a warp walks CSC columns, eight warps a CTA of 256 threads. K5
+// and K5s (csc_walk1_kernel): L = 16 lanes a column, two columns a warp
+// (the median column of sparse_fig2 holds 15 entries; at 32 lanes a
+// column, the layout this kernel replaced, half the lanes idle and each
+// column's chain of loads costs a whole warp). K5b (csc_walk_kernel): a group of G lanes reads an
+// entry's row, V values a lane (16-byte loads at V = 2), and the warp
+// takes E = 32 / G entries an iteration with four iterations' loads in
+// flight a lane (kernels/csc_score.py: lane_plan; T = 20 gives V = 2,
+// G = 10, E = 3: 30 lanes busy and twelve rows of raw in flight a warp,
+// where the kernel it replaced had one). Tasks past 32 V run in further blocks.
 //
-// Design: one warp per column, eight columns per CTA. Each lane walks the
-// segment with a stride of 32 and accumulates in f64; the warp then sums
-// its lanes by a fixed shuffle tree. The order of the sum depends only on
-// the column's nnz, so the result is deterministic from run to run (unlike
-// an atomic scatter). Short columns leave most lanes idle: on a power-law
-// design most columns hold a few entries and a handful hold ~1000, so the
-// load is uneven; balancing the work over nnz is later work.
+// Summation order (kernels/csc_score.py: emulate mirrors it): slot e
+// (0 <= e < E) of a task sums the products of entries indptr[j] + e,
+// + e + E, ... in entry order from 0.0; the E slot sums are added in slot
+// order, except at T = 1 (the E = L slots are a column's lanes), where a
+// shuffle-down tree (offsets L / 2, ..., 2, 1) adds them. The order
+// depends only on the column's entries and T. E = 1 (G = 32) is entry
+// order.
 //
-// K5b replaces csc_score_pallas for a multitask raw gradient [n, T]
-// (row-major): out[j, t] = sum_k x_kj * raw[row_k, t], out [p, T]. One warp
-// per column again. Its lanes cover the tasks: a group of G lanes (G = 8,
-// 16 or 32, the smallest >= min(T, 32)) reads the T-row raw[row_k, :] of one
-// entry with neighbouring lanes on neighbouring addresses, and the 32 / G
-// groups of the warp take the entries k = start + group, + 32 / G, ... .
-// Tasks past 32 run in further passes of 32. Each lane sums in f64 in
-// entry order; the groups are then summed by a fixed shuffle tree, so the
-// result is deterministic. Bound: the HBM bytes are data and indices once,
-// raw once and the [p, T] output; the raw rows are gathered through L2
-// (T * 8 bytes per entry, 1.6 GB of L2 reads at sparse_fig2 with T = 20).
-//
-// l2_gather_probe times those gathers as this design makes them (it is no
-// kernel of the solver): `gathers` reads of rows of WIDTH values at hashed
+// l2_gather_probe times the gathers as a walk makes them (it is no kernel
+// of the solver): `gathers` reads of rows of WIDTH values at hashed
 // (random, uniform) row indices of a buffer [rows, WIDTH] that stays in
-// L2: a warp reads whole rows with neighbouring lanes on neighbouring
+// L2, a warp reading whole rows with neighbouring lanes on neighbouring
 // values (at WIDTH = 20, 8 rows with 5 reads a lane; at WIDTH = 1, 128
-// rows with 4), every lane keeping its reads in flight. Its time for nnz
-// gathers of raw's rows is the floor of this CSC-walk design of K5
-// (WIDTH = 1: a 32-byte sector an entry) and K5b (WIDTH = T), not a bound
-// of the function: a design that blocks by rows could reuse raw on chip.
+// rows with 4), every lane keeping its reads in flight: the floor of the
+// walk, not a bound of the function.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps: 8 columns per CTA
+constexpr int kWalkWarps = 8;  // warps a CTA
+// lanes a column of K5 and K5s (kernels/csc_score.py: K5_LANES)
+constexpr int kK5Lanes = 16;
 
+// V values of raw read as one load (16 bytes at V = 2 in float64)
+template <typename T, int V>
+struct alignas(V * sizeof(T)) Vals {
+  T v[V];
+};
+
+// an entry's product, rounded in the value type: x v, or (x x) v for K5s
 template <typename T>
-__global__ void csc_score_kernel(const T* __restrict__ data, const int* __restrict__ indices,
-                                 const long long* __restrict__ indptr,
-                                 const T* __restrict__ v, T* __restrict__ out, int p,
-                                 int square) {
+__device__ __forceinline__ T product(T x, T v, int square) {
+  return square ? (x * x) * v : x * v;
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kWalkWarps * 32)
+    csc_walk_kernel(const T* __restrict__ data, const int* __restrict__ indices,
+                    const long long* __restrict__ indptr, const T* __restrict__ raw,
+                    T* __restrict__ out, int p, int R, int G) {
   const int lane = threadIdx.x & 31;
-  const long long j = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const long long j = (long long)blockIdx.x * kWalkWarps + (threadIdx.x >> 5);
   if (j >= p) return;  // the whole warp leaves together
-  const long long start = indptr[j], end = indptr[j + 1];
+  const int E = 32 / G, slot = lane / G, q = lane % G;
+  const long long s0 = indptr[j], s1 = indptr[j + 1];
+  for (int t0 = 0; t0 < R; t0 += G * V) {
+    const int t = t0 + q * V;  // this lane's first task
+    const bool on = slot < E && t < R;
+    double acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = 0.0;
+    for (long long k0 = s0 + slot; k0 < s1; k0 += 4LL * E) {
+      int r[4];
+      T x[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const long long k = k0 + (long long)u * E;
+        const bool ok = on && k < s1;
+        r[u] = ok ? indices[k] : -1;
+        x[u] = ok ? data[k] : (T)0;
+      }
+      Vals<T, V> g[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (r[u] >= 0) g[u] = *(const Vals<T, V>*)(raw + (long long)r[u] * R + t);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (r[u] >= 0) {
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            acc[v] = acc[v] + (double)(x[u] * g[u].v[v]);
+        }
+    }
+    // the E slot partials of a task sit on lanes q, q + G, ...: in slot order
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      double tot = acc[v];
+      for (int e = 1; e < E; ++e) tot = tot + __shfl_sync(0xffffffffu, acc[v], lane + e * G);
+      acc[v] = tot;
+    }
+    if (slot == 0 && t < R) {
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        if (t + v < R) out[j * R + t + v] = (T)acc[v];
+    }
+  }
+}
+
+// K5 and K5s (raw [n]): a warp walks 32 / L columns, L lanes each; lane l
+// of a column sums its entries l, l + L, ... in entry order, and the L lane
+// sums add by a shuffle-down tree (offsets L / 2, ..., 1). L = 32 would be
+// the kernel and order this one replaced.
+template <typename T, int L>
+__global__ void __launch_bounds__(kWalkWarps * 32)
+    csc_walk1_kernel(const T* __restrict__ data, const int* __restrict__ indices,
+                     const long long* __restrict__ indptr, const T* __restrict__ v,
+                     T* __restrict__ out, int p, int square) {
+  const int lane = threadIdx.x & 31, sl = lane % L;
+  const long long j =
+      ((long long)blockIdx.x * kWalkWarps + (threadIdx.x >> 5)) * (32 / L) + lane / L;
+  long long s0 = 0, s1 = 0;
+  if (j < p) {
+    s0 = indptr[j];
+    s1 = indptr[j + 1];
+  }
   double acc = 0.0;
-  if (square) {
-    for (long long k = start + lane; k < end; k += 32) {
-      const T x = data[k];
-      acc = acc + (double)((x * x) * v[indices[k]]);
-    }
-  } else {
-    for (long long k = start + lane; k < end; k += 32)
-      acc = acc + (double)(data[k] * v[indices[k]]);
-  }
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-  if (lane == 0) out[j] = (T)acc;
+  for (long long k = s0 + sl; k < s1; k += L)
+    acc = acc + (double)product(data[k], v[indices[k]], square);
+  for (int o = L / 2; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o, L);
+  if (sl == 0 && j < p) out[j] = (T)acc;
 }
 
 template <typename T>
-__global__ void csc_score_block_kernel(const T* __restrict__ data,
-                                       const int* __restrict__ indices,
-                                       const long long* __restrict__ indptr,
-                                       const T* __restrict__ raw, T* __restrict__ out, int p,
-                                       int nt, int gsz) {
-  const int lane = threadIdx.x & 31;
-  const long long j = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (j >= p) return;  // the whole warp leaves together
-  const int grp = lane / gsz, tl = lane % gsz, ngrp = 32 / gsz;
-  const long long start = indptr[j], end = indptr[j + 1];
-  for (int t0 = 0; t0 < nt; t0 += gsz) {
-    const int t = t0 + tl;
-    double acc = 0.0;
-    if (t < nt) {
-      for (long long k = start + grp; k < end; k += ngrp)
-        acc = acc + (double)(data[k] * raw[(long long)indices[k] * nt + t]);
-    }
-    for (int o = 16; o >= gsz; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-    if (grp == 0 && t < nt) out[j * nt + t] = (T)acc;
-  }
-}
-
-template <typename T>
-int launch_block(const T* data, const int* indices, const long long* indptr, const T* raw,
-                 T* out, int p, int nt, void* stream) {
-  if (p <= 0) return 0;
-  if (nt <= 0) return (int)cudaErrorInvalidValue;
-  const int gsz = nt <= 8 ? 8 : (nt <= 16 ? 16 : 32);
-  const int per_cta = kThreads / 32;
-  csc_score_block_kernel<T><<<(p + per_cta - 1) / per_cta, kThreads, 0, (cudaStream_t)stream>>>(
-      data, indices, indptr, raw, out, p, nt, gsz);
+int launch_walk1(const T* data, const int* indices, const long long* indptr, const T* v,
+                 T* out, int p, int square, void* stream) {
+  const int per_cta = kWalkWarps * (32 / kK5Lanes);
+  csc_walk1_kernel<T, kK5Lanes><<<(p + per_cta - 1) / per_cta, kWalkWarps * 32, 0,
+                                  (cudaStream_t)stream>>>(data, indices, indptr, v, out, p,
+                                                          square);
   return (int)cudaGetLastError();
 }
 
+// V values a lane, G lanes an entry (kernels/csc_score.py: lane_plan): V
+// divides R, G V <= 32 V covers a task block, raw 16-byte aligned
 template <typename T>
-int launch(const T* data, const int* indices, const long long* indptr, const T* v, T* out,
-           int p, int square, void* stream) {
+int launch_walk(const T* data, const int* indices, const long long* indptr, const T* raw,
+                T* out, int p, int R, int square, int V, int G, void* stream) {
   if (p <= 0) return 0;
-  const int per_cta = kThreads / 32;
-  csc_score_kernel<T><<<(p + per_cta - 1) / per_cta, kThreads, 0, (cudaStream_t)stream>>>(
-      data, indices, indptr, v, out, p, square);
+  if (R == 1) {  // G is then the lanes a column
+    if (V != 1 || G != kK5Lanes) return (int)cudaErrorInvalidValue;
+    return launch_walk1<T>(data, indices, indptr, raw, out, p, square, stream);
+  }
+  if (G < 1 || G > 32 || (V != 1 && V != 2) || R % V || square ||
+      ((uintptr_t)raw & 15))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((p + kWalkWarps - 1) / kWalkWarps), block(kWalkWarps * 32);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (V == 2)
+    csc_walk_kernel<T, 2><<<grid, block, 0, st>>>(data, indices, indptr, raw, out, p, R, G);
+  else
+    csc_walk_kernel<T, 1><<<grid, block, 0, st>>>(data, indices, indptr, raw, out, p, R, G);
   return (int)cudaGetLastError();
 }
 
@@ -180,24 +240,18 @@ int l2_gather_probe(const double* buf, int rows, int width, long long gathers, i
   return (int)cudaGetLastError();
 }
 
-int csc_score_f64(const double* data, const int* indices, const long long* indptr,
-                  const double* v, double* out, int p, int square, void* stream) {
-  return launch<double>(data, indices, indptr, v, out, p, square, stream);
+// K5, K5s and K5b with the wrapper's plan (kernels/csc_score.py: lane_plan):
+// V values a lane, G lanes an entry
+int csc_walk_f64(const double* data, const int* indices, const long long* indptr,
+                 const double* raw, double* out, int p, int R, int square, int V, int G,
+                 void* stream) {
+  return launch_walk<double>(data, indices, indptr, raw, out, p, R, square, V, G, stream);
 }
 
-int csc_score_f32(const float* data, const int* indices, const long long* indptr,
-                  const float* v, float* out, int p, int square, void* stream) {
-  return launch<float>(data, indices, indptr, v, out, p, square, stream);
-}
-
-int csc_score_block_f64(const double* data, const int* indices, const long long* indptr,
-                        const double* raw, double* out, int p, int nt, void* stream) {
-  return launch_block<double>(data, indices, indptr, raw, out, p, nt, stream);
-}
-
-int csc_score_block_f32(const float* data, const int* indices, const long long* indptr,
-                        const float* raw, float* out, int p, int nt, void* stream) {
-  return launch_block<float>(data, indices, indptr, raw, out, p, nt, stream);
+int csc_walk_f32(const float* data, const int* indices, const long long* indptr,
+                 const float* raw, float* out, int p, int R, int square, int V, int G,
+                 void* stream) {
+  return launch_walk<float>(data, indices, indptr, raw, out, p, R, square, V, G, stream);
 }
 
 }  // extern "C"

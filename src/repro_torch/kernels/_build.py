@@ -127,8 +127,7 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _D, _D, _P],
     },
     "csc_score": {
-        "csc_score": [_P, _P, _P, _P, _P, _I, _I, _P],
-        "csc_score_block": [_P, _P, _P, _P, _P, _I, _I, _P],
+        "csc_walk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -338,11 +338,54 @@ def _sparse_cases():
     return [X, sp.csc_matrix(edges)]
 
 
+def _replayed(fn):
+    """fn()'s result from a replay of a CUDA graph that captured it (warmed
+    up on a side stream first, as ``core/flow.py`` captures a step)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out.clone()
+
+
+def _walk_cases():
+    """Designs beside ``_sparse_cases``: n = 20,011 (a dense column, a
+    column of the first 40 rows, a 1000-entry head column, empty columns,
+    the last row) and fewer columns than SMs (p = 50)."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(8)
+    n = 20_011
+    X = sp.random(n, 300, density=0.004, random_state=8, format="csc",
+                  data_rvs=rng.standard_normal).tolil()
+    X[:, 3:9] = 0.0
+    X[:, 12] = rng.standard_normal((n, 1))
+    X[:, 20] = 0.0
+    X[:40, 20] = rng.standard_normal((40, 1))
+    X[:, 0] = 0.0
+    X[rng.choice(n, 1000, replace=False), 0] = 1.0
+    X[-1, 299] = 2.0
+    narrow = sp.random(700, 50, density=0.05, random_state=9, format="csc",
+                       data_rvs=rng.standard_normal)
+    return [sp.csc_matrix(X), narrow]
+
+
 @pytest.mark.gpu
 def test_k5_cuda_matches_plain(cuda):
+    """K5 and K5s against the plain version; bit for bit against the
+    emulation of the kernel's order, with every SM's shared memory
+    NaN-filled before each launch, launched eagerly and replayed from a
+    CUDA graph."""
+    from repro_torch.kernels.cd_epoch import fill_shared_memory_cuda
+    from repro_torch.kernels.csc_score import emulate
     from repro_torch.sparse import CSCDesign
     rng = np.random.default_rng(5)
-    for X in _sparse_cases():
+    for X in _sparse_cases() + _walk_cases():
         d = CSCDesign.from_scipy(X, ell=True, device=cuda)
         raw, w = _on(cuda, rng.standard_normal(X.shape[0]),
                      rng.random(X.shape[0]) + 0.5)
@@ -350,11 +393,16 @@ def test_k5_cuda_matches_plain(cuda):
         for square, fn, v in ((False, ops.csc_score, raw),
                               (True, ops.csc_weighted_col_sq, w)):
             n0 = fn.launches
+            fill_shared_memory_cuda(cuda)
             got = fn(*args, v)
             assert fn.launches == n0 + 1
             torch.testing.assert_close(
                 got, csc_score_plain(*args, v, square=square), atol=1e-12,
                 rtol=1e-12)
+            assert torch.equal(got, emulate(d.data, d.indices, d.indptr, v,
+                                            square=square))
+            fill_shared_memory_cuda(cuda)
+            assert torch.equal(got, _replayed(lambda: fn(*args, v)))
         # the kernel is deterministic and agrees with the ELL reference
         assert torch.equal(ops.csc_score(*args, raw), ops.csc_score(*args,
                                                                     raw))
@@ -500,6 +548,8 @@ def test_k3b_cuda_matches_plain(cuda, pen, use_fp, n, p, T):
 @pytest.mark.gpu
 @pytest.mark.parametrize("T", [3, 20, 50])
 def test_k5b_cuda_matches_plain(cuda, T):
+    from repro_torch.kernels.cd_epoch import fill_shared_memory_cuda
+    from repro_torch.kernels.csc_score import emulate
     from repro_torch.sparse import CSCDesign
     rng = np.random.default_rng(7)
     for X in _sparse_cases():
@@ -514,6 +564,54 @@ def test_k5b_cuda_matches_plain(cuda, T):
         assert torch.equal(got, ops.csc_score_block(*args, raw))
         torch.testing.assert_close(got, torch.as_tensor(
             X.T @ raw.cpu().numpy(), device=cuda), atol=1e-12, rtol=1e-12)
+        # bit for bit the kernel's order, with shared memory NaN-filled,
+        # and from a graph replay
+        assert torch.equal(got, emulate(d.data, d.indices, d.indptr, raw))
+        fill_shared_memory_cuda(cuda)
+        assert torch.equal(got, ops.csc_score_block(*args, raw))
+        assert torch.equal(got, _replayed(
+            lambda: ops.csc_score_block(*args, raw)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 2, 200, 257])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_k5b_cuda_widths(cuda, T, dtype):
+    """K5b at one task, two, one entry an iteration (T = 200: entry order)
+    and in two task blocks (T = 257, one value a lane), in float64 and
+    float32: bit for bit its emulation."""
+    from repro_torch.kernels.csc_score import emulate
+    from repro_torch.sparse import CSCDesign
+    rng = np.random.default_rng(T)
+    for X in _walk_cases():
+        d = CSCDesign.from_scipy(X, dtype=np.float64 if dtype == torch.float64
+                                 else np.float32, ell=True, device=cuda)
+        raw = torch.as_tensor(rng.standard_normal((X.shape[0], T)),
+                              dtype=dtype, device=cuda)
+        args = (d.data, d.indices, d.col_ids, d.indptr)
+        got = ops.csc_score_block(*args, raw)
+        assert got.dtype == dtype
+        assert torch.equal(got, emulate(d.data, d.indices, d.indptr, raw))
+
+
+@pytest.mark.gpu
+def test_k5b_cuda_refuses_unaligned_raw(cuda):
+    """At an even T K5b reads raw's rows 16 bytes at a time: the wrapper
+    raises on a raw that does not start on a 16-byte boundary rather than
+    copy it quietly; K5 (no vector loads) takes it."""
+    from repro_torch.sparse import CSCDesign
+    X = _sparse_cases()[0]
+    n = X.shape[0]
+    d = CSCDesign.from_scipy(X, ell=True, device=cuda)
+    args = (d.data, d.indices, d.col_ids, d.indptr)
+    buf = torch.as_tensor(np.random.default_rng(0).standard_normal(2 * n + 1),
+                          device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.csc_score_block(*args, buf[1:].view(n, 2))
+    torch.testing.assert_close(ops.csc_score(*args, buf[1:n + 1]),
+                               csc_score_plain(*args, buf[1:n + 1]),
+                               atol=1e-12, rtol=1e-12)
 
 
 @pytest.mark.gpu
