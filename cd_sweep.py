@@ -3,10 +3,13 @@
 (``cd_epoch_xb``) and K1b (``cd_epoch_gram_block``) at fixed cluster sizes,
 on one CUDA card.
 
-    python3 cd_sweep.py [k1|k2|k1b|csc ...]
+    python3 cd_sweep.py [k1|k2|k1b|csc|heads ...] [--src=SRC]
 
 With names, only those kernels are swept (default: k1, k2, k1b; ``csc``,
-the sparse score pass, only when named: ``sweep_csc``). K1, for each
+the sparse score pass, and ``heads`` only when named: ``sweep_csc``,
+``sweep_heads``). ``--src`` times the ``repro_torch`` of another tree's
+``src`` (``heads`` runs on a tree that takes its penalty parameters by
+value too: an A/B of two trees, one process each, alternating). K1, for each
 K of ``SWEEP["k1"]`` and each (cluster size, threads) of
 ``SWEEP["k1_layouts"]`` (``gram_plan`` of ``repro_torch/kernels/cd_epoch.py``
 with ``cluster=`` and ``threads=``; None: the plan's own; clusters only
@@ -83,9 +86,9 @@ def sweep_k1(dev, cfg, out, fails):
     from repro_torch.kernels.common import penalty_params
     for K in cfg["k1"]:
         G, c, beta0, q0, L = cs.gram_inputs(K, dev, seed=K)
-        args = (G, c, beta0, q0, L, L1, penalty_params(L1(0.11)))
+        args = (G, c, beta0, q0, L, L1, penalty_params(L1(0.11), dev))
         zero = torch.zeros_like(beta0)
-        still = (G, c, zero, zero, L, L1, penalty_params(L1(1e6)))
+        still = (G, c, zero, zero, L, L1, penalty_params(L1(1e6), dev))
         br, qr = cd_epoch_gram_plain(*args)
         moved = int(torch.sum(br != beta0))
         first = []
@@ -205,7 +208,8 @@ def sweep(dev, cfg=SWEEP, kernels=("k1", "k2", "k1b")):
     for kind, weighted, K, n in shapes:
         Xt, y, w, beta0, Xb0, L, off = cs.xb_inputs(K, n, kind, dev, seed=n)
         wt = w if weighted else None
-        args = (Xt, y, beta0, Xb0, L, off, L1, penalty_params(L1(0.002)),
+        args = (Xt, y, beta0, Xb0, L, off, L1,
+                penalty_params(L1(0.002), dev),
                 kind)
         br, xr = cd_epoch_xb_plain(*args, w=wt)
         moved = int(torch.sum(br != beta0))
@@ -232,7 +236,7 @@ def sweep(dev, cfg=SWEEP, kernels=("k1", "k2", "k1b")):
         del Xt
         torch.cuda.empty_cache()
 
-    prm = penalty_params(BlockL1(0.11))
+    prm = penalty_params(BlockL1(0.11), dev)
     for K, T in cfg["k1b"] if "k1b" in kernels else ():
         G, cc, beta0, q0, L = cs.gram_block_inputs(K, T, dev, seed=K)
         args = (G, cc, beta0, q0, L, BlockL1, prm)
@@ -272,9 +276,67 @@ def sweep(dev, cfg=SWEEP, kernels=("k1", "k2", "k1b")):
     return out, fails
 
 
+def sweep_heads(dev, cfg):
+    """K3 (the head at ws = 1024, and its score launch alone), K4
+    (weighted), K3b (T = 20, ws = 512), K1 (K = 1024), K2 (K = 512, n =
+    10,000) and K1b (K = 1024, T = 20) at the time shapes of
+    ``chip_smoke.py``, L1 / BlockL1, float64: ms a launch (CUDA events,
+    warm). The penalty's vector is made on the card once where the tree's
+    ``penalty_params`` takes a device (its kernels read it there), else it
+    is the host vector that tree's launchers pass by value."""
+    import inspect
+    import torch
+    from repro_torch.core.penalties import L1, BlockL1
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.common import penalty_params
+    from repro_torch.kernels.fused_ws import score_cuda
+    on_card = "device" in inspect.signature(penalty_params).parameters
+
+    def prm(pen):
+        return penalty_params(pen, dev) if on_card else penalty_params(pen)
+
+    c = cs.FULL
+    reps = cfg["reps"] * 10
+    out = dict(params_on_card=on_card)
+    n, p = c["k3_n"], c["k3_p"]
+    Xt, r, beta, L, off = cs.fused_inputs(n, p, dev, seed=3)
+    gs = L1(0.11).generalized_support(beta)
+    w = 2.0 * torch.rand(n, device=dev, dtype=torch.float64)
+    args = (Xt, r, beta, L, off, gs, L1, prm(L1(0.11)), 1024)
+    out["K3"] = cs.time_ms(lambda: ops.fused_ws(*args), dev, reps)
+    out["K3 score"] = cs.time_ms(lambda: score_cuda(
+        Xt, r, beta, L, off, L1, args[7], gsupp=gs), dev, reps)
+    out["K4"] = cs.time_ms(lambda: ops.ws_score(
+        Xt, r, beta, L, off, L1, args[7], w=w), dev, reps)
+    out["torch.mv"] = cs.time_ms(lambda: torch.mv(Xt, r), dev, reps)
+    del Xt
+    b = c["k3b"]
+    Xt, R, beta, L, off = cs.block_inputs(b["n"], b["p"], b["T"], dev,
+                                          seed=13)
+    gs = BlockL1(0.11).generalized_support(beta)
+    args = (Xt, R, beta, L, off, gs, BlockL1, prm(BlockL1(0.11)), b["ws"])
+    out["K3b"] = cs.time_ms(lambda: ops.fused_ws_block(*args), dev, reps)
+    del Xt
+    G, cc, beta0, q0, L = cs.gram_inputs(1024, dev, seed=1024)
+    args = (G, cc, beta0, q0, L, L1, prm(L1(0.11)))
+    out["K1"] = cs.time_ms(lambda: ops.cd_epoch_gram(*args), dev, reps)
+    Xt, y, w, beta0, Xb0, L, off = cs.xb_inputs(c["k2_K"], c["k2_n"],
+                                                "logistic", dev, seed=7)
+    args = (Xt, y, beta0, Xb0, L, off, L1, prm(L1(0.07)), "logistic")
+    out["K2"] = cs.time_ms(lambda: ops.cd_epoch_xb(*args), dev, reps)
+    G, cc, beta0, q0, L = cs.gram_block_inputs(1024, c["k1b_T"], dev,
+                                               seed=1024)
+    args = (G, cc, beta0, q0, L, BlockL1, prm(BlockL1(0.11)))
+    out["K1b"] = cs.time_ms(lambda: ops.cd_epoch_gram_block(*args), dev,
+                            cfg["reps"])
+    cs.log(f"sweep heads {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
-    sys.path.insert(0, str(here / "src"))
+    src = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--src=")]
+    sys.path.insert(0, str(Path(src[0]).resolve() if src else here / "src"))
     import torch
     if not torch.cuda.is_available():
         print("cd_sweep: no CUDA device", file=sys.stderr)
@@ -283,7 +345,11 @@ def main() -> int:
     card = cs.card_line()
     cs.log(f"device: {card}")
     cs.build_report()
-    kernels = tuple(sys.argv[1:]) or ("k1", "k2", "k1b")
+    kernels = tuple(a for a in sys.argv[1:] if not a.startswith("--")) \
+        or ("k1", "k2", "k1b")
+    if kernels == ("heads",):
+        sweep_heads(torch.device("cuda"), SWEEP)
+        return 0
     records, failures = sweep(torch.device("cuda"), kernels=kernels)
     out = here / "build" / "cd_sweep.json"
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -14,7 +14,8 @@ Phases, each of which must pass (any failure exits non-zero):
    Tolerances are those of the reference's kernel tests: |err| <=
    1e-12 + 1e-5 |ref| for K1 (at K = 256 and 1024, and at the blocked
    kernel's edges K = 1, 31, 33, 1023, 1025, 2049, 4096: one block and
-   many, ragged and whole, one CTA and the cluster, all seven penalties,
+   many, ragged and whole, one CTA and the cluster, all seven penalties
+   up to K = 2049 and L1, MCP and SCAD at 4096,
    epochs 1 and 3, G column-major and row-major, each launched twice and
    equal bit for bit on its plan's branch; the global-memory branches,
    forced, at K = 2049; a block with L = 0 and a level at which nothing
@@ -107,6 +108,31 @@ Phases, each of which must pass (any failure exits non-zero):
    weighted fit, and no scalar K1/K3/K5. The dense MultiTaskLasso is held
    to its eager oracle bit for bit, and run with 16 CTAs refused (K1b on
    8, bit for bit).
+7b. regularization paths (``reg_path``), each on a design built once,
+   with its wall time, outer steps, epochs, host reads, captures and their
+   seconds and peak allocated / reserved memory printed, and its
+   kernel-route launches joining the counts: (a) a dense Lasso path on
+   ``cv_fig`` (30 lambdas from lambda_max to lambda_max/100, tol 1e-6) on
+   the kernel route, equal bit for bit (betas, epochs, outer steps) to the
+   same path with ``capture=False``, each step key captured once and no
+   more keys than ``BucketPolicy(p0=64).ladder(p)`` has rungs, and its
+   first 8 lambdas on the plain route within 1e-6; (b) Figure 1 at its
+   paper size (n = 1000, p = 2000, 200 nonzeros, rho = 0.6, SNR 5): L1,
+   L1L2(rho=0.5), MCP(gamma=3) and SCAD(gamma=3.7), 15 lambdas to
+   lambda_max/100 at tol 1e-7 with ``support_metrics`` on a held-out set
+   on the kernel route, equal on all its lambdas bit for bit to
+   ``capture=False`` with each step key captured once, its first 5
+   lambdas on the plain route within 1e-6 (the plain route's
+   per-coordinate Python epochs take 4-5 minutes a penalty for the whole
+   grid on an H100), each penalty's best F1 printed; (c) a gap-safe
+   screened Lasso path on the full ``sparse_fig2`` design (6 lambdas to
+   lambda_max/20, tol 1e-9) within 1e-7 of the unscreened one, its
+   screened fractions printed (their maximum above 0.1) and each (bucket,
+   slot design) key captured once, then the same on a grid of 20
+   lambdas, where survivors keep their power-of-two width from one lambda
+   to the next and their slot designs must be refilled in place; (d) a
+   MultiTaskLasso path on the M/EEG leadfield (8 lambdas to
+   lambda_max/10) equal bit for bit to ``capture=False``. Every lambda must converge.
 8. times: each kernel at main-path shapes (CUDA events, warm), its plain
    version, its bound (bytes over 3.35 TB/s or operations over 67 TF/s
    float64, the larger) and, where one PyTorch call computes the same
@@ -146,6 +172,7 @@ PENALTY_SPECS = [("L1", (0.11,)), ("L1L2", (0.11, 0.6)), ("MCP", (0.11, 3.0)),
                  ("Box", (0.8,))]
 FULL = dict(k1_sizes=(256, 1024),
             k1_blocked=(1, 31, 33, 1023, 1025, 2049, 4096), k1_frozen_K=1025, k1_time_K=(1024, 2048),
+            k1_all_pens_K=2049, k1_large_pens=("L1", "MCP", "SCAD"),
             k2_K=512, k2_n=10_000,
             k2_big=((512, 50_000), (4096, 50_000), (512, 1000),
                     (128, 160_003)),
@@ -170,6 +197,11 @@ FULL = dict(k1_sizes=(256, 1024),
                        n_nonzero=150, snr=5.0, frac_lambda=10,
                        cpu_bytes=2**27),
             mt_sparse_T=20, mt_sparse_frac=300, mt_sparse_min_ws=1024,
+            path_a=dict(n_lambdas=30, ratio=1e-2, tol=1e-6, plain_lambdas=8),
+            fig1=dict(n=1000, p=2000, n_nonzero=200, n_lambdas=15, tol=1e-7,
+                      plain_lambdas=5),
+            screen=dict(n_lambdas=6, ratio=0.05, tol=1e-9, fine_lambdas=20),
+            path_mt=dict(n_lambdas=8, ratio=0.1),
             reps=20)
 
 
@@ -230,6 +262,16 @@ def graph_ms(fn, dev, reps):
     ms = time_ms(graph.replay, dev, reps)
     del graph
     return ms
+
+
+def on_card(args, dev):
+    """`args` with the penalty's codec vector (the one CPU tensor among
+    them) moved to `dev` once: a kernel reads its parameters on the card,
+    and a host vector would cost every timed launch a blocking copy. The
+    plain versions are timed with the host vector."""
+    import torch
+    return tuple(a.to(dev) if torch.is_tensor(a) and a.device.type == "cpu"
+                 else a for a in args)
 
 
 def bound(nbytes, nops):
@@ -488,7 +530,12 @@ def check_k1_blocked(dev, cfg, errs):
         t = time.perf_counter()
         G, c, beta0, q0, L = k1_inputs(K, dev, seed=K)
         Grow = G.contiguous()
-        for pen in penalties():
+        # past k1_all_pens_K, the penalties with the most prox branches
+        # (the plain epochs there take ~7-15 s a penalty)
+        pens = penalties() if K <= cfg["k1_all_pens_K"] else [
+            p for p in penalties()
+            if type(p).__name__ in cfg["k1_large_pens"]]
+        for pen in pens:
             prm = penalty_params(pen)
             args = (G, c, beta0, q0, L, type(pen), prm)
             refs = refs_of(args)
@@ -1281,6 +1328,233 @@ def multitask_path(dev, cfg, X_sparse, beta_true):
     return total, fails
 
 
+# -------------------------------------------------------------------- paths
+def run_path(label, call, dev, total=None):
+    """Run one regularization path (``call()`` -> PathResult) with the
+    launch counts reset just before and read just after (added to `total`
+    when given), and print its wall time, outer steps, epochs, host reads,
+    captures and their seconds, and peak allocated / reserved memory."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    res = call()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = all_counts()
+    if total is not None:
+        for k in total:
+            total[k] += counts[k]
+    peak, reserved = (torch.cuda.max_memory_allocated() / 2**30,
+                      torch.cuda.max_memory_reserved() / 2**30) \
+        if dev.type == "cuda" else (float("nan"), float("nan"))
+    cap = res.diagnostics["capture_s"]
+    log(f"  {label}: wall {wall:.3f} s, {len(res.lambdas)} lambdas, "
+        f"converged {int(np.sum(res.kkts <= TOL))}, outer steps "
+        f"{int(np.sum(res.n_outer))}, epochs {int(np.sum(res.n_epochs))}, "
+        f"host reads {res.n_host_syncs}, captures {len(cap)} "
+        f"({float(np.sum(cap)):.3f} s), keys {len(res.captures)}, peak "
+        f"mem {peak:.3f} GiB (reserved {reserved:.3f}), launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return res, wall
+
+
+def path_keys_once(label, res, fails, ladder=None):
+    """Each captured step key of `res` captured once; with `ladder`, only
+    buckets of it and no more keys than its rungs."""
+    counts = set(res.captures.values())
+    buckets = {key[0] for key in res.captures}
+    ok = counts <= {1} and (ladder is None or (
+        buckets <= set(ladder) and len(res.captures) <= len(ladder)))
+    log(f"  {label}: {len(res.captures)} keys, captured "
+        f"{sorted(counts)} time(s) each, buckets {sorted(buckets)}"
+        + (f" (ladder {ladder})" if ladder is not None else "")
+        + f": ok {ok}")
+    if not ok:
+        fails.append(f"{label}: captures {res.captures}")
+
+
+def path_phase(dev, cfg, sparse_design, sparse_y):
+    """The regularization paths: (a) a dense Lasso path on ``cv_fig``,
+    (b) Figure 1 at its paper size, (c) a gap-safe screened Lasso path on
+    ``sparse_fig2``, (d) a MultiTaskLasso path on the M/EEG leadfield;
+    returns (launch counts summed over the kernel-route paths, failures)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (L1, L1L2, MCP, SCAD, BlockL1,
+                                  BucketPolicy, MultitaskQuadratic,
+                                  Quadratic, make_engine, reg_path,
+                                  support_metrics)
+    from repro_torch.core.engine import DenseDesign
+    from repro_torch.data import make_correlated_design, make_leadfield
+    total = dict.fromkeys(all_counts(), 0)
+    fails = []
+
+    def engine(penalty, datafit=None, **kw):
+        return make_engine(penalty, datafit or Quadratic(), device=dev,
+                           **kw)
+
+    def converged(label, res, tol):
+        ok = bool(np.all(res.kkts <= tol))
+        if not ok:
+            fails.append(f"{label}: lambdas not converged at {tol}: "
+                         f"{res.kkts.tolist()}")
+        return ok
+
+    def same(label, a, b, what="capture=False"):
+        ok = bool(np.array_equal(a.betas, b.betas)
+                  and np.array_equal(a.n_epochs, b.n_epochs)
+                  and np.array_equal(a.n_outer, b.n_outer))
+        log(f"  {label}: kernel route == {what} bit for bit: {ok}")
+        if not ok:
+            fails.append(f"{label}: captured path differs from {what}: max "
+                         f"{float(np.max(np.abs(a.betas - b.betas))):.3e}")
+
+    def within(label, a, b, bound):
+        diff = float(np.max(np.abs(a - b)))
+        log(f"  {label}: max |diff| {diff:.3e} (bound {bound:g})")
+        if not diff <= bound:
+            fails.append(f"{label}: max |diff| {diff:.3e} > {bound:g}")
+
+    # (a) the cv_fig Lasso path: 30 lambdas, lambda_max -> lambda_max/100
+    a = cfg["path_a"]
+    X, y, _ = make_correlated_design(n=cfg["reg_n"], p=cfg["reg_p"],
+                                     n_nonzero=cfg["reg_nnz"], rho=0.5,
+                                     snr=5.0, seed=0)
+    design = DenseDesign.from_dense(X, dev)
+    del X
+    log(f"path (a): dense Lasso on cv_fig ({cfg['reg_n']} x {cfg['reg_p']}),"
+        f" {a['n_lambdas']} lambdas to lambda_max/{round(1 / a['ratio'])}, "
+        f"tol {a['tol']}")
+    kw = dict(n_lambdas=a["n_lambdas"], lambda_min_ratio=a["ratio"],
+              tol=a["tol"])
+    eng = engine(L1(1.0))
+    ka, _ = run_path("kernels", lambda: reg_path(
+        design, y, L1(1.0), engine=eng, device=dev, **kw), dev, total)
+    eng.release_graphs()
+    converged("path (a)", ka, a["tol"])
+    path_keys_once("path (a)", ka, fails, BucketPolicy(p0=64).ladder(
+        cfg["reg_p"]))
+    oa, _ = run_path("oracle ", lambda: reg_path(
+        design, y, L1(1.0), engine=engine(L1(1.0), capture=False),
+        device=dev, **kw), dev)
+    same("path (a)", ka, oa)
+    pa, _ = run_path("plain  ", lambda: reg_path(
+        design, y, L1(1.0), lambdas=ka.lambdas[:a["plain_lambdas"]],
+        tol=a["tol"], device=dev, use_kernels=False), dev)
+    converged("path (a) plain", pa, a["tol"])
+    within(f"path (a) plain route, first {a['plain_lambdas']} lambdas",
+           pa.betas, ka.betas[:a["plain_lambdas"]], TOL)
+    del design
+
+    # (b) Figure 1 at its paper size, both routes
+    b = cfg["fig1"]
+    X, y, beta_true = make_correlated_design(
+        n=b["n"], p=b["p"], n_nonzero=b["n_nonzero"], rho=0.6, snr=5.0,
+        seed=0)
+    X_te, y_te, _ = make_correlated_design(
+        n=b["n"], p=b["p"], n_nonzero=b["n_nonzero"], rho=0.6, snr=5.0,
+        seed=1)
+    log(f"path (b): Figure 1 at paper size {b}, {b['n_lambdas']} lambdas to "
+        f"lambda_max/100, tol {b['tol']}")
+
+    def mfn(lam, beta):
+        return support_metrics(beta, beta_true, X_te, y_te)
+
+    for name, pen in (("L1", L1(1.0)), ("L1L2(rho=0.5)", L1L2(1.0, 0.5)),
+                      ("MCP(gamma=3)", MCP(1.0, 3.0)),
+                      ("SCAD(gamma=3.7)", SCAD(1.0, 3.7))):
+        kw = dict(n_lambdas=b["n_lambdas"], lambda_min_ratio=0.01,
+                  tol=b["tol"], metric_fn=mfn, device=dev)
+        kb, _ = run_path(f"{name} kernels", lambda: reg_path(
+            X, y, pen, **kw), dev, total)
+        ob, _ = run_path(f"{name} oracle ", lambda: reg_path(
+            X, y, pen, engine=engine(pen, capture=False), **kw), dev)
+        path_keys_once(f"path (b) {name}", kb, fails)
+        same(f"path (b) {name}", kb, ob)
+        # the plain route's Python epochs take 4-5 min a penalty for the
+        # whole grid on an H100: its first plain_lambdas lambdas
+        k = b["plain_lambdas"]
+        pb, _ = run_path(f"{name} plain  ", lambda: reg_path(
+            X, y, pen, lambdas=kb.lambdas[:k], tol=b["tol"], device=dev,
+            use_kernels=False), dev)
+        converged(f"path (b) {name}", kb, b["tol"])
+        converged(f"path (b) {name} plain", pb, b["tol"])
+        within(f"path (b) {name} kernel vs plain route, first {k} lambdas",
+               kb.betas[:k], pb.betas, TOL)
+        f1 = [m["f1"] for m in kb.metrics]
+        log(f"  {name}: best F1 {max(f1):.4f} at lambda index "
+            f"{int(np.argmax(f1))}, exact support anywhere "
+            f"{any(m['exact_support'] for m in kb.metrics)}, best est err "
+            f"{min(m['est_err'] for m in kb.metrics):.4f}")
+
+    # (c) the gap-safe screened Lasso path on the full sparse_fig2 design
+    c = cfg["screen"]
+    log(f"path (c): gap-safe screened Lasso on sparse_fig2, "
+        f"{c['n_lambdas']} and {c['fine_lambdas']} lambdas to "
+        f"lambda_max/{round(1 / c['ratio'])}, "
+        f"tol {c['tol']}")
+    for n_lam in (c["n_lambdas"], c["fine_lambdas"]):
+        tag = f"path (c) {n_lam} lambdas"
+        kw = dict(n_lambdas=n_lam, lambda_min_ratio=c["ratio"], tol=c["tol"],
+                  device=dev)
+        uc, _ = run_path(f"unscreened, {n_lam} lambdas", lambda: reg_path(
+            sparse_design, sparse_y, L1(1.0), **kw), dev, total)
+        sc, _ = run_path(f"screened,   {n_lam} lambdas", lambda: reg_path(
+            sparse_design, sparse_y, L1(1.0), screen="gap_safe", **kw), dev,
+            total)
+        converged(f"{tag} unscreened", uc, c["tol"])
+        converged(f"{tag} screened", sc, c["tol"])
+        within(f"{tag} screened vs unscreened", sc.betas, uc.betas, 1e-7)
+        path_keys_once(f"{tag} unscreened", uc, fails)
+        path_keys_once(f"{tag} screened", sc, fails)
+        slots = {(key[0], key[1]) for key in sc.captures}
+        refills = sc.diagnostics["slot_refills"]
+        log(f"  screened fractions "
+            f"{[round(float(f), 4) for f in sc.screened_fracs]}, max "
+            f"{float(np.max(sc.screened_fracs)):.4f}; step keys by (bucket, "
+            f"slot design): {len(slots)}, slot designs made "
+            f"{sc.diagnostics['slots_made']}, refilled in place {refills} "
+            f"of {int(np.sum(sc.screened_fracs < 1.0))} screened solves")
+        if not np.max(sc.screened_fracs) > 0.1:
+            fails.append(f"{tag}: the rule screened at most "
+                         f"{float(np.max(sc.screened_fracs)):.4f}")
+        if n_lam == c["fine_lambdas"] and not refills:
+            fails.append(f"{tag}: no slot design was refilled in place")
+
+    # (d) a MultiTaskLasso path on the M/EEG leadfield
+    d = cfg["path_mt"]
+    X, Y, _, _ = make_leadfield(**cfg["meeg"])
+    log(f"path (d): MultiTaskLasso on the M/EEG leadfield {cfg['meeg']}, "
+        f"{d['n_lambdas']} lambdas to lambda_max/{round(1 / d['ratio'])}, "
+        f"tol {TOL}")
+    kw = dict(n_lambdas=d["n_lambdas"], lambda_min_ratio=d["ratio"],
+              tol=TOL, device=dev)
+    kd, _ = run_path("kernels", lambda: reg_path(
+        X, Y, BlockL1(1.0), MultitaskQuadratic(), **kw), dev, total)
+    od, _ = run_path("oracle ", lambda: reg_path(
+        X, Y, BlockL1(1.0), MultitaskQuadratic(),
+        engine=engine(BlockL1(1.0), MultitaskQuadratic(), capture=False),
+        **kw), dev)
+    converged("path (d)", kd, TOL)
+    path_keys_once("path (d)", kd, fails)
+    same("path (d)", kd, od)
+    need = ("fused_ws", "cd_epoch_gram", "csc_score", "fused_ws_block",
+            "cd_epoch_gram_block")
+    missing = [k for k in need if not total[k]]
+    if missing:
+        fails.append(f"paths: kernels never launched {missing}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return total, fails
+
+
 # ------------------------------------------------------------------- times
 _FLOOR_US = {}
 
@@ -1318,7 +1592,8 @@ def gram_row(dev, K, launches, errs, reps):
     from repro_torch.kernels.common import penalty_params
     G, c, beta0, q0, L = gram_inputs(K, dev, seed=K)
     args = (G, c, beta0, q0, L, L1, penalty_params(L1(0.11)))
-    ms = time_ms(lambda: ops.cd_epoch_gram(*args), dev, reps)
+    kargs = on_card(args, dev)
+    ms = time_ms(lambda: ops.cd_epoch_gram(*kargs), dev, reps)
     plain = time_ms(lambda: cd_epoch_gram_plain(*args), dev, 1)
     moved = int(torch.sum(ops.cd_epoch_gram(*args)[0] != beta0))
     b = bound(8 * (moved * K + 6 * K), 2 * moved * K)
@@ -1356,7 +1631,8 @@ def xb_row(dev, K, n, weighted, lam, seed, launches, errs, reps):
     wt = w if weighted else None
     args = (Xt, y, beta0, Xb0, L, off, L1, penalty_params(L1(lam)),
             "logistic")
-    ms = time_ms(lambda: ops.cd_epoch_xb(*args, w=wt), dev, reps)
+    kargs = on_card(args, dev)
+    ms = time_ms(lambda: ops.cd_epoch_xb(*kargs, w=wt), dev, reps)
     plain = time_ms(lambda: cd_epoch_xb_plain(*args, w=wt), dev, 1)
     moved = int(torch.sum(ops.cd_epoch_xb(*args, w=wt)[0] != beta0))
     b = bound(8 * (K * n + (4 if weighted else 3) * n + 5 * K),
@@ -1402,7 +1678,8 @@ def kernel_times(dev, cfg, launches, errs, card, sparse_design):
     gs = pen.generalized_support(beta)
     for ws_size in cfg["k3_ws"]:
         args = (Xt, r, beta, L, off, gs, L1, prm, ws_size)
-        ms = time_ms(lambda: ops.fused_ws(*args), dev, reps)
+        kargs = on_card(args, dev)
+        ms = time_ms(lambda: ops.fused_ws(*kargs), dev, reps)
         plain = time_ms(lambda: fused_ws_plain(*args), dev, 3)
         lib = time_ms(lambda: torch.mv(Xt, r), dev, reps)
         bp = pick_bp(p)
@@ -1420,12 +1697,13 @@ def kernel_times(dev, cfg, launches, errs, card, sparse_design):
             # the score launch, the select launch, the merge launch (the working set), the
             # gather of its rows, and the stable sort that the merge
             # replaces (select_working_set)
-            sc, _, pri = score_cuda(Xt, r, beta, L, off, L1, prm, gsupp=gs)
+            dprm = kargs[7]
+            sc, _, pri = score_cuda(Xt, r, beta, L, off, L1, dprm, gsupp=gs)
             cidx = select_cuda(pri, bp, kc)
             wsel = merge_cuda(pri, cidx, bp, ws_size)
             parts = dict(
-                head=lambda: ops.fused_ws(*args),
-                score=lambda: score_cuda(Xt, r, beta, L, off, L1, prm,
+                head=lambda: ops.fused_ws(*kargs),
+                score=lambda: score_cuda(Xt, r, beta, L, off, L1, dprm,
                                          gsupp=gs),
                 select=lambda: select_cuda(pri, bp, kc),
                 merge=lambda: merge_cuda(pri, cidx, bp, ws_size),
@@ -1531,7 +1809,8 @@ def sparse_times(dev, cfg, launches, errs, d):
     w = 2.0 * torch.rand(n, generator=g, device=dev, dtype=torch.float64)
     prm = penalty_params(L1(0.11))
     args = (Xt, r, beta, L, off, L1, prm)
-    ms = time_ms(lambda: ops.ws_score(*args, w=w), dev, reps)
+    kargs = on_card(args, dev)
+    ms = time_ms(lambda: ops.ws_score(*kargs, w=w), dev, reps)
     plain = time_ms(lambda: ws_score_plain(*args, w=w), dev, reps)
     lib = time_ms(lambda: torch.mv(Xt, r * w), dev, reps)
     b = bound(8 * (p * n + 2 * n + 4 * p), 2 * p * n + n)
@@ -1609,7 +1888,8 @@ def block_times(dev, cfg, launches, errs, card, d):
     Xt, R, beta, L, off = block_inputs(n, p, T, dev, seed=13)
     gs = pen.generalized_support(beta)
     args = (Xt, R, beta, L, off, gs, BlockL1, prm, ws)
-    ms = time_ms(lambda: ops.fused_ws_block(*args), dev, reps)
+    kargs = on_card(args, dev)
+    ms = time_ms(lambda: ops.fused_ws_block(*kargs), dev, reps)
     plain = time_ms(lambda: fused_ws_plain(*args), dev, 3)
     lib = time_ms(lambda: torch.mm(Xt, R), dev, reps)
     bp = pick_bp(p)
@@ -1667,7 +1947,8 @@ def block_times(dev, cfg, launches, errs, card, d):
     for K in cfg["k1b_time_K"]:
         G, cc, beta0, q0, L = gram_block_inputs(K, T, dev, seed=K)
         args = (G, cc, beta0, q0, L, BlockL1, prm)
-        ms = time_ms(lambda: ops.cd_epoch_gram_block(*args), dev, reps)
+        kargs = on_card(args, dev)
+        ms = time_ms(lambda: ops.cd_epoch_gram_block(*kargs), dev, reps)
         plain = time_ms(lambda: cd_epoch_gram_plain(*args), dev, 1)
         moved = int(torch.sum(torch.any(
             ops.cd_epoch_gram_block(*args)[0] != beta0, dim=1)))
@@ -1788,6 +2069,16 @@ def run(dev, cfg):
     for k in launches:
         launches[k] += mt_launches[k]
     del X_sparse
+
+    t = time.perf_counter()
+    path_launches, fails = path_phase(dev, cfg, design, y)
+    failures += fails
+    log(f"paths ({time.perf_counter() - t:.1f} s): launches "
+        f"{path_launches}")
+    for f in fails:
+        log(f"  FAIL {f}")
+    for k in launches:
+        launches[k] += path_launches[k]
 
     rows = kernel_times(dev, cfg, launches, errs, card, design)
     rows += block_times(dev, cfg, launches, errs, card, design)

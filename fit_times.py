@@ -2,7 +2,7 @@
 """Time the kernel route of the small-K fits of ``chip_smoke.py`` several
 times on one CUDA card, to compare two trees of the port.
 
-    python3 fit_times.py [--deep] [--sparse] [SRC]
+    python3 fit_times.py [--deep] [--sparse] [--path] [SRC]
     python3 fit_times.py --pool LOG [LOG ...]
 
 SRC is the ``src`` directory whose ``repro_torch`` is timed (default: this
@@ -28,6 +28,17 @@ memory of the warm-up fit (the allocator's cache emptied before it) and
 the host seconds of the CUDA graph captures (a tree without them reports
 none) are printed as one JSON line.
 
+``--path`` times only the regularization path (a) of ``chip_smoke.py``:
+30 lambdas of a dense Lasso on the ``cv_fig`` design from lambda_max to
+lambda_max/100 at tol 1e-6, ``PATH_REPS`` times after a warm-up, each on a
+new engine. A tree whose ``repro_torch.core`` has ``reg_path`` runs it
+("path"); on every tree the loop that users write without it runs too
+("loop": warm-started ``solve(engine=...)`` per lambda on one engine,
+which on a tree that keys its captured steps by the penalty's values
+captures once per (lambda, bucket)). Each gives the wall times, the
+captures and their seconds, the host reads and the peak allocated and
+reserved memory of the sweep (the allocator's cache emptied before each).
+
 ``--pool`` reads the JSON lines of several such runs (one process each,
 alternating between two trees in one call) and prints, for each tree (its
 ``src``) and fit, the median and interquartile range of all its walls and
@@ -44,8 +55,10 @@ from pathlib import Path
 import chip_smoke as cs
 
 REPS = 7
+PATH_REPS = 3
 DEEP = False
 SPARSE = False
+PATH = False
 
 
 def pool(paths) -> int:
@@ -73,13 +86,14 @@ def pool(paths) -> int:
 
 
 def main() -> int:
-    global DEEP, SPARSE
+    global DEEP, SPARSE, PATH
     if sys.argv[1:2] == ["--pool"]:
         return pool(sys.argv[2:])
     args = sys.argv[1:]
     DEEP = "--deep" in args
     SPARSE = "--sparse" in args
-    args = [a for a in args if a not in ("--deep", "--sparse")]
+    PATH = "--path" in args
+    args = [a for a in args if a not in ("--deep", "--sparse", "--path")]
     here = Path(__file__).resolve().parent
     src = Path(args[0]).resolve() if args else here / "src"
     sys.path.insert(0, str(src))
@@ -138,6 +152,10 @@ def main() -> int:
 
     if SPARSE:
         sparse_fits(cfg, dev, timed)
+        print(json.dumps(out))
+        return 0
+    if PATH:
+        path_sweeps(cfg, dev, out)
         print(json.dumps(out))
         return 0
 
@@ -241,6 +259,76 @@ def sparse_fits(cfg, dev, timed):
     timed(f"sparse MultiTaskLasso(lmax/{frac}, T={T})",
           lambda: MultiTaskLasso(alpha=lmax / frac, tol=cs.TOL), d, Y,
           reps=5)
+
+
+def path_sweeps(cfg, dev, out):
+    """Path (a) of ``chip_smoke.py`` through ``reg_path`` where the tree
+    has it, and the warm-started loop of ``solve`` calls on one engine."""
+    import numpy as np
+    import torch
+    import repro_torch.core as core
+    from repro_torch.core import L1, Quadratic, lambda_max, make_engine
+    from repro_torch.core.engine import DenseDesign
+    from repro_torch.data import make_correlated_design
+    a = cfg["path_a"]
+    X, y, _ = make_correlated_design(n=cfg["reg_n"], p=cfg["reg_p"],
+                                     n_nonzero=cfg["reg_nnz"], rho=0.5,
+                                     snr=5.0, seed=0)
+    design = DenseDesign.from_dense(X, dev)
+    del X
+    y = torch.as_tensor(y, device=dev)
+    lmax = lambda_max(design, y, device=dev)
+    grid = lmax * np.geomspace(1.0, a["ratio"], a["n_lambdas"])
+
+    def loop(eng):
+        beta, reads, outer, conv = None, 0, 0, 0
+        for lam in grid:
+            res = core.solve(design, y, Quadratic(), L1(float(lam)),
+                             tol=a["tol"], beta0=beta, engine=eng)
+            beta = res.beta
+            reads += res.n_host_syncs
+            outer += len(res.kkt_history)
+            conv += res.converged
+        return dict(host_reads=reads, outer_steps=outer, converged=conv)
+
+    def path(eng):
+        res = core.reg_path(design, y, L1(1.0), lambdas=grid, tol=a["tol"],
+                            engine=eng)
+        return dict(host_reads=res.n_host_syncs,
+                    outer_steps=int(np.sum(res.n_outer + (res.kkts
+                                                          <= a["tol"]))),
+                    converged=int(np.sum(res.kkts <= a["tol"])))
+
+    runs = [("loop", loop)]
+    if hasattr(core, "reg_path"):
+        runs.insert(0, ("path", path))
+    for label, sweep in runs:
+        walls, peaks, reserved, caps = [], [], [], []
+        for i in range(PATH_REPS + 1):
+            eng = make_engine(L1(1.0), Quadratic(), device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            rec = sweep(eng)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            if i:
+                walls.append(wall)
+                peaks.append(torch.cuda.max_memory_allocated())
+                reserved.append(torch.cuda.max_memory_reserved())
+                caps.append([float(c) for c in eng.capture_s])
+            eng.release_graphs()
+            del eng
+        out["fits"][f"path (a) {label}"] = dict(
+            walls=walls, median=statistics.median(walls),
+            peak_bytes=max(peaks), reserved_bytes=max(reserved),
+            captures=len(caps[-1]), capture_s=caps[-1], **rec)
+        cs.log(f"path (a) {label}: median {statistics.median(walls):.4f} s, "
+               f"walls {[round(w, 4) for w in walls]}, {rec}, captures "
+               f"{len(caps[-1])} ({sum(caps[-1]):.3f} s), peak "
+               f"{max(peaks) / 2**30:.3f} GiB, reserved "
+               f"{max(reserved) / 2**30:.3f} GiB")
 
 
 if __name__ == "__main__":

@@ -1,10 +1,14 @@
 """repro_torch.core: the working-set + Anderson-CD solver (port of
 ``repro.core``, single-device path: dense and CSC designs, scalar and
-multitask block coordinates)."""
+multitask block coordinates, regularization paths with gap-safe
+screening)."""
 from .datafits import Logistic, MultitaskQuadratic, Quadratic, QuadraticSVC
 from .penalties import (MCP, SCAD, L05, L23, L1, L1L2, BlockL1, BlockMCP,
                         Box, soft_threshold)
 from .solver import SolveResult, make_engine, normalize_weights, solve
+from .path import PathResult, reg_path, support_metrics
+from .screening import (gap_safe_mask_design, lasso_gap_safe_mask,
+                        screened_fraction)
 from .engine import (DenseDesign, EngineConfig, GramSolver, SolveEngine,
                      SubproblemSolver, XbSolver, as_design)
 from .anderson import anderson_extrapolate
@@ -24,6 +28,8 @@ __all__ = [
     "L1", "L1L2", "MCP", "SCAD", "L05", "L23", "Box", "BlockL1", "BlockMCP",
     "soft_threshold",
     "solve", "SolveResult", "make_engine", "normalize_weights",
+    "reg_path", "PathResult", "support_metrics", "gap_safe_mask_design",
+    "lasso_gap_safe_mask", "screened_fraction",
     "EngineConfig", "SolveEngine", "SubproblemSolver", "GramSolver",
     "XbSolver", "DenseDesign", "as_design",
     "BucketPolicy", "anderson_extrapolate", "violation_scores",

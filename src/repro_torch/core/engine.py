@@ -49,19 +49,22 @@ and the working-set gathers all read contiguous rows; ``X`` is its
 transposed view). ``repro_torch.sparse.CSCDesign`` keeps the window-padded
 CSC arrays and densifies only the working-set columns. Both offer
 ``score``, ``gather_ws`` (-> ``(Xt_ws [K, n], aux)``), ``update_xb``,
-``matvec`` and ``lipschitz``; ``aux`` is None for a dense design and the
-(rows, vals) column windows for a CSC one.
+``matvec``, ``lipschitz``, ``col_sq_norms`` and ``take_columns`` (a column
+subset, or a refill in place of one); ``aux`` is None for a dense design
+and the (rows, vals) column windows for a CSC one.
 """
 from __future__ import annotations
 
+import itertools
 import math
 import time
+import weakref
 from dataclasses import dataclass
 
 import torch
 
 from ..kernels import ops as kops
-from ..kernels.common import (SCALAR_COORD_PENALTIES,
+from ..kernels.common import (SCALAR_COORD_PENALTIES, bind_penalty,
                               check_score_kernel_penalty, penalty_params)
 from .anderson import anderson_extrapolate
 from .cd import cd_epoch_gram, cd_epoch_xb
@@ -163,16 +166,47 @@ class DenseDesign:
         """X @ beta ([p] or [p, T] coefficients)."""
         return self.Xt.T @ beta
 
-    def lipschitz(self, datafit, w=None, use_kernels=False):
-        """The datafit's per-coordinate Lipschitz constants, taken over
-        feature chunks of at most X_CHUNK_BYTES of X: the datafits
-        square X elementwise, and over all of X that temporary (as large
-        as X) set the fits' peak memory."""
+    def _chunks(self):
+        """Xt in feature chunks of at most X_CHUNK_BYTES: a temporary as
+        large as X (a square of X) would set the fits' peak memory."""
         rows = max(1, X_CHUNK_BYTES
                    // max(1, self.n_rows * self.Xt.element_size()))
+        return torch.split(self.Xt, rows)
+
+    def lipschitz(self, datafit, w=None, use_kernels=False):
+        """The datafit's per-coordinate Lipschitz constants, taken over
+        feature chunks."""
         return torch.cat([
             datafit.lipschitz(c.T) if w is None else datafit.lipschitz(c.T, w)
-            for c in torch.split(self.Xt, rows)])
+            for c in self._chunks()])
+
+    def col_sq_norms(self):
+        """Squared column norms ||x_j||^2 [p], over feature chunks."""
+        return torch.cat([torch.sum(c * c, dim=1) for c in self._chunks()])
+
+    def take_columns(self, idx, out=None):
+        """The design of the columns `idx` (an int tensor or array on any
+        device), an entry -1 giving a zero column (the screened path's
+        power-of-two padding), gathered on this design's device. With
+        `out`, a design of len(idx) columns and this one's rows and dtype,
+        the columns are written into it in place and it is returned (the
+        screened path refills one design a width, so its captured steps,
+        which read the design in place, replay)."""
+        idx = torch.as_tensor(idx, device=self.device).long()
+        width = idx.shape[0]
+        if out is None:
+            out = DenseDesign(torch.empty((width, self.n_rows),
+                                          dtype=self.dtype,
+                                          device=self.device))
+        elif out.shape != (self.n_rows, width) or out.dtype != self.dtype \
+                or out.device != self.device:
+            raise ValueError(f"take_columns: out must be a {self.n_rows} x "
+                             f"{width} {self.dtype} design on {self.device}, "
+                             f"got {out.shape} {out.dtype} on {out.device}")
+        valid = idx >= 0
+        torch.index_select(self.Xt, 0, torch.clamp(idx, min=0), out=out.Xt)
+        out.Xt.masked_fill_(~valid[:, None], 0.0)
+        return out
 
 
 def is_scipy_sparse(X) -> bool:
@@ -260,6 +294,8 @@ class WorkingSetContext:
     offset_ws: torch.Tensor          # [K]
     datafit: object
     penalty: object
+    params: torch.Tensor = None      # the penalty's codec vector on the
+                                     # design's device (kernel route only)
     G: torch.Tensor = None           # [K, K] column-major (Gram solvers only)
     c: torch.Tensor = None           # [K] or [K, T] (Gram solvers only)
     w: torch.Tensor = None           # per-sample weights (Xb solvers only;
@@ -348,7 +384,7 @@ class GramSolver(SubproblemSolver):
             kern = kops.cd_epoch_gram_block if beta.ndim == 2 \
                 else kops.cd_epoch_gram
             return kern(ctx.G, ctx.c, beta, aux, ctx.L_ws, type(ctx.penalty),
-                        penalty_params(ctx.penalty), epochs=1)
+                        ctx.params, epochs=1)
         return cd_epoch_gram(ctx.G, ctx.c, beta, aux, ctx.L_ws, ctx.penalty)
 
     def objective(self, ctx, beta, aux):
@@ -381,7 +417,7 @@ class XbSolver(SubproblemSolver):
             kind = KERNEL_DATAFIT_KINDS[type(ctx.datafit).__name__]
             return kops.cd_epoch_xb(ctx.Xt_ws, ctx.y, beta, aux, ctx.L_ws,
                                     ctx.offset_ws, type(ctx.penalty),
-                                    penalty_params(ctx.penalty), kind,
+                                    ctx.params, kind,
                                     w=ctx.w, epochs=1)
         return cd_epoch_xb(ctx.Xt_ws, ctx.y, beta, aux, ctx.L_ws,
                            ctx.offset_ws, ctx.datafit, ctx.penalty, w=ctx.w)
@@ -413,9 +449,10 @@ class StepResult:
 
 class _StepGraph:
     """One captured outer step: the graph, its static inputs (``bind``
-    copies a new tensor in), the design it reads in place (held: its id is
-    in the graph's key), its outputs, and the kernel launches of the step
-    (``head``) and of each conditional body (``scopes``)."""
+    copies a new tensor in; ``params``, the penalty's codec vector, among
+    them), the design it reads in place (held while the graph lives), its
+    outputs, and the kernel launches of the step (``head``) and of
+    each conditional body (``scopes``)."""
 
     def __init__(self, inputs, design):
         self.inputs = inputs
@@ -428,8 +465,8 @@ class _StepGraph:
 
     def bind(self, name, tensor):
         """Copy `tensor` into the static input `name` unless it is the
-        tensor last bound there (y, w, L and offset stay bound for a
-        whole solve)."""
+        tensor last bound there (y, w, L, offset and params stay bound for
+        a whole solve)."""
         if self._bound.get(name) is not tensor:
             self.inputs[name].copy_(tensor)
             self._bound[name] = tensor
@@ -440,12 +477,17 @@ class SolveEngine:
 
     On the kernel route on a card (``EngineConfig.capture``, the default)
     each outer step is captured once per (working-set bucket, design,
-    shapes, datafit, penalty, tol) into a CUDA graph and replayed, with the
-    skip decision and the inner loop on the card (``core/flow.py``);
-    ``captures`` counts the captures per key (the counterpart of the
-    reference's ``engine.retraces``) and ``capture_s`` their host seconds.
-    The graphs share the engine's memory pools and live until
-    ``release_graphs`` (``solve`` calls it when it made the engine)."""
+    shapes, datafit, penalty class, tol) into a CUDA graph and replayed,
+    with the skip decision and the inner loop on the card
+    (``core/flow.py``); ``captures`` counts the captures per key (the
+    counterpart of the reference's ``engine.retraces``) and ``capture_s``
+    their host seconds. The penalty's hyper-parameters are not in the key:
+    on the kernel route the step runs on ``bind_penalty`` of its codec
+    vector, a static input of the graph bound at each replay like y and L,
+    so a regularization path replays one graph per bucket at every lam
+    (the reference's pytree leaves). The graphs share the engine's memory
+    pools and live until ``release_graphs`` (``solve`` calls it when it
+    made the engine); ``drop_graphs(design)`` drops one design's."""
 
     def __init__(self, config: EngineConfig, device):
         self.config = config
@@ -456,7 +498,11 @@ class SolveEngine:
         self.captures: dict = {}
         self.capture_s: list = []
         self._graphs: dict = {}
+        self._retired: list = []        # graphs of dropped designs
+        self._tags: dict = {}           # id(design) -> (weakref, serial)
+        self._serials = itertools.count()
         self._pools = None
+        self._params = (None, None)      # (penalty's key, its codec vector)
 
     def _make_inner(self):
         cfg = self.config
@@ -467,7 +513,7 @@ class SolveEngine:
             penalty.value(beta)
 
     def _head(self, bucket, design, y, w, beta, Xb, L, offset, datafit,
-              penalty):
+              penalty, params):
         """score -> select -> gather. Returns (grad, ws, Xt_ws, aux, kkt,
         gsupp) as device tensors (aux: the design's gather windows)."""
         cfg = self.config
@@ -481,7 +527,7 @@ class SolveEngine:
             head = kops.fused_ws_block if beta.ndim == 2 else kops.fused_ws
             scores, grad, _, ws, Xt_ws = head(
                 design.Xt, raw, beta, L, offset, gsupp, type(penalty),
-                penalty_params(penalty), bucket, use_fp=cfg.use_fp_score)
+                params, bucket, use_fp=cfg.use_fp_score)
         else:
             # two-pass head; on a CSC design with use_kernels the score
             # pass is K5 (K5b for a raw gradient [n, T])
@@ -494,17 +540,19 @@ class SolveEngine:
         return grad, ws, Xt_ws, aux, torch.max(scores), gsupp
 
     def _step_core(self, flow, bucket, design, y, w, beta, Xb, L, offset,
-                   datafit, penalty, tol, eps_frac):
+                   datafit, penalty, params, tol, eps_frac):
         """The outer step, written once for every flow: score -> select ->
         gather, then, when the incoming iterate fails `tol` and the working
         set covers the generalized support, Gram formation -> inner
         Anderson-CD loop -> scatter. Returns (beta_new, Xb_new, rd); rd
         holds, in beta's dtype, the kkt and objective of the incoming
         iterate, |gsupp| of the new one, the inner epochs and the coverage
-        flag: what the host reads back, once."""
+        flag: what the host reads back, once. On the kernel route
+        `penalty` is bound to `params` (``bind_penalty``)."""
         cfg = self.config
         grad, ws, Xt_ws, aux, kkt, gsupp = self._head(
-            bucket, design, y, w, beta, Xb, L, offset, datafit, penalty)
+            bucket, design, y, w, beta, Xb, L, offset, datafit, penalty,
+            params)
         gcount0 = torch.sum(gsupp)
         obj = self._objective(datafit, penalty, Xb, y, w, offset, beta)
         cov = torch.sum(gsupp[ws]) == gcount0
@@ -532,12 +580,13 @@ class SolveEngine:
                 # empty generalized support)
                 state = G @ beta_ws0
                 ctx = WorkingSetContext(Xt_ws, y, L_ws, offset_ws, datafit,
-                                        penalty, G=G, c=state - grad_ws0)
+                                        penalty, params, G=G,
+                                        c=state - grad_ws0)
             else:
                 # Xb_base carries the residual of nonzero coordinates
                 # OUTSIDE ws so Anderson refresh cannot drop them
                 ctx = WorkingSetContext(
-                    Xt_ws, y, L_ws, offset_ws, datafit, penalty, w=w,
+                    Xt_ws, y, L_ws, offset_ws, datafit, penalty, params, w=w,
                     Xb_base=Xb - _apply_T(Xt_ws, beta_ws0))
                 state = Xb.clone()
             beta_ws = beta_ws0.clone()
@@ -573,27 +622,55 @@ class SolveEngine:
         replay of the captured step on the kernel route on a card, the same
         step under a host flow elsewhere (on a card that flow reads once
         more per condition: the plain route, and the eager oracle of
-        ``capture=False``)."""
-        args = (bucket, design, y, w, beta, Xb, L, offset, datafit, penalty,
-                tol, eps_frac)
+        ``capture=False``). On the kernel route the step runs on the
+        penalty bound to its codec vector on the device, captured or not,
+        so the captured step and the eager oracle take the same ops."""
+        params = None
+        if self.config.use_kernels:
+            params = self._device_params(penalty)
         if self.captured:
-            return self._replay(*args)
+            return self._replay(bucket, design, y, w, beta, Xb, L, offset,
+                                datafit, penalty, params, tol, eps_frac)
+        if params is not None:
+            penalty = bind_penalty(type(penalty), params)
         flow = HostFlow()
-        beta_new, Xb_new, rd = self._step_core(flow, *args)
+        beta_new, Xb_new, rd = self._step_core(
+            flow, bucket, design, y, w, beta, Xb, L, offset, datafit,
+            penalty, params, tol, eps_frac)
         kkt, obj, gcount, n_ep, cov = rd.tolist()
         return StepResult(beta_new, Xb_new, kkt, obj, int(gcount), int(n_ep),
                           bool(cov), 1 + flow.reads)
 
+    def _device_params(self, penalty):
+        """The penalty's codec vector on the engine's device, made once
+        for each new value (a solve makes it at its first step; its
+        replays bind it without a copy)."""
+        key = (type(penalty), tuple(penalty_params(penalty).tolist()))
+        if self._params[0] != key:
+            self._params = (key, penalty_params(penalty, self.device))
+        return self._params[1]
+
+    def _design_tag(self, design):
+        """A serial naming `design` in the step keys: unlike its id, never
+        taken again by a later design once this one is freed (the screened
+        path frees the slot designs it outgrows)."""
+        ref, tag = self._tags.get(id(design), (None, None))
+        if ref is None or ref() is not design:
+            tag = next(self._serials)
+            self._tags[id(design)] = (weakref.ref(design), tag)
+        return tag
+
     def _replay(self, bucket, design, y, w, beta, Xb, L, offset, datafit,
-                penalty, tol, eps_frac):
-        key = (bucket, id(design), tuple(y.shape), w is None,
-               tuple(beta.shape), beta.dtype, datafit, penalty, float(tol),
-               float(eps_frac))
+                penalty, params, tol, eps_frac):
+        key = (bucket, self._design_tag(design), tuple(y.shape), w is None,
+               tuple(beta.shape), beta.dtype, datafit, type(penalty),
+               float(tol), float(eps_frac))
         g = self._graphs.get(key)
         if g is None:
             g = self._capture(key, bucket, design, y, w, beta, Xb, L, offset,
-                              datafit, penalty, tol, eps_frac)
-        for name, t in (("y", y), ("w", w), ("L", L), ("offset", offset)):
+                              datafit, type(penalty), params, tol, eps_frac)
+        for name, t in (("y", y), ("w", w), ("L", L), ("offset", offset),
+                        ("params", params)):
             if t is not None:
                 g.bind(name, t)
         g.inputs["beta"].copy_(beta)
@@ -613,15 +690,16 @@ class SolveEngine:
                           bool(cov), 1)
 
     def _capture(self, key, bucket, design, y, w, beta, Xb, L, offset,
-                 datafit, penalty, tol, eps_frac):
+                 datafit, penalty_cls, params, tol, eps_frac):
         """Capture the step for `key` into a graph on the engine's pools
-        (the design is read in place; the other tensors through static
-        inputs)."""
+        (the design is read in place; the other tensors, the penalty's
+        codec vector among them, through static inputs: the step runs on
+        the `penalty_cls` penalty bound to the static vector)."""
         t0 = time.perf_counter()
         if self._pools is None:
             self._pools = GraphPools(self.device)
         named = {"beta": beta, "Xb": Xb, "y": y, "w": w, "L": L,
-                 "offset": offset}
+                 "offset": offset, "params": params}
         g = _StepGraph({k: torch.empty_like(t) for k, t in named.items()
                         if t is not None}, design)
         ins = g.inputs
@@ -634,7 +712,8 @@ class SolveEngine:
                 g.outputs = self._step_core(
                     flow, bucket, design, ins["y"], ins.get("w"),
                     ins["beta"], ins["Xb"], ins["L"], ins["offset"], datafit,
-                    penalty, tol, eps_frac)
+                    bind_penalty(penalty_cls, ins["params"]), ins["params"],
+                    tol, eps_frac)
             finally:
                 g.graph.capture_end()
         g.head, g.scopes = head, flow.scopes
@@ -643,9 +722,20 @@ class SolveEngine:
         self.capture_s.append(time.perf_counter() - t0)
         return g
 
+    def drop_graphs(self, design):
+        """Retire the captured steps that read `design`, so that it is
+        freed with its last reference. A retired graph is never replayed
+        again; it lives on without its design and tensors until
+        ``release_graphs``, because the graphs' pool is freed with its last
+        graph and a capture into a freed pool fails."""
+        tag = self._design_tag(design)
+        for key in [k for k in self._graphs if k[1] == tag]:
+            self._retired.append(self._graphs.pop(key).graph)
+
     def release_graphs(self):
         """Drop the captured steps and hand their memory back."""
         self._graphs.clear()
+        self._retired.clear()
         if self._pools is not None:
             self._pools.release()
             self._pools = None

@@ -2,7 +2,9 @@
 
 Port of ``repro.core.penalties`` (the seven scalar penalties and the two
 block ones). Each penalty is a frozen dataclass whose hyper-parameters are
-plain floats and whose methods work on tensors:
+plain floats, or 0-d tensors (``kernels.common.bind_penalty``: the kernel
+route's captured step reads them from a device vector), and whose methods
+work on tensors:
 
   value(beta)               -> 0-d tensor penalty value
   prox(x, step)             -> elementwise prox_{step * g_j}(x)
@@ -19,7 +21,11 @@ value per row.
 
 The arithmetic is written op by op in the order the CUDA prox
 (``csrc/prox.cuh``) uses, so the kernels and these plain versions round
-alike. ``step`` may be a float or a tensor broadcasting against ``x``.
+alike. ``step`` may be a float or a tensor broadcasting against ``x``. No
+method branches in Python on a hyper-parameter's value or reads it back,
+and a square is a product (``lam * lam``, as the kernels take it), so a
+penalty with 0-d tensor fields gives the float penalty's results bit for
+bit on the CPU (``tests/test_torch_path.py``).
 """
 from __future__ import annotations
 
@@ -109,7 +115,7 @@ class MCP:
     def value(self, beta):
         a = torch.abs(beta)
         inner = self.lam * a - a * a / (2.0 * self.gamma)
-        outer = 0.5 * self.gamma * self.lam ** 2
+        outer = 0.5 * self.gamma * (self.lam * self.lam)
         return torch.sum(torch.where(a <= self.gamma * self.lam, inner,
                                      outer))
 
@@ -143,8 +149,8 @@ class SCAD:
         a = torch.abs(beta)
         lam, g = self.lam, self.gamma
         p1 = lam * a
-        p2 = (2.0 * g * lam * a - a * a - lam ** 2) / (2.0 * (g - 1.0))
-        p3 = lam ** 2 * (g + 1.0) / 2.0
+        p2 = (2.0 * g * lam * a - a * a - lam * lam) / (2.0 * (g - 1.0))
+        p3 = lam * lam * (g + 1.0) / 2.0
         return torch.sum(torch.where(a <= lam, p1,
                                      torch.where(a <= g * lam, p2, p3)))
 
@@ -269,7 +275,8 @@ class Box:
 
     def prox(self, x, step):
         del step
-        return torch.clamp(x, 0.0, self.C)
+        # clamp(x, 0, C) in two steps: C may be a 0-d tensor
+        return torch.clamp(torch.clamp(x, min=0.0), max=self.C)
 
     def subdiff_dist(self, grad, beta):
         at0 = torch.clamp(-grad, min=0.0)          # N_[0,C](0) = (-inf, 0]

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -24,7 +25,8 @@ from .. import resolve_device
 from .engine import EngineConfig, SolveEngine, as_design
 from .working_set import BucketPolicy
 
-__all__ = ["solve", "SolveResult", "make_engine", "normalize_weights"]
+__all__ = ["solve", "SolveResult", "make_engine", "normalize_weights",
+           "Problem", "prepare_problem", "solve_problem"]
 
 
 def normalize_weights(sample_weight, n, dtype, device):
@@ -137,20 +139,62 @@ def solve(X, y, datafit, penalty, *, device=None, tol=1e-6, max_outer=50,
                              max_epochs=max_epochs, accel=accel,
                              use_fp_score=use_fp_score, use_gram=use_gram,
                              use_kernels=use_kernels)
+    prob = prepare_problem(engine, X, y, datafit, penalty, n_tasks,
+                           sample_weight)
+    try:
+        return solve_problem(engine, prob, datafit, penalty, tol=tol,
+                             max_outer=max_outer, p0=p0, use_ws=use_ws,
+                             eps_inner_frac=eps_inner_frac, beta0=beta0,
+                             gsupp0=gsupp0, bucket_policy=bucket_policy)
+    finally:
+        if own_engine:
+            # a caller's engine keeps its captured steps for its next solves
+            engine.release_graphs()
+
+
+class Problem(NamedTuple):
+    """A problem on the engine's device, as ``solve`` prepares it once:
+    the design, the target, the normalized sample weights (or None), the
+    per-coordinate Lipschitz constants, the datafit's gradient offset and
+    the number of tasks (0: scalar coefficients). A path prepares it once
+    for every lam."""
+    design: object
+    y: torch.Tensor
+    w: Optional[torch.Tensor]
+    L: torch.Tensor
+    offset: torch.Tensor
+    n_tasks: int
+
+
+def prepare_problem(engine, X, y, datafit, penalty, n_tasks=0,
+                    sample_weight=None) -> Problem:
+    """Move and check a problem for `engine`: the design (``as_design``,
+    with the ELL flag on the kernel route), y, the weights, L and the
+    offset, after ``engine.validate``'s entry checks."""
     device = engine.device
     design = as_design(X, device, ell=engine.config.use_kernels)
     n_rows, p = design.shape
     y = torch.as_tensor(y, dtype=design.dtype, device=device)
-    if not use_ws:
-        p0 = p
     engine.validate(datafit, penalty, n_tasks,
                     weighted=sample_weight is not None, design=design)
-    policy = bucket_policy or BucketPolicy(p0=p0)
-
     w = None if sample_weight is None \
         else normalize_weights(sample_weight, n_rows, design.dtype, device)
     L = design.lipschitz(datafit, w, use_kernels=engine.config.use_kernels)
     offset = datafit.grad_offset(p, design.dtype, device)
+    return Problem(design, y, w, L, offset, n_tasks)
+
+
+def solve_problem(engine, prob: Problem, datafit, penalty, *, tol=1e-6,
+                  max_outer=50, p0=64, use_ws=True, eps_inner_frac=0.3,
+                  beta0=None, gsupp0=None, bucket_policy=None) -> SolveResult:
+    """The outer loop of :func:`solve` on a prepared problem (the engine
+    keeps its captured steps)."""
+    design, y, w, L, offset, n_tasks = prob
+    device = engine.device
+    p = design.shape[1]
+    if not use_ws:
+        p0 = p
+    policy = bucket_policy or BucketPolicy(p0=p0)
     bshape = (p, n_tasks) if n_tasks else (p,)
     beta = torch.zeros(bshape, dtype=design.dtype, device=device) \
         if beta0 is None else \
@@ -195,9 +239,6 @@ def solve(X, y, datafit, penalty, *, device=None, tol=1e-6, max_outer=50,
         res.n_outer = t + 1
         bucket = policy.next_bucket(bucket, out.gcount, p)
 
-    if own_engine:
-        # a caller's engine keeps its captured steps for its next solves
-        engine.release_graphs()
     res.beta = beta
     res.kkt = res.kkt_history[-1] if res.kkt_history else float("inf")
     res.diagnostics = {

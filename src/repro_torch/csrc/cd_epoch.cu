@@ -295,8 +295,9 @@ template <typename T, int PEN>
 __global__ void __launch_bounds__(kGramMaxThreads)
     cd_gram_kernel(const T* __restrict__ G, long long s_row, long long s_col,
                    const T* __restrict__ c, const T* __restrict__ L, const T* __restrict__ beta0,
-                   const T* __restrict__ q0, T* beta_out, T* q_out, int K, int epochs, T p0,
-                   T p1) {
+                   const T* __restrict__ q0, T* beta_out, T* q_out, int K, int epochs,
+                   const double* __restrict__ prm) {
+  const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(PEN, prm);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_list[3 * kGramB];
   __shared__ unsigned s_mask[3];
@@ -411,7 +412,8 @@ __global__ void __launch_bounds__(kGramMaxThreads)
     cd_gram_cluster_kernel(const T* __restrict__ G, long long s_row, long long s_col,
                            const T* __restrict__ c, const T* __restrict__ L,
                            const T* __restrict__ beta0, const T* __restrict__ q0, T* beta_out,
-                           T* q_out, int K, int epochs, T p0, T p1) {
+                           T* q_out, int K, int epochs, const double* __restrict__ prm) {
+  const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(PEN, prm);
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -572,8 +574,9 @@ template <typename T>
 __global__ void cd_gram_block_kernel(const T* __restrict__ G, long long s_row, long long s_col,
                                      const T* __restrict__ c, const T* __restrict__ L,
                                      const T* __restrict__ beta0, const T* __restrict__ q0,
-                                     T* beta, T* q_out, int K, int nt, int epochs, int pen, T p0,
-                                     T p1) {
+                                     T* beta, T* q_out, int K, int nt, int epochs, int pen,
+                                     const double* __restrict__ prm) {
+  const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(pen, prm);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_nz;
   T* s_delta = reinterpret_cast<T*>(smem_raw);  // [nt]
@@ -688,8 +691,10 @@ __global__ void __launch_bounds__(PER > 0 ? kPerThreads : 1024)
                          const T* __restrict__ w_in, const T* __restrict__ L,
                          const T* __restrict__ off, const T* __restrict__ beta0,
                          const T* __restrict__ Xb0, T* beta_out, T* Xb_out, T* scratch,
-                         int K, int n, int epochs, int kind, int pen, T p0, T p1,
+                         int K, int n, int epochs, int kind, int pen,
+                         const double* __restrict__ prm,
                          int use_smem) {
+  const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(pen, prm);
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -840,8 +845,9 @@ __global__ void __launch_bounds__(PER > 0 ? kPerThreads : 1024)
     cd_gram_block_cluster_kernel(const T* __restrict__ G, long long s_row, long long s_col,
                                  const T* __restrict__ c, const T* __restrict__ L,
                                  const T* __restrict__ beta0, const T* __restrict__ q0,
-                                 T* beta, T* q_out, int K, int nt, int epochs, int pen, T p0,
-                                 T p1, int use_smem) {
+                                 T* beta, T* q_out, int K, int nt, int epochs, int pen,
+                                 const double* __restrict__ prm, int use_smem) {
+  const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(pen, prm);
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -998,16 +1004,16 @@ int cluster_capacity_t(int which, int per, int C, int threads, int dyn, int* act
 
 template <typename T, int PEN>
 int launch_gram_pen(const T* G, long long sr, long long sc, const T* c, const T* L,
-                    const T* beta0, const T* q0, T* beta, T* q, int K, int epochs, double p0,
-                    double p1, int cluster, int dyn, int threads, void* stream) {
+                    const T* beta0, const T* q0, T* beta, T* q, int K, int epochs,
+                    const double* prm, int cluster, int dyn, int threads, void* stream) {
   if (cluster > 1)
     return launch_cluster(cd_gram_cluster_kernel<T, PEN>, cluster, threads, (size_t)dyn, stream,
-                          G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, (T)p0, (T)p1);
+                          G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, prm);
   cudaError_t err = cudaFuncSetAttribute(cd_gram_kernel<T, PEN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
   if (err != cudaSuccess) return (int)err;
   cd_gram_kernel<T, PEN><<<1, threads, dyn, (cudaStream_t)stream>>>(
-      G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, (T)p0, (T)p1);
+      G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, prm);
   return (int)cudaGetLastError();
 }
 
@@ -1018,7 +1024,7 @@ int launch_gram_pen(const T* G, long long sr, long long sc, const T* c, const T*
 // and the state (one CTA: q and beta; a cluster: an update CTA's q rows).
 template <typename T>
 int launch_gram(const T* G, long long sr, long long sc, const T* c, const T* L, const T* beta0,
-                const T* q0, T* beta, T* q, int K, int epochs, int pen, double p0, double p1,
+                const T* q0, T* beta, T* q, int K, int epochs, int pen, const double* prm,
                 int cluster, int dyn, int threads, void* stream) {
   if (threads < 2 * kGramB || threads % 32 || threads > kGramMaxThreads || cluster < 1 ||
       cluster > 16 || (cluster > 1 && K <= 2 * kGramB))
@@ -1030,7 +1036,7 @@ int launch_gram(const T* G, long long sr, long long sc, const T* c, const T* L, 
     return (int)cudaErrorInvalidValue;
 #define K1_CASE(ID)                                                                        \
   case ID:                                                                                 \
-    return launch_gram_pen<T, ID>(G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, p0, p1, \
+    return launch_gram_pen<T, ID>(G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, prm, \
                                   cluster, dyn, threads, stream);
   switch (pen) {
     K1_CASE(rt::PEN_L1)
@@ -1052,21 +1058,21 @@ int launch_gram(const T* G, long long sr, long long sc, const T* c, const T* L, 
 template <typename T>
 int launch_gram_block(const T* G, long long sr, long long sc, const T* c, const T* L,
                       const T* beta0, const T* q0, T* beta, T* q, int K, int nt, int epochs,
-                      int pen, double p0, double p1, int cluster, int use_smem, int dyn,
+                      int pen, const double* prm, int cluster, int use_smem, int dyn,
                       int threads, int per, void* stream) {
   if (cluster == 1) {
     cudaError_t err = cudaFuncSetAttribute(cd_gram_block_kernel<T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
     if (err != cudaSuccess) return (int)err;
     cd_gram_block_kernel<T><<<1, threads, dyn, (cudaStream_t)stream>>>(
-        G, sr, sc, c, L, beta0, q0, beta, q, K, nt, epochs, pen, (T)p0, (T)p1);
+        G, sr, sc, c, L, beta0, q0, beta, q, K, nt, epochs, pen, prm);
     return (int)cudaGetLastError();
   }
   if (per != 0 && per != kGramPer) return (int)cudaErrorInvalidValue;
   auto kernel = per ? cd_gram_block_cluster_kernel<T, kGramPer>
                     : cd_gram_block_cluster_kernel<T, 0>;
   return launch_cluster(kernel, cluster, threads, (size_t)dyn, stream, G, sr, sc, c, L, beta0,
-                        q0, beta, q, K, nt, epochs, pen, (T)p0, (T)p1, use_smem);
+                        q0, beta, q, K, nt, epochs, pen, prm, use_smem);
 }
 
 // K2 with the wrapper's plan (kernels/cd_epoch.py: xb_plan): a cluster of
@@ -1077,12 +1083,12 @@ int launch_gram_block(const T* G, long long sr, long long sc, const T* c, const 
 template <typename T>
 int launch_xb(const T* Xt, const T* y, const T* w, const T* L, const T* off, const T* beta0,
               const T* Xb0, T* beta, T* Xb, T* scratch, int K, int n, int epochs, int kind,
-              int pen, double p0, double p1, int cluster, int use_smem, int dyn, int threads,
+              int pen, const double* prm, int cluster, int use_smem, int dyn, int threads,
               int per, void* stream) {
   if (per != 0 && per != kXbPer) return (int)cudaErrorInvalidValue;
   auto kernel = per ? cd_xb_cluster_kernel<T, kXbPer> : cd_xb_cluster_kernel<T, 0>;
   return launch_cluster(kernel, cluster, threads, (size_t)dyn, stream, Xt, y, w, L, off, beta0,
-                        Xb0, beta, Xb, scratch, K, n, epochs, kind, pen, (T)p0, (T)p1,
+                        Xb0, beta, Xb, scratch, K, n, epochs, kind, pen, prm,
                         use_smem);
 }
 
@@ -1092,54 +1098,54 @@ extern "C" {
 
 int cd_epoch_gram_f64(const double* G, long long sr, long long sc, const double* c,
                       const double* L, const double* beta0, const double* q0, double* beta,
-                      double* q, int K, int epochs, int pen, double p0, double p1, int cluster,
+                      double* q, int K, int epochs, int pen, const double* prm, int cluster,
                       int dyn, int threads, void* stream) {
-  return launch_gram<double>(G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, pen, p0, p1,
+  return launch_gram<double>(G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, pen, prm,
                              cluster, dyn, threads, stream);
 }
 
 int cd_epoch_gram_f32(const float* G, long long sr, long long sc, const float* c,
                       const float* L, const float* beta0, const float* q0, float* beta,
-                      float* q, int K, int epochs, int pen, double p0, double p1, int cluster,
+                      float* q, int K, int epochs, int pen, const double* prm, int cluster,
                       int dyn, int threads, void* stream) {
-  return launch_gram<float>(G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, pen, p0, p1,
+  return launch_gram<float>(G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, pen, prm,
                             cluster, dyn, threads, stream);
 }
 
 int cd_epoch_gram_block_f64(const double* G, long long sr, long long sc, const double* c,
                             const double* L, const double* beta0, const double* q0,
                             double* beta, double* q, int K, int nt, int epochs, int pen,
-                            double p0, double p1, int cluster, int use_smem, int dyn,
+                            const double* prm, int cluster, int use_smem, int dyn,
                             int threads, int per, void* stream) {
-  return launch_gram_block<double>(G, sr, sc, c, L, beta0, q0, beta, q, K, nt, epochs, pen, p0,
-                                   p1, cluster, use_smem, dyn, threads, per, stream);
+  return launch_gram_block<double>(G, sr, sc, c, L, beta0, q0, beta, q, K, nt, epochs, pen, prm,
+                                   cluster, use_smem, dyn, threads, per, stream);
 }
 
 int cd_epoch_gram_block_f32(const float* G, long long sr, long long sc, const float* c,
                             const float* L, const float* beta0, const float* q0, float* beta,
-                            float* q, int K, int nt, int epochs, int pen, double p0, double p1,
+                            float* q, int K, int nt, int epochs, int pen, const double* prm,
                             int cluster, int use_smem, int dyn, int threads, int per,
                             void* stream) {
-  return launch_gram_block<float>(G, sr, sc, c, L, beta0, q0, beta, q, K, nt, epochs, pen, p0,
-                                  p1, cluster, use_smem, dyn, threads, per, stream);
+  return launch_gram_block<float>(G, sr, sc, c, L, beta0, q0, beta, q, K, nt, epochs, pen, prm,
+                                  cluster, use_smem, dyn, threads, per, stream);
 }
 
 int cd_epoch_xb_f64(const double* Xt, const double* y, const double* w, const double* L,
                     const double* off, const double* beta0, const double* Xb0, double* beta,
                     double* Xb, double* scratch, int K, int n, int epochs, int kind, int pen,
-                    double p0, double p1, int cluster, int use_smem, int dyn, int threads,
+                    const double* prm, int cluster, int use_smem, int dyn, int threads,
                     int per, void* stream) {
   return launch_xb<double>(Xt, y, w, L, off, beta0, Xb0, beta, Xb, scratch, K, n, epochs, kind,
-                           pen, p0, p1, cluster, use_smem, dyn, threads, per, stream);
+                           pen, prm, cluster, use_smem, dyn, threads, per, stream);
 }
 
 int cd_epoch_xb_f32(const float* Xt, const float* y, const float* w, const float* L,
                     const float* off, const float* beta0, const float* Xb0, float* beta,
                     float* Xb, float* scratch, int K, int n, int epochs, int kind, int pen,
-                    double p0, double p1, int cluster, int use_smem, int dyn, int threads,
+                    const double* prm, int cluster, int use_smem, int dyn, int threads,
                     int per, void* stream) {
   return launch_xb<float>(Xt, y, w, L, off, beta0, Xb0, beta, Xb, scratch, K, n, epochs, kind,
-                          pen, p0, p1, cluster, use_smem, dyn, threads, per, stream);
+                          pen, prm, cluster, use_smem, dyn, threads, per, stream);
 }
 
 int cluster_capacity(int which, int f64, int per, int cluster, int threads, int dyn,

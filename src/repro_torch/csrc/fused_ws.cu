@@ -119,7 +119,9 @@ __global__ void score_kernel(const T* __restrict__ Xt, const T* __restrict__ r,
                              const T* __restrict__ w, const T* __restrict__ beta,
                              const T* __restrict__ L, const T* __restrict__ offset,
                              const uint8_t* __restrict__ gsupp, T* scores, T* grad, T* pri,
-                             int n, int p, int pen, int use_fp, T p0, T p1) {
+                             int n, int p, int pen, int use_fp,
+                             const double* __restrict__ prm) {
+  const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(pen, prm);
   const int lane = threadIdx.x & 31;
   const long long j = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (j >= p) return;  // the whole warp leaves together
@@ -326,7 +328,8 @@ __global__ void __launch_bounds__(kBlkThreads)
                        const T* __restrict__ beta, const T* __restrict__ L,
                        const T* __restrict__ offset, const uint8_t* __restrict__ gsupp,
                        T* scores, T* grad, T* pri, int n, int p, int nt, int pen, int use_fp,
-                       T p0, T p1) {
+                       const double* __restrict__ prm) {
+  const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(pen, prm);
   constexpr int TC = 8 * A;
   constexpr int XS = kBlkN + 1;  // padded X tile row: the 4 feature pairs of a
                                  // warp read 4 different banks
@@ -532,7 +535,8 @@ template <typename T>
 __global__ void block_epilogue_kernel(const T* __restrict__ beta, const T* __restrict__ grad,
                                       const T* __restrict__ L, const uint8_t* __restrict__ gsupp,
                                       T* scores, T* pri, int p, int nt, int pen, int use_fp,
-                                      T p0, T p1) {
+                                      const double* __restrict__ prm) {
+  const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(pen, prm);
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= p) return;
   const T sc = rt::block_violation_score(pen, use_fp, beta + j * nt, grad + j * nt, nt, L[j],
@@ -577,7 +581,7 @@ int mma_splits(int n, int p) {
 int launch_block_score_mma(const double* Xt, const double* R, const double* beta,
                            const double* L, const double* offset, const uint8_t* gsupp,
                            double* scores, double* grad, double* pri, double* part, int splits,
-                           int n, int p, int nt, int pen, int use_fp, double p0, double p1,
+                           int n, int p, int nt, int pen, int use_fp, const double* prm,
                            cudaStream_t st) {
   if (splits < 1 || splits > kMmaMaxSplits) return (int)cudaErrorInvalidValue;
   const int span = ((n + splits - 1) / splits + kMmaK - 1) / kMmaK * kMmaK;
@@ -599,19 +603,19 @@ int launch_block_score_mma(const double* Xt, const double* R, const double* beta
     if (err != cudaSuccess) return (int)err;
   }
   block_epilogue_kernel<double><<<(p + 255) / 256, 256, 0, st>>>(
-      beta, grad, L, gsupp, scores, pri, p, nt, pen, use_fp, p0, p1);
+      beta, grad, L, gsupp, scores, pri, p, nt, pen, use_fp, prm);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int A>
 int launch_block_score_a(const T* Xt, const T* R, const T* beta, const T* L, const T* offset,
                          const uint8_t* gsupp, T* scores, T* grad, T* pri, int n, int p, int nt,
-                         int pen, int use_fp, double p0, double p1, cudaStream_t st) {
+                         int pen, int use_fp, const double* prm, cudaStream_t st) {
   const size_t dyn = ((size_t)kBlkFeat * (kBlkN + 1) + (size_t)kBlkN * 8 * A) * sizeof(T);
   cudaFuncSetAttribute(block_score_kernel<T, A>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)dyn);
   block_score_kernel<T, A><<<(p + kBlkFeat - 1) / kBlkFeat, kBlkThreads, dyn, st>>>(
-      Xt, R, beta, L, offset, gsupp, scores, grad, pri, n, p, nt, pen, use_fp, (T)p0, (T)p1);
+      Xt, R, beta, L, offset, gsupp, scores, grad, pri, n, p, nt, pen, use_fp, prm);
   return (int)cudaGetLastError();
 }
 
@@ -619,12 +623,12 @@ int launch_block_score_a(const T* Xt, const T* R, const T* beta, const T* L, con
 template <typename T>
 int launch_block_score(const T* Xt, const T* R, const T* beta, const T* L, const T* offset,
                        const uint8_t* gsupp, T* scores, T* grad, T* pri, int n, int p, int nt,
-                       int pen, int use_fp, double p0, double p1, cudaStream_t st) {
+                       int pen, int use_fp, const double* prm, cudaStream_t st) {
   const int a = nt >= 64 ? 8 : (nt + 7) / 8;
 #define RT_BLOCK_SCORE(A_)                                                                    \
   case A_:                                                                                    \
     return launch_block_score_a<T, A_>(Xt, R, beta, L, offset, gsupp, scores, grad, pri, n, \
-                                       p, nt, pen, use_fp, p0, p1, st);
+                                       p, nt, pen, use_fp, prm, st);
   switch (a) {
     RT_BLOCK_SCORE(1)
     RT_BLOCK_SCORE(2)
@@ -681,18 +685,17 @@ int launch_merge(const T* pri, const int* cand_idx, T* part_pri, int* part_idx, 
 template <typename T>
 int launch_score(const T* Xt, const T* r, const T* w, const T* beta, const T* L,
                  const T* offset, const uint8_t* gsupp, T* scores, T* grad, T* pri, int n, int p,
-                 int pen, int use_fp, double p0, double p1, void* stream) {
+                 int pen, int use_fp, const double* prm, void* stream) {
   if (p <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   const int per_cta = kScoreThreads / 32;
   const int ctas = (p + per_cta - 1) / per_cta;
   if (w)
     score_kernel<T, true><<<ctas, kScoreThreads, 0, st>>>(
-        Xt, r, w, beta, L, offset, gsupp, scores, grad, pri, n, p, pen, use_fp, (T)p0, (T)p1);
+        Xt, r, w, beta, L, offset, gsupp, scores, grad, pri, n, p, pen, use_fp, prm);
   else
     score_kernel<T, false><<<ctas, kScoreThreads, 0, st>>>(
-        Xt, r, nullptr, beta, L, offset, gsupp, scores, grad, pri, n, p, pen, use_fp, (T)p0,
-        (T)p1);
+        Xt, r, nullptr, beta, L, offset, gsupp, scores, grad, pri, n, p, pen, use_fp, prm);
   return (int)cudaGetLastError();
 }
 
@@ -702,16 +705,16 @@ template <typename T>
 int launch_fused_block(const T* Xt, const T* R, const T* beta, const T* L, const T* offset,
                        const uint8_t* gsupp, T* scores, T* grad, T* pri, int* cand_idx,
                        T* part, int splits, int n, int p, int nt, int bp, int kc, int pen,
-                       int use_fp, double p0, double p1, void* stream) {
+                       int use_fp, const double* prm, void* stream) {
   if (p <= 0 || nt <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   int rc;
   if constexpr (sizeof(T) == 8)
     rc = launch_block_score_mma(Xt, R, beta, L, offset, gsupp, scores, grad, pri, part, splits,
-                                n, p, nt, pen, use_fp, p0, p1, st);
+                                n, p, nt, pen, use_fp, prm, st);
   else
     rc = launch_block_score(Xt, R, beta, L, offset, gsupp, scores, grad, pri, n, p, nt, pen,
-                            use_fp, p0, p1, st);
+                            use_fp, prm, st);
   if (rc != 0) return rc;
   return launch_select<T>(pri, cand_idx, p, bp, kc, st);
 }
@@ -723,18 +726,18 @@ extern "C" {
 // K3's score launch and K4
 int score_f64(const double* Xt, const double* r, const double* w, const double* beta,
               const double* L, const double* offset, const uint8_t* gsupp, double* scores,
-              double* grad, double* pri, int n, int p, int pen, int use_fp, double p0, double p1,
+              double* grad, double* pri, int n, int p, int pen, int use_fp, const double* prm,
               void* stream) {
   return launch_score<double>(Xt, r, w, beta, L, offset, gsupp, scores, grad, pri, n, p, pen,
-                              use_fp, p0, p1, stream);
+                              use_fp, prm, stream);
 }
 
 int score_f32(const float* Xt, const float* r, const float* w, const float* beta,
               const float* L, const float* offset, const uint8_t* gsupp, float* scores,
-              float* grad, float* pri, int n, int p, int pen, int use_fp, double p0, double p1,
+              float* grad, float* pri, int n, int p, int pen, int use_fp, const double* prm,
               void* stream) {
   return launch_score<float>(Xt, r, w, beta, L, offset, gsupp, scores, grad, pri, n, p, pen,
-                             use_fp, p0, p1, stream);
+                             use_fp, prm, stream);
 }
 
 // K3's merge launch
@@ -764,20 +767,20 @@ int select_f32(const float* pri, int* cand_idx, int p, int bp, int kc, void* str
 int fused_ws_block_f64(const double* Xt, const double* R, const double* beta, const double* L,
                        const double* offset, const uint8_t* gsupp, double* scores,
                        double* grad, double* pri, int* cand_idx, double* part, int splits,
-                       int n, int p, int nt, int bp, int kc, int pen, int use_fp, double p0,
-                       double p1, void* stream) {
+                       int n, int p, int nt, int bp, int kc, int pen, int use_fp,
+                       const double* prm, void* stream) {
   return launch_fused_block<double>(Xt, R, beta, L, offset, gsupp, scores, grad, pri,
-                                    cand_idx, part, splits, n, p, nt, bp, kc, pen, use_fp, p0,
-                                    p1, stream);
+                                    cand_idx, part, splits, n, p, nt, bp, kc, pen, use_fp, prm,
+                                    stream);
 }
 
 int fused_ws_block_f32(const float* Xt, const float* R, const float* beta, const float* L,
                        const float* offset, const uint8_t* gsupp, float* scores, float* grad,
                        float* pri, int* cand_idx, float* part, int splits, int n, int p,
-                       int nt, int bp, int kc, int pen, int use_fp, double p0, double p1,
+                       int nt, int bp, int kc, int pen, int use_fp, const double* prm,
                        void* stream) {
   return launch_fused_block<float>(Xt, R, beta, L, offset, gsupp, scores, grad, pri, cand_idx,
-                                   part, splits, n, p, nt, bp, kc, pen, use_fp, p0, p1, stream);
+                                   part, splits, n, p, nt, bp, kc, pen, use_fp, prm, stream);
 }
 
 // The sample spans of K3b's float64 product launch at (n, p), which size

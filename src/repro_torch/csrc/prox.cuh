@@ -26,6 +26,25 @@ enum PenaltyId {
   PEN_BLOCK_MCP = 8,
 };
 
+// The penalty's hyper-parameters from the codec vector on the card
+// (repro_torch/kernels/common.py: penalty_params, exact arity): p0 is lam
+// (C for Box); p1 is rho (L1L2) or gamma (MCP, SCAD, BlockMCP) and 0 where
+// the penalty has one parameter. A kernel loads them at entry, so a CUDA
+// graph that captured the launch reads the values bound at each replay.
+__device__ __forceinline__ int penalty_arity(int pen) {
+  return (pen == PEN_L1L2 || pen == PEN_MCP || pen == PEN_SCAD || pen == PEN_BLOCK_MCP) ? 2 : 1;
+}
+
+template <typename T>
+__device__ __forceinline__ T param0(const double* prm) {
+  return (T)prm[0];
+}
+
+template <typename T>
+__device__ __forceinline__ T param1(int pen, const double* prm) {
+  return penalty_arity(pen) > 1 ? (T)prm[1] : T(0);
+}
+
 // (x > 0) - (x < 0) as a T: +-1, or +0 for zeros and NaN (by selects, with
 // no conversion from int on the chain)
 template <typename T>

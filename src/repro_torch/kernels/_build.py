@@ -106,25 +106,26 @@ class BuildCache:
         return self._libs[name]
 
 
-_P, _I, _D, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, \
-    ctypes.c_longlong
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
+# the penalty's hyper-parameters reach the kernels as a device pointer to
+# the codec vector (the _P after the penalty id), read at kernel entry
 _SIGNATURES = {
     "cd_epoch": {
         "cd_epoch_gram": [_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                          _D, _D, _I, _I, _I, _P],
+                          _P, _I, _I, _I, _P],
         "cd_epoch_xb": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _I, _I, _D, _D, _I, _I, _I, _I, _I, _P],
+                        _I, _I, _P, _I, _I, _I, _I, _I, _P],
         "cd_epoch_gram_block": [_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _D, _D, _I, _I, _I, _I, _I, _P],
+                                _I, _I, _P, _I, _I, _I, _I, _I, _P],
     },
     "fused_ws": {
-        "score": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D,
-                  _D, _P],
+        "score": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                  _P],
         "select": [_P, _P, _I, _I, _I, _P],
         "merge": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "fused_ws_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                           _I, _I, _I, _I, _I, _I, _D, _D, _P],
+                           _I, _I, _I, _I, _I, _I, _P, _P],
     },
     "csc_score": {
         "csc_walk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

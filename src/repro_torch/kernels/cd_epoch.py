@@ -43,7 +43,7 @@ import torch
 
 from ..core.datafits import Logistic, Quadratic, QuadraticSVC
 from ._build import BUILD
-from .common import PENALTY_IDS, make_penalty
+from .common import PENALTY_IDS, make_penalty, penalty_arity
 from .ref import cd_epoch_gram_ref, cd_epoch_xb_ref
 
 __all__ = ["KIND_IDS", "cd_epoch_gram_plain", "cd_epoch_xb_plain",
@@ -271,10 +271,23 @@ _KIND_DATAFITS = {"quadratic": Quadratic(), "logistic": Logistic(),
                   "svc": QuadraticSVC()}
 
 
-def kernel_params(penalty_cls, params):
-    """(penalty id, p0, p1): the codec vector as the C launchers take it."""
-    vals = [float(v) for v in params.tolist()] + [0.0, 0.0]
-    return PENALTY_IDS[penalty_cls], vals[0], vals[1]
+def kernel_params(penalty_cls, params, device):
+    """(penalty id, the codec vector on `device`): the C launchers take a
+    pointer to the vector, which the kernels read at entry (a captured
+    launch reads the values bound at each replay). A vector on another
+    device is copied over, a blocking copy that a capture refuses: that
+    form exists only for untimed checks against the plain versions (which
+    take the host vector); the engine and the timed callers pass the
+    vector on the card already (``penalty_params(pen, device)``)."""
+    arity = penalty_arity(penalty_cls)
+    if params.dtype != torch.float64 or params.ndim != 1 or \
+            params.shape[0] != arity:
+        raise ValueError(f"{penalty_cls.__name__}: params must be a float64 "
+                         f"vector of {arity} values, got {params.dtype} "
+                         f"{tuple(params.shape)}")
+    if params.device != device:
+        params = params.to(device)
+    return PENALTY_IDS[penalty_cls], params.contiguous()
 
 
 def _suffix(t):
@@ -310,14 +323,15 @@ def cd_epoch_gram_cuda(G, c, beta0, q0, L, penalty_cls, params, *,
     """Launch K1 on the tensors' stream with `plan` (a ``gram_plan``); G
     may have any strides. Returns (beta, q)."""
     fn = getattr(BUILD.lib("cd_epoch"), f"cd_epoch_gram_{_suffix(G)}")
-    pid, p0, p1 = kernel_params(penalty_cls, params)
+    pid, prm = kernel_params(penalty_cls, params, G.device)
     beta, q = torch.empty_like(beta0), torch.empty_like(q0)
     with torch.cuda.device(G.device):
         stream = torch.cuda.current_stream(G.device).cuda_stream
         rc = fn(G.data_ptr(), G.stride(0), G.stride(1), c.data_ptr(),
                 L.data_ptr(), beta0.data_ptr(), q0.data_ptr(),
-                beta.data_ptr(), q.data_ptr(), G.shape[0], epochs, pid, p0,
-                p1, plan.cluster, plan.dyn_bytes, plan.threads, stream)
+                beta.data_ptr(), q.data_ptr(), G.shape[0], epochs, pid,
+                prm.data_ptr(), plan.cluster, plan.dyn_bytes, plan.threads,
+                stream)
     _check_rc(rc, "cd_epoch_gram", plan)
     return beta, q
 
@@ -328,15 +342,15 @@ def cd_epoch_gram_block_cuda(G, c, beta0, q0, L, penalty_cls, params, *,
     ``gram_block_plan``); G may have any strides, c, beta0 and q0 are
     contiguous [K, T]. Returns (beta, q)."""
     fn = getattr(BUILD.lib("cd_epoch"), f"cd_epoch_gram_block_{_suffix(G)}")
-    pid, p0, p1 = kernel_params(penalty_cls, params)
+    pid, prm = kernel_params(penalty_cls, params, G.device)
     K, T = beta0.shape
     beta, q = torch.empty_like(beta0), torch.empty_like(q0)
     with torch.cuda.device(G.device):
         stream = torch.cuda.current_stream(G.device).cuda_stream
         rc = fn(G.data_ptr(), G.stride(0), G.stride(1), c.data_ptr(),
                 L.data_ptr(), beta0.data_ptr(), q0.data_ptr(),
-                beta.data_ptr(), q.data_ptr(), K, T, epochs, pid, p0, p1,
-                plan.cluster, int(plan.smem), plan.dyn_bytes, plan.threads,
+                beta.data_ptr(), q.data_ptr(), K, T, epochs, pid,
+                prm.data_ptr(), plan.cluster, int(plan.smem), plan.dyn_bytes, plan.threads,
                 plan.per, stream)
     _check_rc(rc, "cd_epoch_gram_block", plan)
     return beta, q
@@ -347,7 +361,7 @@ def cd_epoch_xb_cuda(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls, params,
     """Launch K2 on the tensors' stream with `plan` (an ``xb_plan``);
     Xt_ws is contiguous [K, n]. Returns (beta, Xb)."""
     fn = getattr(BUILD.lib("cd_epoch"), f"cd_epoch_xb_{_suffix(Xt_ws)}")
-    pid, p0, p1 = kernel_params(penalty_cls, params)
+    pid, prm = kernel_params(penalty_cls, params, Xt_ws.device)
     K, n = Xt_ws.shape
     beta, Xb = torch.empty_like(beta0), torch.empty_like(Xb0)
     # the beta copies of ranks 1..C-1, and the raw gradient on the global
@@ -360,7 +374,8 @@ def cd_epoch_xb_cuda(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls, params,
                 None if w is None else w.data_ptr(), L.data_ptr(),
                 offset.data_ptr(), beta0.data_ptr(), Xb0.data_ptr(),
                 beta.data_ptr(), Xb.data_ptr(), scratch.data_ptr(), K, n,
-                epochs, KIND_IDS[datafit_kind], pid, p0, p1, plan.cluster,
+                epochs, KIND_IDS[datafit_kind], pid, prm.data_ptr(),
+                plan.cluster,
                 int(plan.smem), plan.dyn_bytes, plan.threads, plan.per,
                 stream)
     _check_rc(rc, "cd_epoch_xb", plan)

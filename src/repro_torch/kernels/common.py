@@ -6,9 +6,16 @@ hyper-parameter of a registered penalty class into an ``(arity,)`` float64
 vector and ``make_penalty`` rebuilds the penalty from it. The CUDA kernels
 take the class as an integer id (``PENALTY_IDS``, the ``switch`` in
 ``csrc/prox.cuh``; 7 and 8 are the block penalties, whose row proxes run
-in the block kernels only) plus that vector. Unregistered classes and array-valued
+in the block kernels only) plus a pointer to that vector on the card,
+which they read at entry. Unregistered classes and array-valued
 (per-coordinate) hyper-parameters raise ``UnsupportedPenaltyError`` instead
 of being silently truncated.
+
+``bind_penalty`` is the other direction on the kernel route: the penalty of
+a class whose fields are 0-d views of a vector. The captured outer step
+(``core/engine.py``) runs on such a penalty over its static ``params``
+input, so a CUDA graph captured at one lam replays at any other: the
+values are bound at each replay, not baked into the graph.
 """
 from __future__ import annotations
 
@@ -21,7 +28,8 @@ from ..core import penalties as _pen
 __all__ = ["UnsupportedPenaltyError", "PENALTY_FIELDS", "PENALTY_IDS",
            "SCALAR_COORD_PENALTIES", "BLOCK_PENALTIES", "penalty_arity",
            "check_kernel_penalty", "check_score_kernel_penalty",
-           "check_block_kernel_penalty", "penalty_params", "make_penalty"]
+           "check_block_kernel_penalty", "penalty_params", "make_penalty",
+           "bind_penalty"]
 
 
 class UnsupportedPenaltyError(TypeError):
@@ -84,10 +92,11 @@ def check_block_kernel_penalty(cls):
             "inside the block kernels")
 
 
-def penalty_params(penalty) -> torch.Tensor:
-    """Pack a penalty's hyper-parameters into an ``(arity,)`` float64 CPU
-    tensor. Raises UnsupportedPenaltyError for unregistered classes and for
-    array-valued hyper-parameters."""
+def penalty_params(penalty, device=None) -> torch.Tensor:
+    """Pack a penalty's hyper-parameters into an ``(arity,)`` float64
+    tensor, on the CPU or on `device` (on a card a copy from pinned memory
+    that does not wait for the stream). Raises UnsupportedPenaltyError for
+    unregistered classes and for array-valued hyper-parameters."""
     fields = PENALTY_FIELDS.get(type(penalty))
     if fields is None:
         raise UnsupportedPenaltyError(
@@ -101,7 +110,10 @@ def penalty_params(penalty) -> torch.Tensor:
                 f"{type(penalty).__name__}.{name} is array-valued "
                 "(per-coordinate hyper-parameters are not kernel-encodable)")
         vals.append(float(v))
-    return torch.tensor(vals, dtype=torch.float64)
+    out = torch.tensor(vals, dtype=torch.float64)
+    if device is None or torch.device(device).type == "cpu":
+        return out
+    return out.pin_memory().to(device, non_blocking=True)
 
 
 def make_penalty(cls, params):
@@ -109,3 +121,15 @@ def make_penalty(cls, params):
     ``penalty_params``)."""
     arity = penalty_arity(cls)
     return cls(*(float(params[i]) for i in range(arity)))
+
+
+def bind_penalty(cls, params):
+    """The `cls` penalty whose hyper-parameters are 0-d views of the codec
+    vector `params` (on any device): its methods read the vector's values
+    where they run, with no host read, so writing new values into `params`
+    changes the penalty in place."""
+    arity = penalty_arity(cls)
+    if params.ndim != 1 or params.shape[0] != arity:
+        raise ValueError(f"{cls.__name__} takes {arity} parameters, got a "
+                         f"vector of shape {tuple(params.shape)}")
+    return cls(*params.unbind(0))

@@ -92,7 +92,7 @@ def score_cuda(Xt, r, beta, L, offset, penalty_cls, params, *, w=None,
     selection priorities."""
     fn = getattr(BUILD.lib("fused_ws"), f"score_{_suffix(Xt)}")
     p, n = Xt.shape
-    pid, p0, p1 = kernel_params(penalty_cls, params)
+    pid, prm = kernel_params(penalty_cls, params, Xt.device)
     scores = torch.empty_like(beta)
     grad = pri = None
     if gsupp is not None:
@@ -106,7 +106,7 @@ def score_cuda(Xt, r, beta, L, offset, penalty_cls, params, *, w=None,
         rc = fn(Xt.data_ptr(), r.data_ptr(), ptr(w), beta.data_ptr(),
                 L.data_ptr(), offset.data_ptr(), ptr(gsupp),
                 scores.data_ptr(), ptr(grad), ptr(pri), n, p, pid,
-                int(bool(use_fp)), p0, p1, stream)
+                int(bool(use_fp)), prm.data_ptr(), stream)
     _check_rc(rc, "score")
     return scores if gsupp is None else (scores, grad, pri)
 
@@ -202,7 +202,7 @@ def fused_ws_block_cuda(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
     p, n = Xt.shape
     T = R.shape[1]
     bp, tiles, kc = _tiling(p, ws_size, bp)
-    pid, p0, p1 = kernel_params(penalty_cls, params)
+    pid, prm = kernel_params(penalty_cls, params, Xt.device)
     scores, pri = torch.empty_like(L), torch.empty_like(L)
     grad = torch.empty_like(beta)
     cand_idx = torch.empty(tiles * kc, dtype=torch.int32, device=Xt.device)
@@ -216,6 +216,6 @@ def fused_ws_block_cuda(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
                 offset.data_ptr(), gsupp.data_ptr(), scores.data_ptr(),
                 grad.data_ptr(), pri.data_ptr(), cand_idx.data_ptr(),
                 part.data_ptr(), splits, n, p, T, bp, kc, pid,
-                int(bool(use_fp)), p0, p1, stream)
+                int(bool(use_fp)), prm.data_ptr(), stream)
     _check_rc(rc, "fused_ws_block")
     return scores, grad, cand_idx

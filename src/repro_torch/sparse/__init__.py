@@ -3,8 +3,9 @@ single device).
 
 Only the score pass ``X.T @ raw`` and the residual update
 ``Xb += X_ws d`` touch the whole design; the working-set inner solve
-densifies only the K selected columns. ``ShardedCSCDesign`` (mesh mode) and
-``take_columns`` (screening) are not ported yet.
+densifies only the K selected columns; ``CSCDesign.take_columns`` builds
+(or refills in place) the column subsets of the screened path.
+``ShardedCSCDesign`` (mesh mode) is not ported yet.
 """
 from .matrix import CSCDesign
 from .ops import (csc_column_windows, csc_gather_columns, csc_incremental_xb,

@@ -214,6 +214,71 @@ class CSCDesign:
     def col_sq_norms(self):
         return self.col_sq
 
+    @property
+    def capacity(self) -> int:
+        """Entries the flat arrays hold: nnz, the window of padding and any
+        power-of-two padding of a column subset."""
+        return self.data.shape[0]
+
+    def take_columns(self, idx, out=None, nnz=None) -> "CSCDesign":
+        """The design of the columns `idx` (an int tensor or array), an
+        entry -1 giving an empty column (the screened path's power-of-two
+        padding), built on this design's device. It keeps this design's
+        window ``max_col_nnz`` and ELL flag and, as the reference does,
+        pads its flat arrays to a power-of-two length (nnz + window), so
+        subsets share their shapes. With `out`, a design of len(idx)
+        columns whose flat arrays hold at least nnz + window entries, the
+        subset is written into its arrays in place and `out` is returned
+        (the screened path refills one design a (width, capacity), so its
+        captured steps, which read the design in place, replay); its
+        padding beyond the subset is rewritten as padding. `nnz`, the
+        subset's nnz when the caller knows it, saves the one host read that
+        sizes the arrays."""
+        dev = self.device
+        idx = torch.as_tensor(idx, device=dev).long()
+        width = idx.shape[0]
+        valid = idx >= 0
+        sel = torch.clamp(idx, min=0)
+        starts = self.indptr[sel]
+        lens = torch.where(valid, self.indptr[sel + 1] - starts, 0)
+        indptr = torch.zeros(width + 1, dtype=torch.int64, device=dev)
+        torch.cumsum(lens, 0, out=indptr[1:])
+        if nnz is None:
+            nnz = int(indptr[-1])
+        m = self.max_col_nnz
+        if out is None:
+            cap = 1 << max(0, nnz + m - 1).bit_length()
+            out = CSCDesign(
+                torch.empty(cap, dtype=self.dtype, device=dev),
+                torch.empty(cap, dtype=torch.int32, device=dev),
+                torch.empty(cap, dtype=torch.int32, device=dev),
+                torch.empty(width + 1, dtype=torch.int64, device=dev),
+                torch.empty(width, dtype=self.dtype, device=dev),
+                (self.n_rows, width), m, self.ell)
+        elif out.shape != (self.n_rows, width) or out.dtype != self.dtype \
+                or out.device != dev or out.max_col_nnz != m \
+                or out.capacity < nnz + m:
+            raise ValueError(
+                f"take_columns: out must be a {self.n_rows} x {width} "
+                f"{self.dtype} design on {dev} with window {m} and room for "
+                f"{nnz + m} entries, got {out.shape} {out.dtype} on "
+                f"{out.device}, window {out.max_col_nnz}, capacity "
+                f"{out.capacity}")
+        # entry k of the subset: column c = col[k], rank k - indptr[c], at
+        # starts[c] + rank in this design's arrays; past nnz, padding
+        # (value 0.0, row 0, the last column's id)
+        k = torch.arange(out.capacity, device=dev)
+        col = torch.searchsorted(indptr, k, right=True) - 1
+        inside = k < indptr[-1]
+        col = torch.clamp(col, max=width - 1)
+        src = torch.where(inside, starts[col] + (k - indptr[col]), 0)
+        out.data.copy_(torch.where(inside, self.data[src], 0.0))
+        out.indices.copy_(torch.where(inside, self.indices[src], 0))
+        out.col_ids.copy_(col.to(torch.int32))
+        out.indptr.copy_(indptr)
+        out.col_sq.copy_(torch.where(valid, self.col_sq[sel], 0.0))
+        return out
+
     def score_ell_reference(self, raw):
         """X.T @ raw over the ELL layout (validation)."""
         return csc_score_ell(*self._ell(), raw)

@@ -1174,3 +1174,230 @@ def test_solves_step_down_where_16_ctas_cannot_be_placed(cuda):
             torch.testing.assert_close(r8.beta, r16.beta, atol=1e-6, rtol=0)
         else:
             assert torch.equal(r8.beta, r16.beta)
+
+
+# ------------------------------- hyper-parameters from a device buffer
+def _param_case(name, dev):
+    """(wrapper call taking the params vector, plain call, bounds, scalar
+    or block penalty pair) of the kernel `name` at a small shape."""
+    rng = np.random.default_rng(11)
+    pens = (P.MCP(0.11, 3.0), P.MCP(0.05, 2.5))
+    bpens = (P.BlockMCP(0.11, 3.0), P.BlockMCP(0.05, 2.5))
+    if name in ("k1", "k1b"):
+        K, T = (256, 1) if name == "k1" else (256, 20)
+        X = rng.standard_normal((3 * K, K))
+        G = X.T @ X / (3 * K)
+        shape = (K,) if name == "k1" else (K, T)
+        beta0 = rng.standard_normal(shape) * 0.1
+        G, c, beta0, L = _on(dev, G, X.T @ rng.standard_normal(
+            (3 * K,) + shape[1:]) / (3 * K), beta0, np.diag(G))
+        G = G.t().contiguous().t()
+        args = (G, c, beta0, G @ beta0, L)
+        pair = pens if name == "k1" else bpens
+        wrapper = ops.cd_epoch_gram if name == "k1" \
+            else ops.cd_epoch_gram_block
+        return (lambda prm: wrapper(*args, type(pair[0]), prm, epochs=2),
+                lambda prm: cd_epoch_gram_plain(*args, type(pair[0]), prm,
+                                                epochs=2),
+                (1e-12, 1e-5), pair)
+    if name == "k2":
+        K, n = 128, 3000
+        Xt = rng.standard_normal((K, n))
+        beta0 = rng.standard_normal(K) * 0.05
+        Xt, y, beta0, L, off = _on(dev, Xt, np.sign(rng.standard_normal(n)),
+                                   beta0, np.sum(Xt * Xt, 1) / (4 * n),
+                                   np.zeros(K))
+        args = (Xt, y, beta0, beta0 @ Xt, L, off, P.MCP)
+        return (lambda prm: ops.cd_epoch_xb(*args, prm, "logistic",
+                                            epochs=2),
+                lambda prm: cd_epoch_xb_plain(*args, prm, "logistic",
+                                              epochs=2),
+                (1e-11, 1e-8), pens)
+    n, p = 500, 3000
+    X = rng.standard_normal((n, p))
+    if name == "k3b":
+        T = 20
+        beta = rng.standard_normal((p, T)) * (rng.random((p, 1)) < 0.3)
+        Xt, R, beta, L, off = _on(dev, X.T, rng.standard_normal((n, T)),
+                                  beta, np.sum(X * X, 0) / n, np.zeros(p))
+        gs = bpens[0].generalized_support(beta)
+        args = (Xt, R, beta, L, off, gs, P.BlockMCP)
+        return (lambda prm: ops.fused_ws_block(*args, prm, 256)[:3],
+                lambda prm: fused_ws_plain(*args, prm, 256)[:3],
+                (1e-12, 1e-10), bpens)
+    beta = rng.standard_normal(p) * (rng.random(p) < 0.3)
+    Xt, r, beta, L, off = _on(dev, X.T, rng.standard_normal(n), beta,
+                              np.sum(X * X, 0) / n, np.zeros(p))
+    if name == "k3":
+        gs = pens[0].generalized_support(beta)
+        args = (Xt, r, beta, L, off, gs, P.MCP)
+        return (lambda prm: ops.fused_ws(*args, prm, 256)[:4],
+                lambda prm: fused_ws_plain(*args, prm, 256)[:3] + (
+                    select_working_set(fused_ws_plain(*args, prm, 256)[0],
+                                       gs, 256),),
+                (1e-12, 1e-10), pens)
+    args = (Xt, r, beta, L, off, P.MCP)
+    return (lambda prm: (ops.ws_score(*args, prm),),
+            lambda prm: (ws_score_plain(*args, prm),), (1e-12, 1e-11), pens)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["k1", "k1b", "k2", "k3", "k3b", "k4"])
+def test_kernel_params_from_device_buffer(cuda, name):
+    """K1, K1b, K2, K3, K3b and K4 read the penalty's hyper-parameters from
+    a vector on the card: with it they equal their plain versions as with
+    the host vector, and a graph captured over a static vector at one
+    (lam, gamma) and replayed after new values are written into it equals
+    an eager launch at the new values bit for bit."""
+    call, plain, (atol, rtol), (pen1, pen2) = _param_case(name, cuda)
+    for pen in (pen1, pen2):
+        got = call(penalty_params(pen, cuda))
+        want = plain(penalty_params(pen))
+        for g, w in zip(got, want):
+            if g.dtype == torch.int64 or g.dtype == torch.int32:
+                assert torch.equal(g, w)
+            else:
+                torch.testing.assert_close(g, w, atol=atol, rtol=rtol)
+    static = penalty_params(pen1, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call(static)                               # warm-up off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call(static)
+    static.copy_(penalty_params(pen2, cuda))
+    graph.replay()
+    eager = call(penalty_params(pen2, cuda))
+    for g, e in zip(captured, eager):
+        assert torch.equal(g, e)
+    static.copy_(penalty_params(pen1, cuda))
+    graph.replay()
+    for g, e in zip(captured, call(penalty_params(pen1, cuda))):
+        assert torch.equal(g, e)
+
+
+# ------------------------------------------------- regularization paths
+def _path_problem(dev):
+    from repro_torch.core.engine import DenseDesign
+    from repro_torch.data import make_correlated_design
+    X, y, _ = make_correlated_design(n=1000, p=2000, n_nonzero=50, rho=0.5,
+                                     snr=5.0, seed=0)
+    return DenseDesign.from_dense(X, dev), y
+
+
+@pytest.mark.gpu
+def test_one_capture_per_bucket_over_30_lambda_path(cuda):
+    """The port's ``test_one_compile_per_bucket_over_30_lambda_path``
+    (tests/test_engine.py): a 30-lambda Lasso path (n = 1000, p = 2000)
+    captures each step key once, every key's bucket on the ladder, every
+    lambda converged, one read a step."""
+    from repro_torch.core import (L1, BucketPolicy, Quadratic, make_engine,
+                                  reg_path)
+    design, y = _path_problem(cuda)
+    eng = make_engine(L1(1.0), Quadratic(), device=cuda)
+    path = reg_path(design, y, L1(1.0), n_lambdas=30, lambda_min_ratio=1e-2,
+                    tol=1e-6, engine=eng)
+    assert np.all(path.kkts <= 1e-6)
+    assert path.captures, "the engine captured nothing"
+    ladder = set(BucketPolicy(p0=64).ladder(2000))
+    for key, count in path.captures.items():
+        assert count == 1, f"key {key} captured {count}x"
+        assert key[0] in ladder
+    assert len(path.captures) <= len(ladder)
+    steps = path.n_outer + (path.kkts <= 1e-6)
+    assert path.n_host_syncs == int(np.sum(steps)) + 29 + 2
+    eng.release_graphs()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("penalty", ["L1", "MCP"])
+def test_captured_path_equals_eager_path(cuda, penalty):
+    """A path whose graphs, captured at its first lambdas, replay at every
+    later one equals the path run with ``capture=False`` (the same step
+    with its conditions read on the host) bit for bit, with the same
+    epochs and launch counts."""
+    from repro_torch.core import L1, MCP, Quadratic, make_engine, reg_path
+    design, y = _path_problem(cuda)
+    pen = L1(1.0) if penalty == "L1" else MCP(1.0, 3.0)
+    out = {}
+    for capture in (True, False):
+        eng = make_engine(pen, Quadratic(), device=cuda, capture=capture)
+        ops.reset_launch_counts()
+        out[capture] = (reg_path(design, y, pen, n_lambdas=12, tol=1e-8,
+                                 engine=eng), ops.launch_counts())
+        eng.release_graphs()
+    (pc, cc), (pe, ce) = out[True], out[False]
+    assert np.all(pc.kkts <= 1e-8)
+    assert np.array_equal(pc.betas, pe.betas)
+    assert np.array_equal(pc.n_epochs, pe.n_epochs)
+    assert np.array_equal(pc.kkts, pe.kkts)
+    assert cc == ce
+    assert set(pc.captures.values()) == {1} and not pe.captures
+
+
+@pytest.mark.gpu
+def test_screened_csc_path_reuses_its_slots(cuda):
+    """A gap-safe screened path on a CSC design writes each lambda's
+    survivors into a slot design of its width in place: each step key is
+    captured once, fewer slot designs than screened solves, K5 on every
+    screen and head, and the solutions within 1e-7 of the unscreened
+    path."""
+    from repro_torch.core import L1, reg_path
+    from repro_torch.data import make_sparse_design
+    from repro_torch.sparse import CSCDesign
+    X, y, _ = make_sparse_design(n=2000, p=8000, density=5e-3, n_nonzero=40,
+                                 seed=1)
+    d = CSCDesign.from_scipy(X, ell=True, device=cuda)
+    kw = dict(n_lambdas=8, lambda_min_ratio=0.05, tol=1e-9, device=cuda)
+    ref = reg_path(d, y, L1(1.0), **kw)
+    ops.reset_launch_counts()
+    scr = reg_path(d, y, L1(1.0), screen="gap_safe", **kw)
+    assert np.all(scr.kkts <= 1e-9)
+    np.testing.assert_allclose(scr.betas, ref.betas, atol=1e-7)
+    assert set(scr.captures.values()) == {1}
+    designs = {key[1] for key in scr.captures}
+    solved = int(np.sum(scr.screened_fracs < 1.0))
+    assert 0 < len(designs) < solved
+    assert ops.launch_counts()["csc_score"] >= len(scr.lambdas) + \
+        int(np.sum(scr.n_outer))
+
+
+@pytest.mark.gpu
+def test_screened_dense_path_drops_outgrown_slots(cuda, monkeypatch):
+    """A gap-safe screened dense path refills its slot designs and, as the
+    survivors widen, frees the slots it outgrew with their graphs: after
+    the path the engine's graphs read one slot design, and every other
+    slot it made is freed (before, every narrower slot stayed alive in its
+    graphs, about one more slot of memory beside X)."""
+    import gc
+    import weakref
+    from repro_torch.core import L1, Quadratic, make_engine, reg_path
+    from repro_torch.core.engine import DenseDesign
+    design, y = _path_problem(cuda)
+    eng = make_engine(L1(1.0), Quadratic(), device=cuda)
+    kw = dict(n_lambdas=20, lambda_min_ratio=0.05, tol=1e-9, engine=eng)
+    ref = reg_path(design, y, L1(1.0), **kw)
+    eng.release_graphs()
+    made = []
+    take = DenseDesign.take_columns
+
+    def recording(self, idx, out=None):
+        sub = take(self, idx, out=out)
+        if out is None:
+            made.append(weakref.ref(sub))
+        return sub
+
+    monkeypatch.setattr(DenseDesign, "take_columns", recording)
+    scr = reg_path(design, y, L1(1.0), screen="gap_safe", **kw)
+    np.testing.assert_allclose(scr.betas, ref.betas, atol=1e-7)
+    assert np.all(scr.kkts <= 1e-9)
+    assert set(scr.captures.values()) == {1}
+    assert scr.diagnostics["slot_refills"] > 0
+    assert len(made) == scr.diagnostics["slots_made"] > 1
+    slots = {id(g.design) for g in eng._graphs.values()}
+    gc.collect()
+    alive = [id(r()) for r in made if r() is not None]
+    assert len(slots) == 1 and alive == list(slots)
+    eng.release_graphs()

@@ -70,6 +70,9 @@ def _entry_points():
         "lambda_max": lambda: tc.lambda_max(X, y),
         "Lasso.fit": lambda: tc.Lasso(alpha=0.1).fit(X, y),
         "LinearSVC.fit": lambda: tc.LinearSVC().fit(X, np.sign(y)),
+        "reg_path": lambda: tc.reg_path(X, y, tc.L1(1.0), n_lambdas=3),
+        "lasso_gap_safe_mask": lambda: tc.lasso_gap_safe_mask(
+            X, y, np.zeros(10), 0.1),
     }
 
 
@@ -78,7 +81,8 @@ def _entry_points():
                                   "CSCDesign.from_scipy", "sparse solve",
                                   "sparse lambda_max", "multitask solve",
                                   "multitask lambda_max", "multitask_mcp",
-                                  "MultiTaskLasso.fit"])
+                                  "MultiTaskLasso.fit", "reg_path",
+                                  "lasso_gap_safe_mask"])
 def test_default_device_is_cuda_and_raises_without_card(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device runs")
