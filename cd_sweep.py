@@ -281,28 +281,22 @@ def sweep_heads(dev, cfg):
     (weighted), K3b (T = 20, ws = 512), K1 (K = 1024), K2 (K = 512, n =
     10,000) and K1b (K = 1024, T = 20) at the time shapes of
     ``chip_smoke.py``, L1 / BlockL1, float64: ms a launch (CUDA events,
-    warm). The penalty's vector is made on the card once where the tree's
-    ``penalty_params`` takes a device (its kernels read it there), else it
-    is the host vector that tree's launchers pass by value."""
-    import inspect
+    warm). The penalty's vector is made on the card, where the kernels
+    read it."""
     import torch
     from repro_torch.core.penalties import L1, BlockL1
     from repro_torch.kernels import ops
     from repro_torch.kernels.common import penalty_params
     from repro_torch.kernels.fused_ws import score_cuda
-    on_card = "device" in inspect.signature(penalty_params).parameters
-
-    def prm(pen):
-        return penalty_params(pen, dev) if on_card else penalty_params(pen)
 
     c = cs.FULL
     reps = cfg["reps"] * 10
-    out = dict(params_on_card=on_card)
+    out = {}
     n, p = c["k3_n"], c["k3_p"]
     Xt, r, beta, L, off = cs.fused_inputs(n, p, dev, seed=3)
     gs = L1(0.11).generalized_support(beta)
     w = 2.0 * torch.rand(n, device=dev, dtype=torch.float64)
-    args = (Xt, r, beta, L, off, gs, L1, prm(L1(0.11)), 1024)
+    args = (Xt, r, beta, L, off, gs, L1, penalty_params(L1(0.11), dev), 1024)
     out["K3"] = cs.time_ms(lambda: ops.fused_ws(*args), dev, reps)
     out["K3 score"] = cs.time_ms(lambda: score_cuda(
         Xt, r, beta, L, off, L1, args[7], gsupp=gs), dev, reps)
@@ -314,19 +308,21 @@ def sweep_heads(dev, cfg):
     Xt, R, beta, L, off = cs.block_inputs(b["n"], b["p"], b["T"], dev,
                                           seed=13)
     gs = BlockL1(0.11).generalized_support(beta)
-    args = (Xt, R, beta, L, off, gs, BlockL1, prm(BlockL1(0.11)), b["ws"])
+    args = (Xt, R, beta, L, off, gs, BlockL1,
+            penalty_params(BlockL1(0.11), dev), b["ws"])
     out["K3b"] = cs.time_ms(lambda: ops.fused_ws_block(*args), dev, reps)
     del Xt
     G, cc, beta0, q0, L = cs.gram_inputs(1024, dev, seed=1024)
-    args = (G, cc, beta0, q0, L, L1, prm(L1(0.11)))
+    args = (G, cc, beta0, q0, L, L1, penalty_params(L1(0.11), dev))
     out["K1"] = cs.time_ms(lambda: ops.cd_epoch_gram(*args), dev, reps)
     Xt, y, w, beta0, Xb0, L, off = cs.xb_inputs(c["k2_K"], c["k2_n"],
                                                 "logistic", dev, seed=7)
-    args = (Xt, y, beta0, Xb0, L, off, L1, prm(L1(0.07)), "logistic")
+    args = (Xt, y, beta0, Xb0, L, off, L1, penalty_params(L1(0.07), dev),
+            "logistic")
     out["K2"] = cs.time_ms(lambda: ops.cd_epoch_xb(*args), dev, reps)
     G, cc, beta0, q0, L = cs.gram_block_inputs(1024, c["k1b_T"], dev,
                                                seed=1024)
-    args = (G, cc, beta0, q0, L, BlockL1, prm(BlockL1(0.11)))
+    args = (G, cc, beta0, q0, L, BlockL1, penalty_params(BlockL1(0.11), dev))
     out["K1b"] = cs.time_ms(lambda: ops.cd_epoch_gram_block(*args), dev,
                             cfg["reps"])
     cs.log(f"sweep heads {json.dumps(out)}")

@@ -12,10 +12,10 @@ Phases, each of which must pass (any failure exits non-zero):
    (``fused_ws``) and K4 (``ws_score``) on the card against their plain
    torch versions on the same inputs, at main-path shapes, float64.
    Tolerances are those of the reference's kernel tests: |err| <=
-   1e-12 + 1e-5 |ref| for K1 (at K = 256 and 1024, and at the blocked
+   1e-12 + 1e-5 |ref| for K1 (at K = 256, and at the blocked
    kernel's edges K = 1, 31, 33, 1023, 1025, 2049, 4096: one block and
    many, ragged and whole, one CTA and the cluster, all seven penalties
-   up to K = 2049 and L1, MCP and SCAD at 4096,
+   up to K = 1025 and L1, MCP and SCAD at 2049 and 4096,
    epochs 1 and 3, G column-major and row-major, each launched twice and
    equal bit for bit on its plan's branch; the global-memory branches,
    forced, at K = 2049; a block with L = 0 and a level at which nothing
@@ -121,7 +121,7 @@ Phases, each of which must pass (any failure exits non-zero):
    L1L2(rho=0.5), MCP(gamma=3) and SCAD(gamma=3.7), 15 lambdas to
    lambda_max/100 at tol 1e-7 with ``support_metrics`` on a held-out set
    on the kernel route, equal on all its lambdas bit for bit to
-   ``capture=False`` with each step key captured once, its first 5
+   ``capture=False`` with each step key captured once, its first 3
    lambdas on the plain route within 1e-6 (the plain route's
    per-coordinate Python epochs take 4-5 minutes a penalty for the whole
    grid on an H100), each penalty's best F1 printed; (c) a gap-safe
@@ -133,6 +133,34 @@ Phases, each of which must pass (any failure exits non-zero):
    to the next and their slot designs must be refilled in place; (d) a
    MultiTaskLasso path on the M/EEG leadfield (8 lambdas to
    lambda_max/10) equal bit for bit to ``capture=False``. Every lambda must converge.
+7c. lane kernels and CV grids: K1l (``cd_epoch_gram_lanes``) at S = 1,
+   10 and 50 lanes and K = 31, 256, 1024 and 4096, all seven penalties
+   with a parameter row a lane and every third lane frozen by the mask,
+   bit for bit per lane against K1 on that lane's inputs, frozen lanes
+   unchanged, within K1's bound of its plain version at S = 10 (every
+   penalty up to K = 256, L1 above); K2l (``cd_epoch_xb_lanes``) at S = 10, K = 512,
+   n = 10,000, weighted logistic with a weight row a lane, bit for bit per
+   lane against K2 and within K2's bound; K3l (``fused_ws_lanes``) at S =
+   10 on the K3 shapes, ws 64 and 1024, random and tied-integer data,
+   within K3's bounds (equal on the integers), cand_idx exact, each lane's
+   working set ``select_working_set`` of its plain scores and its rows bit
+   for bit. Then the grids at full width on the kernel route, each with
+   its wall time, rounds, occupancy, dispatches, outer steps, captures and
+   their seconds, peak memory, alpha_ and launches printed, held to
+   ``capture=False`` bit for bit (betas, cv_loss, kkts), every item at kkt
+   <= tol, each step key captured once, one read a dispatch: (g1)
+   ``LassoCV(cv=5, n_alphas=30, eps=1e-2, vmap_chunk=2)`` on ``cv_fig``
+   (10 lanes, 150 items, K3l + K1l), its folds 0 and 1 within 1e-5 of the
+   sequential path on their row subsets, and its BIC selection (the
+   chunked path, 2 lanes) bit for bit; (g2) ``LassoCV(cv=5, n_alphas=10,
+   eps=0.1, vmap_chunk=2)`` on ``sparse_fig2`` (K5b at T = 10, K1l, K5s
+   once a fold); (g3) ``SparseLogisticRegressionCV(cv=5, n_alphas=10,
+   eps=1/3, vmap_chunk=2)`` on ``make_classification(n=10000, p=20000)``
+   (K3l + K2l); (g4) the reference's acceptance grid (n = 200, p = 400,
+   5 x 30, 50 lanes, tol 1e-8) with its budget contract (one lane count,
+   dispatches = reads <= outer steps, an interior minimum), a second grid
+   on the same engine and design capturing nothing, and the plain route
+   within 1e-6. Each grid's kernels must have launched.
 8. times: each kernel at main-path shapes (CUDA events, warm), its plain
    version, its bound (bytes over 3.35 TB/s or operations over 67 TF/s
    float64, the larger) and, where one PyTorch call computes the same
@@ -150,6 +178,10 @@ Phases, each of which must pass (any failure exits non-zero):
    K chain steps of a shuffle and a multiply-add with a handoff every 32,
    measured by a launch of that chain alone; K2, K1b: K cluster-barrier
    round trips on its cluster, measured by a launch of barriers alone).
+   The lane rows: K1l (S = 10, K = 1024), K2l (S = 10, K = 512, n =
+   10,000, weighted logistic) and K3l (S = 10, ws = 1024, with torch.mm
+   of X by the lanes' raw gradients as its library call), each beside S
+   single-lane launches of its kernel on the same inputs.
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -170,9 +202,9 @@ TOL = 1e-6
 PENALTY_SPECS = [("L1", (0.11,)), ("L1L2", (0.11, 0.6)), ("MCP", (0.11, 3.0)),
                  ("SCAD", (0.11, 3.7)), ("L05", (0.05,)), ("L23", (0.05,)),
                  ("Box", (0.8,))]
-FULL = dict(k1_sizes=(256, 1024),
+FULL = dict(k1_sizes=(256,),
             k1_blocked=(1, 31, 33, 1023, 1025, 2049, 4096), k1_frozen_K=1025, k1_time_K=(1024, 2048),
-            k1_all_pens_K=2049, k1_large_pens=("L1", "MCP", "SCAD"),
+            k1_all_pens_K=1025, k1_large_pens=("L1", "MCP", "SCAD"),
             k2_K=512, k2_n=10_000,
             k2_big=((512, 50_000), (4096, 50_000), (512, 1000),
                     (128, 160_003)),
@@ -199,9 +231,19 @@ FULL = dict(k1_sizes=(256, 1024),
             mt_sparse_T=20, mt_sparse_frac=300, mt_sparse_min_ws=1024,
             path_a=dict(n_lambdas=30, ratio=1e-2, tol=1e-6, plain_lambdas=8),
             fig1=dict(n=1000, p=2000, n_nonzero=200, n_lambdas=15, tol=1e-7,
-                      plain_lambdas=5),
+                      plain_lambdas=3),
             screen=dict(n_lambdas=6, ratio=0.05, tol=1e-9, fine_lambdas=20),
             path_mt=dict(n_lambdas=8, ratio=0.1),
+            k1l_S=(1, 10, 50), k1l_K=(31, 256, 1024, 4096),
+            k1l_plain_S=10, k1l_plain_K=256,
+            k2l=dict(S=10, K=512, n=10_000),
+            k3l=dict(S=10, ws=(64, 1024)), lane_time=dict(S=10, K1=1024),
+            g1=dict(cv=5, n_alphas=30, eps=1e-2, vmap_chunk=2, folds=2),
+            g2=dict(cv=5, n_alphas=10, eps=0.1, vmap_chunk=2),
+            g3=dict(n=10_000, p=20_000, cv=5, n_alphas=10, eps=1 / 3,
+                    vmap_chunk=2),
+            g4=dict(n=200, p=400, n_nonzero=15, seed=1, n_lambdas=30, cv=5,
+                    vmap_chunk=10, tol=1e-8),
             reps=20)
 
 
@@ -262,16 +304,6 @@ def graph_ms(fn, dev, reps):
     ms = time_ms(graph.replay, dev, reps)
     del graph
     return ms
-
-
-def on_card(args, dev):
-    """`args` with the penalty's codec vector (the one CPU tensor among
-    them) moved to `dev` once: a kernel reads its parameters on the card,
-    and a host vector would cost every timed launch a blocking copy. The
-    plain versions are timed with the host vector."""
-    import torch
-    return tuple(a.to(dev) if torch.is_tensor(a) and a.device.type == "cpu"
-                 else a for a in args)
 
 
 def bound(nbytes, nops):
@@ -382,7 +414,7 @@ def check_kernels(dev, cfg):
         G, c, beta0, q0, L = gram_inputs(K, dev, seed=K)
         for pen in penalties():
             for epochs in (1, 5):
-                args = (G, c, beta0, q0, L, type(pen), penalty_params(pen))
+                args = (G, c, beta0, q0, L, type(pen), penalty_params(pen, dev))
                 bk, qk = ops.cd_epoch_gram(*args, epochs=epochs)
                 br, qr = cd_epoch_gram_plain(*args, epochs=epochs)
                 for a, b in ((bk, br), (qk, qr)):
@@ -403,7 +435,7 @@ def check_kernels(dev, cfg):
         for pen in pens:
             for wt in ((None,) if kind == "svc" else (None, w)):
                 args = (Xt, y, beta0, Xb0, L, off, type(pen),
-                        penalty_params(pen), kind)
+                        penalty_params(pen, dev), kind)
                 check_epoch("cd_epoch_xb", f"K2 {kind} {type(pen).__name__}"
                             f" w={wt is not None}", args,
                             dict(w=wt, epochs=2), cd_epoch_xb_plain, 1e-11,
@@ -426,7 +458,7 @@ def check_kernels(dev, cfg):
             for ws_size in dict.fromkeys(min(w, p) for w in cfg["k3_ws"] + (
                     cfg["k3_ws_merge"] if ties else ())):
                 args = (Xt, r, beta, L, off, gs, type(pen),
-                        penalty_params(pen), ws_size)
+                        penalty_params(pen, dev), ws_size)
                 sk, gk, ik, wk, xk = ops.fused_ws(*args, use_fp=fp)
                 sr, gr, ir, cr = fused_ws_plain(*args, use_fp=fp)
                 ok1, e1 = close(sk, sr, 1e-12, 1e-11)
@@ -536,7 +568,7 @@ def check_k1_blocked(dev, cfg, errs):
             p for p in penalties()
             if type(p).__name__ in cfg["k1_large_pens"]]
         for pen in pens:
-            prm = penalty_params(pen)
+            prm = penalty_params(pen, dev)
             args = (G, c, beta0, q0, L, type(pen), prm)
             refs = refs_of(args)
             name = type(pen).__name__
@@ -551,7 +583,7 @@ def check_k1_blocked(dev, cfg, errs):
     L = L.clone()
     L[32:64] = 0.0
     for pen, b0 in ((L1(0.11), beta0), (L1(1e6), torch.zeros_like(beta0))):
-        args = (G, c, b0, G @ b0, L, L1, penalty_params(pen))
+        args = (G, c, b0, G @ b0, L, L1, penalty_params(pen, dev))
         refs = refs_of(args)
         outs = check(f"K={K} L=0 on rows 32..63, L1({pen.lam})", args, refs)
         # the kernel's outputs, not the plain version's
@@ -586,7 +618,7 @@ def check_k2_big_and_k4(dev, cfg, errs):
         t = time.perf_counter()
         Xt, y, w, beta0, Xb0, L, off = xb_inputs(K, n, "logistic", dev,
                                                  seed=9)
-        args = (Xt, y, beta0, Xb0, L, off, L1, penalty_params(L1(0.002)),
+        args = (Xt, y, beta0, Xb0, L, off, L1, penalty_params(L1(0.002), dev),
                 "logistic")
         for wt in (None, w):
             (bk, _), branch = check_epoch(
@@ -607,7 +639,7 @@ def check_k2_big_and_k4(dev, cfg, errs):
     for pen in penalties():
         for fp in (False, True):
             for wt in (None, w):
-                args = (Xt, r, beta, L, off, type(pen), penalty_params(pen))
+                args = (Xt, r, beta, L, off, type(pen), penalty_params(pen, dev))
                 sk = ops.ws_score(*args, w=wt, use_fp=fp)
                 sr = ws_score_plain(*args, w=wt, use_fp=fp)
                 ok, e = close(sk, sr, 1e-12, 1e-11)
@@ -640,12 +672,12 @@ def check_step_down(dev, cfg, errs):
     fails = []
     t = time.perf_counter()
     G, c, beta0, q0, L = gram_inputs(1024, dev, seed=3)
-    k1 = (G, c, beta0, q0, L, L1, penalty_params(L1(0.11)))
+    k1 = (G, c, beta0, q0, L, L1, penalty_params(L1(0.11), dev))
     G, cb, bb, qb, Lb = gram_block_inputs(1024, cfg["k1b_T"], dev, seed=4)
-    k1b = (G, cb, bb, qb, Lb, BlockL1, penalty_params(BlockL1(0.11)))
+    k1b = (G, cb, bb, qb, Lb, BlockL1, penalty_params(BlockL1(0.11), dev))
     Xt, y, w, b2, xb, L2, off = xb_inputs(cfg["k2_K"], cfg["k2_n"],
                                           "logistic", dev, seed=5)
-    k2 = (Xt, y, b2, xb, L2, off, L1, penalty_params(L1(0.002)),
+    k2 = (Xt, y, b2, xb, L2, off, L1, penalty_params(L1(0.002), dev),
           "logistic")
     refs = (cd_epoch_gram_plain(*k1), cd_epoch_gram_plain(*k1b),
             cd_epoch_xb_plain(*k2, w=w))
@@ -1167,7 +1199,7 @@ def check_block_kernels(dev, cfg, errs, designs):
             gs = pen.generalized_support(beta)
             for fp in (False, True):
                 args = (Xt, R, beta, L, off, gs, type(pen),
-                        penalty_params(pen), c["ws"])
+                        penalty_params(pen, dev), c["ws"])
                 if dev.type == "cuda":
                     fill_shared_memory_cuda(dev)
                 sk, gk, ik, wk, xk = ops.fused_ws_block(*args, use_fp=fp)
@@ -1195,7 +1227,7 @@ def check_block_kernels(dev, cfg, errs, designs):
         G, cc, beta0, q0, L = gram_block_inputs(K, T, dev, seed=K)
         for pen in block_pens():
             for epochs in (1, 3):
-                args = (G, cc, beta0, q0, L, type(pen), penalty_params(pen))
+                args = (G, cc, beta0, q0, L, type(pen), penalty_params(pen, dev))
                 tag = f"K1b K={K} T={T} {type(pen).__name__} epochs={epochs}"
                 (bk, _), branch = check_epoch(
                     "cd_epoch_gram_block", tag, args, dict(epochs=epochs),
@@ -1555,6 +1587,560 @@ def path_phase(dev, cfg, sparse_design, sparse_y):
     return total, fails
 
 
+# ------------------------------------------------------------------- lanes
+def lane_rows(pen, S, dev, seed=0):
+    """[S, arity] codec rows of `pen` on `dev`: its first hyper-parameter
+    (lam, or Box's C) scaled per lane by a seeded factor in [0.5, 1.5]."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.common import penalty_params
+    rows = penalty_params(pen).repeat(S, 1)
+    rows[:, 0] *= torch.as_tensor(np.random.default_rng(seed).uniform(
+        0.5, 1.5, S))
+    return rows.to(dev)
+
+
+def gram_lane_inputs(S, K, dev, seed):
+    """K1l inputs on the card: lane s's G is the Gram of one 3K x K
+    Gaussian design scaled by 1 + 0.01 s (column-major, as the engine
+    lays it out), its own c and beta0, q0 = G beta0, L = diag(G)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.randn(3 * K, K, generator=g, device=dev, dtype=torch.float64)
+    G0 = X.T @ X / (3 * K)
+    del X
+    scale = 1.0 + 0.01 * torch.arange(S, dtype=torch.float64, device=dev)
+    G = (G0[None] * scale[:, None, None]).transpose(1, 2).contiguous() \
+        .transpose(1, 2)
+    del G0
+    c = 0.1 * torch.randn(S, K, generator=g, device=dev, dtype=torch.float64)
+    beta0 = 0.1 * torch.randn(S, K, generator=g, device=dev,
+                              dtype=torch.float64)
+    q0 = (G @ beta0[..., None])[..., 0]
+    return G, c, beta0, q0, torch.diagonal(G, dim1=1, dim2=2).contiguous()
+
+
+def lane_mask(S, dev):
+    """Lanes 1, 4, 7, ... frozen (none for one lane)."""
+    import torch
+    return torch.arange(S, device=dev) % 3 != 1
+
+
+def check_lane_kernels(dev, cfg, errs):
+    """K1l, K2l and K3l on the card against their single-lane kernels and
+    plain versions on the same inputs: K1l at every (S, K) of the config,
+    all seven penalties with per-lane parameters, bit for bit per lane
+    against K1 on that lane's inputs, frozen lanes unchanged, within K1's
+    bound of the plain version at k1l_plain_S lanes (every penalty up to
+    k1l_plain_K, L1 above); K2l (weighted logistic, per-lane weights) bit for bit per lane
+    against K2 and within K2's bound of its plain version; K3l at ws 64
+    and 1024 on random and tied-integer data within K3's bounds (equal on
+    the integers), cand_idx exact, each lane's working set
+    ``select_working_set`` of its plain scores and its rows bit for bit.
+    Returns the failures."""
+    import torch
+    from repro_torch.core.penalties import L1
+    from repro_torch.core.working_set import select_working_set
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cd_epoch import (cd_epoch_gram_plain,
+                                              cd_epoch_xb_lanes_plain)
+    from repro_torch.kernels.fused_ws import fused_ws_lanes_plain
+    fails = []
+    for k in ("cd_epoch_gram_lanes", "cd_epoch_xb_lanes", "fused_ws_lanes"):
+        errs[k] = 0.0
+
+    def note(key, a, b, atol, rtol, tag):
+        ok, e = close(a, b, atol, rtol)
+        errs[key] = max(errs[key], e)
+        if not ok:
+            fails.append(f"{tag} err={e:.3e}")
+
+    t = time.perf_counter()
+    for S in cfg["k1l_S"]:
+        t1 = time.perf_counter()
+        for K in cfg["k1l_K"]:
+            G, c, beta0, q0, L = gram_lane_inputs(S, K, dev, seed=S * K)
+            active = lane_mask(S, dev)
+            first = int(torch.nonzero(active)[0])
+            for pen in penalties():
+                name = type(pen).__name__
+                prm = lane_rows(pen, S, dev, seed=S + K)
+                b, q = ops.cd_epoch_gram_lanes(G, c, beta0, q0, L, type(pen),
+                                               prm, active, epochs=2)
+                same = True
+                for s in range(S):
+                    if not bool(active[s]):
+                        same &= bool(torch.equal(b[s], beta0[s])
+                                     and torch.equal(q[s], q0[s]))
+                        continue
+                    bs, qs = ops.cd_epoch_gram(G[s], c[s], beta0[s], q0[s],
+                                               L[s], type(pen), prm[s],
+                                               epochs=2)
+                    same &= bool(torch.equal(b[s], bs)
+                                 and torch.equal(q[s], qs))
+                if not same:
+                    fails.append(f"K1l S={S} K={K} {name}: not K1 bit for "
+                                 f"bit lane by lane")
+                if S == cfg["k1l_plain_S"] and (K <= cfg["k1l_plain_K"]
+                                                or name == "L1"):
+                    bp, qp = cd_epoch_gram_plain(
+                        G[first], c[first], beta0[first], q0[first],
+                        L[first], type(pen), prm[first], epochs=2)
+                    note("cd_epoch_gram_lanes", b[first], bp, 1e-12, 1e-5,
+                         f"K1l S={S} K={K} {name} beta")
+                    note("cd_epoch_gram_lanes", q[first], qp, 1e-12, 1e-5,
+                         f"K1l S={S} K={K} {name} q")
+            del G
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        log(f"  K1l checks at S={S}: {time.perf_counter() - t1:.1f} s")
+    log(f"  K1l checks: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    c2 = cfg["k2l"]
+    S, K, n = c2["S"], c2["K"], c2["n"]
+    Xt, y, _, beta0, _, L, off = xb_inputs(K, n, "logistic", dev, seed=5)
+    g = torch.Generator(device=dev).manual_seed(6)
+    Xt = torch.stack([Xt] + [Xt + 0.01 * s * torch.randn(
+        K, n, generator=g, device=dev, dtype=torch.float64)
+        for s in range(1, S)])
+    beta0 = beta0.expand(S, K).contiguous() * (1 + 0.1 * torch.arange(
+        S, device=dev, dtype=torch.float64))[:, None]
+    Xb0 = (beta0[:, None, :] @ Xt)[:, 0]
+    L = torch.sum(Xt * Xt, dim=2) / (4 * n)
+    off = off.expand(S, K).contiguous()
+    w = 0.5 + torch.rand(S, n, generator=g, device=dev, dtype=torch.float64)
+    active = lane_mask(S, dev)
+    prm = lane_rows(L1(0.002), S, dev, seed=7)
+    b, x = ops.cd_epoch_xb_lanes(Xt, y, beta0, Xb0, L, off, L1, prm, active,
+                                 "logistic", w=w, epochs=1)
+    bp, xp = cd_epoch_xb_lanes_plain(Xt, y, beta0, Xb0, L, off, L1, prm,
+                                     active, "logistic", w=w, epochs=1)
+    note("cd_epoch_xb_lanes", b, bp, 1e-11, 1e-8, f"K2l S={S} K={K} beta")
+    note("cd_epoch_xb_lanes", x, xp, 1e-11, 1e-8, f"K2l S={S} K={K} Xb")
+    for s in range(S):
+        if bool(active[s]):
+            bs, xs = ops.cd_epoch_xb(Xt[s], y, beta0[s], Xb0[s], L[s], off[s],
+                                     L1, prm[s], "logistic", w=w[s], epochs=1)
+            if not (torch.equal(b[s], bs) and torch.equal(x[s], xs)):
+                fails.append(f"K2l lane {s}: not K2 bit for bit")
+        elif not (torch.equal(b[s], beta0[s]) and torch.equal(x[s], Xb0[s])):
+            fails.append(f"K2l frozen lane {s} changed")
+    del Xt
+    log(f"  K2l checks: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    c3 = cfg["k3l"]
+    S = c3["S"]
+    n, p = cfg["k3_n"], cfg["k3_p"]
+    for ties in (False, True):
+        Xt, _, _, L, off = fused_inputs(n, p, dev, seed=3, ties=ties)
+        g = torch.Generator(device=dev).manual_seed(8)
+        if ties:
+            R = torch.randint(-2, 3, (n, S), generator=g, device=dev).double()
+            beta = torch.randint(-1, 2, (S, p), generator=g,
+                                 device=dev).double()
+            pen = L1(0.5)
+        else:
+            R = torch.randn(n, S, generator=g, device=dev,
+                            dtype=torch.float64)
+            beta = torch.randn(S, p, generator=g, device=dev,
+                               dtype=torch.float64) * \
+                (torch.rand(S, p, generator=g, device=dev) < 0.3)
+            pen = L1(0.11)
+        prm = lane_rows(pen, S, dev, seed=9)
+        gs = beta != 0
+        for ws in c3["ws"]:
+            tag = f"K3l S={S} ws={ws} ties={ties}"
+            sk, gk, ik, wk, xk = ops.fused_ws_lanes(Xt, R, beta, L.expand(
+                S, p), off, gs, L1, prm, ws)
+            sr, gr, ir, _ = fused_ws_lanes_plain(Xt, R, beta, L.expand(S, p),
+                                                 off, gs, L1, prm, ws)
+            note("fused_ws_lanes", sk, sr, 1e-12, 1e-11, f"{tag} scores")
+            note("fused_ws_lanes", gk, gr, 1e-12, 1e-10, f"{tag} grad")
+            exact = not ties or (torch.equal(sk, sr) and torch.equal(gk, gr))
+            same = bool(torch.equal(ik, ir)) and exact and all(
+                torch.equal(wk[s], select_working_set(sr[s], gs[s], ws))
+                and torch.equal(xk[s], Xt[wk[s]]) for s in range(S))
+            if not same:
+                fails.append(f"{tag}: candidates, working sets or rows "
+                             f"differ")
+        del Xt
+    log(f"  K3l checks: {time.perf_counter() - t:.1f} s")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return fails
+
+
+def run_grid(label, call, dev, total=None):
+    """Run one grid (``call()`` -> a fitted CV estimator or a GridResult)
+    with the launch counts reset just before and read just after (added to
+    `total` when given), and print its wall time, rounds, mean occupancy,
+    dispatches, outer steps, captures and their seconds, peak allocated /
+    reserved memory, alpha_ and launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    out = call()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = all_counts()
+    if total is not None:
+        for k in total:
+            total[k] += counts[k]
+    peak, reserved = (torch.cuda.max_memory_allocated() / 2**30,
+                      torch.cuda.max_memory_reserved() / 2**30) \
+        if dev.type == "cuda" else (float("nan"), float("nan"))
+    g = getattr(out, "grid_result_", getattr(out, "path_result_", out))
+    alpha = getattr(out, "alpha_", None)
+    if hasattr(g, "n_rounds"):
+        stats = (f"{g.n_rounds} rounds, occupancy "
+                 f"{float(np.mean(g.occupancy)):.4f}, dispatches "
+                 f"{g.n_dispatches}, outer steps {g.n_outer}, host reads "
+                 f"{g.n_host_syncs}, captures {len(g.capture_s)} "
+                 f"({float(np.sum(g.capture_s)):.3f} s), keys "
+                 f"{len(g.captures)}, converged "
+                 f"{int(np.sum(g.kkts <= TOL))}/{g.kkts.size}")
+    else:                                   # an information-criterion path
+        cap = g.diagnostics["capture_s"]
+        stats = (f"{len(g.lambdas)} lambdas, outer steps "
+                 f"{int(np.sum(g.n_outer))}, host reads {g.n_host_syncs}, "
+                 f"captures {len(cap)} ({float(np.sum(cap)):.3f} s), keys "
+                 f"{len(g.captures)}")
+    log(f"  {label}: wall {wall:.3f} s, {stats}, peak mem {peak:.3f} GiB "
+        f"(reserved {reserved:.3f}), alpha_ {alpha}, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return out, counts, wall
+
+
+def grid_phase(dev, cfg, sparse_design, sparse_y):
+    """The CV grids at full width on the kernel route, each held to
+    ``capture=False`` bit for bit (betas, cv_loss, kkts), every item at
+    kkt <= tol and each step key captured once: (g1) LassoCV on cv_fig
+    (its folds 0 and 1 also against the sequential path on their row
+    subsets, and the BIC path); (g2) LassoCV on sparse_fig2; (g3)
+    SparseLogisticRegressionCV on make_classification; (g4) the reference's
+    acceptance grid on both routes, with its budget contract and a second
+    grid on the same engine capturing nothing. Returns (launch counts of
+    the captured kernel-route grids, the grids' walls, failures)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (L1, Logistic, LassoCV, Quadratic,
+                                  SparseLogisticRegressionCV, cross_val_path,
+                                  lambda_max, make_engine, reg_path)
+    from repro_torch.core.engine import DenseDesign
+    from repro_torch.data import make_classification, make_correlated_design
+    total = dict.fromkeys(all_counts(), 0)
+    fails, walls = [], {}
+
+    def eager(datafit):
+        return make_engine(L1(1.0), datafit, device=dev, capture=False)
+
+    def grid_of(out):
+        return getattr(out, "grid_result_", out)
+
+    def held(label, k, o, tol):
+        gk, go = grid_of(k), grid_of(o)
+        same = bool(np.array_equal(gk.betas, go.betas)
+                    and np.array_equal(gk.cv_loss, go.cv_loss)
+                    and np.array_equal(gk.kkts, go.kkts))
+        keys = set(gk.captures.values()) == {1}
+        conv = bool(np.max(gk.kkts) <= tol)
+        log(f"  {label}: == capture=False bit for bit {same}; keys captured "
+            f"once {keys} ({len(gk.captures)}); every item kkt <= {tol} "
+            f"{conv}; one read a dispatch "
+            f"{gk.n_host_syncs == gk.n_dispatches}")
+        if not (same and keys and conv and
+                gk.n_host_syncs == gk.n_dispatches):
+            fails.append(f"{label}: bit for bit {same}, keys {gk.captures}, "
+                         f"max kkt {float(np.max(gk.kkts)):.3e}")
+
+    def need(label, counts, kernels):
+        missing = [k for k in kernels if not counts[k]]
+        if missing:
+            fails.append(f"{label}: kernels never launched {missing}")
+
+    # (g1) LassoCV on cv_fig: 10 lanes, 150 items, K3l + K1l
+    c = cfg["g1"]
+    X, y, _ = make_correlated_design(n=cfg["reg_n"], p=cfg["reg_p"],
+                                     n_nonzero=cfg["reg_nnz"], rho=0.5,
+                                     snr=5.0, seed=0)
+    design = DenseDesign.from_dense(X, dev)
+    kw = dict(cv=c["cv"], n_alphas=c["n_alphas"], eps=c["eps"],
+              vmap_chunk=c["vmap_chunk"], tol=TOL, device=dev)
+    log(f"grid (g1): LassoCV({kw}) on cv_fig ({cfg['reg_n']} x "
+        f"{cfg['reg_p']})")
+    k1, counts, walls["g1"] = run_grid("kernels", lambda: LassoCV(**kw).fit(
+        design, y), dev, total)
+    need("grid (g1)", counts, ("fused_ws_lanes", "cd_epoch_gram_lanes"))
+    o1, _, _ = run_grid("oracle ", lambda: LassoCV(
+        engine=eager(Quadratic()), **kw).fit(design, y), dev)
+    held("grid (g1)", k1, o1, TOL)
+    g = k1.grid_result_
+    for f in range(c["folds"]):
+        keep = g.fold_weights[f] > 0
+        sub, _ = run_path(f"fold {f} rows, sequential", lambda: reg_path(
+            X[keep], y[keep], L1(1.0), lambdas=g.lambdas, tol=TOL,
+            device=dev), dev)
+        diff = float(np.max(np.abs(sub.betas - g.betas[f])))
+        log(f"  grid (g1) fold {f} vs its row-subset path: max |diff| "
+            f"{diff:.3e} (bound 1e-5: two solves each at kkt <= {TOL})")
+        if not diff <= 1e-5:
+            fails.append(f"grid (g1) fold {f}: {diff:.3e} from its path")
+    del X
+    bkw = dict(n_alphas=c["n_alphas"], eps=c["eps"], criterion="bic",
+               vmap_chunk=c["vmap_chunk"], tol=TOL, device=dev)
+    kb, counts, walls["g1-bic"] = run_grid("BIC kernels", lambda: LassoCV(
+        **bkw).fit(design, y), dev, total)
+    need("grid (g1) BIC", counts, ("fused_ws_lanes", "cd_epoch_gram_lanes"))
+    ob, _, _ = run_grid("BIC oracle ", lambda: LassoCV(
+        engine=eager(Quadratic()), **bkw).fit(design, y), dev)
+    pk, po = kb.path_result_, ob.path_result_
+    same = bool(np.array_equal(pk.betas, po.betas)) and \
+        set(pk.captures.values()) == {1} and kb.alpha_ == ob.alpha_
+    log(f"  grid (g1) BIC path == capture=False bit for bit, keys once: "
+        f"{same}; alpha_ {kb.alpha_}")
+    if not same or not np.all(pk.kkts <= TOL):
+        fails.append("grid (g1) BIC path differs from capture=False or "
+                     "did not converge")
+    del design
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (g2) LassoCV on sparse_fig2: K5b at T = 10, K1l, K5s a fold. The
+    # alphas are made once: lambda_max's plain CSC score pass adds with
+    # atomics on the card, so two fits' grids can differ in the last bit
+    c = cfg["g2"]
+    lmax = lambda_max(sparse_design, sparse_y, device=dev)
+    kw = dict(cv=c["cv"], alphas=lmax * np.geomspace(1.0, c["eps"],
+                                                     c["n_alphas"]),
+              vmap_chunk=c["vmap_chunk"], tol=TOL, device=dev)
+    log(f"grid (g2): LassoCV(cv={c['cv']}, n_alphas={c['n_alphas']}, "
+        f"eps={c['eps']}, vmap_chunk={c['vmap_chunk']}) on sparse_fig2")
+    k2, counts, walls["g2"] = run_grid("kernels", lambda: LassoCV(**kw).fit(
+        sparse_design, sparse_y), dev, total)
+    need("grid (g2)", counts, ("csc_score_block", "cd_epoch_gram_lanes",
+                               "csc_weighted_col_sq"))
+    if counts["csc_weighted_col_sq"] != c["cv"]:
+        fails.append(f"grid (g2): K5s launched "
+                     f"{counts['csc_weighted_col_sq']} times, not once a "
+                     f"fold")
+    o2, _, _ = run_grid("oracle ", lambda: LassoCV(
+        engine=eager(Quadratic()), **kw).fit(sparse_design, sparse_y), dev)
+    held("grid (g2)", k2, o2, TOL)
+
+    # (g3) SparseLogisticRegressionCV on make_classification: K3l + K2l
+    c = cfg["g3"]
+    X, y, _ = make_classification(n=c["n"], p=c["p"], n_nonzero=150, seed=0)
+    design = DenseDesign.from_dense(X, dev)
+    del X
+    kw = dict(cv=c["cv"], n_alphas=c["n_alphas"], eps=c["eps"],
+              vmap_chunk=c["vmap_chunk"], tol=TOL, device=dev)
+    log(f"grid (g3): SparseLogisticRegressionCV({kw}) on "
+        f"make_classification({c['n']} x {c['p']})")
+    k3, counts, walls["g3"] = run_grid("kernels", lambda: (
+        SparseLogisticRegressionCV(**kw).fit(design, y)), dev, total)
+    need("grid (g3)", counts, ("fused_ws_lanes", "cd_epoch_xb_lanes"))
+    o3, _, _ = run_grid("oracle ", lambda: SparseLogisticRegressionCV(
+        engine=eager(Logistic()), **kw).fit(design, y), dev)
+    held("grid (g3)", k3, o3, TOL)
+    del design
+
+    # (g4) the reference's acceptance grid, both routes
+    c = cfg["g4"]
+    X, y, _ = make_correlated_design(n=c["n"], p=c["p"],
+                                     n_nonzero=c["n_nonzero"], seed=c["seed"])
+    design = DenseDesign.from_dense(X, dev)
+    kw = dict(n_lambdas=c["n_lambdas"], cv=c["cv"], tol=c["tol"],
+              vmap_chunk=c["vmap_chunk"])
+    log(f"grid (g4): cross_val_path({kw}) on {c['n']} x {c['p']}")
+    eng = make_engine(L1(1.0), Quadratic(), device=dev)
+    k4, counts, walls["g4"] = run_grid("kernels", lambda: cross_val_path(
+        design, y, Quadratic(), L1(1.0), engine=eng, **kw), dev, total)
+    need("grid (g4)", counts, ("fused_ws_lanes", "cd_epoch_gram_lanes"))
+    o4, _, _ = run_grid("oracle ", lambda: cross_val_path(
+        design, y, Quadratic(), L1(1.0), engine=eager(Quadratic()), **kw),
+        dev)
+    held("grid (g4)", k4, o4, c["tol"])
+    lanes = {key[3] for key in k4.captures}
+    budget = lanes == {c["cv"] * c["vmap_chunk"]} and \
+        0 < k4.n_dispatches <= k4.n_outer and \
+        k4.n_host_syncs == k4.n_dispatches and 0 < k4.best_index < 29
+    log(f"  grid (g4) budget: lane counts {lanes}, dispatches "
+        f"{k4.n_dispatches} <= outer steps {k4.n_outer}, host reads "
+        f"{k4.n_host_syncs}, best index {k4.best_index}: ok {budget}")
+    if not budget:
+        fails.append("grid (g4): the budget contract does not hold")
+    before = dict(eng.captures)
+    again, _, _ = run_grid("again  ", lambda: cross_val_path(
+        design, y, Quadratic(), L1(1.0), engine=eng, seed=7, **kw), dev)
+    if dict(eng.captures) != before or not again.n_dispatches:
+        fails.append("grid (g4): a second grid on the same engine captured")
+    log(f"  grid (g4) second grid on the same engine: new captures "
+        f"{len(eng.captures) - len(before)}")
+    eng.release_graphs()
+    p4, _, _ = run_grid("plain  ", lambda: cross_val_path(
+        design, y, Quadratic(), L1(1.0), device=dev, use_kernels=False,
+        **kw), dev)
+    diff = float(np.max(np.abs(p4.betas - k4.betas)))
+    log(f"  grid (g4) plain route: max |diff| {diff:.3e} (bound 1e-6), "
+        f"max kkt {float(np.max(p4.kkts)):.3e}")
+    if not diff <= 1e-6 or not np.max(p4.kkts) <= c["tol"]:
+        fails.append(f"grid (g4) plain route: {diff:.3e} from the kernel "
+                     f"route")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return total, walls, fails
+
+
+def lane_times(dev, cfg, launches, errs, card):
+    """The rows of K1l, K2l and K3l at S = 10 lanes: K1l at K = 1024
+    (L1, 1 epoch) beside ten K1 launches; K2l at (K, n) = (512, 10,000)
+    (weighted logistic) beside ten K2 launches; K3l at ws = 1024 beside
+    ten K3 heads, with torch.mm(Xt, R) as the library call. Bounds: K1l
+    and K2l S times their single lane's bytes and operations (chain floor:
+    K1's or K2's per lane, times the waves of lanes the card runs at
+    once); K3l X once, R, beta, L and gsupp read, scores, grad and ws
+    written, the S K rows read and written once (the gather)."""
+    import torch
+    from repro_torch.core.penalties import L1
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cd_epoch import (cd_epoch_gram_lanes_plain,
+                                              cd_epoch_xb_lanes_plain,
+                                              gram_chain_floor_cuda,
+                                              gram_plan, xb_plan)
+    from repro_torch.kernels.fused_ws import fused_ws_lanes_plain, pick_bp
+    reps = cfg["reps"]
+    S, K = cfg["lane_time"]["S"], cfg["lane_time"]["K1"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count \
+        if dev.type == "cuda" else 1
+    rows = []
+
+    # K1l
+    G, c, beta0, q0, L = gram_lane_inputs(S, K, dev, seed=K)
+    prm = lane_rows(L1(0.11), S, dev, seed=1)
+    on = torch.ones(S, dtype=torch.bool, device=dev)
+    args = (G, c, beta0, q0, L, L1, prm, on)
+    ms = time_ms(lambda: ops.cd_epoch_gram_lanes(*args), dev, reps)
+    ten = time_ms(lambda: [ops.cd_epoch_gram(G[s], c[s], beta0[s], q0[s],
+                                             L[s], L1, prm[s])
+                           for s in range(S)], dev, reps)
+    plain = time_ms(lambda: cd_epoch_gram_lanes_plain(*args), dev, 1)
+    moved = int(torch.sum(ops.cd_epoch_gram_lanes(*args)[0] != beta0))
+    b = bound(8 * (moved * K + 6 * K * S), 2 * moved * K)
+    plan = gram_plan(K, torch.float64)
+    waves = -(-S // max(1, sms // plan.cluster))
+    floor = None
+    if dev.type == "cuda":
+        epochs = max(1, 200_000 // K)
+        floor = waves * time_ms(lambda: gram_chain_floor_cuda(
+            K, epochs, plan.threads, dev), dev, 3) / epochs
+    rows.append(dict(
+        name="cd_epoch_gram_lanes", route="cuda",
+        source="src/repro_torch/csrc/cd_epoch.cu",
+        replaces="src/repro/kernels/cd_epoch.py:52",
+        launches=launches["cd_epoch_gram_lanes"],
+        max_abs_err=errs["cd_epoch_gram_lanes"], ms=ms, plain_ms=plain,
+        bound_ms=b[0], bound_by=b[1], library_ms=None,
+        library_call="none: no single call", ten_single_ms=ten,
+        shape=f"S={S} lanes, K={K}, epochs=1, L1 (lam a lane), {moved} "
+              f"coordinates moved",
+        branch=plan.branch, cluster=plan.cluster, threads=plan.threads,
+        chain_floor_ms=floor, lane_waves=waves,
+        launches_by_branch={br: launches[f"cd_epoch_gram_lanes/{br}"]
+                            for br in ("single", "cluster-shared",
+                                       "cluster-global")}))
+    del G
+
+    # K2l
+    c2 = cfg["k2l"]
+    K2, n = c2["K"], c2["n"]
+    Xt, y, _, b0, _, L2, off = xb_inputs(K2, n, "logistic", dev, seed=7)
+    Xt = Xt.expand(S, K2, n).contiguous()
+    b0 = b0.expand(S, K2).contiguous()
+    Xb0 = (b0[:, None, :] @ Xt)[:, 0]
+    L2 = L2.expand(S, K2).contiguous()
+    off = off.expand(S, K2).contiguous()
+    w = 0.5 + torch.rand(S, n, device=dev, dtype=torch.float64)
+    prm = lane_rows(L1(0.07), S, dev, seed=2)
+    args = (Xt, y, b0, Xb0, L2, off, L1, prm, on, "logistic")
+    ms = time_ms(lambda: ops.cd_epoch_xb_lanes(*args, w=w), dev, reps)
+    ten = time_ms(lambda: [ops.cd_epoch_xb(Xt[s], y, b0[s], Xb0[s], L2[s],
+                                           off[s], L1, prm[s], "logistic",
+                                           w=w[s]) for s in range(S)],
+                  dev, reps)
+    plain = time_ms(lambda: cd_epoch_xb_lanes_plain(*args, w=w), dev, 1)
+    moved = int(torch.sum(ops.cd_epoch_xb_lanes(*args, w=w)[0] != b0))
+    b = bound(8 * S * (K2 * n + 4 * n + 5 * K2),
+              2 * S * K2 * n + 4 * moved * n)
+    plan = xb_plan(n, True, torch.float64)
+    waves = -(-S // max(1, sms // plan.cluster))
+    row = dict(
+        name="cd_epoch_xb_lanes", route="cuda",
+        source="src/repro_torch/csrc/cd_epoch.cu",
+        replaces="src/repro/kernels/cd_epoch.py:128",
+        launches=launches["cd_epoch_xb_lanes"],
+        max_abs_err=errs["cd_epoch_xb_lanes"], ms=ms, plain_ms=plain,
+        bound_ms=b[0], bound_by=b[1], library_ms=None,
+        library_call="none: no single call", ten_single_ms=ten,
+        shape=f"S={S} lanes, K={K2}, n={n}, logistic, weighted a lane, "
+              f"epochs=1, L1 (lam a lane), {moved} coordinates moved",
+        lane_waves=waves, **plan_fields(dev, "cd_epoch_xb_lanes", plan, K2,
+                                        launches))
+    if row["chain_floor_ms"] is not None:
+        row["chain_floor_ms"] *= waves
+    rows.append(row)
+    del Xt
+
+    # K3l
+    n, p = cfg["k3_n"], cfg["k3_p"]
+    ws = max(cfg["k3l"]["ws"])
+    Xt, _, _, L, off = fused_inputs(n, p, dev, seed=3)
+    g = torch.Generator(device=dev).manual_seed(4)
+    R = torch.randn(n, S, generator=g, device=dev, dtype=torch.float64)
+    beta = torch.randn(S, p, generator=g, device=dev, dtype=torch.float64) \
+        * (torch.rand(S, p, generator=g, device=dev) < 0.3)
+    gs = beta != 0
+    Ls = L.expand(S, p)
+    prm = lane_rows(L1(0.11), S, dev, seed=3)
+    args = (Xt, R, beta, Ls, off, gs, L1, prm, ws)
+    ms = time_ms(lambda: ops.fused_ws_lanes(*args), dev, reps)
+    ten = time_ms(lambda: [ops.fused_ws(Xt, R[:, s].contiguous(), beta[s],
+                                        L, off, gs[s], L1, prm[s], ws)
+                           for s in range(S)], dev, reps)
+    plain = time_ms(lambda: fused_ws_lanes_plain(*args), dev, 1)
+    lib = time_ms(lambda: torch.mm(Xt, R), dev, reps)
+    bp = pick_bp(p)
+    C = -(-p // bp) * min(bp, ws)
+    b = bound(8 * (p * n + S * n + S * p * 3 + p + S * ws
+                   + 2 * S * ws * n) + S * p + 4 * S * C, 2 * S * p * n)
+    rows.append(dict(
+        name="fused_ws_lanes", route="cuda",
+        source="src/repro_torch/csrc/fused_ws.cu",
+        replaces="src/repro/kernels/fused_ws.py:125",
+        launches=launches["fused_ws_lanes"],
+        max_abs_err=errs["fused_ws_lanes"], ms=ms, plain_ms=plain,
+        bound_ms=b[0], bound_by=b[1], library_ms=lib,
+        library_call="torch.mm(Xt, R): the gradient part only",
+        ten_single_ms=ten,
+        shape=f"S={S} lanes, n={n}, p={p}, ws={ws}, bp={bp}, L1 (lam a "
+              f"lane)"))
+    del Xt
+    log_rows(rows, card)
+    for row in rows:
+        log(f"  {row['name']}: one lane launch {row['ms']:.4f} ms against "
+            f"{S} single-lane launches {row['ten_single_ms']:.4f} ms on "
+            f"{card}")
+    return rows
+
+
 # ------------------------------------------------------------------- times
 _FLOOR_US = {}
 
@@ -1591,9 +2177,8 @@ def gram_row(dev, K, launches, errs, reps):
                                               gram_plan)
     from repro_torch.kernels.common import penalty_params
     G, c, beta0, q0, L = gram_inputs(K, dev, seed=K)
-    args = (G, c, beta0, q0, L, L1, penalty_params(L1(0.11)))
-    kargs = on_card(args, dev)
-    ms = time_ms(lambda: ops.cd_epoch_gram(*kargs), dev, reps)
+    args = (G, c, beta0, q0, L, L1, penalty_params(L1(0.11), dev))
+    ms = time_ms(lambda: ops.cd_epoch_gram(*args), dev, reps)
     plain = time_ms(lambda: cd_epoch_gram_plain(*args), dev, 1)
     moved = int(torch.sum(ops.cd_epoch_gram(*args)[0] != beta0))
     b = bound(8 * (moved * K + 6 * K), 2 * moved * K)
@@ -1629,10 +2214,9 @@ def xb_row(dev, K, n, weighted, lam, seed, launches, errs, reps):
     Xt, y, w, beta0, Xb0, L, off = xb_inputs(K, n, "logistic", dev,
                                              seed=seed)
     wt = w if weighted else None
-    args = (Xt, y, beta0, Xb0, L, off, L1, penalty_params(L1(lam)),
+    args = (Xt, y, beta0, Xb0, L, off, L1, penalty_params(L1(lam), dev),
             "logistic")
-    kargs = on_card(args, dev)
-    ms = time_ms(lambda: ops.cd_epoch_xb(*kargs, w=wt), dev, reps)
+    ms = time_ms(lambda: ops.cd_epoch_xb(*args, w=wt), dev, reps)
     plain = time_ms(lambda: cd_epoch_xb_plain(*args, w=wt), dev, 1)
     moved = int(torch.sum(ops.cd_epoch_xb(*args, w=wt)[0] != beta0))
     b = bound(8 * (K * n + (4 if weighted else 3) * n + 5 * K),
@@ -1662,7 +2246,7 @@ def kernel_times(dev, cfg, launches, errs, card, sparse_design):
                                               select_cuda)
     reps = cfg["reps"]
     pen = L1(0.11)
-    prm = penalty_params(pen)
+    prm = penalty_params(pen, dev)
     rows = []
 
     for K in cfg["k1_time_K"]:
@@ -1678,8 +2262,7 @@ def kernel_times(dev, cfg, launches, errs, card, sparse_design):
     gs = pen.generalized_support(beta)
     for ws_size in cfg["k3_ws"]:
         args = (Xt, r, beta, L, off, gs, L1, prm, ws_size)
-        kargs = on_card(args, dev)
-        ms = time_ms(lambda: ops.fused_ws(*kargs), dev, reps)
+        ms = time_ms(lambda: ops.fused_ws(*args), dev, reps)
         plain = time_ms(lambda: fused_ws_plain(*args), dev, 3)
         lib = time_ms(lambda: torch.mv(Xt, r), dev, reps)
         bp = pick_bp(p)
@@ -1697,12 +2280,12 @@ def kernel_times(dev, cfg, launches, errs, card, sparse_design):
             # the score launch, the select launch, the merge launch (the working set), the
             # gather of its rows, and the stable sort that the merge
             # replaces (select_working_set)
-            dprm = kargs[7]
+            dprm = args[7]
             sc, _, pri = score_cuda(Xt, r, beta, L, off, L1, dprm, gsupp=gs)
             cidx = select_cuda(pri, bp, kc)
             wsel = merge_cuda(pri, cidx, bp, ws_size)
             parts = dict(
-                head=lambda: ops.fused_ws(*kargs),
+                head=lambda: ops.fused_ws(*args),
                 score=lambda: score_cuda(Xt, r, beta, L, off, L1, dprm,
                                          gsupp=gs),
                 select=lambda: select_cuda(pri, bp, kc),
@@ -1807,10 +2390,9 @@ def sparse_times(dev, cfg, launches, errs, d):
     Xt, r, beta, L, off = fused_inputs(n, p, dev, seed=5)
     g = torch.Generator(device=dev).manual_seed(5)
     w = 2.0 * torch.rand(n, generator=g, device=dev, dtype=torch.float64)
-    prm = penalty_params(L1(0.11))
+    prm = penalty_params(L1(0.11), dev)
     args = (Xt, r, beta, L, off, L1, prm)
-    kargs = on_card(args, dev)
-    ms = time_ms(lambda: ops.ws_score(*kargs, w=w), dev, reps)
+    ms = time_ms(lambda: ops.ws_score(*args, w=w), dev, reps)
     plain = time_ms(lambda: ws_score_plain(*args, w=w), dev, reps)
     lib = time_ms(lambda: torch.mv(Xt, r * w), dev, reps)
     b = bound(8 * (p * n + 2 * n + 4 * p), 2 * p * n + n)
@@ -1880,7 +2462,7 @@ def block_times(dev, cfg, launches, errs, card, d):
     from repro_torch.kernels.fused_ws import _mma_splits, fused_ws_plain, pick_bp
     reps = cfg["reps"]
     pen = BlockL1(0.11)
-    prm = penalty_params(pen)
+    prm = penalty_params(pen, dev)
     rows = []
 
     c = cfg["k3b"]
@@ -1888,8 +2470,7 @@ def block_times(dev, cfg, launches, errs, card, d):
     Xt, R, beta, L, off = block_inputs(n, p, T, dev, seed=13)
     gs = pen.generalized_support(beta)
     args = (Xt, R, beta, L, off, gs, BlockL1, prm, ws)
-    kargs = on_card(args, dev)
-    ms = time_ms(lambda: ops.fused_ws_block(*kargs), dev, reps)
+    ms = time_ms(lambda: ops.fused_ws_block(*args), dev, reps)
     plain = time_ms(lambda: fused_ws_plain(*args), dev, 3)
     lib = time_ms(lambda: torch.mm(Xt, R), dev, reps)
     bp = pick_bp(p)
@@ -1947,8 +2528,7 @@ def block_times(dev, cfg, launches, errs, card, d):
     for K in cfg["k1b_time_K"]:
         G, cc, beta0, q0, L = gram_block_inputs(K, T, dev, seed=K)
         args = (G, cc, beta0, q0, L, BlockL1, prm)
-        kargs = on_card(args, dev)
-        ms = time_ms(lambda: ops.cd_epoch_gram_block(*kargs), dev, reps)
+        ms = time_ms(lambda: ops.cd_epoch_gram_block(*args), dev, reps)
         plain = time_ms(lambda: cd_epoch_gram_plain(*args), dev, 1)
         moved = int(torch.sum(torch.any(
             ops.cd_epoch_gram_block(*args)[0] != beta0, dim=1)))
@@ -2080,8 +2660,25 @@ def run(dev, cfg):
     for k in launches:
         launches[k] += path_launches[k]
 
+    t = time.perf_counter()
+    fails = check_lane_kernels(dev, cfg, errs)
+    failures += fails
+    report("lane kernels", t, fails,
+           (("cd_epoch_gram_lanes", "K1l"), ("cd_epoch_xb_lanes", "K2l"),
+            ("fused_ws_lanes", "K3l")))
+    t = time.perf_counter()
+    grid_launches, walls, fails = grid_phase(dev, cfg, design, y)
+    failures += fails
+    log(f"grids ({time.perf_counter() - t:.1f} s): walls {walls}, launches "
+        f"{grid_launches}")
+    for f in fails:
+        log(f"  FAIL {f}")
+    for k in launches:
+        launches[k] += grid_launches[k]
+
     rows = kernel_times(dev, cfg, launches, errs, card, design)
     rows += block_times(dev, cfg, launches, errs, card, design)
+    rows += lane_times(dev, cfg, launches, errs, card)
     return rows, failures
 
 

@@ -43,6 +43,23 @@ transfer and is not counted. On a card with ``capture=False`` (the tests'
 oracle) and on the plain route, the conditions are blocking reads, each
 counted in ``StepResult.n_syncs``.
 
+Lanes: ``SolveEngine.chunk`` runs the outer loop of S problems at once
+(the chunked path's lambdas, the CV grid's (fold, lambda) cells), the
+reference's ``vmap`` of the step under a device-side ``lax.while_loop``.
+The lane step is written once against a flow, as the single step is: a
+per-lane head (K3l over the shared X on the dense kernel route; the score
+pass on R [n, S] and a per-lane selection elsewhere, K5b at T = S on a
+CSC design), the per-lane decision ``run = (kkt > tol) & covered``, the
+lanes' Gram formation, the lanes' inner Anderson-CD loop (K1l or K2l, an
+active-lane mask freezing the lanes whose loop is done) until every lane
+meets its eps, and the per-lane scatter. A lane that does not run keeps
+its state, as under the reference's vmap. Each lane's penalty is the
+template's class bound to its own row of a ``[S, arity]`` codec vector,
+and the datafit and penalty functions run lane by lane under
+``torch.vmap``. On the kernel route on a card the whole dispatch (outer
+loop, branch, inner loop) is one captured graph per key, replayed with
+one host read of (kkts, gcounts, epochs, outer steps).
+
 Designs: ``DenseDesign`` keeps one feature-major copy of X (``Xt`` is a
 contiguous [p, n] tensor, so the score pass, the kernels' per-feature dots
 and the working-set gathers all read contiguous rows; ``X`` is its
@@ -60,20 +77,24 @@ import math
 import time
 import weakref
 from dataclasses import dataclass
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..kernels import ops as kops
-from ..kernels.common import (SCALAR_COORD_PENALTIES, bind_penalty,
-                              check_score_kernel_penalty, penalty_params)
-from .anderson import anderson_extrapolate
+from ..kernels.common import (PENALTY_FIELDS, SCALAR_COORD_PENALTIES,
+                              bind_penalty, check_score_kernel_penalty,
+                              penalty_params)
+from .anderson import anderson_extrapolate, anderson_extrapolate_lanes
 from .cd import cd_epoch_gram, cd_epoch_xb
 from .flow import CapturedFlow, GraphPools, HostFlow
-from .working_set import select_working_set, violation_scores
+from .working_set import priorities, select_working_set, violation_scores
 
 __all__ = ["EngineConfig", "SolveEngine", "SubproblemSolver", "GramSolver",
-           "XbSolver", "KERNEL_DATAFIT_KINDS", "DenseDesign", "as_design",
-           "WorkingSetContext", "StepResult", "PALLAS_SPARSE_ELL_ERROR"]
+           "XbSolver", "KERNEL_DATAFIT_KINDS", "Design", "DenseDesign",
+           "as_design", "WorkingSetContext", "StepResult", "ChunkResult",
+           "lane_params", "PALLAS_SPARSE_ELL_ERROR"]
 
 
 # datafit class name -> kernels/cd_epoch.py datafit kind (K2 hard-codes the
@@ -96,8 +117,40 @@ PALLAS_SPARSE_ELL_ERROR = (
 X_CHUNK_BYTES = 32 * 2**20
 
 
+class Design:
+    """Protocol of the design matrix X as the engine consumes it (the
+    reference's ``Design``, single device): the score pass ``score``
+    (X.T @ raw), the working-set gather ``gather_ws``, the residual update
+    ``update_xb``, and the set-up helpers ``matvec``, ``lipschitz``,
+    ``col_sq_norms`` and ``take_columns``, with ``shape``, ``dtype``,
+    ``device``, ``n_rows``, ``width`` and ``KIND``. ``DenseDesign`` and
+    ``repro_torch.sparse.CSCDesign`` implement it."""
+    KIND = "abstract"
+
+    def score(self, raw, use_kernels=False):
+        raise NotImplementedError
+
+    def gather_ws(self, ws):
+        raise NotImplementedError
+
+    def update_xb(self, Xb, Xt_ws, aux, delta):
+        raise NotImplementedError
+
+    def matvec(self, beta):
+        raise NotImplementedError
+
+    def lipschitz(self, datafit, w=None, use_kernels=False):
+        raise NotImplementedError
+
+    def col_sq_norms(self):
+        raise NotImplementedError
+
+    def take_columns(self, idx, out=None):
+        raise NotImplementedError
+
+
 @dataclass(frozen=True)
-class DenseDesign:
+class DenseDesign(Design):
     """Dense design held feature-major: ``Xt`` is a contiguous [p, n]
     tensor and ``X`` ([n, p]) its transposed view."""
     Xt: torch.Tensor
@@ -447,6 +500,212 @@ class StepResult:
     n_syncs: int
 
 
+class ChunkResult(NamedTuple):
+    """One chunk dispatch (``SolveEngine.chunk``), the reference's tuple:
+    the lanes' iterates (on the device), then, read back once, the kkt
+    of each lane's last incoming iterate, its objective (on the device),
+    |gsupp| of its new iterate, its inner epochs and the outer steps the
+    dispatch ran."""
+    betas: torch.Tensor
+    Xbs: torch.Tensor
+    kkts: np.ndarray
+    objs: torch.Tensor
+    gcounts: np.ndarray
+    n_eps: np.ndarray
+    n_outer: int
+
+
+def lane_params(penalty, lams):
+    """The ``[S, arity]`` float64 codec rows of `penalty` with its ``lam``
+    replaced by each of `lams` (on the CPU)."""
+    fields = PENALTY_FIELDS.get(type(penalty))
+    if fields is None or "lam" not in fields:
+        raise ValueError(f"lanes need a codec-registered penalty with a lam "
+                         f"hyper-parameter, got {type(penalty).__name__}")
+    lams = torch.as_tensor(np.asarray(lams, np.float64))
+    rows = penalty_params(penalty).repeat(lams.shape[0], 1)
+    rows[:, fields.index("lam")] = lams
+    return rows
+
+
+def _lanes_T(Xt_ws, beta):
+    """Per lane X_ws @ beta: Xt_ws [S, K, n], beta [S, K] -> [S, n]."""
+    return (beta[:, None, :] @ Xt_ws)[:, 0]
+
+
+class _Lanes:
+    """The datafit and penalty functions of S lanes: each lane's penalty is
+    `penalty_cls` bound to its row of `params` [S, arity]; y is shared and
+    w is None, shared [n] or per lane [S, n]. Every function maps over the
+    lanes with ``torch.vmap``."""
+
+    def __init__(self, datafit, penalty_cls, params, y, w, use_fp):
+        self.datafit, self.cls, self.params = datafit, penalty_cls, params
+        self.y, self.w, self.use_fp = y, w, use_fp
+        self.w_dim = None if w is None or w.ndim == 1 else 0
+
+    def _df(self, fn, *lanes):
+        """fn(*lane_args, w_lane) over the lanes (w_lane None unweighted)."""
+        if self.w is None:
+            return torch.vmap(lambda *a: fn(*a, None))(*lanes)
+        return torch.vmap(fn, in_dims=(0,) * len(lanes) + (self.w_dim,))(
+            *lanes, self.w)
+
+    def _pen(self, fn, *lanes):
+        """fn(penalty_of_lane, *lane_args) over the lanes."""
+        cls = self.cls
+        return torch.vmap(lambda prm, *a: fn(bind_penalty(cls, prm), *a))(
+            self.params, *lanes)
+
+    def raw(self, Xb):
+        return self._df(lambda x, w: _df_raw(self.datafit, x, self.y, w), Xb)
+
+    def value(self, Xb):
+        return self._df(lambda x, w: _df_value(self.datafit, x, self.y, w),
+                        Xb)
+
+    def gram(self, Xt_ws):
+        """Each lane's Gram matrix of its working set [S, K, K], each lane
+        column-major (so K1l reads a column contiguously). Formed lane by
+        lane into one buffer: a batched product would hold the weighted
+        copy of every lane's X_ws and two [S, K, K] temporaries at once
+        (~80 GB at S = 10, K = 16,384, n = 10,000)."""
+        S, K, _ = Xt_ws.shape
+        G = torch.empty((S, K, K), dtype=Xt_ws.dtype,
+                        device=Xt_ws.device).transpose(1, 2)
+        for s in range(S):
+            X_ws = Xt_ws[s].T
+            w = None if self.w is None else \
+                (self.w if self.w.ndim == 1 else self.w[s])
+            G[s].copy_((self.datafit.make_gram(X_ws, self.y) if w is None
+                        else self.datafit.make_gram(X_ws, self.y, w))[0])
+        return G
+
+    def gsupp(self, beta):
+        return self._pen(lambda pen, b: pen.generalized_support(b), beta)
+
+    def pen_value(self, beta):
+        return self._pen(lambda pen, b: pen.value(b), beta)
+
+    def prox0(self, beta):
+        return self._pen(lambda pen, b: pen.prox(b, 0.0), beta)
+
+    def scores(self, beta, grad, L):
+        return self._pen(lambda pen, b, g, l: violation_scores(
+            pen, b, g, l, use_fixed_point=self.use_fp), beta, grad, L)
+
+    def gram_epoch(self, G, c, beta, q, L):
+        """The plain Gram epoch (core/cd.py) on every lane."""
+        return self._pen(lambda pen, *a: cd_epoch_gram(*a, pen), G, c, beta,
+                         q, L)
+
+    def xb_epoch(self, Xt_ws, beta, Xb, L, offset):
+        """The plain Xb epoch (core/cd.py) on every lane."""
+        cls, datafit, y = self.cls, self.datafit, self.y
+
+        def one(prm, Xt, b, x, l, o, w):
+            return cd_epoch_xb(Xt, y, b, x, l, o, datafit,
+                               bind_penalty(cls, prm), w=w)
+        if self.w is None:
+            return torch.vmap(lambda *a: one(*a, None))(
+                self.params, Xt_ws, beta, Xb, L, offset)
+        return torch.vmap(one, in_dims=(0,) * 6 + (self.w_dim,))(
+            self.params, Xt_ws, beta, Xb, L, offset, self.w)
+
+
+@dataclass(frozen=True)
+class _LaneContext:
+    """Gathered per-lane working-set tensors of the lanes' inner solve."""
+    Xt_ws: torch.Tensor              # [S, K, n]
+    L_ws: torch.Tensor               # [S, K]
+    offset_ws: torch.Tensor          # [S, K]
+    G: torch.Tensor = None           # [S, K, K], each lane column-major
+    c: torch.Tensor = None           # [S, K]
+    Xb_base: torch.Tensor = None     # [S, n] (Xb solvers)
+
+
+class _LaneSolver:
+    """Algorithm 2 on S lanes' working sets at once: the blocks of the
+    single-lane ``SubproblemSolver`` (Gram or Xb form), each lane's
+    Anderson acceptance decided on its own, under an active-lane mask
+    ``go``: a lane whose loop is done keeps its state (the kernels freeze
+    it) and its blocks stop counting."""
+
+    def __init__(self, config, lanes: _Lanes):
+        self.config, self.lanes = config, lanes
+
+    def epoch(self, ctx, beta, aux, go):
+        cfg, ln = self.config, self.lanes
+        if cfg.gram:
+            if cfg.use_kernels:
+                return kops.cd_epoch_gram_lanes(ctx.G, ctx.c, beta, aux,
+                                                ctx.L_ws, ln.cls, ln.params,
+                                                go)
+            return ln.gram_epoch(ctx.G, ctx.c, beta, aux, ctx.L_ws)
+        if cfg.use_kernels:
+            kind = KERNEL_DATAFIT_KINDS[type(ln.datafit).__name__]
+            return kops.cd_epoch_xb_lanes(ctx.Xt_ws, ln.y, beta, aux,
+                                          ctx.L_ws, ctx.offset_ws, ln.cls,
+                                          ln.params, go, kind, w=ln.w)
+        return ln.xb_epoch(ctx.Xt_ws, beta, aux, ctx.L_ws, ctx.offset_ws)
+
+    def refresh(self, ctx, beta):
+        if self.config.gram:
+            return (ctx.G @ beta[..., None])[..., 0]
+        return ctx.Xb_base + _lanes_T(ctx.Xt_ws, beta)
+
+    def objective(self, ctx, beta, aux):
+        ln = self.lanes
+        if self.config.gram:
+            return (0.5 * torch.sum(beta * aux, dim=1)
+                    - torch.sum(ctx.c * beta, dim=1) + ln.pen_value(beta))
+        return (ln.value(aux) + torch.sum(ctx.offset_ws * beta, dim=1)
+                + ln.pen_value(beta))
+
+    def gradient(self, ctx, beta, aux):
+        if self.config.gram:
+            return aux - ctx.c
+        raw = self.lanes.raw(aux)
+        return (ctx.Xt_ws @ raw[..., None])[..., 0] + ctx.offset_ws
+
+    def block(self, ctx, beta, aux, go):
+        """One Anderson block on every lane: M masked epochs, the guarded
+        extrapolation, the restricted kkt [S] of each kept iterate."""
+        cfg, ln = self.config, self.lanes
+        hist = [beta]
+        for _ in range(cfg.M):
+            beta, aux = self.epoch(ctx, beta, aux, go)
+            hist.append(beta)
+        if cfg.accel:
+            be = ln.prox0(anderson_extrapolate_lanes(torch.stack(hist, 1)))
+            auxe = self.refresh(ctx, be)
+            take = self.objective(ctx, be, auxe) < \
+                self.objective(ctx, beta, aux)
+            beta = torch.where(take[:, None], be, beta)
+            aux = torch.where(take[:, None], auxe, aux)
+        grad = self.gradient(ctx, beta, aux)
+        kkt = torch.amax(ln.scores(beta, grad, ctx.L_ws), dim=1)
+        return beta, aux, kkt
+
+    def run(self, flow, ctx, beta, aux, blocks, eps, go, passes):
+        """Blocks while some lane is active: lane s takes a block while
+        ``go[s]`` (in place: blocks[s] < max_blocks and its last kkt above
+        eps[s]); `blocks` [S] counts each lane's, `passes` (0-d) the
+        loop's."""
+        anygo = torch.any(go)
+
+        def body():
+            b, a, kkt = self.block(ctx, beta, aux, go)
+            beta.copy_(torch.where(go[:, None], b, beta))
+            aux.copy_(torch.where(go[:, None], a, aux))
+            blocks.add_(go.to(blocks.dtype))
+            passes.add_(1)
+            go.copy_(go & (blocks < self.config.max_blocks) & (kkt > eps))
+            anygo.copy_(torch.any(go))
+
+        flow.loop(anygo, body)
+
+
 class _StepGraph:
     """One captured outer step: the graph, its static inputs (``bind``
     copies a new tensor in; ``params``, the penalty's codec vector, among
@@ -503,6 +762,8 @@ class SolveEngine:
         self._serials = itertools.count()
         self._pools = None
         self._params = (None, None)      # (penalty's key, its codec vector)
+        self.n_dispatches = 0            # steps and chunks dispatched
+        self.n_chunk_reads = 0           # blocking reads of the chunks
 
     def _make_inner(self):
         cfg = self.config
@@ -625,6 +886,7 @@ class SolveEngine:
         ``capture=False``). On the kernel route the step runs on the
         penalty bound to its codec vector on the device, captured or not,
         so the captured step and the eager oracle take the same ops."""
+        self.n_dispatches += 1
         params = None
         if self.config.use_kernels:
             params = self._device_params(penalty)
@@ -640,6 +902,232 @@ class SolveEngine:
         kkt, obj, gcount, n_ep, cov = rd.tolist()
         return StepResult(beta_new, Xb_new, kkt, obj, int(gcount), int(n_ep),
                           bool(cov), 1 + flow.reads)
+
+    # ------------------------------------------------------------ lanes
+    def chunk(self, bucket, design, y, lams, betas, Xbs, L, offset, datafit,
+              penalty, tol, eps_frac, max_outer, growth=2, w=None):
+        """One device-resident dispatch of S lanes (the reference's
+        ``engine.chunk``): lane s solves the `penalty` template at
+        ``lam = lams[s]`` from (betas[s], Xbs[s]) on the shared bucket,
+        with `w` None, a shared [n] or per-lane [S, n] weights and `L` the
+        matching [p] or [S, p] Lipschitz constants. The outer steps run
+        while ``it < max_outer``, some lane's kkt is above `tol` and (below
+        bucket p) no such lane's |gsupp| outgrew ``bucket / growth``; on
+        the kernel route on a card as one captured graph (key: bucket,
+        design, lane count and shapes, weights' form, datafit, penalty
+        class, tol), elsewhere under the host flow. Ends in one blocking
+        read. Returns a ``ChunkResult``."""
+        self.n_dispatches += 1
+        S = betas.shape[0]
+        params = lane_params(penalty, lams)
+        if self.device.type == "cuda":
+            params = params.pin_memory().to(self.device, non_blocking=True)
+        budget = torch.tensor(int(max_outer), dtype=torch.int64)
+        if self.device.type == "cuda":
+            budget = budget.pin_memory().to(self.device, non_blocking=True)
+        args = (bucket, design, y, w, betas, Xbs, L, offset, datafit,
+                type(penalty), params, float(tol), float(eps_frac), budget,
+                int(growth))
+        if self.captured:
+            out = self._chunk_replay(*args)
+            reads = 1
+        else:
+            flow = HostFlow()
+            out = self._chunk_core(flow, *args)
+            reads = 1 + flow.reads
+        b, x, objs, rd = out
+        vals = rd.tolist()                          # the dispatch's read
+        self.n_chunk_reads += reads
+        kkts = np.asarray(vals[:S])
+        gcounts = np.asarray(vals[S:2 * S], np.int64)
+        n_eps = np.asarray(vals[2 * S:3 * S], np.int64)
+        it, branches, passes = (int(v) for v in vals[3 * S:])
+        if self.captured:
+            g = self._graphs[self._chunk_key(*args)]
+            for kind, depth, launches in g.scopes:
+                kops.add_launches(launches, {1: it, 2: branches,
+                                             3: passes}[depth])
+        return ChunkResult(b, x, kkts, objs, gcounts, n_eps, it)
+
+    def _chunk_core(self, flow, bucket, design, y, w, betas, Xbs, L, offset,
+                    datafit, penalty_cls, params, tol, eps_frac, budget,
+                    growth):
+        """The chunk dispatch, written once for every flow: the outer loop
+        over the lane step (``_lane_step``) with the reference's condition
+        (``engine._chunk_loop``). Returns (betas, Xbs, objs, rd): rd holds,
+        in the lanes' dtype, the kkts, gcounts and epochs [S] and the outer
+        steps, branch runs and inner loop passes of the dispatch, what the
+        host reads back once."""
+        S, p = betas.shape[0], design.shape[1]
+        dev, dtype = betas.device, betas.dtype
+        betas, Xbs = betas.clone(), Xbs.clone()
+        kkts = torch.full((S,), torch.inf, dtype=dtype, device=dev)
+        objs = torch.zeros((S,), dtype=dtype, device=dev)
+        gcounts = torch.zeros((S,), dtype=torch.int64, device=dev)
+        n_eps = torch.zeros((S,), dtype=torch.int64, device=dev)
+        counts = torch.zeros((3,), dtype=torch.int64, device=dev)
+        go = torch.empty((), dtype=torch.bool, device=dev)
+
+        def cond():
+            unconverged = kkts > tol
+            live = (counts[0] < budget) & torch.any(unconverged)
+            if bucket < p:
+                # hand back to the host for bucket escalation; at bucket p
+                # the working set covers every feature
+                live = live & ~torch.any(unconverged &
+                                         (growth * gcounts > bucket))
+            go.copy_(live)
+
+        def body():
+            b, x, kkt, obj, gc, d_ep = self._lane_step(
+                flow, bucket, design, y, w, betas, Xbs, L, offset, datafit,
+                penalty_cls, params, tol, eps_frac, counts)
+            betas.copy_(b)
+            Xbs.copy_(x)
+            kkts.copy_(kkt)
+            objs.copy_(obj)
+            gcounts.copy_(gc)
+            n_eps.add_(d_ep)
+            counts[0] += 1
+            cond()
+
+        cond()
+        flow.loop(go, body)
+        rd = torch.cat([kkts, gcounts.to(dtype), n_eps.to(dtype),
+                        counts.to(dtype)])
+        return betas, Xbs, objs, rd
+
+    def _lane_step(self, flow, bucket, design, y, w, betas, Xbs, L, offset,
+                   datafit, penalty_cls, params, tol, eps_frac, counts):
+        """One outer step of every lane (the reference's vmapped
+        ``_step_body``): per-lane head, ``run = (kkt > tol) & covered``,
+        then, when some lane runs, the lanes' Gram formation, their
+        inner loop and the per-lane scatter. Returns (betas, Xbs, kkt, obj,
+        gcount, epochs), each [S] but the iterates; counts[1] and counts[2]
+        count the branch's runs and the inner loop's passes."""
+        cfg = self.config
+        S, p = betas.shape
+        n = design.n_rows
+        ln = _Lanes(datafit, penalty_cls, params, y, w, cfg.use_fp_score)
+        raw = ln.raw(Xbs)
+        gsupp = ln.gsupp(betas)
+        L_l = L if L.ndim == 2 else L.expand(S, p)
+        R = raw.T.contiguous()                          # [n, S]
+        if cfg.use_kernels and design.KIND == "dense":
+            # K3l: X read once for every lane; the lanes' working sets and
+            # their K rows each
+            scores, grad, _, ws, Xt_ws = kops.fused_ws_lanes(
+                design.Xt, R, betas, L_l, offset, gsupp, penalty_cls, params,
+                bucket, use_fp=cfg.use_fp_score)
+        else:
+            # the score pass on the lanes' raw gradients (K5b at T = S on a
+            # CSC design on the kernel route), then each lane's selection
+            grad = design.score(R, use_kernels=cfg.use_kernels).T + offset
+            scores = ln.scores(betas, grad, L_l)
+            ws = torch.sort(priorities(scores, gsupp), dim=1,
+                            descending=True, stable=True).indices[:, :bucket]
+            Xt_ws = design.gather_ws(ws.reshape(-1))[0].reshape(S, bucket, n)
+        kkt = torch.amax(scores, dim=1)
+        gcount0 = torch.sum(gsupp, dim=1)
+        obj = ln.value(Xbs) + torch.sum(offset * betas, dim=1) + \
+            ln.pen_value(betas)
+        cov = torch.sum(torch.gather(gsupp, 1, ws), dim=1) == gcount0
+        run = (kkt > tol) & cov
+        eps_in = torch.clamp(eps_frac * kkt, min=0.1 * tol)
+        beta_new, Xb_new = betas.clone(), Xbs.clone()
+        gcount = gcount0.clone()
+        blocks = torch.zeros((S,), dtype=torch.int64, device=betas.device)
+
+        def inner():
+            counts[1] += 1
+            L_ws = torch.gather(L_l, 1, ws)
+            offset_ws = offset[ws]
+            beta_ws0 = torch.gather(betas, 1, ws)
+            grad_ws0 = torch.gather(grad, 1, ws)
+            if cfg.gram:
+                G = ln.gram(Xt_ws)
+                state = (G @ beta_ws0[..., None])[..., 0]
+                ctx = _LaneContext(Xt_ws, L_ws, offset_ws, G=G,
+                                   c=state - grad_ws0)
+            else:
+                ctx = _LaneContext(Xt_ws, L_ws, offset_ws,
+                                   Xb_base=Xbs - _lanes_T(Xt_ws, beta_ws0))
+                state = Xbs.clone()
+            beta_ws = beta_ws0.clone()
+            _LaneSolver(cfg, ln).run(flow, ctx, beta_ws, state, blocks,
+                                     eps_in, run.clone(), counts[2])
+            if cfg.gram:
+                state = Xbs + _lanes_T(Xt_ws, beta_ws - beta_ws0)
+            Xb_new.copy_(torch.where(run[:, None], state, Xbs))
+            beta_new.scatter_(1, ws, beta_ws)
+            gcount.copy_(torch.where(run, torch.sum(ln.gsupp(beta_ws), dim=1),
+                                     gcount0))
+
+        flow.branch(torch.any(run), inner)
+        return beta_new, Xb_new, kkt, obj, gcount, blocks * cfg.M
+
+    def _chunk_key(self, bucket, design, y, w, betas, Xbs, L, offset, datafit,
+                   penalty_cls, params, tol, eps_frac, budget, growth):
+        wkind = None if w is None else w.ndim
+        return ("chunk", bucket, self._design_tag(design), betas.shape[0],
+                tuple(y.shape), wkind, L.ndim, tuple(betas.shape),
+                betas.dtype, datafit, penalty_cls, tol, eps_frac, growth)
+
+    def _chunk_replay(self, *args):
+        key = self._chunk_key(*args)
+        (bucket, design, y, w, betas, Xbs, L, offset, datafit, penalty_cls,
+         params, tol, eps_frac, budget, growth) = args
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._chunk_capture(key, *args)
+        for name, t in (("y", y), ("w", w), ("L", L), ("offset", offset)):
+            if t is not None:
+                g.bind(name, t)
+        for name, t in (("params", params), ("budget", budget),
+                        ("betas", betas), ("Xbs", Xbs)):
+            g.inputs[name].copy_(t)
+        g.graph.replay()
+        b, x, objs, rd = g.outputs
+        # copies: a later replay of this or another graph of the engine
+        # reuses the outputs' memory
+        return b.clone(), x.clone(), objs.clone(), rd
+
+    def _chunk_capture(self, key, bucket, design, y, w, betas, Xbs, L,
+                       offset, datafit, penalty_cls, params, tol, eps_frac,
+                       budget, growth):
+        """Capture the chunk dispatch for `key` into a graph on the
+        engine's pools (the design is read in place; the rest, the lanes'
+        parameter rows and the outer budget among them, through static
+        inputs)."""
+        t0 = time.perf_counter()
+        if self._pools is None:
+            self._pools = GraphPools(self.device)
+        named = {"betas": betas, "Xbs": Xbs, "y": y, "w": w, "L": L,
+                 "offset": offset, "params": params, "budget": budget}
+        g = _StepGraph({k: torch.empty_like(t) for k, t in named.items()
+                        if t is not None}, design)
+        ins = g.inputs
+        flow = CapturedFlow(self.device, self._pools)
+        with torch.cuda.stream(flow.capture_stream), \
+                kops.deferred_launches() as head:
+            g.graph.capture_begin(pool=self._pools.ids[0],
+                                  capture_error_mode="thread_local")
+            try:
+                g.outputs = self._chunk_core(
+                    flow, bucket, design, ins["y"], ins.get("w"),
+                    ins["betas"], ins["Xbs"], ins["L"], ins["offset"],
+                    datafit, penalty_cls, ins["params"], tol, eps_frac,
+                    ins["budget"], growth)
+            finally:
+                g.graph.capture_end()
+        if head:
+            raise RuntimeError("chunk capture: a kernel launched outside the "
+                               "outer loop")
+        g.head, g.scopes = head, flow.scopes
+        self._graphs[key] = g
+        self.captures[key] = self.captures.get(key, 0) + 1
+        self.capture_s.append(time.perf_counter() - t0)
+        return g
 
     def _device_params(self, penalty):
         """The penalty's codec vector on the engine's device, made once
@@ -683,7 +1171,7 @@ class SolveEngine:
         kkt, obj, gcount, n_ep, cov = rd.tolist()      # the one host read
         blocks = int(n_ep) // self.config.M
         kops.add_launches(g.head)
-        for kind, launches in g.scopes:
+        for kind, _, launches in g.scopes:
             kops.add_launches(launches,
                               blocks if kind == "loop" else int(blocks > 0))
         return StepResult(beta_new, Xb_new, kkt, obj, int(gcount), int(n_ep),

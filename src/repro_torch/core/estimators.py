@@ -1,4 +1,4 @@
-"""scikit-learn-style estimators over the solver (port of the non-CV part of
+"""scikit-learn-style estimators over the solver (port of
 ``repro.core.estimators``).
 
 Any datafit pairs with any penalty through ``GeneralizedLinearEstimator``;
@@ -9,21 +9,30 @@ raising without a card), ``sample_weight`` and, for quadratic datafits,
 ``fit_intercept`` centering. ``X`` may be dense, a scipy sparse matrix or a
 ``repro_torch.sparse.CSCDesign``: sparse fits run CSC-native, without
 densifying, and reject ``fit_intercept`` (centering would densify X).
+
+The CV estimators (``LassoCV``, ``MCPRegressionCV``,
+``SparseLogisticRegressionCV``) tune lambda on a grid: k-fold CV as one
+(fold x lambda) grid through ``cross_val_path`` and a warm-started refit,
+or AIC/BIC/EBIC (``information_criterion``) on one chunked full-data path.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .. import resolve_device
 from .datafits import Logistic, MultitaskQuadratic, Quadratic, QuadraticSVC
-from .engine import DenseDesign, is_scipy_sparse
+from .engine import DenseDesign, as_design, is_scipy_sparse
 from .penalties import MCP, SCAD, L1, L1L2, BlockL1, BlockMCP, Box
 from .solver import solve
 
 __all__ = ["GeneralizedLinearEstimator", "Lasso", "ElasticNet",
            "MCPRegression", "SCADRegression", "SparseLogisticRegression",
-           "LinearSVC", "MultiTaskLasso", "MultiTaskMCP"]
+           "LinearSVC", "MultiTaskLasso", "MultiTaskMCP", "LassoCV",
+           "MCPRegressionCV", "SparseLogisticRegressionCV",
+           "information_criterion"]
 
 # datafits whose fit supports fit_intercept=True via X/y centering
 _CENTERABLE_DATAFITS = (Quadratic, MultitaskQuadratic)
@@ -263,3 +272,212 @@ class MultiTaskMCP(GeneralizedLinearEstimator):
     def __init__(self, alpha=1.0, gamma=3.0, **kw):
         super().__init__(MultitaskQuadratic(), BlockMCP(alpha, gamma), **kw)
         self.alpha, self.gamma = alpha, gamma
+
+
+# --------------------------------------------------------- model selection
+def information_criterion(criterion, datafit, loss, n, p, df, *,
+                          ebic_gamma=0.5):
+    """AIC / BIC / EBIC value(s) of fitted model(s), lower is better.
+
+    ``criterion`` puts 2 (AIC), log n (BIC) or log n + 2 ebic_gamma log p
+    (EBIC) on each degree of freedom ``df`` (nonzero count); quadratic
+    datafits fit by the Gaussian profile ``n log(MSE)`` (their ``value`` is
+    half the MSE), other losses by the deviance ``2 n loss``. ``loss`` is
+    the mean datafit loss per model. Returns a numpy array shaped like
+    ``loss``."""
+    loss = np.asarray(loss, np.float64)
+    df = np.asarray(df, np.float64)
+    pens = {"aic": 2.0, "bic": np.log(n),
+            "ebic": np.log(n) + 2.0 * ebic_gamma * np.log(max(p, 1))}
+    if criterion not in pens:
+        raise ValueError(f"unknown criterion {criterion!r}; supported: "
+                         f"'aic' | 'bic' | 'ebic' (or 'cv')")
+    if isinstance(datafit, (Quadratic, MultitaskQuadratic)):
+        fit = n * np.log(np.maximum(2.0 * loss, 1e-300))
+    else:
+        fit = 2.0 * n * loss                      # deviance
+    return fit + pens[criterion] * df
+
+
+class _CVEstimatorMixin:
+    """Fit logic of the CV estimators: sweep a lambda grid (the whole
+    (fold x lambda) grid at once for ``criterion='cv'``, one full-data
+    chunked path scored by AIC/BIC/EBIC otherwise), then expose the
+    winner (``alpha_``, ``alphas_``, ``coef_``, ...)."""
+
+    _ENGINE_KEYS = ("M", "max_epochs", "accel", "use_fp_score", "use_gram",
+                    "use_kernels")
+    # keywords the grid drivers take beside the engine's
+    _DRIVER_KEYS = ("engine", "mesh", "obs")
+
+    def _init_grid(self, alphas, n_alphas, eps, cv, criterion, ebic_gamma,
+                   vmap_chunk, seed, checkpoint=None, resume=None):
+        if criterion not in ("cv", "aic", "bic", "ebic"):
+            raise ValueError(f"unknown criterion {criterion!r}; supported: "
+                             f"'cv' | 'aic' | 'bic' | 'ebic'")
+        if (checkpoint is not None or resume is not None) \
+                and criterion != "cv":
+            raise ValueError(
+                "checkpoint/resume apply to the CV grid only "
+                "(criterion='cv'); information-criterion paths are single "
+                "solves with nothing to snapshot")
+        if checkpoint is not None or resume is not None:
+            from .path import _LATER
+            raise NotImplementedError(f"checkpoint=/resume=: "
+                                      f"{_LATER['checkpoint']}")
+        extra = set(self.solve_kw) - set(self._DRIVER_KEYS) \
+            - set(self._ENGINE_KEYS)
+        if extra:
+            raise ValueError(
+                f"CV estimators do not support solve kwargs "
+                f"{sorted(extra)}: the grid drivers cannot honor them, so "
+                f"the tuning sweep would run a different solver than the "
+                f"refit")
+        self.alphas = alphas
+        self.n_alphas = n_alphas
+        self.eps = eps
+        self.cv = cv
+        self.criterion = criterion
+        self.ebic_gamma = ebic_gamma
+        self.vmap_chunk = vmap_chunk
+        self.seed = seed
+
+    def _grid_kw(self):
+        """The solver configuration of the tuning sweep: the refit's."""
+        kw = {k: v for k, v in self.solve_kw.items()
+              if k in self._DRIVER_KEYS or k in self._ENGINE_KEYS}
+        kw.update(M=self.M, max_epochs=self.max_epochs,
+                  use_kernels=self.use_kernels)
+        return kw
+
+    def fit(self, X, y, sample_weight=None, *, device=None):
+        """Tune lambda on (X, y) and fit the winning model.
+
+        ``criterion='cv'`` solves the (fold x lambda) grid at once
+        (``cross_val_path``), picks the lambda of least mean held-out loss
+        and refits on the full data, warm-started from the fold-mean
+        solution. ``criterion='aic'|'bic'|'ebic'`` solves one full-data
+        chunked path and selects by the criterion. Fitted state:
+        ``alpha_``, ``alphas_``, ``coef_``, ``intercept_``, and
+        ``cv_loss_``/``grid_result_`` (CV) or ``criterion_path_``."""
+        from .api import lambda_max
+        from .path import cross_val_path, reg_path
+        from .solver import normalize_weights
+
+        dev = resolve_device(self.device if device is None else device)
+        X_mean = y_mean = None
+        if self.fit_intercept:
+            X, y, X_mean, y_mean = _center_data(X, y, sample_weight)
+        design = as_design(X, dev, ell=True)
+        y = torch.as_tensor(_host(y), dtype=design.dtype, device=dev)
+        if self.alphas is None:
+            lmax = lambda_max(design, y, self.datafit,
+                              sample_weight=sample_weight, device=dev)
+            alphas = lmax * np.geomspace(1.0, self.eps, self.n_alphas)
+        else:
+            alphas = np.asarray(self.alphas, np.float64)
+        if self.criterion == "cv":
+            grid = cross_val_path(
+                design, y, self.datafit, self.penalty, lambdas=alphas,
+                cv=self.cv, sample_weight=sample_weight, seed=self.seed,
+                tol=self.tol, vmap_chunk=self.vmap_chunk, p0=self.p0,
+                max_outer=self.max_outer, device=dev, **self._grid_kw())
+            self.grid_result_ = grid
+            self.alphas_ = grid.lambdas
+            self.cv_loss_ = grid.cv_loss
+            self.alpha_ = grid.best_lambda
+            self.penalty = dataclasses.replace(self.penalty, lam=self.alpha_)
+            self.alpha = self.alpha_
+            # refit on the full data at the winner, warm-started from the
+            # fold-mean solution
+            beta0 = grid.betas[:, grid.best_index].mean(axis=0)
+            res = solve(design, y, self.datafit, self.penalty, device=dev,
+                        tol=self.tol, max_outer=self.max_outer,
+                        max_epochs=self.max_epochs, M=self.M, p0=self.p0,
+                        beta0=beta0, use_kernels=self.use_kernels,
+                        sample_weight=sample_weight, **self.solve_kw)
+            self.coef_ = res.beta.detach().cpu().numpy()
+            self._store(res)
+        else:
+            path = reg_path(
+                design, y, self.penalty, self.datafit, lambdas=alphas,
+                tol=self.tol, vmap_chunk=max(2, self.vmap_chunk),
+                sample_weight=sample_weight, p0=self.p0,
+                max_outer=self.max_outer, device=dev, **self._grid_kw())
+            self.path_result_ = path
+            self.alphas_ = path.lambdas
+            n, p = design.shape
+            w = None if sample_weight is None else \
+                normalize_weights(sample_weight, n, design.dtype, dev)
+            losses = []
+            for b in path.betas:
+                Xb = design.matvec(torch.as_tensor(b, device=dev))
+                losses.append(float(
+                    self.datafit.value(Xb, y) if w is None
+                    else self.datafit.value(Xb, y, w)))
+            self.criterion_path_ = information_criterion(
+                self.criterion, self.datafit, losses, n, p, path.nnzs,
+                ebic_gamma=self.ebic_gamma)
+            i = int(np.argmin(self.criterion_path_))
+            self.alpha_ = float(path.lambdas[i])
+            self.penalty = dataclasses.replace(self.penalty, lam=self.alpha_)
+            self.alpha = self.alpha_
+            self.coef_ = np.asarray(path.betas[i])
+            self.kkt_ = float(path.kkts[i])
+            self.converged_ = bool(path.kkts[i] <= self.tol)
+            self.n_iter_ = int(path.n_outer[i])
+            self.n_epochs_ = int(path.n_epochs[i])
+            self.result_ = path
+            self.diagnostics_ = path.diagnostics
+        self.intercept_ = 0.0 if not self.fit_intercept \
+            else y_mean - X_mean @ self.coef_
+        return self
+
+
+class LassoCV(_CVEstimatorMixin, Lasso):
+    """Lasso with lambda tuned on a grid: k-fold CV solved as one (fold x
+    lambda) grid (``criterion='cv'``, the default) or AIC/BIC/EBIC on one
+    full-data path. After ``fit``: ``alpha_``, ``alphas_``, ``cv_loss_``
+    ``[n_folds, n_alphas]`` held-out half-MSE (``mse_path_ = 2 *
+    cv_loss_``), ``coef_``/``intercept_`` refit on the full data."""
+
+    def __init__(self, *, alphas=None, n_alphas=30, eps=1e-2, cv=5,
+                 criterion="cv", ebic_gamma=0.5, vmap_chunk=10, seed=0,
+                 checkpoint=None, resume=None, **kw):
+        super().__init__(alpha=1.0, **kw)
+        self._init_grid(alphas, n_alphas, eps, cv, criterion, ebic_gamma,
+                        vmap_chunk, seed, checkpoint=checkpoint,
+                        resume=resume)
+
+    @property
+    def mse_path_(self):
+        """Held-out MSE per (fold, alpha): twice the stored half-MSE."""
+        return 2.0 * self.cv_loss_
+
+
+class MCPRegressionCV(_CVEstimatorMixin, MCPRegression):
+    """MCP regression with lambda tuned by the CV grid or AIC/BIC/EBIC
+    (gamma fixed)."""
+
+    def __init__(self, *, gamma=3.0, alphas=None, n_alphas=30, eps=1e-2,
+                 cv=5, criterion="cv", ebic_gamma=0.5, vmap_chunk=10,
+                 seed=0, checkpoint=None, resume=None, **kw):
+        super().__init__(alpha=1.0, gamma=gamma, **kw)
+        self._init_grid(alphas, n_alphas, eps, cv, criterion, ebic_gamma,
+                        vmap_chunk, seed, checkpoint=checkpoint,
+                        resume=resume)
+
+
+class SparseLogisticRegressionCV(_CVEstimatorMixin,
+                                 SparseLogisticRegression):
+    """L1 logistic regression with lambda tuned by the CV grid (held-out
+    mean log-loss) or AIC/BIC/EBIC on the deviance; the fold weights ride
+    the weighted Xb inner solve."""
+
+    def __init__(self, *, alphas=None, n_alphas=30, eps=1e-2, cv=5,
+                 criterion="cv", ebic_gamma=0.5, vmap_chunk=10, seed=0,
+                 checkpoint=None, resume=None, **kw):
+        super().__init__(alpha=1.0, **kw)
+        self._init_grid(alphas, n_alphas, eps, cv, criterion, ebic_gamma,
+                        vmap_chunk, seed, checkpoint=checkpoint,
+                        resume=resume)

@@ -26,11 +26,16 @@ A flow's ``branch(flag, body)`` runs ``body()`` when the 0-d bool tensor
 the body updates ``flag`` in place. Bodies communicate through tensors
 allocated outside them and written in place.
 
+Bodies nest to ``MAX_DEPTH`` levels: the outer step has two (the skip
+branch and the Anderson loop inside it); the chunked lane step has three
+(the device-side outer loop, the branch on "some lane runs" and the lanes'
+inner loop).
+
 Kernel launches inside a capture happen at each replay, not at the
 wrapper's call: ``CapturedFlow`` collects them per body
 (``kernels.ops.deferred_launches``) and the engine adds them to the launch
-counts after each replay, once for the step, once if the branch ran, and
-once for every pass of the loop, from the counts the step reads back.
+counts after each replay, as many times as each body ran, from the counts
+the step reads back.
 """
 from __future__ import annotations
 
@@ -41,9 +46,12 @@ import torch
 from ..kernels import ops as kops
 from ..kernels._build import BUILD
 
-__all__ = ["HostFlow", "CapturedFlow", "GraphPools", "graph_streams"]
+__all__ = ["HostFlow", "CapturedFlow", "GraphPools", "graph_streams",
+           "MAX_DEPTH"]
 
 _IF, _WHILE = 0, 1
+# the deepest nesting of conditional bodies a captured step uses
+MAX_DEPTH = 3
 
 
 class HostFlow:
@@ -76,8 +84,9 @@ class GraphPools:
 
     def __init__(self, device):
         self.device = _indexed(device)
-        self.ids = [torch.cuda.graph_pool_handle() for _ in range(3)]
-        self._uses = [0, 0, 0]
+        self.ids = [torch.cuda.graph_pool_handle()
+                    for _ in range(MAX_DEPTH + 1)]
+        self._uses = [0] * (MAX_DEPTH + 1)
 
     def begin(self, depth):
         """Route the current stream's allocations to the pool of `depth`."""
@@ -92,7 +101,7 @@ class GraphPools:
         for depth, uses in enumerate(self._uses):
             for _ in range(uses):
                 torch._C._cuda_releasePool(self.device.index, self.ids[depth])
-        self._uses = [0, 0, 0]
+        self._uses = [0] * (MAX_DEPTH + 1)
 
 
 # the capture stream and one side stream per body depth, per device, for
@@ -110,19 +119,23 @@ def _indexed(device):
 
 
 def graph_streams(device):
-    """[capture stream, depth-1 body stream, depth-2 body stream] of
+    """[capture stream, one body stream for each depth 1..MAX_DEPTH] of
     `device`, with the cuBLAS and cuSOLVER handles and workspaces that the
     step uses made on each, outside any capture (a handle cannot be made
     while a stream captures)."""
     device = _indexed(device)
     if device not in _STREAMS:
-        streams = [torch.cuda.Stream(device) for _ in range(3)]
+        streams = [torch.cuda.Stream(device) for _ in range(MAX_DEPTH + 1)]
         a = torch.eye(8, dtype=torch.float64, device=device)
         for s in streams:
             s.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(s):
                 torch.mm(a, a)
                 torch.linalg.solve_ex(a, a[:, :1])
+                # the lane step's batched products and solves
+                torch.bmm(a[None], a[None])
+                torch.linalg.solve_ex(a.expand(2, 8, 8), a[None, :, :1]
+                                      .expand(2, 8, 1))
             torch.cuda.current_stream(device).wait_stream(s)
         _STREAMS[device] = streams
     return _STREAMS[device]
@@ -137,8 +150,9 @@ def _check(rc, what):
 class CapturedFlow:
     """``branch`` and ``loop`` as conditional IF and WHILE nodes of the
     graph being captured on the current stream. ``scopes`` collects the
-    kernel launches of each body: ``("branch", launches)`` and
-    ``("loop", launches)``."""
+    kernel launches of each body with its kind and depth: ``("branch",
+    depth, launches)`` and ``("loop", depth, launches)``, innermost body
+    first."""
 
     def __init__(self, device, pools: GraphPools):
         self.device = _indexed(device)
@@ -151,6 +165,9 @@ class CapturedFlow:
     def _node(self, kind, flag, body):
         if flag.dtype != torch.bool or flag.numel() != 1:
             raise TypeError("a flow condition must be a 0-d bool tensor")
+        if self.depth >= MAX_DEPTH:
+            raise RuntimeError(f"conditional bodies nest at most {MAX_DEPTH} "
+                               f"deep")
         parent = torch.cuda.current_stream(self.device)
         child = self.streams[self.depth]
         handle = ctypes.c_ulonglong()
@@ -172,7 +189,7 @@ class CapturedFlow:
         finally:
             self.depth -= 1
         self.scopes.append(("loop" if kind == _WHILE else "branch",
-                            launches))
+                            self.depth + 1, launches))
 
     def branch(self, flag, body):
         self._node(_IF, flag, body)

@@ -26,13 +26,28 @@ Two drivers:
     Each lambda reads the host once more, for the survivors' count and
     nnz.
 
-The chunked driver (``vmap_chunk > 1``: lanes of lambdas in one step) and
-``cross_val_path`` belong to the next slice of the port and raise here, as
-``obs=`` and ``mesh=`` do.
+  * chunked (``vmap_chunk = C > 1``): C lambdas at a time as the lanes of
+    ``SolveEngine.chunk`` (one captured graph a bucket and lane count on
+    the card: the outer loop on the device, one host read a dispatch);
+    each chunk warm-starts every lane from the previous chunk's densest
+    solution and escalates the shared bucket when a lane outgrows it.
+
+Grid driver: ``cross_val_path`` drives a fixed pool of S = n_folds *
+vmap_chunk lanes through the same chunk dispatch. Every fold (or bootstrap
+replicate) is a 0/1 (or count) sample-weight row on the same (X, y), so
+all lanes share one shape and one captured graph a bucket; the lane
+scheduler (``core/lanes.py``) retires converged lanes after each dispatch
+and backfills their slots from the (fold, lambda) queue, each fold
+warm-starting from its densest finished solution, and the held-out losses
+reduce on the device from the lanes' full-row residuals.
+
+``obs=``, ``mesh=``, the grid's checkpoints and multitask lanes are not
+ported yet and raise, naming the slice of the port they come with.
 """
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
@@ -43,10 +58,31 @@ import torch
 from ..bucketing import next_pow2
 from .api import lambda_max
 from .datafits import Quadratic
+from .engine import as_design
+from .lanes import LaneScheduler
 from .penalties import L1
-from .solver import Problem, make_engine, prepare_problem, solve_problem
+from .solver import (Problem, make_engine, normalize_weights, prepare_problem,
+                     solve_problem)
+from .working_set import BucketPolicy
 
-__all__ = ["reg_path", "PathResult", "support_metrics"]
+__all__ = ["reg_path", "PathResult", "support_metrics", "cross_val_path",
+           "GridResult"]
+
+# working-set growth factor of the chunk dispatch's device loop: the host
+# mirrors it to tell "a lane outgrew its bucket" from the read gcounts
+_GROWTH = 2
+
+# what each option that is not ported yet waits for
+_LATER = {
+    "obs": "observability is not ported yet: it comes with the port's obs/ "
+           "slice",
+    "mesh": "mesh mode is not ported yet: it comes with the port's mesh "
+            "slice",
+    "checkpoint": "grid checkpoints are not ported yet: they come with the "
+                  "port's checkpoint/ slice",
+    "multitask": "multitask lanes (y [n, T]) are not ported yet: they come "
+                 "with the slice that runs K3b and K1b over lanes",
+}
 
 _ENGINE_KW = ("M", "max_epochs", "accel", "use_fp_score", "use_gram",
               "use_kernels")
@@ -128,19 +164,20 @@ def reg_path(X, y, penalty, datafit=None, *, lambdas=None, n_lambdas=30,
     "gap_safe"`` pre-filters each lambda (L1 + Quadratic only; the rule is
     safe, so the solutions are unchanged). ``sample_weight`` is shared by
     every lambda. ``metric_fn(lam, beta)`` is recorded per lambda (beta on
-    the device). The chunked driver (``vmap_chunk > 1``), ``obs=`` and
-    ``mesh=`` are not ported yet and raise. Other keywords go to the
-    solves (``max_outer``, ``p0``, ``use_ws``, ``eps_inner_frac``,
+    the device). ``vmap_chunk = C > 1`` sweeps C lambdas at a time as the
+    lanes of one dispatch (``SolveEngine.chunk``); it takes ``p0``,
+    ``max_outer`` and ``eps_inner_frac`` and rejects other solve keywords,
+    and does not run multitask targets yet. ``obs=`` and ``mesh=`` are
+    not ported yet and raise. Other keywords go to the sequential solves
+    (``max_outer``, ``p0``, ``use_ws``, ``eps_inner_frac``,
     ``bucket_policy``).
 
     Returns a :class:`PathResult`.
     """
     if obs is not None:
-        raise NotImplementedError("reg_path(obs=...): observability is not "
-                                  "ported yet")
+        raise NotImplementedError(f"reg_path(obs=...): {_LATER['obs']}")
     if mesh is not None:
-        raise NotImplementedError("reg_path(mesh=...): mesh mode is not "
-                                  "ported yet")
+        raise NotImplementedError(f"reg_path(mesh=...): {_LATER['mesh']}")
     datafit = Quadratic() if datafit is None else datafit
     eng_kw = {k: solve_kw.pop(k) for k in _ENGINE_KW if k in solve_kw}
     own_engine = engine is None
@@ -165,15 +202,15 @@ def reg_path(X, y, penalty, datafit=None, *, lambdas=None, n_lambdas=30,
         if screen is not None:
             _check_screen(screen, sample_weight, vmap_chunk, penalty,
                           datafit)
-        if vmap_chunk > 1:
-            raise NotImplementedError(
-                "reg_path(vmap_chunk > 1): the chunked driver (lanes of "
-                "lambdas in one captured step) is not ported yet; it comes "
-                "with cross_val_path in the next slice of the port")
         n_captured = len(engine.capture_s)
-        driver = _screened_path if screen is not None else _sequential_path
-        res = driver(engine, prob, penalty, datafit, lambdas, tol,
-                     metric_fn, **solve_kw)
+        if vmap_chunk > 1:
+            res = _chunked_path(engine, prob, penalty, datafit, lambdas, tol,
+                                int(vmap_chunk), metric_fn, **solve_kw)
+        else:
+            driver = _screened_path if screen is not None \
+                else _sequential_path
+            res = driver(engine, prob, penalty, datafit, lambdas, tol,
+                         metric_fn, **solve_kw)
     finally:
         if own_engine:
             engine.release_graphs()
@@ -330,6 +367,398 @@ def _slot(slots, engine, design, idx, width, nnz, csc):
     slots[width] = design.take_columns(idx, nnz=nnz) if csc \
         else design.take_columns(idx)
     return slots[width], False
+
+
+def _chunked_path(engine, prob, penalty, datafit, lambdas, tol, chunk,
+                  metric_fn, *, p0=64, max_outer=50, eps_inner_frac=0.3,
+                  **solve_kw):
+    """Chunked sweep: C lambdas a dispatch with the warm-start handoff
+    between chunks (the reference's ``_chunked_path``)."""
+    if solve_kw:
+        raise ValueError(
+            f"vmap_chunk > 1 does not support solve kwargs "
+            f"{sorted(solve_kw)}; use the sequential driver (vmap_chunk=1)")
+    if prob.n_tasks:
+        raise NotImplementedError(
+            f"reg_path(vmap_chunk > 1) on a multitask target: the chunked "
+            f"driver's {_LATER['multitask']}")
+    design, y, w, L, offset = prob.design, prob.y, prob.w, prob.L, \
+        prob.offset
+    p = design.shape[1]
+    policy = BucketPolicy(p0=p0)
+    beta_prev = torch.zeros(p, dtype=design.dtype, device=engine.device)
+    Xb_prev = design.matvec(beta_prev)
+    gcount_prev = 0
+    reads0 = engine.n_chunk_reads
+    betas, kkts, n_eps, outers, times = [], [], [], [], []
+    for lo in range(0, len(lambdas), chunk):
+        t_chunk = _now()
+        lams_c = lambdas[lo:lo + chunk]
+        C = len(lams_c)
+        # every lane warm-starts from the previous chunk's densest solution
+        betas0 = beta_prev.expand(C, p).contiguous()
+        Xbs0 = Xb_prev.expand(C, -1).contiguous()
+        bucket = policy.first_bucket(gcount_prev, p)
+        iters_left, chunk_iters = max_outer, 0
+        chunk_eps = np.zeros(C, np.int64)
+        while True:
+            out = engine.chunk(bucket, design, y, lams_c, betas0, Xbs0, L,
+                               offset, datafit, penalty, tol, eps_inner_frac,
+                               iters_left, growth=_GROWTH, w=w)
+            iters_left -= out.n_outer
+            chunk_iters += out.n_outer
+            chunk_eps += out.n_eps
+            if bool(np.all(out.kkts <= tol)) or bucket >= p or \
+                    iters_left <= 0:
+                break
+            # a lane outgrew the bucket: escalate and resume from the
+            # partially converged lanes
+            bucket = max(policy.escalate(bucket, p),
+                         policy.next_bucket(bucket, int(np.max(out.gcounts)),
+                                            p))
+            betas0, Xbs0 = out.betas, out.Xbs
+        betas.extend(out.betas.unbind(0))
+        kkts.extend(out.kkts.tolist())
+        n_eps.extend(chunk_eps.tolist())
+        outers.extend([chunk_iters] * C)
+        # the lanes ran together: each lambda is stamped with its chunk's
+        # duration
+        times.extend([_now() - t_chunk] * C)
+        beta_prev, Xb_prev = out.betas[-1], out.Xbs[-1]
+        gcount_prev = int(out.gcounts[-1])
+    metrics = [metric_fn(lam, b) for lam, b in zip(lambdas, betas)] \
+        if metric_fn is not None else []
+    betas_np = torch.stack(betas).cpu().numpy()            # one read
+    return PathResult(
+        lambdas=lambdas, betas=betas_np, kkts=np.asarray(kkts),
+        nnzs=np.asarray([int(np.sum(b != 0)) for b in betas_np]),
+        n_epochs=np.asarray(n_eps), metrics=metrics,
+        n_outer=np.asarray(outers), times=np.asarray(times),
+        n_host_syncs=engine.n_chunk_reads - reads0 + 1)
+
+
+# --------------------------------------------------------------- grid driver
+@dataclass
+class GridResult:
+    """Result of one :func:`cross_val_path` (fold x lambda) grid sweep.
+
+    ``lambdas`` is the decreasing grid; ``betas`` the per-replicate
+    solutions ``[n_folds, n_lambdas, p]`` on the host; ``cv_loss`` the
+    held-out mean datafit loss per (fold, lambda) (the datafit's
+    ``value``: half-MSE for quadratic losses, mean log-loss for logistic),
+    NaN for a replicate without held-out rows; ``cv_mean`` / ``cv_std``
+    its mean and standard deviation over the valid folds; ``best_index``
+    and ``best_lambda`` the argmin of ``cv_mean``; ``kkts`` and
+    ``n_epochs`` per (fold, lambda); ``fold_weights`` the raw train-weight
+    matrix ``[n_folds, n]`` the grid solved. ``n_outer`` counts the outer
+    steps of every dispatch; ``times`` and ``occupancy`` are per scheduler
+    round (its seconds, and the fraction of the lane pool holding live
+    work at its dispatch); ``n_rounds`` the rounds (= dispatches).
+    ``captures`` is the engine's capture count per step key after the
+    sweep (the counterpart of the reference's ``retraces``; a chunk key
+    holds the bucket, the design, the lane count and the shapes) and
+    ``capture_s`` the host seconds of this sweep's captures;
+    ``n_dispatches`` and ``n_host_syncs`` the sweep's dispatches and
+    blocking reads (one a dispatch on the kernel route on a card and on
+    the CPU; ``capture=False`` on a card reads at every condition).
+    ``diagnostics`` mirrors the sweep counters.
+    """
+    lambdas: np.ndarray
+    betas: np.ndarray
+    cv_loss: np.ndarray
+    cv_mean: np.ndarray
+    cv_std: np.ndarray
+    best_index: int
+    best_lambda: float
+    kkts: np.ndarray
+    n_epochs: np.ndarray
+    fold_weights: np.ndarray
+    n_outer: int = 0
+    times: Optional[np.ndarray] = None
+    occupancy: Optional[np.ndarray] = None
+    n_rounds: int = 0
+    captures: dict = field(default_factory=dict)
+    capture_s: Optional[np.ndarray] = None
+    n_dispatches: int = 0
+    n_host_syncs: int = 0
+    diagnostics: dict = field(default_factory=dict)
+
+
+def heldout_losses(datafit, Xbs, y, H):
+    """The lanes' held-out mean losses [S]: lane s's datafit value at its
+    residual Xbs[s] [n] under its held-out weight row H[s] [n] (weights
+    normalized to mean 1 over the held-out rows)."""
+    return torch.vmap(lambda x, h: datafit.value(x, y, h))(Xbs, H)
+
+
+def _emit_progress(progress, **ev):
+    """Deliver one grid-progress event: ``progress`` is a callable (gets the
+    event dict) or any other truthy value (one stderr line per event)."""
+    if not progress:
+        return
+    if callable(progress):
+        progress(dict(ev))
+        return
+    print("[cross_val_path] "
+          + " ".join(f"{k}={v}" for k, v in ev.items()), file=sys.stderr)
+
+
+def cross_val_path(X, y, datafit=None, penalty=None, *, lambdas=None,
+                   n_lambdas=30, lambda_min_ratio=1e-2, cv=5,
+                   fold_weights=None, sample_weight=None, seed=0, tol=1e-6,
+                   vmap_chunk=10, p0=64, max_outer=50, eps_inner_frac=0.3,
+                   sync_every=8, checkpoint=None, resume=None, engine=None,
+                   device=None, mesh=None, obs=None, progress=None,
+                   **engine_kw) -> GridResult:
+    """Solve a (fold x lambda) grid at once through the chunk dispatch.
+
+    Parameters follow ``repro.core.cross_val_path``: every fold (or
+    bootstrap replicate, ``fold_weights [n_replicates, n]``) is a sample
+    weight row on the same (X, y) (its held-out rows are its zero-weight
+    rows); a fixed pool of ``n_folds * vmap_chunk`` lanes runs the
+    (fold, lambda) cells, at most ``sync_every`` outer steps a dispatch,
+    one host read a dispatch, converged lanes retired and backfilled from
+    the queue after each (``LaneScheduler``). ``X`` is dense, scipy sparse
+    or a design, moved to the engine's device once (``device=None`` means
+    ``"cuda"`` and raises without a card). ``engine`` keeps its captured
+    steps across calls; a grid that makes its own engine releases them.
+    ``progress`` (a callable, or True for stderr lines) receives one
+    "bucket" event a dispatch and a "chunk" event on every round that
+    retired lanes. ``**engine_kw`` is restricted to the engine's keys (M,
+    max_epochs, accel, use_fp_score, use_gram, use_kernels).
+    ``checkpoint=``/``resume=``, ``obs=``, ``mesh=`` and multitask targets
+    are not ported yet and raise.
+
+    Returns a :class:`GridResult`.
+    """
+    for name, val in (("checkpoint", checkpoint), ("resume", resume)):
+        if val is not None:
+            raise NotImplementedError(
+                f"cross_val_path({name}=...): {_LATER['checkpoint']}")
+    if obs is not None:
+        raise NotImplementedError(f"cross_val_path(obs=...): {_LATER['obs']}")
+    if mesh is not None:
+        raise NotImplementedError(
+            f"cross_val_path(mesh=...): {_LATER['mesh']}")
+    if getattr(y, "ndim", 1) == 2:
+        raise NotImplementedError(f"cross_val_path: {_LATER['multitask']}")
+    datafit = Quadratic() if datafit is None else datafit
+    penalty = L1(1.0) if penalty is None else penalty
+    unsupported = set(engine_kw) - set(_ENGINE_KW)
+    if unsupported:
+        raise ValueError(f"cross_val_path does not support kwargs "
+                         f"{sorted(unsupported)}")
+    own_engine = engine is None
+    if own_engine:
+        engine = make_engine(penalty, datafit, device=device, **engine_kw)
+    elif device is not None and torch.device(device).type != \
+            engine.device.type:
+        raise ValueError(f"cross_val_path(device={device!r}, engine=...): "
+                         f"the engine runs on {engine.device}")
+    try:
+        return _grid(engine, X, y, datafit, penalty, lambdas, n_lambdas,
+                     lambda_min_ratio, cv, fold_weights, sample_weight, seed,
+                     tol, vmap_chunk, p0, max_outer, eps_inner_frac,
+                     sync_every, progress)
+    finally:
+        if own_engine:
+            engine.release_graphs()
+
+
+def _grid(engine, X, y, datafit, penalty, lambdas, n_lambdas,
+          lambda_min_ratio, cv, fold_weights, sample_weight, seed, tol,
+          vmap_chunk, p0, max_outer, eps_inner_frac, sync_every, progress):
+    """The grid sweep of :func:`cross_val_path` on `engine`."""
+    from ..data.folds import kfold_weights
+
+    dev = engine.device
+    design = as_design(X, dev, ell=engine.config.use_kernels)
+    n, p = design.shape
+    dtype = design.dtype
+    y = torch.as_tensor(y, dtype=dtype, device=dev)
+    # replicate weights: 0/1 k-fold membership or explicit counts
+    if fold_weights is not None:
+        W = np.asarray(fold_weights, np.float64)
+        if W.ndim != 2 or W.shape[1] != n:
+            raise ValueError(
+                f"fold_weights must be [n_replicates, n={n}], got shape "
+                f"{W.shape}")
+        if not np.all(np.isfinite(W)) or np.any(W < 0):
+            raise ValueError("fold_weights must be finite and non-negative")
+    else:
+        W = kfold_weights(n, cv, seed=seed)
+    H = np.where(W == 0.0, 1.0, 0.0)          # held-out indicator per fold
+    if sample_weight is not None:
+        sw = normalize_weights(sample_weight, n, torch.float64,
+                               "cpu").numpy()
+        W = W * sw[None, :]
+        H = H * sw[None, :]
+    train_sums = W.sum(axis=1)
+    if np.any(train_sums <= 0):
+        raise ValueError("every fold/replicate needs at least one training "
+                         "sample with positive weight")
+    held_sums = H.sum(axis=1)
+    valid_fold = held_sums > 0
+    if not valid_fold.any():
+        raise ValueError(
+            "no replicate has any held-out rows (every fold_weights row is "
+            "all-nonzero): there is nothing to cross-validate on — held-out "
+            "rows are a replicate's zero-weight rows")
+    if lambdas is None:
+        lmax = lambda_max(design, y, datafit, sample_weight=sample_weight,
+                          device=dev)
+        lambdas = lmax * np.geomspace(1.0, lambda_min_ratio, n_lambdas)
+    lambdas = _check_grid(lambdas)
+    nlam = len(lambdas)
+    engine.validate(datafit, penalty, 0, weighted=True, design=design)
+
+    # train weights normalized to sum n (the row-subset scaling), held-out
+    # weights to mean 1 over the held-out rows
+    Wd = torch.as_tensor(W * (n / train_sums)[:, None], dtype=dtype,
+                         device=dev)
+    Hd = torch.as_tensor(
+        H * np.where(valid_fold, n / np.maximum(held_sums, 1e-300),
+                     0.0)[:, None], dtype=dtype, device=dev)
+    F = W.shape[0]
+    # one weighted column-square pass a fold (K5s on a CSC design on the
+    # kernel route)
+    L_folds = torch.stack([
+        design.lipschitz(datafit, Wd[f], use_kernels=engine.config.use_kernels)
+        for f in range(F)])
+    offset = datafit.grad_offset(p, dtype, dev)
+    policy = BucketPolicy(p0=p0)
+    chunk = max(1, min(int(vmap_chunk), nlam))
+    S = F * chunk                          # the fixed lane pool
+    sync_every = max(1, int(sync_every))
+    sched = LaneScheduler(F, nlam, S, max_outer)
+
+    # host lane maps, kept for dead slots too
+    lams_l = np.zeros(S, np.float64)
+    fold_host = np.zeros(S, np.int64)
+    kkts_out = np.zeros((F, nlam))
+    eps_out = np.zeros((F, nlam), np.int64)
+    item_done = np.zeros((F, nlam), np.uint8)
+    times, occupancy = [], []
+    round_idx, total_outer = 0, 0
+    dispatches0, reads0 = engine.n_dispatches, engine.n_chunk_reads
+    n_captured = len(engine.capture_s)
+    betas_l = torch.zeros((S, p), dtype=dtype, device=dev)
+    Xbs_l = torch.zeros((S, n), dtype=dtype, device=dev)
+    bank_b = torch.zeros((F, p), dtype=dtype, device=dev)
+    bank_x = torch.zeros((F, n), dtype=dtype, device=dev)
+    out_betas = torch.zeros((F, nlam, p), dtype=dtype, device=dev)
+    out_loss = torch.zeros((F, nlam), dtype=dtype, device=dev)
+    for s, f, j in sched.fill():
+        lams_l[s], fold_host[s] = lambdas[j], f
+    bucket = policy.first_bucket(0, p)
+
+    n_chunks = -(-nlam // chunk)        # nominal lower bound on rounds
+    t0 = _now()
+    dirty = True                        # lane tensors need gathering
+    while not sched.done:
+        t_round = _now()
+        if dirty:
+            fold_dev = torch.as_tensor(fold_host, device=dev)
+            w_lanes = Wd[fold_dev]
+            L_lanes = L_folds[fold_dev]
+            H_lanes = Hd[fold_dev]
+            dirty = False
+        occupancy.append(sched.occupancy)
+        mo = sched.dispatch_budget(sync_every)
+        bucket_used = bucket
+        out = engine.chunk(bucket, design, y, lams_l, betas_l, Xbs_l,
+                           L_lanes, offset, datafit, penalty, tol,
+                           eps_inner_frac, mo, growth=_GROWTH, w=w_lanes)
+        betas_l, Xbs_l = out.betas, out.Xbs
+        kkts_c, gcounts_c = out.kkts, out.gcounts
+        total_outer += out.n_outer
+        rep = sched.observe(kkts_c, gcounts_c, out.n_eps, out.n_outer, tol)
+        if rep.retired:
+            # harvest on the device: dead lanes never reach the outputs
+            loss_l = heldout_losses(datafit, Xbs_l, y, H_lanes)
+            sl = torch.as_tensor([r.slot for r in rep.retired], device=dev)
+            fl = np.array([r.fold for r in rep.retired])
+            jl = np.array([r.lam_idx for r in rep.retired])
+            fl_d = torch.as_tensor(fl, device=dev)
+            jl_d = torch.as_tensor(jl, device=dev)
+            out_betas[fl_d, jl_d] = betas_l[sl]
+            out_loss[fl_d, jl_d] = loss_l[sl]
+            kkts_out[fl, jl] = kkts_c[[r.slot for r in rep.retired]]
+            eps_out[fl, jl] = [r.n_epochs for r in rep.retired]
+            item_done[fl, jl] = 1
+        if rep.bank_updates:
+            fb = torch.as_tensor([u[0] for u in rep.bank_updates],
+                                 device=dev)
+            sb = torch.as_tensor([u[1] for u in rep.bank_updates],
+                                 device=dev)
+            bank_b[fb] = betas_l[sb]
+            bank_x[fb] = Xbs_l[sb]
+        assigns = sched.fill()
+        if assigns:
+            sl_np = np.array([a[0] for a in assigns])
+            fl = np.array([a[1] for a in assigns])
+            jl = np.array([a[2] for a in assigns])
+            sl = torch.as_tensor(sl_np, device=dev)
+            fl_d = torch.as_tensor(fl, device=dev)
+            betas_l[sl] = bank_b[fl_d]
+            Xbs_l[sl] = bank_x[fl_d]
+            lams_l[sl_np] = lambdas[jl]
+            fold_host[sl_np] = fl
+            dirty = True
+        # the next dispatch's bucket: escalate when a continuing lane
+        # outgrew it; a round where every lane retired may step down to
+        # what the fresh warm starts need
+        cont = rep.continuing
+        if len(cont):
+            if bucket < p and np.any(_GROWTH * gcounts_c[cont] > bucket):
+                bucket = max(policy.escalate(bucket, p),
+                             policy.next_bucket(
+                                 bucket, int(np.max(gcounts_c[cont])), p))
+            if assigns:
+                bucket = max(bucket, max(
+                    policy.first_bucket(int(sched.bank_gcount[f]), p)
+                    for f in fl))
+        elif assigns:
+            bucket = max(policy.first_bucket(int(sched.bank_gcount[f]), p)
+                         for f in fl)
+        round_idx += 1
+        times.append(_now() - t_round)
+        elapsed = _now() - t0
+        lambdas_done = int(np.sum(np.all(item_done == 1, axis=0)))
+        ev = dict(chunk=round_idx - 1, n_chunks=n_chunks,
+                  bucket=int(bucket_used),
+                  lanes_converged=int(np.sum(kkts_c <= tol)), n_lanes=S,
+                  lambdas_done=lambdas_done, n_lambdas=nlam,
+                  elapsed_s=elapsed)
+        _emit_progress(progress, event="bucket", **ev)
+        if rep.retired:
+            _emit_progress(progress, event="chunk", **ev,
+                           eta_s=elapsed / max(lambdas_done, 1)
+                           * (nlam - lambdas_done))
+
+    betas_out = out_betas.cpu().numpy().astype(np.float64)
+    loss_out = out_loss.cpu().numpy().astype(np.float64)
+    loss_out[~valid_fold] = np.nan
+    cv_mean = np.mean(loss_out[valid_fold], axis=0)
+    cv_std = np.std(loss_out[valid_fold], axis=0)
+    best = int(np.argmin(cv_mean)) if np.isfinite(cv_mean).any() else 0
+    occ = np.asarray(occupancy)
+    n_disp = engine.n_dispatches - dispatches0
+    n_syncs = engine.n_chunk_reads - reads0
+    return GridResult(
+        lambdas=lambdas, betas=betas_out, cv_loss=loss_out, cv_mean=cv_mean,
+        cv_std=cv_std, best_index=best, best_lambda=float(lambdas[best]),
+        kkts=kkts_out, n_epochs=eps_out, fold_weights=W, n_outer=total_outer,
+        times=np.asarray(times), occupancy=occ, n_rounds=round_idx,
+        captures=dict(engine.captures),
+        capture_s=np.asarray(engine.capture_s[n_captured:]),
+        n_dispatches=n_disp, n_host_syncs=n_syncs,
+        diagnostics={"grid.n_host_syncs": n_syncs,
+                     "grid.n_dispatches": n_disp,
+                     "grid.n_outer": total_outer,
+                     "grid.n_rounds": round_idx,
+                     "grid.lane_occupancy":
+                         float(occ.mean()) if occ.size else 1.0})
 
 
 def _np(a):

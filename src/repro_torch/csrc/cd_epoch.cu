@@ -84,6 +84,17 @@
 // loop body), and a last cluster barrier keeps each CTA's shared memory
 // alive until no other CTA can read it.
 //
+// K1l and K2l (the lane forms, cd_epoch_gram_lanes_* and
+// cd_epoch_xb_lanes_*) are K1 and K2 over a lane dimension, as pallas_call
+// under the reference's vmap: the grid's y index is the lane (one CTA or
+// one cluster a lane), each lane reads its own tensors (a lane stride) and
+// its own row of the codec vector, and a lane the active mask freezes
+// copies its state through and returns at entry, every CTA of its cluster
+// alike, so no cluster barrier is left waiting. K2's single-lane entry
+// points are the same kernel with one lane and no mask. K1's lane code is
+// a template branch (LANES) that the single-lane K1 does not compile: with
+// the lane prologue in it, K1's chain ran 1.8x slower on the H100.
+//
 // The launch layout (cluster size, shared or global slices, dynamic shared
 // bytes, threads, register path) is the wrapper's plan
 // (kernels/cd_epoch.py: gram_plan, xb_plan, gram_block_plan); the launchers
@@ -291,12 +302,32 @@ __device__ __forceinline__ void gram_publish(const GramShared<T>& sh, int slot, 
 // Three delta slots and two tile parities keep a writer off the slot a
 // reader still holds; the named barriers alternate by parity so a phase
 // never takes the next phase's arrivals.
-template <typename T, int PEN>
+template <typename T, int PEN, bool LANES>
 __global__ void __launch_bounds__(kGramMaxThreads)
-    cd_gram_kernel(const T* __restrict__ G, long long s_row, long long s_col,
+    cd_gram_kernel(const T* __restrict__ G, long long s_row, long long s_col, long long g_lane,
                    const T* __restrict__ c, const T* __restrict__ L, const T* __restrict__ beta0,
                    const T* __restrict__ q0, T* beta_out, T* q_out, int K, int epochs,
-                   const double* __restrict__ prm) {
+                   const double* __restrict__ prm, int prm_lane,
+                   const unsigned char* __restrict__ active) {
+  if constexpr (LANES) {
+    // this CTA's lane (blockIdx.y): its tensors and its parameter row
+    const long long ln = blockIdx.y, o = ln * K;
+    G += ln * g_lane;
+    c += o;
+    L += o;
+    beta0 += o;
+    q0 += o;
+    beta_out += o;
+    q_out += o;
+    prm += ln * prm_lane;
+    if (active && !active[ln]) {  // a frozen lane: its state passes through
+      for (int i = threadIdx.x; i < K; i += blockDim.x) {
+        beta_out[i] = beta0[i];
+        q_out[i] = q0[i];
+      }
+      return;
+    }
+  }
   const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(PEN, prm);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_list[3 * kGramB];
@@ -407,15 +438,35 @@ __device__ __forceinline__ int gram_owner(int k, int nb, int C) {
 // The per-row order of additions is the one-CTA kernel's. A cluster
 // barrier after the mbarriers' initialisation and one before exit keep
 // every remote access inside the CTAs' lifetimes.
-template <typename T, int PEN>
+template <typename T, int PEN, bool LANES>
 __global__ void __launch_bounds__(kGramMaxThreads)
     cd_gram_cluster_kernel(const T* __restrict__ G, long long s_row, long long s_col,
-                           const T* __restrict__ c, const T* __restrict__ L,
+                           long long g_lane, const T* __restrict__ c, const T* __restrict__ L,
                            const T* __restrict__ beta0, const T* __restrict__ q0, T* beta_out,
-                           T* q_out, int K, int epochs, const double* __restrict__ prm) {
-  const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(PEN, prm);
+                           T* q_out, int K, int epochs, const double* __restrict__ prm,
+                           int prm_lane, const unsigned char* __restrict__ active) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  if constexpr (LANES) {
+    // this cluster's lane (blockIdx.y): its tensors and its parameter row
+    const long long ln = blockIdx.y, o = ln * K;
+    G += ln * g_lane;
+    c += o;
+    L += o;
+    beta0 += o;
+    q0 += o;
+    beta_out += o;
+    q_out += o;
+    prm += ln * prm_lane;
+    if (active && !active[ln]) {  // a frozen lane: every CTA of it leaves
+      for (int i = rank * blockDim.x + threadIdx.x; i < K; i += C * blockDim.x) {
+        beta_out[i] = beta0[i];
+        q_out[i] = q0[i];
+      }
+      return;
+    }
+  }
+  const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(PEN, prm);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_list[3 * kGramB];
   __shared__ unsigned s_mask[3];
@@ -692,12 +743,35 @@ __global__ void __launch_bounds__(PER > 0 ? kPerThreads : 1024)
                          const T* __restrict__ off, const T* __restrict__ beta0,
                          const T* __restrict__ Xb0, T* beta_out, T* Xb_out, T* scratch,
                          int K, int n, int epochs, int kind, int pen,
-                         const double* __restrict__ prm,
-                         int use_smem) {
-  const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(pen, prm);
+                         const double* __restrict__ prm, int use_smem, int w_lane,
+                         long long scratch_lane, int prm_lane,
+                         const unsigned char* __restrict__ active) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
+  {
+    // this cluster's lane (blockIdx.y): its tensors (y is shared; w is
+    // shared or the lane's) and its parameter row
+    const long long ln = blockIdx.y;
+    Xt += ln * K * n;
+    if (w_in) w_in += ln * w_lane;
+    L += ln * K;
+    off += ln * K;
+    beta0 += ln * K;
+    beta_out += ln * K;
+    Xb0 += ln * n;
+    Xb_out += ln * n;
+    scratch += ln * scratch_lane;
+    prm += ln * prm_lane;
+    if (active && !active[ln]) {  // a frozen lane: every CTA of it leaves
+      for (int i = rank * blockDim.x + threadIdx.x; i < K; i += C * blockDim.x)
+        beta_out[i] = beta0[i];
+      for (int i = rank * blockDim.x + threadIdx.x; i < n; i += C * blockDim.x)
+        Xb_out[i] = Xb0[i];
+      return;
+    }
+  }
+  const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(pen, prm);
   const int lo = split_lo(n, C, rank), m = split_lo(n, C, rank + 1) - lo;
   const int tid = threadIdx.x, bd = blockDim.x;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -989,7 +1063,8 @@ template <typename T>
 int cluster_capacity_t(int which, int per, int C, int threads, int dyn, int* active) {
   switch (which) {
     case 0:
-      return cluster_capacity_of(cd_gram_cluster_kernel<T, rt::PEN_L1>, C, threads, dyn, active);
+      return cluster_capacity_of(cd_gram_cluster_kernel<T, rt::PEN_L1, false>, C, threads, dyn,
+                                 active);
     case 1:
       return per ? cluster_capacity_of(cd_xb_cluster_kernel<T, kXbPer>, C, threads, dyn, active)
                  : cluster_capacity_of(cd_xb_cluster_kernel<T, 0>, C, threads, dyn, active);
@@ -1002,18 +1077,20 @@ int cluster_capacity_t(int which, int per, int C, int threads, int dyn, int* act
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, int PEN>
-int launch_gram_pen(const T* G, long long sr, long long sc, const T* c, const T* L,
+template <typename T, int PEN, bool LANES>
+int launch_gram_pen(const T* G, long long sr, long long sc, long long gl, const T* c, const T* L,
                     const T* beta0, const T* q0, T* beta, T* q, int K, int epochs,
-                    const double* prm, int cluster, int dyn, int threads, void* stream) {
+                    const double* prm, int pl, const unsigned char* active, int lanes,
+                    int cluster, int dyn, int threads, void* stream) {
   if (cluster > 1)
-    return launch_cluster(cd_gram_cluster_kernel<T, PEN>, cluster, threads, (size_t)dyn, stream,
-                          G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, prm);
-  cudaError_t err = cudaFuncSetAttribute(cd_gram_kernel<T, PEN>,
+    return launch_cluster(cd_gram_cluster_kernel<T, PEN, LANES>, cluster, threads, (size_t)dyn,
+                          stream, lanes, G, sr, sc, gl, c, L, beta0, q0, beta, q, K, epochs,
+                          prm, pl, active);
+  cudaError_t err = cudaFuncSetAttribute(cd_gram_kernel<T, PEN, LANES>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
   if (err != cudaSuccess) return (int)err;
-  cd_gram_kernel<T, PEN><<<1, threads, dyn, (cudaStream_t)stream>>>(
-      G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, prm);
+  cd_gram_kernel<T, PEN, LANES><<<dim3(1, lanes), threads, dyn, (cudaStream_t)stream>>>(
+      G, sr, sc, gl, c, L, beta0, q0, beta, q, K, epochs, prm, pl, active);
   return (int)cudaGetLastError();
 }
 
@@ -1022,12 +1099,14 @@ int launch_gram_pen(const T* G, long long sr, long long sc, const T* c, const T*
 // bytes of dynamic shared memory a CTA, `threads` a CTA (the chain warp and
 // at least one more warp). Refuses a plan whose `dyn` cannot hold the head
 // and the state (one CTA: q and beta; a cluster: an update CTA's q rows).
-template <typename T>
-int launch_gram(const T* G, long long sr, long long sc, const T* c, const T* L, const T* beta0,
-                const T* q0, T* beta, T* q, int K, int epochs, int pen, const double* prm,
-                int cluster, int dyn, int threads, void* stream) {
+// LANES: K1l's kernels (a lane a CTA or cluster, the mask).
+template <typename T, bool LANES>
+int launch_gram(const T* G, long long sr, long long sc, long long gl, const T* c, const T* L,
+                const T* beta0, const T* q0, T* beta, T* q, int K, int epochs, int pen,
+                const double* prm, int pl, const unsigned char* active, int lanes, int cluster,
+                int dyn, int threads, void* stream) {
   if (threads < 2 * kGramB || threads % 32 || threads > kGramMaxThreads || cluster < 1 ||
-      cluster > 16 || (cluster > 1 && K <= 2 * kGramB))
+      cluster > 16 || (cluster > 1 && K <= 2 * kGramB) || lanes < 1 || lanes > 65535)
     return (int)cudaErrorInvalidValue;
   const long long nb = (K + kGramB - 1) / kGramB;
   const long long state =
@@ -1036,8 +1115,8 @@ int launch_gram(const T* G, long long sr, long long sc, const T* c, const T* L, 
     return (int)cudaErrorInvalidValue;
 #define K1_CASE(ID)                                                                        \
   case ID:                                                                                 \
-    return launch_gram_pen<T, ID>(G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, prm, \
-                                  cluster, dyn, threads, stream);
+    return launch_gram_pen<T, ID, LANES>(G, sr, sc, gl, c, L, beta0, q0, beta, q, K, epochs, \
+                                         prm, pl, active, lanes, cluster, dyn, threads, stream);
   switch (pen) {
     K1_CASE(rt::PEN_L1)
     K1_CASE(rt::PEN_L1L2)
@@ -1071,7 +1150,7 @@ int launch_gram_block(const T* G, long long sr, long long sc, const T* c, const 
   if (per != 0 && per != kGramPer) return (int)cudaErrorInvalidValue;
   auto kernel = per ? cd_gram_block_cluster_kernel<T, kGramPer>
                     : cd_gram_block_cluster_kernel<T, 0>;
-  return launch_cluster(kernel, cluster, threads, (size_t)dyn, stream, G, sr, sc, c, L, beta0,
+  return launch_cluster(kernel, cluster, threads, (size_t)dyn, stream, 1, G, sr, sc, c, L, beta0,
                         q0, beta, q, K, nt, epochs, pen, prm, use_smem);
 }
 
@@ -1081,15 +1160,17 @@ int launch_gram_block(const T* G, long long sr, long long sc, const T* c, const 
 // per == kXbPer. `scratch` holds (cluster - 1) * K values, plus n on the
 // global branch.
 template <typename T>
-int launch_xb(const T* Xt, const T* y, const T* w, const T* L, const T* off, const T* beta0,
-              const T* Xb0, T* beta, T* Xb, T* scratch, int K, int n, int epochs, int kind,
-              int pen, const double* prm, int cluster, int use_smem, int dyn, int threads,
-              int per, void* stream) {
+int launch_xb(const T* Xt, const T* y, const T* w, int w_lane, const T* L, const T* off,
+              const T* beta0, const T* Xb0, T* beta, T* Xb, T* scratch, long long scratch_lane,
+              int K, int n, int epochs, int kind, int pen, const double* prm, int prm_lane,
+              const unsigned char* active, int lanes, int cluster, int use_smem, int dyn,
+              int threads, int per, void* stream) {
   if (per != 0 && per != kXbPer) return (int)cudaErrorInvalidValue;
+  if (lanes < 1 || lanes > 65535) return (int)cudaErrorInvalidValue;
   auto kernel = per ? cd_xb_cluster_kernel<T, kXbPer> : cd_xb_cluster_kernel<T, 0>;
-  return launch_cluster(kernel, cluster, threads, (size_t)dyn, stream, Xt, y, w, L, off, beta0,
-                        Xb0, beta, Xb, scratch, K, n, epochs, kind, pen, prm,
-                        use_smem);
+  return launch_cluster(kernel, cluster, threads, (size_t)dyn, stream, lanes, Xt, y, w, L, off,
+                        beta0, Xb0, beta, Xb, scratch, K, n, epochs, kind, pen, prm, use_smem,
+                        w_lane, scratch_lane, prm_lane, active);
 }
 
 }  // namespace
@@ -1100,17 +1181,33 @@ int cd_epoch_gram_f64(const double* G, long long sr, long long sc, const double*
                       const double* L, const double* beta0, const double* q0, double* beta,
                       double* q, int K, int epochs, int pen, const double* prm, int cluster,
                       int dyn, int threads, void* stream) {
-  return launch_gram<double>(G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, pen, prm,
-                             cluster, dyn, threads, stream);
+  return launch_gram<double, false>(G, sr, sc, 0, c, L, beta0, q0, beta, q, K, epochs, pen, prm,
+                                    0, nullptr, 1, cluster, dyn, threads, stream);
 }
 
 int cd_epoch_gram_f32(const float* G, long long sr, long long sc, const float* c,
                       const float* L, const float* beta0, const float* q0, float* beta,
                       float* q, int K, int epochs, int pen, const double* prm, int cluster,
                       int dyn, int threads, void* stream) {
-  return launch_gram<float>(G, sr, sc, c, L, beta0, q0, beta, q, K, epochs, pen, prm,
-                            cluster, dyn, threads, stream);
+  return launch_gram<float, false>(G, sr, sc, 0, c, L, beta0, q0, beta, q, K, epochs, pen, prm,
+                                   0, nullptr, 1, cluster, dyn, threads, stream);
 }
+
+// K1l: K1 on `lanes` lanes (G's lanes g_lane apart, c, L, beta, q K apart,
+// the parameter rows prm_lane apart), lanes with active[lane] == 0 frozen;
+// float64 only (the lane step's dense head, K3l, is float64 only too, and
+// each instantiation of K1's kernels costs build time)
+int cd_epoch_gram_lanes_f64(const double* G, long long sr, long long sc, long long g_lane,
+                            const double* c, const double* L, const double* beta0,
+                            const double* q0, double* beta, double* q, int K, int epochs,
+                            int pen, const double* prm, int prm_lane,
+                            const unsigned char* active, int lanes, int cluster, int dyn,
+                            int threads, void* stream) {
+  return launch_gram<double, true>(G, sr, sc, g_lane, c, L, beta0, q0, beta, q, K, epochs, pen,
+                                   prm, prm_lane, active, lanes, cluster, dyn, threads, stream);
+}
+
+
 
 int cd_epoch_gram_block_f64(const double* G, long long sr, long long sc, const double* c,
                             const double* L, const double* beta0, const double* q0,
@@ -1135,8 +1232,9 @@ int cd_epoch_xb_f64(const double* Xt, const double* y, const double* w, const do
                     double* Xb, double* scratch, int K, int n, int epochs, int kind, int pen,
                     const double* prm, int cluster, int use_smem, int dyn, int threads,
                     int per, void* stream) {
-  return launch_xb<double>(Xt, y, w, L, off, beta0, Xb0, beta, Xb, scratch, K, n, epochs, kind,
-                           pen, prm, cluster, use_smem, dyn, threads, per, stream);
+  return launch_xb<double>(Xt, y, w, 0, L, off, beta0, Xb0, beta, Xb, scratch, 0, K, n, epochs,
+                           kind, pen, prm, 0, nullptr, 1, cluster, use_smem, dyn, threads, per,
+                           stream);
 }
 
 int cd_epoch_xb_f32(const float* Xt, const float* y, const float* w, const float* L,
@@ -1144,8 +1242,37 @@ int cd_epoch_xb_f32(const float* Xt, const float* y, const float* w, const float
                     float* Xb, float* scratch, int K, int n, int epochs, int kind, int pen,
                     const double* prm, int cluster, int use_smem, int dyn, int threads,
                     int per, void* stream) {
-  return launch_xb<float>(Xt, y, w, L, off, beta0, Xb0, beta, Xb, scratch, K, n, epochs, kind,
-                          pen, prm, cluster, use_smem, dyn, threads, per, stream);
+  return launch_xb<float>(Xt, y, w, 0, L, off, beta0, Xb0, beta, Xb, scratch, 0, K, n, epochs,
+                          kind, pen, prm, 0, nullptr, 1, cluster, use_smem, dyn, threads, per,
+                          stream);
+}
+
+// K2l: K2 on `lanes` lanes (Xt's lanes K * n apart, y shared, w shared
+// (w_lane 0) or n apart, L, off, beta K apart, Xb n apart, the scratch
+// scratch_lane apart, the parameter rows prm_lane apart), lanes with
+// active[lane] == 0 frozen
+int cd_epoch_xb_lanes_f64(const double* Xt, const double* y, const double* w, int w_lane,
+                          const double* L, const double* off, const double* beta0,
+                          const double* Xb0, double* beta, double* Xb, double* scratch,
+                          long long scratch_lane, int K, int n, int epochs, int kind, int pen,
+                          const double* prm, int prm_lane, const unsigned char* active,
+                          int lanes, int cluster, int use_smem, int dyn, int threads, int per,
+                          void* stream) {
+  return launch_xb<double>(Xt, y, w, w_lane, L, off, beta0, Xb0, beta, Xb, scratch,
+                           scratch_lane, K, n, epochs, kind, pen, prm, prm_lane, active, lanes,
+                           cluster, use_smem, dyn, threads, per, stream);
+}
+
+int cd_epoch_xb_lanes_f32(const float* Xt, const float* y, const float* w, int w_lane,
+                          const float* L, const float* off, const float* beta0,
+                          const float* Xb0, float* beta, float* Xb, float* scratch,
+                          long long scratch_lane, int K, int n, int epochs, int kind, int pen,
+                          const double* prm, int prm_lane, const unsigned char* active,
+                          int lanes, int cluster, int use_smem, int dyn, int threads, int per,
+                          void* stream) {
+  return launch_xb<float>(Xt, y, w, w_lane, L, off, beta0, Xb0, beta, Xb, scratch, scratch_lane,
+                          K, n, epochs, kind, pen, prm, prm_lane, active, lanes, cluster,
+                          use_smem, dyn, threads, per, stream);
 }
 
 int cluster_capacity(int which, int f64, int per, int cluster, int threads, int dyn,
@@ -1157,7 +1284,7 @@ int cluster_capacity(int which, int f64, int per, int cluster, int threads, int 
 // `iters` cluster barriers on one cluster of C CTAs of `threads` threads:
 // the chain floor of the cluster kernels
 int cluster_barrier_loop(int cluster, int threads, int iters, void* stream) {
-  return launch_cluster(cluster_barrier_loop_kernel, cluster, threads, 0, stream, iters);
+  return launch_cluster(cluster_barrier_loop_kernel, cluster, threads, 0, stream, 1, iters);
 }
 
 // K1's chain floor in float64 on one CTA of `threads` threads: `epochs`

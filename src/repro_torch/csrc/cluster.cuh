@@ -77,12 +77,14 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* b, unsigned par) {
         : "memory");
 }
 
-// The launch configuration of one cluster of C CTAs (grid = cluster = C)
-// of `kernel`, with `dyn` bytes of dynamic shared memory a CTA; `attr`
-// holds the cluster attribute the configuration points to.
+// The launch configuration of `lanes` clusters of C CTAs (grid = (C,
+// lanes), cluster = C: the lane is blockIdx.y) of `kernel`, with `dyn` bytes
+// of dynamic shared memory a CTA; `attr` holds the cluster attribute the
+// configuration points to.
 template <typename... ExpTypes>
 cudaError_t cluster_config(void (*kernel)(ExpTypes...), int C, int threads, size_t dyn,
-                           void* stream, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+                           void* stream, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                           int lanes = 1) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)dyn);
   if (err != cudaSuccess) return err;
@@ -91,7 +93,7 @@ cudaError_t cluster_config(void (*kernel)(ExpTypes...), int C, int threads, size
     if (err != cudaSuccess) return err;
   }
   *cfg = {};
-  cfg->gridDim = dim3(C, 1, 1);
+  cfg->gridDim = dim3(C, lanes, 1);
   cfg->blockDim = dim3(threads, 1, 1);
   cfg->dynamicSmemBytes = dyn;
   cfg->stream = (cudaStream_t)stream;
@@ -114,16 +116,17 @@ int cluster_capacity_of(void (*kernel)(ExpTypes...), int C, int threads, int dyn
   return (int)err;
 }
 
-// Launch `kernel` as one cluster of C CTAs (grid = cluster = C) through
-// cudaLaunchKernelEx. Refuses, with kErrClusterUnplaceable, a cluster that no
-// GPC of the card can place with this shared memory per CTA; never falls
-// back to another shape (the plans step down beforehand: cluster_capacity).
+// Launch `kernel` as `lanes` clusters of C CTAs (grid = (C, lanes), cluster
+// = C) through cudaLaunchKernelEx. Refuses, with kErrClusterUnplaceable, a
+// cluster that no GPC of the card can place with this shared memory per
+// CTA; never falls back to another shape (the plans step down beforehand:
+// cluster_capacity).
 template <typename... ExpTypes, typename... ActTypes>
 int launch_cluster(void (*kernel)(ExpTypes...), int C, int threads, size_t dyn, void* stream,
-                   ActTypes&&... args) {
+                   int lanes, ActTypes&&... args) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config(kernel, C, threads, dyn, stream, &cfg, &attr);
+  cudaError_t err = cluster_config(kernel, C, threads, dyn, stream, &cfg, &attr, lanes);
   if (err != cudaSuccess) return (int)err;
   int active = 0;
   err = cudaOccupancyMaxActiveClusters(&active, (void*)kernel, &cfg);

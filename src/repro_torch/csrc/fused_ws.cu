@@ -65,6 +65,17 @@
 // float32 keeps the scalar product (block_score_kernel): the tensor cores
 // have no float32 path of this precision.
 //
+// K3l (fused_ws_lanes) is K3 over S lanes that share X, the chunked
+// driver's dense head (fused_ws_pallas under the reference's vmap: one
+// launch over all lanes). Each lane s has its raw gradient R[:, s], its
+// beta, L, generalized support and row of the codec vector. Bound: bytes,
+// X read once for every lane (S separate K3s would read it S times).
+// Design, float64: K3b's product and reduce launches on R [n, S] give the
+// gradient of every (feature, lane) into a [p, S] buffer; a lane epilogue
+// (one thread a (feature, lane), lane = blockIdx.y) computes the scalar
+// score, writes grad, score and priority lane-major [S, p]; K3's select
+// and merge launches then run with the lane on their grids' y index.
+//
 // K4 (ws_score) replaces repro/kernels/ws_score.py:ws_score_pallas (body
 // _score_kernel): the score pass alone, with optional sample weights fused
 // into the load, grad_j = Xt[j] . (r * w) + offset_j, and only the scores
@@ -147,13 +158,17 @@ __global__ void score_kernel(const T* __restrict__ Xt, const T* __restrict__ r,
 }
 
 // one CTA a tile of bp features: the tile's top-kc indices (cand_idx) in
-// the lax.top_k order of the priorities
+// the lax.top_k order of the priorities (of lane blockIdx.y: pri [S, p],
+// cand_idx [S, tiles * kc])
 template <typename T>
 __global__ void select_kernel(const T* __restrict__ pri_in, int* cand_idx, int p, int bp, int kc,
                               int sortn) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* pri = reinterpret_cast<T*>(smem_raw);
   int* idx = reinterpret_cast<int*>(pri + sortn);
+  // the lane (blockIdx.y): its priorities and its tiles' lists
+  pri_in += (long long)blockIdx.y * p;
+  cand_idx += (long long)blockIdx.y * gridDim.x * kc;
   const long long base = (long long)blockIdx.x * bp;
   for (int f = threadIdx.x; f < sortn; f += blockDim.x) {
     const long long j = base + f;
@@ -242,7 +257,9 @@ __device__ void merge_into(const T* ap, const int* ai, int la, const T* bq, cons
 // has), and the last CTA to finish merges those partial lists and writes
 // ws. The buffers A, C (K entries each, the kept list and the merge
 // output) and B (K entries, the list merged in) lie in shared memory, or
-// where `gbuf_pri` is given in that global scratch [gridDim.x, 3, K].
+// where `gbuf_pri` is given in that global scratch [gridDim.x, 3, K]. The
+// grid's y index is the lane: every array above is the lane's, one counter
+// a lane.
 template <typename T>
 __global__ void __launch_bounds__(kMergeThreads)
     ws_merge_kernel(const T* __restrict__ pri, const int* __restrict__ cand_idx, T* part_pri,
@@ -250,6 +267,21 @@ __global__ void __launch_bounds__(kMergeThreads)
                     int p, int bp, int kc, int K, int per_cta) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int last;
+  {
+    // the lane (blockIdx.y): its priorities, lists, scratch, counter, ws
+    const long long ln = blockIdx.y;
+    const long long tiles_ = (p + bp - 1) / bp;
+    pri += ln * p;
+    cand_idx += ln * tiles_ * kc;
+    part_pri += ln * gridDim.x * K;
+    part_idx += ln * gridDim.x * K;
+    if (gbuf_pri) {
+      gbuf_pri += ln * gridDim.x * 3 * K;
+      gbuf_idx += ln * gridDim.x * 3 * K;
+    }
+    counter += ln;
+    ws += ln * K;
+  }
   T* bufp;
   int* bufi;
   if (gbuf_pri) {
@@ -576,13 +608,10 @@ int mma_splits(int n, int p) {
   return best;
 }
 
-// K3b float64: the product, reduce and score launches (part: the scratch of
-// `splits` spans from mma_splits)
-int launch_block_score_mma(const double* Xt, const double* R, const double* beta,
-                           const double* L, const double* offset, const uint8_t* gsupp,
-                           double* scores, double* grad, double* pri, double* part, int splits,
-                           int n, int p, int nt, int pen, int use_fp, const double* prm,
-                           cudaStream_t st) {
+// K3b and K3l float64: the product and reduce launches, grad [p, nt] =
+// Xt @ R + offset (part: the scratch of `splits` spans from mma_splits)
+int launch_mma_product(const double* Xt, const double* R, const double* offset, double* grad,
+                       double* part, int splits, int n, int p, int nt, cudaStream_t st) {
   if (splits < 1 || splits > kMmaMaxSplits) return (int)cudaErrorInvalidValue;
   const int span = ((n + splits - 1) / splits + kMmaK - 1) / kMmaK * kMmaK;
   const bool aligned = (n % 2 == 0) && ((uintptr_t)Xt % 16 == 0);
@@ -602,9 +631,44 @@ int launch_block_score_mma(const double* Xt, const double* R, const double* beta
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
+  return 0;
+}
+
+// K3b float64: the product, reduce and score launches
+int launch_block_score_mma(const double* Xt, const double* R, const double* beta,
+                           const double* L, const double* offset, const uint8_t* gsupp,
+                           double* scores, double* grad, double* pri, double* part, int splits,
+                           int n, int p, int nt, int pen, int use_fp, const double* prm,
+                           cudaStream_t st) {
+  const int rc = launch_mma_product(Xt, R, offset, grad, part, splits, n, p, nt, st);
+  if (rc != 0) return rc;
   block_epilogue_kernel<double><<<(p + 255) / 256, 256, 0, st>>>(
       beta, grad, L, gsupp, scores, pri, p, nt, pen, use_fp, prm);
   return (int)cudaGetLastError();
+}
+
+// K3l, the lane epilogue: for feature j (blockIdx.x, threadIdx.x) of lane s
+// (blockIdx.y), the gradient gradT[j, s] (the product's [p, S] layout), its
+// scalar score with the lane's beta, L (lanes l_lane apart: p, or 0 for
+// one shared row) and parameter row, and the priority under its
+// generalized support, written lane-major [S, p]
+template <typename T>
+__global__ void lane_epilogue_kernel(const T* __restrict__ gradT, const T* __restrict__ beta,
+                                     const T* __restrict__ L, int l_lane,
+                                     const uint8_t* __restrict__ gsupp, T* scores, T* grad,
+                                     T* pri, int p, int S, int pen, int use_fp,
+                                     const double* __restrict__ prm, int prm_lane) {
+  const int s = blockIdx.y;
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= p) return;
+  const double* pr = prm + (long long)s * prm_lane;
+  const T p0 = rt::param0<T>(pr), p1 = rt::param1<T>(pen, pr);
+  const long long e = (long long)s * p + j;
+  const T g = gradT[j * S + s];
+  const T sc = rt::violation_score(pen, use_fp, beta[e], g, L[(long long)s * l_lane + j], p0, p1);
+  scores[e] = sc;
+  grad[e] = g;
+  pri[e] = (gsupp[e] ? (T)INFINITY : sc) + T(0);  // +0 folds -0.0 into +0.0
 }
 
 template <typename T, int A>
@@ -645,8 +709,10 @@ int launch_block_score(const T* Xt, const T* R, const T* beta, const T* L, const
 
 // the select launch of K3 and K3b on the priorities `pri`: one CTA a tile
 template <typename T>
-int launch_select(const T* pri, int* cand_idx, int p, int bp, int kc, cudaStream_t st) {
-  if (p <= 0 || bp <= 0 || kc <= 0 || kc > bp) return (int)cudaErrorInvalidValue;
+int launch_select(const T* pri, int* cand_idx, int p, int bp, int kc, cudaStream_t st,
+                  int lanes = 1) {
+  if (p <= 0 || bp <= 0 || kc <= 0 || kc > bp || lanes < 1 || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
   int sortn = 1;
   while (sortn < bp) sortn <<= 1;
   const size_t dyn = (size_t)sortn * (sizeof(T) + sizeof(int));
@@ -654,7 +720,8 @@ int launch_select(const T* pri, int* cand_idx, int p, int bp, int kc, cudaStream
   cudaError_t err =
       cudaFuncSetAttribute(select_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (err != cudaSuccess) return (int)err;
-  select_kernel<T><<<tiles, kSelectThreads, dyn, st>>>(pri, cand_idx, p, bp, kc, sortn);
+  select_kernel<T><<<dim3(tiles, lanes), kSelectThreads, dyn, st>>>(pri, cand_idx, p, bp, kc,
+                                                                    sortn);
   return (int)cudaGetLastError();
 }
 
@@ -664,17 +731,18 @@ int launch_select(const T* pri, int* cand_idx, int p, int bp, int kc, cudaStream
 template <typename T>
 int launch_merge(const T* pri, const int* cand_idx, T* part_pri, int* part_idx, T* gbuf_pri,
                  int* gbuf_idx, unsigned* counter, long long* ws, int p, int bp, int kc, int K,
-                 int ctas, cudaStream_t st) {
+                 int ctas, cudaStream_t st, int lanes = 1) {
   const int tiles = (p + bp - 1) / bp;
   if (p <= 0 || K <= 0 || K > p || kc <= 0 || kc > bp || ctas <= 0 || ctas > tiles ||
-      (K > kMergeSmemK) != (gbuf_pri != nullptr))
+      (K > kMergeSmemK) != (gbuf_pri != nullptr) || lanes < 1 || lanes > 65535)
     return (int)cudaErrorInvalidValue;
   const int per_cta = (tiles + ctas - 1) / ctas;
   const size_t dyn = K > kMergeSmemK ? 0 : (size_t)3 * K * (sizeof(T) + sizeof(int));
   cudaError_t err = cudaFuncSetAttribute(ws_merge_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (err != cudaSuccess) return (int)err;
-  ws_merge_kernel<T><<<ctas, kMergeThreads, dyn, st>>>(pri, cand_idx, part_pri, part_idx,
+  ws_merge_kernel<T><<<dim3(ctas, lanes), kMergeThreads, dyn, st>>>(pri, cand_idx, part_pri,
+                                                                    part_idx,
                                                        gbuf_pri, gbuf_idx, counter, ws, p, bp, kc,
                                                        K, per_cta);
   return (int)cudaGetLastError();
@@ -781,6 +849,41 @@ int fused_ws_block_f32(const float* Xt, const float* R, const float* beta, const
                        void* stream) {
   return launch_fused_block<float>(Xt, R, beta, L, offset, gsupp, scores, grad, pri, cand_idx,
                                    part, splits, n, p, nt, bp, kc, pen, use_fp, prm, stream);
+}
+
+// K3l (float64): the product and reduce launches into gradT [p, S], the
+// lane epilogue, and the select launch over the lanes; the merge launch is
+// merge_lanes_f64
+int fused_ws_lanes_f64(const double* Xt, const double* R, const double* beta, const double* L,
+                       int l_lane, const double* offset, const uint8_t* gsupp, double* scores,
+                       double* grad, double* pri, int* cand_idx, double* gradT, double* part,
+                       int splits, int n, int p, int S, int bp, int kc, int pen, int use_fp,
+                       const double* prm, int prm_lane, void* stream) {
+  if (p <= 0 || S <= 0 || S > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  int rc = launch_mma_product(Xt, R, offset, gradT, part, splits, n, p, S, st);
+  if (rc != 0) return rc;
+  lane_epilogue_kernel<double><<<dim3((p + 255) / 256, S), 256, 0, st>>>(
+      gradT, beta, L, l_lane, gsupp, scores, grad, pri, p, S, pen, use_fp, prm, prm_lane);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  return launch_select<double>(pri, cand_idx, p, bp, kc, st, S);
+}
+
+// K3's merge launch over `lanes` lanes (pri [lanes, p], cand_idx [lanes,
+// tiles * kc], scratch and counters a lane each, ws [lanes, K])
+int merge_lanes_f64(const double* pri, const int* cand_idx, double* part_pri, int* part_idx,
+                    double* gbuf_pri, int* gbuf_idx, unsigned* counter, long long* ws, int p,
+                    int bp, int kc, int K, int ctas, int lanes, void* stream) {
+  return launch_merge<double>(pri, cand_idx, part_pri, part_idx, gbuf_pri, gbuf_idx, counter, ws,
+                              p, bp, kc, K, ctas, (cudaStream_t)stream, lanes);
+}
+
+int merge_lanes_f32(const float* pri, const int* cand_idx, float* part_pri, int* part_idx,
+                    float* gbuf_pri, int* gbuf_idx, unsigned* counter, long long* ws, int p,
+                    int bp, int kc, int K, int ctas, int lanes, void* stream) {
+  return launch_merge<float>(pri, cand_idx, part_pri, part_idx, gbuf_pri, gbuf_idx, counter, ws,
+                             p, bp, kc, K, ctas, (cudaStream_t)stream, lanes);
 }
 
 // The sample spans of K3b's float64 product launch at (n, p), which size

@@ -118,12 +118,20 @@ _SIGNATURES = {
                         _I, _I, _P, _I, _I, _I, _I, _I, _P],
         "cd_epoch_gram_block": [_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I,
                                 _I, _I, _P, _I, _I, _I, _I, _I, _P],
+        # the lane forms: a lane stride, the lanes' parameter rows, the
+        # active-lane mask and the lane count beside the single-lane
+        # arguments
+        "cd_epoch_xb_lanes": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                              _LL, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I,
+                              _I, _I, _I, _I, _P],
     },
     "fused_ws": {
         "score": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
                   _P],
         "select": [_P, _P, _I, _I, _I, _P],
         "merge": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "merge_lanes": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _P],
         "fused_ws_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                            _I, _I, _I, _I, _I, _I, _P, _P],
     },
@@ -136,10 +144,18 @@ _SIGNATURES = {
 # entry points without an f32/f64 pair
 _PLAIN_SIGNATURES = {
     "cd_epoch": {"cluster_barrier_loop": [_I, _I, _I, _P],
+                 # K1l: float64 only
+                 "cd_epoch_gram_lanes_f64": [_P, _LL, _LL, _LL, _P, _P, _P,
+                                             _P, _P, _P, _I, _I, _I, _P, _I,
+                                             _P, _I, _I, _I, _I, _P],
                  "gram_chain_floor": [_I, _I, _I, _P, _P],
                  "fill_shared_memory": [_P],
                  "cluster_capacity": [_I, _I, _I, _I, _I, _I, _P]},
-    "fused_ws": {"fused_ws_block_splits": [_I, _I]},
+    "fused_ws": {"fused_ws_block_splits": [_I, _I],
+                 # K3 over lanes: float64 only (its product runs on DMMA)
+                 "fused_ws_lanes_f64": [_P, _P, _P, _P, _I, _P, _P, _P, _P,
+                                        _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                        _I, _I, _I, _P, _I, _P]},
     "csc_score": {"l2_gather_probe": [_P, _I, _I, _LL, _I, _P, _P]},
     "graph_ctl": {"cond_begin": [_P, _P, _I, _P, _P],
                   "cond_end": [_P, ctypes.c_ulonglong, _P],

@@ -24,6 +24,15 @@ the dynamic shared memory per CTA and the register path. The wrappers hand the p
 launchers as ints; a launch that the card refuses raises, and nothing
 retries on another layout.
 
+K1l and K2l (``cd_epoch_gram_lanes``, ``cd_epoch_xb_lanes``) are K1 and
+K2 over a lane dimension, the counterpart of ``pallas_call`` under the
+reference's ``vmap`` (the chunked driver and the CV grid): one launch runs
+S independent epochs, each lane on its own tensors and its own row of the
+codec vector, as a grid of S CTAs or S clusters of the single-lane plan.
+An active-lane mask freezes lanes: a frozen lane's CTAs copy its state
+through and return at entry. Their plain versions apply the single-lane
+plain version lane by lane, skipping the frozen lanes.
+
 A plan's cluster must be one the card can place: 16 CTAs is beyond the
 portable 8, and a MIG slice or a GPC with SMs taken may not hold it. Each
 plan function asks a placement test (by default ``card_placeable``, the
@@ -48,7 +57,9 @@ from .ref import cd_epoch_gram_ref, cd_epoch_xb_ref
 
 __all__ = ["KIND_IDS", "cd_epoch_gram_plain", "cd_epoch_xb_plain",
            "cd_epoch_gram_cuda", "cd_epoch_gram_block_cuda",
-           "cd_epoch_xb_cuda", "kernel_params", "EpochPlan", "GramPlan",
+           "cd_epoch_xb_cuda", "cd_epoch_gram_lanes_plain",
+           "cd_epoch_xb_lanes_plain", "cd_epoch_gram_lanes_cuda",
+           "cd_epoch_xb_lanes_cuda", "kernel_params", "EpochPlan", "GramPlan",
            "gram_plan", "xb_plan", "gram_block_plan", "BRANCHES",
            "SMEM_DYN_MAX", "cluster_barrier_cuda", "gram_chain_floor_cuda",
            "fill_shared_memory_cuda", "card_placeable", "placement",
@@ -271,22 +282,24 @@ _KIND_DATAFITS = {"quadratic": Quadratic(), "logistic": Logistic(),
                   "svc": QuadraticSVC()}
 
 
-def kernel_params(penalty_cls, params, device):
-    """(penalty id, the codec vector on `device`): the C launchers take a
-    pointer to the vector, which the kernels read at entry (a captured
-    launch reads the values bound at each replay). A vector on another
-    device is copied over, a blocking copy that a capture refuses: that
-    form exists only for untimed checks against the plain versions (which
-    take the host vector); the engine and the timed callers pass the
-    vector on the card already (``penalty_params(pen, device)``)."""
+def kernel_params(penalty_cls, params, device, lanes=None):
+    """(penalty id, the codec vector): the C launchers take a pointer to
+    the vector, which the kernels read at entry (a captured launch reads
+    the values bound at each replay). The vector is ``(arity,)``, or with
+    `lanes` ``(lanes, arity)`` (one row a lane), float64, and must lie on
+    `device`, the kernel's tensors' device: a vector elsewhere raises
+    (``penalty_params(pen, device)`` makes one there). The plain versions
+    take a vector on any device."""
     arity = penalty_arity(penalty_cls)
-    if params.dtype != torch.float64 or params.ndim != 1 or \
-            params.shape[0] != arity:
+    want = (arity,) if lanes is None else (lanes, arity)
+    if params.dtype != torch.float64 or tuple(params.shape) != want:
         raise ValueError(f"{penalty_cls.__name__}: params must be a float64 "
-                         f"vector of {arity} values, got {params.dtype} "
+                         f"tensor of shape {want}, got {params.dtype} "
                          f"{tuple(params.shape)}")
     if params.device != device:
-        params = params.to(device)
+        raise ValueError(f"{penalty_cls.__name__}: params must lie on the "
+                         f"kernel's device {device}, got {params.device} "
+                         f"(penalty_params(pen, device) makes it there)")
     return PENALTY_IDS[penalty_cls], params.contiguous()
 
 
@@ -316,6 +329,37 @@ def cd_epoch_xb_plain(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls, params,
     return cd_epoch_xb_ref(Xt_ws, y, beta0, Xb0, L, offset,
                            _KIND_DATAFITS[datafit_kind],
                            make_penalty(penalty_cls, params), epochs, w=w)
+
+
+def cd_epoch_gram_lanes_plain(G, c, beta0, q0, L, penalty_cls, params,
+                              active, *, epochs=1):
+    """K1l's plain version: K1's plain epoch on each active lane s of G
+    [S, K, K], c, beta0, q0, L [S, K] with params[s]; a frozen lane's
+    beta and q come back unchanged."""
+    beta, q = beta0.clone(), q0.clone()
+    for s in range(G.shape[0]):
+        if bool(active[s]):
+            beta[s], q[s] = cd_epoch_gram_plain(G[s], c[s], beta0[s], q0[s],
+                                                L[s], penalty_cls, params[s],
+                                                epochs=epochs)
+    return beta, q
+
+
+def cd_epoch_xb_lanes_plain(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls,
+                            params, active, datafit_kind="quadratic", *,
+                            w=None, epochs=1):
+    """K2l's plain version: K2's plain epoch on each active lane s of
+    Xt_ws [S, K, n], beta0, L, offset [S, K], Xb0 [S, n] with the shared y
+    [n], the weights w (None, [n] or [S, n]) and params[s]; a frozen
+    lane's beta and Xb come back unchanged."""
+    beta, Xb = beta0.clone(), Xb0.clone()
+    for s in range(Xt_ws.shape[0]):
+        if bool(active[s]):
+            ws = w if w is None or w.ndim == 1 else w[s]
+            beta[s], Xb[s] = cd_epoch_xb_plain(
+                Xt_ws[s], y, beta0[s], Xb0[s], L[s], offset[s], penalty_cls,
+                params[s], datafit_kind, w=ws, epochs=epochs)
+    return beta, Xb
 
 
 def cd_epoch_gram_cuda(G, c, beta0, q0, L, penalty_cls, params, *,
@@ -379,6 +423,68 @@ def cd_epoch_xb_cuda(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls, params,
                 int(plan.smem), plan.dyn_bytes, plan.threads, plan.per,
                 stream)
     _check_rc(rc, "cd_epoch_xb", plan)
+    return beta, Xb
+
+
+def _mask_ptr(active):
+    """The active-lane mask as the kernels read it (one byte a lane)."""
+    return active.to(torch.uint8).contiguous()
+
+
+def cd_epoch_gram_lanes_cuda(G, c, beta0, q0, L, penalty_cls, params, active,
+                             *, plan, epochs=1):
+    """Launch K1l on the tensors' stream: K1 with `plan` (a ``gram_plan``
+    of one lane's K) on each lane of G [S, K, K] (each lane with K1's
+    strides), c, beta0, q0, L contiguous [S, K], params [S, arity] on the
+    card and the bool mask `active` [S]; float64 only. Returns (beta,
+    q)."""
+    if G.dtype != torch.float64:
+        raise TypeError("cd_epoch_gram_lanes: the card runs it in float64 "
+                        "only")
+    fn = BUILD.lib("cd_epoch").cd_epoch_gram_lanes_f64
+    S, K = beta0.shape
+    pid, prm = kernel_params(penalty_cls, params, G.device, lanes=S)
+    mask = _mask_ptr(active)
+    beta, q = torch.empty_like(beta0), torch.empty_like(q0)
+    with torch.cuda.device(G.device):
+        stream = torch.cuda.current_stream(G.device).cuda_stream
+        rc = fn(G.data_ptr(), G.stride(1), G.stride(2), G.stride(0),
+                c.data_ptr(), L.data_ptr(), beta0.data_ptr(), q0.data_ptr(),
+                beta.data_ptr(), q.data_ptr(), K, epochs, pid,
+                prm.data_ptr(), prm.shape[1], mask.data_ptr(), S,
+                plan.cluster, plan.dyn_bytes, plan.threads, stream)
+    _check_rc(rc, "cd_epoch_gram_lanes", plan)
+    return beta, q
+
+
+def cd_epoch_xb_lanes_cuda(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls,
+                           params, active, datafit_kind="quadratic", *, plan,
+                           w=None, epochs=1):
+    """Launch K2l on the tensors' stream: K2 with `plan` (an ``xb_plan``
+    of n) on each lane of Xt_ws contiguous [S, K, n], beta0, L, offset
+    [S, K], Xb0 [S, n], the shared y [n], w None, [n] or [S, n], params
+    [S, arity] on the card and the bool mask `active` [S]. Returns
+    (beta, Xb)."""
+    fn = getattr(BUILD.lib("cd_epoch"), f"cd_epoch_xb_lanes_{_suffix(Xt_ws)}")
+    S, K, n = Xt_ws.shape
+    pid, prm = kernel_params(penalty_cls, params, Xt_ws.device, lanes=S)
+    mask = _mask_ptr(active)
+    beta, Xb = torch.empty_like(beta0), torch.empty_like(Xb0)
+    per_lane = (plan.cluster - 1) * K + (0 if plan.smem else n)
+    scratch = torch.empty(max(1, S * per_lane), dtype=Xt_ws.dtype,
+                          device=Xt_ws.device)
+    w_lane = 0 if w is None or w.ndim == 1 else n
+    with torch.cuda.device(Xt_ws.device):
+        stream = torch.cuda.current_stream(Xt_ws.device).cuda_stream
+        rc = fn(Xt_ws.data_ptr(), y.data_ptr(),
+                None if w is None else w.data_ptr(), w_lane, L.data_ptr(),
+                offset.data_ptr(), beta0.data_ptr(), Xb0.data_ptr(),
+                beta.data_ptr(), Xb.data_ptr(), scratch.data_ptr(), per_lane,
+                K, n, epochs, KIND_IDS[datafit_kind], pid, prm.data_ptr(),
+                prm.shape[1], mask.data_ptr(), S, plan.cluster,
+                int(plan.smem), plan.dyn_bytes, plan.threads, plan.per,
+                stream)
+    _check_rc(rc, "cd_epoch_xb_lanes", plan)
     return beta, Xb
 
 

@@ -20,6 +20,17 @@ block penalty, or the row norm of the fixed-point difference). In float64
 its product runs on the tensor cores (DMMA); its select launch is K3's,
 and its wrapper takes the working set with ``select_working_set``.
 
+K3l (``fused_ws_lanes``) is K3 over S lanes that share X, the chunked
+driver's dense head (``fused_ws_pallas`` under the reference's ``vmap``):
+for each lane s, ``grad_s = Xt @ R[:, s] + offset``, its scalar scores
+with its own beta, L and row of the codec vector, and its working set.
+X is read once for all lanes: the gradient is K3b's float64 product
+launch (DMMA) on R [n, S] with the reduce launch into a [p, S] buffer,
+then a lane epilogue (one thread a (feature, lane)) writes each lane's
+scores, gradient and priorities, and K3's select and merge launches run
+with a lane index on their grids. Float64 only on the card. Its plain
+version applies K3's lane by lane.
+
 The plain version below covers both forms and keeps the four outputs
 (``cand_cols``, the candidates' rows of Xt, included): it is the oracle
 both heads are held to, and ``candidate_columns`` recovers the working
@@ -38,7 +49,8 @@ from .common import make_penalty
 
 __all__ = ["pick_bp", "fused_ws_plain", "fused_ws_cuda", "score_cuda",
            "select_cuda", "merge_cuda", "fused_ws_block_cuda", "MMA_TASKS",
-           "MERGE_SMEM_K"]
+           "MERGE_SMEM_K", "fused_ws_lanes_plain", "fused_ws_lanes_cuda",
+           "merge_lanes_cuda"]
 
 # tasks a pass of K3b's float64 product launch (csrc/fused_ws.cu: kMmaT)
 MMA_TASKS = 24
@@ -83,6 +95,19 @@ def fused_ws_plain(Xt, r, beta, L, offset, gsupp, penalty_cls, params,
     cand_cols = torch.where(valid[:, None], Xt[torch.clamp(gidx, max=p - 1)],
                             0.0)
     return scores, grad, cand_idx, cand_cols
+
+
+def fused_ws_lanes_plain(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
+                         ws_size, *, use_fp=False, bp=None):
+    """K3l's plain version: K3's on each lane s (raw R[:, s], beta[s],
+    L[s], gsupp[s], params[s]; offset shared). Returns the four outputs
+    stacked over the lanes: scores, grad [S, p], cand_idx [S, C] and
+    cand_cols [S, C, n]."""
+    outs = [fused_ws_plain(Xt, R[:, s], beta[s], L[s], offset, gsupp[s],
+                           penalty_cls, params[s], ws_size, use_fp=use_fp,
+                           bp=bp)
+            for s in range(beta.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
 
 
 def score_cuda(Xt, r, beta, L, offset, penalty_cls, params, *, w=None,
@@ -219,3 +244,72 @@ def fused_ws_block_cuda(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
                 int(bool(use_fp)), prm.data_ptr(), stream)
     _check_rc(rc, "fused_ws_block")
     return scores, grad, cand_idx
+
+
+def fused_ws_lanes_cuda(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
+                        ws_size, *, use_fp=False, bp=None):
+    """Launch K3l on the tensors' stream (float64): Xt contiguous [p, n],
+    R contiguous [n, S], beta and gsupp contiguous [S, p], L [S, p] with a
+    lane stride of p or 0, params [S, arity] on the card. Returns (scores,
+    grad, cand_idx [S, tiles * kc], ws [S, ws_size]): no candidate rows
+    are copied."""
+    if Xt.dtype != torch.float64:
+        raise TypeError("fused_ws_lanes: the card runs it in float64 only "
+                        "(its product is the float64 tensor-core launch)")
+    lib = BUILD.lib("fused_ws")
+    p, n = Xt.shape
+    S = R.shape[1]
+    bp, tiles, kc = _tiling(p, ws_size, bp)
+    pid, prm = kernel_params(penalty_cls, params, Xt.device, lanes=S)
+    scores, grad, pri = (torch.empty_like(beta) for _ in range(3))
+    gradT = torch.empty((p, S), dtype=Xt.dtype, device=Xt.device)
+    cand_idx = torch.empty((S, tiles * kc), dtype=torch.int32,
+                           device=Xt.device)
+    splits = _mma_splits(Xt)
+    part = torch.empty(splits * p * MMA_TASKS, dtype=Xt.dtype,
+                       device=Xt.device)
+    gs = gsupp.to(torch.uint8)
+    with torch.cuda.device(Xt.device):
+        stream = torch.cuda.current_stream(Xt.device).cuda_stream
+        rc = lib.fused_ws_lanes_f64(
+            Xt.data_ptr(), R.data_ptr(), beta.data_ptr(), L.data_ptr(),
+            L.stride(0), offset.data_ptr(), gs.data_ptr(), scores.data_ptr(),
+            grad.data_ptr(), pri.data_ptr(), cand_idx.data_ptr(),
+            gradT.data_ptr(), part.data_ptr(), splits, n, p, S, bp, kc, pid,
+            int(bool(use_fp)), prm.data_ptr(), prm.shape[1], stream)
+    _check_rc(rc, "fused_ws_lanes")
+    return scores, grad, cand_idx, merge_lanes_cuda(pri, cand_idx, bp,
+                                                    ws_size)
+
+
+def merge_lanes_cuda(pri, cand_idx, bp, ws_size):
+    """K3's merge launch with a lane index on its grid: each lane's working
+    set from its priorities pri [S, p] and tiles' lists cand_idx [S, C]
+    (int64 [S, ws_size])."""
+    fn = getattr(BUILD.lib("fused_ws"), f"merge_lanes_{_suffix(pri)}")
+    S, p = pri.shape
+    tiles = -(-p // bp)
+    kc = cand_idx.shape[1] // tiles
+    ctas = min(tiles, math.ceil(math.sqrt(tiles)))
+    dev = pri.device
+
+    def scratch(entries):
+        return (torch.empty(S * entries, dtype=pri.dtype, device=dev),
+                torch.empty(S * entries, dtype=torch.int32, device=dev))
+
+    part_pri, part_idx = scratch(ctas * ws_size)
+    gbuf_pri = gbuf_idx = None
+    if ws_size > MERGE_SMEM_K:
+        gbuf_pri, gbuf_idx = scratch(3 * ctas * ws_size)
+    counter = torch.zeros(S, dtype=torch.int32, device=dev)
+    ws = torch.empty((S, ws_size), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(pri.data_ptr(), cand_idx.data_ptr(), part_pri.data_ptr(),
+                part_idx.data_ptr(),
+                None if gbuf_pri is None else gbuf_pri.data_ptr(),
+                None if gbuf_idx is None else gbuf_idx.data_ptr(),
+                counter.data_ptr(), ws.data_ptr(), p, bp, kc, ws_size, ctas,
+                S, stream)
+    _check_rc(rc, "merge_lanes")
+    return ws

@@ -19,9 +19,14 @@ kernel to the plain version. ``launches`` is a plain int on the wrapper;
   cd_epoch_gram_block  K1b, K1 on multitask blocks beta [K, T]
   fused_ws_block       K3b, K3 on blocks: raw [n, T], beta [p, T]
   csc_score_block      K5b, K5 on a raw gradient [n, T] -> [p, T]
+  cd_epoch_gram_lanes  K1l, K1 over S lanes in one launch (the chunked
+                       driver and the CV grid), with an active-lane mask
+  cd_epoch_xb_lanes    K2l, K2 over S lanes in one launch, with the mask
+  fused_ws_lanes       K3l, K3 over S lanes sharing X (X read once)
 
-The block forms have counters of their own, so a run can tell the block
-launches from the scalar ones. K1, K2 and K1b also count their launches by
+The block and lane forms have counters of their own, so a run can tell
+them from the single-lane scalar launches. K1, K2, K1b, K1l and K2l also
+count their launches by
 the branch their shape's plan took (``kernels/cd_epoch.py``:
 ``gram_plan``, ``xb_plan``, ``gram_block_plan``) in ``branch_launches``, a
 dict over ``BRANCHES`` ("single", "cluster-shared", "cluster-global"),
@@ -40,21 +45,24 @@ from contextlib import contextmanager
 import torch
 
 from .cd_epoch import (BRANCHES, KIND_IDS, cd_epoch_gram_block_cuda,
-                       cd_epoch_gram_cuda, cd_epoch_gram_plain,
-                       cd_epoch_xb_cuda, cd_epoch_xb_plain, gram_block_plan,
-                       gram_plan, xb_plan)
+                       cd_epoch_gram_cuda, cd_epoch_gram_lanes_cuda,
+                       cd_epoch_gram_lanes_plain, cd_epoch_gram_plain,
+                       cd_epoch_xb_cuda, cd_epoch_xb_lanes_cuda,
+                       cd_epoch_xb_lanes_plain, cd_epoch_xb_plain,
+                       gram_block_plan, gram_plan, xb_plan)
 from .common import (UnsupportedPenaltyError, check_block_kernel_penalty,
                      check_kernel_penalty, check_score_kernel_penalty,
                      make_penalty, penalty_params)
 from .csc_score import csc_score_block_cuda, csc_score_cuda, csc_score_plain
 from ..core.working_set import candidate_columns, select_working_set
-from .fused_ws import (fused_ws_block_cuda, fused_ws_cuda, fused_ws_plain,
-                       score_cuda)
+from .fused_ws import (fused_ws_block_cuda, fused_ws_cuda, fused_ws_lanes_cuda,
+                       fused_ws_lanes_plain, fused_ws_plain, score_cuda)
 from .ws_score import ws_score_plain
 
 __all__ = ["cd_epoch_gram", "cd_epoch_xb", "fused_ws", "ws_score",
            "csc_score", "csc_weighted_col_sq", "cd_epoch_gram_block",
-           "fused_ws_block", "csc_score_block", "KERNELS",
+           "fused_ws_block", "csc_score_block", "cd_epoch_gram_lanes",
+           "cd_epoch_xb_lanes", "fused_ws_lanes", "KERNELS",
            "launch_counts", "reset_launch_counts", "branch_counts",
            "cluster_counts", "deferred_launches", "add_launches",
            "penalty_params",
@@ -212,6 +220,80 @@ def cd_epoch_xb(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls, params,
     return out
 
 
+def _check_mask(name, S, active, device):
+    if active.dtype != torch.bool or tuple(active.shape) != (S,) or \
+            active.device != device:
+        raise TypeError(f"{name}: active must be a bool [{S}] mask on "
+                        f"{device}, got {active.dtype} "
+                        f"{tuple(active.shape)} on {active.device}")
+
+
+def cd_epoch_gram_lanes(G, c, beta0, q0, L, penalty_cls, params, active, *,
+                        epochs=1):
+    """K1l: K1's `epochs` on each of S lanes in one launch. G: [S, K, K]
+    (each lane any strides; column-major makes the kernel's column reads
+    contiguous); c, beta0, q0, L: contiguous [S, K]; params: [S, arity],
+    a row a lane; active: bool [S] (a frozen lane comes back unchanged).
+    Float64 on the card. Returns (beta, q)."""
+    check_kernel_penalty(penalty_cls)
+    on_card = _route("cd_epoch_gram_lanes", G=G, c=c, beta0=beta0, q0=q0,
+                     L=L)
+    if G.ndim != 3 or G.shape[1] != G.shape[2]:
+        raise ValueError(f"cd_epoch_gram_lanes: G must be [S, K, K], got "
+                         f"{tuple(G.shape)}")
+    S, K = G.shape[:2]
+    _check_mat("cd_epoch_gram_lanes", S, K, c=c, beta0=beta0, q0=q0, L=L)
+    _check_mask("cd_epoch_gram_lanes", S, active, G.device)
+    if not on_card:
+        return cd_epoch_gram_lanes_plain(G, c, beta0, q0, L, penalty_cls,
+                                         params, active, epochs=epochs)
+    plan = gram_plan(K, G.dtype)
+    out = cd_epoch_gram_lanes_cuda(G, c, beta0, q0, L, penalty_cls, params,
+                                   active, epochs=epochs, plan=plan)
+    _count(cd_epoch_gram_lanes, plan)
+    return out
+
+
+def cd_epoch_xb_lanes(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls, params,
+                      active, datafit_kind="quadratic", *, w=None, epochs=1):
+    """K2l: K2's `epochs` on each of S lanes in one launch. Xt_ws:
+    contiguous [S, K, n]; y: [n], shared; beta0, L, offset: contiguous
+    [S, K]; Xb0: contiguous [S, n]; w: None, [n] or [S, n]; params: [S,
+    arity]; active: bool [S]. Returns (beta, Xb)."""
+    check_kernel_penalty(penalty_cls)
+    if datafit_kind not in KIND_IDS:
+        raise ValueError(f"cd_epoch_xb_lanes: unknown datafit kind "
+                         f"{datafit_kind!r}")
+    if datafit_kind == "svc" and w is not None:
+        raise ValueError("QuadraticSVC does not support sample weights")
+    extra = {} if w is None else {"w": w}
+    on_card = _route("cd_epoch_xb_lanes", Xt_ws=Xt_ws, y=y, beta0=beta0,
+                     Xb0=Xb0, L=L, offset=offset, **extra)
+    if Xt_ws.ndim != 3 or not Xt_ws.is_contiguous():
+        raise ValueError("cd_epoch_xb_lanes: Xt_ws must be a contiguous "
+                         f"[S, K, n] tensor, got shape {tuple(Xt_ws.shape)}")
+    S, K, n = Xt_ws.shape
+    _check_vec("cd_epoch_xb_lanes", n, y=y)
+    _check_mat("cd_epoch_xb_lanes", S, K, beta0=beta0, L=L, offset=offset)
+    _check_mat("cd_epoch_xb_lanes", S, n, Xb0=Xb0)
+    if w is not None:
+        if w.ndim == 1:
+            _check_vec("cd_epoch_xb_lanes", n, w=w)
+        else:
+            _check_mat("cd_epoch_xb_lanes", S, n, w=w)
+    _check_mask("cd_epoch_xb_lanes", S, active, Xt_ws.device)
+    if not on_card:
+        return cd_epoch_xb_lanes_plain(Xt_ws, y, beta0, Xb0, L, offset,
+                                       penalty_cls, params, active,
+                                       datafit_kind, w=w, epochs=epochs)
+    plan = xb_plan(n, w is not None, Xt_ws.dtype)
+    out = cd_epoch_xb_lanes_cuda(Xt_ws, y, beta0, Xb0, L, offset,
+                                 penalty_cls, params, active, datafit_kind,
+                                 w=w, epochs=epochs, plan=plan)
+    _count(cd_epoch_xb_lanes, plan)
+    return out
+
+
 def _plain_head(Xt, r, beta, L, offset, gsupp, penalty_cls, params,
                 ws_size, use_fp, bp):
     """The CPU route of K3 and K3b: the plain version's four outputs, the
@@ -295,6 +377,57 @@ def fused_ws_block(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
     _count(fused_ws_block)
     ws = select_working_set(scores, gsupp, ws_size)
     return scores, grad, cand_idx, ws, Xt.index_select(0, ws)
+
+
+def fused_ws_lanes(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
+                   ws_size, *, use_fp=False, bp=None):
+    """K3l: K3's head on S lanes over the shared feature-major design Xt
+    [p, n] (contiguous), X read once. R: contiguous [n, S] (a lane's raw
+    gradient a column); beta, gsupp (bool): contiguous [S, p]; L: [S, p],
+    its lanes p apart or one row broadcast (stride 0); offset: [p];
+    params: [S, arity]. Returns ``(scores [S, p], grad [S, p], cand_idx
+    [S, C] int32, ws [S, ws_size], Xt_ws [S, ws_size, n])``, each lane as
+    K3 returns it."""
+    check_kernel_penalty(penalty_cls)
+    on_card = _route("fused_ws_lanes", Xt=Xt, R=R, beta=beta, L=L,
+                     offset=offset)
+    if Xt.ndim != 2 or not Xt.is_contiguous():
+        raise ValueError("fused_ws_lanes: Xt must be a contiguous [p, n] "
+                         f"matrix, got shape {tuple(Xt.shape)}")
+    p, n = Xt.shape
+    if R.ndim != 2:
+        raise ValueError("fused_ws_lanes: R must be [n, S], got shape "
+                         f"{tuple(R.shape)}")
+    S = R.shape[1]
+    _check_mat("fused_ws_lanes", n, S, R=R)
+    _check_mat("fused_ws_lanes", S, p, beta=beta, gsupp=gsupp)
+    if L.shape != (S, p) or L.stride(1) != 1 or L.stride(0) not in (0, p):
+        raise ValueError(f"fused_ws_lanes: L must be [{S}, {p}] with rows "
+                         f"{p} apart or broadcast, got {tuple(L.shape)} "
+                         f"strides {L.stride()}")
+    _check_vec("fused_ws_lanes", p, offset=offset)
+    if gsupp.dtype != torch.bool or gsupp.device != Xt.device:
+        raise TypeError("fused_ws_lanes: gsupp must be a bool mask on Xt's "
+                        "device")
+    if not 1 <= ws_size <= p:
+        raise ValueError(f"fused_ws_lanes: ws_size must be in [1, {p}], got "
+                         f"{ws_size}")
+    if not on_card:
+        scores, grad, cand_idx, cand_cols = fused_ws_lanes_plain(
+            Xt, R, beta, L, offset, gsupp, penalty_cls, params, ws_size,
+            use_fp=use_fp, bp=bp)
+        ws = torch.stack([select_working_set(scores[s], gsupp[s], ws_size)
+                          for s in range(S)])
+        Xt_ws = torch.stack([candidate_columns(cand_idx[s], cand_cols[s],
+                                               ws[s], p).T
+                             for s in range(S)])
+        return scores, grad, cand_idx, ws, Xt_ws
+    scores, grad, cand_idx, ws = fused_ws_lanes_cuda(
+        Xt, R, beta, L, offset, gsupp, penalty_cls, params, ws_size,
+        use_fp=use_fp, bp=bp)
+    _count(fused_ws_lanes)
+    return (scores, grad, cand_idx, ws,
+            Xt.index_select(0, ws.reshape(-1)).view(S, ws_size, n))
 
 
 def ws_score(Xt, r, beta, L, offset, penalty_cls, params, *, w=None,
@@ -386,9 +519,11 @@ def csc_score_block(data, indices, col_ids, indptr, raw):
 
 KERNELS = (cd_epoch_gram, cd_epoch_xb, fused_ws, ws_score, csc_score,
            csc_weighted_col_sq, cd_epoch_gram_block, fused_ws_block,
-           csc_score_block)
+           csc_score_block, cd_epoch_gram_lanes, cd_epoch_xb_lanes,
+           fused_ws_lanes)
 # the kernels with more than one launch branch
-BRANCHED = (cd_epoch_gram, cd_epoch_xb, cd_epoch_gram_block)
+BRANCHED = (cd_epoch_gram, cd_epoch_xb, cd_epoch_gram_block,
+            cd_epoch_gram_lanes, cd_epoch_xb_lanes)
 
 
 def reset_launch_counts():
@@ -404,13 +539,13 @@ def launch_counts() -> dict:
 
 
 def branch_counts() -> dict:
-    """{kernel name: {branch: launches}} for K1, K2 and K1b."""
+    """{kernel name: {branch: launches}} for K1, K2, K1b, K1l and K2l."""
     return {k.__name__: dict(k.branch_launches) for k in BRANCHED}
 
 
 def cluster_counts() -> dict:
-    """{kernel name: {cluster size: launches}} for K1, K2 and K1b (1: one
-    CTA): where the plans stepped down, it shows."""
+    """{kernel name: {cluster size: launches}} for K1, K2, K1b, K1l and
+    K2l (1: one CTA): where the plans stepped down, it shows."""
     return {k.__name__: dict(sorted(k.cluster_launches.items()))
             for k in BRANCHED}
 

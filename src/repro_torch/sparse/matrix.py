@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core.engine import Design
 from ..kernels import ops as kops
 from .ops import (csc_column_windows, csc_gather_columns, csc_incremental_xb,
                   csc_matvec, csc_score, csc_score_ell, csc_weighted_col_sq)
@@ -50,7 +51,7 @@ def _ell_from_flat(data, indices, col_ids, indptr, m):
 
 
 @dataclass(frozen=True)
-class CSCDesign:
+class CSCDesign(Design):
     """CSC design on one device: data/indices/col_ids [nnz + m]
     (window-padded), indptr [p + 1], col_sq [p]; ``shape`` (n, p), the max
     column nnz ``max_col_nnz`` (m) and the ELL flag ``ell``."""

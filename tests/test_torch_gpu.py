@@ -72,7 +72,7 @@ def test_k1_cuda_matches_plain(cuda, pen):
     G, c, beta0, q0, L = _on(cuda, G, X.T @ rng.standard_normal(3 * K) /
                              (3 * K), beta0, G @ beta0, np.diag(G))
     G = G.t().contiguous().t()                  # column-major, as the engine
-    args = (G, c, beta0, q0, L, type(pen), penalty_params(pen))
+    args = (G, c, beta0, q0, L, type(pen), penalty_params(pen, cuda))
     for epochs in (1, 5):
         n0 = ops.cd_epoch_gram.launches
         bk, qk = ops.cd_epoch_gram(*args, epochs=epochs)
@@ -99,7 +99,8 @@ def test_k2_cuda_matches_plain(cuda, kind, weighted):
     Xt, y, beta0, Xb0, L, off, w = _on(cuda, Xt, y, beta0, beta0 @ Xt, L,
                                        off, w * (n / w.sum()))
     pen = P.Box(0.9) if kind == "svc" else P.L1(0.07)
-    args = (Xt, y, beta0, Xb0, L, off, type(pen), penalty_params(pen), kind)
+    args = (Xt, y, beta0, Xb0, L, off, type(pen), penalty_params(pen, cuda),
+            kind)
     wt = w if weighted else None
     bk, xk = ops.cd_epoch_xb(*args, w=wt, epochs=2)
     br, xr = cd_epoch_xb_plain(*args, w=wt, epochs=2)
@@ -140,8 +141,8 @@ def test_k3_cuda_matches_plain(cuda, pen, use_fp):
                               np.sum(X * X, axis=0) / n, np.zeros(p))
     gs = pen.generalized_support(beta)
     for ws in (64, 1024):
-        _k3_check((Xt, r, beta, L, off, gs, type(pen), penalty_params(pen),
-                   ws), use_fp=use_fp)
+        _k3_check((Xt, r, beta, L, off, gs, type(pen),
+                   penalty_params(pen, cuda), ws), use_fp=use_fp)
 
 
 @pytest.mark.gpu
@@ -160,7 +161,7 @@ def test_k3_cuda_score_launch_matches_plain(cuda, n, p):
         rng.standard_normal(p) * 0.01, rng.random(n) + 0.5)
     pen = P.MCP(0.11, 3.0)
     gs = pen.generalized_support(beta)
-    args = (Xt, r, beta, L, off, P.MCP, penalty_params(pen))
+    args = (Xt, r, beta, L, off, P.MCP, penalty_params(pen, cuda))
     sk, gk, pk = score_cuda(*args, gsupp=gs)
     sr, gr, ir, _ = fused_ws_plain(*args[:5], gs, *args[5:], min(64, p))
     torch.testing.assert_close(sk, sr, atol=1e-12, rtol=1e-11)
@@ -222,7 +223,7 @@ def test_k3_cuda_exact_ties(cuda):
         for use_fp in (False, True):
             for ws in (64, 1024):
                 _k3_check((Xt, r, beta, L, off, gs, type(pen),
-                           penalty_params(pen), ws), use_fp=use_fp,
+                           penalty_params(pen, cuda), ws), use_fp=use_fp,
                           exact=i < 3 and not use_fp)
 
 
@@ -239,7 +240,7 @@ def test_k3_cuda_allocates_no_candidate_buffer(cuda, n, p, ws):
                               np.ones(p), np.zeros(p))
     pen = P.L1(0.1)
     gs = pen.generalized_support(beta)
-    args = (Xt, r, beta, L, off, gs, P.L1, penalty_params(pen), ws)
+    args = (Xt, r, beta, L, off, gs, P.L1, penalty_params(pen, cuda), ws)
     assert pick_bp(p) <= ws
     ops.fused_ws(*args)                           # builds the library
     torch.cuda.synchronize()
@@ -298,7 +299,7 @@ def test_k2_cuda_matches_plain_at_n50k(cuda):
     Xt, y, beta0, Xb0, L, off, w = _on(cuda, Xt, y, beta0, beta0 @ Xt,
                                        np.sum(Xt * Xt, axis=1) / (4 * n),
                                        np.zeros(K), w * (n / w.sum()))
-    args = (Xt, y, beta0, Xb0, L, off, P.L1, penalty_params(P.L1(0.002)),
+    args = (Xt, y, beta0, Xb0, L, off, P.L1, penalty_params(P.L1(0.002), cuda),
             "logistic")
     for wt in (None, w):
         bk, xk = ops.cd_epoch_xb(*args, w=wt, epochs=2)
@@ -318,7 +319,7 @@ def test_k4_cuda_matches_plain(cuda, pen):
                                  np.sum(X * X, axis=0) / n,
                                  rng.standard_normal(p) * 0.01,
                                  rng.random(n) * 2.0)
-    args = (Xt, r, beta, L, off, type(pen), penalty_params(pen))
+    args = (Xt, r, beta, L, off, type(pen), penalty_params(pen, cuda))
     for use_fp in (False, True):
         for wt in (None, w):
             n0 = ops.ws_score.launches
@@ -493,7 +494,7 @@ def test_k1b_cuda_matches_plain(cuda, pen, K, T):
     """K1b in shared memory (K * T values fit) and in global memory
     (K = 2048, T = 20)."""
     G, c, beta0, q0, L = _gram_block_inputs(K, T, cuda)
-    args = (G, c, beta0, q0, L, type(pen), penalty_params(pen))
+    args = (G, c, beta0, q0, L, type(pen), penalty_params(pen, cuda))
     for epochs in (1, 3):
         n0 = ops.cd_epoch_gram_block.launches
         bk, qk = ops.cd_epoch_gram_block(*args, epochs=epochs)
@@ -528,7 +529,7 @@ def test_k3b_cuda_matches_plain(cuda, pen, use_fp, n, p, T):
                               rng.standard_normal(p) * 0.01)
     gs = pen.generalized_support(beta)
     for ws in (64, 512):
-        args = (Xt, R, beta, L, off, gs, type(pen), penalty_params(pen),
+        args = (Xt, R, beta, L, off, gs, type(pen), penalty_params(pen, cuda),
                 min(ws, p))
         n0 = ops.fused_ws_block.launches
         fill_shared_memory_cuda(cuda)
@@ -699,7 +700,7 @@ def _xb_case(kind, weighted, K, n, dev, seed=8):
     pen = P.Box(0.9) if kind == "svc" else \
         P.L1(0.5 * float(np.median(np.abs(Xt @ raw))))
     Xt, y, beta0, Xb0, L, off, w = _on(dev, Xt, y, beta0, Xb0, L, off, w)
-    return (Xt, y, beta0, Xb0, L, off, type(pen), penalty_params(pen),
+    return (Xt, y, beta0, Xb0, L, off, type(pen), penalty_params(pen, dev),
             kind), (w if weighted else None)
 
 
@@ -778,7 +779,7 @@ def test_k1b_plan_branch_matches_plain(cuda, pen, K, T):
     bit for bit, and the plan's branch counter moved."""
     from repro_torch.kernels.cd_epoch import gram_block_plan
     G, c, beta0, q0, L = _gram_block_case(K, T, cuda)
-    args = (G, c, beta0, q0, L, type(pen), penalty_params(pen))
+    args = (G, c, beta0, q0, L, type(pen), penalty_params(pen, cuda))
     plan = gram_block_plan(K, T, torch.float64)
     for epochs in (1, 3):
         c0 = ops.branch_counts()["cd_epoch_gram_block"]
@@ -807,7 +808,7 @@ def test_k1b_cluster_equals_single_cta(cuda, K, T, C):
                                               gram_block_plan)
     G, c, beta0, q0, L = _gram_block_case(K, T, cuda, seed=K)
     args = (G, c, beta0, q0, L, P.BlockMCP, penalty_params(
-        P.BlockMCP(0.11, 3.0)))
+        P.BlockMCP(0.11, 3.0), cuda))
     single = gram_block_plan(K, T, torch.float64, cluster=1)
     if single.dyn_bytes > SMEM_DYN_MAX:
         single = gram_block_plan(K, T, torch.float64, cluster=16)
@@ -838,7 +839,7 @@ def test_refused_plan_raises(cuda):
     for C in (1, 16):
         with pytest.raises(RuntimeError, match="cudaError"):
             cd_epoch_gram_block_cuda(G, c, beta0, q0, L, P.BlockL1,
-                                     penalty_params(P.BlockL1(0.1)),
+                                     penalty_params(P.BlockL1(0.1), cuda),
                                      plan=EpochPlan(C, True, too_big, 256,
                                                     0))
 
@@ -909,7 +910,7 @@ def test_k1_plan_matches_plain(cuda, pen, K):
     plan's branch."""
     from repro_torch.kernels.cd_epoch import gram_plan
     G, c, beta0, q0, L = _k1_case(K, cuda, seed=K)
-    prm = penalty_params(pen)
+    prm = penalty_params(pen, cuda)
     refs = _k1_refs((G, c, beta0, q0, L, type(pen), prm), (1, 3))
     branch = gram_plan(K, torch.float64).branch
     for layout in (G, G.contiguous()):
@@ -931,7 +932,7 @@ def test_k1_reads_no_unwritten_shared_memory(cuda, pen, K):
     epochs 1 and 3, stay within the plain version's bound and equal bit
     for bit."""
     G, c, beta0, q0, L = _k1_case(K, cuda, seed=K + 7)
-    args = (G, c, beta0, q0, L, type(pen), penalty_params(pen))
+    args = (G, c, beta0, q0, L, type(pen), penalty_params(pen, cuda))
     _k1_check(args, _k1_refs(args, (1, 3)), fill=True)
 
 
@@ -945,7 +946,7 @@ def test_k1_forced_layouts_equal(cuda, pen, K):
     needs K > 64)."""
     from repro_torch.kernels.cd_epoch import cd_epoch_gram_cuda, gram_plan
     G, c, beta0, q0, L = _k1_case(K, cuda, seed=K + 1)
-    args = (G, c, beta0, q0, L, type(pen), penalty_params(pen))
+    args = (G, c, beta0, q0, L, type(pen), penalty_params(pen, cuda))
     f64 = torch.float64
     plans = [gram_plan(K, f64, cluster=1),
              gram_plan(K, f64, cluster=1, threads=64),
@@ -971,7 +972,7 @@ def test_k1_blocks_without_moves(cuda, K):
     L = L.clone()
     L[32:64] = 0.0
     for pen, b0 in ((P.L1(0.11), beta0), (P.L1(1e6), torch.zeros_like(beta0))):
-        args = (G, c, b0, G @ b0, L, P.L1, penalty_params(pen))
+        args = (G, c, b0, G @ b0, L, P.L1, penalty_params(pen, cuda))
         outs = _k1_check(args, _k1_refs(args, (1, 3)))
         for beta, q in outs.values():
             assert torch.equal(beta[32:64], b0[32:64])
@@ -984,7 +985,7 @@ def test_k1_float32_matches_plain(cuda):
     """float32 on the same schedule, against the float32 plain version."""
     G, c, beta0, q0, L = (t.float() for t in _k1_case(1025, cuda, seed=4))
     G = G.t().contiguous().t()
-    args = (G, c, beta0, q0, L, P.MCP, penalty_params(P.MCP(0.11, 3.0)))
+    args = (G, c, beta0, q0, L, P.MCP, penalty_params(P.MCP(0.11, 3.0), cuda))
     for epochs in (1, 3):
         got = ops.cd_epoch_gram(*args, epochs=epochs)
         assert _same(got, ops.cd_epoch_gram(*args, epochs=epochs))
@@ -1003,7 +1004,7 @@ def test_k1_refused_plan_raises(cuda):
     f64 = torch.float64
     for K in (64, 1025):
         G, c, beta0, q0, L = _k1_case(K, cuda)
-        args = (G, c, beta0, q0, L, P.L1, penalty_params(P.L1(0.1)))
+        args = (G, c, beta0, q0, L, P.L1, penalty_params(P.L1(0.1), cuda))
         plan = gram_plan(K, f64)
         bad = [plan._replace(threads=32), plan._replace(threads=1024),
                plan._replace(dyn_bytes=300_000),
@@ -1113,12 +1114,12 @@ def test_forced_cluster_sizes_match_plain(cuda, C):
                                               gram_block_plan, gram_plan,
                                               xb_plan)
     f64 = torch.float64
-    args = _k1_case(1024, cuda) + (P.L1, penalty_params(P.L1(0.05)))
+    args = _k1_case(1024, cuda) + (P.L1, penalty_params(P.L1(0.05), cuda))
     got = cd_epoch_gram_cuda(*args, epochs=3,
                              plan=gram_plan(1024, f64, cluster=C))
     assert _same(got, cd_epoch_gram_plain(*args, epochs=3))
     bargs = _gram_block_case(1024, 20, cuda) + (
-        P.BlockL1, penalty_params(P.BlockL1(0.11)))
+        P.BlockL1, penalty_params(P.BlockL1(0.11), cuda))
     got = cd_epoch_gram_block_cuda(*bargs, epochs=3, plan=gram_block_plan(
         1024, 20, f64, cluster=C))
     assert _same(got, cd_epoch_gram_plain(*bargs, epochs=3))
@@ -1245,11 +1246,16 @@ def _param_case(name, dev):
 @pytest.mark.parametrize("name", ["k1", "k1b", "k2", "k3", "k3b", "k4"])
 def test_kernel_params_from_device_buffer(cuda, name):
     """K1, K1b, K2, K3, K3b and K4 read the penalty's hyper-parameters from
-    a vector on the card: with it they equal their plain versions as with
-    the host vector, and a graph captured over a static vector at one
-    (lam, gamma) and replayed after new values are written into it equals
-    an eager launch at the new values bit for bit."""
+    a vector on the card, and refuse one on the host: with it they equal
+    their plain versions as with the host vector, and a graph captured over
+    a static vector at one (lam, gamma) and replayed after new values are
+    written into it equals an eager launch at the new values bit for
+    bit."""
     call, plain, (atol, rtol), (pen1, pen2) = _param_case(name, cuda)
+    # the one contract: a vector off the kernel's device raises (no hidden
+    # copy); the plain versions take the host vector
+    with pytest.raises(ValueError, match="must lie on the kernel's device"):
+        call(penalty_params(pen1))
     for pen in (pen1, pen2):
         got = call(penalty_params(pen, cuda))
         want = plain(penalty_params(pen))
@@ -1401,3 +1407,230 @@ def test_screened_dense_path_drops_outgrown_slots(cuda, monkeypatch):
     alive = [id(r()) for r in made if r() is not None]
     assert len(slots) == 1 and alive == list(slots)
     eng.release_graphs()
+
+
+# ------------------------------------------------------------ lane kernels
+def _lane_params(pen, S, dev, seed=0):
+    """[S, arity] codec rows of `pen` on `dev`, its first hyper-parameter
+    (lam, or Box's C) scaled per lane."""
+    rows = penalty_params(pen).repeat(S, 1)
+    rows[:, 0] *= torch.as_tensor(np.random.default_rng(seed).uniform(
+        0.5, 1.5, S))
+    return rows.to(dev)
+
+
+def _gram_lanes(S, K, dev, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    X = torch.randn(3 * K, K, generator=g, dtype=torch.float64).to(dev)
+    G0 = X.T @ X / (3 * K)
+    scale = 1.0 + 0.01 * torch.arange(S, dtype=torch.float64, device=dev)
+    G = (G0[None] * scale[:, None, None]).transpose(1, 2).contiguous() \
+        .transpose(1, 2)
+    c = torch.randn(S, K, generator=g, dtype=torch.float64).to(dev) * 0.1
+    beta0 = (0.1 * torch.randn(S, K, generator=g,
+                               dtype=torch.float64)).to(dev)
+    q0 = (G @ beta0[..., None])[..., 0]
+    L = torch.diagonal(G, dim1=1, dim2=2).contiguous()
+    return G, c, beta0, q0, L
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pen", PENALTIES, ids=IDS)
+@pytest.mark.parametrize("S,K", [(1, 31), (10, 256), (7, 1025)])
+def test_k1_lanes_cuda_equals_k1_lane_by_lane(cuda, pen, S, K):
+    """K1l equals K1 launched on each lane's inputs and parameter row bit
+    for bit (one CTA a lane for K <= 256, a cluster a lane above); frozen
+    lanes come back unchanged; within K1's bound of the plain version."""
+    G, c, beta0, q0, L = _gram_lanes(S, K, cuda, seed=K)
+    params = _lane_params(pen, S, cuda, seed=S)
+    active = torch.arange(S, device=cuda) % 3 != 1
+    n0 = ops.cd_epoch_gram_lanes.launches
+    b, q = ops.cd_epoch_gram_lanes(G, c, beta0, q0, L, type(pen), params,
+                                   active, epochs=2)
+    assert ops.cd_epoch_gram_lanes.launches == n0 + 1
+    for s in range(S):
+        if not active[s]:
+            assert torch.equal(b[s], beta0[s]) and torch.equal(q[s], q0[s])
+            continue
+        bs, qs = ops.cd_epoch_gram(G[s], c[s], beta0[s], q0[s], L[s],
+                                   type(pen), params[s], epochs=2)
+        assert torch.equal(b[s], bs) and torch.equal(q[s], qs), s
+    s = int(torch.nonzero(active)[0])
+    bp, qp = cd_epoch_gram_plain(G[s], c[s], beta0[s], q0[s], L[s],
+                                 type(pen), params[s], epochs=2)
+    torch.testing.assert_close(b[s], bp, atol=1e-12, rtol=1e-5)
+    torch.testing.assert_close(q[s], qp, atol=1e-12, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wform", [None, "shared", "lanes"])
+def test_k2_lanes_cuda_equals_k2_lane_by_lane(cuda, wform):
+    """K2l (weighted logistic) equals K2 on each lane bit for bit and its
+    plain version within K2's bound; frozen lanes come back unchanged."""
+    from repro_torch.kernels.cd_epoch import cd_epoch_xb_lanes_plain
+    S, K, n = 5, 128, 3000
+    g = torch.Generator(device="cpu").manual_seed(9)
+    Xt = torch.randn(S, K, n, generator=g, dtype=torch.float64).to(cuda)
+    y = torch.sign(torch.randn(n, generator=g, dtype=torch.float64)).to(cuda)
+    beta0 = (0.05 * torch.randn(S, K, generator=g,
+                                dtype=torch.float64)).to(cuda)
+    Xb0 = (beta0[:, None, :] @ Xt)[:, 0]
+    L = torch.sum(Xt * Xt, dim=2) / (4 * n)
+    off = torch.zeros(S, K, dtype=torch.float64, device=cuda)
+    w = None
+    if wform == "shared":
+        w = (torch.rand(n, generator=g, dtype=torch.float64) + 0.5).to(cuda)
+    elif wform == "lanes":
+        w = (torch.rand(S, n, generator=g, dtype=torch.float64)
+             + 0.5).to(cuda)
+    params = _lane_params(P.L1(0.002), S, cuda)
+    active = torch.tensor([True, False, True, True, False], device=cuda)
+    b, x = ops.cd_epoch_xb_lanes(Xt, y, beta0, Xb0, L, off, P.L1, params,
+                                 active, "logistic", w=w, epochs=2)
+    bp, xp = cd_epoch_xb_lanes_plain(Xt, y, beta0, Xb0, L, off, P.L1,
+                                     params, active, "logistic", w=w,
+                                     epochs=2)
+    torch.testing.assert_close(b, bp, atol=1e-11, rtol=1e-8)
+    torch.testing.assert_close(x, xp, atol=1e-11, rtol=1e-8)
+    for s in range(S):
+        if not active[s]:
+            assert torch.equal(b[s], beta0[s]) and torch.equal(x[s], Xb0[s])
+            continue
+        ws = w if w is None or w.ndim == 1 else w[s]
+        bs, xs = ops.cd_epoch_xb(Xt[s], y, beta0[s], Xb0[s], L[s], off[s],
+                                 P.L1, params[s], "logistic", w=ws, epochs=2)
+        assert torch.equal(b[s], bs) and torch.equal(x[s], xs), s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("ws", [64, 1024])
+def test_k3_lanes_cuda_matches_plain(cuda, ties, ws):
+    """K3l against its plain version lane by lane: scores and gradient
+    within K3's bounds (equal on integer data), cand_idx exact, each lane's
+    working set ``select_working_set`` of its plain scores, its rows bit
+    for bit; the L rows p apart or broadcast."""
+    from repro_torch.kernels.fused_ws import fused_ws_lanes_plain
+    S, n, p = 6, 500, 5000
+    g = torch.Generator(device="cpu").manual_seed(4)
+    if ties:
+        Xt = torch.randint(-2, 3, (p, n), generator=g).to(torch.float64)
+        R = torch.randint(-2, 3, (n, S), generator=g).to(torch.float64)
+        beta = torch.randint(-1, 2, (S, p), generator=g).to(torch.float64)
+        pen = P.L1(0.5)
+    else:
+        Xt = torch.randn(p, n, generator=g, dtype=torch.float64)
+        R = torch.randn(n, S, generator=g, dtype=torch.float64)
+        beta = torch.randn(S, p, generator=g, dtype=torch.float64) * \
+            (torch.rand(S, p, generator=g) < 0.3)
+        pen = P.MCP(0.11, 3.0)
+    Xt, R, beta = Xt.to(cuda), R.to(cuda), beta.to(cuda)
+    L = torch.clamp(torch.sum(Xt * Xt, dim=1) / n, min=1e-12)
+    off = torch.zeros(p, dtype=torch.float64, device=cuda)
+    params = _lane_params(pen, S, cuda)
+    gs = torch.stack([type(pen)(*params[s].tolist()).generalized_support(
+        beta[s]) for s in range(S)])
+    for Ls in (L.expand(S, p), L[None] * (1 + 0.1 * torch.rand(
+            S, p, generator=g).to(cuda))):
+        Ls = Ls if Ls.stride(0) == 0 else Ls.contiguous()
+        n0 = ops.fused_ws_lanes.launches
+        sk, gk, ik, wk, xk = ops.fused_ws_lanes(Xt, R, beta, Ls, off, gs,
+                                                type(pen), params, ws)
+        assert ops.fused_ws_lanes.launches == n0 + 1
+        sr, gr, ir, cr = fused_ws_lanes_plain(Xt, R, beta, Ls, off, gs,
+                                              type(pen), params, ws)
+        if ties:
+            assert torch.equal(sk, sr) and torch.equal(gk, gr)
+        torch.testing.assert_close(sk, sr, atol=1e-12, rtol=1e-11)
+        torch.testing.assert_close(gk, gr, atol=1e-12, rtol=1e-10)
+        assert torch.equal(ik, ir)
+        for s in range(S):
+            assert torch.equal(wk[s], select_working_set(sr[s], gs[s], ws))
+            assert torch.equal(xk[s], Xt[wk[s]])
+
+
+# ------------------------------------------------------- lanes and grids
+@pytest.mark.gpu
+def test_captured_chunked_path_equals_eager(cuda):
+    """reg_path(vmap_chunk=4) on the kernel route: one captured graph a
+    (bucket, lane count) key, each captured once, one read a dispatch,
+    equal bit for bit to ``capture=False`` and within 1e-6 of the
+    sequential path."""
+    from repro_torch.core import L1, Quadratic, make_engine, reg_path
+    design, y = _path_problem(cuda)
+    kw = dict(n_lambdas=12, lambda_min_ratio=1e-2, tol=1e-8, vmap_chunk=4)
+    eng = make_engine(L1(1.0), Quadratic(), device=cuda)
+    a = reg_path(design, y, L1(1.0), engine=eng, **kw)
+    b = reg_path(design, y, L1(1.0),
+                 engine=make_engine(L1(1.0), Quadratic(), device=cuda,
+                                    capture=False), **kw)
+    seq = reg_path(design, y, L1(1.0), n_lambdas=12, lambda_min_ratio=1e-2,
+                   tol=1e-8, device=cuda)
+    assert np.all(a.kkts <= 1e-8)
+    assert a.captures and set(a.captures.values()) == {1}
+    assert {k[3] for k in a.captures} == {4}
+    assert np.array_equal(a.betas, b.betas) and \
+        np.array_equal(a.n_epochs, b.n_epochs)
+    assert np.max(np.abs(a.betas - seq.betas)) < 1e-6
+    assert eng.n_chunk_reads == eng.n_dispatches
+
+
+@pytest.mark.gpu
+def test_cv_grid_budget_5x30_on_card(cuda):
+    """``test_cv_grid.py:161`` on the card's kernel route: each key
+    captured once with one lane count (50), one read a dispatch, no more
+    dispatches than outer steps, an interior minimum, equal bit for bit to
+    ``capture=False``; a second grid on the same engine and design
+    captures nothing."""
+    from repro_torch.core import L1, Quadratic, cross_val_path, make_engine
+    from repro_torch.core.engine import DenseDesign
+    from repro_torch.data import make_correlated_design
+    X, y, _ = make_correlated_design(n=200, p=400, n_nonzero=15, seed=1)
+    # one design for both grids: a captured step reads its design in place
+    X = DenseDesign.from_dense(X, cuda)
+    eng = make_engine(L1(1.0), Quadratic(), device=cuda)
+    kw = dict(n_lambdas=30, cv=5, tol=1e-8, vmap_chunk=10)
+    g = cross_val_path(X, y, Quadratic(), L1(1.0), engine=eng, **kw)
+    assert np.max(g.kkts) <= 1e-8
+    assert g.captures and set(g.captures.values()) == {1}
+    assert {k[3] for k in g.captures} == {50}
+    assert 0 < g.n_dispatches <= g.n_outer
+    assert g.n_host_syncs == g.n_dispatches
+    assert 0 < g.best_index < 29
+    o = cross_val_path(X, y, Quadratic(), L1(1.0),
+                       engine=make_engine(L1(1.0), Quadratic(), device=cuda,
+                                          capture=False), **kw)
+    assert np.array_equal(g.betas, o.betas)
+    assert np.array_equal(g.cv_loss, o.cv_loss)
+    assert np.array_equal(g.kkts, o.kkts)
+    before = dict(eng.captures)
+    g2 = cross_val_path(X, y, Quadratic(), L1(1.0), engine=eng, seed=7,
+                        **kw)
+    assert dict(eng.captures) == before and g2.n_dispatches > 0
+
+
+@pytest.mark.gpu
+def test_sparse_grid_on_card_runs_k5b_and_k5s(cuda):
+    """A CSC grid on the kernel route: K5b at T = lanes on the heads, K5s
+    once a fold, K1l inside, within 1e-8 of the plain route."""
+    import scipy.sparse as sp
+    from repro_torch.core import L1, Quadratic, cross_val_path
+    from repro_torch.sparse import CSCDesign
+    rng = np.random.default_rng(2)
+    Xs = sp.random(600, 3000, density=0.02, random_state=2, format="csc")
+    beta = np.zeros(3000)
+    beta[:20] = rng.standard_normal(20)
+    y = np.asarray(Xs @ beta) + 0.1 * rng.standard_normal(600)
+    d = CSCDesign.from_scipy(Xs, ell=True, device=cuda)
+    kw = dict(n_lambdas=5, cv=3, tol=1e-10, vmap_chunk=2,
+              lambda_min_ratio=0.1)
+    ops.reset_launch_counts()
+    g = cross_val_path(d, y, Quadratic(), L1(1.0), device=cuda, **kw)
+    counts = ops.launch_counts()
+    assert counts["csc_score_block"] > 0 and counts["cd_epoch_gram_lanes"] > 0
+    assert counts["csc_weighted_col_sq"] == 3
+    assert counts["csc_score"] == 0 and counts["cd_epoch_gram"] == 0
+    plain = cross_val_path(d, y, Quadratic(), L1(1.0), device=cuda,
+                           use_kernels=False, **kw)
+    assert np.max(g.kkts) <= 1e-10
+    assert np.max(np.abs(g.betas - plain.betas)) < 1e-8

@@ -257,9 +257,15 @@ def test_cpu_route_launches_nothing():
     B = torch.stack([beta0, beta0], 1)
     ops.cd_epoch_gram_block(G, B, B, B, L, BlockL1,
                             penalty_params(BlockL1(0.1)))
+    ops.cd_epoch_gram_lanes(G[None], c[None], beta0[None], q0[None],
+                            L[None], L1, penalty_params(L1(0.1))[None],
+                            torch.ones(1, dtype=torch.bool))
     assert ops.launch_counts() == {"cd_epoch_gram": 0, "cd_epoch_xb": 0,
                                    "fused_ws": 0, "ws_score": 0,
                                    "csc_score": 0, "csc_weighted_col_sq": 0,
                                    "cd_epoch_gram_block": 0,
                                    "fused_ws_block": 0,
-                                   "csc_score_block": 0}
+                                   "csc_score_block": 0,
+                                   "cd_epoch_gram_lanes": 0,
+                                   "cd_epoch_xb_lanes": 0,
+                                   "fused_ws_lanes": 0}
