@@ -161,6 +161,30 @@ Phases, each of which must pass (any failure exits non-zero):
    dispatches = reads <= outer steps, an interior minimum), a second grid
    on the same engine and design capturing nothing, and the plain route
    within 1e-6. Each grid's kernels must have launched.
+7d. multitask lanes: K3bl (``fused_ws_block_lanes``) at S*T = 200
+   (n = 10,000, p = 20,000), 500 (the leadfield) and an odd 91 (odd n,
+   ragged tile), BlockL1 and BlockMCP, a parameter row a lane: scores and
+   gradient within K3b's bounds, cand_idx exact, each lane's working set
+   ``select_working_set`` of its plain scores and its rows bit for bit;
+   K1bl (``cd_epoch_gram_block_lanes``) at (S, K, T) = (10, 64, 50),
+   (10, 256, 20), (10, 1024, 20) and (4, 2048, 240) (one CTA, a cluster
+   with q's rows in shared and in global memory), every third lane
+   frozen, bit for bit lane by lane against K1b and within K1's bound of
+   its plain version; K5b at 100 and 500 columns bit for bit against its
+   emulation. Then, on the kernel route, each held to ``capture=False``
+   bit for bit with one read a dispatch and its keys captured once, with
+   K3bl/K1bl (or K5b/K1bl) launched and no scalar or single-lane head or
+   epoch: (m1) ``cross_val_path(MultitaskQuadratic(), BlockL1 |
+   BlockMCP, cv=5, n_lambdas=10, lambda_min_ratio=0.1, vmap_chunk=2)`` on
+   the M/EEG leadfield at MEG width (10 lanes, S*T = 500), folds 0 and 1
+   within 1e-5 of the sequential multitask path on their rows; (m2) a
+   chunked MultiTaskLasso path (10 lambdas to lambda_max/10,
+   ``vmap_chunk=5``) on ``make_multitask(10000, 20000, 20)`` within 1e-6
+   of the sequential path; (m3) a multitask grid on ``sparse_fig2`` with
+   T = 20 (cv=5, 6 lambdas, ``vmap_chunk=1``: K5b at 100 columns, K5s
+   once a fold), unweighted and weighted; (m4) a small BlockL1 grid (n =
+   200, p = 400, T = 5, 5 x 10, 50 lanes, tol 1e-8), its plain route
+   within 1e-6.
 8. times: each kernel at main-path shapes (CUDA events, warm), its plain
    version, its bound (bytes over 3.35 TB/s or operations over 67 TF/s
    float64, the larger) and, where one PyTorch call computes the same
@@ -181,7 +205,9 @@ Phases, each of which must pass (any failure exits non-zero):
    The lane rows: K1l (S = 10, K = 1024), K2l (S = 10, K = 512, n =
    10,000, weighted logistic) and K3l (S = 10, ws = 1024, with torch.mm
    of X by the lanes' raw gradients as its library call), each beside S
-   single-lane launches of its kernel on the same inputs.
+   single-lane launches of its kernel on the same inputs; K3bl (S = 10,
+   T = 20, K3b's shape, and at the leadfield's S*T = 500) beside ten K3b
+   heads, and K1bl (S = 10, K = 1024, T = 20) beside ten K1b launches.
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -190,6 +216,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -244,6 +271,19 @@ FULL = dict(k1_sizes=(256,),
                     vmap_chunk=2),
             g4=dict(n=200, p=400, n_nonzero=15, seed=1, n_lambdas=30, cv=5,
                     vmap_chunk=10, tol=1e-8),
+            # multitask lanes: K3bl (S, T, n, p, ws), K1bl (S, K, T), K5b at
+            # the lanes' widths, the rows, the grids and the path
+            k3bl=((10, 20, 10_000, 20_000, 512), (10, 50, 305, 7498, 1024),
+                  (7, 13, 10_001, 4963, 256)),
+            k1bl=((10, 64, 50), (10, 256, 20), (10, 1024, 20),
+                  (4, 2048, 240)),
+            k5b_lane_T=(100, 500),
+            mt_lane_time=dict(S=10, T=20, K1=1024, ws=512),
+            m1=dict(cv=5, n_lambdas=10, ratio=0.1, vmap_chunk=2, folds=2),
+            m2=dict(n_lambdas=10, ratio=0.1, vmap_chunk=5),
+            m3=dict(cv=5, n_lambdas=6, ratio=0.1, vmap_chunk=1),
+            m4=dict(n=200, p=400, T=5, n_nonzero=15, seed=1, cv=5,
+                    n_lambdas=10, vmap_chunk=10, tol=1e-8),
             reps=20)
 
 
@@ -1261,9 +1301,24 @@ def check_block_kernels(dev, cfg, errs, designs):
     return fails
 
 
-def multitask_path(dev, cfg, X_sparse, beta_true):
-    """The multitask fits (M/EEG leadfield, dense, sparse); returns (launch
-    counts summed over the kernel-route fits, failures)."""
+def sparse_mt_target(X_sparse, beta_true, T):
+    """The full-size sparse design's multitask target: T tasks on the
+    generator's true columns, Y = X W + noise at SNR 5 (seeded)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    supp = np.flatnonzero(beta_true)
+    W = np.zeros((X_sparse.shape[1], T))
+    W[supp] = rng.standard_normal((len(supp), T))
+    signal = np.asarray(X_sparse @ W)
+    noise = rng.standard_normal(signal.shape)
+    noise *= np.linalg.norm(signal) / (5.0 * np.linalg.norm(noise))
+    return signal + noise
+
+
+def multitask_path(dev, cfg, X_sparse, Y_sparse):
+    """The multitask fits (M/EEG leadfield, dense, sparse: `Y_sparse` the
+    target of the scipy design `X_sparse`); returns (launch counts summed
+    over the kernel-route fits, failures)."""
     import numpy as np
     import torch
     from repro_torch.core import (MultiTaskLasso, MultiTaskMCP,
@@ -1333,15 +1388,7 @@ def multitask_path(dev, cfg, X_sparse, beta_true):
         torch.cuda.empty_cache()
 
     # the full-size sparse design, T tasks on the generator's true columns
-    T = cfg["mt_sparse_T"]
-    rng = np.random.default_rng(0)
-    supp = np.flatnonzero(beta_true)
-    W = np.zeros((X_sparse.shape[1], T))
-    W[supp] = rng.standard_normal((len(supp), T))
-    signal = np.asarray(X_sparse @ W)
-    noise = rng.standard_normal(signal.shape)
-    noise *= np.linalg.norm(signal) / (5.0 * np.linalg.norm(noise))
-    Y = signal + noise
+    T, Y = cfg["mt_sparse_T"], Y_sparse
     frac = cfg["mt_sparse_frac"]
     w = np.random.default_rng(1).uniform(0.5, 1.5, X_sparse.shape[0])
     for sw in (None, w):
@@ -1820,6 +1867,37 @@ def run_grid(label, call, dev, total=None):
     return out, counts, wall
 
 
+def grid_held(label, k, o, tol, *, fails):
+    """The kernel-route grid `k` (an estimator or a GridResult) held to
+    its ``capture=False`` run `o` bit for bit (betas, cv_loss, kkts), each
+    step key captured once, every item at kkt <= `tol`, one read a
+    dispatch; a failure is appended to `fails`."""
+    import numpy as np
+    gk = getattr(k, "grid_result_", k)
+    go = getattr(o, "grid_result_", o)
+    same = bool(np.array_equal(gk.betas, go.betas)
+                and np.array_equal(gk.cv_loss, go.cv_loss)
+                and np.array_equal(gk.kkts, go.kkts))
+    keys = set(gk.captures.values()) == {1}
+    conv = bool(np.max(gk.kkts) <= tol)
+    log(f"  {label}: == capture=False bit for bit {same}; keys captured "
+        f"once {keys} ({len(gk.captures)}); every item kkt <= {tol} "
+        f"{conv}; one read a dispatch "
+        f"{gk.n_host_syncs == gk.n_dispatches}")
+    if not (same and keys and conv and gk.n_host_syncs == gk.n_dispatches):
+        fails.append(f"{label}: bit for bit {same}, keys {gk.captures}, "
+                     f"max kkt {float(np.max(gk.kkts)):.3e}")
+
+
+def grid_needs(label, counts, kernels, *, fails, absent=()):
+    """Each kernel of `kernels` launched in `counts`, none of `absent`."""
+    missing = [k for k in kernels if not counts[k]]
+    extra = [k for k in absent if counts[k]]
+    if missing or extra:
+        fails.append(f"{label}: kernels never launched {missing}, launched "
+                     f"though not on this path {extra}")
+
+
 def grid_phase(dev, cfg, sparse_design, sparse_y):
     """The CV grids at full width on the kernel route, each held to
     ``capture=False`` bit for bit (betas, cv_loss, kkts), every item at
@@ -1839,33 +1917,11 @@ def grid_phase(dev, cfg, sparse_design, sparse_y):
     from repro_torch.data import make_classification, make_correlated_design
     total = dict.fromkeys(all_counts(), 0)
     fails, walls = [], {}
+    held = functools.partial(grid_held, fails=fails)
+    need = functools.partial(grid_needs, fails=fails)
 
     def eager(datafit):
         return make_engine(L1(1.0), datafit, device=dev, capture=False)
-
-    def grid_of(out):
-        return getattr(out, "grid_result_", out)
-
-    def held(label, k, o, tol):
-        gk, go = grid_of(k), grid_of(o)
-        same = bool(np.array_equal(gk.betas, go.betas)
-                    and np.array_equal(gk.cv_loss, go.cv_loss)
-                    and np.array_equal(gk.kkts, go.kkts))
-        keys = set(gk.captures.values()) == {1}
-        conv = bool(np.max(gk.kkts) <= tol)
-        log(f"  {label}: == capture=False bit for bit {same}; keys captured "
-            f"once {keys} ({len(gk.captures)}); every item kkt <= {tol} "
-            f"{conv}; one read a dispatch "
-            f"{gk.n_host_syncs == gk.n_dispatches}")
-        if not (same and keys and conv and
-                gk.n_host_syncs == gk.n_dispatches):
-            fails.append(f"{label}: bit for bit {same}, keys {gk.captures}, "
-                         f"max kkt {float(np.max(gk.kkts)):.3e}")
-
-    def need(label, counts, kernels):
-        missing = [k for k in kernels if not counts[k]]
-        if missing:
-            fails.append(f"{label}: kernels never launched {missing}")
 
     # (g1) LassoCV on cv_fig: 10 lanes, 150 items, K3l + K1l
     c = cfg["g1"]
@@ -2138,6 +2194,463 @@ def lane_times(dev, cfg, launches, errs, card):
         log(f"  {row['name']}: one lane launch {row['ms']:.4f} ms against "
             f"{S} single-lane launches {row['ten_single_ms']:.4f} ms on "
             f"{card}")
+    return rows
+
+
+# ------------------------------------------------------- multitask lanes
+def block_lane_inputs(S, K, T, dev, seed):
+    """K1bl inputs on the card: lane s's G the Gram of one 3K x K Gaussian
+    design scaled by 1 + 0.01 s (column-major, as the engine lays it out),
+    its own c and beta0 (half its rows zero), q0 = G beta0, L = diag(G)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f64 = dict(generator=g, device=dev, dtype=torch.float64)
+    X = torch.randn(3 * K, K, **f64)
+    G0 = X.T @ X / (3 * K)
+    del X
+    scale = 1.0 + 0.01 * torch.arange(S, dtype=torch.float64, device=dev)
+    G = (G0[None] * scale[:, None, None]).transpose(1, 2).contiguous() \
+        .transpose(1, 2)
+    del G0
+    c = 0.1 * torch.randn(S, K, T, **f64)
+    beta0 = 0.1 * torch.randn(S, K, T, **f64) * \
+        (torch.rand(S, K, 1, **f64) < 0.5)
+    return G, c, beta0, G @ beta0, \
+        torch.diagonal(G, dim1=1, dim2=2).contiguous()
+
+
+def block_lane_head_inputs(S, T, n, p, dev, seed):
+    """K3bl inputs: Xt [p, n], R [n, S*T] (raw-gradient scale, lane-major),
+    beta [S, p, T] with 30% of each lane's rows nonzero, L, an offset."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f64 = dict(generator=g, device=dev, dtype=torch.float64)
+    Xt = torch.randn(p, n, **f64)
+    R = torch.randn(n, S * T, **f64) / n ** 0.5
+    beta = 0.2 * torch.randn(S, p, T, **f64) * \
+        (torch.rand(S, p, 1, **f64) < 0.3)
+    L = torch.sum(Xt * Xt, dim=1) / n
+    return Xt, R, beta, L, 0.01 * torch.randn(p, **f64)
+
+
+def check_mt_lane_kernels(dev, cfg, errs, small, sparse_design):
+    """K3bl, K1bl and K5b at the lanes' S*T columns against their plain
+    versions; updates `errs`, returns the failures. K3bl at every (S, T,
+    n, p, ws) of the config (S*T of 200, 500 and an odd 91 with an odd n
+    and a ragged tile), BlockL1 and BlockMCP (the fixed-point score on
+    the first shape), a parameter row a lane, shared memory NaN-filled
+    first: scores within 1e-12 + 1e-12 |ref|, gradient within 1e-12 +
+    1e-10 |ref|, cand_idx exact, each lane's working set
+    ``select_working_set`` of its plain scores and its rows bit for bit.
+    K1bl at every (S, K, T) (one CTA, the cluster with q's rows in shared
+    and in global memory), every third lane frozen: bit for bit lane by
+    lane against K1b on that lane's inputs, frozen lanes unchanged, within
+    K1's bound of the plain version. K5b at R = 100 and 500 columns on the
+    small design (bit for bit against ``emulate``) and at 100 on the
+    full-size one, within K5's bound and deterministic."""
+    import torch
+    from repro_torch.core.working_set import (candidate_columns,
+                                              select_working_set)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cd_epoch import (cd_epoch_gram_plain,
+                                              fill_shared_memory_cuda,
+                                              gram_block_plan)
+    from repro_torch.kernels.csc_score import csc_score_plain, emulate
+    from repro_torch.kernels.fused_ws import fused_ws_block_lanes_plain
+    fails = []
+    for k in ("fused_ws_block_lanes", "cd_epoch_gram_block_lanes"):
+        errs[k] = 0.0
+
+    def fill():
+        if dev.type == "cuda":
+            fill_shared_memory_cuda(dev)
+
+    t = time.perf_counter()
+    for i, (S, T, n, p, ws) in enumerate(cfg["k3bl"]):
+        Xt, R, beta, L, off = block_lane_head_inputs(S, T, n, p, dev,
+                                                     seed=S * T)
+        gs = torch.linalg.vector_norm(beta, dim=2) != 0
+        for pen in block_pens():
+            prm = lane_rows(pen, S, dev, seed=S + T)
+            for fp in (False, True) if i == 0 else (False,):
+                tag = f"K3bl S={S} T={T} n={n} p={p} ws={ws} " \
+                      f"{type(pen).__name__} fp={fp}"
+                args = (Xt, R, beta, L.expand(S, p), off, gs, type(pen), prm,
+                        ws)
+                fill()
+                sk, gk, ik, wk, xk = ops.fused_ws_block_lanes(*args,
+                                                              use_fp=fp)
+                sr, gr, ir, cr = fused_ws_block_lanes_plain(*args, use_fp=fp)
+                ok1, e1 = close(sk, sr, 1e-12, 1e-12)
+                ok2, e2 = close(gk, gr, 1e-12, 1e-10)
+                errs["fused_ws_block_lanes"] = max(
+                    errs["fused_ws_block_lanes"], e1, e2)
+                same = bool(torch.equal(ik, ir)) and all(
+                    torch.equal(wk[s], select_working_set(sr[s], gs[s], ws))
+                    and torch.equal(xk[s], candidate_columns(
+                        ir[s], cr[s], wk[s], p).T) for s in range(S))
+                del cr
+                if not (ok1 and ok2 and same):
+                    fails.append(f"{tag} scores={e1:.3e} grad={e2:.3e} "
+                                 f"candidates, working sets and rows equal "
+                                 f"{same}")
+        del Xt, R
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    log(f"  K3bl checks: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    for S, K, T in cfg["k1bl"]:
+        G, c, beta0, q0, L = block_lane_inputs(S, K, T, dev, seed=K + T)
+        active = lane_mask(S, dev)
+        branch = gram_block_plan(K, T, torch.float64).branch
+        for pen in block_pens():
+            tag = f"K1bl S={S} K={K} T={T} {type(pen).__name__} ({branch})"
+            prm = lane_rows(pen, S, dev, seed=S + K)
+            fill()
+            b, q = ops.cd_epoch_gram_block_lanes(G, c, beta0, q0, L,
+                                                 type(pen), prm, active,
+                                                 epochs=2)
+            same = True
+            for s in range(S):
+                if not bool(active[s]):
+                    same &= bool(torch.equal(b[s], beta0[s])
+                                 and torch.equal(q[s], q0[s]))
+                    continue
+                fill()
+                bs, qs = ops.cd_epoch_gram_block(G[s], c[s], beta0[s], q0[s],
+                                                 L[s], type(pen), prm[s],
+                                                 epochs=2)
+                same &= bool(torch.equal(b[s], bs) and torch.equal(q[s], qs))
+            moved = bool(torch.any(b[0] != beta0[0]))
+            bp, qp = cd_epoch_gram_plain(G[0], c[0], beta0[0], q0[0], L[0],
+                                         type(pen), prm[0], epochs=2)
+            ok1, e1 = close(b[0], bp, 1e-12, 1e-5)
+            ok2, e2 = close(q[0], qp, 1e-12, 1e-5)
+            errs["cd_epoch_gram_block_lanes"] = max(
+                errs["cd_epoch_gram_block_lanes"], e1, e2)
+            if not (same and moved and ok1 and ok2):
+                fails.append(f"{tag}: K1b bit for bit lane by lane {same}, "
+                             f"moved {moved}, plain err {max(e1, e2):.3e}")
+        del G
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    log(f"  K1bl checks: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    for label, d, widths in (("small", small, cfg["k5b_lane_T"]),
+                             ("sparse_fig2", sparse_design,
+                              cfg["k5b_lane_T"][:1])):
+        for T in widths:
+            g = torch.Generator(device=dev).manual_seed(T)
+            raw = torch.randn(d.n_rows, T, generator=g, device=dev,
+                              dtype=torch.float64)
+            args = (d.data, d.indices, d.col_ids, d.indptr)
+            fill()
+            k = ops.csc_score_block(*args, raw)
+            ok, e = close(k, csc_score_plain(*args, raw), 1e-12, 1e-12)
+            same = bool(torch.equal(k, ops.csc_score_block(*args, raw)))
+            if label == "small":
+                same = same and bool(torch.equal(k, emulate(
+                    d.data, d.indices, d.indptr, raw)))
+            errs["csc_score_block"] = max(errs["csc_score_block"], e)
+            if not (ok and same):
+                fails.append(f"K5b {label} R={T} columns err={e:.3e} "
+                             f"deterministic (and as emulated) {same}")
+    log(f"  K5b at the lanes' widths: {time.perf_counter() - t:.1f} s")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return fails
+
+
+def mt_lane_phase(dev, cfg, sparse_design, sparse_Y, card):
+    """The multitask lanes at full width on the kernel route, each held to
+    ``capture=False`` bit for bit with one read a dispatch and each step
+    key captured once: (m1) ``cross_val_path`` with BlockL1 and BlockMCP
+    on the M/EEG leadfield at MEG width (10 lanes: K3bl at S*T = 500, K1bl
+    at T = 50), folds 0 and 1 of the BlockL1 grid against the sequential
+    multitask path on their rows; (m2) a chunked MultiTaskLasso path on
+    ``make_multitask(10000, 20000, 20)`` (5 lanes) against the sequential
+    path; (m3) a multitask grid on ``sparse_fig2`` with T = 20 (K5b at
+    S*T = 100, K1bl, K5s once a fold), unweighted and weighted; (m4) a
+    small multitask grid on both routes. Returns (launch counts of the
+    captured kernel-route runs, walls, failures)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (BlockL1, BlockMCP, MultitaskQuadratic,
+                                  cross_val_path, lambda_max, make_engine,
+                                  reg_path)
+    from repro_torch.core.engine import DenseDesign
+    from repro_torch.data import make_leadfield, make_multitask
+    total = dict.fromkeys(all_counts(), 0)
+    fails, walls = [], {}
+    held = functools.partial(grid_held, fails=fails)
+    scalar = ("fused_ws_lanes", "cd_epoch_gram_lanes", "cd_epoch_xb_lanes",
+              "fused_ws", "cd_epoch_gram", "fused_ws_block",
+              "cd_epoch_gram_block", "csc_score")
+    df = MultitaskQuadratic()
+
+    def need(label, counts, kernels):
+        grid_needs(label, counts, kernels, fails=fails, absent=scalar)
+
+    def eager(pen):
+        return make_engine(pen, df, device=dev, capture=False)
+
+    def geom(lmax, c):
+        return lmax * np.geomspace(1.0, c["ratio"], c["n_lambdas"])
+
+    # (m1) the M/EEG leadfield at MEG width: 10 lanes, S*T = 500
+    c = cfg["m1"]
+    X, Y, _, _ = make_leadfield(**cfg["meeg"])
+    design = DenseDesign.from_dense(X, dev)
+    kw = dict(cv=c["cv"], lambdas=geom(lambda_max(design, Y, df, device=dev),
+                                       c),
+              vmap_chunk=c["vmap_chunk"], tol=TOL)
+    for pen in (BlockL1(1.0), BlockMCP(1.0, 3.0)):
+        name = type(pen).__name__
+        label = f"grid (m1) {name}"
+        log(f"{label}: cross_val_path(cv={c['cv']}, n_lambdas="
+            f"{c['n_lambdas']}, ratio {c['ratio']}, vmap_chunk="
+            f"{c['vmap_chunk']}) on the M/EEG leadfield {cfg['meeg']} on "
+            f"{card}")
+        k, counts, walls[f"m1-{name}"] = run_grid("kernels", lambda: (
+            cross_val_path(design, Y, df, pen, device=dev, **kw)), dev, total)
+        need(label, counts, ("fused_ws_block_lanes",
+                             "cd_epoch_gram_block_lanes"))
+        o, _, _ = run_grid("oracle ", lambda: cross_val_path(
+            design, Y, df, pen, engine=eager(pen), **kw), dev)
+        held(label, k, o, TOL)
+        if name != "BlockL1":
+            continue
+        for f in range(c["folds"]):
+            keep = k.fold_weights[f] > 0
+            sub, _ = run_path(f"fold {f} rows, sequential", lambda: reg_path(
+                X[keep], Y[keep], BlockL1(1.0), df, lambdas=k.lambdas,
+                tol=TOL, device=dev), dev)
+            diff = float(np.max(np.abs(sub.betas - k.betas[f])))
+            log(f"  {label} fold {f} vs its row-subset path: max |diff| "
+                f"{diff:.3e} (bound 1e-5: two solves each at kkt <= {TOL})")
+            if not diff <= 1e-5:
+                fails.append(f"{label} fold {f}: {diff:.3e} from its path")
+    del design
+
+    # (m2) a chunked MultiTaskLasso path on make_multitask, 5 lanes
+    c = cfg["m2"]
+    X, Y, _ = make_multitask(**cfg["mt_dense"])
+    design = DenseDesign.from_dense(X, dev)
+    del X
+    label = "path (m2)"
+    lams = geom(lambda_max(design, Y, df, device=dev), c)
+    kw = dict(lambdas=lams, tol=TOL)
+    log(f"{label}: reg_path(BlockL1, n_lambdas={c['n_lambdas']}, ratio "
+        f"{c['ratio']}, vmap_chunk={c['vmap_chunk']}) on make_multitask "
+        f"{cfg['mt_dense']} on {card}")
+    eng = make_engine(BlockL1(1.0), df, device=dev)
+    pk, walls["m2"] = run_path("kernels", lambda: reg_path(
+        design, Y, BlockL1(1.0), df, engine=eng, vmap_chunk=c["vmap_chunk"],
+        **kw), dev, total)
+    counts = all_counts()
+    need(label, counts, ("fused_ws_block_lanes", "cd_epoch_gram_block_lanes"))
+    one_read = eng.n_chunk_reads == eng.n_dispatches
+    eng.release_graphs()
+    po, _ = run_path("oracle ", lambda: reg_path(
+        design, Y, BlockL1(1.0), df, engine=eager(BlockL1(1.0)),
+        vmap_chunk=c["vmap_chunk"], **kw), dev)
+    ps, _ = run_path("sequential", lambda: reg_path(
+        design, Y, BlockL1(1.0), df, device=dev, **kw), dev)
+    path_keys_once(label, pk, fails)
+    same = bool(np.array_equal(pk.betas, po.betas)
+                and np.array_equal(pk.n_epochs, po.n_epochs))
+    diff = float(np.max(np.abs(pk.betas - ps.betas)))
+    conv = bool(np.all(pk.kkts <= TOL) and np.all(ps.kkts <= TOL))
+    log(f"  {label}: == capture=False bit for bit {same}; one read a "
+        f"dispatch {one_read}; every lambda kkt <= {TOL} {conv}; max |diff| "
+        f"from the sequential path {diff:.3e} (bound 1e-6)")
+    if not (same and one_read and conv and diff <= 1e-6):
+        fails.append(f"{label}: bit for bit {same}, one read {one_read}, "
+                     f"converged {conv}, {diff:.3e} from the sequential "
+                     f"path")
+    del design
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (m3) sparse_fig2 with T = 20: 5 lanes, K5b at S*T = 100 columns. The
+    # lambdas are made once: lambda_max's plain CSC score pass adds with
+    # atomics on the card, so two grids' lambdas can differ in the last bit
+    c = cfg["m3"]
+    w = np.random.default_rng(1).uniform(0.5, 1.5, sparse_design.n_rows)
+    for sw in (None, w):
+        label = "grid (m3)" + (" weighted" if sw is not None else "")
+        kw = dict(cv=c["cv"], vmap_chunk=c["vmap_chunk"], tol=TOL,
+                  sample_weight=sw, lambdas=geom(lambda_max(
+                      sparse_design, sparse_Y, df, sample_weight=sw,
+                      device=dev), c))
+        log(f"{label}: cross_val_path(BlockL1, cv={c['cv']}, n_lambdas="
+            f"{c['n_lambdas']}, ratio {c['ratio']}, vmap_chunk="
+            f"{c['vmap_chunk']}) on sparse_fig2, T={sparse_Y.shape[1]} on "
+            f"{card}")
+        k, counts, walls["m3" if sw is None else "m3-weighted"] = run_grid(
+            "kernels", lambda: cross_val_path(
+                sparse_design, sparse_Y, df, BlockL1(1.0), device=dev, **kw),
+            dev, total)
+        need(label, counts, ("csc_score_block", "cd_epoch_gram_block_lanes",
+                             "csc_weighted_col_sq"))
+        if counts["csc_weighted_col_sq"] != c["cv"]:
+            fails.append(f"{label}: K5s launched "
+                         f"{counts['csc_weighted_col_sq']} times, not once "
+                         f"a fold")
+        o, _, _ = run_grid("oracle ", lambda: cross_val_path(
+            sparse_design, sparse_Y, df, BlockL1(1.0),
+            engine=eager(BlockL1(1.0)), **kw), dev)
+        held(label, k, o, TOL)
+
+    # (m4) a small multitask grid, both routes
+    c = cfg["m4"]
+    X, Y, _ = make_multitask(n=c["n"], p=c["p"], n_tasks=c["T"],
+                             n_nonzero=c["n_nonzero"], seed=c["seed"])
+    design = DenseDesign.from_dense(X, dev)
+    kw = dict(n_lambdas=c["n_lambdas"], cv=c["cv"], tol=c["tol"],
+              vmap_chunk=c["vmap_chunk"])
+    label = "grid (m4)"
+    log(f"{label}: cross_val_path(BlockL1, {kw}) on make_multitask({c['n']}"
+        f" x {c['p']}, T={c['T']}) on {card}")
+    # BlockL1: the plain route's per-coordinate epochs took 341 s on the
+    # H100 for BlockMCP's 1570 lane epochs at this tol
+    pen = BlockL1(1.0)
+    k, counts, walls["m4"] = run_grid("kernels", lambda: cross_val_path(
+        design, Y, df, pen, device=dev, **kw), dev, total)
+    need(label, counts, ("fused_ws_block_lanes", "cd_epoch_gram_block_lanes"))
+    o, _, _ = run_grid("oracle ", lambda: cross_val_path(
+        design, Y, df, pen, engine=eager(pen), **kw), dev)
+    held(label, k, o, c["tol"])
+    pl, _, _ = run_grid("plain  ", lambda: cross_val_path(
+        design, Y, df, pen, device=dev, use_kernels=False, **kw), dev)
+    diff = float(np.max(np.abs(pl.betas - k.betas)))
+    log(f"  {label} plain route: max |diff| {diff:.3e} (bound 1e-6), max "
+        f"kkt {float(np.max(pl.kkts)):.3e}")
+    if not diff <= 1e-6 or not np.max(pl.kkts) <= c["tol"]:
+        fails.append(f"{label} plain route: {diff:.3e} from the kernel "
+                     f"route")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return total, walls, fails
+
+
+def mt_lane_times(dev, cfg, launches, errs, card):
+    """The rows of K3bl and K1bl at S = 10 lanes: K3bl at K3b's row shape
+    (n = 10,000, p = 20,000, T = 20, ws = 512) beside ten K3b heads on the
+    lanes' slices, with torch.mm(Xt, R) at S*T columns as its library call
+    (the gradient part only), and at the leadfield's (S*T = 500); K1bl at
+    K = 1024, T = 20 (BlockL1, 1 epoch) beside ten K1b launches (K1b's own
+    row is in the block rows). Bounds: K3bl X, R, beta, L and gsupp read
+    once, grad, scores and ws written, the S ws rows read and written (the
+    gather), 2 p n S T operations; K1bl S times K1b's bytes and operations
+    (chain floor: K1b's cluster barriers, times the waves of lanes the
+    card runs at once)."""
+    import torch
+    from repro_torch.core.penalties import BlockL1
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cd_epoch import (cd_epoch_gram_block_lanes_plain,
+                                              gram_block_plan)
+    from repro_torch.kernels.fused_ws import (fused_ws_block_lanes_plain,
+                                              pick_bp)
+    reps = cfg["reps"]
+    c = cfg["mt_lane_time"]
+    S = c["S"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count \
+        if dev.type == "cuda" else 1
+    rows = []
+
+    def head_row(T, n, p, ws, seed):
+        Xt, R, beta, L, off = block_lane_head_inputs(S, T, n, p, dev, seed)
+        gs = torch.linalg.vector_norm(beta, dim=2) != 0
+        prm = lane_rows(BlockL1(0.11), S, dev, seed=seed)
+        args = (Xt, R, beta, L.expand(S, p), off, gs, BlockL1, prm, ws)
+        ms = time_ms(lambda: ops.fused_ws_block_lanes(*args), dev, reps)
+        Rs = [R[:, s * T:(s + 1) * T].contiguous() for s in range(S)]
+        ten = time_ms(lambda: [ops.fused_ws_block(Xt, Rs[s], beta[s], L, off,
+                                                  gs[s], BlockL1, prm[s], ws)
+                               for s in range(S)], dev, reps)
+        plain = time_ms(lambda: fused_ws_block_lanes_plain(*args), dev, 1)
+        lib = time_ms(lambda: torch.mm(Xt, R), dev, reps)
+        bp = pick_bp(p)
+        C = -(-p // bp) * min(bp, ws)
+        b = bound(8 * (p * n + n * S * T + 2 * S * p * T + 2 * S * p + 2 * p
+                       + S * ws + 2 * S * ws * n) + S * p + 4 * S * C,
+                  2 * p * n * S * T)
+        del Xt, R
+        return ms, ten, plain, lib, b, bp
+
+    ms, ten, plain, lib, b, bp = head_row(c["T"], cfg["k3b"]["n"],
+                                          cfg["k3b"]["p"], c["ws"], 21)
+    m = cfg["meeg"]
+    n_m, p_m, T_m = m["n"], 2 * m["p_per_hemi"], m["T"]
+    ws_m = min(1024, p_m)
+    ms_m, ten_m, plain_m, lib_m, b_m, _ = head_row(T_m, n_m, p_m, ws_m, 22)
+    rows.append(dict(
+        name="fused_ws_block_lanes", route="cuda",
+        source="src/repro_torch/csrc/fused_ws.cu",
+        replaces="src/repro/kernels/fused_ws.py:71",
+        launches=launches["fused_ws_block_lanes"],
+        max_abs_err=errs["fused_ws_block_lanes"], ms=ms, plain_ms=plain,
+        bound_ms=b[0], bound_by=b[1], library_ms=lib,
+        library_call="torch.mm(Xt, R) at S*T columns: the gradient part "
+                     "only",
+        ten_single_ms=ten,
+        shape=f"S={S} lanes, T={c['T']}, n={cfg['k3b']['n']}, "
+              f"p={cfg['k3b']['p']}, ws={c['ws']}, bp={bp}, BlockL1 (lam a "
+              f"lane)",
+        leadfield=dict(shape=f"S={S}, T={T_m}, n={n_m}, p={p_m}, ws={ws_m}",
+                       ms=ms_m, ten_single_ms=ten_m, plain_ms=plain_m,
+                       library_ms=lib_m, bound_ms=b_m[0],
+                       bound_by=b_m[1])))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    K, T = c["K1"], c["T"]
+    G, cc, beta0, q0, L = block_lane_inputs(S, K, T, dev, seed=K)
+    prm = lane_rows(BlockL1(0.11), S, dev, seed=1)
+    on = torch.ones(S, dtype=torch.bool, device=dev)
+    args = (G, cc, beta0, q0, L, BlockL1, prm, on)
+    ms = time_ms(lambda: ops.cd_epoch_gram_block_lanes(*args), dev, reps)
+    ten = time_ms(lambda: [ops.cd_epoch_gram_block(G[s], cc[s], beta0[s],
+                                                   q0[s], L[s], BlockL1,
+                                                   prm[s])
+                           for s in range(S)], dev, reps)
+    plain = time_ms(lambda: cd_epoch_gram_block_lanes_plain(*args), dev, 1)
+    moved = int(torch.sum(torch.any(
+        ops.cd_epoch_gram_block_lanes(*args)[0] != beta0, dim=2)))
+    b = bound(8 * (moved * K + S * (5 * K * T + K)), 2 * moved * K * T)
+    plan = gram_block_plan(K, T, torch.float64)
+    waves = -(-S // max(1, sms // plan.cluster))
+    row = dict(
+        name="cd_epoch_gram_block_lanes", route="cuda",
+        source="src/repro_torch/csrc/cd_epoch.cu",
+        replaces="src/repro/core/cd.py:66 (jax epoch under the reference's "
+                 "vmap; no TPU kernel)",
+        launches=launches["cd_epoch_gram_block_lanes"],
+        max_abs_err=errs["cd_epoch_gram_block_lanes"], ms=ms,
+        plain_ms=plain, bound_ms=b[0], bound_by=b[1], library_ms=None,
+        library_call="none: no single call", ten_single_ms=ten,
+        shape=f"S={S} lanes, K={K}, T={T}, epochs=1, BlockL1 (lam a lane), "
+              f"{moved} rows moved",
+        lane_waves=waves, **plan_fields(dev, "cd_epoch_gram_block_lanes",
+                                        plan, K, launches))
+    if row["chain_floor_ms"] is not None:
+        row["chain_floor_ms"] *= waves
+    rows.append(row)
+    del G
+    log_rows(rows, card)
+    for row in rows:
+        log(f"  {row['name']}: one lane launch {row['ms']:.4f} ms against "
+            f"{S} single-lane launches {row['ten_single_ms']:.4f} ms on "
+            f"{card}")
+    lf = rows[0]["leadfield"]
+    log(f"  fused_ws_block_lanes at the leadfield [{lf['shape']}]: kernel "
+        f"{lf['ms']:.4f} ms, {S} K3b heads {lf['ten_single_ms']:.4f} ms, "
+        f"plain {lf['plain_ms']:.4f} ms, bound {lf['bound_ms']:.4f} ms "
+        f"({lf['bound_by']}), library {lf['library_ms']:.4f} ms on {card}")
     return rows
 
 
@@ -2640,9 +3153,9 @@ def run(dev, cfg):
     report("block kernels", t, fails,
            (("fused_ws_block", "K3b"), ("cd_epoch_gram_block", "K1b"),
             ("csc_score_block", "K5b")))
-    del small
     t = time.perf_counter()
-    mt_launches, fails = multitask_path(dev, cfg, X_sparse, beta_true)
+    Y_sparse = sparse_mt_target(X_sparse, beta_true, cfg["mt_sparse_T"])
+    mt_launches, fails = multitask_path(dev, cfg, X_sparse, Y_sparse)
     failures += fails
     log(f"multitask path ({time.perf_counter() - t:.1f} s): launches "
         f"{mt_launches}")
@@ -2676,9 +3189,30 @@ def run(dev, cfg):
     for k in launches:
         launches[k] += grid_launches[k]
 
+    t = time.perf_counter()
+    fails = check_mt_lane_kernels(dev, cfg, errs, small, design)
+    failures += fails
+    report("multitask lane kernels", t, fails,
+           (("fused_ws_block_lanes", "K3bl"),
+            ("cd_epoch_gram_block_lanes", "K1bl"),
+            ("csc_score_block", "K5b")))
+    del small
+    t = time.perf_counter()
+    mt_lane_launches, walls, fails = mt_lane_phase(dev, cfg, design,
+                                                   Y_sparse, card)
+    failures += fails
+    log(f"multitask lanes ({time.perf_counter() - t:.1f} s) on {card}: "
+        f"walls {walls}, launches {mt_lane_launches}")
+    for f in fails:
+        log(f"  FAIL {f}")
+    for k in launches:
+        launches[k] += mt_lane_launches[k]
+    del Y_sparse
+
     rows = kernel_times(dev, cfg, launches, errs, card, design)
     rows += block_times(dev, cfg, launches, errs, card, design)
     rows += lane_times(dev, cfg, launches, errs, card)
+    rows += mt_lane_times(dev, cfg, launches, errs, card)
     return rows, failures
 
 

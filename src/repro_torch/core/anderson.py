@@ -9,9 +9,10 @@ back to the last iterate on the device (``solve_ex`` reports instead of
 raising).
 
 ``anderson_extrapolate_lanes`` is the same extrapolation on the iterates of
-S lanes at once (``[S, M+1, K]``, the chunked driver's lane step): one
-batched solve, and each lane falls back to its own last iterate where its
-solve fails.
+S lanes at once (``[S, M+1, K]``, or ``[S, M+1, K, T]`` for multitask
+lanes, flattened to ``[S, M+1, K*T]`` as the reference flattens a block
+history; the chunked driver's lane step): one batched solve, and each lane
+falls back to its own last iterate where its solve fails.
 """
 from __future__ import annotations
 
@@ -43,9 +44,12 @@ def anderson_extrapolate(hist):
 
 
 def anderson_extrapolate_lanes(hist):
-    """hist: [S, M+1, K] iterate rings of S lanes (oldest first). Returns
-    the [S, K] extrapolated points, each lane's decided on its own."""
-    S, M = hist.shape[0], hist.shape[1] - 1
+    """hist: [S, M+1, K] (or [S, M+1, K, T]) iterate rings of S lanes
+    (oldest first). Returns the [S, K] (or [S, K, T]) extrapolated points,
+    each lane's decided on its own."""
+    shape = hist.shape
+    S, M = shape[0], shape[1] - 1
+    hist = hist.reshape(S, M + 1, -1)
     U = hist[:, 1:] - hist[:, :-1]                    # [S, M, K]
     UUt = U @ U.transpose(1, 2)                       # [S, M, M]
     scale = torch.diagonal(UUt, dim1=1, dim2=2).sum(-1) / M
@@ -59,4 +63,5 @@ def anderson_extrapolate_lanes(hist):
     c = z / torch.where(big, denom, 1.0)[:, None]
     extr = (c[:, None, :] @ hist[:, 1:])[:, 0]
     ok = torch.all(torch.isfinite(extr), dim=-1) & big & (info == 0)
-    return torch.where(ok[:, None], extr, hist[:, -1])
+    return torch.where(ok[:, None], extr, hist[:, -1]).reshape(
+        (S,) + tuple(shape[2:]))

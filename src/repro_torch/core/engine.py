@@ -52,7 +52,14 @@ pass on R [n, S] and a per-lane selection elsewhere, K5b at T = S on a
 CSC design), the per-lane decision ``run = (kkt > tol) & covered``, the
 lanes' Gram formation, the lanes' inner Anderson-CD loop (K1l or K2l, an
 active-lane mask freezing the lanes whose loop is done) until every lane
-meets its eps, and the per-lane scatter. A lane that does not run keeps
+meets its eps, and the per-lane scatter. Multitask lanes (betas
+[S, p, T], Xbs [S, n, T], a block penalty) run the same step on feature
+rows: the lanes' raw gradients lie lane-major in R [n, S*T], the dense
+kernel route's head is K3bl (K3b's product over the S*T columns, a block
+lane epilogue, K3's select and merge with the lane on grid y), a CSC
+design scores R with K5b at S*T columns, and the Gram epochs are K1bl
+(K1b with the lane on grid y); their Xb epochs are the plain block epoch
+on every route. A lane that does not run keeps
 its state, as under the reference's vmap. Each lane's penalty is the
 template's class bound to its own row of a ``[S, arity]`` codec vector,
 and the datafit and penalty functions run lane by lane under
@@ -529,15 +536,45 @@ def lane_params(penalty, lams):
 
 
 def _lanes_T(Xt_ws, beta):
-    """Per lane X_ws @ beta: Xt_ws [S, K, n], beta [S, K] -> [S, n]."""
+    """Per lane X_ws @ beta: Xt_ws [S, K, n], beta [S, K] -> [S, n] (or
+    [S, K, T] -> [S, n, T])."""
+    if beta.ndim == 3:
+        return Xt_ws.transpose(1, 2) @ beta
     return (beta[:, None, :] @ Xt_ws)[:, 0]
+
+
+def _lanes_mv(A, v):
+    """Per lane A @ v: A [S, a, b], v [S, b] -> [S, a] (or [S, b, T] ->
+    [S, a, T])."""
+    if v.ndim == 3:
+        return A @ v
+    return (A @ v[..., None])[..., 0]
+
+
+def _lane_col(x, like):
+    """A per-lane [S] tensor shaped to broadcast against `like` ([S, ...])."""
+    return x.view((x.shape[0],) + (1,) * (like.ndim - 1))
+
+
+def _rows(x, like):
+    """A per-feature [S, K] (or [p]) tensor shaped to broadcast against
+    block coefficients `like` ([S, K, T]); unchanged for scalar ones."""
+    return x[..., None] if like.ndim == x.ndim + 1 else x
+
+
+def _lane_sum(x):
+    """Each lane's sum over its coefficients ([S, K] or [S, K, T] -> [S])."""
+    return torch.sum(x, dim=tuple(range(1, x.ndim)))
 
 
 class _Lanes:
     """The datafit and penalty functions of S lanes: each lane's penalty is
-    `penalty_cls` bound to its row of `params` [S, arity]; y is shared and
-    w is None, shared [n] or per lane [S, n]. Every function maps over the
-    lanes with ``torch.vmap``."""
+    `penalty_cls` bound to its row of `params` [S, arity]; y ([n], or
+    [n, T] for multitask lanes) is shared and w is None, shared [n] or per
+    lane [S, n]. Every function maps over the lanes with ``torch.vmap``;
+    on multitask lanes the residuals are [S, n, T], the coefficients
+    [S, p, T] and the penalty acts on rows, so the scores and supports stay
+    [S, p]."""
 
     def __init__(self, datafit, penalty_cls, params, y, w, use_fp):
         self.datafit, self.cls, self.params = datafit, penalty_cls, params
@@ -565,7 +602,8 @@ class _Lanes:
                         Xb)
 
     def gram(self, Xt_ws):
-        """Each lane's Gram matrix of its working set [S, K, K], each lane
+        """Each lane's Gram matrix of its working set [S, K, K] (the
+        rows' Gram on multitask lanes too), each lane
         column-major (so K1l reads a column contiguously). Formed lane by
         lane into one buffer: a batched product would hold the weighted
         copy of every lane's X_ws and two [S, K, K] temporaries at once
@@ -595,12 +633,14 @@ class _Lanes:
             pen, b, g, l, use_fixed_point=self.use_fp), beta, grad, L)
 
     def gram_epoch(self, G, c, beta, q, L):
-        """The plain Gram epoch (core/cd.py) on every lane."""
+        """The plain Gram epoch (core/cd.py) on every lane (scalar [S, K]
+        or block [S, K, T] coefficients)."""
         return self._pen(lambda pen, *a: cd_epoch_gram(*a, pen), G, c, beta,
                          q, L)
 
     def xb_epoch(self, Xt_ws, beta, Xb, L, offset):
-        """The plain Xb epoch (core/cd.py) on every lane."""
+        """The plain Xb epoch (core/cd.py) on every lane (the block form on
+        multitask lanes, which has no kernel)."""
         cls, datafit, y = self.cls, self.datafit, self.y
 
         def one(prm, Xt, b, x, l, o, w):
@@ -620,8 +660,8 @@ class _LaneContext:
     L_ws: torch.Tensor               # [S, K]
     offset_ws: torch.Tensor          # [S, K]
     G: torch.Tensor = None           # [S, K, K], each lane column-major
-    c: torch.Tensor = None           # [S, K]
-    Xb_base: torch.Tensor = None     # [S, n] (Xb solvers)
+    c: torch.Tensor = None           # [S, K] (or [S, K, T] multitask)
+    Xb_base: torch.Tensor = None     # [S, n] (or [S, n, T]; Xb solvers)
 
 
 class _LaneSolver:
@@ -636,13 +676,18 @@ class _LaneSolver:
 
     def epoch(self, ctx, beta, aux, go):
         cfg, ln = self.config, self.lanes
+        block = beta.ndim == 3
         if cfg.gram:
             if cfg.use_kernels:
-                return kops.cd_epoch_gram_lanes(ctx.G, ctx.c, beta, aux,
-                                                ctx.L_ws, ln.cls, ln.params,
-                                                go)
+                # K1l on scalar lanes, K1bl on blocks [S, K, T]
+                kern = kops.cd_epoch_gram_block_lanes if block \
+                    else kops.cd_epoch_gram_lanes
+                return kern(ctx.G, ctx.c, beta, aux, ctx.L_ws, ln.cls,
+                            ln.params, go)
             return ln.gram_epoch(ctx.G, ctx.c, beta, aux, ctx.L_ws)
-        if cfg.use_kernels:
+        # block coordinates have no Xb kernel: their plain epoch runs on
+        # every route, as the reference runs its jax epoch there
+        if cfg.use_kernels and not block:
             kind = KERNEL_DATAFIT_KINDS[type(ln.datafit).__name__]
             return kops.cd_epoch_xb_lanes(ctx.Xt_ws, ln.y, beta, aux,
                                           ctx.L_ws, ctx.offset_ws, ln.cls,
@@ -651,22 +696,22 @@ class _LaneSolver:
 
     def refresh(self, ctx, beta):
         if self.config.gram:
-            return (ctx.G @ beta[..., None])[..., 0]
+            return _lanes_mv(ctx.G, beta)
         return ctx.Xb_base + _lanes_T(ctx.Xt_ws, beta)
 
     def objective(self, ctx, beta, aux):
         ln = self.lanes
         if self.config.gram:
-            return (0.5 * torch.sum(beta * aux, dim=1)
-                    - torch.sum(ctx.c * beta, dim=1) + ln.pen_value(beta))
-        return (ln.value(aux) + torch.sum(ctx.offset_ws * beta, dim=1)
+            return (0.5 * _lane_sum(beta * aux) - _lane_sum(ctx.c * beta)
+                    + ln.pen_value(beta))
+        return (ln.value(aux) + _lane_sum(_rows(ctx.offset_ws, beta) * beta)
                 + ln.pen_value(beta))
 
     def gradient(self, ctx, beta, aux):
         if self.config.gram:
             return aux - ctx.c
-        raw = self.lanes.raw(aux)
-        return (ctx.Xt_ws @ raw[..., None])[..., 0] + ctx.offset_ws
+        grad = _lanes_mv(ctx.Xt_ws, self.lanes.raw(aux))
+        return grad + _rows(ctx.offset_ws, grad)
 
     def block(self, ctx, beta, aux, go):
         """One Anderson block on every lane: M masked epochs, the guarded
@@ -681,8 +726,8 @@ class _LaneSolver:
             auxe = self.refresh(ctx, be)
             take = self.objective(ctx, be, auxe) < \
                 self.objective(ctx, beta, aux)
-            beta = torch.where(take[:, None], be, beta)
-            aux = torch.where(take[:, None], auxe, aux)
+            beta = torch.where(_lane_col(take, be), be, beta)
+            aux = torch.where(_lane_col(take, auxe), auxe, aux)
         grad = self.gradient(ctx, beta, aux)
         kkt = torch.amax(ln.scores(beta, grad, ctx.L_ws), dim=1)
         return beta, aux, kkt
@@ -696,8 +741,8 @@ class _LaneSolver:
 
         def body():
             b, a, kkt = self.block(ctx, beta, aux, go)
-            beta.copy_(torch.where(go[:, None], b, beta))
-            aux.copy_(torch.where(go[:, None], a, aux))
+            beta.copy_(torch.where(_lane_col(go, b), b, beta))
+            aux.copy_(torch.where(_lane_col(go, a), a, aux))
             blocks.add_(go.to(blocks.dtype))
             passes.add_(1)
             go.copy_(go & (blocks < self.config.max_blocks) & (kkt > eps))
@@ -910,7 +955,8 @@ class SolveEngine:
         ``engine.chunk``): lane s solves the `penalty` template at
         ``lam = lams[s]`` from (betas[s], Xbs[s]) on the shared bucket,
         with `w` None, a shared [n] or per-lane [S, n] weights and `L` the
-        matching [p] or [S, p] Lipschitz constants. The outer steps run
+        matching [p] or [S, p] Lipschitz constants; multitask lanes carry
+        betas [S, p, T] and Xbs [S, n, T] with y [n, T]. The outer steps run
         while ``it < max_outer``, some lane's kkt is above `tol` and (below
         bucket p) no such lane's |gsupp| outgrew ``bucket / growth``; on
         the kernel route on a card as one captured graph (key: bucket,
@@ -1006,47 +1052,57 @@ class SolveEngine:
         gcount, epochs), each [S] but the iterates; counts[1] and counts[2]
         count the branch's runs and the inner loop's passes."""
         cfg = self.config
-        S, p = betas.shape
+        S, p = betas.shape[:2]
         n = design.n_rows
+        block = betas.ndim == 3
         ln = _Lanes(datafit, penalty_cls, params, y, w, cfg.use_fp_score)
         raw = ln.raw(Xbs)
         gsupp = ln.gsupp(betas)
         L_l = L if L.ndim == 2 else L.expand(S, p)
-        R = raw.T.contiguous()                          # [n, S]
+        off = offset[:, None] if block else offset
+        # the lanes' raw gradients a column each ([n, S]), or lane-major
+        # T columns each on multitask lanes ([n, S*T])
+        R = raw.permute(1, 0, 2).reshape(n, -1) if block \
+            else raw.T.contiguous()
         if cfg.use_kernels and design.KIND == "dense":
-            # K3l: X read once for every lane; the lanes' working sets and
-            # their K rows each
-            scores, grad, _, ws, Xt_ws = kops.fused_ws_lanes(
+            # K3l (K3bl on blocks): X read once for every lane; the lanes'
+            # working sets and their K rows each
+            head = kops.fused_ws_block_lanes if block else kops.fused_ws_lanes
+            scores, grad, _, ws, Xt_ws = head(
                 design.Xt, R, betas, L_l, offset, gsupp, penalty_cls, params,
                 bucket, use_fp=cfg.use_fp_score)
         else:
-            # the score pass on the lanes' raw gradients (K5b at T = S on a
-            # CSC design on the kernel route), then each lane's selection
-            grad = design.score(R, use_kernels=cfg.use_kernels).T + offset
+            # the score pass on the lanes' raw gradients (K5b at S (or S*T)
+            # columns on a CSC design on the kernel route), then each
+            # lane's selection
+            grad = design.score(R, use_kernels=cfg.use_kernels)
+            grad = (grad.reshape(p, S, -1).permute(1, 0, 2) if block
+                    else grad.T) + off
             scores = ln.scores(betas, grad, L_l)
             ws = torch.sort(priorities(scores, gsupp), dim=1,
                             descending=True, stable=True).indices[:, :bucket]
             Xt_ws = design.gather_ws(ws.reshape(-1))[0].reshape(S, bucket, n)
         kkt = torch.amax(scores, dim=1)
         gcount0 = torch.sum(gsupp, dim=1)
-        obj = ln.value(Xbs) + torch.sum(offset * betas, dim=1) + \
-            ln.pen_value(betas)
+        obj = ln.value(Xbs) + _lane_sum(off * betas) + ln.pen_value(betas)
         cov = torch.sum(torch.gather(gsupp, 1, ws), dim=1) == gcount0
         run = (kkt > tol) & cov
         eps_in = torch.clamp(eps_frac * kkt, min=0.1 * tol)
         beta_new, Xb_new = betas.clone(), Xbs.clone()
         gcount = gcount0.clone()
         blocks = torch.zeros((S,), dtype=torch.int64, device=betas.device)
+        # the working set's entries of the coefficients (its rows on blocks)
+        ws_c = ws[..., None].expand(-1, -1, betas.shape[2]) if block else ws
 
         def inner():
             counts[1] += 1
             L_ws = torch.gather(L_l, 1, ws)
             offset_ws = offset[ws]
-            beta_ws0 = torch.gather(betas, 1, ws)
-            grad_ws0 = torch.gather(grad, 1, ws)
+            beta_ws0 = torch.gather(betas, 1, ws_c)
+            grad_ws0 = torch.gather(grad, 1, ws_c)
             if cfg.gram:
                 G = ln.gram(Xt_ws)
-                state = (G @ beta_ws0[..., None])[..., 0]
+                state = _lanes_mv(G, beta_ws0)
                 ctx = _LaneContext(Xt_ws, L_ws, offset_ws, G=G,
                                    c=state - grad_ws0)
             else:
@@ -1058,8 +1114,8 @@ class SolveEngine:
                                      eps_in, run.clone(), counts[2])
             if cfg.gram:
                 state = Xbs + _lanes_T(Xt_ws, beta_ws - beta_ws0)
-            Xb_new.copy_(torch.where(run[:, None], state, Xbs))
-            beta_new.scatter_(1, ws, beta_ws)
+            Xb_new.copy_(torch.where(_lane_col(run, Xbs), state, Xbs))
+            beta_new.scatter_(1, ws_c, beta_ws)
             gcount.copy_(torch.where(run, torch.sum(ln.gsupp(beta_ws), dim=1),
                                      gcount0))
 
@@ -1069,6 +1125,8 @@ class SolveEngine:
     def _chunk_key(self, bucket, design, y, w, betas, Xbs, L, offset, datafit,
                    penalty_cls, params, tol, eps_frac, budget, growth):
         wkind = None if w is None else w.ndim
+        # betas' shape holds the task count: a multitask dispatch never
+        # replays a scalar one's graph, nor one of another T
         return ("chunk", bucket, self._design_tag(design), betas.shape[0],
                 tuple(y.shape), wkind, L.ndim, tuple(betas.shape),
                 betas.dtype, datafit, penalty_cls, tol, eps_frac, growth)

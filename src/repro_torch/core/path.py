@@ -30,7 +30,9 @@ Two drivers:
     ``SolveEngine.chunk`` (one captured graph a bucket and lane count on
     the card: the outer loop on the device, one host read a dispatch);
     each chunk warm-starts every lane from the previous chunk's densest
-    solution and escalates the shared bucket when a lane outgrows it.
+    solution and escalates the shared bucket when a lane outgrows it. A
+    multitask target ``y [n, T]`` runs multitask lanes (betas
+    ``[C, p, T]``).
 
 Grid driver: ``cross_val_path`` drives a fixed pool of S = n_folds *
 vmap_chunk lanes through the same chunk dispatch. Every fold (or bootstrap
@@ -39,10 +41,12 @@ all lanes share one shape and one captured graph a bucket; the lane
 scheduler (``core/lanes.py``) retires converged lanes after each dispatch
 and backfills their slots from the (fold, lambda) queue, each fold
 warm-starting from its densest finished solution, and the held-out losses
-reduce on the device from the lanes' full-row residuals.
+reduce on the device from the lanes' full-row residuals. A multitask
+target ``y [n, T]`` (``MultitaskQuadratic`` and a block penalty) runs the
+grid on multitask lanes: betas ``[S, p, T]``, residuals ``[S, n, T]``.
 
-``obs=``, ``mesh=``, the grid's checkpoints and multitask lanes are not
-ported yet and raise, naming the slice of the port they come with.
+``obs=``, ``mesh=`` and the grid's checkpoints are not ported yet and
+raise, naming the slice of the port they come with.
 """
 from __future__ import annotations
 
@@ -80,8 +84,6 @@ _LATER = {
             "slice",
     "checkpoint": "grid checkpoints are not ported yet: they come with the "
                   "port's checkpoint/ slice",
-    "multitask": "multitask lanes (y [n, T]) are not ported yet: they come "
-                 "with the slice that runs K3b and K1b over lanes",
 }
 
 _ENGINE_KW = ("M", "max_epochs", "accel", "use_fp_score", "use_gram",
@@ -165,9 +167,10 @@ def reg_path(X, y, penalty, datafit=None, *, lambdas=None, n_lambdas=30,
     safe, so the solutions are unchanged). ``sample_weight`` is shared by
     every lambda. ``metric_fn(lam, beta)`` is recorded per lambda (beta on
     the device). ``vmap_chunk = C > 1`` sweeps C lambdas at a time as the
-    lanes of one dispatch (``SolveEngine.chunk``); it takes ``p0``,
-    ``max_outer`` and ``eps_inner_frac`` and rejects other solve keywords,
-    and does not run multitask targets yet. ``obs=`` and ``mesh=`` are
+    lanes of one dispatch (``SolveEngine.chunk``; multitask lanes on a
+    target ``y [n, T]``); it takes ``p0``, ``max_outer`` and
+    ``eps_inner_frac`` and rejects other solve keywords. ``obs=`` and
+    ``mesh=`` are
     not ported yet and raise. Other keywords go to the sequential solves
     (``max_outer``, ``p0``, ``use_ws``, ``eps_inner_frac``,
     ``bucket_policy``).
@@ -378,15 +381,12 @@ def _chunked_path(engine, prob, penalty, datafit, lambdas, tol, chunk,
         raise ValueError(
             f"vmap_chunk > 1 does not support solve kwargs "
             f"{sorted(solve_kw)}; use the sequential driver (vmap_chunk=1)")
-    if prob.n_tasks:
-        raise NotImplementedError(
-            f"reg_path(vmap_chunk > 1) on a multitask target: the chunked "
-            f"driver's {_LATER['multitask']}")
     design, y, w, L, offset = prob.design, prob.y, prob.w, prob.L, \
         prob.offset
     p = design.shape[1]
     policy = BucketPolicy(p0=p0)
-    beta_prev = torch.zeros(p, dtype=design.dtype, device=engine.device)
+    bshape = (p, prob.n_tasks) if prob.n_tasks else (p,)
+    beta_prev = torch.zeros(bshape, dtype=design.dtype, device=engine.device)
     Xb_prev = design.matvec(beta_prev)
     gcount_prev = 0
     reads0 = engine.n_chunk_reads
@@ -396,8 +396,8 @@ def _chunked_path(engine, prob, penalty, datafit, lambdas, tol, chunk,
         lams_c = lambdas[lo:lo + chunk]
         C = len(lams_c)
         # every lane warm-starts from the previous chunk's densest solution
-        betas0 = beta_prev.expand(C, p).contiguous()
-        Xbs0 = Xb_prev.expand(C, -1).contiguous()
+        betas0 = beta_prev.expand((C,) + bshape).contiguous()
+        Xbs0 = Xb_prev.expand((C,) + tuple(Xb_prev.shape)).contiguous()
         bucket = policy.first_bucket(gcount_prev, p)
         iters_left, chunk_iters = max_outer, 0
         chunk_eps = np.zeros(C, np.int64)
@@ -443,7 +443,8 @@ class GridResult:
     """Result of one :func:`cross_val_path` (fold x lambda) grid sweep.
 
     ``lambdas`` is the decreasing grid; ``betas`` the per-replicate
-    solutions ``[n_folds, n_lambdas, p]`` on the host; ``cv_loss`` the
+    solutions ``[n_folds, n_lambdas, p]`` (``[n_folds, n_lambdas, p, T]``
+    multitask) on the host; ``cv_loss`` the
     held-out mean datafit loss per (fold, lambda) (the datafit's
     ``value``: half-MSE for quadratic losses, mean log-loss for logistic),
     NaN for a replicate without held-out rows; ``cv_mean`` / ``cv_std``
@@ -486,8 +487,8 @@ class GridResult:
 
 def heldout_losses(datafit, Xbs, y, H):
     """The lanes' held-out mean losses [S]: lane s's datafit value at its
-    residual Xbs[s] [n] under its held-out weight row H[s] [n] (weights
-    normalized to mean 1 over the held-out rows)."""
+    residual Xbs[s] [n] (or [n, T] multitask) under its held-out weight row
+    H[s] [n] (weights normalized to mean 1 over the held-out rows)."""
     return torch.vmap(lambda x, h: datafit.value(x, y, h))(Xbs, H)
 
 
@@ -525,9 +526,10 @@ def cross_val_path(X, y, datafit=None, penalty=None, *, lambdas=None,
     ``progress`` (a callable, or True for stderr lines) receives one
     "bucket" event a dispatch and a "chunk" event on every round that
     retired lanes. ``**engine_kw`` is restricted to the engine's keys (M,
-    max_epochs, accel, use_fp_score, use_gram, use_kernels).
-    ``checkpoint=``/``resume=``, ``obs=``, ``mesh=`` and multitask targets
-    are not ported yet and raise.
+    max_epochs, accel, use_fp_score, use_gram, use_kernels). A target
+    ``y [n, T]`` (``MultitaskQuadratic`` and ``BlockL1``/``BlockMCP``)
+    runs multitask lanes. ``checkpoint=``/``resume=``, ``obs=`` and
+    ``mesh=`` are not ported yet and raise.
 
     Returns a :class:`GridResult`.
     """
@@ -540,8 +542,6 @@ def cross_val_path(X, y, datafit=None, penalty=None, *, lambdas=None,
     if mesh is not None:
         raise NotImplementedError(
             f"cross_val_path(mesh=...): {_LATER['mesh']}")
-    if getattr(y, "ndim", 1) == 2:
-        raise NotImplementedError(f"cross_val_path: {_LATER['multitask']}")
     datafit = Quadratic() if datafit is None else datafit
     penalty = L1(1.0) if penalty is None else penalty
     unsupported = set(engine_kw) - set(_ENGINE_KW)
@@ -610,7 +610,8 @@ def _grid(engine, X, y, datafit, penalty, lambdas, n_lambdas,
         lambdas = lmax * np.geomspace(1.0, lambda_min_ratio, n_lambdas)
     lambdas = _check_grid(lambdas)
     nlam = len(lambdas)
-    engine.validate(datafit, penalty, 0, weighted=True, design=design)
+    n_tasks = y.shape[1] if y.ndim == 2 else 0
+    engine.validate(datafit, penalty, n_tasks, weighted=True, design=design)
 
     # train weights normalized to sum n (the row-subset scaling), held-out
     # weights to mean 1 over the held-out rows
@@ -642,11 +643,13 @@ def _grid(engine, X, y, datafit, penalty, lambdas, n_lambdas,
     round_idx, total_outer = 0, 0
     dispatches0, reads0 = engine.n_dispatches, engine.n_chunk_reads
     n_captured = len(engine.capture_s)
-    betas_l = torch.zeros((S, p), dtype=dtype, device=dev)
-    Xbs_l = torch.zeros((S, n), dtype=dtype, device=dev)
-    bank_b = torch.zeros((F, p), dtype=dtype, device=dev)
-    bank_x = torch.zeros((F, n), dtype=dtype, device=dev)
-    out_betas = torch.zeros((F, nlam, p), dtype=dtype, device=dev)
+    bshape = (p, n_tasks) if n_tasks else (p,)
+    xshape = (n, n_tasks) if n_tasks else (n,)
+    betas_l = torch.zeros((S,) + bshape, dtype=dtype, device=dev)
+    Xbs_l = torch.zeros((S,) + xshape, dtype=dtype, device=dev)
+    bank_b = torch.zeros((F,) + bshape, dtype=dtype, device=dev)
+    bank_x = torch.zeros((F,) + xshape, dtype=dtype, device=dev)
+    out_betas = torch.zeros((F, nlam) + bshape, dtype=dtype, device=dev)
     out_loss = torch.zeros((F, nlam), dtype=dtype, device=dev)
     for s, f, j in sched.fill():
         lams_l[s], fold_host[s] = lambdas[j], f

@@ -94,6 +94,14 @@
 // points are the same kernel with one lane and no mask. K1's lane code is
 // a template branch (LANES) that the single-lane K1 does not compile: with
 // the lane prologue in it, K1's chain ran 1.8x slower on the H100.
+// K1bl (cd_epoch_gram_block_lanes_f64) is K1b over lanes of multitask
+// blocks the same way: K1b's two kernels with a LANES template branch that
+// K1b does not compile, the lane on grid y (one CTA or one cluster a lane,
+// each on K1b's plan of one lane), a lane stride on G and on c, beta, q
+// [S, K, T], a parameter row a lane. A frozen lane runs zero epochs: it
+// takes the same copy-in / copy-out path as an active one, with no chain
+// step and no early return, so every CTA of its cluster reaches the last
+// cluster barrier.
 //
 // The launch layout (cluster size, shared or global slices, dynamic shared
 // bytes, threads, register path) is the wrapper's plan
@@ -621,12 +629,28 @@ __global__ void __launch_bounds__(kGramMaxThreads)
   }
 }
 
-template <typename T>
+// LANES: K1bl's lane prologue (a lane a CTA, blockIdx.y; the lane strides
+// g_lane on G and K * nt on c, beta and q, the parameter row prm_lane
+// apart; a lane with active[lane] == 0 runs zero epochs)
+template <typename T, bool LANES>
 __global__ void cd_gram_block_kernel(const T* __restrict__ G, long long s_row, long long s_col,
-                                     const T* __restrict__ c, const T* __restrict__ L,
-                                     const T* __restrict__ beta0, const T* __restrict__ q0,
-                                     T* beta, T* q_out, int K, int nt, int epochs, int pen,
-                                     const double* __restrict__ prm) {
+                                     long long g_lane, const T* __restrict__ c,
+                                     const T* __restrict__ L, const T* __restrict__ beta0,
+                                     const T* __restrict__ q0, T* beta, T* q_out, int K, int nt,
+                                     int epochs, int pen, const double* __restrict__ prm,
+                                     int prm_lane, const unsigned char* __restrict__ active) {
+  if constexpr (LANES) {
+    const long long ln = blockIdx.y, o = ln * K * nt;
+    G += ln * g_lane;
+    c += o;
+    L += ln * K;
+    beta0 += o;
+    q0 += o;
+    beta += o;
+    q_out += o;
+    prm += ln * prm_lane;
+    if (active && !active[ln]) epochs = 0;  // a frozen lane: state passes through
+  }
   const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(pen, prm);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_nz;
@@ -914,13 +938,29 @@ __global__ void __launch_bounds__(PER > 0 ? kPerThreads : 1024)
 // barrier. Dynamic shared memory holds slot[2][nt + 1] (delta_j and the
 // nonzero flag, by parity), the local copy s_delta[nt + 1] and, on the
 // shared branch, the CTA's ceil(K / C) rows of q.
-template <typename T, int PER>
+// LANES: K1bl's lane prologue, as the one-CTA kernel's (a lane a cluster,
+// blockIdx.y; every CTA of a frozen lane runs zero epochs)
+template <typename T, int PER, bool LANES>
 __global__ void __launch_bounds__(PER > 0 ? kPerThreads : 1024)
     cd_gram_block_cluster_kernel(const T* __restrict__ G, long long s_row, long long s_col,
-                                 const T* __restrict__ c, const T* __restrict__ L,
-                                 const T* __restrict__ beta0, const T* __restrict__ q0,
-                                 T* beta, T* q_out, int K, int nt, int epochs, int pen,
-                                 const double* __restrict__ prm, int use_smem) {
+                                 long long g_lane, const T* __restrict__ c,
+                                 const T* __restrict__ L, const T* __restrict__ beta0,
+                                 const T* __restrict__ q0, T* beta, T* q_out, int K, int nt,
+                                 int epochs, int pen, const double* __restrict__ prm,
+                                 int use_smem, int prm_lane,
+                                 const unsigned char* __restrict__ active) {
+  if constexpr (LANES) {
+    const long long ln = blockIdx.y, o = ln * K * nt;
+    G += ln * g_lane;
+    c += o;
+    L += ln * K;
+    beta0 += o;
+    q0 += o;
+    beta += o;
+    q_out += o;
+    prm += ln * prm_lane;
+    if (active && !active[ln]) epochs = 0;  // a frozen lane: state passes through
+  }
   const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(pen, prm);
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
@@ -1069,10 +1109,10 @@ int cluster_capacity_t(int which, int per, int C, int threads, int dyn, int* act
       return per ? cluster_capacity_of(cd_xb_cluster_kernel<T, kXbPer>, C, threads, dyn, active)
                  : cluster_capacity_of(cd_xb_cluster_kernel<T, 0>, C, threads, dyn, active);
     case 2:
-      return per ? cluster_capacity_of(cd_gram_block_cluster_kernel<T, kGramPer>, C, threads,
-                                       dyn, active)
-                 : cluster_capacity_of(cd_gram_block_cluster_kernel<T, 0>, C, threads, dyn,
-                                       active);
+      return per ? cluster_capacity_of(cd_gram_block_cluster_kernel<T, kGramPer, false>, C,
+                                       threads, dyn, active)
+                 : cluster_capacity_of(cd_gram_block_cluster_kernel<T, 0, false>, C, threads,
+                                       dyn, active);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1133,25 +1173,28 @@ int launch_gram(const T* G, long long sr, long long sc, long long gl, const T* c
 // K1b with the wrapper's plan (kernels/cd_epoch.py: gram_block_plan): one
 // CTA (cluster == 1) or a cluster of `cluster` CTAs with q's rows in shared
 // memory (use_smem) or global memory, `dyn` bytes of dynamic shared memory
-// and the register path when per == kGramPer.
-template <typename T>
-int launch_gram_block(const T* G, long long sr, long long sc, const T* c, const T* L,
-                      const T* beta0, const T* q0, T* beta, T* q, int K, int nt, int epochs,
-                      int pen, const double* prm, int cluster, int use_smem, int dyn,
+// and the register path when per == kGramPer. LANES: K1bl's kernels (a lane
+// a CTA or cluster, the lane strides, the mask).
+template <typename T, bool LANES>
+int launch_gram_block(const T* G, long long sr, long long sc, long long gl, const T* c,
+                      const T* L, const T* beta0, const T* q0, T* beta, T* q, int K, int nt,
+                      int epochs, int pen, const double* prm, int pl,
+                      const unsigned char* active, int lanes, int cluster, int use_smem, int dyn,
                       int threads, int per, void* stream) {
+  if (lanes < 1 || lanes > 65535) return (int)cudaErrorInvalidValue;
   if (cluster == 1) {
-    cudaError_t err = cudaFuncSetAttribute(cd_gram_block_kernel<T>,
+    cudaError_t err = cudaFuncSetAttribute(cd_gram_block_kernel<T, LANES>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
     if (err != cudaSuccess) return (int)err;
-    cd_gram_block_kernel<T><<<1, threads, dyn, (cudaStream_t)stream>>>(
-        G, sr, sc, c, L, beta0, q0, beta, q, K, nt, epochs, pen, prm);
+    cd_gram_block_kernel<T, LANES><<<dim3(1, lanes), threads, dyn, (cudaStream_t)stream>>>(
+        G, sr, sc, gl, c, L, beta0, q0, beta, q, K, nt, epochs, pen, prm, pl, active);
     return (int)cudaGetLastError();
   }
   if (per != 0 && per != kGramPer) return (int)cudaErrorInvalidValue;
-  auto kernel = per ? cd_gram_block_cluster_kernel<T, kGramPer>
-                    : cd_gram_block_cluster_kernel<T, 0>;
-  return launch_cluster(kernel, cluster, threads, (size_t)dyn, stream, 1, G, sr, sc, c, L, beta0,
-                        q0, beta, q, K, nt, epochs, pen, prm, use_smem);
+  auto kernel = per ? cd_gram_block_cluster_kernel<T, kGramPer, LANES>
+                    : cd_gram_block_cluster_kernel<T, 0, LANES>;
+  return launch_cluster(kernel, cluster, threads, (size_t)dyn, stream, lanes, G, sr, sc, gl, c, L,
+                        beta0, q0, beta, q, K, nt, epochs, pen, prm, use_smem, pl, active);
 }
 
 // K2 with the wrapper's plan (kernels/cd_epoch.py: xb_plan): a cluster of
@@ -1214,8 +1257,9 @@ int cd_epoch_gram_block_f64(const double* G, long long sr, long long sc, const d
                             double* beta, double* q, int K, int nt, int epochs, int pen,
                             const double* prm, int cluster, int use_smem, int dyn,
                             int threads, int per, void* stream) {
-  return launch_gram_block<double>(G, sr, sc, c, L, beta0, q0, beta, q, K, nt, epochs, pen, prm,
-                                   cluster, use_smem, dyn, threads, per, stream);
+  return launch_gram_block<double, false>(G, sr, sc, 0, c, L, beta0, q0, beta, q, K, nt, epochs,
+                                          pen, prm, 0, nullptr, 1, cluster, use_smem, dyn,
+                                          threads, per, stream);
 }
 
 int cd_epoch_gram_block_f32(const float* G, long long sr, long long sc, const float* c,
@@ -1223,8 +1267,23 @@ int cd_epoch_gram_block_f32(const float* G, long long sr, long long sc, const fl
                             float* q, int K, int nt, int epochs, int pen, const double* prm,
                             int cluster, int use_smem, int dyn, int threads, int per,
                             void* stream) {
-  return launch_gram_block<float>(G, sr, sc, c, L, beta0, q0, beta, q, K, nt, epochs, pen, prm,
-                                  cluster, use_smem, dyn, threads, per, stream);
+  return launch_gram_block<float, false>(G, sr, sc, 0, c, L, beta0, q0, beta, q, K, nt, epochs,
+                                         pen, prm, 0, nullptr, 1, cluster, use_smem, dyn,
+                                         threads, per, stream);
+}
+
+// K1bl: K1b on `lanes` lanes (G's lanes g_lane apart, c, beta, q K * nt
+// apart, L K apart, the parameter rows prm_lane apart), lanes with
+// active[lane] == 0 frozen; float64 only, as K1l
+int cd_epoch_gram_block_lanes_f64(const double* G, long long sr, long long sc, long long g_lane,
+                                  const double* c, const double* L, const double* beta0,
+                                  const double* q0, double* beta, double* q, int K, int nt,
+                                  int epochs, int pen, const double* prm, int prm_lane,
+                                  const unsigned char* active, int lanes, int cluster,
+                                  int use_smem, int dyn, int threads, int per, void* stream) {
+  return launch_gram_block<double, true>(G, sr, sc, g_lane, c, L, beta0, q0, beta, q, K, nt,
+                                         epochs, pen, prm, prm_lane, active, lanes, cluster,
+                                         use_smem, dyn, threads, per, stream);
 }
 
 int cd_epoch_xb_f64(const double* Xt, const double* y, const double* w, const double* L,

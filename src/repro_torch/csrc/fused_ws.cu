@@ -76,6 +76,20 @@
 // score, writes grad, score and priority lane-major [S, p]; K3's select
 // and merge launches then run with the lane on their grids' y index.
 //
+// K3bl (fused_ws_block_lanes) is K3b over S lanes of multitask blocks that
+// share X (the block branch of fused_ws_pallas under the reference's vmap).
+// Lane s has its raw gradient R[:, s*T .. s*T + T - 1] (R [n, S*T],
+// lane-major), its beta [p, T], L, generalized support and row of the
+// codec vector. Bound: bytes at small S*T (X read once for every lane),
+// the float64 tensor cores' operations at large S*T. Design, float64:
+// K3b's product and reduce launches over the S*T columns (passes of kMmaT
+// tasks, each pass reading X again) into a [p, S*T] buffer; a block lane
+// epilogue (one thread a (feature, lane), lane = blockIdx.y) copies the
+// lane's gradient row to grad [S, p, T], computes its row score from it
+// with the lane's beta, L and parameter row, and writes score and priority
+// lane-major [S, p]; K3's select and merge launches then run with the lane
+// on their grids' y index.
+//
 // K4 (ws_score) replaces repro/kernels/ws_score.py:ws_score_pallas (body
 // _score_kernel): the score pass alone, with optional sample weights fused
 // into the load, grad_j = Xt[j] . (r * w) + offset_j, and only the scores
@@ -671,6 +685,34 @@ __global__ void lane_epilogue_kernel(const T* __restrict__ gradT, const T* __res
   pri[e] = (gsupp[e] ? (T)INFINITY : sc) + T(0);  // +0 folds -0.0 into +0.0
 }
 
+// K3bl, the block lane epilogue: for feature j (blockIdx.x, threadIdx.x) of
+// lane s (blockIdx.y), its gradient row gradT[j, s*nt .. s*nt + nt - 1]
+// (the product's [p, S*nt] layout) copied to grad [S, p, nt], its row score
+// with the lane's beta [S, p, nt], L (lanes l_lane apart: p, or 0 for one
+// shared row) and parameter row, and the priority under its generalized
+// support, written lane-major [S, p]
+template <typename T>
+__global__ void block_lane_epilogue_kernel(const T* __restrict__ gradT,
+                                           const T* __restrict__ beta, const T* __restrict__ L,
+                                           int l_lane, const uint8_t* __restrict__ gsupp,
+                                           T* scores, T* grad, T* pri, int p, int S, int nt,
+                                           int pen, int use_fp, const double* __restrict__ prm,
+                                           int prm_lane) {
+  const int s = blockIdx.y;
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= p) return;
+  const double* pr = prm + (long long)s * prm_lane;
+  const T p0 = rt::param0<T>(pr), p1 = rt::param1<T>(pen, pr);
+  const long long e = (long long)s * p + j;
+  const T* g = gradT + j * S * nt + (long long)s * nt;
+  T* out = grad + e * nt;
+  for (int t = 0; t < nt; ++t) out[t] = g[t];
+  const T sc = rt::block_violation_score(pen, use_fp, beta + e * nt, g, nt,
+                                         L[(long long)s * l_lane + j], p0, p1);
+  scores[e] = sc;
+  pri[e] = (gsupp[e] ? (T)INFINITY : sc) + T(0);  // +0 folds -0.0 into +0.0
+}
+
 template <typename T, int A>
 int launch_block_score_a(const T* Xt, const T* R, const T* beta, const T* L, const T* offset,
                          const uint8_t* gsupp, T* scores, T* grad, T* pri, int n, int p, int nt,
@@ -865,6 +907,26 @@ int fused_ws_lanes_f64(const double* Xt, const double* R, const double* beta, co
   if (rc != 0) return rc;
   lane_epilogue_kernel<double><<<dim3((p + 255) / 256, S), 256, 0, st>>>(
       gradT, beta, L, l_lane, gsupp, scores, grad, pri, p, S, pen, use_fp, prm, prm_lane);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  return launch_select<double>(pri, cand_idx, p, bp, kc, st, S);
+}
+
+// K3bl (float64): the product and reduce launches over the S * nt columns
+// into gradT [p, S * nt], the block lane epilogue, and the select launch
+// over the lanes; the merge launch is merge_lanes_f64
+int fused_ws_block_lanes_f64(const double* Xt, const double* R, const double* beta,
+                             const double* L, int l_lane, const double* offset,
+                             const uint8_t* gsupp, double* scores, double* grad, double* pri,
+                             int* cand_idx, double* gradT, double* part, int splits, int n, int p,
+                             int S, int nt, int bp, int kc, int pen, int use_fp,
+                             const double* prm, int prm_lane, void* stream) {
+  if (p <= 0 || S <= 0 || S > 65535 || nt <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  int rc = launch_mma_product(Xt, R, offset, gradT, part, splits, n, p, S * nt, st);
+  if (rc != 0) return rc;
+  block_lane_epilogue_kernel<double><<<dim3((p + 255) / 256, S), 256, 0, st>>>(
+      gradT, beta, L, l_lane, gsupp, scores, grad, pri, p, S, nt, pen, use_fp, prm, prm_lane);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   return launch_select<double>(pri, cand_idx, p, bp, kc, st, S);

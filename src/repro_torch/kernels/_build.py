@@ -148,6 +148,10 @@ _PLAIN_SIGNATURES = {
                  "cd_epoch_gram_lanes_f64": [_P, _LL, _LL, _LL, _P, _P, _P,
                                              _P, _P, _P, _I, _I, _I, _P, _I,
                                              _P, _I, _I, _I, _I, _P],
+                 # K1bl: float64 only
+                 "cd_epoch_gram_block_lanes_f64": [
+                     _P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                     _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
                  "gram_chain_floor": [_I, _I, _I, _P, _P],
                  "fill_shared_memory": [_P],
                  "cluster_capacity": [_I, _I, _I, _I, _I, _I, _P]},
@@ -155,7 +159,11 @@ _PLAIN_SIGNATURES = {
                  # K3 over lanes: float64 only (its product runs on DMMA)
                  "fused_ws_lanes_f64": [_P, _P, _P, _P, _I, _P, _P, _P, _P,
                                         _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                        _I, _I, _I, _P, _I, _P]},
+                                        _I, _I, _I, _P, _I, _P],
+                 # K3b over lanes of blocks: float64 only, as K3l
+                 "fused_ws_block_lanes_f64": [
+                     _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                     _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P]},
     "csc_score": {"l2_gather_probe": [_P, _I, _I, _LL, _I, _P, _P]},
     "graph_ctl": {"cond_begin": [_P, _P, _I, _P, _P],
                   "cond_end": [_P, ctypes.c_ulonglong, _P],

@@ -30,8 +30,11 @@ reference's ``vmap`` (the chunked driver and the CV grid): one launch runs
 S independent epochs, each lane on its own tensors and its own row of the
 codec vector, as a grid of S CTAs or S clusters of the single-lane plan.
 An active-lane mask freezes lanes: a frozen lane's CTAs copy its state
-through and return at entry. Their plain versions apply the single-lane
-plain version lane by lane, skipping the frozen lanes.
+through and return at entry. K1bl (``cd_epoch_gram_block_lanes``) is K1b
+over lanes of multitask blocks (c, beta, q [S, K, T]), each lane on K1b's
+plan of one lane (``gram_block_plan(K, T)``); a frozen lane runs zero
+epochs, which copies its state through. Their plain versions apply the
+single-lane plain version lane by lane, skipping the frozen lanes.
 
 A plan's cluster must be one the card can place: 16 CTAs is beyond the
 portable 8, and a MIG slice or a GPC with SMs taken may not hold it. Each
@@ -59,7 +62,9 @@ __all__ = ["KIND_IDS", "cd_epoch_gram_plain", "cd_epoch_xb_plain",
            "cd_epoch_gram_cuda", "cd_epoch_gram_block_cuda",
            "cd_epoch_xb_cuda", "cd_epoch_gram_lanes_plain",
            "cd_epoch_xb_lanes_plain", "cd_epoch_gram_lanes_cuda",
-           "cd_epoch_xb_lanes_cuda", "kernel_params", "EpochPlan", "GramPlan",
+           "cd_epoch_xb_lanes_cuda", "cd_epoch_gram_block_lanes_plain",
+           "cd_epoch_gram_block_lanes_cuda", "kernel_params", "EpochPlan",
+           "GramPlan",
            "gram_plan", "xb_plan", "gram_block_plan", "BRANCHES",
            "SMEM_DYN_MAX", "cluster_barrier_cuda", "gram_chain_floor_cuda",
            "fill_shared_memory_cuda", "card_placeable", "placement",
@@ -334,8 +339,9 @@ def cd_epoch_xb_plain(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls, params,
 def cd_epoch_gram_lanes_plain(G, c, beta0, q0, L, penalty_cls, params,
                               active, *, epochs=1):
     """K1l's plain version: K1's plain epoch on each active lane s of G
-    [S, K, K], c, beta0, q0, L [S, K] with params[s]; a frozen lane's
-    beta and q come back unchanged."""
+    [S, K, K], c, beta0, q0, L [S, K] with params[s] (K1b's on block lanes
+    c, beta0, q0 [S, K, T]); a frozen lane's beta and q come back
+    unchanged."""
     beta, q = beta0.clone(), q0.clone()
     for s in range(G.shape[0]):
         if bool(active[s]):
@@ -343,6 +349,11 @@ def cd_epoch_gram_lanes_plain(G, c, beta0, q0, L, penalty_cls, params,
                                                 L[s], penalty_cls, params[s],
                                                 epochs=epochs)
     return beta, q
+
+
+# K1bl's plain version: K1l's on block lanes (c, beta0, q0 [S, K, T]),
+# which runs K1b's plain epoch on each active lane
+cd_epoch_gram_block_lanes_plain = cd_epoch_gram_lanes_plain
 
 
 def cd_epoch_xb_lanes_plain(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls,
@@ -454,6 +465,33 @@ def cd_epoch_gram_lanes_cuda(G, c, beta0, q0, L, penalty_cls, params, active,
                 prm.data_ptr(), prm.shape[1], mask.data_ptr(), S,
                 plan.cluster, plan.dyn_bytes, plan.threads, stream)
     _check_rc(rc, "cd_epoch_gram_lanes", plan)
+    return beta, q
+
+
+def cd_epoch_gram_block_lanes_cuda(G, c, beta0, q0, L, penalty_cls, params,
+                                   active, *, plan, epochs=1):
+    """Launch K1bl on the tensors' stream: K1b with `plan` (a
+    ``gram_block_plan`` of one lane's K and T) on each lane of G [S, K, K]
+    (each lane with K1b's strides), c, beta0, q0 contiguous [S, K, T], L
+    contiguous [S, K], params [S, arity] on the card and the bool mask
+    `active` [S]; float64 only. Returns (beta, q)."""
+    if G.dtype != torch.float64:
+        raise TypeError("cd_epoch_gram_block_lanes: the card runs it in "
+                        "float64 only")
+    fn = BUILD.lib("cd_epoch").cd_epoch_gram_block_lanes_f64
+    S, K, T = beta0.shape
+    pid, prm = kernel_params(penalty_cls, params, G.device, lanes=S)
+    mask = _mask_ptr(active)
+    beta, q = torch.empty_like(beta0), torch.empty_like(q0)
+    with torch.cuda.device(G.device):
+        stream = torch.cuda.current_stream(G.device).cuda_stream
+        rc = fn(G.data_ptr(), G.stride(1), G.stride(2), G.stride(0),
+                c.data_ptr(), L.data_ptr(), beta0.data_ptr(), q0.data_ptr(),
+                beta.data_ptr(), q.data_ptr(), K, T, epochs, pid,
+                prm.data_ptr(), prm.shape[1], mask.data_ptr(), S,
+                plan.cluster, int(plan.smem), plan.dyn_bytes, plan.threads,
+                plan.per, stream)
+    _check_rc(rc, "cd_epoch_gram_block_lanes", plan)
     return beta, q
 
 

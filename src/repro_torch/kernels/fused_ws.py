@@ -31,6 +31,15 @@ scores, gradient and priorities, and K3's select and merge launches run
 with a lane index on their grids. Float64 only on the card. Its plain
 version applies K3's lane by lane.
 
+K3bl (``fused_ws_block_lanes``) is K3b over S lanes of multitask blocks
+that share X: R [n, S*T] holds the lanes' raw gradients lane-major, beta
+is [S, p, T]. The product launch runs over the S*T columns (passes of
+MMA_TASKS) into a [p, S*T] buffer; a block lane epilogue (one thread a
+(feature, lane)) writes each lane's gradient rows [S, p, T], its row
+scores with its own beta, L and codec row, and its priorities; K3's
+select and merge launches then run with the lane on grid y, as K3l's.
+Float64 only on the card. Its plain version applies K3b's lane by lane.
+
 The plain version below covers both forms and keeps the four outputs
 (``cand_cols``, the candidates' rows of Xt, included): it is the oracle
 both heads are held to, and ``candidate_columns`` recovers the working
@@ -50,7 +59,8 @@ from .common import make_penalty
 __all__ = ["pick_bp", "fused_ws_plain", "fused_ws_cuda", "score_cuda",
            "select_cuda", "merge_cuda", "fused_ws_block_cuda", "MMA_TASKS",
            "MERGE_SMEM_K", "fused_ws_lanes_plain", "fused_ws_lanes_cuda",
-           "merge_lanes_cuda"]
+           "merge_lanes_cuda", "fused_ws_block_lanes_plain",
+           "fused_ws_block_lanes_cuda"]
 
 # tasks a pass of K3b's float64 product launch (csrc/fused_ws.cu: kMmaT)
 MMA_TASKS = 24
@@ -106,6 +116,20 @@ def fused_ws_lanes_plain(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
     outs = [fused_ws_plain(Xt, R[:, s], beta[s], L[s], offset, gsupp[s],
                            penalty_cls, params[s], ws_size, use_fp=use_fp,
                            bp=bp)
+            for s in range(beta.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def fused_ws_block_lanes_plain(Xt, R, beta, L, offset, gsupp, penalty_cls,
+                               params, ws_size, *, use_fp=False, bp=None):
+    """K3bl's plain version: K3b's on each lane s (raw R[:, s*T:(s+1)*T],
+    beta[s] [p, T], L[s], gsupp[s], params[s]; offset shared). Returns the
+    four outputs stacked over the lanes: scores [S, p], grad [S, p, T],
+    cand_idx [S, C] and cand_cols [S, C, n]."""
+    T = beta.shape[2]
+    outs = [fused_ws_plain(Xt, R[:, s * T:(s + 1) * T].contiguous(), beta[s],
+                           L[s], offset, gsupp[s], penalty_cls, params[s],
+                           ws_size, use_fp=use_fp, bp=bp)
             for s in range(beta.shape[0])]
     return tuple(torch.stack(o) for o in zip(*outs))
 
@@ -278,6 +302,46 @@ def fused_ws_lanes_cuda(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
             gradT.data_ptr(), part.data_ptr(), splits, n, p, S, bp, kc, pid,
             int(bool(use_fp)), prm.data_ptr(), prm.shape[1], stream)
     _check_rc(rc, "fused_ws_lanes")
+    return scores, grad, cand_idx, merge_lanes_cuda(pri, cand_idx, bp,
+                                                    ws_size)
+
+
+def fused_ws_block_lanes_cuda(Xt, R, beta, L, offset, gsupp, penalty_cls,
+                              params, ws_size, *, use_fp=False, bp=None):
+    """Launch K3bl on the tensors' stream (float64): Xt contiguous [p, n],
+    R contiguous [n, S*T] (lane-major), beta contiguous [S, p, T], gsupp
+    contiguous [S, p], L [S, p] with a lane stride of p or 0, params
+    [S, arity] on the card. Returns (scores [S, p], grad [S, p, T],
+    cand_idx [S, tiles * kc], ws [S, ws_size]): no candidate rows are
+    copied."""
+    if Xt.dtype != torch.float64:
+        raise TypeError("fused_ws_block_lanes: the card runs it in float64 "
+                        "only (its product is the float64 tensor-core "
+                        "launch)")
+    lib = BUILD.lib("fused_ws")
+    p, n = Xt.shape
+    S, _, T = beta.shape
+    bp, tiles, kc = _tiling(p, ws_size, bp)
+    pid, prm = kernel_params(penalty_cls, params, Xt.device, lanes=S)
+    scores, pri = (torch.empty((S, p), dtype=Xt.dtype, device=Xt.device)
+                   for _ in range(2))
+    grad = torch.empty_like(beta)
+    gradT = torch.empty((p, S * T), dtype=Xt.dtype, device=Xt.device)
+    cand_idx = torch.empty((S, tiles * kc), dtype=torch.int32,
+                           device=Xt.device)
+    splits = _mma_splits(Xt)
+    part = torch.empty(splits * p * MMA_TASKS, dtype=Xt.dtype,
+                       device=Xt.device)
+    gs = gsupp.to(torch.uint8)
+    with torch.cuda.device(Xt.device):
+        stream = torch.cuda.current_stream(Xt.device).cuda_stream
+        rc = lib.fused_ws_block_lanes_f64(
+            Xt.data_ptr(), R.data_ptr(), beta.data_ptr(), L.data_ptr(),
+            L.stride(0), offset.data_ptr(), gs.data_ptr(), scores.data_ptr(),
+            grad.data_ptr(), pri.data_ptr(), cand_idx.data_ptr(),
+            gradT.data_ptr(), part.data_ptr(), splits, n, p, S, T, bp, kc,
+            pid, int(bool(use_fp)), prm.data_ptr(), prm.shape[1], stream)
+    _check_rc(rc, "fused_ws_block_lanes")
     return scores, grad, cand_idx, merge_lanes_cuda(pri, cand_idx, bp,
                                                     ws_size)
 

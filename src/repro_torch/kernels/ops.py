@@ -23,10 +23,14 @@ kernel to the plain version. ``launches`` is a plain int on the wrapper;
                        driver and the CV grid), with an active-lane mask
   cd_epoch_xb_lanes    K2l, K2 over S lanes in one launch, with the mask
   fused_ws_lanes       K3l, K3 over S lanes sharing X (X read once)
+  cd_epoch_gram_block_lanes
+                       K1bl, K1b over S lanes of multitask blocks in one
+                       launch, with the mask
+  fused_ws_block_lanes K3bl, K3b over S lanes of multitask blocks sharing X
 
 The block and lane forms have counters of their own, so a run can tell
-them from the single-lane scalar launches. K1, K2, K1b, K1l and K2l also
-count their launches by
+them from the single-lane scalar launches. K1, K2, K1b, K1l, K2l and
+K1bl also count their launches by
 the branch their shape's plan took (``kernels/cd_epoch.py``:
 ``gram_plan``, ``xb_plan``, ``gram_block_plan``) in ``branch_launches``, a
 dict over ``BRANCHES`` ("single", "cluster-shared", "cluster-global"),
@@ -45,6 +49,8 @@ from contextlib import contextmanager
 import torch
 
 from .cd_epoch import (BRANCHES, KIND_IDS, cd_epoch_gram_block_cuda,
+                       cd_epoch_gram_block_lanes_cuda,
+                       cd_epoch_gram_block_lanes_plain,
                        cd_epoch_gram_cuda, cd_epoch_gram_lanes_cuda,
                        cd_epoch_gram_lanes_plain, cd_epoch_gram_plain,
                        cd_epoch_xb_cuda, cd_epoch_xb_lanes_cuda,
@@ -55,14 +61,17 @@ from .common import (UnsupportedPenaltyError, check_block_kernel_penalty,
                      make_penalty, penalty_params)
 from .csc_score import csc_score_block_cuda, csc_score_cuda, csc_score_plain
 from ..core.working_set import candidate_columns, select_working_set
-from .fused_ws import (fused_ws_block_cuda, fused_ws_cuda, fused_ws_lanes_cuda,
-                       fused_ws_lanes_plain, fused_ws_plain, score_cuda)
+from .fused_ws import (fused_ws_block_cuda, fused_ws_block_lanes_cuda,
+                       fused_ws_block_lanes_plain, fused_ws_cuda,
+                       fused_ws_lanes_cuda, fused_ws_lanes_plain,
+                       fused_ws_plain, score_cuda)
 from .ws_score import ws_score_plain
 
 __all__ = ["cd_epoch_gram", "cd_epoch_xb", "fused_ws", "ws_score",
            "csc_score", "csc_weighted_col_sq", "cd_epoch_gram_block",
            "fused_ws_block", "csc_score_block", "cd_epoch_gram_lanes",
-           "cd_epoch_xb_lanes", "fused_ws_lanes", "KERNELS",
+           "cd_epoch_xb_lanes", "fused_ws_lanes",
+           "cd_epoch_gram_block_lanes", "fused_ws_block_lanes", "KERNELS",
            "launch_counts", "reset_launch_counts", "branch_counts",
            "cluster_counts", "deferred_launches", "add_launches",
            "penalty_params",
@@ -254,6 +263,44 @@ def cd_epoch_gram_lanes(G, c, beta0, q0, L, penalty_cls, params, active, *,
     return out
 
 
+def cd_epoch_gram_block_lanes(G, c, beta0, q0, L, penalty_cls, params,
+                              active, *, epochs=1):
+    """K1bl: K1b's `epochs` on each of S lanes of multitask blocks in one
+    launch. G: [S, K, K] (each lane any strides; column-major makes the
+    kernel's column reads contiguous); c, beta0, q0: contiguous [S, K, T];
+    L: contiguous [S, K]; params: [S, arity], a row a lane; a block
+    penalty; active: bool [S] (a frozen lane comes back unchanged).
+    Float64 on the card. Returns (beta, q)."""
+    check_block_kernel_penalty(penalty_cls)
+    on_card = _route("cd_epoch_gram_block_lanes", G=G, c=c, beta0=beta0,
+                     q0=q0, L=L)
+    if G.ndim != 3 or G.shape[1] != G.shape[2]:
+        raise ValueError(f"cd_epoch_gram_block_lanes: G must be [S, K, K], "
+                         f"got {tuple(G.shape)}")
+    S, K = G.shape[:2]
+    if beta0.ndim != 3 or tuple(beta0.shape[:2]) != (S, K):
+        raise ValueError(f"cd_epoch_gram_block_lanes: beta0 must be "
+                         f"[{S}, {K}, T], got shape {tuple(beta0.shape)}")
+    shape = tuple(beta0.shape)
+    for key, t in (("c", c), ("beta0", beta0), ("q0", q0)):
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"cd_epoch_gram_block_lanes: {key} must be a "
+                             f"contiguous {list(shape)} tensor, got shape "
+                             f"{tuple(t.shape)}")
+    _check_mat("cd_epoch_gram_block_lanes", S, K, L=L)
+    _check_mask("cd_epoch_gram_block_lanes", S, active, G.device)
+    if not on_card:
+        return cd_epoch_gram_block_lanes_plain(G, c, beta0, q0, L,
+                                               penalty_cls, params, active,
+                                               epochs=epochs)
+    plan = gram_block_plan(K, shape[2], G.dtype)
+    out = cd_epoch_gram_block_lanes_cuda(G, c, beta0, q0, L, penalty_cls,
+                                         params, active, epochs=epochs,
+                                         plan=plan)
+    _count(cd_epoch_gram_block_lanes, plan)
+    return out
+
+
 def cd_epoch_xb_lanes(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls, params,
                       active, datafit_kind="quadratic", *, w=None, epochs=1):
     """K2l: K2's `epochs` on each of S lanes in one launch. Xt_ws:
@@ -379,6 +426,19 @@ def fused_ws_block(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
     return scores, grad, cand_idx, ws, Xt.index_select(0, ws)
 
 
+def _plain_lanes_head(plain, gsupp, ws_size, p):
+    """The CPU route of K3l and K3bl from their plain version's four
+    outputs: each lane's working set (``select_working_set``) and its rows
+    of Xt recovered from its candidate buffer (``candidate_columns``)."""
+    scores, grad, cand_idx, cand_cols = plain
+    S = scores.shape[0]
+    ws = torch.stack([select_working_set(scores[s], gsupp[s], ws_size)
+                      for s in range(S)])
+    Xt_ws = torch.stack([candidate_columns(cand_idx[s], cand_cols[s],
+                                           ws[s], p).T for s in range(S)])
+    return scores, grad, cand_idx, ws, Xt_ws
+
+
 def fused_ws_lanes(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
                    ws_size, *, use_fp=False, bp=None):
     """K3l: K3's head on S lanes over the shared feature-major design Xt
@@ -401,10 +461,7 @@ def fused_ws_lanes(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
     S = R.shape[1]
     _check_mat("fused_ws_lanes", n, S, R=R)
     _check_mat("fused_ws_lanes", S, p, beta=beta, gsupp=gsupp)
-    if L.shape != (S, p) or L.stride(1) != 1 or L.stride(0) not in (0, p):
-        raise ValueError(f"fused_ws_lanes: L must be [{S}, {p}] with rows "
-                         f"{p} apart or broadcast, got {tuple(L.shape)} "
-                         f"strides {L.stride()}")
+    _check_lane_L("fused_ws_lanes", L, S, p)
     _check_vec("fused_ws_lanes", p, offset=offset)
     if gsupp.dtype != torch.bool or gsupp.device != Xt.device:
         raise TypeError("fused_ws_lanes: gsupp must be a bool mask on Xt's "
@@ -413,19 +470,64 @@ def fused_ws_lanes(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
         raise ValueError(f"fused_ws_lanes: ws_size must be in [1, {p}], got "
                          f"{ws_size}")
     if not on_card:
-        scores, grad, cand_idx, cand_cols = fused_ws_lanes_plain(
+        return _plain_lanes_head(fused_ws_lanes_plain(
             Xt, R, beta, L, offset, gsupp, penalty_cls, params, ws_size,
-            use_fp=use_fp, bp=bp)
-        ws = torch.stack([select_working_set(scores[s], gsupp[s], ws_size)
-                          for s in range(S)])
-        Xt_ws = torch.stack([candidate_columns(cand_idx[s], cand_cols[s],
-                                               ws[s], p).T
-                             for s in range(S)])
-        return scores, grad, cand_idx, ws, Xt_ws
+            use_fp=use_fp, bp=bp), gsupp, ws_size, p)
     scores, grad, cand_idx, ws = fused_ws_lanes_cuda(
         Xt, R, beta, L, offset, gsupp, penalty_cls, params, ws_size,
         use_fp=use_fp, bp=bp)
     _count(fused_ws_lanes)
+    return (scores, grad, cand_idx, ws,
+            Xt.index_select(0, ws.reshape(-1)).view(S, ws_size, n))
+
+
+def _check_lane_L(name, L, S, p):
+    if L.shape != (S, p) or L.stride(1) != 1 or L.stride(0) not in (0, p):
+        raise ValueError(f"{name}: L must be [{S}, {p}] with rows {p} apart "
+                         f"or broadcast, got {tuple(L.shape)} strides "
+                         f"{L.stride()}")
+
+
+def fused_ws_block_lanes(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
+                         ws_size, *, use_fp=False, bp=None):
+    """K3bl: K3b's head on S lanes of multitask blocks over the shared
+    feature-major design Xt [p, n] (contiguous). R: contiguous [n, S*T],
+    lane-major (lane s's raw gradient is R[:, s*T:(s+1)*T]); beta:
+    contiguous [S, p, T]; gsupp (bool): contiguous [S, p]; L: [S, p], its
+    lanes p apart or one row broadcast (stride 0); offset: [p]; params:
+    [S, arity]; a block penalty. Returns ``(scores [S, p], grad [S, p, T],
+    cand_idx [S, C] int32, ws [S, ws_size], Xt_ws [S, ws_size, n])``, each
+    lane as K3b returns it."""
+    check_block_kernel_penalty(penalty_cls)
+    on_card = _route("fused_ws_block_lanes", Xt=Xt, R=R, beta=beta, L=L,
+                     offset=offset)
+    if Xt.ndim != 2 or not Xt.is_contiguous():
+        raise ValueError("fused_ws_block_lanes: Xt must be a contiguous "
+                         f"[p, n] matrix, got shape {tuple(Xt.shape)}")
+    p, n = Xt.shape
+    if beta.ndim != 3 or beta.shape[1] != p or not beta.is_contiguous():
+        raise ValueError(f"fused_ws_block_lanes: beta must be a contiguous "
+                         f"[S, {p}, T] tensor, got shape "
+                         f"{tuple(beta.shape)}")
+    S, _, T = beta.shape
+    _check_mat("fused_ws_block_lanes", n, S * T, R=R)
+    _check_mat("fused_ws_block_lanes", S, p, gsupp=gsupp)
+    _check_lane_L("fused_ws_block_lanes", L, S, p)
+    _check_vec("fused_ws_block_lanes", p, offset=offset)
+    if gsupp.dtype != torch.bool or gsupp.device != Xt.device:
+        raise TypeError("fused_ws_block_lanes: gsupp must be a bool mask on "
+                        "Xt's device")
+    if not 1 <= ws_size <= p:
+        raise ValueError(f"fused_ws_block_lanes: ws_size must be in "
+                         f"[1, {p}], got {ws_size}")
+    if not on_card:
+        return _plain_lanes_head(fused_ws_block_lanes_plain(
+            Xt, R, beta, L, offset, gsupp, penalty_cls, params, ws_size,
+            use_fp=use_fp, bp=bp), gsupp, ws_size, p)
+    scores, grad, cand_idx, ws = fused_ws_block_lanes_cuda(
+        Xt, R, beta, L, offset, gsupp, penalty_cls, params, ws_size,
+        use_fp=use_fp, bp=bp)
+    _count(fused_ws_block_lanes)
     return (scores, grad, cand_idx, ws,
             Xt.index_select(0, ws.reshape(-1)).view(S, ws_size, n))
 
@@ -520,10 +622,10 @@ def csc_score_block(data, indices, col_ids, indptr, raw):
 KERNELS = (cd_epoch_gram, cd_epoch_xb, fused_ws, ws_score, csc_score,
            csc_weighted_col_sq, cd_epoch_gram_block, fused_ws_block,
            csc_score_block, cd_epoch_gram_lanes, cd_epoch_xb_lanes,
-           fused_ws_lanes)
+           fused_ws_lanes, cd_epoch_gram_block_lanes, fused_ws_block_lanes)
 # the kernels with more than one launch branch
 BRANCHED = (cd_epoch_gram, cd_epoch_xb, cd_epoch_gram_block,
-            cd_epoch_gram_lanes, cd_epoch_xb_lanes)
+            cd_epoch_gram_lanes, cd_epoch_xb_lanes, cd_epoch_gram_block_lanes)
 
 
 def reset_launch_counts():
@@ -539,13 +641,14 @@ def launch_counts() -> dict:
 
 
 def branch_counts() -> dict:
-    """{kernel name: {branch: launches}} for K1, K2, K1b, K1l and K2l."""
+    """{kernel name: {branch: launches}} for K1, K2, K1b, K1l, K2l and
+    K1bl."""
     return {k.__name__: dict(k.branch_launches) for k in BRANCHED}
 
 
 def cluster_counts() -> dict:
-    """{kernel name: {cluster size: launches}} for K1, K2, K1b, K1l and
-    K2l (1: one CTA): where the plans stepped down, it shows."""
+    """{kernel name: {cluster size: launches}} for K1, K2, K1b, K1l, K2l
+    and K1bl (1: one CTA): where the plans stepped down, it shows."""
     return {k.__name__: dict(sorted(k.cluster_launches.items()))
             for k in BRANCHED}
 

@@ -139,7 +139,7 @@ def test_branch_counts_start_at_zero_and_cpu_counts_nothing():
     counts = ops.branch_counts()
     assert set(counts) == {"cd_epoch_gram", "cd_epoch_xb",
                            "cd_epoch_gram_block", "cd_epoch_gram_lanes",
-                           "cd_epoch_xb_lanes"}
+                           "cd_epoch_xb_lanes", "cd_epoch_gram_block_lanes"}
     for per in counts.values():
         assert per == dict.fromkeys(cd.BRANCHES, 0)
     from repro_torch.core.penalties import L1

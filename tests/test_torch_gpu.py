@@ -1634,3 +1634,175 @@ def test_sparse_grid_on_card_runs_k5b_and_k5s(cuda):
                            use_kernels=False, **kw)
     assert np.max(g.kkts) <= 1e-10
     assert np.max(np.abs(g.betas - plain.betas)) < 1e-8
+
+
+# ------------------------------------------------------ multitask lanes
+def _gram_block_lanes(S, K, T, dev, seed=0):
+    """K1bl inputs: lane s's G the Gram of one 3K x K design scaled by
+    1 + 0.01 s (column-major), its own c and beta0 (half its rows zero),
+    q0 = G beta0, L = diag(G)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    X = torch.randn(3 * K, K, generator=g, dtype=torch.float64).to(dev)
+    G0 = X.T @ X / (3 * K)
+    scale = 1.0 + 0.01 * torch.arange(S, dtype=torch.float64, device=dev)
+    G = (G0[None] * scale[:, None, None]).transpose(1, 2).contiguous() \
+        .transpose(1, 2)
+    c = (0.1 * torch.randn(S, K, T, generator=g, dtype=torch.float64)).to(dev)
+    beta0 = (0.1 * torch.randn(S, K, T, generator=g, dtype=torch.float64)
+             * (torch.rand(S, K, 1, generator=g) < 0.5)).to(dev)
+    q0 = G @ beta0
+    L = torch.diagonal(G, dim1=1, dim2=2).contiguous()
+    return G, c, beta0, q0, L
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pen", BLOCK_PENALTIES, ids=BLOCK_IDS)
+@pytest.mark.parametrize("S,K,T", [(5, 64, 50), (4, 256, 20), (3, 1024, 20),
+                                   (2, 2048, 240)])
+def test_k1b_lanes_cuda_equals_k1b_lane_by_lane(cuda, pen, S, K, T):
+    """K1bl equals K1b launched on each lane's inputs and parameter row bit
+    for bit on K1b's one-CTA branch (K * T <= 5120) and its cluster
+    branches (q's rows in shared and in global memory), every SM's shared
+    memory NaN-filled first; frozen lanes come back unchanged; within K1's
+    bound of the plain version."""
+    from repro_torch.kernels.cd_epoch import (fill_shared_memory_cuda,
+                                              gram_block_plan)
+    G, c, beta0, q0, L = _gram_block_lanes(S, K, T, cuda, seed=K + T)
+    params = _lane_params(pen, S, cuda, seed=S)
+    active = torch.arange(S, device=cuda) % 3 != 1
+    branch = gram_block_plan(K, T, torch.float64).branch
+    n0 = ops.cd_epoch_gram_block_lanes.launches
+    b0 = ops.cd_epoch_gram_block_lanes.branch_launches[branch]
+    fill_shared_memory_cuda(cuda)
+    b, q = ops.cd_epoch_gram_block_lanes(G, c, beta0, q0, L, type(pen),
+                                         params, active, epochs=2)
+    assert ops.cd_epoch_gram_block_lanes.launches == n0 + 1
+    assert ops.cd_epoch_gram_block_lanes.branch_launches[branch] == b0 + 1
+    for s in range(S):
+        if not active[s]:
+            assert torch.equal(b[s], beta0[s]) and torch.equal(q[s], q0[s])
+            continue
+        bs, qs = ops.cd_epoch_gram_block(G[s], c[s], beta0[s], q0[s], L[s],
+                                         type(pen), params[s], epochs=2)
+        assert torch.equal(b[s], bs) and torch.equal(q[s], qs), s
+    assert torch.any(b[0] != beta0[0])
+    bp, qp = cd_epoch_gram_plain(G[0], c[0], beta0[0], q0[0], L[0],
+                                 type(pen), params[0], epochs=2)
+    torch.testing.assert_close(b[0], bp, atol=1e-12, rtol=1e-5)
+    torch.testing.assert_close(q[0], qp, atol=1e-12, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pen", BLOCK_PENALTIES, ids=BLOCK_IDS)
+@pytest.mark.parametrize("S,T,n,p", [(4, 5, 500, 5000), (6, 20, 500, 5000),
+                                     (3, 7, 301, 777)])
+@pytest.mark.parametrize("ws", [64, 512])
+def test_k3b_lanes_cuda_matches_plain(cuda, pen, S, T, n, p, ws):
+    """K3bl against its plain version lane by lane (S*T of 20, 120 and an
+    odd 21, an odd n and a ragged tile): scores and gradient within K3's
+    bounds, cand_idx exact, each lane's working set ``select_working_set``
+    of its plain scores and its rows bit for bit; L rows p apart or
+    broadcast; shared memory NaN-filled before the launch."""
+    from repro_torch.kernels.cd_epoch import fill_shared_memory_cuda
+    from repro_torch.kernels.fused_ws import fused_ws_block_lanes_plain
+    g = torch.Generator(device="cpu").manual_seed(S * T)
+    Xt = torch.randn(p, n, generator=g, dtype=torch.float64).to(cuda)
+    R = (torch.randn(n, S * T, generator=g, dtype=torch.float64)
+         / n ** 0.5).to(cuda)
+    beta = (0.2 * torch.randn(S, p, T, generator=g, dtype=torch.float64)
+            * (torch.rand(S, p, 1, generator=g) < 0.3)).to(cuda)
+    L = torch.sum(Xt * Xt, dim=1) / n
+    off = 0.01 * torch.randn(p, generator=g, dtype=torch.float64).to(cuda)
+    params = _lane_params(pen, S, cuda)
+    gs = torch.linalg.vector_norm(beta, dim=2) != 0
+    ws = min(ws, p)
+    for Ls in (L.expand(S, p), (L[None] * (1 + 0.1 * torch.rand(
+            S, p, generator=g).to(cuda))).contiguous()):
+        n0 = ops.fused_ws_block_lanes.launches
+        fill_shared_memory_cuda(cuda)
+        sk, gk, ik, wk, xk = ops.fused_ws_block_lanes(
+            Xt, R, beta, Ls, off, gs, type(pen), params, ws)
+        assert ops.fused_ws_block_lanes.launches == n0 + 1
+        sr, gr, ir, _ = fused_ws_block_lanes_plain(Xt, R, beta, Ls, off, gs,
+                                                   type(pen), params, ws)
+        torch.testing.assert_close(sk, sr, atol=1e-12, rtol=1e-11)
+        torch.testing.assert_close(gk, gr, atol=1e-12, rtol=1e-10)
+        assert torch.equal(ik, ir)
+        for s in range(S):
+            assert torch.equal(wk[s], select_working_set(sr[s], gs[s], ws))
+            assert torch.equal(xk[s], Xt[wk[s]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pen_name", ["BlockL1", "BlockMCP"])
+def test_captured_multitask_lanes_equal_eager(cuda, pen_name):
+    """reg_path(Y [n, T], vmap_chunk=3) and a multitask cross_val_path on
+    the kernel route: K3bl on every dense head and K1bl in the Gram
+    epochs, no scalar lane kernel, each key captured once, one read a
+    dispatch, equal bit for bit to ``capture=False``; the path within
+    1e-8 of the sequential one."""
+    from repro_torch.core import (BlockL1, BlockMCP, MultitaskQuadratic,
+                                  cross_val_path, make_engine, reg_path)
+    from repro_torch.core.engine import DenseDesign
+    from repro_torch.data import make_multitask
+    X, Y, _ = make_multitask(n=300, p=1200, n_tasks=8, n_nonzero=20, seed=0)
+    design = DenseDesign.from_dense(X, cuda)
+    pen = BlockL1(1.0) if pen_name == "BlockL1" else BlockMCP(1.0, 3.0)
+    df = MultitaskQuadratic()
+    eng = make_engine(pen, df, device=cuda)
+    eager = make_engine(pen, df, device=cuda, capture=False)
+    kw = dict(n_lambdas=8, lambda_min_ratio=0.05, tol=1e-10, vmap_chunk=3)
+    ops.reset_launch_counts()
+    a = reg_path(design, Y, pen, df, engine=eng, **kw)
+    counts = ops.launch_counts()
+    assert counts["fused_ws_block_lanes"] > 0
+    assert counts["cd_epoch_gram_block_lanes"] > 0
+    assert counts["fused_ws_lanes"] == counts["cd_epoch_gram_lanes"] == 0
+    b = reg_path(design, Y, pen, df, engine=eager, **kw)
+    seq = reg_path(design, Y, pen, df, n_lambdas=8, lambda_min_ratio=0.05,
+                   tol=1e-10, device=cuda)
+    assert a.betas.shape == (8, 1200, 8) and np.all(a.kkts <= 1e-10)
+    assert set(a.captures.values()) == {1}
+    assert np.array_equal(a.betas, b.betas)
+    assert np.array_equal(a.n_epochs, b.n_epochs)
+    assert np.max(np.abs(a.betas - seq.betas)) < 1e-8
+    assert eng.n_chunk_reads == eng.n_dispatches
+    g = cross_val_path(design, Y, df, pen, engine=eng, cv=3, n_lambdas=5,
+                       lambda_min_ratio=0.1, tol=1e-10, vmap_chunk=2)
+    o = cross_val_path(design, Y, df, pen, engine=eager, cv=3, n_lambdas=5,
+                       lambda_min_ratio=0.1, tol=1e-10, vmap_chunk=2)
+    assert g.betas.shape == (3, 5, 1200, 8) and np.max(g.kkts) <= 1e-10
+    assert np.array_equal(g.betas, o.betas)
+    assert np.array_equal(g.cv_loss, o.cv_loss)
+    assert g.n_host_syncs == g.n_dispatches
+
+
+@pytest.mark.gpu
+def test_sparse_multitask_grid_on_card_runs_k5b_and_k1bl(cuda):
+    """A weighted multitask CSC grid on the kernel route: K5b at S*T
+    columns on the heads, K5s once a fold, K1bl inside, within 1e-8 of
+    the plain route."""
+    import scipy.sparse as sp
+    from repro_torch.core import BlockL1, MultitaskQuadratic, cross_val_path
+    from repro_torch.sparse import CSCDesign
+    rng = np.random.default_rng(2)
+    Xs = sp.random(600, 3000, density=0.02, random_state=2, format="csc")
+    W = np.zeros((3000, 5))
+    W[:20] = rng.standard_normal((20, 5))
+    Y = np.asarray(Xs @ W) + 0.1 * rng.standard_normal((600, 5))
+    w = rng.uniform(0.5, 1.5, 600)
+    d = CSCDesign.from_scipy(Xs, ell=True, device=cuda)
+    kw = dict(n_lambdas=5, cv=3, tol=1e-10, vmap_chunk=2,
+              lambda_min_ratio=0.1, sample_weight=w)
+    ops.reset_launch_counts()
+    g = cross_val_path(d, Y, MultitaskQuadratic(), BlockL1(1.0), device=cuda,
+                       **kw)
+    counts = ops.launch_counts()
+    assert counts["csc_score_block"] > 0
+    assert counts["cd_epoch_gram_block_lanes"] > 0
+    assert counts["csc_weighted_col_sq"] == 3
+    assert counts["cd_epoch_gram_lanes"] == counts["csc_score"] == 0
+    plain = cross_val_path(d, Y, MultitaskQuadratic(), BlockL1(1.0),
+                           device=cuda, use_kernels=False, **kw)
+    assert np.max(g.kkts) <= 1e-10
+    assert np.max(np.abs(g.betas - plain.betas)) < 1e-8

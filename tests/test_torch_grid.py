@@ -366,15 +366,8 @@ def test_cv_estimator_errors_match_reference():
      "obs/ slice"),
     (lambda X, y: tc.cross_val_path(X, y, device="cpu", mesh=object()),
      "mesh slice"),
-    (lambda X, y: tc.cross_val_path(X, np.stack([y, y], 1), device="cpu"),
-     "K3b and K1b over lanes"),
-    (lambda X, y: tc.reg_path(X, np.stack([y, y], 1), tc.BlockL1(1.0),
-                              tc.MultitaskQuadratic(), vmap_chunk=2,
-                              n_lambdas=2, device="cpu"),
-     "K3b and K1b over lanes"),
     (lambda X, y: tc.LassoCV(checkpoint=object()), "checkpoint/ slice"),
-], ids=["checkpoint", "resume", "obs", "mesh", "grid-multitask",
-        "chunked-multitask", "estimator-checkpoint"])
+], ids=["checkpoint", "resume", "obs", "mesh", "estimator-checkpoint"])
 def test_not_yet_ported_options_raise(call, later):
     X, y = _dense()
     with pytest.raises(NotImplementedError, match=later):

@@ -260,6 +260,10 @@ def test_cpu_route_launches_nothing():
     ops.cd_epoch_gram_lanes(G[None], c[None], beta0[None], q0[None],
                             L[None], L1, penalty_params(L1(0.1))[None],
                             torch.ones(1, dtype=torch.bool))
+    ops.cd_epoch_gram_block_lanes(G[None], B[None], B[None], B[None],
+                                  L[None], BlockL1,
+                                  penalty_params(BlockL1(0.1))[None],
+                                  torch.ones(1, dtype=torch.bool))
     assert ops.launch_counts() == {"cd_epoch_gram": 0, "cd_epoch_xb": 0,
                                    "fused_ws": 0, "ws_score": 0,
                                    "csc_score": 0, "csc_weighted_col_sq": 0,
@@ -268,4 +272,6 @@ def test_cpu_route_launches_nothing():
                                    "csc_score_block": 0,
                                    "cd_epoch_gram_lanes": 0,
                                    "cd_epoch_xb_lanes": 0,
-                                   "fused_ws_lanes": 0}
+                                   "fused_ws_lanes": 0,
+                                   "cd_epoch_gram_block_lanes": 0,
+                                   "fused_ws_block_lanes": 0}

@@ -398,18 +398,12 @@ def test_screening_rejections_match_reference(penalty, kw):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(vmap_chunk=2), "chunked driver"), (dict(obs=object()), "obs"),
-    (dict(mesh=object()), "mesh")])
+    (dict(obs=object()), "obs"), (dict(mesh=object()), "mesh")])
 def test_unported_options_raise(kw, match):
-    """What reg_path does not run yet raises: obs=, mesh= and the chunked
-    driver on a multitask target (the lanes run scalar coefficients)."""
+    """What reg_path does not run yet raises: obs= and mesh=."""
     X, y, _ = _dense()
-    args = (X, y, tc.L1(1.0))
-    if "vmap_chunk" in kw:
-        args = (X, np.stack([y, y], axis=1), tc.BlockL1(1.0),
-                tc.MultitaskQuadratic())
     with pytest.raises(NotImplementedError, match=match):
-        tc.reg_path(*args, n_lambdas=3, device="cpu", **kw)
+        tc.reg_path(X, y, tc.L1(1.0), n_lambdas=3, device="cpu", **kw)
 
 
 # ---------------------------------------------------- bound penalties
