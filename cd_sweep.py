@@ -3,10 +3,11 @@
 (``cd_epoch_xb``) and K1b (``cd_epoch_gram_block``) at fixed cluster sizes,
 on one CUDA card.
 
-    python3 cd_sweep.py [k1|k2|k1b|csc|heads ...] [--src=SRC]
+    python3 cd_sweep.py [k1|k2|k1b|csc|k3bl|heads ...] [--src=SRC]
 
 With names, only those kernels are swept (default: k1, k2, k1b; ``csc``,
-the sparse score pass, and ``heads`` only when named: ``sweep_csc``,
+the sparse score pass, ``k3bl``, the float64 product of the dense block
+heads, and ``heads`` only when named: ``sweep_csc``, ``sweep_k3bl``,
 ``sweep_heads``). ``--src`` times the ``repro_torch`` of another tree's
 ``src`` (``heads`` runs on a tree that takes its penalty parameters by
 value too: an A/B of two trees, one process each, alternating). K1, for each
@@ -52,7 +53,11 @@ SWEEP = dict(k1=(64, 128, 256, 512, 1024, 2048, 4096),
              k1b=((64, 50), (64, 20), (128, 20), (256, 20), (512, 20),
                   (1024, 20), (2048, 20), (4096, 20)),
              clusters=(1, 8, 16), barrier_iters=10_000, reps=5,
-             csc_T=20)
+             csc_T=20,
+             # the product sweep: (label, n, p, ws) and the column counts
+             k3bl_shapes=(("row", 10_000, 20_000, 512),
+                          ("leadfield", 305, 7498, 1024)),
+             k3bl_N=(24, 25, 48, 100, 200, 500))
 
 
 def _record(out, fails, key, rec, run):
@@ -178,6 +183,137 @@ def sweep_csc(dev, cfg, out, fails):
     torch.cuda.empty_cache()
 
 
+def kernel_split(fn, calls=5):
+    """Device ms a call of `fn` by kernel (``torch.profiler`` over `calls`
+    warm calls; self device time, the kernel's name without its namespace
+    and arguments)."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        if us > 0:
+            m = re.search(r"(\w+)(<[^(]*>)?\(", e.key)
+            name = m.group(1) if m else e.key
+            split[name] = split.get(name, 0.0) + us / 1e3 / calls
+    return split
+
+
+def _lanes_of(N, T0):
+    """(S, T) with S * T = N for K3bl at N columns: T = gcd(N, T0) (the
+    shape's task count where it divides N)."""
+    import math
+    T = math.gcd(N, T0)
+    return N // T, T
+
+
+def sweep_k3bl(dev, cfg, out, fails):
+    """The float64 product of K3b, K3l and K3bl (``product_cuda`` of
+    ``repro_torch/kernels/fused_ws.py``) at N columns of R [n, N] on the
+    row shape (n = 10,000, p = 20,000) and the leadfield (n = 305, p =
+    7498), float64, beside the tensor cores' own rate (``dmma_rate_cuda``,
+    each MMA shape from registers): the kernel the plan picks (the narrow
+    one to N = 24, the wide one above) with the plan's spans, launched
+    twice for the same bits, its spans' sum held to ``torch.mm(Xt, R)``
+    within 1e-12 + 1e-10 |ref| and timed alone (CUDA events, warm); beside
+    it ``torch.mm(Xt, R)`` and K3bl (``ops.fused_ws_block_lanes``, BlockL1,
+    S lanes of T = gcd(N, 20 or 50) tasks) with its plan, held to its plain
+    version (scores and gradient within 1e-12 + 1e-12 / 1e-10 |ref|,
+    cand_idx and working sets equal), with its device time split by kernel
+    (``kernel_split``)."""
+    import torch
+    from repro_torch.core.penalties import BlockL1
+    from repro_torch.core.working_set import select_working_set
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_ws import (card_product_plan,
+                                              dmma_rate_cuda,
+                                              fused_ws_block_lanes_plain,
+                                              product_cuda)
+    reps = cfg["reps"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for mma in ("m8n8k4", "m16n8k4", "m16n8k8", "m16n8k16"):
+        # the tensor cores alone: 8 warps an SM, operands in registers
+        iters = 2000
+        ms = cs.time_ms(lambda: dmma_rate_cuda(mma, 256, sms, iters, dev),
+                        dev, reps)
+        m, k = int(mma[1:mma.index("n")]), int(mma[mma.index("k") + 1:])
+        rec = dict(kind="dmma_rate", mma=mma, threads=256, ctas=sms, ms=ms,
+                   tflops=2 * 8 * iters * m * 8 * k * 8 * sms / ms / 1e9)
+        out["k3bl"].append(rec)
+        cs.log(f"sweep k3bl {json.dumps(rec)}")
+    for label, n, p, ws in cfg["k3bl_shapes"]:
+        g = torch.Generator(device=dev).manual_seed(n)
+        Xt = torch.randn(p, n, generator=g, device=dev, dtype=torch.float64)
+        for N in cfg["k3bl_N"]:
+            R = torch.randn(n, N, generator=g, device=dev,
+                            dtype=torch.float64) / n ** 0.5
+            ref = torch.mm(Xt, R)
+            mm_ms = cs.time_ms(lambda: torch.mm(Xt, R), dev, reps)
+            plan = card_product_plan(Xt, N)
+
+            def run(rec, plan=plan):
+                a = product_cuda(Xt, R, plan)
+                b = product_cuda(Xt, R, plan)
+                torch.cuda.synchronize()
+                tot = a[0]
+                for k in range(1, plan.spans):
+                    tot = tot + a[k]
+                ok, err = cs.close(tot[:, :N], ref, 1e-12, 1e-10)
+                same = bool(torch.equal(a, b))
+                ms = cs.time_ms(lambda: product_cuda(Xt, R, plan), dev,
+                                reps)
+                rec.update(ok=ok and same, err=err, repeat_equal=same,
+                           ms=ms, mm_ms=mm_ms,
+                           tflops=2 * p * n * N / ms / 1e9)
+            _record(out, fails, "k3bl",
+                    dict(shape=label, n=n, p=p, N=N, product=plan.name,
+                         bn=plan.bn, spans=plan.spans, ctas=plan.ctas,
+                         scratch_bytes=8 * plan.scratch), run)
+            torch.cuda.empty_cache()
+            S, T = _lanes_of(N, 20 if label == "row" else 50)
+            beta = 0.2 * torch.randn(S, p, T, generator=g, device=dev,
+                                     dtype=torch.float64) * \
+                (torch.rand(S, p, 1, generator=g, device=dev) < 0.3)
+            L = (torch.sum(Xt * Xt, dim=1) / n).expand(S, p)
+            off = 0.01 * torch.randn(p, generator=g, device=dev,
+                                     dtype=torch.float64)
+            gs = torch.linalg.vector_norm(beta, dim=2) != 0
+            prm = cs.lane_rows(BlockL1(0.11), S, dev, seed=N)
+            wsz = min(ws, p)
+            args = (Xt, R, beta, L, off, gs, BlockL1, prm, wsz)
+
+            def run(rec, args=args, S=S, wsz=wsz):
+                sk, gk, ik, wk, _ = ops.fused_ws_block_lanes(*args)
+                sr, gr, ir, _ = fused_ws_block_lanes_plain(*args)
+                ok1, e1 = cs.close(sk, sr, 1e-12, 1e-12)
+                ok2, e2 = cs.close(gk, gr, 1e-12, 1e-10)
+                same = bool(torch.equal(ik, ir)) and all(
+                    torch.equal(wk[s], select_working_set(sr[s], gs[s], wsz))
+                    for s in range(S))
+                plan = card_product_plan(Xt, N)
+                rec.update(ok=ok1 and ok2 and same, err=max(e1, e2),
+                           product=plan.name, spans=plan.spans,
+                           scratch_bytes=8 * plan.scratch,
+                           ms=cs.time_ms(lambda: ops.fused_ws_block_lanes(
+                               *args), dev, reps), mm_ms=mm_ms,
+                           split_ms=kernel_split(
+                               lambda: ops.fused_ws_block_lanes(*args)))
+            _record(out, fails, "k3bl",
+                    dict(shape=label, n=n, p=p, N=N, kernel="K3bl", S=S, T=T,
+                         ws=wsz), run)
+            del R, beta
+            torch.cuda.empty_cache()
+        del Xt
+        torch.cuda.empty_cache()
+
+
 def sweep(dev, cfg=SWEEP, kernels=("k1", "k2", "k1b")):
     """Returns (records, failures)."""
     import torch
@@ -186,12 +322,14 @@ def sweep(dev, cfg=SWEEP, kernels=("k1", "k2", "k1b")):
         SMEM_DYN_MAX, cd_epoch_gram_block_cuda, cd_epoch_gram_plain,
         cd_epoch_xb_cuda, cd_epoch_xb_plain, gram_block_plan, xb_plan)
     from repro_torch.kernels.common import penalty_params
-    out = dict(barrier=[], k1=[], k2=[], k1b=[], csc=[])
+    out = dict(barrier=[], k1=[], k2=[], k1b=[], csc=[], k3bl=[])
     fails = []
     if "k1" in kernels:
         sweep_k1(dev, cfg, out, fails)
     if "csc" in kernels:
         sweep_csc(dev, cfg, out, fails)
+    if "k3bl" in kernels:
+        sweep_k3bl(dev, cfg, out, fails)
     if "k2" not in kernels and "k1b" not in kernels:
         return out, fails
     for C in cfg["clusters"]:
@@ -278,7 +416,10 @@ def sweep(dev, cfg=SWEEP, kernels=("k1", "k2", "k1b")):
 
 def sweep_heads(dev, cfg):
     """K3 (the head at ws = 1024, and its score launch alone), K4
-    (weighted), K3b (T = 20, ws = 512), K1 (K = 1024), K2 (K = 512, n =
+    (weighted), K3b (T = 20, ws = 512, and the leadfield's T = 50, ws =
+    1024), K3l (S = 10, ws = 1024), K3bl (S = 10, T = 20, ws = 512, and
+    the leadfield's S = 10, T = 50; each beside its yardstick of ten K3b
+    heads, eager and replayed from a graph), K1 (K = 1024), K2 (K = 512, n =
     10,000) and K1b (K = 1024, T = 20) at the time shapes of
     ``chip_smoke.py``, L1 / BlockL1, float64: ms a launch (CUDA events,
     warm). The penalty's vector is made on the card, where the kernels
@@ -312,6 +453,52 @@ def sweep_heads(dev, cfg):
             penalty_params(BlockL1(0.11), dev), b["ws"])
     out["K3b"] = cs.time_ms(lambda: ops.fused_ws_block(*args), dev, reps)
     del Xt
+    m = c["k3b_wide"]
+    Xt, R, beta, L, off = cs.block_inputs(m["n"], m["p"], m["T"], dev,
+                                          seed=13)
+    gs = BlockL1(0.11).generalized_support(beta)
+    args = (Xt, R, beta, L, off, gs, BlockL1,
+            penalty_params(BlockL1(0.11), dev), m["ws"])
+    out["K3b T=50"] = cs.time_ms(lambda: ops.fused_ws_block(*args), dev,
+                                 reps)
+    out["K3b T=50 graph"] = cs.graph_ms(lambda: ops.fused_ws_block(*args),
+                                        dev, reps)
+    del Xt
+    S = c["k3l"]["S"]
+    Xt, _, _, L, off = cs.fused_inputs(n, p, dev, seed=3)
+    g = torch.Generator(device=dev).manual_seed(8)
+    R = torch.randn(n, S, generator=g, device=dev, dtype=torch.float64)
+    beta = torch.randn(S, p, generator=g, device=dev, dtype=torch.float64) \
+        * (torch.rand(S, p, generator=g, device=dev) < 0.3)
+    prm = cs.lane_rows(L1(0.11), S, dev, seed=9)
+    args = (Xt, R, beta, L.expand(S, p), off, beta != 0, L1, prm, 1024)
+    out["K3l"] = cs.time_ms(lambda: ops.fused_ws_lanes(*args), dev, reps)
+    del Xt
+    t = c["mt_lane_time"]
+    for key, (T, n3, p3, ws3) in (
+            ("K3bl", (t["T"], b["n"], b["p"], t["ws"])),
+            ("K3bl leadfield", (m["T"], m["n"], m["p"], m["ws"]))):
+        Xt, R, beta, L, off = cs.block_lane_head_inputs(t["S"], T, n3, p3,
+                                                        dev, 21)
+        gs = torch.linalg.vector_norm(beta, dim=2) != 0
+        prm = cs.lane_rows(BlockL1(0.11), t["S"], dev, seed=21)
+        args = (Xt, R, beta, L.expand(t["S"], p3), off, gs, BlockL1, prm,
+                ws3)
+        out[key] = cs.time_ms(lambda: ops.fused_ws_block_lanes(*args), dev,
+                              cfg["reps"] * 4)
+        out[key + " graph"] = cs.graph_ms(
+            lambda: ops.fused_ws_block_lanes(*args), dev, cfg["reps"] * 4)
+        # its yardstick in chip_smoke.py: ten K3b heads on the lanes' slices
+        Rs = [R[:, s * T:(s + 1) * T].contiguous() for s in range(t["S"])]
+
+        def ten(Xt=Xt, Rs=Rs, beta=beta, L=L, off=off, gs=gs, prm=prm,
+                ws3=ws3):
+            return [ops.fused_ws_block(Xt, Rs[s], beta[s], L, off, gs[s],
+                                       BlockL1, prm[s], ws3)
+                    for s in range(len(Rs))]
+        out[key + " ten K3b"] = cs.time_ms(ten, dev, cfg["reps"] * 4)
+        out[key + " ten K3b graph"] = cs.graph_ms(ten, dev, cfg["reps"] * 4)
+        del Xt, Rs
     G, cc, beta0, q0, L = cs.gram_inputs(1024, dev, seed=1024)
     args = (G, cc, beta0, q0, L, L1, penalty_params(L1(0.11), dev))
     out["K1"] = cs.time_ms(lambda: ops.cd_epoch_gram(*args), dev, reps)
@@ -325,6 +512,22 @@ def sweep_heads(dev, cfg):
     args = (G, cc, beta0, q0, L, BlockL1, penalty_params(BlockL1(0.11), dev))
     out["K1b"] = cs.time_ms(lambda: ops.cd_epoch_gram_block(*args), dev,
                             cfg["reps"])
+    # the lane epochs at the shapes the grids launch them most: one CTA a
+    # lane (K1l at K = 256, K1bl at K T = 3200) and the cluster (K = 1024)
+    S = 10
+    on = torch.ones(S, dtype=torch.bool, device=dev)
+    for K in (256, 1024):
+        G, cc, beta0, q0, L = cs.gram_lane_inputs(S, K, dev, seed=K)
+        args = (G, cc, beta0, q0, L, L1, cs.lane_rows(L1(0.11), S, dev), on)
+        out[f"K1l K={K}"] = cs.time_ms(
+            lambda: ops.cd_epoch_gram_lanes(*args), dev, cfg["reps"])
+    for K, T in ((64, 50), (1024, 20)):
+        G, cc, beta0, q0, L = cs.block_lane_inputs(S, K, T, dev, seed=K)
+        args = (G, cc, beta0, q0, L, BlockL1,
+                cs.lane_rows(BlockL1(0.11), S, dev), on)
+        out[f"K1bl K={K} T={T}"] = cs.time_ms(
+            lambda: ops.cd_epoch_gram_block_lanes(*args), dev, cfg["reps"])
+    del G
     cs.log(f"sweep heads {json.dumps(out)}")
     return out
 

@@ -77,8 +77,10 @@ Phases, each of which must pass (any failure exits non-zero):
    to its eager oracle bit for bit; the shallow one is run with 16 CTAs
    refused (K2 on 8, within 1e-6 of the 16-CTA fit).
 6. block kernels: K3b (``fused_ws_block``) over BlockL1 and BlockMCP x
-   fixed-point at n = 10,000, p = 20,000, T = 20, ws = 512 and at an odd
-   n with a ragged last feature tile (n = 10,001, p = 4963), every SM's
+   fixed-point at n = 10,000, p = 20,000, T = 20, ws = 512, at an odd
+   n with a ragged last feature tile (n = 10,001, p = 4963) and at the
+   leadfield's n = 305, p = 7498, T = 50, ws = 1024 (the wide product),
+   every SM's
    shared memory set to NaN before each launch (scores within 1e-12 +
    1e-12 |ref|, gradient within 1e-12 + 1e-10 |ref|, cand_idx exact, an
    identical working set, its rows of X bit for bit those that
@@ -144,7 +146,10 @@ Phases, each of which must pass (any failure exits non-zero):
    10 on the K3 shapes, ws 64 and 1024, random and tied-integer data,
    within K3's bounds (equal on the integers), cand_idx exact, each lane's
    working set ``select_working_set`` of its plain scores and its rows bit
-   for bit. Then the grids at full width on the kernel route, each with
+   for bit, and at S = 50 (the (g4) lanes: the wide product) on random
+   data at ws 1024 within 1e-12 + 1e-12 |ref| (scores) and 1e-12 + 1e-10
+   |ref| (gradient), cand_idx, working sets and rows exact. Then the
+   grids at full width on the kernel route, each with
    its wall time, rounds, occupancy, dispatches, outer steps, captures and
    their seconds, peak memory, alpha_ and launches printed, held to
    ``capture=False`` bit for bit (betas, cv_loss, kkts), every item at kkt
@@ -162,10 +167,12 @@ Phases, each of which must pass (any failure exits non-zero):
    on the same engine and design capturing nothing, and the plain route
    within 1e-6. Each grid's kernels must have launched.
 7d. multitask lanes: K3bl (``fused_ws_block_lanes``) at S*T = 200
-   (n = 10,000, p = 20,000), 500 (the leadfield) and an odd 91 (odd n,
-   ragged tile), BlockL1 and BlockMCP, a parameter row a lane: scores and
-   gradient within K3b's bounds, cand_idx exact, each lane's working set
-   ``select_working_set`` of its plain scores and its rows bit for bit;
+   (n = 10,000, p = 20,000), 500 (the leadfield), an odd 91 (odd n,
+   ragged tile) and 25 (one column past 24), BlockL1 and BlockMCP, a
+   parameter row a lane: scores and gradient within K3b's bounds, cand_idx
+   exact, each lane's working set ``select_working_set`` of its plain
+   scores and its rows bit for bit, and a second launch (shared memory
+   NaN-filled again) equal to the first bit for bit;
    K1bl (``cd_epoch_gram_block_lanes``) at (S, K, T) = (10, 64, 50),
    (10, 256, 20), (10, 1024, 20) and (4, 2048, 240) (one CTA, a cluster
    with q's rows in shared and in global memory), every third lane
@@ -207,7 +214,10 @@ Phases, each of which must pass (any failure exits non-zero):
    of X by the lanes' raw gradients as its library call), each beside S
    single-lane launches of its kernel on the same inputs; K3bl (S = 10,
    T = 20, K3b's shape, and at the leadfield's S*T = 500) beside ten K3b
-   heads, and K1bl (S = 10, K = 1024, T = 20) beside ten K1b launches.
+   heads, with its product launches a call (counted by torch.profiler
+   over one call) and its scratch bytes, and K3b alone at the leadfield's
+   T = 50 (the wide product); K1bl (S = 10, K = 1024, T = 20) beside ten
+   K1b launches.
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -245,6 +255,8 @@ FULL = dict(k1_sizes=(256,),
                               seed=1),
             sparse_lam=((10, 3), (300, 30)),  # lambda_max / (Lasso, logistic)
             k3b=dict(n=10_000, p=20_000, T=20, ws=512),
+            # K3b wider than 24 columns: the leadfield fits' T = 50
+            k3b_wide=dict(n=305, p=7498, T=50, ws=1024),
             k1b_shapes=((64, 50), (256, 20), (2049, 1), (2048, 20),
                         (4096, 20), (2048, 240)),
             k1b_T=20, k1b_time_K=(1024, 2048, 4096), k5b_T=20,
@@ -264,7 +276,8 @@ FULL = dict(k1_sizes=(256,),
             k1l_S=(1, 10, 50), k1l_K=(31, 256, 1024, 4096),
             k1l_plain_S=10, k1l_plain_K=256,
             k2l=dict(S=10, K=512, n=10_000),
-            k3l=dict(S=10, ws=(64, 1024)), lane_time=dict(S=10, K1=1024),
+            k3l=dict(S=10, ws=(64, 1024), wide_S=50),
+            lane_time=dict(S=10, K1=1024),
             g1=dict(cv=5, n_alphas=30, eps=1e-2, vmap_chunk=2, folds=2),
             g2=dict(cv=5, n_alphas=10, eps=0.1, vmap_chunk=2),
             g3=dict(n=10_000, p=20_000, cv=5, n_alphas=10, eps=1 / 3,
@@ -274,7 +287,7 @@ FULL = dict(k1_sizes=(256,),
             # multitask lanes: K3bl (S, T, n, p, ws), K1bl (S, K, T), K5b at
             # the lanes' widths, the rows, the grids and the path
             k3bl=((10, 20, 10_000, 20_000, 512), (10, 50, 305, 7498, 1024),
-                  (7, 13, 10_001, 4963, 256)),
+                  (7, 13, 10_001, 4963, 256), (5, 5, 10_000, 20_000, 512)),
             k1bl=((10, 64, 50), (10, 256, 20), (10, 1024, 20),
                   (4, 2048, 240)),
             k5b_lane_T=(100, 500),
@@ -1230,16 +1243,19 @@ def check_block_kernels(dev, cfg, errs, designs):
     for name in ("fused_ws_block", "cd_epoch_gram_block", "csc_score_block"):
         errs.setdefault(name, 0.0)
 
-    c = cfg["k3b"]
-    # the smoke shape, then an odd n (8-byte copies) and a ragged last
-    # feature tile; shared memory NaN-filled before each launch
-    for n, p in ((c["n"], c["p"]), (c["n"] + 1, c["p"] // 4 - 37)):
-        Xt, R, beta, L, off = block_inputs(n, p, c["T"], dev, seed=13)
+    c, w = cfg["k3b"], cfg["k3b_wide"]
+    # the smoke shape, an odd n (8-byte copies) and a ragged last feature
+    # tile, and the leadfield's T = 50 (the wide product); shared memory
+    # NaN-filled before each launch
+    for n, p, T, ws in ((c["n"], c["p"], c["T"], c["ws"]),
+                        (c["n"] + 1, c["p"] // 4 - 37, c["T"], c["ws"]),
+                        (w["n"], w["p"], w["T"], w["ws"])):
+        Xt, R, beta, L, off = block_inputs(n, p, T, dev, seed=13)
         for pen in block_pens():
             gs = pen.generalized_support(beta)
             for fp in (False, True):
                 args = (Xt, R, beta, L, off, gs, type(pen),
-                        penalty_params(pen, dev), c["ws"])
+                        penalty_params(pen, dev), ws)
                 if dev.type == "cuda":
                     fill_shared_memory_cuda(dev)
                 sk, gk, ik, wk, xk = ops.fused_ws_block(*args, use_fp=fp)
@@ -1248,12 +1264,12 @@ def check_block_kernels(dev, cfg, errs, designs):
                 ok2, e2 = close(gk, gr, 1e-12, 1e-10)
                 same_idx = bool(torch.equal(ik, ir))
                 same_ws = bool(torch.equal(
-                    wk, select_working_set(sr, gs, c["ws"])))
+                    wk, select_working_set(sr, gs, ws)))
                 exact = bool(torch.equal(
                     xk, candidate_columns(ir, cr, wk, p).T))
                 errs["fused_ws_block"] = max(errs["fused_ws_block"], e1, e2)
                 if not (ok1 and ok2 and same_idx and same_ws and exact):
-                    fails.append(f"K3b n={n} p={p} {type(pen).__name__} "
+                    fails.append(f"K3b n={n} p={p} T={T} {type(pen).__name__} "
                                  f"fp={fp} scores={e1:.3e} grad={e2:.3e} "
                                  f"cand_idx={same_idx} same_ws={same_ws} "
                                  f"exact_rows={exact}")
@@ -1691,7 +1707,8 @@ def check_lane_kernels(dev, cfg, errs):
     from repro_torch.kernels import ops
     from repro_torch.kernels.cd_epoch import (cd_epoch_gram_plain,
                                               cd_epoch_xb_lanes_plain)
-    from repro_torch.kernels.fused_ws import fused_ws_lanes_plain
+    from repro_torch.kernels.fused_ws import (fused_ws_lanes_plain,
+                                              fused_ws_plain)
     fails = []
     for k in ("cd_epoch_gram_lanes", "cd_epoch_xb_lanes", "fused_ws_lanes"):
         errs[k] = 0.0
@@ -1812,6 +1829,37 @@ def check_lane_kernels(dev, cfg, errs):
             if not same:
                 fails.append(f"{tag}: candidates, working sets or rows "
                              f"differ")
+        if not ties:
+            # the (g4) grid's lane count: the wide product
+            S = c3["wide_S"]
+            R = torch.randn(n, S, generator=g, device=dev,
+                            dtype=torch.float64)
+            beta = torch.randn(S, p, generator=g, device=dev,
+                               dtype=torch.float64) * \
+                (torch.rand(S, p, generator=g, device=dev) < 0.3)
+            prm = lane_rows(pen, S, dev, seed=10)
+            gs = beta != 0
+            ws = max(c3["ws"])
+            sk, gk, ik, wk, xk = ops.fused_ws_lanes(
+                Xt, R, beta, L.expand(S, p), off, gs, L1, prm, ws)
+            same = True
+            for s in range(S):
+                # lane by lane: the plain version's candidate buffer is as
+                # large as X a lane
+                sr, gr, ir, _ = fused_ws_plain(Xt, R[:, s], beta[s], L, off,
+                                               gs[s], L1, prm[s], ws)
+                note("fused_ws_lanes", sk[s], sr, 1e-12, 1e-12,
+                     f"K3l S={S} ws={ws} lane {s} scores")
+                note("fused_ws_lanes", gk[s], gr, 1e-12, 1e-10,
+                     f"K3l S={S} ws={ws} lane {s} grad")
+                same &= bool(torch.equal(ik[s], ir) and torch.equal(
+                    wk[s], select_working_set(sr, gs[s], ws))
+                    and torch.equal(xk[s], Xt[wk[s]]))
+            if not same:
+                fails.append(f"K3l S={S} ws={ws}: candidates, working sets "
+                             f"or rows differ")
+            del xk, R, S
+            S = c3["S"]
         del Xt
     log(f"  K3l checks: {time.perf_counter() - t:.1f} s")
     if dev.type == "cuda":
@@ -2233,15 +2281,21 @@ def block_lane_head_inputs(S, T, n, p, dev, seed):
     return Xt, R, beta, L, 0.01 * torch.randn(p, **f64)
 
 
+def _same_all(a, b):
+    import torch
+    return all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+
 def check_mt_lane_kernels(dev, cfg, errs, small, sparse_design):
     """K3bl, K1bl and K5b at the lanes' S*T columns against their plain
     versions; updates `errs`, returns the failures. K3bl at every (S, T,
-    n, p, ws) of the config (S*T of 200, 500 and an odd 91 with an odd n
-    and a ragged tile), BlockL1 and BlockMCP (the fixed-point score on
-    the first shape), a parameter row a lane, shared memory NaN-filled
-    first: scores within 1e-12 + 1e-12 |ref|, gradient within 1e-12 +
-    1e-10 |ref|, cand_idx exact, each lane's working set
-    ``select_working_set`` of its plain scores and its rows bit for bit.
+    n, p, ws) of the config (S*T of 200, 500, an odd 91 with an odd n
+    and a ragged tile, and 25), BlockL1 and BlockMCP (the fixed-point
+    score on the first shape), a parameter row a lane, shared memory
+    NaN-filled first: scores within 1e-12 + 1e-12 |ref|, gradient within
+    1e-12 + 1e-10 |ref|, cand_idx exact, each lane's working set
+    ``select_working_set`` of its plain scores and its rows bit for bit,
+    and a second launch equal to the first bit for bit.
     K1bl at every (S, K, T) (one CTA, the cluster with q's rows in shared
     and in global memory), every third lane frozen: bit for bit lane by
     lane against K1b on that lane's inputs, frozen lanes unchanged, within
@@ -2280,6 +2334,9 @@ def check_mt_lane_kernels(dev, cfg, errs, small, sparse_design):
                 fill()
                 sk, gk, ik, wk, xk = ops.fused_ws_block_lanes(*args,
                                                               use_fp=fp)
+                fill()
+                again = _same_all(ops.fused_ws_block_lanes(*args, use_fp=fp),
+                                  (sk, gk, ik, wk, xk))
                 sr, gr, ir, cr = fused_ws_block_lanes_plain(*args, use_fp=fp)
                 ok1, e1 = close(sk, sr, 1e-12, 1e-12)
                 ok2, e2 = close(gk, gr, 1e-12, 1e-10)
@@ -2290,10 +2347,11 @@ def check_mt_lane_kernels(dev, cfg, errs, small, sparse_design):
                     and torch.equal(xk[s], candidate_columns(
                         ir[s], cr[s], wk[s], p).T) for s in range(S))
                 del cr
-                if not (ok1 and ok2 and same):
+                if not (ok1 and ok2 and same and again):
                     fails.append(f"{tag} scores={e1:.3e} grad={e2:.3e} "
                                  f"candidates, working sets and rows equal "
-                                 f"{same}")
+                                 f"{same}, a second launch bit for bit "
+                                 f"{again}")
         del Xt, R
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -2537,6 +2595,40 @@ def mt_lane_phase(dev, cfg, sparse_design, sparse_Y, card):
     return total, walls, fails
 
 
+def product_launches(fn, dev):
+    """The float64 product's launches (``block_mma_kernel`` or
+    ``wide_mma_kernel``) in one call of `fn`, counted by ``torch.profiler``
+    from the kernels that call ran (None in the CPU rehearsal). On the card
+    a profile with no kernel in it raises: the count is a check."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if dev.type != "cuda":
+        return None
+    fn()                        # the plan and the libraries before the count
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "self_device_time_total", 0) > 0]
+    if not kernels:
+        raise RuntimeError("torch.profiler saw no kernel: the product's "
+                           "launches a call were not counted")
+    return sum(e.count for e in kernels if "mma_kernel" in e.key)
+
+
+def product_fields(Xt, N):
+    """The float64 product's launch on Xt's card at N columns
+    (``card_product_plan``): its kernel, sample spans and scratch bytes;
+    None each in the CPU rehearsal, where no product runs."""
+    from repro_torch.kernels.fused_ws import card_product_plan
+    if Xt.device.type != "cuda":
+        return dict(product=None, product_spans=None, scratch_bytes=None)
+    plan = card_product_plan(Xt, N)
+    return dict(product=plan.name, product_spans=plan.spans,
+                scratch_bytes=8 * plan.scratch)
+
+
 def mt_lane_times(dev, cfg, launches, errs, card):
     """The rows of K3bl and K1bl at S = 10 lanes: K3bl at K3b's row shape
     (n = 10,000, p = 20,000, T = 20, ws = 512) beside ten K3b heads on the
@@ -2547,7 +2639,8 @@ def mt_lane_times(dev, cfg, launches, errs, card):
     once, grad, scores and ws written, the S ws rows read and written (the
     gather), 2 p n S T operations; K1bl S times K1b's bytes and operations
     (chain floor: K1b's cluster barriers, times the waves of lanes the
-    card runs at once)."""
+    card runs at once). Beside K3bl's rows: its product launches a call
+    (``product_launches``) and the plan's scratch bytes."""
     import torch
     from repro_torch.core.penalties import BlockL1
     from repro_torch.kernels import ops
@@ -2579,15 +2672,22 @@ def mt_lane_times(dev, cfg, launches, errs, card):
         b = bound(8 * (p * n + n * S * T + 2 * S * p * T + 2 * S * p + 2 * p
                        + S * ws + 2 * S * ws * n) + S * p + 4 * S * C,
                   2 * p * n * S * T)
+        count = product_launches(lambda: ops.fused_ws_block_lanes(*args),
+                                 dev)
+        prod = dict(product_launches=count, **product_fields(Xt, S * T))
+        if dev.type == "cuda" and count != 1:
+            raise RuntimeError(f"K3bl at S*T = {S * T}: {count} product "
+                               f"launches in one call, not 1")
         del Xt, R
-        return ms, ten, plain, lib, b, bp
+        return ms, ten, plain, lib, b, bp, prod
 
-    ms, ten, plain, lib, b, bp = head_row(c["T"], cfg["k3b"]["n"],
-                                          cfg["k3b"]["p"], c["ws"], 21)
+    ms, ten, plain, lib, b, bp, prod = head_row(
+        c["T"], cfg["k3b"]["n"], cfg["k3b"]["p"], c["ws"], 21)
     m = cfg["meeg"]
     n_m, p_m, T_m = m["n"], 2 * m["p_per_hemi"], m["T"]
     ws_m = min(1024, p_m)
-    ms_m, ten_m, plain_m, lib_m, b_m, _ = head_row(T_m, n_m, p_m, ws_m, 22)
+    ms_m, ten_m, plain_m, lib_m, b_m, _, prod_m = head_row(T_m, n_m, p_m,
+                                                           ws_m, 22)
     rows.append(dict(
         name="fused_ws_block_lanes", route="cuda",
         source="src/repro_torch/csrc/fused_ws.cu",
@@ -2600,11 +2700,11 @@ def mt_lane_times(dev, cfg, launches, errs, card):
         ten_single_ms=ten,
         shape=f"S={S} lanes, T={c['T']}, n={cfg['k3b']['n']}, "
               f"p={cfg['k3b']['p']}, ws={c['ws']}, bp={bp}, BlockL1 (lam a "
-              f"lane)",
+              f"lane)", **prod,
         leadfield=dict(shape=f"S={S}, T={T_m}, n={n_m}, p={p_m}, ws={ws_m}",
                        ms=ms_m, ten_single_ms=ten_m, plain_ms=plain_m,
                        library_ms=lib_m, bound_ms=b_m[0],
-                       bound_by=b_m[1])))
+                       bound_by=b_m[1], **prod_m)))
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -2651,6 +2751,12 @@ def mt_lane_times(dev, cfg, launches, errs, card):
         f"{lf['ms']:.4f} ms, {S} K3b heads {lf['ten_single_ms']:.4f} ms, "
         f"plain {lf['plain_ms']:.4f} ms, bound {lf['bound_ms']:.4f} ms "
         f"({lf['bound_by']}), library {lf['library_ms']:.4f} ms on {card}")
+    for label, r in (("row", rows[0]), ("leadfield", lf)):
+        log(f"  fused_ws_block_lanes {label}: product launches a call "
+            f"{r['product_launches']} (counted by torch.profiler over one "
+            f"call; None: the CPU rehearsal), {r['product']}, "
+            f"{r['product_spans']} sample span(s), scratch "
+            f"{r['scratch_bytes']} bytes")
     return rows
 
 
@@ -2972,7 +3078,7 @@ def block_times(dev, cfg, launches, errs, card, d):
                                               gram_block_plan)
     from repro_torch.kernels.common import penalty_params
     from repro_torch.kernels.csc_score import csc_score_plain
-    from repro_torch.kernels.fused_ws import _mma_splits, fused_ws_plain, pick_bp
+    from repro_torch.kernels.fused_ws import fused_ws_plain, pick_bp
     reps = cfg["reps"]
     pen = BlockL1(0.11)
     prm = penalty_params(pen, dev)
@@ -2992,6 +3098,7 @@ def block_times(dev, cfg, launches, errs, card, d):
     # once (no candidate buffer); L, offset, gsupp, ws and cand_idx
     b = bound(8 * (p * n + n * T + 2 * p * T + 3 * p + ws * n + ws) + p
               + 4 * C, 2 * p * n * T)
+    prod = product_fields(Xt, T)
     rows.append(dict(name="fused_ws_block", route="cuda",
                      source="src/repro_torch/csrc/fused_ws.cu",
                      replaces="src/repro/kernels/fused_ws.py:71",
@@ -3001,8 +3108,29 @@ def block_times(dev, cfg, launches, errs, card, d):
                      library_ms=lib,
                      library_call="torch.mm(Xt, R): the gradient part only",
                      shape=f"n={n}, p={p}, T={T}, ws={ws}, bp={bp}, C={C}, "
-                           f"BlockL1, sample spans "
-                           f"{_mma_splits(Xt) if dev.type == 'cuda' else 1}"))
+                           f"BlockL1, product {prod['product']}, sample "
+                           f"spans {prod['product_spans']}"))
+    del Xt
+    # the sub-row wider than 24 columns: the leadfield fits' T = 50
+    w = cfg["k3b_wide"]
+    n, p, T, ws = w["n"], w["p"], w["T"], w["ws"]
+    Xt, R, beta, L, off = block_inputs(n, p, T, dev, seed=13)
+    gs = pen.generalized_support(beta)
+    args = (Xt, R, beta, L, off, gs, BlockL1, prm, ws)
+    bp = pick_bp(p)
+    C = -(-p // bp) * min(bp, ws)
+    b = bound(8 * (p * n + n * T + 2 * p * T + 3 * p + ws * n + ws) + p
+              + 4 * C, 2 * p * n * T)
+    prod = product_fields(Xt, T)
+    rows[-1]["leadfield"] = dict(
+        shape=f"n={n}, p={p}, T={T}, ws={ws}, product {prod['product']}, "
+              f"sample spans {prod['product_spans']}",
+        ms=time_ms(lambda: ops.fused_ws_block(*args), dev, reps),
+        plain_ms=time_ms(lambda: fused_ws_plain(*args), dev, 3),
+        library_ms=time_ms(lambda: torch.mm(Xt, R), dev, reps),
+        bound_ms=b[0], bound_by=b[1])
+    log(f"  fused_ws_block at the leadfield [{rows[-1]['leadfield']}] on "
+        f"{card}")
     del Xt
 
     n, p = d.shape

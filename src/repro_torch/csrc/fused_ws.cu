@@ -45,23 +45,42 @@
 // p = 20,000: 0.48 ms at 3.35 TB/s); the 2 p n T products (8 GFLOP at
 // T = 20) take 0.12 ms on the float64 tensor cores (67 TF/s), so they must
 // overlap the stream of X. Design, float64:
-//  1. product launch: mma.sync m8n8k4 f64 (DMMA). A CTA of 4 warps takes
-//     64 features (a warp 16 = two m-tiles) x 24 tasks (three n-tiles of
-//     8; T > 24 runs in passes) over one span of the samples. X [64, 32]
-//     and R [32, 24] tiles stream into shared memory with cp.async, two
-//     stages, so the next tile is in flight while the tensor cores work on
-//     this one; rows are padded (36 and 28 values) so that the fragment
-//     loads of a half-warp fall in 16 distinct banks. At ~51 KB of shared
-//     memory four CTAs share an SM. The samples split into S spans, S
-//     chosen so that (feature tiles x S) CTAs fill whole waves of the
-//     card; each CTA writes its partial product, unreduced, to a scratch
-//     [S, p, 24].
-//  2. reduce launch: grad = the S partials summed in span order (the same
-//     order on every run: the result is deterministic) + offset.
-//  3. score launch: the row epilogue, one thread a feature (norms over T,
-//     the block prox or subdifferential, the priority with the generalized
-//     support pinned to +inf).
-//  4. select launch: K3's tile sort (cand_idx).
+//  1. product launch: one launch of mma.sync f64 (DMMA) over the whole
+//     [p, N] product (N = T columns), chosen by the launch plan
+//     (kernels/fused_ws.py: product_plan):
+//     - narrow (N <= 24, block_mma_kernel): a CTA of 4 warps takes 64
+//       features (a warp 16 = two m-tiles of m8n8k4) x 24 columns (three
+//       n-tiles of 8) over one span of the samples. X [64, 32] and R
+//       [32, 24] tiles stream into shared memory with cp.async, two
+//       stages; rows are padded (36 and 28 values) so that the fragment
+//       loads of a half-warp fall in 16 distinct banks. At ~51 KB of
+//       shared memory four CTAs share an SM.
+//     - wide (N > 24, wide_mma_kernel): a CTA of 8 warps (2 x 4) takes 64
+//       features x a column tile of up to 128 (a warp 32 features x 4
+//       n-tiles of 8, the 4 warps of a row taking n-tiles in turn, so a
+//       ragged column tile stays balanced over the SM's schedulers), with
+//       mma.sync m16n8k4 (an sm_90 shape: the tensor cores reach their
+//       67 TF/s rate only on the m16n8 shapes, half of it on m8n8k4),
+//       stages of 16 samples through a 4-stage cp.async ring, two CTAs an
+//       SM so that one CTA's copies overlap the other's MMAs; rows padded
+//       to 20 and 132 values (conflict-free half-warp fragment loads). The
+//       column-tile index is the grid's fastest, so the CTAs that share a
+//       tile of X run together and X streams from HBM about once; R stays
+//       in L2. What bounds it: the copies (their address work and
+//       shared-memory writes between the MMAs), not the tensor cores, L2
+//       or HBM (PERF.md section 6, where the other tiles and MMA shapes
+//       tried are timed).
+//     The samples split into spans (the grid's slowest index), chosen by
+//     the plan against the card's CTA slots; each CTA writes its partial
+//     product, unreduced, to a scratch [spans, p, ld] (ld: 24 narrow, N
+//     wide).
+//  2. reduce and score launch (reduce_epilogue_kernel), a CTA a block of
+//     features: grad = the spans' partials summed in span order (the same
+//     order on every run: the result is deterministic) + offset, read and
+//     written in memory order, then the row epilogue, one thread a
+//     feature (norms over T, the block prox or subdifferential, the
+//     priority with the generalized support pinned to +inf).
+//  3. select launch: K3's tile sort (cand_idx).
 // float32 keeps the scalar product (block_score_kernel): the tensor cores
 // have no float32 path of this precision.
 //
@@ -70,25 +89,25 @@
 // launch over all lanes). Each lane s has its raw gradient R[:, s], its
 // beta, L, generalized support and row of the codec vector. Bound: bytes,
 // X read once for every lane (S separate K3s would read it S times).
-// Design, float64: K3b's product and reduce launches on R [n, S] give the
-// gradient of every (feature, lane) into a [p, S] buffer; a lane epilogue
-// (one thread a (feature, lane), lane = blockIdx.y) computes the scalar
-// score, writes grad, score and priority lane-major [S, p]; K3's select
-// and merge launches then run with the lane on their grids' y index.
+// Design, float64: K3b's product launch on R [n, S] (narrow for S <= 24,
+// wide above); the reduce and score launch (one thread a (feature, lane)
+// for the scores) sums the spans, computes the scalar score and writes
+// grad, score and priority lane-major [S, p]; K3's select and merge
+// launches then run with the lane on their grids' y index.
 //
 // K3bl (fused_ws_block_lanes) is K3b over S lanes of multitask blocks that
 // share X (the block branch of fused_ws_pallas under the reference's vmap).
 // Lane s has its raw gradient R[:, s*T .. s*T + T - 1] (R [n, S*T],
 // lane-major), its beta [p, T], L, generalized support and row of the
 // codec vector. Bound: bytes at small S*T (X read once for every lane),
-// the float64 tensor cores' operations at large S*T. Design, float64:
-// K3b's product and reduce launches over the S*T columns (passes of kMmaT
-// tasks, each pass reading X again) into a [p, S*T] buffer; a block lane
-// epilogue (one thread a (feature, lane), lane = blockIdx.y) copies the
-// lane's gradient row to grad [S, p, T], computes its row score from it
-// with the lane's beta, L and parameter row, and writes score and priority
-// lane-major [S, p]; K3's select and merge launches then run with the lane
-// on their grids' y index.
+// the float64 tensor cores' operations at large S*T. Design, float64: one
+// product launch over all S*T columns (wide past 24: X streams once), then
+// the reduce and score launch over blocks of features: it sums the spans'
+// partials, writes them + offset to grad [S, p, T], and one thread a
+// (feature, lane) computes the row score with the lane's beta, L and
+// parameter row and writes score and priority lane-major [S, p]; K3's
+// select and merge launches then run with the lane on their grids' y
+// index.
 //
 // K4 (ws_score) replaces repro/kernels/ws_score.py:ws_score_pallas (body
 // _score_kernel): the score pass alone, with optional sample weights fused
@@ -112,9 +131,9 @@ constexpr int kMergeSmemK = 6144;    // the largest K whose merge buffers
 constexpr int kBlkFeat = 64;         // K3b: features per CTA (2 per thread)
 constexpr int kBlkN = 64;            // K3b: samples per staged chunk
 constexpr int kBlkThreads = 256;     // K3b: 32 feature pairs x 8 task lanes
-// K3b float64 (DMMA): features and samples a CTA tile, tasks a pass, padded
-// shared-memory rows, threads, the most sample spans and the fewest
-// samples a span
+// the narrow float64 product (DMMA, N <= 24): features and samples a CTA
+// tile, columns, padded shared-memory rows, threads; the most sample spans
+// of either product
 constexpr int kMmaM = 64;
 constexpr int kMmaK = 32;
 constexpr int kMmaT = 24;
@@ -122,8 +141,22 @@ constexpr int kMmaXS = kMmaK + 4;
 constexpr int kMmaRS = kMmaT + 4;
 constexpr int kMmaThreads = 128;
 constexpr int kMmaMaxSplits = 16;
-constexpr int kMmaMinSpan = 512;
 constexpr size_t kMmaSmem = 2 * (kMmaM * kMmaXS + kMmaK * kMmaRS) * sizeof(double);
+// the wide float64 product (N > 24): warps down and across a CTA, its
+// features, the most columns, samples a stage, ring stages, CTAs an SM
+// the registers are budgeted for, threads, padded shared-memory rows
+constexpr int kWideWM = 2;
+constexpr int kWideWN = 4;
+constexpr int kWideM = 32 * kWideWM;
+constexpr int kWideN = 128;
+constexpr int kWideK = 16;
+constexpr int kWideStages = 4;
+constexpr int kWidePerSM = 2;
+constexpr int kWideThreads = 32 * kWideWM * kWideWN;
+constexpr int kWideXS = kWideK + 4;
+constexpr int kWideRS = kWideN + 4;
+constexpr size_t kWideSmem =
+    (size_t)kWideStages * (kWideM * kWideXS + kWideK * kWideRS) * sizeof(double);
 
 template <typename T>
 __device__ __forceinline__ bool before(T pa, int ia, T pb, int ib) {
@@ -480,9 +513,9 @@ __device__ __forceinline__ void dmma(double& d0, double& d1, double a, double b)
                : "d"(a), "d"(b));
 }
 
-// K3b float64, product launch: the partial product of 64 features
-// (blockIdx.x) and tasks t0 .. t0 + tc - 1 over the samples of span
-// blockIdx.y, into part [S, p, kMmaT]. VEC: bytes a cp.async moves of X
+// K3b and K3l float64, the narrow product launch (N <= 24): the partial
+// product of 64 features (blockIdx.x) and tasks t0 .. t0 + tc - 1 over the
+// samples of span blockIdx.y, into part [spans, p, kMmaT]. VEC: bytes a cp.async moves of X
 // (16 when rows are 16-byte aligned, i.e. n even; else 8).
 template <int VEC>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -561,156 +594,338 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-// K3b float64, reduce launch: grad[:, t0 .. t0 + tc - 1] = the S partials
-// summed in span order + offset, one thread a (feature, task)
-__global__ void block_reduce_kernel(const double* __restrict__ part,
-                                    const double* __restrict__ offset, double* grad, int p,
-                                    int nt, int t0, int tc, int splits) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)p * tc) return;
-  const long long j = e / tc;
-  const int t = (int)(e % tc);
-  double sum = part[j * kMmaT + t];
-  for (int s = 1; s < splits; ++s) sum += part[((long long)s * p + j) * kMmaT + t];
-  grad[j * nt + t0 + t] = sum + offset[j];
-}
+// The float64 tensor-core instructions: d += a b on an MM x 8 x KM tile
+// (the wide product runs m16n8k4; the rate probe times all four).
+// Fragments (gid = lane / 4, tig = lane % 4): a[e] = A[gid + 8 (e % (MM /
+// 8))][tig + 4 (e / (MM / 8))], b[e] = B[tig + 4 e][gid], d[2 h + q] =
+// D[gid + 8 h][2 tig + q]. m8n8k4 is sm_80's DMMA; the m16n8 shapes are
+// sm_90's.
+template <int MM, int KM>
+struct Dmma;
 
-// K3b, score launch: the row score and the selection priority of each
-// feature from its gradient row, one thread a feature
-template <typename T>
-__global__ void block_epilogue_kernel(const T* __restrict__ beta, const T* __restrict__ grad,
-                                      const T* __restrict__ L, const uint8_t* __restrict__ gsupp,
-                                      T* scores, T* pri, int p, int nt, int pen, int use_fp,
-                                      const double* __restrict__ prm) {
-  const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(pen, prm);
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= p) return;
-  const T sc = rt::block_violation_score(pen, use_fp, beta + j * nt, grad + j * nt, nt, L[j],
-                                         p0, p1);
-  scores[j] = sc;
-  pri[j] = (gsupp[j] ? (T)INFINITY : sc) + T(0);  // +0 folds -0.0 into +0.0
-}
+template <>
+struct Dmma<8, 4> {
+  static constexpr int A = 1, B = 1, C = 2;
+  static __device__ __forceinline__ void run(double* d, const double* a, const double* b) {
+    asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, {%0,%1};\n"
+        : "+d"(d[0]), "+d"(d[1])
+        : "d"(a[0]), "d"(b[0]));
+  }
+};
 
-// The number of sample spans S of K3b's float64 product launch: the one
-// (up to kMmaMaxSplits, spans of at least kMmaMinSpan samples) whose
-// (feature tiles x S) CTAs fill the card's resident slots in the whole
-// waves best, the fewest spans among equals.
-int mma_splits(int n, int p) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return -1;
-  cudaFuncSetAttribute(block_mma_kernel<16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)kMmaSmem);
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, block_mma_kernel<16>, kMmaThreads,
-                                                    kMmaSmem) != cudaSuccess ||
-      per_sm < 1)
-    return -1;
-  const long long slots = (long long)sms * per_sm;
-  const long long tiles = (p + kMmaM - 1) / kMmaM;
-  int best = 1;
-  double best_fill = 0.0;
-  for (int S = 1; S <= kMmaMaxSplits; ++S) {
-    if (S > 1 && (long long)S * kMmaMinSpan > n) break;
-    const long long ctas = tiles * S;
-    const double fill = (double)ctas / (double)(((ctas + slots - 1) / slots) * slots);
-    if (fill > best_fill + 1e-9) {
-      best = S;
-      best_fill = fill;
+template <>
+struct Dmma<16, 4> {
+  static constexpr int A = 2, B = 1, C = 4;
+  static __device__ __forceinline__ void run(double* d, const double* a, const double* b) {
+    asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+        "{%0,%1,%2,%3};\n"
+        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+        : "d"(a[0]), "d"(a[1]), "d"(b[0]));
+  }
+};
+
+template <>
+struct Dmma<16, 8> {
+  static constexpr int A = 4, B = 2, C = 4;
+  static __device__ __forceinline__ void run(double* d, const double* a, const double* b) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+  }
+};
+
+template <>
+struct Dmma<16, 16> {
+  static constexpr int A = 8, B = 4, C = 4;
+  static __device__ __forceinline__ void run(double* d, const double* a, const double* b) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7,%8,%9,%10,%11}, {%12,%13,%14,%15}, {%0,%1,%2,%3};\n"
+        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]), "d"(a[6]),
+          "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+  }
+};
+
+// K3b, K3l and K3bl float64, the wide product launch: the partial product
+// of kWideM features (blockIdx.y) and the column tile c0 .. c0 + bn - 1
+// (blockIdx.x, bn a multiple of 8, at most kWideN) over the samples of span
+// blockIdx.z, into part [spans, p, N]. Warp (wm, wn) of the WM x WN warps
+// takes features wm * 32 .. + 31 (two m-tiles) and the n-tiles wn,
+// wn + WN, ... of the tile; at each k-step of KM samples it loads all its
+// A and B fragments, then issues its MMAs. The samples stream in stages of
+// BK through an ST-stage cp.async ring (rows of X padded to kWideXS
+// values, R to kWideRS: conflict-free half-warp fragment loads). A stage's
+// copies are issued after the MMAs of the stage before, so that they
+// overlap the tensor cores, from addresses set up once (a few adds a copy,
+// the sample bound tested only on the span's last stage). x16 / r16: X / R
+// rows allow 16-byte copies (n / N even, 16-byte aligned).
+__global__ void __launch_bounds__(kWideThreads, kWidePerSM)
+    wide_mma_kernel(const double* __restrict__ Xt, const double* __restrict__ R,
+                    double* __restrict__ part, int n, int p, int N, int bn, int span, int x16,
+                    int r16) {
+  constexpr int MM = 16, KM = 4, WM = kWideWM, WN = kWideWN, BK = kWideK, ST = kWideStages;
+  using M = Dmma<MM, KM>;
+  constexpr int kThreads = kWideThreads, kBM = kWideM, kMT = 32 / MM;
+  constexpr int kNT = kWideN / (8 * WN), kXS = kWideXS;
+  // 16-byte copies a thread makes of a stage of X and of R (the widest
+  // tile; 8-byte copies are twice as many)
+  constexpr int kXC = kBM * BK / 2 / kThreads, kRC = BK * kWideN / 2 / kThreads;
+  static_assert(kXC >= 1 && kBM * BK / 2 % kThreads == 0, "X copies a thread");
+  static_assert(kRC >= 1 && BK * kWideN / 2 % kThreads == 0, "R copies a thread");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* xs = reinterpret_cast<double*>(smem_raw);  // [ST][kBM][kXS]
+  double* rs = xs + ST * kBM * kXS;                  // [ST][BK][kWideRS]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = warp % WM, wn = warp / WM;  // warps wm, wm + WM, ... of a
+                                             // row share a scheduler
+  const int c0 = blockIdx.x * bn;
+  const long long f0 = (long long)blockIdx.y * kBM;
+  const int i_begin = blockIdx.z * span;
+  const int i_end = min(n, i_begin + span);
+  const int ntl = (min(bn, N - c0) + 7) / 8;  // n-tiles holding real columns
+  const int ktiles = i_end > i_begin ? (i_end - i_begin + BK - 1) / BK : 0;
+
+  // this thread's copies of a stage: X rows xrow + r xstep at the stage's
+  // samples xcol.. (xe a copy), R rows rrow + r rstep at columns rcol..
+  // (re a copy) of the widest tile, those past the staged columns skipped
+  const int xe = x16 ? 2 : 1, re = r16 ? 2 : 1;
+  const int xper = BK / xe, rper = kWideN / re;
+  const int xcol = (tid % xper) * xe, xrow = tid / xper, xstep = kThreads / xper;
+  const int rcol = (tid % rper) * re, rrow = tid / rper, rstep = kThreads / rper;
+  const int cx = kXC * (2 / xe), cr = rcol < ntl * 8 ? kRC * (2 / re) : 0;
+  const int xrows = (int)min((long long)kBM, p - f0) - xrow;  // copy r: r xstep < xrows
+  const bool rreal = c0 + rcol < N;
+  const double* xsrc = Xt + (f0 + xrow) * n + i_begin + xcol;
+  const long long xstep_g = (long long)xstep * n, rstep_g = (long long)rstep * N;
+  const double* rsrc = R + (long long)(i_begin + rrow) * N + c0 + rcol;
+  const int xoff = xrow * kXS + xcol, roff = rrow * kWideRS + rcol;
+  auto copy_stage = [&](int kt) {
+    const int slot = kt % ST, k0 = i_begin + kt * BK;
+    const bool full = k0 + BK <= i_end;
+    double* xd = xs + slot * kBM * kXS + xoff;
+    const double* xg = xsrc + (long long)kt * BK;
+    const bool xin = full || k0 + xcol < i_end;
+    for (int r = 0; r < cx; ++r) {
+      const bool ok = xin && r * xstep < xrows;
+      const double* g = ok ? xg + r * xstep_g : Xt;
+      if (x16)
+        cp_async<16>(xd + r * xstep * kXS, g, ok ? 16 : 0);
+      else
+        cp_async<8>(xd + r * xstep * kXS, g, ok ? 8 : 0);
     }
+    double* rd = rs + slot * BK * kWideRS + roff;
+    const double* rg = rsrc + (long long)kt * BK * N;
+    for (int r = 0; r < cr; ++r) {
+      const bool ok = rreal && (full || k0 + rrow + r * rstep < i_end);
+      const double* g = ok ? rg + r * rstep_g : R;
+      if (r16)
+        cp_async<16>(rd + r * rstep * kWideRS, g, ok ? 16 : 0);
+      else
+        cp_async<8>(rd + r * rstep * kWideRS, g, ok ? 8 : 0);
+    }
+  };
+
+  double acc[kMT][kNT][M::C];
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int t = 0; t < kNT; ++t)
+#pragma unroll
+      for (int e = 0; e < M::C; ++e) acc[m][t][e] = 0.0;
+  // the ring's first ST - 1 stages (a group each, empty past the span)
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < ktiles) copy_stage(s);
+    cp_async_commit();
   }
-  return best;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    // one group a stage: after it the newest ST - 2 may stay in flight, so
+    // stage kt is in; every warp is done with the slot of stage kt - 1
+    cp_async_wait<ST - 2>();
+    __syncthreads();
+    const int st = kt % ST;
+    const double* xb = xs + st * kBM * kXS + (wm * 32 + gid) * kXS + tig;
+    const double* rb = rs + st * BK * kWideRS + tig * kWideRS + gid;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += KM) {
+      double a[kMT][M::A], b[kNT][M::B];
+#pragma unroll
+      for (int m = 0; m < kMT; ++m)
+#pragma unroll
+        for (int e = 0; e < M::A; ++e)
+          a[m][e] = xb[(m * MM + 8 * (e % (MM / 8))) * kXS + kk + 4 * (e / (MM / 8))];
+#pragma unroll
+      for (int t = 0; t < kNT; ++t)
+        if (WN * t + wn < ntl)
+#pragma unroll
+          for (int e = 0; e < M::B; ++e)
+            b[t][e] = rb[(kk + 4 * e) * kWideRS + (WN * t + wn) * 8];
+#pragma unroll
+      for (int t = 0; t < kNT; ++t)
+        if (WN * t + wn < ntl)
+#pragma unroll
+          for (int m = 0; m < kMT; ++m) M::run(acc[m][t], a[m], b[t]);
+    }
+    // stage kt + ST - 1 into the slot of stage kt - 1
+    if (kt + ST - 1 < ktiles) copy_stage(kt + ST - 1);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  double* out = part + (long long)blockIdx.z * p * N;
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int t = 0; t < kNT; ++t) {
+      const int nt = WN * t + wn;
+      if (nt >= ntl) continue;
+      const int c = c0 + nt * 8 + 2 * tig;
+#pragma unroll
+      for (int h = 0; h < MM / 8; ++h) {
+        const long long j = f0 + wm * 32 + m * MM + 8 * h + gid;
+        if (j >= p) continue;
+        if (c < N) out[j * N + c] = acc[m][t][2 * h];
+        if (c + 1 < N) out[j * N + c + 1] = acc[m][t][2 * h + 1];
+      }
+    }
 }
 
-// K3b and K3l float64: the product and reduce launches, grad [p, nt] =
-// Xt @ R + offset (part: the scratch of `splits` spans from mma_splits)
-int launch_mma_product(const double* Xt, const double* R, const double* offset, double* grad,
-                       double* part, int splits, int n, int p, int nt, cudaStream_t st) {
-  if (splits < 1 || splits > kMmaMaxSplits) return (int)cudaErrorInvalidValue;
-  const int span = ((n + splits - 1) / splits + kMmaK - 1) / kMmaK * kMmaK;
-  const bool aligned = (n % 2 == 0) && ((uintptr_t)Xt % 16 == 0);
-  auto kernel = aligned ? block_mma_kernel<16> : block_mma_kernel<8>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kMmaSmem);
+// K3b, K3l and K3bl float64, the reduce and score launch: CTA blockIdx.x
+// takes F consecutive features j, all S lanes of nt columns each (N = S
+// nt). Its threads walk the block's F x N gradient values in memory order
+// (the scratch rows of consecutive features are adjacent: coalesced), each
+// the spans' partials summed in span order + offset_j, written to grad
+// [S, p, nt]; after the CTA barrier one thread a (feature, lane) computes
+// the score from that gradient row with the lane's beta [S, p, nt], L
+// (lanes l_lane apart: p, or 0 for one shared row) and parameter row
+// (prm_lane apart): the row score of a block penalty (BLOCK), or the
+// scalar score (nt = 1); and the priority under its generalized support,
+// written lane-major [S, p]. part: [spans, p, ld].
+constexpr int kReduceThreads = 128;
+constexpr int kReduceValues = 4096;  // the most gradient values a CTA sums
+constexpr int kReduceCtas = 1024;    // ~8 CTAs an SM of the H100's 132, one wave
+
+template <bool BLOCK>
+__global__ void __launch_bounds__(kReduceThreads)
+    reduce_epilogue_kernel(const double* __restrict__ part, int spans, int ld,
+                           const double* __restrict__ offset, const double* __restrict__ beta,
+                           const double* __restrict__ L, int l_lane,
+                           const uint8_t* __restrict__ gsupp, double* scores, double* grad,
+                           double* pri, int p, int S, int nt, int F, int pen, int use_fp,
+                           const double* __restrict__ prm, int prm_lane) {
+  const int N = S * nt;
+  const long long j0 = (long long)blockIdx.x * F;
+  const int fn = (int)min((long long)F, p - j0);
+  const long long span_stride = (long long)p * ld;
+  for (int e = threadIdx.x; e < fn * N; e += blockDim.x) {
+    const int f = e / N, c = e - f * N;
+    const long long j = j0 + f;
+    const double* src = part + j * ld + c;
+    double sum = src[0];
+    for (int k = 1; k < spans; ++k) sum += src[k * span_stride];
+    const double g = sum + offset[j];
+    const int s = c / nt;
+    grad[((long long)s * p + j) * nt + (c - s * nt)] = g;
+  }
+  __syncthreads();  // the block's gradient rows are written and visible
+  for (int q = threadIdx.x; q < fn * S; q += blockDim.x) {
+    const int s = q / fn, f = q - s * fn;
+    const long long j = j0 + f, e = (long long)s * p + j;
+    const double* pr = prm + (long long)s * prm_lane;
+    const double p0 = rt::param0<double>(pr), p1 = rt::param1<double>(pen, pr);
+    const double Lj = L[(long long)s * l_lane + j];
+    const double* g = grad + e * nt;
+    double sc;
+    if constexpr (BLOCK)
+      sc = rt::block_violation_score(pen, use_fp, beta + e * nt, g, nt, Lj, p0, p1);
+    else
+      sc = rt::violation_score(pen, use_fp, beta[e], g[0], Lj, p0, p1);
+    scores[e] = sc;
+    pri[e] = (gsupp[e] ? (double)INFINITY : sc) + 0.0;  // +0 folds -0.0 into +0.0
+  }
+}
+
+// The float64 tensor cores' rate without loads: each warp issues `iters`
+// rounds of 8 MMAs of shape (MM, KM) on 8 independent accumulators from
+// operands held in registers (out: a value a thread, so nothing is dropped)
+template <int MM, int KM>
+__global__ void dmma_rate_kernel(double* out, int iters) {
+  using M = Dmma<MM, KM>;
+  double a[M::A], b[M::B], acc[8][M::C];
+#pragma unroll
+  for (int e = 0; e < M::A; ++e) a[e] = 1e-3 * (threadIdx.x + e);
+#pragma unroll
+  for (int e = 0; e < M::B; ++e) b[e] = 1e-3 * (threadIdx.x - e);
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < M::C; ++e) acc[t][e] = 0.0;
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int t = 0; t < 8; ++t) M::run(acc[t], a, b);
+  double s = 0.0;
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < M::C; ++e) s += acc[t][e];
+  out[(long long)blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+// the float64 product launch, narrow (wide = 0, N <= kMmaT) or wide:
+// part [spans, p, ld] (ld 24 narrow, N wide) = the spans' partial products
+// Xt @ R; bn the wide column tile, span the samples a span (a multiple of
+// the stage depth)
+int launch_product(const double* Xt, const double* R, double* part, int n, int p, int N, int wide,
+                   int bn, int spans, int span, cudaStream_t st) {
+  if (wide < 0 || wide > 1 || p <= 0 || N <= 0 || spans < 1 || spans > kMmaMaxSplits ||
+      span < 1 || (long long)span * spans < n)
+    return (int)cudaErrorInvalidValue;
+  const bool x16 = (n % 2 == 0) && ((uintptr_t)Xt % 16 == 0);
+  cudaError_t err;
+  if (!wide) {
+    if (N > kMmaT || span % kMmaK != 0) return (int)cudaErrorInvalidValue;
+    auto kernel = x16 ? block_mma_kernel<16> : block_mma_kernel<8>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kMmaSmem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3((p + kMmaM - 1) / kMmaM, spans), kMmaThreads, kMmaSmem, st>>>(
+        Xt, R, part, n, p, N, 0, N, span);
+    return (int)cudaGetLastError();
+  }
+  if (bn < 8 || bn > kWideN || bn % 8 != 0 || span % kWideK != 0)
+    return (int)cudaErrorInvalidValue;
+  const bool r16 = (N % 2 == 0) && ((uintptr_t)R % 16 == 0);
+  err = cudaFuncSetAttribute(wide_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kWideSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p + kMmaM - 1) / kMmaM, splits);
-  for (int t0 = 0; t0 < nt; t0 += kMmaT) {
-    const int tc = min(kMmaT, nt - t0);
-    kernel<<<grid, kMmaThreads, kMmaSmem, st>>>(Xt, R, part, n, p, nt, t0, tc, span);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const long long e = (long long)p * tc;
-    block_reduce_kernel<<<(unsigned)((e + 255) / 256), 256, 0, st>>>(part, offset, grad, p, nt,
-                                                                      t0, tc, splits);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
-}
-
-// K3b float64: the product, reduce and score launches
-int launch_block_score_mma(const double* Xt, const double* R, const double* beta,
-                           const double* L, const double* offset, const uint8_t* gsupp,
-                           double* scores, double* grad, double* pri, double* part, int splits,
-                           int n, int p, int nt, int pen, int use_fp, const double* prm,
-                           cudaStream_t st) {
-  const int rc = launch_mma_product(Xt, R, offset, grad, part, splits, n, p, nt, st);
-  if (rc != 0) return rc;
-  block_epilogue_kernel<double><<<(p + 255) / 256, 256, 0, st>>>(
-      beta, grad, L, gsupp, scores, pri, p, nt, pen, use_fp, prm);
+  const dim3 grid((N + bn - 1) / bn, (p + kWideM - 1) / kWideM, spans);
+  wide_mma_kernel<<<grid, kWideThreads, kWideSmem, st>>>(Xt, R, part, n, p, N, bn, span, x16,
+                                                         r16);
   return (int)cudaGetLastError();
 }
 
-// K3l, the lane epilogue: for feature j (blockIdx.x, threadIdx.x) of lane s
-// (blockIdx.y), the gradient gradT[j, s] (the product's [p, S] layout), its
-// scalar score with the lane's beta, L (lanes l_lane apart: p, or 0 for
-// one shared row) and parameter row, and the priority under its
-// generalized support, written lane-major [S, p]
-template <typename T>
-__global__ void lane_epilogue_kernel(const T* __restrict__ gradT, const T* __restrict__ beta,
-                                     const T* __restrict__ L, int l_lane,
-                                     const uint8_t* __restrict__ gsupp, T* scores, T* grad,
-                                     T* pri, int p, int S, int pen, int use_fp,
-                                     const double* __restrict__ prm, int prm_lane) {
-  const int s = blockIdx.y;
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= p) return;
-  const double* pr = prm + (long long)s * prm_lane;
-  const T p0 = rt::param0<T>(pr), p1 = rt::param1<T>(pen, pr);
-  const long long e = (long long)s * p + j;
-  const T g = gradT[j * S + s];
-  const T sc = rt::violation_score(pen, use_fp, beta[e], g, L[(long long)s * l_lane + j], p0, p1);
-  scores[e] = sc;
-  grad[e] = g;
-  pri[e] = (gsupp[e] ? (T)INFINITY : sc) + T(0);  // +0 folds -0.0 into +0.0
-}
-
-// K3bl, the block lane epilogue: for feature j (blockIdx.x, threadIdx.x) of
-// lane s (blockIdx.y), its gradient row gradT[j, s*nt .. s*nt + nt - 1]
-// (the product's [p, S*nt] layout) copied to grad [S, p, nt], its row score
-// with the lane's beta [S, p, nt], L (lanes l_lane apart: p, or 0 for one
-// shared row) and parameter row, and the priority under its generalized
-// support, written lane-major [S, p]
-template <typename T>
-__global__ void block_lane_epilogue_kernel(const T* __restrict__ gradT,
-                                           const T* __restrict__ beta, const T* __restrict__ L,
-                                           int l_lane, const uint8_t* __restrict__ gsupp,
-                                           T* scores, T* grad, T* pri, int p, int S, int nt,
-                                           int pen, int use_fp, const double* __restrict__ prm,
-                                           int prm_lane) {
-  const int s = blockIdx.y;
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= p) return;
-  const double* pr = prm + (long long)s * prm_lane;
-  const T p0 = rt::param0<T>(pr), p1 = rt::param1<T>(pen, pr);
-  const long long e = (long long)s * p + j;
-  const T* g = gradT + j * S * nt + (long long)s * nt;
-  T* out = grad + e * nt;
-  for (int t = 0; t < nt; ++t) out[t] = g[t];
-  const T sc = rt::block_violation_score(pen, use_fp, beta + e * nt, g, nt,
-                                         L[(long long)s * l_lane + j], p0, p1);
-  scores[e] = sc;
-  pri[e] = (gsupp[e] ? (T)INFINITY : sc) + T(0);  // +0 folds -0.0 into +0.0
+// the product, then the reduce and score launch over S lanes of nt
+// columns (K3b: S = 1; K3l: nt = 1, scalar scores)
+template <bool BLOCK>
+int launch_product_scores(const double* Xt, const double* R, const double* beta, const double* L,
+                          int l_lane, const double* offset, const uint8_t* gsupp, double* scores,
+                          double* grad, double* pri, double* part, int wide, int bn, int spans,
+                          int span, int n, int p, int S, int nt, int pen, int use_fp,
+                          const double* prm, int prm_lane, cudaStream_t st) {
+  if (S <= 0 || S > 65535 || nt <= 0) return (int)cudaErrorInvalidValue;
+  const int rc = launch_product(Xt, R, part, n, p, S * nt, wide, bn, spans, span, st);
+  if (rc != 0) return rc;
+  const int ld = wide ? S * nt : kMmaT;
+  // features a CTA: at most a (feature, lane) a thread for the scores and
+  // kReduceValues gradient values (whole rows of S * nt), and few enough
+  // that the grid has about kReduceCtas CTAs where p allows
+  const int F = max(1, min(min(kReduceValues / (S * nt), kReduceThreads / S),
+                           (p + kReduceCtas - 1) / kReduceCtas));
+  reduce_epilogue_kernel<BLOCK><<<(unsigned)((p + F - 1) / F), kReduceThreads, 0, st>>>(
+      part, spans, ld, offset, beta, L, l_lane, gsupp, scores, grad, pri, p, S, nt, F, pen, use_fp,
+      prm, prm_lane);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int A>
@@ -809,19 +1024,20 @@ int launch_score(const T* Xt, const T* r, const T* w, const T* beta, const T* L,
   return (int)cudaGetLastError();
 }
 
-// K3b: the score launches (DMMA in float64, with `part` the scratch of
-// `splits` spans; the scalar product in float32), then the select launch
+// K3b: the score launches (float64: the product (narrow or wide) into
+// `part` and the reduce and score launch; float32: the scalar product),
+// then the select launch
 template <typename T>
 int launch_fused_block(const T* Xt, const T* R, const T* beta, const T* L, const T* offset,
                        const uint8_t* gsupp, T* scores, T* grad, T* pri, int* cand_idx,
-                       T* part, int splits, int n, int p, int nt, int bp, int kc, int pen,
-                       int use_fp, const double* prm, void* stream) {
+                       T* part, int wide, int bn, int spans, int span, int n, int p, int nt,
+                       int bp, int kc, int pen, int use_fp, const double* prm, void* stream) {
   if (p <= 0 || nt <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   int rc;
   if constexpr (sizeof(T) == 8)
-    rc = launch_block_score_mma(Xt, R, beta, L, offset, gsupp, scores, grad, pri, part, splits,
-                                n, p, nt, pen, use_fp, prm, st);
+    rc = launch_product_scores<true>(Xt, R, beta, L, 0, offset, gsupp, scores, grad, pri, part,
+                                     wide, bn, spans, span, n, p, 1, nt, pen, use_fp, prm, 0, st);
   else
     rc = launch_block_score(Xt, R, beta, L, offset, gsupp, scores, grad, pri, n, p, nt, pen,
                             use_fp, prm, st);
@@ -876,60 +1092,64 @@ int select_f32(const float* pri, int* cand_idx, int p, int bp, int kc, void* str
 
 int fused_ws_block_f64(const double* Xt, const double* R, const double* beta, const double* L,
                        const double* offset, const uint8_t* gsupp, double* scores,
-                       double* grad, double* pri, int* cand_idx, double* part, int splits,
-                       int n, int p, int nt, int bp, int kc, int pen, int use_fp,
-                       const double* prm, void* stream) {
-  return launch_fused_block<double>(Xt, R, beta, L, offset, gsupp, scores, grad, pri,
-                                    cand_idx, part, splits, n, p, nt, bp, kc, pen, use_fp, prm,
-                                    stream);
+                       double* grad, double* pri, int* cand_idx, double* part, int wide, int bn,
+                       int spans, int span, int n, int p, int nt, int bp, int kc, int pen,
+                       int use_fp, const double* prm, void* stream) {
+  return launch_fused_block<double>(Xt, R, beta, L, offset, gsupp, scores, grad, pri, cand_idx,
+                                    part, wide, bn, spans, span, n, p, nt, bp, kc, pen, use_fp,
+                                    prm, stream);
 }
 
 int fused_ws_block_f32(const float* Xt, const float* R, const float* beta, const float* L,
                        const float* offset, const uint8_t* gsupp, float* scores, float* grad,
-                       float* pri, int* cand_idx, float* part, int splits, int n, int p,
-                       int nt, int bp, int kc, int pen, int use_fp, const double* prm,
-                       void* stream) {
+                       float* pri, int* cand_idx, float* part, int wide, int bn, int spans,
+                       int span, int n, int p, int nt, int bp, int kc, int pen, int use_fp,
+                       const double* prm, void* stream) {
   return launch_fused_block<float>(Xt, R, beta, L, offset, gsupp, scores, grad, pri, cand_idx,
-                                   part, splits, n, p, nt, bp, kc, pen, use_fp, prm, stream);
+                                   part, wide, bn, spans, span, n, p, nt, bp, kc, pen, use_fp, prm,
+                                   stream);
 }
 
-// K3l (float64): the product and reduce launches into gradT [p, S], the
-// lane epilogue, and the select launch over the lanes; the merge launch is
-// merge_lanes_f64
+// K3l (float64): the product launch over the S columns, the reduce and
+// score launch over the lanes, and the select launch over the lanes; the
+// merge launch is merge_lanes_f64
 int fused_ws_lanes_f64(const double* Xt, const double* R, const double* beta, const double* L,
                        int l_lane, const double* offset, const uint8_t* gsupp, double* scores,
-                       double* grad, double* pri, int* cand_idx, double* gradT, double* part,
-                       int splits, int n, int p, int S, int bp, int kc, int pen, int use_fp,
-                       const double* prm, int prm_lane, void* stream) {
-  if (p <= 0 || S <= 0 || S > 65535) return (int)cudaErrorInvalidValue;
+                       double* grad, double* pri, int* cand_idx, double* part, int wide, int bn,
+                       int spans, int span, int n, int p, int S, int bp, int kc, int pen,
+                       int use_fp, const double* prm, int prm_lane, void* stream) {
+  if (p <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int rc = launch_mma_product(Xt, R, offset, gradT, part, splits, n, p, S, st);
-  if (rc != 0) return rc;
-  lane_epilogue_kernel<double><<<dim3((p + 255) / 256, S), 256, 0, st>>>(
-      gradT, beta, L, l_lane, gsupp, scores, grad, pri, p, S, pen, use_fp, prm, prm_lane);
-  rc = (int)cudaGetLastError();
+  const int rc = launch_product_scores<false>(Xt, R, beta, L, l_lane, offset, gsupp, scores,
+                                              grad, pri, part, wide, bn, spans, span, n, p, S, 1,
+                                              pen, use_fp, prm, prm_lane, st);
   if (rc != 0) return rc;
   return launch_select<double>(pri, cand_idx, p, bp, kc, st, S);
 }
 
-// K3bl (float64): the product and reduce launches over the S * nt columns
-// into gradT [p, S * nt], the block lane epilogue, and the select launch
+// K3bl (float64): one product launch over the S * nt columns, the reduce
+// and score launch over the lanes (grad [S, p, nt]), and the select launch
 // over the lanes; the merge launch is merge_lanes_f64
 int fused_ws_block_lanes_f64(const double* Xt, const double* R, const double* beta,
                              const double* L, int l_lane, const double* offset,
                              const uint8_t* gsupp, double* scores, double* grad, double* pri,
-                             int* cand_idx, double* gradT, double* part, int splits, int n, int p,
-                             int S, int nt, int bp, int kc, int pen, int use_fp,
+                             int* cand_idx, double* part, int wide, int bn, int spans, int span,
+                             int n, int p, int S, int nt, int bp, int kc, int pen, int use_fp,
                              const double* prm, int prm_lane, void* stream) {
-  if (p <= 0 || S <= 0 || S > 65535 || nt <= 0) return (int)cudaErrorInvalidValue;
+  if (p <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int rc = launch_mma_product(Xt, R, offset, gradT, part, splits, n, p, S * nt, st);
-  if (rc != 0) return rc;
-  block_lane_epilogue_kernel<double><<<dim3((p + 255) / 256, S), 256, 0, st>>>(
-      gradT, beta, L, l_lane, gsupp, scores, grad, pri, p, S, nt, pen, use_fp, prm, prm_lane);
-  rc = (int)cudaGetLastError();
+  const int rc = launch_product_scores<true>(Xt, R, beta, L, l_lane, offset, gsupp, scores, grad,
+                                             pri, part, wide, bn, spans, span, n, p, S, nt, pen,
+                                             use_fp, prm, prm_lane, st);
   if (rc != 0) return rc;
   return launch_select<double>(pri, cand_idx, p, bp, kc, st, S);
+}
+
+// The product launch alone (float64): part [spans, p, ld] = the spans'
+// partial products Xt @ R, narrow or wide (the launch plan's fields)
+int fused_ws_product_f64(const double* Xt, const double* R, double* part, int n, int p, int N,
+                         int wide, int bn, int spans, int span, void* stream) {
+  return launch_product(Xt, R, part, n, p, N, wide, bn, spans, span, (cudaStream_t)stream);
 }
 
 // K3's merge launch over `lanes` lanes (pri [lanes, p], cand_idx [lanes,
@@ -948,8 +1168,46 @@ int merge_lanes_f32(const float* pri, const int* cand_idx, float* part_pri, int*
                              p, bp, kc, K, ctas, (cudaStream_t)stream, lanes);
 }
 
-// The sample spans of K3b's float64 product launch at (n, p), which size
-// its scratch [S, p, 24] (-1 if the card cannot say)
-int fused_ws_block_splits(int n, int p) { return mma_splits(n, p); }
+// The DMMA rate probe: `ctas` CTAs of `threads` threads, shape 0..3 =
+// m8n8k4, m16n8k4, m16n8k8, m16n8k16; out holds ctas * threads values
+int dmma_rate_probe(int shape, int threads, int ctas, int iters, double* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (shape) {
+    case 0:
+      dmma_rate_kernel<8, 4><<<ctas, threads, 0, st>>>(out, iters);
+      break;
+    case 1:
+      dmma_rate_kernel<16, 4><<<ctas, threads, 0, st>>>(out, iters);
+      break;
+    case 2:
+      dmma_rate_kernel<16, 8><<<ctas, threads, 0, st>>>(out, iters);
+      break;
+    case 3:
+      dmma_rate_kernel<16, 16><<<ctas, threads, 0, st>>>(out, iters);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// A fact of the narrow (wide = 0) or wide product kernel on the current
+// card: what = 0 its dynamic shared memory bytes, 1 its resident CTAs an
+// SM (the occupancy query); -1 if wide or what is out of range or the card
+// does not answer
+int fused_ws_product_info(int wide, int what) {
+  if (wide < 0 || wide > 1) return -1;
+  const void* fn = wide ? (const void*)wide_mma_kernel : (const void*)block_mma_kernel<16>;
+  const int threads = wide ? kWideThreads : kMmaThreads;
+  const size_t smem = wide ? kWideSmem : kMmaSmem;
+  if (what == 0) return (int)smem;
+  if (what != 1) return -1;
+  int per_sm = 0;
+  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem) != cudaSuccess)
+    return -1;
+  return per_sm;
+}
 
 }  // extern "C"

@@ -132,8 +132,9 @@ _SIGNATURES = {
         "merge": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "merge_lanes": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _P],
+        # the product plan's (config, bn, spans, span) after the scratch
         "fused_ws_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                           _I, _I, _I, _I, _I, _I, _P, _P],
+                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     },
     "csc_score": {
         "csc_walk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -155,15 +156,19 @@ _PLAIN_SIGNATURES = {
                  "gram_chain_floor": [_I, _I, _I, _P, _P],
                  "fill_shared_memory": [_P],
                  "cluster_capacity": [_I, _I, _I, _I, _I, _I, _P]},
-    "fused_ws": {"fused_ws_block_splits": [_I, _I],
+    "fused_ws": {"fused_ws_product_info": [_I, _I],
+                 "dmma_rate_probe": [_I, _I, _I, _I, _P, _P],
+                 # the float64 product alone (the sweep, the tests)
+                 "fused_ws_product_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                          _I, _P],
                  # K3 over lanes: float64 only (its product runs on DMMA)
                  "fused_ws_lanes_f64": [_P, _P, _P, _P, _I, _P, _P, _P, _P,
-                                        _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                        _I, _I, _I, _P, _I, _P],
+                                        _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                        _I, _I, _I, _I, _I, _P, _I, _P],
                  # K3b over lanes of blocks: float64 only, as K3l
                  "fused_ws_block_lanes_f64": [
-                     _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                     _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P]},
+                     _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P]},
     "csc_score": {"l2_gather_probe": [_P, _I, _I, _LL, _I, _P, _P]},
     "graph_ctl": {"cond_begin": [_P, _P, _I, _P, _P],
                   "cond_end": [_P, ctypes.c_ulonglong, _P],

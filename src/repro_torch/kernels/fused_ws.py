@@ -17,28 +17,31 @@ K3b replaces the block branch of the same kernel (multitask coefficients
 beta [p, T], raw gradient R [n, T], a block penalty): the gradient is
 [p, T] and each feature's score is its row score (``subdiff_dist`` of the
 block penalty, or the row norm of the fixed-point difference). In float64
-its product runs on the tensor cores (DMMA); its select launch is K3's,
-and its wrapper takes the working set with ``select_working_set``.
+its product runs on the tensor cores (DMMA), one launch whatever T is
+(``product_plan`` picks its kernel and sample spans); its select
+launch is K3's, and its wrapper takes the working set with
+``select_working_set``.
 
 K3l (``fused_ws_lanes``) is K3 over S lanes that share X, the chunked
 driver's dense head (``fused_ws_pallas`` under the reference's ``vmap``):
 for each lane s, ``grad_s = Xt @ R[:, s] + offset``, its scalar scores
 with its own beta, L and row of the codec vector, and its working set.
 X is read once for all lanes: the gradient is K3b's float64 product
-launch (DMMA) on R [n, S] with the reduce launch into a [p, S] buffer,
-then a lane epilogue (one thread a (feature, lane)) writes each lane's
-scores, gradient and priorities, and K3's select and merge launches run
-with a lane index on their grids. Float64 only on the card. Its plain
+launch (DMMA) on R [n, S], then a reduce and score launch sums the
+product's sample spans and writes each lane's scores, gradient and
+priorities, and K3's select and merge launches run with a lane index on
+their grids. Float64 only on the card. Its plain
 version applies K3's lane by lane.
 
 K3bl (``fused_ws_block_lanes``) is K3b over S lanes of multitask blocks
 that share X: R [n, S*T] holds the lanes' raw gradients lane-major, beta
-is [S, p, T]. The product launch runs over the S*T columns (passes of
-MMA_TASKS) into a [p, S*T] buffer; a block lane epilogue (one thread a
-(feature, lane)) writes each lane's gradient rows [S, p, T], its row
-scores with its own beta, L and codec row, and its priorities; K3's
-select and merge launches then run with the lane on grid y, as K3l's.
-Float64 only on the card. Its plain version applies K3b's lane by lane.
+is [S, p, T]. One product launch runs over all S*T columns (the wide
+one past 24: X streams once) into a scratch [spans, p, ld]; a reduce and
+score launch sums the spans and writes each lane's gradient rows [S, p,
+T], its row scores with its own beta, L and codec row, and its
+priorities; K3's select and merge launches then run with the lane on grid
+y, as K3l's. Float64 only on the card. Its plain version applies K3b's
+lane by lane.
 
 The plain version below covers both forms and keeps the four outputs
 (``cand_cols``, the candidates' rows of Xt, included): it is the oracle
@@ -48,6 +51,7 @@ set's rows from it.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -60,9 +64,11 @@ __all__ = ["pick_bp", "fused_ws_plain", "fused_ws_cuda", "score_cuda",
            "select_cuda", "merge_cuda", "fused_ws_block_cuda", "MMA_TASKS",
            "MERGE_SMEM_K", "fused_ws_lanes_plain", "fused_ws_lanes_cuda",
            "merge_lanes_cuda", "fused_ws_block_lanes_plain",
-           "fused_ws_block_lanes_cuda"]
+           "fused_ws_block_lanes_cuda", "ProductTile", "NARROW", "WIDE",
+           "ProductPlan", "product_plan", "card_product_plan",
+           "product_cuda", "dmma_rate_cuda"]
 
-# tasks a pass of K3b's float64 product launch (csrc/fused_ws.cu: kMmaT)
+# columns of the narrow float64 product (csrc/fused_ws.cu: kMmaT)
 MMA_TASKS = 24
 # the largest working set whose merge lists fit in shared memory
 # (csrc/fused_ws.cu: kMergeSmemK)
@@ -224,22 +230,171 @@ def fused_ws_cuda(Xt, r, beta, L, offset, gsupp, penalty_cls, params,
     return scores, grad, cand_idx, merge_cuda(pri, cand_idx, bp, ws_size)
 
 
-_SPLITS: dict = {}
+class ProductTile(NamedTuple):
+    """The CTA tile of a float64 product kernel (``csrc/fused_ws.cu``: the
+    narrow ``block_mma_kernel``'s ``kMma*`` constants, the wide
+    ``wide_mma_kernel``'s ``kWide*``): features, the most columns and the
+    samples of a shared-memory stage. Its shared memory and occupancy are
+    the card's answers (``fused_ws_product_info``)."""
+    name: str
+    bm: int
+    bn: int
+    bk: int
 
 
-def _mma_splits(Xt):
-    """The sample spans of K3b's float64 product launch at Xt's shape on
-    its card (csrc/fused_ws.cu: mma_splits), cached."""
+NARROW = ProductTile("narrow", 64, MMA_TASKS, 32)
+WIDE = ProductTile("wide", 64, 128, 16)
+# float64 tensor-core peak and HBM rate of the H100 SXM (data sheet); the
+# most sample spans, and the fewest stages a span beyond the first
+F64_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
+MAX_SPANS = 16
+MIN_SPAN_STAGES = 8
+
+
+class ProductPlan(NamedTuple):
+    """One launch of the float64 product: ``grid (col_tiles, feat_tiles,
+    spans)`` of the narrow or wide kernel, column tile ``bn``, ``span``
+    samples a span; the scratch ``[spans, p, ld]`` holds ``scratch``
+    entries."""
+    wide: bool
+    bn: int
+    col_tiles: int
+    feat_tiles: int
+    spans: int
+    span: int
+    ld: int
+    scratch: int
+
+    @property
+    def tile(self) -> ProductTile:
+        return WIDE if self.wide else NARROW
+
+    @property
+    def name(self) -> str:
+        return self.tile.name
+
+    @property
+    def ctas(self) -> int:
+        return self.col_tiles * self.feat_tiles * self.spans
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _spans(n, p, ld, tiles, slots, c, bn):
+    """The sample spans (1 to MAX_SPANS, MIN_SPAN_STAGES stages of bk
+    samples a span or more beyond one) that minimize the modelled time,
+    the fewest among equal times: the waves of CTAs over the card's
+    `slots`, times the stages a span, times a stage's bm bn bk
+    multiply-adds at the float64 peak shared by the slots; plus the
+    scratch each span adds, written once and read once by the reduce."""
+    step = 2 * c.bm * bn * c.bk * slots / F64_OPS_PER_S
+    best, best_t = 1, math.inf
+    for s in range(1, MAX_SPANS + 1):
+        if s > 1 and s * MIN_SPAN_STAGES * c.bk > n:
+            break
+        stages = _cdiv(_cdiv(n, s), c.bk)
+        t = (_cdiv(tiles * s, slots) * stages * step
+              + s * 16 * p * ld / HBM_BYTES_PER_S)
+        if t < best_t * (1 - 1e-9):
+            best, best_t = s, t
+    return best
+
+
+def product_plan(n, p, N, *, slots) -> ProductPlan:
+    """The launch of the float64 product Xt [p, n] @ R [n, N], one launch
+    at every N: the narrow kernel for N <= MMA_TASKS and the wide one above
+    (K3b, K3l and K3bl alike: at N <= 24 the narrow kernel is the faster,
+    PERF.md section 6), the wide column tile (the fewest tiles of at most
+    128 columns, the width of each rounded up to 8), the sample spans
+    (``_spans`` on the card's `slots`: its SMs times the kernel's resident
+    CTAs an SM) and the scratch."""
+    wide = N > MMA_TASKS
+    c = WIDE if wide else NARROW
+    if wide:
+        bn = 8 * _cdiv(_cdiv(N, _cdiv(N, c.bn)), 8)
+        ld, col_tiles = N, _cdiv(N, bn)
+    else:
+        bn, ld, col_tiles = MMA_TASKS, MMA_TASKS, 1
+    feat_tiles = _cdiv(p, c.bm)
+    spans = _spans(n, p, ld, col_tiles * feat_tiles, slots, c, bn)
+    span = _cdiv(_cdiv(n, spans), c.bk) * c.bk
+    return ProductPlan(wide, bn, col_tiles, feat_tiles, spans, span, ld,
+                       spans * p * ld)
+
+
+_SLOTS: dict = {}
+_PLANS: dict = {}
+
+
+def _card_slots(dev, wide):
+    """CTAs of the narrow or wide product kernel that `dev` runs at once:
+    its SMs times the kernel's resident CTAs an SM (the card's occupancy
+    query), cached."""
+    key = (dev, bool(wide))
+    if key not in _SLOTS:
+        lib = BUILD.lib("fused_ws")
+        with torch.cuda.device(dev):
+            per_sm = lib.fused_ws_product_info(int(wide), 1)
+        if per_sm < 1:
+            raise RuntimeError("fused_ws: the card did not report the "
+                               "occupancy of the float64 product")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _SLOTS[key] = sms * per_sm
+    return _SLOTS[key]
+
+
+def card_product_plan(Xt, N):
+    """``product_plan`` for Xt [p, n] at N columns on Xt's card, cached by
+    (device, n, p, N)."""
     p, n = Xt.shape
-    key = (Xt.device, n, p)
-    if key not in _SPLITS:
-        with torch.cuda.device(Xt.device):
-            splits = BUILD.lib("fused_ws").fused_ws_block_splits(n, p)
-        if splits < 1:
-            raise RuntimeError("fused_ws_block: the card did not report its "
-                               "occupancy")
-        _SPLITS[key] = splits
-    return _SPLITS[key]
+    key = (Xt.device, n, p, N)
+    if key not in _PLANS:
+        _PLANS[key] = product_plan(
+            n, p, N, slots=_card_slots(Xt.device, N > MMA_TASKS))
+    return _PLANS[key]
+
+
+def dmma_rate_cuda(mma, threads, ctas, iters, device):
+    """Launch the float64 tensor cores' rate probe (``csrc/fused_ws.cu``:
+    ``dmma_rate_kernel``): `ctas` CTAs of `threads` threads, each warp
+    `iters` rounds of 8 independent MMAs of shape `mma` from registers (no
+    loads): 2 * 8 * iters * m n k * warps operations, the rate the wide
+    product's loads stand between it and."""
+    shapes = ("m8n8k4", "m16n8k4", "m16n8k8", "m16n8k16")
+    out = torch.empty(ctas * threads, dtype=torch.float64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = BUILD.lib("fused_ws").dmma_rate_probe(
+            shapes.index(mma), threads, ctas, iters, out.data_ptr(), stream)
+    _check_rc(rc, "dmma_rate_probe")
+    return out
+
+
+def product_cuda(Xt, R, plan):
+    """Launch the float64 product alone on the tensors' stream: the
+    scratch [spans, p, ld] of `plan` (its spans' partial products; summed
+    over the spans it is Xt @ R in the first N of its ld columns)."""
+    p, n = Xt.shape
+    N = R.shape[1]
+    part = torch.empty((plan.spans, p, plan.ld), dtype=Xt.dtype,
+                       device=Xt.device)
+    with torch.cuda.device(Xt.device):
+        stream = torch.cuda.current_stream(Xt.device).cuda_stream
+        rc = BUILD.lib("fused_ws").fused_ws_product_f64(
+            Xt.data_ptr(), R.data_ptr(), part.data_ptr(), n, p, N,
+            *_plan_args(plan), stream)
+    _check_rc(rc, "fused_ws_product")
+    return part
+
+
+def _plan_args(plan):
+    """The plan's fields in the C launchers' order (wide, bn, spans,
+    span); zeros where there is none (float32)."""
+    return (0, 0, 0, 0) if plan is None else (int(plan.wide), plan.bn,
+                                              plan.spans, plan.span)
 
 
 def fused_ws_block_cuda(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
@@ -255,16 +410,17 @@ def fused_ws_block_cuda(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
     scores, pri = torch.empty_like(L), torch.empty_like(L)
     grad = torch.empty_like(beta)
     cand_idx = torch.empty(tiles * kc, dtype=torch.int32, device=Xt.device)
-    # float64: the partial products of the sample spans [S, p, 24]
-    splits = _mma_splits(Xt) if Xt.dtype == torch.float64 else 1
-    part = torch.empty(splits * p * MMA_TASKS if Xt.dtype == torch.float64
-                       else 1, dtype=Xt.dtype, device=Xt.device)
+    # float64: the product's launch and the partial products of its spans
+    # (float32 runs the scalar product: no plan, no scratch)
+    plan = card_product_plan(Xt, T) if Xt.dtype == torch.float64 else None
+    part = torch.empty(plan.scratch if plan else 1, dtype=Xt.dtype,
+                       device=Xt.device)
     with torch.cuda.device(Xt.device):
         stream = torch.cuda.current_stream(Xt.device).cuda_stream
         rc = fn(Xt.data_ptr(), R.data_ptr(), beta.data_ptr(), L.data_ptr(),
                 offset.data_ptr(), gsupp.data_ptr(), scores.data_ptr(),
                 grad.data_ptr(), pri.data_ptr(), cand_idx.data_ptr(),
-                part.data_ptr(), splits, n, p, T, bp, kc, pid,
+                part.data_ptr(), *_plan_args(plan), n, p, T, bp, kc, pid,
                 int(bool(use_fp)), prm.data_ptr(), stream)
     _check_rc(rc, "fused_ws_block")
     return scores, grad, cand_idx
@@ -286,12 +442,10 @@ def fused_ws_lanes_cuda(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
     bp, tiles, kc = _tiling(p, ws_size, bp)
     pid, prm = kernel_params(penalty_cls, params, Xt.device, lanes=S)
     scores, grad, pri = (torch.empty_like(beta) for _ in range(3))
-    gradT = torch.empty((p, S), dtype=Xt.dtype, device=Xt.device)
     cand_idx = torch.empty((S, tiles * kc), dtype=torch.int32,
                            device=Xt.device)
-    splits = _mma_splits(Xt)
-    part = torch.empty(splits * p * MMA_TASKS, dtype=Xt.dtype,
-                       device=Xt.device)
+    plan = card_product_plan(Xt, S)
+    part = torch.empty(plan.scratch, dtype=Xt.dtype, device=Xt.device)
     gs = gsupp.to(torch.uint8)
     with torch.cuda.device(Xt.device):
         stream = torch.cuda.current_stream(Xt.device).cuda_stream
@@ -299,7 +453,7 @@ def fused_ws_lanes_cuda(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
             Xt.data_ptr(), R.data_ptr(), beta.data_ptr(), L.data_ptr(),
             L.stride(0), offset.data_ptr(), gs.data_ptr(), scores.data_ptr(),
             grad.data_ptr(), pri.data_ptr(), cand_idx.data_ptr(),
-            gradT.data_ptr(), part.data_ptr(), splits, n, p, S, bp, kc, pid,
+            part.data_ptr(), *_plan_args(plan), n, p, S, bp, kc, pid,
             int(bool(use_fp)), prm.data_ptr(), prm.shape[1], stream)
     _check_rc(rc, "fused_ws_lanes")
     return scores, grad, cand_idx, merge_lanes_cuda(pri, cand_idx, bp,
@@ -326,12 +480,11 @@ def fused_ws_block_lanes_cuda(Xt, R, beta, L, offset, gsupp, penalty_cls,
     scores, pri = (torch.empty((S, p), dtype=Xt.dtype, device=Xt.device)
                    for _ in range(2))
     grad = torch.empty_like(beta)
-    gradT = torch.empty((p, S * T), dtype=Xt.dtype, device=Xt.device)
     cand_idx = torch.empty((S, tiles * kc), dtype=torch.int32,
                            device=Xt.device)
-    splits = _mma_splits(Xt)
-    part = torch.empty(splits * p * MMA_TASKS, dtype=Xt.dtype,
-                       device=Xt.device)
+    # one product launch over the S*T columns, its scratch [spans, p, ld]
+    plan = card_product_plan(Xt, S * T)
+    part = torch.empty(plan.scratch, dtype=Xt.dtype, device=Xt.device)
     gs = gsupp.to(torch.uint8)
     with torch.cuda.device(Xt.device):
         stream = torch.cuda.current_stream(Xt.device).cuda_stream
@@ -339,7 +492,7 @@ def fused_ws_block_lanes_cuda(Xt, R, beta, L, offset, gsupp, penalty_cls,
             Xt.data_ptr(), R.data_ptr(), beta.data_ptr(), L.data_ptr(),
             L.stride(0), offset.data_ptr(), gs.data_ptr(), scores.data_ptr(),
             grad.data_ptr(), pri.data_ptr(), cand_idx.data_ptr(),
-            gradT.data_ptr(), part.data_ptr(), splits, n, p, S, T, bp, kc,
+            part.data_ptr(), *_plan_args(plan), n, p, S, T, bp, kc,
             pid, int(bool(use_fp)), prm.data_ptr(), prm.shape[1], stream)
     _check_rc(rc, "fused_ws_block_lanes")
     return scores, grad, cand_idx, merge_lanes_cuda(pri, cand_idx, bp,

@@ -1505,13 +1505,15 @@ def test_k2_lanes_cuda_equals_k2_lane_by_lane(cuda, wform):
 @pytest.mark.gpu
 @pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
 @pytest.mark.parametrize("ws", [64, 1024])
-def test_k3_lanes_cuda_matches_plain(cuda, ties, ws):
+@pytest.mark.parametrize("S", [6, 50])
+def test_k3_lanes_cuda_matches_plain(cuda, ties, ws, S):
     """K3l against its plain version lane by lane: scores and gradient
     within K3's bounds (equal on integer data), cand_idx exact, each lane's
     working set ``select_working_set`` of its plain scores, its rows bit
-    for bit; the L rows p apart or broadcast."""
+    for bit; the L rows p apart or broadcast. S = 6 runs the narrow
+    product, S = 50 (the (g4) grid's lanes) the wide one."""
     from repro_torch.kernels.fused_ws import fused_ws_lanes_plain
-    S, n, p = 6, 500, 5000
+    n, p = 500, 5000
     g = torch.Generator(device="cpu").manual_seed(4)
     if ties:
         Xt = torch.randint(-2, 3, (p, n), generator=g).to(torch.float64)
@@ -1547,6 +1549,62 @@ def test_k3_lanes_cuda_matches_plain(cuda, ties, ws):
         for s in range(S):
             assert torch.equal(wk[s], select_working_set(sr[s], gs[s], ws))
             assert torch.equal(xk[s], Xt[wk[s]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,T,n,p", [(5, 5, 500, 5000), (10, 20, 1000, 3000),
+                                     (10, 50, 305, 7498)])
+def test_k3b_lanes_cuda_repeats_bit_for_bit(cuda, S, T, n, p):
+    """K3bl launched twice on the same inputs (every SM's shared memory
+    NaN-filled before each) gives the same bits in all five outputs: the
+    captured graphs' equality with ``capture=False`` rests on it. The
+    plan's one wide launch covers all S*T columns."""
+    from repro_torch.kernels.cd_epoch import fill_shared_memory_cuda
+    from repro_torch.kernels.fused_ws import card_product_plan
+    g = torch.Generator(device="cpu").manual_seed(S + T)
+    Xt = torch.randn(p, n, generator=g, dtype=torch.float64).to(cuda)
+    R = (torch.randn(n, S * T, generator=g, dtype=torch.float64)
+         / n ** 0.5).to(cuda)
+    beta = (0.2 * torch.randn(S, p, T, generator=g, dtype=torch.float64)
+            * (torch.rand(S, p, 1, generator=g) < 0.3)).to(cuda)
+    L = (torch.sum(Xt * Xt, dim=1) / n).expand(S, p)
+    off = torch.zeros(p, dtype=torch.float64, device=cuda)
+    gs = torch.linalg.vector_norm(beta, dim=2) != 0
+    args = (Xt, R, beta, L, off, gs, P.BlockL1,
+            _lane_params(P.BlockL1(0.11), S, cuda), 256)
+    fill_shared_memory_cuda(cuda)
+    first = ops.fused_ws_block_lanes(*args)
+    fill_shared_memory_cuda(cuda)
+    assert _same(ops.fused_ws_block_lanes(*args), first)
+    plan = card_product_plan(Xt, S * T)
+    assert plan.ld == S * T and plan.col_tiles * plan.bn >= S * T
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 8, 24, 25, 91, 200, 500])
+@pytest.mark.parametrize("n,p", [(500, 3000), (301, 777)])
+def test_product_configurations_match_mm(cuda, N, n, p):
+    """The float64 product the plan picks (the narrow kernel to N = 24, the
+    wide one above) on R [n, N] with the plan's spans: the spans' partials
+    summed equal Xt @ R within 1e-12 + 1e-10 |ref| and a second launch
+    gives the same bits (the narrow scratch's columns past N, which no
+    launch writes, left out); the card's shared memory fits a CTA and its
+    occupancy is the one ``tests/test_torch_k3bl_plan.py`` assumes."""
+    from repro_torch.kernels._build import BUILD
+    from repro_torch.kernels.fused_ws import card_product_plan, product_cuda
+    g = torch.Generator(device="cpu").manual_seed(N)
+    Xt = torch.randn(p, n, generator=g, dtype=torch.float64).to(cuda)
+    R = torch.randn(n, N, generator=g, dtype=torch.float64).to(cuda)
+    ref = Xt @ R
+    lib = BUILD.lib("fused_ws")
+    for wide, per_sm in ((0, 4), (1, 2)):
+        assert 0 < lib.fused_ws_product_info(wide, 0) <= 232_448
+        assert lib.fused_ws_product_info(wide, 1) == per_sm
+    plan = card_product_plan(Xt, N)
+    assert plan.wide == (N > 24)
+    part = product_cuda(Xt, R, plan)[..., :N]
+    torch.testing.assert_close(part.sum(0), ref, atol=1e-12, rtol=1e-10)
+    assert torch.equal(part, product_cuda(Xt, R, plan)[..., :N])
 
 
 # ------------------------------------------------------- lanes and grids
@@ -1695,14 +1753,17 @@ def test_k1b_lanes_cuda_equals_k1b_lane_by_lane(cuda, pen, S, K, T):
 @pytest.mark.gpu
 @pytest.mark.parametrize("pen", BLOCK_PENALTIES, ids=BLOCK_IDS)
 @pytest.mark.parametrize("S,T,n,p", [(4, 5, 500, 5000), (6, 20, 500, 5000),
-                                     (3, 7, 301, 777)])
+                                     (3, 7, 301, 777), (5, 5, 500, 5000),
+                                     (10, 50, 305, 2000)])
 @pytest.mark.parametrize("ws", [64, 512])
 def test_k3b_lanes_cuda_matches_plain(cuda, pen, S, T, n, p, ws):
-    """K3bl against its plain version lane by lane (S*T of 20, 120 and an
-    odd 21, an odd n and a ragged tile): scores and gradient within K3's
-    bounds, cand_idx exact, each lane's working set ``select_working_set``
-    of its plain scores and its rows bit for bit; L rows p apart or
-    broadcast; shared memory NaN-filled before the launch."""
+    """K3bl against its plain version lane by lane (S*T of 20, 120, an odd
+    21 with an odd n and a ragged tile, 25 (one column past a 24-wide
+    tile) and the leadfield's 500 at n = 305, four column tiles): scores
+    and gradient within K3's bounds, cand_idx exact, each lane's working
+    set ``select_working_set`` of its plain scores and its rows bit for
+    bit; L rows p apart or broadcast; shared memory NaN-filled before the
+    launch."""
     from repro_torch.kernels.cd_epoch import fill_shared_memory_cuda
     from repro_torch.kernels.fused_ws import fused_ws_block_lanes_plain
     g = torch.Generator(device="cpu").manual_seed(S * T)
