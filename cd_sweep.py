@@ -3,12 +3,14 @@
 (``cd_epoch_xb``) and K1b (``cd_epoch_gram_block``) at fixed cluster sizes,
 on one CUDA card.
 
-    python3 cd_sweep.py [k1|k2|k1b|csc|k3bl|heads ...] [--src=SRC]
+    python3 cd_sweep.py [k1|k2|k1b|k1l|k1l_rule|csc|k3bl|heads ...] [--src=SRC]
 
-With names, only those kernels are swept (default: k1, k2, k1b; ``csc``,
-the sparse score pass, ``k3bl``, the float64 product of the dense block
-heads, and ``heads`` only when named: ``sweep_csc``, ``sweep_k3bl``,
-``sweep_heads``). ``--src`` times the ``repro_torch`` of another tree's
+With names, only those kernels are swept (default: k1, k2, k1b; ``k1l``,
+K1's lane form over lane counts and cluster sizes, ``k1l_rule``, its lane
+plan's rule against every cluster size in repeated rounds, ``csc``, the
+sparse score pass, ``k3bl``, the float64 product of the dense block heads,
+and ``heads`` only when named: ``sweep_k1l``, ``sweep_k1l_rule``,
+``sweep_csc``, ``sweep_k3bl``, ``sweep_heads``). ``--src`` times the ``repro_torch`` of another tree's
 ``src`` (``heads`` runs on a tree that takes its penalty parameters by
 value too: an A/B of two trees, one process each, alternating). K1, for each
 K of ``SWEEP["k1"]`` and each (cluster size, threads) of
@@ -57,7 +59,18 @@ SWEEP = dict(k1=(64, 128, 256, 512, 1024, 2048, 4096),
              # the product sweep: (label, n, p, ws) and the column counts
              k3bl_shapes=(("row", 10_000, 20_000, 512),
                           ("leadfield", 305, 7498, 1024)),
-             k3bl_N=(24, 25, 48, 100, 200, 500))
+             k3bl_N=(24, 25, 48, 100, 200, 500),
+             # K1l: lane counts, K and the cluster sizes a lane may take
+             k1l_S=(1, 2, 5, 10, 20, 50),
+             k1l_K=(256, 512, 1024, 2048, 4096, 8192, 16384),
+             k1l_C=(16, 8, 4, 2),
+             # the lanes' Grams a K takes at most (S K^2 float64 values):
+             # (g1)'s deep buckets run K1l at K = 16384 on 10 lanes
+             k1l_bytes=24 * 2**30,
+             # the lane plan's rule: lane counts and K where a wave's
+             # count decides, every cluster size timed in interleaved rounds
+             k1l_rule_S=(10, 20, 50, 100), k1l_rule_K=(512, 1024, 2048, 4096),
+             k1l_rounds=7)
 
 
 def _record(out, fails, key, rec, run):
@@ -126,6 +139,142 @@ def sweep_k1(dev, cfg, out, fails):
                          branch=plan.branch, dyn_bytes=plan.dyn_bytes,
                          moved=moved), run)
         del G
+        torch.cuda.empty_cache()
+
+
+def sweep_k1l(dev, cfg, out, fails):
+    """K1l (``cd_epoch_gram_lanes``) at each S of ``k1l_S`` (as many as
+    ``k1l_bytes`` of Grams hold) and K of ``k1l_K``, on each cluster size
+    of ``k1l_C`` that the card places at
+    K (and on one CTA a lane at K <= GRAM_SINGLE_MAX_K): one L1 epoch on
+    ``chip_smoke.py``'s lane inputs (lam a lane, every lane active), each
+    lane held to K1 on its own inputs bit for bit, timed (CUDA events,
+    warm), with the card's capacity for that plan (``lane_capacity``: K1l's
+    clusters at once), the waves of lanes it
+    makes, and whether ``gram_lanes_plan`` picks it. Beside each K, one K1
+    launch at K1's own plan (``gram_plan``)."""
+    import torch
+    from repro_torch.core.penalties import L1
+    from repro_torch.kernels.cd_epoch import (
+        GRAM_SINGLE_MAX_K, cd_epoch_gram_cuda, cd_epoch_gram_lanes_cuda,
+        gram_lanes_plan, gram_plan, lane_capacity)
+    f64 = torch.float64
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for K in cfg["k1l_K"]:
+        lanes = [S for S in cfg["k1l_S"] if S * K * K * 8 <= cfg["k1l_bytes"]]
+        Smax = max(lanes)
+        G, c, beta0, q0, L = cs.gram_lane_inputs(Smax, K, dev, seed=K)
+        prm = cs.lane_rows(L1(0.11), Smax, dev, seed=K)
+        one = gram_plan(K, f64)
+        ref = [cd_epoch_gram_cuda(G[s], c[s], beta0[s], q0[s], L[s], L1,
+                                  prm[s], plan=one) for s in range(Smax)]
+        k1 = cs.time_ms(lambda: cd_epoch_gram_cuda(
+            G[0], c[0], beta0[0], q0[0], L[0], L1, prm[0], plan=one), dev,
+            cfg["reps"] * 4)
+        out["k1l_k1"].append(dict(K=K, C=one.cluster, threads=one.threads,
+                                  ms=k1))
+        cs.log(f"sweep k1l K1 K={K} C={one.cluster}: {k1:.4f} ms")
+        sizes = ((1,) if K <= GRAM_SINGLE_MAX_K else ()) + cfg["k1l_C"]
+        for S in lanes:
+            picked = gram_lanes_plan(S, K, f64)
+            on = torch.ones(S, dtype=torch.bool, device=dev)
+            args = (G[:S], c[:S], beta0[:S], q0[:S], L[:S], L1, prm[:S], on)
+            for C in sizes:
+                plan = gram_plan(K, f64, cluster=C)
+                cap = lane_capacity(plan, f64)[0] if C > 1 else sms
+                if cap < 1:
+                    cs.log(f"sweep k1l K={K} C={C}: the card places none")
+                    continue
+
+                def run(rec, plan=plan, args=args, S=S):
+                    b, q = cd_epoch_gram_lanes_cuda(*args, plan=plan)
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(b[s], ref[s][0])
+                               and torch.equal(q[s], ref[s][1])
+                               for s in range(S))
+                    ms = cs.time_ms(lambda: cd_epoch_gram_lanes_cuda(
+                        *args, plan=plan), dev, cfg["reps"])
+                    rec.update(ok=same, equals_k1=same, ms=ms,
+                               over_k1=ms / k1)
+                _record(out, fails, "k1l",
+                        dict(K=K, S=S, C=C, threads=plan.threads,
+                             dyn_bytes=plan.dyn_bytes, capacity=cap,
+                             waves=-(-S // cap), picked=plan == picked,
+                             k1_ms=k1), run)
+        del G, ref
+        torch.cuda.empty_cache()
+
+
+def sweep_k1l_rule(dev, cfg, out, fails):
+    """The lane plan's rule held to repeated times: at each S of
+    ``k1l_rule_S`` and K of ``k1l_rule_K``, K1l (one L1 epoch, every lane
+    active, each lane K1 bit for bit) on each cluster size of STEP_DOWN
+    that places, timed in ``k1l_rounds`` rounds that take the sizes in
+    turn (CUDA events, warm; min, median and max of the rounds), beside
+    the card's clusters at once (``lane_capacity``, two CTAs sharing an SM
+    where they fit) and at most the SMs over C (a CTA an SM), the waves
+    each makes, and the size ``gram_lanes_plan`` picks; the record of each
+    (S, K) names the fastest size by median and the loss to it of the
+    plan's pick and of the fewest waves at a CTA an SM (the largest C of
+    a tie)."""
+    import statistics
+
+    import torch
+    from repro_torch.core.penalties import L1
+    from repro_torch.kernels.cd_epoch import (
+        STEP_DOWN, cd_epoch_gram_cuda, cd_epoch_gram_lanes_cuda,
+        gram_lanes_plan, gram_plan, lane_capacity)
+    f64 = torch.float64
+    for K in cfg["k1l_rule_K"]:
+        Smax = max(cfg["k1l_rule_S"])
+        G, c, beta0, q0, L = cs.gram_lane_inputs(Smax, K, dev, seed=K)
+        prm = cs.lane_rows(L1(0.11), Smax, dev, seed=K)
+        ref = [cd_epoch_gram_cuda(G[s], c[s], beta0[s], q0[s], L[s], L1,
+                                  prm[s], plan=gram_plan(K, f64))
+               for s in range(Smax)]
+        for S in cfg["k1l_rule_S"]:
+            on = torch.ones(S, dtype=torch.bool, device=dev)
+            args = (G[:S], c[:S], beta0[:S], q0[:S], L[:S], L1, prm[:S], on)
+            cells = {}
+            for C in STEP_DOWN[:-1]:
+                plan = gram_plan(K, f64, cluster=C)
+                shared, sms = lane_capacity(plan, f64)
+                if shared < 1:
+                    continue
+                b, q = cd_epoch_gram_lanes_cuda(*args, plan=plan)
+                torch.cuda.synchronize()
+                same = all(torch.equal(b[s], ref[s][0])
+                           and torch.equal(q[s], ref[s][1])
+                           for s in range(S))
+                own = min(shared, sms // C)
+                cells[C] = dict(plan=plan, C=C, threads=plan.threads,
+                                shared=shared, own=own,
+                                waves_shared=-(-S // shared),
+                                waves_own=-(-S // own), ok=same, ms=[])
+            for _ in range(cfg["k1l_rounds"]):
+                for cell in cells.values():
+                    cell["ms"].append(cs.time_ms(
+                        lambda plan=cell["plan"]: cd_epoch_gram_lanes_cuda(
+                            *args, plan=plan), dev, 4 * cfg["reps"]))
+
+            def run(rec, cells=cells, S=S):
+                for cell in cells.values():
+                    ms = cell.pop("ms")
+                    del cell["plan"]
+                    cell.update(median=statistics.median(ms), min=min(ms),
+                                max=max(ms))
+                best = min(cells, key=lambda C: cells[C]["median"])
+                picks = dict(
+                    plan=gram_lanes_plan(S, K, f64).cluster,
+                    own=min(cells, key=lambda C: (cells[C]["waves_own"],
+                                                  -C)))
+                rec.update(
+                    ok=all(cell["ok"] for cell in cells.values()),
+                    cells=list(cells.values()), best=best, picks=picks,
+                    loss={k: cells[C]["median"] / cells[best]["median"] - 1
+                          for k, C in picks.items()})
+            _record(out, fails, "k1l_rule", dict(S=S, K=K), run)
+        del G, ref
         torch.cuda.empty_cache()
 
 
@@ -322,10 +471,15 @@ def sweep(dev, cfg=SWEEP, kernels=("k1", "k2", "k1b")):
         SMEM_DYN_MAX, cd_epoch_gram_block_cuda, cd_epoch_gram_plain,
         cd_epoch_xb_cuda, cd_epoch_xb_plain, gram_block_plan, xb_plan)
     from repro_torch.kernels.common import penalty_params
-    out = dict(barrier=[], k1=[], k2=[], k1b=[], csc=[], k3bl=[])
+    out = dict(barrier=[], k1=[], k1l_rule=[], k2=[], k1b=[], k1l=[],
+               k1l_k1=[], csc=[], k3bl=[])
     fails = []
     if "k1" in kernels:
         sweep_k1(dev, cfg, out, fails)
+    if "k1l" in kernels:
+        sweep_k1l(dev, cfg, out, fails)
+    if "k1l_rule" in kernels:
+        sweep_k1l_rule(dev, cfg, out, fails)
     if "csc" in kernels:
         sweep_csc(dev, cfg, out, fails)
     if "k3bl" in kernels:
@@ -419,10 +573,11 @@ def sweep_heads(dev, cfg):
     (weighted), K3b (T = 20, ws = 512, and the leadfield's T = 50, ws =
     1024), K3l (S = 10, ws = 1024), K3bl (S = 10, T = 20, ws = 512, and
     the leadfield's S = 10, T = 50; each beside its yardstick of ten K3b
-    heads, eager and replayed from a graph), K1 (K = 1024), K2 (K = 512, n =
-    10,000) and K1b (K = 1024, T = 20) at the time shapes of
-    ``chip_smoke.py``, L1 / BlockL1, float64: ms a launch (CUDA events,
-    warm). The penalty's vector is made on the card, where the kernels
+    heads, eager and replayed from a graph), K1 (K = 1024, and 256, 2048,
+    4096), K2 (K = 512, n = 10,000), K1b (K = 1024, T = 20), K1l (S = 10
+    at K = 256 ... 4096, S = 50 at K = 256 and 1024) and K1bl at the time
+    shapes of ``chip_smoke.py``, L1 / BlockL1, float64: ms a launch (CUDA
+    events, warm). The penalty's vector is made on the card, where the kernels
     read it."""
     import torch
     from repro_torch.core.penalties import L1, BlockL1
@@ -502,6 +657,11 @@ def sweep_heads(dev, cfg):
     G, cc, beta0, q0, L = cs.gram_inputs(1024, dev, seed=1024)
     args = (G, cc, beta0, q0, L, L1, penalty_params(L1(0.11), dev))
     out["K1"] = cs.time_ms(lambda: ops.cd_epoch_gram(*args), dev, reps)
+    for K in (256, 2048, 4096):
+        G, cc, beta0, q0, L = cs.gram_inputs(K, dev, seed=K)
+        args = (G, cc, beta0, q0, L, L1, penalty_params(L1(0.11), dev))
+        out[f"K1 K={K}"] = cs.time_ms(lambda: ops.cd_epoch_gram(*args), dev,
+                                      reps)
     Xt, y, w, beta0, Xb0, L, off = cs.xb_inputs(c["k2_K"], c["k2_n"],
                                                 "logistic", dev, seed=7)
     args = (Xt, y, beta0, Xb0, L, off, L1, penalty_params(L1(0.07), dev),
@@ -514,13 +674,19 @@ def sweep_heads(dev, cfg):
                             cfg["reps"])
     # the lane epochs at the shapes the grids launch them most: one CTA a
     # lane (K1l at K = 256, K1bl at K T = 3200) and the cluster (K = 1024)
-    S = 10
-    on = torch.ones(S, dtype=torch.bool, device=dev)
-    for K in (256, 1024):
+    for S, K in ((10, 256), (10, 1024), (10, 2048), (10, 4096), (50, 256),
+                 (50, 1024)):
+        on = torch.ones(S, dtype=torch.bool, device=dev)
         G, cc, beta0, q0, L = cs.gram_lane_inputs(S, K, dev, seed=K)
         args = (G, cc, beta0, q0, L, L1, cs.lane_rows(L1(0.11), S, dev), on)
-        out[f"K1l K={K}"] = cs.time_ms(
-            lambda: ops.cd_epoch_gram_lanes(*args), dev, cfg["reps"])
+        key = f"K1l K={K}" if S == 10 else f"K1l S={S} K={K}"
+        out[key] = cs.time_ms(lambda: ops.cd_epoch_gram_lanes(*args), dev,
+                              cfg["reps"])
+        if (S, K) == (10, 1024):
+            out[key + " graph"] = cs.graph_ms(
+                lambda: ops.cd_epoch_gram_lanes(*args), dev, cfg["reps"])
+    S = 10
+    on = torch.ones(S, dtype=torch.bool, device=dev)
     for K, T in ((64, 50), (1024, 20)):
         G, cc, beta0, q0, L = cs.block_lane_inputs(S, K, T, dev, seed=K)
         args = (G, cc, beta0, q0, L, BlockL1,

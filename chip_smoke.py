@@ -140,7 +140,14 @@ Phases, each of which must pass (any failure exits non-zero):
    with a parameter row a lane and every third lane frozen by the mask,
    bit for bit per lane against K1 on that lane's inputs, frozen lanes
    unchanged, within K1's bound of its plain version at S = 10 (every
-   penalty up to K = 256, L1 above); K2l (``cd_epoch_xb_lanes``) at S = 10, K = 512,
+   penalty up to K = 256, L1 above); K1l at S = 10 and K = 1024 and 4096
+   forced to each cluster size its lane plan can choose (16, 8, 4, 2), L1
+   and MCP, bit for bit per lane against K1, frozen lanes unchanged, with
+   the plan it takes there, the clusters the card runs at once and the
+   waves printed; K1's and K1l's registers and local bytes a thread
+   (``cudaFuncGetAttributes``, every penalty, one CTA and the cluster): a
+   K1l instance with more local memory than K1's fails;
+   K2l (``cd_epoch_xb_lanes``) at S = 10, K = 512,
    n = 10,000, weighted logistic with a weight row a lane, bit for bit per
    lane against K2 and within K2's bound; K3l (``fused_ws_lanes``) at S =
    10 on the K3 shapes, ws 64 and 1024, random and tied-integer data,
@@ -165,7 +172,9 @@ Phases, each of which must pass (any failure exits non-zero):
    5 x 30, 50 lanes, tol 1e-8) with its budget contract (one lane count,
    dispatches = reads <= outer steps, an interior minimum), a second grid
    on the same engine and design capturing nothing, and the plain route
-   within 1e-6. Each grid's kernels must have launched.
+   within 1e-6. Each grid's kernels must have launched. The lane epochs'
+   launches over the grids are printed by shape (K rounded up to a power
+   of two, cluster size), here and after 7d.
 7d. multitask lanes: K3bl (``fused_ws_block_lanes``) at S*T = 200
    (n = 10,000, p = 20,000), 500 (the leadfield), an odd 91 (odd n,
    ragged tile) and 25 (one column past 24), BlockL1 and BlockMCP, a
@@ -209,7 +218,10 @@ Phases, each of which must pass (any failure exits non-zero):
    K chain steps of a shuffle and a multiply-add with a handoff every 32,
    measured by a launch of that chain alone; K2, K1b: K cluster-barrier
    round trips on its cluster, measured by a launch of barriers alone).
-   The lane rows: K1l (S = 10, K = 1024), K2l (S = 10, K = 512, n =
+   The lane rows: K1l (S = 10, K = 1024, on its lane plan, with the
+   clusters the card runs at once, the waves and its launches by shape;
+   beside it K1l at S = 10, K = 256 and 4096 and S = 50, K = 256 and 1024,
+   each with one K1 launch at its K), K2l (S = 10, K = 512, n =
    10,000, weighted logistic) and K3l (S = 10, ws = 1024, with torch.mm
    of X by the lanes' raw gradients as its library call), each beside S
    single-lane launches of its kernel on the same inputs; K3bl (S = 10,
@@ -275,9 +287,13 @@ FULL = dict(k1_sizes=(256,),
             path_mt=dict(n_lambdas=8, ratio=0.1),
             k1l_S=(1, 10, 50), k1l_K=(31, 256, 1024, 4096),
             k1l_plain_S=10, k1l_plain_K=256,
+            # K1l forced to each cluster size its lane plan can choose
+            k1l_sizes=dict(S=10, K=(1024, 4096)),
             k2l=dict(S=10, K=512, n=10_000),
             k3l=dict(S=10, ws=(64, 1024), wide_S=50),
-            lane_time=dict(S=10, K1=1024),
+            lane_time=dict(S=10, K1=1024,
+                           k1l_other=((10, 256), (50, 256), (50, 512),
+                                      (50, 1024), (10, 4096))),
             g1=dict(cv=5, n_alphas=30, eps=1e-2, vmap_chunk=2, folds=2),
             g2=dict(cv=5, n_alphas=10, eps=0.1, vmap_chunk=2),
             g3=dict(n=10_000, p=20_000, cv=5, n_alphas=10, eps=1 / 3,
@@ -1446,6 +1462,10 @@ def run_path(label, call, dev, total=None):
     if total is not None:
         for k in total:
             total[k] += counts[k]
+        for k, per in ops.shape_counts().items():
+            mine = SHAPES.setdefault(k, {})
+            for shape, n in per.items():
+                mine[shape] = mine.get(shape, 0) + n
     peak, reserved = (torch.cuda.max_memory_allocated() / 2**30,
                       torch.cuda.max_memory_reserved() / 2**30) \
         if dev.type == "cuda" else (float("nan"), float("nan"))
@@ -1689,6 +1709,75 @@ def lane_mask(S, dev):
     return torch.arange(S, device=dev) % 3 != 1
 
 
+def check_k1l_sizes(dev, cfg):
+    """K1l on every cluster size its lane plan can choose (the clusters of
+    STEP_DOWN), forced, at the config's S and each K, for L1 and MCP: each
+    lane K1 bit for bit, frozen lanes unchanged; the plan the wrapper
+    takes there, the card's capacity for it (K1l's clusters at once) and
+    its waves; K1's and K1l's registers and
+    local bytes a thread (``cudaFuncGetAttributes``), every penalty: a K1l
+    instance with more local memory than K1's of its penalty (a spill)
+    fails. Returns the failures."""
+    import torch
+    from repro_torch.core.penalties import L1, MCP
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cd_epoch import (
+        STEP_DOWN, cd_epoch_gram_lanes_cuda, lane_capacity,
+        gram_kernel_attrs_cuda, gram_lanes_plan, gram_plan)
+    from repro_torch.kernels.common import (PENALTY_IDS,
+                                            SCALAR_COORD_PENALTIES)
+    fails = []
+    if dev.type != "cuda":
+        return fails
+    f64 = torch.float64
+    c = cfg["k1l_sizes"]
+    S = c["S"]
+    for K in c["K"]:
+        G, cc, beta0, q0, L = gram_lane_inputs(S, K, dev, seed=3 * K)
+        active = lane_mask(S, dev)
+        plan = gram_lanes_plan(S, K, f64)
+        cap, sms = lane_capacity(plan, f64)
+        sizes = STEP_DOWN[:-1]
+        log(f"  K1l S={S} K={K}: lane plan C={plan.cluster} "
+            f"({plan.threads} threads), the card runs {cap} such clusters "
+            f"at once on {sms} SMs: {-(-S // max(1, cap))} wave(s) of "
+            f"{S * plan.cluster} CTAs; forced here: C in {sizes}")
+        for pen in (L1(0.11), MCP(0.11, 3.0)):
+            name = type(pen).__name__
+            prm = lane_rows(pen, S, dev, seed=K)
+            refs = [ops.cd_epoch_gram(G[s], cc[s], beta0[s], q0[s], L[s],
+                                      type(pen), prm[s], epochs=2)
+                    for s in range(S)]
+            for C in sizes:
+                b, q = cd_epoch_gram_lanes_cuda(
+                    G, cc, beta0, q0, L, type(pen), prm, active, epochs=2,
+                    plan=gram_plan(K, f64, cluster=C))
+                same = True
+                for s in range(S):
+                    want = refs[s] if active[s] else (beta0[s], q0[s])
+                    same &= bool(torch.equal(b[s], want[0])
+                                 and torch.equal(q[s], want[1]))
+                if not same:
+                    fails.append(f"K1l S={S} K={K} C={C} {name}: not K1 "
+                                 f"bit for bit lane by lane")
+        del G
+        torch.cuda.empty_cache()
+    attrs = {}
+    for pen_cls in sorted(SCALAR_COORD_PENALTIES, key=PENALTY_IDS.get):
+        for cluster in (False, True):
+            key = f"{'cluster' if cluster else 'one CTA'} {pen_cls.__name__}"
+            k1 = gram_kernel_attrs_cuda(False, cluster, PENALTY_IDS[pen_cls])
+            k1l = gram_kernel_attrs_cuda(True, cluster, PENALTY_IDS[pen_cls])
+            attrs[key] = k1 + k1l
+            if k1l[1] > k1[1]:
+                fails.append(f"K1l {key}: {k1l[1]} bytes of local memory a "
+                             f"thread, K1 {k1[1]}")
+    log("  registers / local bytes a thread, K1 | K1l: "
+        + ", ".join(f"{k} {a[0]}/{a[1]} | {a[2]}/{a[3]}"
+                    for k, a in attrs.items()))
+    return fails
+
+
 def check_lane_kernels(dev, cfg, errs):
     """K1l, K2l and K3l on the card against their single-lane kernels and
     plain versions on the same inputs: K1l at every (S, K) of the config,
@@ -1758,6 +1847,7 @@ def check_lane_kernels(dev, cfg, errs):
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
         log(f"  K1l checks at S={S}: {time.perf_counter() - t1:.1f} s")
+    fails += check_k1l_sizes(dev, cfg)
     log(f"  K1l checks: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
@@ -1867,6 +1957,12 @@ def check_lane_kernels(dev, cfg, errs):
     return fails
 
 
+# the lane epochs' launches by shape ("K=<K> C=<C>": K rounded up to a
+# power of two, the cluster size) over the captured kernel-route grids
+# run_grid counts into a total
+SHAPES: dict = {}
+
+
 def run_grid(label, call, dev, total=None):
     """Run one grid (``call()`` -> a fitted CV estimator or a GridResult)
     with the launch counts reset just before and read just after (added to
@@ -1890,6 +1986,10 @@ def run_grid(label, call, dev, total=None):
     if total is not None:
         for k in total:
             total[k] += counts[k]
+        for k, per in ops.shape_counts().items():
+            mine = SHAPES.setdefault(k, {})
+            for shape, n in per.items():
+                mine[shape] = mine.get(shape, 0) + n
     peak, reserved = (torch.cuda.max_memory_allocated() / 2**30,
                       torch.cuda.max_memory_reserved() / 2**30) \
         if dev.type == "cuda" else (float("nan"), float("nan"))
@@ -2101,7 +2201,39 @@ def grid_phase(dev, cfg, sparse_design, sparse_y):
                      f"route")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    log(f"  lane epochs' launches by shape over (g1)-(g4): "
+        f"{json.dumps(SHAPES)}")
     return total, walls, fails
+
+
+def k1l_shapes(dev, cfg, reps):
+    """K1l at the config's other (S, K) (L1, 1 epoch, every lane active):
+    its plan's cluster size, the card's clusters at once (one CTA a lane:
+    the SMs) and the waves, its ms beside one K1 launch at K (CUDA
+    events, warm)."""
+    import torch
+    from repro_torch.core.penalties import L1
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cd_epoch import gram_lanes_plan, lane_capacity
+    out = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count \
+        if dev.type == "cuda" else 1
+    for S, K in cfg["lane_time"]["k1l_other"]:
+        G, c, beta0, q0, L = gram_lane_inputs(S, K, dev, seed=K + S)
+        prm = lane_rows(L1(0.11), S, dev, seed=S)
+        on = torch.ones(S, dtype=torch.bool, device=dev)
+        args = (G, c, beta0, q0, L, L1, prm, on)
+        plan = gram_lanes_plan(S, K, torch.float64)
+        cap = lane_capacity(plan, torch.float64)[0] if plan.cluster > 1 \
+            else sms
+        out.append(dict(
+            S=S, K=K, cluster=plan.cluster, clusters_at_once=cap,
+            waves=-(-S // max(1, cap)),
+            ms=time_ms(lambda: ops.cd_epoch_gram_lanes(*args), dev, reps),
+            k1_ms=time_ms(lambda: ops.cd_epoch_gram(
+                G[0], c[0], beta0[0], q0[0], L[0], L1, prm[0]), dev, reps)))
+        del G
+    return out
 
 
 def lane_times(dev, cfg, launches, errs, card):
@@ -2119,7 +2251,8 @@ def lane_times(dev, cfg, launches, errs, card):
     from repro_torch.kernels.cd_epoch import (cd_epoch_gram_lanes_plain,
                                               cd_epoch_xb_lanes_plain,
                                               gram_chain_floor_cuda,
-                                              gram_plan, xb_plan)
+                                              gram_lanes_plan, lane_capacity,
+                                              xb_plan)
     from repro_torch.kernels.fused_ws import fused_ws_lanes_plain, pick_bp
     reps = cfg["reps"]
     S, K = cfg["lane_time"]["S"], cfg["lane_time"]["K1"]
@@ -2133,14 +2266,17 @@ def lane_times(dev, cfg, launches, errs, card):
     on = torch.ones(S, dtype=torch.bool, device=dev)
     args = (G, c, beta0, q0, L, L1, prm, on)
     ms = time_ms(lambda: ops.cd_epoch_gram_lanes(*args), dev, reps)
+    replay = graph_ms(lambda: ops.cd_epoch_gram_lanes(*args), dev, reps)
     ten = time_ms(lambda: [ops.cd_epoch_gram(G[s], c[s], beta0[s], q0[s],
                                              L[s], L1, prm[s])
                            for s in range(S)], dev, reps)
     plain = time_ms(lambda: cd_epoch_gram_lanes_plain(*args), dev, 1)
     moved = int(torch.sum(ops.cd_epoch_gram_lanes(*args)[0] != beta0))
     b = bound(8 * (moved * K + 6 * K * S), 2 * moved * K)
-    plan = gram_plan(K, torch.float64)
-    waves = -(-S // max(1, sms // plan.cluster))
+    plan = gram_lanes_plan(S, K, torch.float64)
+    cap = lane_capacity(plan, torch.float64)[0] if plan.cluster > 1 \
+        else sms
+    waves = -(-S // max(1, cap))
     floor = None
     if dev.type == "cuda":
         epochs = max(1, 200_000 // K)
@@ -2154,13 +2290,16 @@ def lane_times(dev, cfg, launches, errs, card):
         max_abs_err=errs["cd_epoch_gram_lanes"], ms=ms, plain_ms=plain,
         bound_ms=b[0], bound_by=b[1], library_ms=None,
         library_call="none: no single call", ten_single_ms=ten,
+        graph_ms=replay,
         shape=f"S={S} lanes, K={K}, epochs=1, L1 (lam a lane), {moved} "
               f"coordinates moved",
         branch=plan.branch, cluster=plan.cluster, threads=plan.threads,
-        chain_floor_ms=floor, lane_waves=waves,
+        chain_floor_ms=floor, lane_waves=waves, clusters_at_once=cap,
         launches_by_branch={br: launches[f"cd_epoch_gram_lanes/{br}"]
                             for br in ("single", "cluster-shared",
-                                       "cluster-global")}))
+                                       "cluster-global")},
+        launches_by_shape=SHAPES.get("cd_epoch_gram_lanes", {}),
+        other_shapes=k1l_shapes(dev, cfg, reps)))
     del G
 
     # K2l
@@ -2592,6 +2731,8 @@ def mt_lane_phase(dev, cfg, sparse_design, sparse_Y, card):
                      f"route")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    log(f"  lane epochs' launches by shape over (g1)-(g4) and (m1)-(m4): "
+        f"{json.dumps(SHAPES)}")
     return total, walls, fails
 
 

@@ -88,12 +88,18 @@
 // cd_epoch_xb_lanes_*) are K1 and K2 over a lane dimension, as pallas_call
 // under the reference's vmap: the grid's y index is the lane (one CTA or
 // one cluster a lane), each lane reads its own tensors (a lane stride) and
-// its own row of the codec vector, and a lane the active mask freezes
-// copies its state through and returns at entry, every CTA of its cluster
-// alike, so no cluster barrier is left waiting. K2's single-lane entry
-// points are the same kernel with one lane and no mask. K1's lane code is
-// a template branch (LANES) that the single-lane K1 does not compile: with
-// the lane prologue in it, K1's chain ran 1.8x slower on the H100.
+// its own row of the codec vector. K2's single-lane entry points are the
+// same kernel with one lane and no mask; a lane K2l's mask freezes copies
+// its state through and returns at entry, every CTA of its cluster alike,
+// so no cluster barrier is left waiting. K1's lane code is a template
+// branch (LANES) that the single-lane K1 does not compile: a frozen lane
+// runs zero epochs through the same copy-in and copy-out, and the update
+// CTAs issue a row's loads of G as predicated loads (gram_apply_row), so
+// K1l's instances compile to K1's registers and keep a row's loads in
+// flight together. K1l's cluster size is its own plan's
+// (kernels/cd_epoch.py: gram_lanes_plan): the one with which the card runs
+// the lanes in the fewest waves (one, where one fits), where K1's 16 CTAs
+// a lane ran a grid's lanes in waves.
 // K1bl (cd_epoch_gram_block_lanes_f64) is K1b over lanes of multitask
 // blocks the same way: K1b's two kernels with a LANES template branch that
 // K1b does not compile, the lane on grid y (one CTA or one cluster a lane,
@@ -217,19 +223,41 @@ __device__ __forceinline__ void gram_stage(const GramShared<T>& sh, const T* __r
   }
 }
 
+// *p through L2 (ld.global.cg) where `pred`, else 0: one predicated load,
+// no branch around it (float64: K1l's only type)
+__device__ __forceinline__ double ldcg_if(bool pred, const double* p) {
+  double r = 0.0;
+  asm volatile("{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n @q ld.global.cg.f64 %0, [%1];\n}\n"
+               : "+d"(r)
+               : "l"(p), "r"((int)pred));
+  return r;
+}
+
 // *qi += G[i, jp0 + list[t]] * d[t] for the nm moved coordinates of one
 // block, in coordinate order. All nm loads of G are issued before the
 // first add (one round trip a row) and bypass L1 (ld.global.cg): a CTA's
-// rows x 32 lines in flight would thrash it.
-template <typename T>
+// rows x 32 lines in flight would thrash it. Written as 32 loads each
+// behind a branch (t < nm), ptxas keeps them in flight together only as
+// far as its schedule of the whole kernel allows: K1's cluster kernel
+// issues them in runs of about 7, K1l's (the lane prologue compiled in)
+// in runs of 2, which left every row a round trip a coordinate and K1l's
+// chain waiting for its update CTAs (1.8x K1 at K = 1024, 3x at 2048).
+// PREDICATED (K1l's kernels) issues them as 32 predicated loads with no
+// branch between them, in flight together on every instance; K1 keeps the
+// branches, its instances as they were measured.
+template <typename T, bool PREDICATED>
 __device__ __forceinline__ void gram_apply_row(T* qi, const T* __restrict__ G, long long s_row,
                                                long long s_col, int i, int jp0, int nm,
                                                const int* list, const T* d) {
   const T* Gi = G + (long long)i * s_row;
   T g[kGramB];
 #pragma unroll
-  for (int t = 0; t < kGramB; ++t)
-    if (t < nm) g[t] = __ldcg(Gi + (long long)(jp0 + list[t]) * s_col);
+  for (int t = 0; t < kGramB; ++t) {
+    if constexpr (PREDICATED)
+      g[t] = ldcg_if(t < nm, Gi + (long long)(jp0 + list[t]) * s_col);
+    else if (t < nm)
+      g[t] = __ldcg(Gi + (long long)(jp0 + list[t]) * s_col);
+  }
   T v = *qi;
 #pragma unroll
   for (int t = 0; t < kGramB; ++t)
@@ -328,13 +356,7 @@ __global__ void __launch_bounds__(kGramMaxThreads)
     beta_out += o;
     q_out += o;
     prm += ln * prm_lane;
-    if (active && !active[ln]) {  // a frozen lane: its state passes through
-      for (int i = threadIdx.x; i < K; i += blockDim.x) {
-        beta_out[i] = beta0[i];
-        q_out[i] = q0[i];
-      }
-      return;
-    }
+    if (active && !active[ln]) epochs = 0;  // a frozen lane: state passes through
   }
   const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(PEN, prm);
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -400,7 +422,7 @@ __global__ void __launch_bounds__(kGramMaxThreads)
         // the next chain's rows first
         const int i = kn * kGramB + u;
         if (nm && u < kGramB && kn != kp && kn != kc && i < K)
-          gram_apply_row(q + i, G, s_row, s_col, i, jp0, nm, list, d);
+          gram_apply_row<T, LANES>(q + i, G, s_row, s_col, i, jp0, nm, list, d);
         cp_async_wait_all();
         bar_arrive(kBarReady + (s & 1), bd);
       }
@@ -408,7 +430,7 @@ __global__ void __launch_bounds__(kGramMaxThreads)
         for (int i = u; i < K; i += nu) {
           const int kb = i / kGramB;
           if (kb == kp || kb == kc || kb == kn) continue;
-          gram_apply_row(q + i, G, s_row, s_col, i, jp0, nm, list, d);
+          gram_apply_row<T, LANES>(q + i, G, s_row, s_col, i, jp0, nm, list, d);
         }
       }
     }
@@ -466,13 +488,7 @@ __global__ void __launch_bounds__(kGramMaxThreads)
     beta_out += o;
     q_out += o;
     prm += ln * prm_lane;
-    if (active && !active[ln]) {  // a frozen lane: every CTA of it leaves
-      for (int i = rank * blockDim.x + threadIdx.x; i < K; i += C * blockDim.x) {
-        beta_out[i] = beta0[i];
-        q_out[i] = q0[i];
-      }
-      return;
-    }
+    if (active && !active[ln]) epochs = 0;  // a frozen lane: state passes through
   }
   const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(PEN, prm);
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -575,7 +591,7 @@ __global__ void __launch_bounds__(kGramMaxThreads)
         // the next chain's rows first, sent to rank 0
         const int i = kn * kGramB + tid;
         if (i < K) {
-          if (nm) gram_apply_row(q + (i - lo), G, s_row, s_col, i, jp0, nm, list, d);
+          if (nm) gram_apply_row<T, LANES>(q + (i - lo), G, s_row, s_col, i, jp0, nm, list, d);
           *cluster.map_shared_rank(sh.qbuf + ((s + 1) & 1) * kGramB + tid, 0) = q[i - lo];
         }
         mbar_arrive_remote(&bar_ready[(s + 1) & 1], 0);
@@ -584,7 +600,7 @@ __global__ void __launch_bounds__(kGramMaxThreads)
         for (int i = lo + tid; i < hi; i += bd) {
           const int kb = i / kGramB;
           if (kb == kp || kb == kc || kb == kn) continue;
-          gram_apply_row(q + (i - lo), G, s_row, s_col, i, jp0, nm, list, d);
+          gram_apply_row<T, LANES>(q + (i - lo), G, s_row, s_col, i, jp0, nm, list, d);
         }
       }
       __syncthreads();
@@ -1091,20 +1107,11 @@ __global__ void cluster_barrier_loop_kernel(int iters) {
   }
 }
 
-// The plans' placement query (kernels/cd_epoch.py: card_placeable): how many
-// clusters of C CTAs of `threads` threads and `dyn` bytes of dynamic shared
-// memory the card can place at once, for the cluster kernel of K1
-// (which == 0), K2 (1) or K1b (2) in float64 (f64) or float32, on the
-// register path (per != 0) or not. K1's kernel is instantiated per
-// penalty; the query takes the L1 instance: every instance declares the
-// same __launch_bounds__, and a cluster puts one CTA on each SM, which any
-// of them fits with the plan's shared memory.
+// cluster_capacity for K2 (which == 1) and K1b (2) in T, on the register
+// path (per != 0) or not
 template <typename T>
 int cluster_capacity_t(int which, int per, int C, int threads, int dyn, int* active) {
   switch (which) {
-    case 0:
-      return cluster_capacity_of(cd_gram_cluster_kernel<T, rt::PEN_L1, false>, C, threads, dyn,
-                                 active);
     case 1:
       return per ? cluster_capacity_of(cd_xb_cluster_kernel<T, kXbPer>, C, threads, dyn, active)
                  : cluster_capacity_of(cd_xb_cluster_kernel<T, 0>, C, threads, dyn, active);
@@ -1117,21 +1124,32 @@ int cluster_capacity_t(int which, int per, int C, int threads, int dyn, int* act
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, int PEN, bool LANES>
-int launch_gram_pen(const T* G, long long sr, long long sc, long long gl, const T* c, const T* L,
-                    const T* beta0, const T* q0, T* beta, T* q, int K, int epochs,
-                    const double* prm, int pl, const unsigned char* active, int lanes,
-                    int cluster, int dyn, int threads, void* stream) {
-  if (cluster > 1)
-    return launch_cluster(cd_gram_cluster_kernel<T, PEN, LANES>, cluster, threads, (size_t)dyn,
-                          stream, lanes, G, sr, sc, gl, c, L, beta0, q0, beta, q, K, epochs,
-                          prm, pl, active);
-  cudaError_t err = cudaFuncSetAttribute(cd_gram_kernel<T, PEN, LANES>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
-  if (err != cudaSuccess) return (int)err;
-  cd_gram_kernel<T, PEN, LANES><<<dim3(1, lanes), threads, dyn, (cudaStream_t)stream>>>(
-      G, sr, sc, gl, c, L, beta0, q0, beta, q, K, epochs, prm, pl, active);
-  return (int)cudaGetLastError();
+// K1's kernel (one CTA, or with `cluster` the cluster kernel) for penalty
+// `pen`, K1l's with LANES; nullptr for an unknown penalty
+template <typename T, bool LANES>
+auto gram_kernel_of(int pen, bool cluster) -> decltype(&cd_gram_kernel<T, rt::PEN_L1, LANES>) {
+#define K1_CASE(ID) \
+  case ID:          \
+    return cluster ? cd_gram_cluster_kernel<T, ID, LANES> : cd_gram_kernel<T, ID, LANES>;
+  switch (pen) {
+    K1_CASE(rt::PEN_L1)
+    K1_CASE(rt::PEN_L1L2)
+    K1_CASE(rt::PEN_MCP)
+    K1_CASE(rt::PEN_SCAD)
+    K1_CASE(rt::PEN_L05)
+    K1_CASE(rt::PEN_L23)
+    K1_CASE(rt::PEN_BOX)
+  }
+#undef K1_CASE
+  return nullptr;
+}
+
+// cluster_capacity for K1's cluster kernel (K1l's with LANES) of penalty `pen`
+template <typename T, bool LANES>
+int gram_capacity(int pen, int C, int threads, int dyn, int* active) {
+  auto kernel = gram_kernel_of<T, LANES>(pen, true);
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  return cluster_capacity_of(kernel, C, threads, dyn, active);
 }
 
 // K1 with the wrapper's plan (kernels/cd_epoch.py: gram_plan): one CTA
@@ -1153,21 +1171,17 @@ int launch_gram(const T* G, long long sr, long long sc, long long gl, const T* c
       cluster == 1 ? 2LL * K : (nb + cluster - 2) / (cluster - 1) * kGramB;  // values
   if ((long long)dyn < (kGramHead + state) * (long long)sizeof(T))
     return (int)cudaErrorInvalidValue;
-#define K1_CASE(ID)                                                                        \
-  case ID:                                                                                 \
-    return launch_gram_pen<T, ID, LANES>(G, sr, sc, gl, c, L, beta0, q0, beta, q, K, epochs, \
-                                         prm, pl, active, lanes, cluster, dyn, threads, stream);
-  switch (pen) {
-    K1_CASE(rt::PEN_L1)
-    K1_CASE(rt::PEN_L1L2)
-    K1_CASE(rt::PEN_MCP)
-    K1_CASE(rt::PEN_SCAD)
-    K1_CASE(rt::PEN_L05)
-    K1_CASE(rt::PEN_L23)
-    K1_CASE(rt::PEN_BOX)
-  }
-#undef K1_CASE
-  return (int)cudaErrorInvalidValue;
+  auto kernel = gram_kernel_of<T, LANES>(pen, cluster > 1);
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  if (cluster > 1)
+    return launch_cluster(kernel, cluster, threads, (size_t)dyn, stream, lanes, G, sr, sc, gl, c,
+                          L, beta0, q0, beta, q, K, epochs, prm, pl, active);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(1, lanes), threads, dyn, (cudaStream_t)stream>>>(
+      G, sr, sc, gl, c, L, beta0, q0, beta, q, K, epochs, prm, pl, active);
+  return (int)cudaGetLastError();
 }
 
 // K1b with the wrapper's plan (kernels/cd_epoch.py: gram_block_plan): one
@@ -1334,10 +1348,39 @@ int cd_epoch_xb_lanes_f32(const float* Xt, const float* y, const float* w, int w
                           use_smem, dyn, threads, per, stream);
 }
 
-int cluster_capacity(int which, int f64, int per, int cluster, int threads, int dyn,
+// The plans' placement query (kernels/cd_epoch.py: card_capacity): how many
+// clusters of C CTAs of `threads` threads and `dyn` bytes of dynamic shared
+// memory the card places at once, for the cluster kernel that launches:
+// K1's (which == 0) or K1l's (3, float64 only) instance for penalty `pen`,
+// K2's (1) or K1b's (2) on the register path (per != 0) or not; float64
+// (f64) or float32
+int cluster_capacity(int which, int f64, int per, int pen, int cluster, int threads, int dyn,
                      int* active) {
+  switch (which) {
+    case 0:
+      return f64 ? gram_capacity<double, false>(pen, cluster, threads, dyn, active)
+                 : gram_capacity<float, false>(pen, cluster, threads, dyn, active);
+    case 3:
+      return f64 ? gram_capacity<double, true>(pen, cluster, threads, dyn, active)
+                 : (int)cudaErrorInvalidValue;
+  }
   return f64 ? cluster_capacity_t<double>(which, per, cluster, threads, dyn, active)
              : cluster_capacity_t<float>(which, per, cluster, threads, dyn, active);
+}
+
+// The registers a thread and local (spill) bytes a thread of K1's (lanes ==
+// 0) or K1l's float64 kernel for penalty `pen`, on one CTA (cluster == 0)
+// or the cluster kernel, as cudaFuncGetAttributes reports them
+int gram_kernel_attrs(int lanes, int cluster, int pen, int* regs, int* local) {
+  auto kernel = lanes ? gram_kernel_of<double, true>(pen, cluster)
+                      : gram_kernel_of<double, false>(pen, cluster);
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *local = (int)attr.localSizeBytes;
+  return 0;
 }
 
 // `iters` cluster barriers on one cluster of C CTAs of `threads` threads:

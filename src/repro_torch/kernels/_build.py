@@ -155,7 +155,9 @@ _PLAIN_SIGNATURES = {
                      _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
                  "gram_chain_floor": [_I, _I, _I, _P, _P],
                  "fill_shared_memory": [_P],
-                 "cluster_capacity": [_I, _I, _I, _I, _I, _I, _P]},
+                 "cluster_capacity": [_I, _I, _I, _I, _I, _I, _I, _P],
+                 # K1's / K1l's attributes
+                 "gram_kernel_attrs": [_I, _I, _I, _P, _P]},
     "fused_ws": {"fused_ws_product_info": [_I, _I],
                  "dmma_rate_probe": [_I, _I, _I, _I, _P, _P],
                  # the float64 product alone (the sweep, the tests)

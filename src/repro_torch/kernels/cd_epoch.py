@@ -28,10 +28,13 @@ K1l and K2l (``cd_epoch_gram_lanes``, ``cd_epoch_xb_lanes``) are K1 and
 K2 over a lane dimension, the counterpart of ``pallas_call`` under the
 reference's ``vmap`` (the chunked driver and the CV grid): one launch runs
 S independent epochs, each lane on its own tensors and its own row of the
-codec vector, as a grid of S CTAs or S clusters of the single-lane plan.
-An active-lane mask freezes lanes: a frozen lane's CTAs copy its state
-through and return at entry. K1bl (``cd_epoch_gram_block_lanes``) is K1b
-over lanes of multitask blocks (c, beta, q [S, K, T]), each lane on K1b's
+codec vector, as a grid of S CTAs or S clusters. K2l's clusters take the
+single-lane plan; K1l's take ``gram_lanes_plan``, the cluster size that
+runs the S lanes in the fewest waves on the card (one, where one fits).
+An active-lane mask freezes lanes: a frozen K1l lane runs zero epochs,
+which copies its state through; a frozen K2l lane copies it and returns
+at entry. K1bl (``cd_epoch_gram_block_lanes``) is
+K1b over lanes of multitask blocks (c, beta, q [S, K, T]), each lane on K1b's
 plan of one lane (``gram_block_plan(K, T)``); a frozen lane runs zero
 epochs, which copies its state through. Their plain versions apply the
 single-lane plain version lane by lane, skipping the frozen lanes.
@@ -65,10 +68,12 @@ __all__ = ["KIND_IDS", "cd_epoch_gram_plain", "cd_epoch_xb_plain",
            "cd_epoch_xb_lanes_cuda", "cd_epoch_gram_block_lanes_plain",
            "cd_epoch_gram_block_lanes_cuda", "kernel_params", "EpochPlan",
            "GramPlan",
-           "gram_plan", "xb_plan", "gram_block_plan", "BRANCHES",
+           "gram_plan", "gram_lanes_plan", "xb_plan",
+           "gram_block_plan", "BRANCHES",
            "SMEM_DYN_MAX", "cluster_barrier_cuda", "gram_chain_floor_cuda",
-           "fill_shared_memory_cuda", "card_placeable", "placement",
-           "STEP_DOWN"]
+           "fill_shared_memory_cuda", "card_placeable", "card_capacity",
+           "lane_capacity",
+           "placement", "gram_kernel_attrs_cuda", "STEP_DOWN"]
 
 # dynamic shared memory a CTA may take: the H100's 232,448 bytes per CTA
 # less 1 KB for the kernels' few static shared values
@@ -110,30 +115,46 @@ _ERR_CLUSTER_UNPLACEABLE = -1
 STEP_DOWN = (16, 8, 4, 2, 1)
 # kernel name -> csrc/cd_epoch.cu cluster_capacity's kernel id
 _CAPACITY_IDS = {"cd_epoch_gram": 0, "cd_epoch_xb": 1,
-                 "cd_epoch_gram_block": 2}
-_PLACEABLE: dict = {}
+                 "cd_epoch_gram_block": 2, "cd_epoch_gram_lanes": 3}
+_CAPACITY: dict = {}
+
+
+def card_capacity(kernel: str, plan, dtype, pen: int = 0,
+                  device=None) -> int:
+    """How many clusters of `plan` for `kernel` ("cd_epoch_gram",
+    "cd_epoch_xb", "cd_epoch_gram_block" or "cd_epoch_gram_lanes") the
+    card of `device` (default: the current one) places at once, as
+    ``cudaOccupancyMaxActiveClusters`` answers for the instance that
+    launches (K1's and K1l's of penalty id `pen`) with the plan's cluster
+    size, threads and dynamic shared memory; cached per (device, kernel,
+    dtype, shape, penalty). Without a card there is nothing to ask: 0."""
+    if not torch.cuda.is_available():
+        return 0
+    dev = None if device is None else torch.device(device).index
+    dev = torch.cuda.current_device() if dev is None else dev
+    per = getattr(plan, "per", 0)
+    key = (dev, kernel, dtype, plan.cluster, plan.threads, plan.dyn_bytes,
+           per, pen)
+    if key not in _CAPACITY:
+        active = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = BUILD.lib("cd_epoch").cluster_capacity(
+                _CAPACITY_IDS[kernel], int(dtype == torch.float64), per, pen,
+                plan.cluster, plan.threads, plan.dyn_bytes,
+                ctypes.byref(active))
+        _check_rc(rc, f"{kernel} placement query", plan)
+        _CAPACITY[key] = active.value
+    return _CAPACITY[key]
 
 
 def card_placeable(kernel: str, plan, dtype) -> bool:
-    """Whether the current card can place one cluster of `plan` for
-    `kernel` ("cd_epoch_gram", "cd_epoch_xb" or "cd_epoch_gram_block"), as
-    ``cudaOccupancyMaxActiveClusters`` answers for that kernel's cluster
-    size, threads and dynamic shared memory; cached per (device, kernel,
-    dtype, shape). One CTA always places. Without a card there is nothing
-    to ask and every plan passes: no launch follows on this host."""
+    """Whether the current card places one cluster of `plan` for `kernel`
+    (``card_capacity`` at least 1; K1's L1 instance). One CTA always
+    places. Without a card every plan passes: no launch follows on this
+    host."""
     if plan.cluster == 1 or not torch.cuda.is_available():
         return True
-    per = getattr(plan, "per", 0)
-    key = (torch.cuda.current_device(), kernel, dtype, plan.cluster,
-           plan.threads, plan.dyn_bytes, per)
-    if key not in _PLACEABLE:
-        active = ctypes.c_int(0)
-        rc = BUILD.lib("cd_epoch").cluster_capacity(
-            _CAPACITY_IDS[kernel], int(dtype == torch.float64), per,
-            plan.cluster, plan.threads, plan.dyn_bytes, ctypes.byref(active))
-        _check_rc(rc, f"{kernel} placement query", plan)
-        _PLACEABLE[key] = active.value >= 1
-    return _PLACEABLE[key]
+    return card_capacity(kernel, plan, dtype) >= 1
 
 
 _PLACEMENT = [card_placeable]
@@ -230,6 +251,51 @@ def gram_plan(K: int, dtype, cluster: int | None = None,
     if threads is None:
         threads = min(GRAM_MAX_THREADS, max(GRAM_MIN_THREADS, _threads(rows)))
     return GramPlan(cluster, dyn, threads)
+
+
+def lane_capacity(plan, dtype, pen: int = 0, device=None):
+    """The card of `device` for K1l's `plan`: (how many of its clusters
+    the card places at once, ``card_capacity`` of K1l's instance for
+    penalty id `pen`, two CTAs sharing an SM where they fit; the SMs they
+    share). (0, 0) without a card."""
+    n = card_capacity("cd_epoch_gram_lanes", plan, dtype, pen, device)
+    if not n:
+        return 0, 0
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    return n, torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def gram_lanes_plan(S: int, K: int, dtype, pen: int = 0, device=None,
+                    capacity=None) -> GramPlan:
+    """K1l's layout for S lanes of K coordinates on the card of `device`,
+    each lane on K1's layout of one cluster size (``gram_plan(K, dtype,
+    cluster=C)``): one CTA a lane for K <= GRAM_SINGLE_MAX_K; above, of
+    the cluster sizes of STEP_DOWN, the one that runs the S lanes in the
+    fewest waves as the card places the clusters (``lane_capacity`` for
+    K1l's instance of penalty id `pen`; `capacity(plan, dtype, pen)`
+    stands in for it in the tests); of those, the fewest threads a CTA (a
+    lane's rows on more update CTAs, which pack two to an SM at
+    GRAM_MIN_THREADS); of those, the fewest CTAs on an SM in a wave; of
+    those, the largest. ``cd_sweep.py k1l_rule`` times every size against
+    it (PERF.md). Where the card runs no cluster at all (capacity 0, as
+    without a card), K1's own plan, ``gram_plan(K, dtype)``. Raises
+    ValueError where no cluster size holds a lane's state."""
+    if K > GRAM_SINGLE_MAX_K:
+        best = None
+        for C in STEP_DOWN[:-1]:
+            try:
+                plan = gram_plan(K, dtype, cluster=C)
+            except ValueError:      # a smaller cluster holds more rows a CTA
+                break
+            n, sms = lane_capacity(plan, dtype, pen, device) \
+                if capacity is None else capacity(plan, dtype, pen)
+            if n >= 1:
+                key = (-(-S // n), plan.threads, -(-min(S, n) * C // sms))
+                if best is None or key < best[0]:
+                    best = (key, plan)
+        if best is not None:
+            return best[1]
+    return gram_plan(K, dtype)
 
 
 def _threads(m: int) -> int:
@@ -438,17 +504,18 @@ def cd_epoch_xb_cuda(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls, params,
 
 
 def _mask_ptr(active):
-    """The active-lane mask as the kernels read it (one byte a lane)."""
-    return active.to(torch.uint8).contiguous()
+    """The active-lane mask as the kernels read it (one byte a lane): the
+    bool mask's own bytes, no copy."""
+    return active.contiguous().view(torch.uint8)
 
 
 def cd_epoch_gram_lanes_cuda(G, c, beta0, q0, L, penalty_cls, params, active,
                              *, plan, epochs=1):
-    """Launch K1l on the tensors' stream: K1 with `plan` (a ``gram_plan``
-    of one lane's K) on each lane of G [S, K, K] (each lane with K1's
-    strides), c, beta0, q0, L contiguous [S, K], params [S, arity] on the
-    card and the bool mask `active` [S]; float64 only. Returns (beta,
-    q)."""
+    """Launch K1l on the tensors' stream: K1 with `plan` (a
+    ``gram_lanes_plan``, or a ``gram_plan`` of one lane's K) on each lane
+    of G [S, K, K] (each lane with K1's strides), c, beta0, q0, L
+    contiguous [S, K], params [S, arity] on the card and the bool mask
+    `active` [S]; float64 only. Returns (beta, q)."""
     if G.dtype != torch.float64:
         raise TypeError("cd_epoch_gram_lanes: the card runs it in float64 "
                         "only")
@@ -549,6 +616,17 @@ def gram_chain_floor_cuda(K, epochs, threads, device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.gram_chain_floor(K, epochs, threads, out.data_ptr(), stream)
     _check_rc(rc, "gram_chain_floor")
+
+
+def gram_kernel_attrs_cuda(lanes: bool, cluster: bool, pen: int = 0):
+    """(registers a thread, local bytes a thread) of K1's float64 kernel
+    (K1l's with `lanes`) of penalty id `pen`, on one CTA or the cluster
+    kernel, as ``cudaFuncGetAttributes`` reports them."""
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    rc = BUILD.lib("cd_epoch").gram_kernel_attrs(
+        int(lanes), int(cluster), pen, ctypes.byref(regs), ctypes.byref(local))
+    _check_rc(rc, "gram_kernel_attrs")
+    return regs.value, local.value
 
 
 def fill_shared_memory_cuda(device):

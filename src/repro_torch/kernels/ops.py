@@ -35,7 +35,9 @@ the branch their shape's plan took (``kernels/cd_epoch.py``:
 ``gram_plan``, ``xb_plan``, ``gram_block_plan``) in ``branch_launches``, a
 dict over ``BRANCHES`` ("single", "cluster-shared", "cluster-global"),
 and by the plan's cluster size in ``cluster_launches``;
-``branch_counts`` and ``cluster_counts`` read them.
+``branch_counts`` and ``cluster_counts`` read them. The lane epochs K1l,
+K2l and K1bl also count by shape in ``shape_launches``: (K rounded up to
+a power of two, cluster size), which ``shape_counts`` reads.
 
 A kernel captured into a CUDA graph launches at each replay of the graph:
 inside ``deferred_launches`` the wrappers record their launches instead of
@@ -55,8 +57,10 @@ from .cd_epoch import (BRANCHES, KIND_IDS, cd_epoch_gram_block_cuda,
                        cd_epoch_gram_lanes_plain, cd_epoch_gram_plain,
                        cd_epoch_xb_cuda, cd_epoch_xb_lanes_cuda,
                        cd_epoch_xb_lanes_plain, cd_epoch_xb_plain,
-                       gram_block_plan, gram_plan, xb_plan)
-from .common import (UnsupportedPenaltyError, check_block_kernel_penalty,
+                       gram_block_plan, gram_lanes_plan, gram_plan,
+                       xb_plan)
+from .common import (PENALTY_IDS, UnsupportedPenaltyError,
+                     check_block_kernel_penalty,
                      check_kernel_penalty, check_score_kernel_penalty,
                      make_penalty, penalty_params)
 from .csc_score import csc_score_block_cuda, csc_score_cuda, csc_score_plain
@@ -73,7 +77,8 @@ __all__ = ["cd_epoch_gram", "cd_epoch_xb", "fused_ws", "ws_score",
            "cd_epoch_xb_lanes", "fused_ws_lanes",
            "cd_epoch_gram_block_lanes", "fused_ws_block_lanes", "KERNELS",
            "launch_counts", "reset_launch_counts", "branch_counts",
-           "cluster_counts", "deferred_launches", "add_launches",
+           "cluster_counts", "shape_counts", "deferred_launches",
+           "add_launches",
            "penalty_params",
            "make_penalty", "check_kernel_penalty",
            "check_score_kernel_penalty", "UnsupportedPenaltyError"]
@@ -84,19 +89,24 @@ __all__ = ["cd_epoch_gram", "cd_epoch_xb", "fused_ws", "ws_score",
 _DEFERRED: list = []
 
 
-def _count(wrapper, plan=None, times=1):
+def _count(wrapper, plan=None, times=1, K=None):
     """Add a launch to `wrapper`'s counts (and to its plan's branch and
-    cluster size), or, while a graph captures, record it for the replays
-    (a captured kernel launches when its graph replays, not when the
-    wrapper runs)."""
+    cluster size; with `K`, a lane kernel's, to its shape: K rounded up to
+    a power of two and the cluster size), or, while a graph captures,
+    record it for the replays (a captured kernel launches when its graph
+    replays, not when the wrapper runs)."""
     if _DEFERRED:
-        _DEFERRED[-1].append((wrapper, plan))
+        _DEFERRED[-1].append((wrapper, plan, K))
         return
     wrapper.launches += times
     if plan is not None:
         wrapper.branch_launches[plan.branch] += times
         sizes = wrapper.cluster_launches
         sizes[plan.cluster] = sizes.get(plan.cluster, 0) + times
+    if K is not None:
+        key = (1 << (K - 1).bit_length(), plan.cluster)
+        shapes = wrapper.shape_launches
+        shapes[key] = shapes.get(key, 0) + times
 
 
 @contextmanager
@@ -115,8 +125,8 @@ def add_launches(records, times=1):
     """Count the launches in `records` (from ``deferred_launches``)
     `times` times over."""
     if times:
-        for wrapper, plan in records:
-            _count(wrapper, plan, times)
+        for wrapper, plan, K in records:
+            _count(wrapper, plan, times, K)
 
 
 def _route(name, **tensors) -> bool:
@@ -256,10 +266,10 @@ def cd_epoch_gram_lanes(G, c, beta0, q0, L, penalty_cls, params, active, *,
     if not on_card:
         return cd_epoch_gram_lanes_plain(G, c, beta0, q0, L, penalty_cls,
                                          params, active, epochs=epochs)
-    plan = gram_plan(K, G.dtype)
+    plan = gram_lanes_plan(S, K, G.dtype, PENALTY_IDS[penalty_cls], G.device)
     out = cd_epoch_gram_lanes_cuda(G, c, beta0, q0, L, penalty_cls, params,
                                    active, epochs=epochs, plan=plan)
-    _count(cd_epoch_gram_lanes, plan)
+    _count(cd_epoch_gram_lanes, plan, K=K)
     return out
 
 
@@ -297,7 +307,7 @@ def cd_epoch_gram_block_lanes(G, c, beta0, q0, L, penalty_cls, params,
     out = cd_epoch_gram_block_lanes_cuda(G, c, beta0, q0, L, penalty_cls,
                                          params, active, epochs=epochs,
                                          plan=plan)
-    _count(cd_epoch_gram_block_lanes, plan)
+    _count(cd_epoch_gram_block_lanes, plan, K=K)
     return out
 
 
@@ -337,7 +347,7 @@ def cd_epoch_xb_lanes(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls, params,
     out = cd_epoch_xb_lanes_cuda(Xt_ws, y, beta0, Xb0, L, offset,
                                  penalty_cls, params, active, datafit_kind,
                                  w=w, epochs=epochs, plan=plan)
-    _count(cd_epoch_xb_lanes, plan)
+    _count(cd_epoch_xb_lanes, plan, K=K)
     return out
 
 
@@ -626,6 +636,8 @@ KERNELS = (cd_epoch_gram, cd_epoch_xb, fused_ws, ws_score, csc_score,
 # the kernels with more than one launch branch
 BRANCHED = (cd_epoch_gram, cd_epoch_xb, cd_epoch_gram_block,
             cd_epoch_gram_lanes, cd_epoch_xb_lanes, cd_epoch_gram_block_lanes)
+# the lane epochs, counted by shape too
+SHAPED = (cd_epoch_gram_lanes, cd_epoch_xb_lanes, cd_epoch_gram_block_lanes)
 
 
 def reset_launch_counts():
@@ -634,6 +646,8 @@ def reset_launch_counts():
     for k in BRANCHED:
         k.branch_launches = dict.fromkeys(BRANCHES, 0)
         k.cluster_launches = {}
+    for k in SHAPED:
+        k.shape_launches = {}
 
 
 def launch_counts() -> dict:
@@ -651,6 +665,15 @@ def cluster_counts() -> dict:
     and K1bl (1: one CTA): where the plans stepped down, it shows."""
     return {k.__name__: dict(sorted(k.cluster_launches.items()))
             for k in BRANCHED}
+
+
+
+def shape_counts() -> dict:
+    """{kernel name: {"K=<K> C=<C>": launches}} for K1l, K2l and K1bl: K
+    rounded up to a power of two (the working-set bucket), C the cluster
+    size of the launch's plan (1: one CTA a lane)."""
+    return {k.__name__: {f"K={K} C={C}": n for (K, C), n in
+                         sorted(k.shape_launches.items())} for k in SHAPED}
 
 
 reset_launch_counts()

@@ -221,3 +221,171 @@ def test_placement_swaps_the_default_test():
         assert cd.gram_block_plan(4096, 20, F64).cluster == 8
         assert cd.xb_plan(10_000, False, F64, cluster=16).cluster == 16
     assert cd.gram_plan(2048, F64).cluster == cd.GRAM_CLUSTER
+
+
+# ------------------------------------------------- K1l's plan of S lanes
+# one gram_plan a K, as the plans stood before the lane plan came: the
+# one-lane plan (K1's) must not move. (K, cluster, dyn_bytes, threads)
+ONE_LANE_PLANS = {
+    F64: [(1, 1, 36880, 256), (31, 1, 37360, 256), (33, 1, 37392, 256),
+          (64, 1, 37888, 256), (256, 1, 40960, 288), (257, 16, 37120, 256),
+          (1023, 16, 37632, 256), (1024, 16, 37632, 256),
+          (1025, 16, 37632, 256), (2048, 16, 38144, 256),
+          (2049, 16, 38144, 256), (4096, 16, 39168, 288),
+          (20_000, 16, 47616, 512)],
+    F32: [(1, 1, 18440, 256), (31, 1, 18680, 256), (33, 1, 18696, 256),
+          (64, 1, 18944, 256), (256, 1, 20480, 288), (257, 16, 18560, 256),
+          (1023, 16, 18816, 256), (1024, 16, 18816, 256),
+          (1025, 16, 18816, 256), (2048, 16, 19072, 256),
+          (2049, 16, 19072, 256), (4096, 16, 19584, 288),
+          (20_000, 16, 23808, 512)]}
+
+
+# the H100's answers for K1l (``cd_sweep.py k1l_rule``): clusters of C
+# CTAs placed at once, a CTA an SM and two of 256 threads an SM
+_H100 = {16: (7, 14), 8: (15, 30), 4: (30, 62), 2: (66, 132)}
+
+
+def _one_card(plan, dtype, pen):
+    """A stand-in for the card's answer to K1l's plan (``lane_capacity``):
+    an H100's clusters at once and its 132 SMs."""
+    one, two = _H100[plan.cluster]
+    return (two if plan.threads <= 256 else one), 132
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("case", range(13))
+def test_gram_plan_of_one_lane_is_unchanged(case, dtype):
+    """K1's plan (``gram_plan`` of one lane) is the same at every K the
+    tests use, unforced and on a card that places every size."""
+    K, C, dyn, threads = ONE_LANE_PLANS[dtype][case]
+    assert cd.gram_plan(K, dtype) == cd.GramPlan(C, dyn, threads)
+    assert cd.gram_plan(K, dtype, placeable=lambda *a: True) == \
+        cd.GramPlan(C, dyn, threads)
+
+
+def _key(S, plan):
+    """(waves, threads a CTA, CTAs on an SM in a wave) of `plan` for S lanes
+    on the stand-in card."""
+    n, sms = _one_card(plan, F64, 0)
+    return -(-S // n), plan.threads, -(-min(S, n) * plan.cluster // sms)
+
+
+def _sizes(K):
+    return {D: cd.gram_plan(K, F64, cluster=D) for D in cd.STEP_DOWN[:-1]}
+
+
+@pytest.mark.parametrize("S,K,C", [
+    (1, 1024, 16), (7, 1024, 16), (10, 1024, 8), (14, 1024, 8),
+    (20, 1024, 8), (30, 1024, 8), (50, 1024, 2), (10, 512, 8),
+    (20, 512, 4), (50, 512, 4), (62, 512, 4), (10, 2048, 16),
+    (15, 2048, 8), (20, 2048, 4), (1, 4096, 16), (7, 4096, 16),
+    (10, 4096, 8), (50, 4096, 2), (63, 512, 2), (10, 257, 8),
+    (66, 20_000, 2)])
+def test_gram_lanes_plan_takes_one_wave(S, K, C):
+    """Where a cluster size of STEP_DOWN runs all S lanes at once, the lane
+    plan takes one such size, laid out by ``gram_plan`` at that size: of
+    those, the fewest threads a CTA, then the fewest CTAs on an SM, then
+    the largest."""
+    plan = cd.gram_lanes_plan(S, K, F64, capacity=_one_card)
+    assert plan.cluster == C and plan == cd.gram_plan(K, F64, cluster=C)
+    key = _key(S, plan)
+    assert key[0] == 1
+    for D, other in _sizes(K).items():
+        assert _key(S, other) > key or (D <= C and _key(S, other) == key)
+
+
+@pytest.mark.parametrize("S,K,C", [(67, 1024, 2), (100, 2048, 2),
+                                   (133, 4096, 2), (200, 512, 4),
+                                   (100, 512, 4)])
+def test_gram_lanes_plan_takes_the_fewest_waves(S, K, C):
+    """Where no cluster size runs all S lanes at once, the lane plan takes
+    a size with the fewest waves as the card places them (CTAs sharing an
+    SM), not K1's 16 CTAs in as many waves as the card needs; of those,
+    the fewest threads a CTA, then the fewest CTAs on an SM."""
+    plan = cd.gram_lanes_plan(S, K, F64, capacity=_one_card)
+    assert plan.cluster == C and plan == cd.gram_plan(K, F64, cluster=C)
+    waves = {D: _key(S, other)[0] for D, other in _sizes(K).items()}
+    assert waves[C] == min(waves.values()) > 1
+    key = _key(S, plan)
+    for D, other in _sizes(K).items():
+        assert _key(S, other) > key or (D <= C and _key(S, other) == key)
+
+
+@pytest.mark.parametrize("S,K", [(1, 1024), (10, 1024), (50, 2048),
+                                 (10, 4096)])
+def test_gram_lanes_plan_keeps_the_one_lane_plan_without_capacity(S, K):
+    """Where the card runs no cluster of any size (capacity 0, as without a
+    card), the lane plan is K1's own, which steps down as K1's does."""
+    plan = cd.gram_lanes_plan(S, K, F64, capacity=lambda *a: (0, 0))
+    assert plan == cd.gram_plan(K, F64)
+    with cd.placement(REFUSALS["no-16"][0]):
+        assert cd.gram_lanes_plan(S, K, F64, capacity=lambda *a: (0, 0)) == \
+            cd.gram_plan(K, F64, cluster=8)
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("K", [1, 31, 64, 255, 256])
+def test_gram_lanes_plan_keeps_one_cta_at_small_k(K, dtype):
+    """K <= GRAM_SINGLE_MAX_K: one CTA a lane, whatever the card holds."""
+    for S in (1, 10, 50):
+        for cap in (_one_card, lambda *a: (10 ** 6, 132),
+                    lambda *a: (0, 0)):
+            plan = cd.gram_lanes_plan(S, K, dtype, capacity=cap)
+            assert plan == cd.gram_plan(K, dtype) and plan.cluster == 1
+
+
+def test_gram_lanes_plan_asks_the_capacity_of_its_penalty():
+    """The lane plan asks one count a size, the capacity of the penalty's
+    own instance, from the largest size down, and skips a size the card
+    places none of (as the one-lane plans step down)."""
+    asked = []
+
+    def cap(plan, dtype, pen):
+        asked.append((plan.cluster, pen))
+        return (0, 0) if plan.cluster == 16 else (10 ** 6, 132)
+
+    assert cd.gram_lanes_plan(1, 1024, F64, pen=2, capacity=cap).cluster == 8
+    assert asked == [(16, 2), (8, 2), (4, 2), (2, 2)]
+
+
+@pytest.mark.parametrize("K", [30_000, 400_000])
+def test_gram_lanes_plan_refuses_a_state_no_size_holds(K):
+    """A size whose update CTAs cannot hold a lane's rows is skipped (at K
+    = 30,000 two CTAs cannot: 16 takes the lanes); past what 16 CTAs hold,
+    no size holds a lane and the plan raises, as ``gram_plan`` does."""
+    if K == 30_000:
+        with pytest.raises(ValueError, match="shared memory"):
+            cd.gram_plan(K, F64, cluster=2)
+        plan = cd.gram_lanes_plan(200, K, F64, capacity=_one_card)
+        assert plan.cluster in (16, 8, 4)
+        return
+    for cap in (_one_card, lambda *a: (0, 0)):
+        with pytest.raises(ValueError, match="shared memory"):
+            cd.gram_lanes_plan(10, K, F64, capacity=cap)
+
+
+@pytest.mark.parametrize("K,C,key", [(1, 1, "K=1 C=1"), (200, 1, "K=256 C=1"),
+                                     (1000, 8, "K=1024 C=8"),
+                                     (1024, 4, "K=1024 C=4"),
+                                     (1025, 16, "K=2048 C=16")])
+def test_lane_launches_count_by_shape(K, C, key):
+    """K1l, K2l and K1bl count their launches by (K rounded up to a power
+    of two, cluster size), directly and per replay of a captured graph;
+    the reset clears them."""
+    ops.reset_launch_counts()
+    plan = cd.gram_plan(K, F64, cluster=C) if C > 1 or K <= 256 else None
+    plan = plan or cd.GramPlan(C, 0, 256)
+    for kernel in ops.SHAPED:
+        ops._count(kernel, plan, K=K)
+        with ops.deferred_launches() as records:
+            ops._count(kernel, plan, K=K)
+        assert kernel.launches == 1
+        ops.add_launches(records, 3)
+    counts = ops.shape_counts()
+    assert set(counts) == {k.__name__ for k in ops.SHAPED}
+    for name in counts:
+        assert counts[name] == {key: 4}
+        assert ops.launch_counts()[name] == 4
+    ops.reset_launch_counts()
+    assert all(v == {} for v in ops.shape_counts().values())

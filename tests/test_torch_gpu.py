@@ -1463,6 +1463,55 @@ def test_k1_lanes_cuda_equals_k1_lane_by_lane(cuda, pen, S, K):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("pen", [P.L1(0.11), P.MCP(0.11, 3.0)],
+                         ids=["L1", "MCP"])
+@pytest.mark.parametrize("K", [1024, 4096])
+def test_k1_lanes_cuda_every_lane_cluster_equals_k1(cuda, pen, K):
+    """At S = 10, K1l on each cluster size the lane plan can choose (the
+    clusters of STEP_DOWN), forced, equals K1 on each lane's inputs bit
+    for bit; frozen lanes come back unchanged; and the plan K1l takes
+    there is one of them."""
+    from repro_torch.kernels.cd_epoch import (STEP_DOWN,
+                                              cd_epoch_gram_lanes_cuda,
+                                              gram_lanes_plan, gram_plan)
+    S = 10
+    G, c, beta0, q0, L = _gram_lanes(S, K, cuda, seed=K)
+    params = _lane_params(pen, S, cuda, seed=S)
+    active = torch.arange(S, device=cuda) % 3 != 1
+    refs = [ops.cd_epoch_gram(G[s], c[s], beta0[s], q0[s], L[s], type(pen),
+                              params[s], epochs=2) for s in range(S)]
+    sizes = STEP_DOWN[:-1]
+    assert gram_lanes_plan(S, K, torch.float64).cluster in sizes
+    for C in sizes:
+        b, q = cd_epoch_gram_lanes_cuda(
+            G, c, beta0, q0, L, type(pen), params, active, epochs=2,
+            plan=gram_plan(K, torch.float64, cluster=C))
+        for s in range(S):
+            want = refs[s] if active[s] else (beta0[s], q0[s])
+            assert torch.equal(b[s], want[0]) and torch.equal(q[s], want[1]), \
+                (C, s)
+
+
+@pytest.mark.gpu
+def test_k1_lanes_instances_use_no_local_memory(cuda):
+    """K1l's float64 instances (one CTA and the cluster, every penalty)
+    spill nothing: their local bytes a thread are K1's of the same
+    penalty (0, but for L05, whose prox calls pow: a 40-byte call frame
+    on both), within the 128 registers of 512 threads."""
+    from repro_torch.kernels.cd_epoch import gram_kernel_attrs_cuda
+    from repro_torch.kernels.common import (PENALTY_IDS,
+                                            SCALAR_COORD_PENALTIES)
+    for cls in SCALAR_COORD_PENALTIES:
+        pen = PENALTY_IDS[cls]
+        for cluster in (False, True):
+            regs, local = gram_kernel_attrs_cuda(True, cluster, pen)
+            k1_local = gram_kernel_attrs_cuda(False, cluster, pen)[1]
+            assert local == k1_local and 0 < regs <= 128, \
+                (cls.__name__, cluster, regs, local, k1_local)
+            assert local == 0 or cls is P.L05
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("wform", [None, "shared", "lanes"])
 def test_k2_lanes_cuda_equals_k2_lane_by_lane(cuda, wform):
     """K2l (weighted logistic) equals K2 on each lane bit for bit and its
