@@ -3,15 +3,22 @@
 (``cd_epoch_xb``) and K1b (``cd_epoch_gram_block``) at fixed cluster sizes,
 on one CUDA card.
 
-    python3 cd_sweep.py [k1|k2|k1b|k1l|k1l_rule|csc|k3bl|heads ...] [--src=SRC]
+    python3 cd_sweep.py [k1|k2|k1b|k1l|k1l_rule|csc|k3bl|heads|emulate|
+                         mgrids ...]
+                        [--src=SRC]
 
 With names, only those kernels are swept (default: k1, k2, k1b; ``k1l``,
 K1's lane form over lane counts and cluster sizes, ``k1l_rule``, its lane
 plan's rule against every cluster size in repeated rounds, ``csc``, the
 sparse score pass, ``k3bl``, the float64 product of the dense block heads,
 and ``heads`` only when named: ``sweep_k1l``, ``sweep_k1l_rule``,
-``sweep_csc``, ``sweep_k3bl``, ``sweep_heads``). ``--src`` times the ``repro_torch`` of another tree's
-``src`` (``heads`` runs on a tree that takes its penalty parameters by
+``sweep_csc``, ``sweep_k3bl``, ``sweep_heads``; ``emulate`` alone holds K1b
+and K1bl at ``chip_smoke.py``'s shapes bit for bit to
+``emulate_block_epoch``, ``chip_smoke.check_block_emulation``;
+``mgrids`` alone runs ``chip_smoke.py``'s multitask lane runs (m1)-(m4)
+and prints their walls). ``--src``
+times the ``repro_torch`` of another tree's ``src`` (``heads`` runs on a
+tree that takes its penalty parameters by
 value too: an A/B of two trees, one process each, alternating). K1, for each
 K of ``SWEEP["k1"]`` and each (cluster size, threads) of
 ``SWEEP["k1_layouts"]`` (``gram_plan`` of ``repro_torch/kernels/cd_epoch.py``
@@ -27,10 +34,11 @@ threads (K chain steps of a shuffle and a multiply-add, a handoff every
 K2 and K1b: for each shape of ``SWEEP`` and each cluster size C in
 (1, 8, 16) it launches the kernel with the plan of that C (``xb_plan`` /
 ``gram_block_plan`` of ``repro_torch/kernels/cd_epoch.py`` with
-``cluster=C``; C = 1 is K1b's one-CTA kernel and K2's cluster kernel on one
-CTA), checks it against its plain version (K2, and K1b up to K = 1024) and
-against the first C's result (K1b, bit for bit; C = 1 only where one CTA
-holds q in shared memory), launches it again and requires
+``cluster=C``; C = 1 is K1b's one-CTA kernel, at each thread count of
+``SWEEP["k1b_threads"]``, and K2's cluster kernel on one CTA), checks it
+against its plain version (K2, and K1b up to K = 1024) and against the
+first layout's result (K1b, bit for bit; C = 1 only where one CTA holds
+the state on chip, q in registers), launches it again and requires
 the same bits, and times one epoch (CUDA events, warm). It also times the
 cluster barrier's round trip. The plans' thread counts, cluster size and
 K1b's single-CTA threshold rest on these numbers. Every record is printed; all of them go
@@ -53,7 +61,15 @@ SWEEP = dict(k1=(64, 128, 256, 512, 1024, 2048, 4096),
              k2_n=(1000, 2000, 10_000, 50_000, 160_003), k2_K=512,
              k2_deep=(4096, 50_000),
              k1b=((64, 50), (64, 20), (128, 20), (256, 20), (512, 20),
-                  (1024, 20), (2048, 20), (4096, 20)),
+                  (1024, 20), (2048, 20), (4096, 20),
+                  # where K1b's one CTA gives way to the cluster: K T from
+                  # 2560 to 7680 at T = 5, 20 and 50 (5880 and 5850: just
+                  # under the registers' reach, 5888)
+                  (512, 5), (1024, 5), (1176, 5), (1536, 5), (128, 40),
+                  (117, 50), (128, 50), (150, 50), (294, 20), (320, 20),
+                  (384, 20)),
+             # K1b's one CTA at the plan's threads (None) and forced ones
+             k1b_threads=(None, 256, 384, 512, 768),
              clusters=(1, 8, 16), barrier_iters=10_000, reps=5,
              csc_T=20,
              # the product sweep: (label, n, p, ws) and the column counts
@@ -534,11 +550,18 @@ def sweep(dev, cfg=SWEEP, kernels=("k1", "k2", "k1b")):
         args = (G, cc, beta0, q0, L, BlockL1, prm)
         ref = cd_epoch_gram_plain(*args) if K <= 1024 else None
         first = []
-        for C in cfg["clusters"]:
-            plan = gram_block_plan(K, T, torch.float64, cluster=C)
+        layouts = [(C, th) for C in cfg["clusters"]
+                   for th in (cfg["k1b_threads"] if C == 1 else (None,))]
+        for C, th in layouts:
+            try:
+                plan = gram_block_plan(K, T, torch.float64, cluster=C,
+                                       threads=th)
+            except ValueError as exc:   # past the one CTA's 64 tasks
+                cs.log(f"sweep k1b K={K} T={T} C={C}: {exc}")
+                continue
             if plan.dyn_bytes > SMEM_DYN_MAX:
-                cs.log(f"sweep k1b K={K} T={T} C={C}: one CTA cannot hold "
-                       f"q ({plan.dyn_bytes} bytes)")
+                cs.log(f"sweep k1b K={K} T={T} C={C} threads={th}: one CTA "
+                       f"cannot hold the state ({plan})")
                 continue
 
             def run(rec, plan=plan):
@@ -562,6 +585,7 @@ def sweep(dev, cfg=SWEEP, kernels=("k1", "k2", "k1b")):
             _record(out, fails, "k1b",
                     dict(K=K, T=T, C=C, branch=plan.branch,
                          threads=plan.threads, per=plan.per,
+                         owners=plan.owners, g_whole=plan.g_whole,
                          dyn_bytes=plan.dyn_bytes), run)
         del G
         torch.cuda.empty_cache()
@@ -574,11 +598,15 @@ def sweep_heads(dev, cfg):
     1024), K3l (S = 10, ws = 1024), K3bl (S = 10, T = 20, ws = 512, and
     the leadfield's S = 10, T = 50; each beside its yardstick of ten K3b
     heads, eager and replayed from a graph), K1 (K = 1024, and 256, 2048,
-    4096), K2 (K = 512, n = 10,000), K1b (K = 1024, T = 20), K1l (S = 10
-    at K = 256 ... 4096, S = 50 at K = 256 and 1024) and K1bl at the time
-    shapes of ``chip_smoke.py``, L1 / BlockL1, float64: ms a launch (CUDA
-    events, warm). The penalty's vector is made on the card, where the kernels
-    read it."""
+    4096), K2 (K = 512, n = 10,000), K1b (K = 1024, T = 20; on one CTA at
+    (64, 50) and (256, 20)), K1l (S = 10 at K = 256 ... 4096, S = 50 at K =
+    256 and 1024), K1bl ((10, 64, 50), (50, 512, 5) on one CTA, (10, 1024,
+    20)) and K2l (S = 10, K = 64 and 128, n = 10,000) at the time shapes
+    of ``chip_smoke.py`` and the grids', L1 / BlockL1, float64: ms a
+    launch (CUDA events, warm; the one-CTA and K2l shapes also replayed
+    from a graph), and K1b's one-CTA chain floor where the tree has it.
+    The penalty's vector is made on the card, where the kernels read
+    it."""
     import torch
     from repro_torch.core.penalties import L1, BlockL1
     from repro_torch.kernels import ops
@@ -685,15 +713,59 @@ def sweep_heads(dev, cfg):
         if (S, K) == (10, 1024):
             out[key + " graph"] = cs.graph_ms(
                 lambda: ops.cd_epoch_gram_lanes(*args), dev, cfg["reps"])
-    S = 10
-    on = torch.ones(S, dtype=torch.bool, device=dev)
-    for K, T in ((64, 50), (1024, 20)):
+    # K1bl where the grids launch it most (one CTA a lane: (m1)'s leadfield
+    # at K = 64, T = 50 and (m4)'s K = 512, T = 5) and on the cluster, and
+    # K1b on one CTA; the one-CTA shapes also replayed from a graph
+    for S, K, T in ((10, 64, 50), (50, 512, 5), (10, 1024, 20)):
+        on = torch.ones(S, dtype=torch.bool, device=dev)
         G, cc, beta0, q0, L = cs.block_lane_inputs(S, K, T, dev, seed=K)
         args = (G, cc, beta0, q0, L, BlockL1,
                 cs.lane_rows(BlockL1(0.11), S, dev), on)
-        out[f"K1bl K={K} T={T}"] = cs.time_ms(
-            lambda: ops.cd_epoch_gram_block_lanes(*args), dev, cfg["reps"])
+        key = f"K1bl K={K} T={T}" if S == 10 else f"K1bl S={S} K={K} T={T}"
+        out[key] = cs.time_ms(
+            lambda: ops.cd_epoch_gram_block_lanes(*args), dev,
+            cfg["reps"] * 4)
+        if K < 1024:
+            out[key + " graph"] = cs.graph_ms(
+                lambda: ops.cd_epoch_gram_block_lanes(*args), dev,
+                cfg["reps"] * 4)
+        del G
+    for K, T in ((64, 50), (256, 20)):
+        G, cc, beta0, q0, L = cs.gram_block_inputs(K, T, dev, seed=K)
+        args = (G, cc, beta0, q0, L, BlockL1,
+                penalty_params(BlockL1(0.11), dev))
+        out[f"K1b K={K} T={T}"] = cs.time_ms(
+            lambda: ops.cd_epoch_gram_block(*args), dev, cfg["reps"] * 4)
+        out[f"K1b K={K} T={T} graph"] = cs.graph_ms(
+            lambda: ops.cd_epoch_gram_block(*args), dev, cfg["reps"] * 4)
     del G
+    # K2l where (g3) launches it (K = 64 and 128; 10 lanes, n = 10,000,
+    # weighted logistic), eager and replayed from a graph
+    S, n = 10, c["k2l"]["n"]
+    for K in (64, 128):
+        Xt, y, _, b0, _, L2, off = cs.xb_inputs(K, n, "logistic", dev, seed=7)
+        Xt = Xt.expand(S, K, n).contiguous()
+        b0 = b0.expand(S, K).contiguous()
+        Xb0 = (b0[:, None, :] @ Xt)[:, 0]
+        w = 0.5 + torch.rand(S, n, device=dev, dtype=torch.float64)
+        args = (Xt, y, b0, Xb0, L2.expand(S, K).contiguous(),
+                off.expand(S, K).contiguous(), L1,
+                cs.lane_rows(L1(0.07), S, dev, seed=2),
+                torch.ones(S, dtype=torch.bool, device=dev), "logistic")
+        out[f"K2l K={K}"] = cs.time_ms(
+            lambda: ops.cd_epoch_xb_lanes(*args, w=w), dev, cfg["reps"] * 4)
+        out[f"K2l K={K} graph"] = cs.graph_ms(
+            lambda: ops.cd_epoch_xb_lanes(*args, w=w), dev, cfg["reps"] * 4)
+        del Xt
+    # the one-CTA chain floor (a tree where the parent tree has none)
+    from repro_torch.kernels import cd_epoch
+    if hasattr(cd_epoch, "gram_block_chain_floor_cuda"):
+        for K, T in ((64, 50), (512, 5), (256, 20)):
+            th = cd_epoch.gram_block_plan(K, T, torch.float64).threads
+            epochs = max(1, 200_000 // K)
+            out[f"K1b chain floor K={K} T={T}"] = cs.time_ms(
+                lambda: cd_epoch.gram_block_chain_floor_cuda(
+                    K, T, epochs, th, dev), dev, 3) / epochs
     cs.log(f"sweep heads {json.dumps(out)}")
     return out
 
@@ -715,6 +787,22 @@ def main() -> int:
     if kernels == ("heads",):
         sweep_heads(torch.device("cuda"), SWEEP)
         return 0
+    if kernels == ("mgrids",):
+        # the multitask lane runs (m1)-(m4) of chip_smoke.py alone, with
+        # their walls, for an A/B of two trees
+        dev = torch.device("cuda")
+        X, beta_true, design, y, _ = cs.sparse_designs(dev, cs.FULL)
+        Y = cs.sparse_mt_target(X, beta_true, cs.FULL["mt_sparse_T"])
+        _, walls, fails = cs.mt_lane_phase(dev, cs.FULL, design, Y, card)
+        cs.log(f"sweep mgrids {json.dumps(walls)}")
+        for f in fails:
+            print(f"cd_sweep FAILED: {f}", file=sys.stderr)
+        return 1 if fails else 0
+    if kernels == ("emulate",):
+        fails = cs.check_block_emulation(torch.device("cuda"), cs.FULL, {})
+        for f in fails:
+            print(f"cd_sweep FAILED: {f}", file=sys.stderr)
+        return 1 if fails else 0
     records, failures = sweep(torch.device("cuda"), kernels=kernels)
     out = here / "build" / "cd_sweep.json"
     out.parent.mkdir(parents=True, exist_ok=True)

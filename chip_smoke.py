@@ -183,11 +183,15 @@ Phases, each of which must pass (any failure exits non-zero):
    scores and its rows bit for bit, and a second launch (shared memory
    NaN-filled again) equal to the first bit for bit;
    K1bl (``cd_epoch_gram_block_lanes``) at (S, K, T) = (10, 64, 50),
-   (10, 256, 20), (10, 1024, 20) and (4, 2048, 240) (one CTA, a cluster
-   with q's rows in shared and in global memory), every third lane
-   frozen, bit for bit lane by lane against K1b and within K1's bound of
-   its plain version; K5b at 100 and 500 columns bit for bit against its
-   emulation. Then, on the kernel route, each held to ``capture=False``
+   (10, 256, 20), (50, 512, 5), (10, 1024, 20) and (4, 2048, 240) (one
+   CTA, a cluster with q's rows in shared and in global memory), every
+   third lane frozen, bit for bit lane by lane against K1b and within K1's
+   bound of its plain version; K5b at 100 and 500 columns bit for bit
+   against its emulation; K1bl at those shapes and K1b at its one-CTA
+   shapes of phase 6, BlockL1 and BlockMCP, 2 epochs, every third lane
+   frozen, a row with L = 0, shared memory NaN-filled, bit for bit
+   against ``emulate_block_epoch`` (the kernels' arithmetic order). Then,
+   on the kernel route, each held to ``capture=False``
    bit for bit with one read a dispatch and its keys captured once, with
    K3bl/K1bl (or K5b/K1bl) launched and no scalar or single-lane head or
    epoch: (m1) ``cross_val_path(MultitaskQuadratic(), BlockL1 |
@@ -213,11 +217,15 @@ Phases, each of which must pass (any failure exits non-zero):
    of raw's rows (8 bytes, a 32-byte sector, for K5/K5s; T values for
    K5b). It is not a bound of the function. K1 has rows at K = 1024
    and 2048, K2 at (K, n) = (512, 10,000), (512, 50,000) and (4096,
-   50,000), K1b at K = 1024, 2048 and 4096 (T = 20), each with its plan's
-   branch, cluster size, threads, launches by branch, and chain floor (K1:
-   K chain steps of a shuffle and a multiply-add with a handoff every 32,
-   measured by a launch of that chain alone; K2, K1b: K cluster-barrier
-   round trips on its cluster, measured by a launch of barriers alone).
+   50,000), K1b at K = 1024, 2048 and 4096 (T = 20) and on one CTA at
+   (K, T) = (64, 50) and (256, 20) (also replayed from a graph), each
+   with its plan's branch, cluster size, threads, launches by branch, and
+   chain floor (K1: K chain steps of a shuffle and a multiply-add with a
+   handoff every 32, measured by a launch of that chain alone; K2, K1b on
+   a cluster: K cluster-barrier round trips on its cluster, measured by a
+   launch of barriers alone; K1b on one CTA: K steps of a T-wide norm by
+   its shuffle tree, a sqrt and a divide with its named-barrier hand-off,
+   measured by a launch of that chain alone).
    The lane rows: K1l (S = 10, K = 1024, on its lane plan, with the
    clusters the card runs at once, the waves and its launches by shape;
    beside it K1l at S = 10, K = 256 and 4096 and S = 50, K = 256 and 1024,
@@ -228,8 +236,9 @@ Phases, each of which must pass (any failure exits non-zero):
    T = 20, K3b's shape, and at the leadfield's S*T = 500) beside ten K3b
    heads, with its product launches a call (counted by torch.profiler
    over one call) and its scratch bytes, and K3b alone at the leadfield's
-   T = 50 (the wide product); K1bl (S = 10, K = 1024, T = 20) beside ten
-   K1b launches.
+   T = 50 (the wide product); K1bl at (S, K, T) = (10, 64, 50) and (50,
+   512, 5) (one CTA a lane, where the grids launch it most; also replayed
+   from a graph) and (10, 1024, 20), each beside S K1b launches.
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -272,6 +281,9 @@ FULL = dict(k1_sizes=(256,),
             k1b_shapes=((64, 50), (256, 20), (2049, 1), (2048, 20),
                         (4096, 20), (2048, 240)),
             k1b_T=20, k1b_time_K=(1024, 2048, 4096), k5b_T=20,
+            # K1b's one-CTA rows: the leadfield fits' K = 64, T = 50 and the
+            # largest one-CTA shape of the T = 20 fits
+            k1b_onecta_time=((64, 50), (256, 20)),
             meeg=dict(n=305, p_per_hemi=3749, T=50, seed=0), meeg_frac=10,
             mt_dense=dict(n=10_000, p=20_000, n_tasks=20, n_nonzero=150,
                           seed=0),
@@ -304,10 +316,14 @@ FULL = dict(k1_sizes=(256,),
             # the lanes' widths, the rows, the grids and the path
             k3bl=((10, 20, 10_000, 20_000, 512), (10, 50, 305, 7498, 1024),
                   (7, 13, 10_001, 4963, 256), (5, 5, 10_000, 20_000, 512)),
-            k1bl=((10, 64, 50), (10, 256, 20), (10, 1024, 20),
+            k1bl=((10, 64, 50), (10, 256, 20), (50, 512, 5), (10, 1024, 20),
                   (4, 2048, 240)),
             k5b_lane_T=(100, 500),
-            mt_lane_time=dict(S=10, T=20, K1=1024, ws=512),
+            mt_lane_time=dict(S=10, T=20, ws=512),
+            # K1bl's rows: where the grids launch it most ((m1)'s leadfield
+            # lanes on one CTA, (m4)'s 50 lanes at K = 512, T = 5) and on
+            # the cluster
+            k1bl_time=((10, 64, 50), (50, 512, 5), (10, 1024, 20)),
             m1=dict(cv=5, n_lambdas=10, ratio=0.1, vmap_chunk=2, folds=2),
             m2=dict(n_lambdas=10, ratio=0.1, vmap_chunk=5),
             m3=dict(cv=5, n_lambdas=6, ratio=0.1, vmap_chunk=1),
@@ -2561,6 +2577,62 @@ def check_mt_lane_kernels(dev, cfg, errs, small, sparse_design):
     return fails
 
 
+def check_block_emulation(dev, cfg, errs):
+    """K1bl at every (S, K, T) of the config and K1b at its one-CTA shapes
+    of ``k1b_shapes``, BlockL1 and BlockMCP, 2 epochs, a parameter row a
+    lane, every third lane frozen, row 1's L set to 0, every SM's shared
+    memory NaN-filled before each launch: beta and q bit for bit against
+    ``emulate_block_epoch`` (the kernel's arithmetic order; frozen lanes
+    unchanged). Returns the failures."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cd_epoch import (emulate_block_epoch,
+                                              fill_shared_memory_cuda,
+                                              gram_block_plan)
+    fails = []
+    t = time.perf_counter()
+    errs.setdefault("cd_epoch_gram_block", 0.0)
+    errs.setdefault("cd_epoch_gram_block_lanes", 0.0)
+    singles = [(K, T) for K, T in cfg["k1b_shapes"]
+               if gram_block_plan(K, T, torch.float64).cluster == 1]
+    cases = [(S, K, T, True) for S, K, T in cfg["k1bl"]] + \
+        [(1, K, T, False) for K, T in singles]
+    for S, K, T, lanes in cases:
+        G, c, beta0, q0, L = block_lane_inputs(S, K, T, dev, seed=K + 7 * T)
+        L[:, 1 % K] = 0.0
+        active = lane_mask(S, dev)
+        branch = gram_block_plan(K, T, torch.float64).branch
+        for pen in block_pens():
+            prm = lane_rows(pen, S, dev, seed=K + T)
+            if dev.type == "cuda":
+                fill_shared_memory_cuda(dev)
+            if lanes:
+                name = "cd_epoch_gram_block_lanes"
+                got = ops.cd_epoch_gram_block_lanes(G, c, beta0, q0, L,
+                                                    type(pen), prm, active,
+                                                    epochs=2)
+                want = emulate_block_epoch(G, c, beta0, q0, L, type(pen),
+                                           prm, epochs=2, active=active)
+            else:
+                name = "cd_epoch_gram_block"
+                got = ops.cd_epoch_gram_block(G[0], c[0], beta0[0], q0[0],
+                                              L[0], type(pen), prm[0],
+                                              epochs=2)
+                want = emulate_block_epoch(G[0], c[0], beta0[0], q0[0], L[0],
+                                           type(pen), prm[0], epochs=2)
+            same = _same_all(got, want)
+            e = max(close(a, b, 0, 0)[1] for a, b in zip(got, want))
+            errs[name] = max(errs[name], e)
+            if not same:
+                fails.append(f"{'K1bl' if lanes else 'K1b'} S={S} K={K} T={T} "
+                             f"{type(pen).__name__} ({branch}): not bit for "
+                             f"bit the emulation, max |diff| {e:.3e}")
+        del G
+    log(f"  K1b / K1bl against emulate_block_epoch at {len(cases)} shapes: "
+        f"{len(fails)} failures ({time.perf_counter() - t:.1f} s)")
+    return fails
+
+
 def mt_lane_phase(dev, cfg, sparse_design, sparse_Y, card):
     """The multitask lanes at full width on the kernel route, each held to
     ``capture=False`` bit for bit with one read a dispatch and each step
@@ -2775,13 +2847,16 @@ def mt_lane_times(dev, cfg, launches, errs, card):
     (n = 10,000, p = 20,000, T = 20, ws = 512) beside ten K3b heads on the
     lanes' slices, with torch.mm(Xt, R) at S*T columns as its library call
     (the gradient part only), and at the leadfield's (S*T = 500); K1bl at
-    K = 1024, T = 20 (BlockL1, 1 epoch) beside ten K1b launches (K1b's own
-    row is in the block rows). Bounds: K3bl X, R, beta, L and gsupp read
-    once, grad, scores and ws written, the S ws rows read and written (the
-    gather), 2 p n S T operations; K1bl S times K1b's bytes and operations
-    (chain floor: K1b's cluster barriers, times the waves of lanes the
-    card runs at once). Beside K3bl's rows: its product launches a call
-    (``product_launches``) and the plan's scratch bytes."""
+    each (S, K, T) of ``k1bl_time`` (BlockL1, 1 epoch: the one-CTA lanes
+    of (m1) and (m4), eager and replayed from a graph, and the cluster at
+    K = 1024, T = 20) beside S K1b launches (K1b's own rows are in the
+    block rows). Bounds: K3bl X, R, beta, L and gsupp read once, grad,
+    scores and ws written, the S ws rows read and written (the gather), 2
+    p n S T operations; K1bl S times K1b's bytes and operations (chain
+    floor: K1b's cluster barriers or its one-CTA chain floor, times the
+    waves of lanes the card runs at once). Beside K3bl's rows: its product
+    launches a call (``product_launches``) and the plan's scratch
+    bytes."""
     import torch
     from repro_torch.core.penalties import BlockL1
     from repro_torch.kernels import ops
@@ -2849,44 +2924,49 @@ def mt_lane_times(dev, cfg, launches, errs, card):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    K, T = c["K1"], c["T"]
-    G, cc, beta0, q0, L = block_lane_inputs(S, K, T, dev, seed=K)
-    prm = lane_rows(BlockL1(0.11), S, dev, seed=1)
-    on = torch.ones(S, dtype=torch.bool, device=dev)
-    args = (G, cc, beta0, q0, L, BlockL1, prm, on)
-    ms = time_ms(lambda: ops.cd_epoch_gram_block_lanes(*args), dev, reps)
-    ten = time_ms(lambda: [ops.cd_epoch_gram_block(G[s], cc[s], beta0[s],
-                                                   q0[s], L[s], BlockL1,
-                                                   prm[s])
-                           for s in range(S)], dev, reps)
-    plain = time_ms(lambda: cd_epoch_gram_block_lanes_plain(*args), dev, 1)
-    moved = int(torch.sum(torch.any(
-        ops.cd_epoch_gram_block_lanes(*args)[0] != beta0, dim=2)))
-    b = bound(8 * (moved * K + S * (5 * K * T + K)), 2 * moved * K * T)
-    plan = gram_block_plan(K, T, torch.float64)
-    waves = -(-S // max(1, sms // plan.cluster))
-    row = dict(
-        name="cd_epoch_gram_block_lanes", route="cuda",
-        source="src/repro_torch/csrc/cd_epoch.cu",
-        replaces="src/repro/core/cd.py:66 (jax epoch under the reference's "
-                 "vmap; no TPU kernel)",
-        launches=launches["cd_epoch_gram_block_lanes"],
-        max_abs_err=errs["cd_epoch_gram_block_lanes"], ms=ms,
-        plain_ms=plain, bound_ms=b[0], bound_by=b[1], library_ms=None,
-        library_call="none: no single call", ten_single_ms=ten,
-        shape=f"S={S} lanes, K={K}, T={T}, epochs=1, BlockL1 (lam a lane), "
-              f"{moved} rows moved",
-        lane_waves=waves, **plan_fields(dev, "cd_epoch_gram_block_lanes",
-                                        plan, K, launches))
-    if row["chain_floor_ms"] is not None:
-        row["chain_floor_ms"] *= waves
-    rows.append(row)
-    del G
+    for Sl, K, T in cfg["k1bl_time"]:
+        G, cc, beta0, q0, L = block_lane_inputs(Sl, K, T, dev, seed=K)
+        prm = lane_rows(BlockL1(0.11), Sl, dev, seed=1)
+        on = torch.ones(Sl, dtype=torch.bool, device=dev)
+        args = (G, cc, beta0, q0, L, BlockL1, prm, on)
+        ms = time_ms(lambda: ops.cd_epoch_gram_block_lanes(*args), dev, reps)
+        plan = gram_block_plan(K, T, torch.float64)
+        graph = graph_ms(lambda: ops.cd_epoch_gram_block_lanes(*args), dev,
+                         reps) if plan.cluster == 1 else None
+        ten = time_ms(lambda: [ops.cd_epoch_gram_block(
+            G[s], cc[s], beta0[s], q0[s], L[s], BlockL1, prm[s])
+            for s in range(Sl)], dev, reps)
+        plain = time_ms(lambda: cd_epoch_gram_block_lanes_plain(*args), dev,
+                        1)
+        moved = int(torch.sum(torch.any(
+            ops.cd_epoch_gram_block_lanes(*args)[0] != beta0, dim=2)))
+        b = bound(8 * (moved * K + Sl * (5 * K * T + K)), 2 * moved * K * T)
+        # the lanes' waves: one CTA a lane places a lane an SM at least
+        waves = -(-Sl // max(1, sms // plan.cluster))
+        row = dict(
+            name="cd_epoch_gram_block_lanes", route="cuda",
+            source="src/repro_torch/csrc/cd_epoch.cu",
+            replaces="src/repro/core/cd.py:66 (jax epoch under the "
+                     "reference's vmap; no TPU kernel)",
+            launches=launches["cd_epoch_gram_block_lanes"],
+            max_abs_err=errs["cd_epoch_gram_block_lanes"], ms=ms,
+            graph_ms=graph, plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+            library_ms=None, library_call="none: no single call",
+            ten_single_ms=ten,
+            shape=f"S={Sl} lanes, K={K}, T={T}, epochs=1, BlockL1 (lam a "
+                  f"lane), {moved} rows moved",
+            lane_waves=waves, **plan_fields(dev, "cd_epoch_gram_block_lanes",
+                                            plan, K, launches, T=T))
+        if row["chain_floor_ms"] is not None:
+            row["chain_floor_ms"] *= waves
+        rows.append(row)
+        del G
     log_rows(rows, card)
     for row in rows:
-        log(f"  {row['name']}: one lane launch {row['ms']:.4f} ms against "
-            f"{S} single-lane launches {row['ten_single_ms']:.4f} ms on "
-            f"{card}")
+        log(f"  {row['name']} [{row['shape']}]: one lane launch "
+            f"{row['ms']:.4f} ms (from a graph {row.get('graph_ms')}) "
+            f"against its single-lane launches {row['ten_single_ms']:.4f} ms "
+            f"on {card}")
     lf = rows[0]["leadfield"]
     log(f"  fused_ws_block_lanes at the leadfield [{lf['shape']}]: kernel "
         f"{lf['ms']:.4f} ms, {S} K3b heads {lf['ten_single_ms']:.4f} ms, "
@@ -2905,19 +2985,30 @@ def mt_lane_times(dev, cfg, launches, errs, card):
 _FLOOR_US = {}
 
 
-def plan_fields(dev, name, plan, K, launches):
+def plan_fields(dev, name, plan, K, launches, T=None):
     """A K2 or K1b row's branch, cluster size, threads, main-path launches
-    by branch, and chain floor: K cluster-barrier round trips (one epoch;
-    measured once per cluster size and thread count; none for one CTA)."""
-    from repro_torch.kernels.cd_epoch import BRANCHES
+    by branch, and chain floor (one epoch): on a cluster K cluster-barrier
+    round trips (measured once per cluster size and thread count); on K1b's
+    one CTA (with T) K steps of ``gram_block_chain_floor_cuda``: a T-wide
+    norm by the kernel's shuffle tree, a sqrt and a divide, and its
+    hand-off, with no loads."""
+    from repro_torch.kernels.cd_epoch import (BRANCHES,
+                                              gram_block_chain_floor_cuda)
     floor = None
     if plan.cluster > 1 and dev.type == "cuda":
         key = (plan.cluster, plan.threads)
         if key not in _FLOOR_US:
             _FLOOR_US[key] = chain_floor_us(dev, *key, 10_000)
         floor = _FLOOR_US[key] * K / 1e3
+    elif T is not None and dev.type == "cuda":
+        epochs = max(1, 200_000 // K)
+        floor = time_ms(lambda: gram_block_chain_floor_cuda(
+            K, T, epochs, plan.threads, dev), dev, 3) / epochs
+    extra = {} if plan.cluster > 1 else dict(
+        owners=plan.owners, per=plan.per, g_whole=plan.g_whole,
+        smem_bytes=plan.dyn_bytes)
     return dict(branch=plan.branch, cluster=plan.cluster,
-                threads=plan.threads, chain_floor_ms=floor,
+                threads=plan.threads, chain_floor_ms=floor, **extra,
                 launches_by_branch={b: launches[f"{name}/{b}"]
                                     for b in BRANCHES})
 
@@ -3306,11 +3397,14 @@ def block_times(dev, cfg, launches, errs, card, d):
                            f"{walk_layout(T)}"),
                         floor, 8 * T * nnz))
 
-    T = cfg["k1b_T"]
-    for K in cfg["k1b_time_K"]:
+    for K, T in [(K, cfg["k1b_T"]) for K in cfg["k1b_time_K"]] + \
+            list(cfg["k1b_onecta_time"]):
         G, cc, beta0, q0, L = gram_block_inputs(K, T, dev, seed=K)
         args = (G, cc, beta0, q0, L, BlockL1, prm)
         ms = time_ms(lambda: ops.cd_epoch_gram_block(*args), dev, reps)
+        plan = gram_block_plan(K, T, torch.float64)
+        graph = graph_ms(lambda: ops.cd_epoch_gram_block(*args), dev, reps) \
+            if plan.cluster == 1 else None
         plain = time_ms(lambda: cd_epoch_gram_plain(*args), dev, 1)
         moved = int(torch.sum(torch.any(
             ops.cd_epoch_gram_block(*args)[0] != beta0, dim=1)))
@@ -3324,9 +3418,9 @@ def block_times(dev, cfg, launches, errs, card, d):
             plain_ms=plain, bound_ms=b[0], bound_by=b[1],
             library_ms=None, library_call="none: no single call",
             shape=f"K={K}, T={T}, epochs=1, BlockL1, {moved} rows moved",
-            **plan_fields(dev, "cd_epoch_gram_block",
-                          gram_block_plan(K, T, torch.float64), K,
-                          launches)))
+            graph_ms=graph,
+            **plan_fields(dev, "cd_epoch_gram_block", plan, K, launches,
+                          T=T)))
         del G
     log_rows(rows, card)
     return rows
@@ -3465,6 +3559,10 @@ def run(dev, cfg):
            (("fused_ws_block_lanes", "K3bl"),
             ("cd_epoch_gram_block_lanes", "K1bl"),
             ("csc_score_block", "K5b")))
+    fails = check_block_emulation(dev, cfg, errs)
+    failures += fails
+    for f in fails:
+        log(f"  FAIL {f}")
     del small
     t = time.perf_counter()
     mt_lane_launches, walls, fails = mt_lane_phase(dev, cfg, design,

@@ -47,11 +47,18 @@
 // (up to ~360k float64 coordinates, where G alone would take ~1 PB).
 //
 // K1b's single-CTA design (the small shapes where kernels/cd_epoch.py's
-// plan keeps it): one CTA keeps the whole state on chip for all epochs of
-// a launch, as the TPU kernel keeps it in VMEM. It holds q in shared
-// memory; warp 0 computes the row prox (lanes over the tasks, the norm by a
-// fixed shuffle tree) and every thread walks its share of the flat [K, T]
-// update, neighbouring threads on neighbouring q entries.
+// plan keeps it: at most 64 tasks; the grids' K1bl lanes at the
+// leadfield's K = 64, T = 50): one CTA keeps the whole state on chip for
+// all epochs of a launch, as the TPU kernel keeps it in VMEM: q's entries
+// in its owner threads' registers, beta, c, L, step and G (or a ring of
+// its columns, filled by cp.async four steps ahead) in shared memory. A
+// chain warp runs the row steps (lanes over the tasks, the norm by a fixed
+// shuffle tree) and applies each delta to the next row itself; the owners
+// apply it to every row they hold, the next-but-one row first, and hand
+// that row to the chain on named barriers. So no global load and no
+// CTA-wide barrier sits on the chain (the kernel it replaced read beta, c,
+// L and G from global memory and met two __syncthreads over up to 32 warps
+// a coordinate: ~2 us a coordinate at K = 64, T = 50).
 //
 // Cluster design (K2 always, K1b past the plan's single-CTA shapes): one
 // launch is one thread-block cluster of C CTAs on one GPC. CTA r owns the
@@ -645,16 +652,129 @@ __global__ void __launch_bounds__(kGramMaxThreads)
   }
 }
 
+// ------------------------------------------------------------ K1b, one CTA
+// The one-CTA block epoch's layout constants (kernels/cd_epoch.py:
+// gram_block_plan mirrors them): an owner thread keeps up to kBlockPer
+// entries of q in registers on the register path, which runs on at most
+// kBlockThreads threads (85 registers a thread: at 1024 threads' 64 the
+// float64 instances spilled); the chain warp's lane l
+// holds a row's entries t = l + 32 m, m < kBlockChain (so at most 64
+// tasks); a ring of kBlockRing columns of G where G is not staged whole,
+// round r's column copied kBlockLead rounds ahead and waited for
+// kBlockWait rounds later (so it is in shared memory, behind a barrier,
+// before round r - 1 ends: the owners load their G values for round r
+// before they wait for its hand-off); the deltas of kBlockSlots steps.
+// The dynamic shared memory holds, in T
+// values: the chain's next rows [2][nt], the deltas [kBlockSlots][nt], L
+// and step [K] each, then G (whole [K][K], column-major, or the ring
+// [kBlockRing][K]), then (stage_bc) beta and c [K * nt] each, then (PER ==
+// 0) q [K * nt].
+constexpr int kBlockPer = 8;
+constexpr int kBlockThreads = 768;
+constexpr int kBlockChain = 2;
+constexpr int kBlockRing = 5;
+constexpr int kBlockLead = 4;
+constexpr int kBlockWait = 2;
+constexpr int kBlockSlots = 3;
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the first offset of the norm's shuffle tree: the largest power of two
+// below nt, at most 16 (none for one task). The lanes at or past nt hold
+// +0, so the levels this skips add +0 to sums of squares: the same bits as
+// the whole tree.
+__device__ __forceinline__ int tree_top(int nt) {
+  int top = 16;
+  while (top > 0 && top >= nt) top >>= 1;
+  return top;
+}
+
+// An owner thread's walk over its entries e = u + k * owners of the flat
+// [K, nt] (k < cnt), f(k, i, t) on entry (i, t) in ascending k: unrolled
+// over PER registers, or a loop over q in shared memory (PER == 0).
+template <int PER, typename F>
+__device__ __forceinline__ void block_walk(int cnt, int i0, int t0, int di, int dt, int nt, F f) {
+  int i = i0, t = t0;
+  if constexpr (PER > 0) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      if (k < cnt) f(k, i, t);
+      i += di;
+      t += dt;
+      if (t >= nt) {
+        t -= nt;
+        ++i;
+      }
+    }
+  } else {
+    for (int k = 0; k < cnt; ++k) {
+      f(k, i, t);
+      i += di;
+      t += dt;
+      if (t >= nt) {
+        t -= nt;
+        ++i;
+      }
+    }
+  }
+}
+
+// K1b on one CTA, the whole state on chip for all `epochs` of a launch:
+// a chain warp (warp 0) and owner warps, handing off on named barriers.
+// The epochs are one sequence of S = epochs * K steps, step s on row s % K.
+//   chain, step s: load beta_j, c_j, L_j, step_j of its row j (shared
+//   memory, before the hand-off); wait for kBarReady (s & 1), the owners'
+//   "row j took delta_{s-2}"; read row j's q from the next-rows buffer and
+//   add G[j, j'] delta_{s-1} itself (its own registers: lane l holds the
+//   same tasks t in every row); the row norm (lane partials, shuffle tree),
+//   the block prox, beta_j and delta_s into shared memory and its nonzero
+//   flag; arrive at kBarDone (s & 1).
+//   owners, round r (while chain r + 1 runs): wait for kBarDone (r & 1);
+//   (ring) stage the column of round r + kBlockLead by cp.async; copy
+//   their entries of row (r + 2) % K, delta_r applied, to the next-rows
+//   buffer first, arrive at kBarReady (r & 1), then apply delta_r to all
+//   their entries; load their G values of round r + 1 before its
+//   hand-off. On the register path an owner's entries, their rows, tasks
+//   and G values sit in registers, with no branch between a round's loads
+//   and updates.
+// So the chain waits on no owner work but the next row's, and reads no
+// global memory: a step is the hand-off, two shared loads, the norm's
+// shuffles, a sqrt and the prox's divide. Each owner applies every delta
+// to every entry it holds, in ascending j (q + G[i, j] delta_t, skipped
+// where delta_j is all zero), and the chain's copy of a row takes the same
+// operations: q rounds as in the plain version and the norm sums in the
+// parent kernel's order (emulate_block_epoch in kernels/cd_epoch.py), so the
+// launch equals it bit for bit under -fmad=false. Owner u holds entries
+// e = u + k * owners (the plan makes `owners` a multiple of nt where it can:
+// then each owner's entries share one task t and it loads one delta a
+// round). Slots: the next-rows buffer by parity (rewritten by round r after
+// the chain read it at step r), the deltas and flags by s % 3 and the ring
+// by r % kBlockRing (rewritten only after every owner finished the round
+// that read them, which the chain's wait for kBarReady orders). stage_bc = 0 leaves
+// beta and c in global memory and PER = 0 keeps q in shared memory: the
+// plans take those only where a forced one-CTA layout cannot hold them.
 // LANES: K1bl's lane prologue (a lane a CTA, blockIdx.y; the lane strides
 // g_lane on G and K * nt on c, beta and q, the parameter row prm_lane
-// apart; a lane with active[lane] == 0 runs zero epochs)
-template <typename T, bool LANES>
-__global__ void cd_gram_block_kernel(const T* __restrict__ G, long long s_row, long long s_col,
-                                     long long g_lane, const T* __restrict__ c,
-                                     const T* __restrict__ L, const T* __restrict__ beta0,
-                                     const T* __restrict__ q0, T* beta, T* q_out, int K, int nt,
-                                     int epochs, int pen, const double* __restrict__ prm,
-                                     int prm_lane, const unsigned char* __restrict__ active) {
+// apart; a lane with active[lane] == 0 runs zero epochs through the same
+// copy-in and copy-out). PEN, the block penalty, is a template argument:
+// with a runtime id the compiler evaluated both penalties' prox on the
+// chain, three more divides a step.
+template <typename T, bool LANES, int PER, int PEN>
+__global__ void __launch_bounds__(PER > 0 ? kBlockThreads : 1024)
+    cd_gram_block_kernel(const T* __restrict__ G, long long s_row, long long s_col,
+                         long long g_lane, const T* __restrict__ c, const T* __restrict__ L,
+                         const T* __restrict__ beta0, const T* __restrict__ q0, T* beta,
+                         T* q_out, int K, int nt, int epochs,
+                         const double* __restrict__ prm, int prm_lane,
+                         const unsigned char* __restrict__ active, int owners, int stage_bc,
+                         int g_whole) {
   if constexpr (LANES) {
     const long long ln = blockIdx.y, o = ln * K * nt;
     G += ln * g_lane;
@@ -667,67 +787,290 @@ __global__ void cd_gram_block_kernel(const T* __restrict__ G, long long s_row, l
     prm += ln * prm_lane;
     if (active && !active[ln]) epochs = 0;  // a frozen lane: state passes through
   }
-  const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(pen, prm);
+  const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(PEN, prm);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int s_nz;
-  T* s_delta = reinterpret_cast<T*>(smem_raw);  // [nt]
-  T* q = s_delta + nt;                          // [K, nt]
+  __shared__ int s_flag[kBlockSlots];
+  const int tid = threadIdx.x, bd = blockDim.x, lane = tid & 31;
   const int KT = K * nt;
-  for (int e = threadIdx.x; e < KT; e += blockDim.x) {
-    q[e] = q0[e];
-    beta[e] = beta0[e];
+  const int S = K > 0 ? epochs * K : 0;
+  T* sqb = reinterpret_cast<T*>(smem_raw);  // [2][nt]
+  T* sdl = sqb + 2 * nt;                    // [kBlockSlots][nt]
+  T* sL = sdl + kBlockSlots * nt;           // [K]
+  T* sst = sL + K;                          // [K]
+  T* sg = sst + K;                          // [K][K] or [kBlockRing][K]
+  T* rest = sg + (g_whole ? (long long)K * K : (long long)kBlockRing * K);
+  T* sb = stage_bc ? rest : beta;
+  const T* sc = stage_bc ? rest + KT : c;
+  T* sq = stage_bc ? rest + 2 * KT : rest;  // PER == 0
+  for (int e = tid; e < KT; e += bd) {
+    if (stage_bc) {
+      cp_async(sb + e, beta0 + e);
+      cp_async(rest + KT + e, c + e);
+    } else {
+      beta[e] = beta0[e];
+    }
+    if constexpr (PER == 0) sq[e] = q0[e];
   }
-  // this thread's flat walk over [K, nt]: start (i, t), step (di, dt)
-  const int i_start = threadIdx.x / nt, t_start = threadIdx.x % nt;
-  const int di = blockDim.x / nt, dt = blockDim.x % nt;
-  const int lane = threadIdx.x & 31;
-  __syncthreads();
-  for (int e = 0; e < epochs; ++e) {
-    for (int j = 0; j < K; ++j) {
-      if (threadIdx.x < 32) {
-        const T Lj = L[j];
-        const T step = T(1.0) / rt::clamp_min(Lj, T(1e-30));
-        T* bj = beta + (long long)j * nt;
-        const T* qj = q + (long long)j * nt;
-        const T* cj = c + (long long)j * nt;
-        T part = T(0);
-        for (int t = lane; t < nt; t += 32) {
-          const T x = bj[t] - (qj[t] - cj[t]) * step;
-          part = part + x * x;
-        }
-        for (int o = 16; o > 0; o >>= 1) part += __shfl_down_sync(0xffffffffu, part, o);
-        const T nrm = sqrt(__shfl_sync(0xffffffffu, part, 0));
-        const rt::BlockProx<T> bp = rt::block_prox(pen, nrm, step, p0, p1);
-        int nz = 0;
-        for (int t = lane; t < nt; t += 32) {
-          const T b = bj[t];
-          const T nw = (Lj > T(0)) ? bp.apply(b - (qj[t] - cj[t]) * step) : b;
-          const T d = nw - b;
-          s_delta[t] = d;
-          bj[t] = nw;
-          nz |= (d != T(0));
-        }
-        nz = __any_sync(0xffffffffu, nz);
-        if (lane == 0) s_nz = nz;
-      }
-      __syncthreads();
-      if (s_nz) {
-        const T* col = G + (long long)j * s_col;
-        int i = i_start, t = t_start;
-        for (int k = threadIdx.x; k < KT; k += blockDim.x) {
-          q[k] = q[k] + col[(long long)i * s_row] * s_delta[t];
-          i += di;
-          t += dt;
-          if (t >= nt) {
-            t -= nt;
-            ++i;
-          }
-        }
-      }
-      __syncthreads();
+  for (int i = tid; i < K; i += bd) {
+    const T Li = L[i];
+    sL[i] = Li;
+    sst[i] = T(1.0) / rt::clamp_min(Li, T(1e-30));
+  }
+  // G whole (column col at col * K), or the columns of rounds 0 ..
+  // kBlockLead - 1 in ring slots 0 .. kBlockLead - 1
+  const int ncol = g_whole ? K : min(kBlockLead, S);
+  for (int e = tid; e < ncol * K; e += bd) {
+    const int r = e / K, i = e - r * K;
+    cp_async(sg + e, G + (long long)i * s_row + (long long)(r % K) * s_col);
+  }
+  if (K > 0) {
+    for (int t = tid; t < nt; t += bd) {
+      sqb[t] = q0[t];
+      sqb[nt + t] = q0[(1 % K) * nt + t];
     }
   }
-  for (int k = threadIdx.x; k < KT; k += blockDim.x) q_out[k] = q[k];
+  // owner u = tid - 32 holds entries u + k * owners, k < cnt: (i0, t0)
+  // the first, (di, dt) the step; on the register path entry k's row and
+  // task (0 past cnt) and value in registers
+  const int u = tid - 32;
+  const bool own = tid >= 32 && u < owners;
+  const int cnt = own && u < KT ? (KT - 1 - u) / owners + 1 : 0;
+  const int i0 = own ? u / nt : 0, t0 = own ? u - (u / nt) * nt : 0;
+  const int di = owners / nt, dt = owners - di * nt;
+  T qr[PER > 0 ? PER : 1], gr[PER > 0 ? PER : 1];
+  int ix[PER > 0 ? PER : 1];  // entry k's row << 8 | task (0 past cnt)
+  if constexpr (PER > 0) {
+    block_walk<PER>(PER, i0, t0, di, dt, nt, [&](int k, int i, int t) {
+      ix[k] = k < cnt ? i << 8 | t : 0;
+      qr[k] = k < cnt ? q0[(long long)i * nt + t] : T(0);
+    });
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  if (tid < 32) {
+    const int top = tree_top(nt);
+    T dprev[kBlockChain];
+#pragma unroll
+    for (int m = 0; m < kBlockChain; ++m) dprev[m] = T(0);
+    int nzp = 0, j = 0, jp = 0, slot = 0, gslot = kBlockRing - 1;
+    for (int s = 0; s < S; ++s) {
+      const T Lj = sL[j], st = sst[j];
+      T bm[kBlockChain], cm[kBlockChain];
+#pragma unroll
+      for (int m = 0; m < kBlockChain; ++m) {
+        const int t = lane + 32 * m;
+        bm[m] = t < nt ? sb[(long long)j * nt + t] : T(0);
+        cm[m] = t < nt ? sc[(long long)j * nt + t] : T(0);
+      }
+      if (s >= 2) bar_sync(kBarReady + (s & 1), bd);
+      const T* qb = sqb + (s & 1) * nt;
+      const T g = !nzp ? T(0) : sg[(long long)(g_whole ? jp : gslot) * K + j];
+      T xm[kBlockChain];
+      T part = T(0);
+#pragma unroll
+      for (int m = 0; m < kBlockChain; ++m) {
+        const int t = lane + 32 * m;
+        if (t < nt) {
+          T q = qb[t];
+          if (nzp) q = q + g * dprev[m];
+          const T x = bm[m] - (q - cm[m]) * st;
+          xm[m] = x;
+          part = part + x * x;
+        }
+      }
+      for (int o = top; o > 0; o >>= 1) part += __shfl_down_sync(0xffffffffu, part, o);
+      const T nrm = sqrt(__shfl_sync(0xffffffffu, part, 0));
+      const rt::BlockProx<T> bp = rt::block_prox(PEN, nrm, st, p0, p1);
+      T* dl = sdl + slot * nt;
+      int nz = 0;
+#pragma unroll
+      for (int m = 0; m < kBlockChain; ++m) {
+        const int t = lane + 32 * m;
+        if (t < nt) {
+          const T nw = (Lj > T(0)) ? bp.apply(xm[m]) : bm[m];
+          const T d = nw - bm[m];
+          dl[t] = d;
+          sb[(long long)j * nt + t] = nw;
+          dprev[m] = d;
+          nz |= (d != T(0));
+        }
+      }
+      nzp = __any_sync(0xffffffffu, nz);
+      if (lane == 0) s_flag[slot] = nzp;
+      bar_arrive(kBarDone + (s & 1), bd);
+      jp = j;
+      j = j + 1 == K ? 0 : j + 1;
+      slot = slot + 1 == kBlockSlots ? 0 : slot + 1;
+      gslot = gslot + 1 == kBlockRing ? 0 : gslot + 1;
+    }
+  } else {
+    // round r: its column of G (whole: col; the ring: slot ring), the row
+    // p of step r + 2 and the deltas' slot; where every entry of this
+    // owner has task t0 (rows i0 + k di), p - i0 = qd di + rm (floored)
+    int col = 0, ring = 0, p = K > 0 ? 2 % K : 0, slot = 0;
+    int qd = -1, rm = 0;
+    if (dt == 0 && di > 0) {
+      const int rel = p - i0;
+      qd = rel >= 0 ? rel / di : -1;
+      rm = rel - qd * di;
+    }
+    auto column = [&](int c, int rs) -> const T* {
+      return sg + (long long)(g_whole ? c : rs) * K;
+    };
+    if constexpr (PER > 0) {
+      if (S > 0) {
+        const T* gc = column(0, 0);
+#pragma unroll
+        for (int k = 0; k < PER; ++k) gr[k] = gc[ix[k] >> 8];
+      }
+    }
+    for (int r = 0; r < S; ++r) {
+      bar_sync(kBarDone + (r & 1), bd);
+      if (!g_whole) {
+        const int rn = r + kBlockLead;
+        if (rn < S) {
+          const int rs = ring + kBlockLead < kBlockRing ? ring + kBlockLead
+                                                        : ring + kBlockLead - kBlockRing;
+          T* dst = sg + (long long)rs * K;
+          const T* src = G + (long long)(rn % K) * s_col;
+          for (int i = tid - 32; i < K; i += bd - 32) cp_async(dst + i, src + (long long)i * s_row);
+        }
+        cp_async_commit();
+        cp_async_wait_group<kBlockWait>();
+      }
+      const int nz = s_flag[slot];
+      const T* dl = sdl + slot * nt;
+      const int pr = r + 2 < S ? p : -1;
+      T* qn = sqb + (r & 1) * nt;
+      if constexpr (PER > 0) {
+        // G values in registers already. Row pr's entries go to the chain
+        // first (only the owners that hold one branch to it), then every
+        // entry takes delta_r with no branch between them: q + G delta is
+        // computed alike for the chain's copy and for the register, and
+        // the entries past cnt are never written out.
+        if (dt == 0) {  // every entry of this owner has task t0
+          const T dv = dl[t0];
+          if (pr >= 0) {
+            if (rm == 0 && qd >= 0 && qd < cnt) {  // row pr is entry qd
+              T v = T(0);
+#pragma unroll
+              for (int k = 0; k < PER; ++k)
+                if (k == qd) v = nz ? qr[k] + gr[k] * dv : qr[k];
+              qn[t0] = v;
+            }
+            bar_arrive(kBarReady + (r & 1), bd);
+          }
+          if (nz) {
+#pragma unroll
+            for (int k = 0; k < PER; ++k) qr[k] = qr[k] + gr[k] * dv;
+          }
+        } else {
+          if (pr >= 0) {
+#pragma unroll
+            for (int k = 0; k < PER; ++k) {
+              if (k < cnt && ix[k] >> 8 == pr) {
+                const int t = ix[k] & 255;
+                qn[t] = nz ? qr[k] + gr[k] * dl[t] : qr[k];
+              }
+            }
+            bar_arrive(kBarReady + (r & 1), bd);
+          }
+          if (nz) {
+#pragma unroll
+            for (int k = 0; k < PER; ++k) qr[k] = qr[k] + gr[k] * dl[ix[k] & 255];
+          }
+        }
+        // the next round's G values, before its hand-off
+        if (r + 1 < S) {
+          const T* gc = column(col + 1 == K ? 0 : col + 1, ring + 1 == kBlockRing ? 0 : ring + 1);
+#pragma unroll
+          for (int k = 0; k < PER; ++k) gr[k] = gc[ix[k] >> 8];
+        }
+      } else {
+        const T* gc = column(col, ring);
+        const T dfix = cnt > 0 ? dl[t0] : T(0);  // every entry's delta where dt == 0
+        if (pr >= 0) {
+          block_walk<0>(cnt, i0, t0, di, dt, nt, [&](int, int i, int t) {
+            if (i == pr) {
+              T& q = sq[(long long)i * nt + t];
+              if (nz) q = q + gc[i] * (dt == 0 ? dfix : dl[t]);
+              qn[t] = q;
+            }
+          });
+          bar_arrive(kBarReady + (r & 1), bd);
+        }
+        if (nz) {
+          block_walk<0>(cnt, i0, t0, di, dt, nt, [&](int, int i, int t) {
+            if (i != pr) {
+              T& q = sq[(long long)i * nt + t];
+              q = q + gc[i] * (dt == 0 ? dfix : dl[t]);
+            }
+          });
+        }
+      }
+      col = col + 1 == K ? 0 : col + 1;
+      ring = ring + 1 == kBlockRing ? 0 : ring + 1;
+      slot = slot + 1 == kBlockSlots ? 0 : slot + 1;
+      if (p + 1 == K) {  // row 0 next: p - i0 = -i0, and i0 < di
+        p = 0;
+        qd = i0 == 0 ? 0 : -1;
+        rm = i0 == 0 ? 0 : di - i0;
+      } else {
+        ++p;
+        if (++rm == di) {
+          rm = 0;
+          ++qd;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (stage_bc)
+    for (int e = tid; e < KT; e += bd) beta[e] = sb[e];
+  if constexpr (PER > 0) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k)
+      if (k < cnt) q_out[(long long)(ix[k] >> 8) * nt + (ix[k] & 255)] = qr[k];
+  } else {
+    for (int e = tid; e < KT; e += bd) q_out[e] = sq[e];
+  }
+}
+
+// K1b's one-CTA chain floor: the kernel's hand-off (the owner warps only
+// pass the named barriers) around K steps of a T-wide norm by the same
+// shuffle tree, one sqrt and one divide, with no loads. `scale` = 0 keeps
+// v finite; the compiler cannot know it.
+template <typename T>
+__global__ void __launch_bounds__(1024)
+    block_chain_floor_kernel(int K, int nt, int epochs, T scale, T* out) {
+  const int tid = threadIdx.x, bd = blockDim.x, lane = tid & 31;
+  const int S = epochs * K;
+  if (tid < 32) {
+    const int top = tree_top(nt);
+    T v[kBlockChain];
+#pragma unroll
+    for (int m = 0; m < kBlockChain; ++m) v[m] = T(lane + 32 * m);
+    for (int s = 0; s < S; ++s) {
+      if (s >= 2) bar_sync(kBarReady + (s & 1), bd);
+      T part = T(0);
+#pragma unroll
+      for (int m = 0; m < kBlockChain; ++m)
+        if (lane + 32 * m < nt) part = part + v[m] * v[m];
+      for (int o = top; o > 0; o >>= 1) part += __shfl_down_sync(0xffffffffu, part, o);
+      const T nrm = sqrt(__shfl_sync(0xffffffffu, part, 0));
+      const T f = (nrm * scale) / rt::clamp_min(nrm, T(1e-30));
+#pragma unroll
+      for (int m = 0; m < kBlockChain; ++m) v[m] = v[m] + f * v[m];
+      bar_arrive(kBarDone + (s & 1), bd);
+    }
+    out[tid] = v[0];
+  } else {
+    for (int r = 0; r < S; ++r) {
+      bar_sync(kBarDone + (r & 1), bd);
+      if (r + 2 < S) bar_arrive(kBarReady + (r & 1), bd);
+    }
+  }
 }
 
 enum DatafitKind { KIND_QUADRATIC = 0, KIND_LOGISTIC = 1, KIND_SVC = 2 };
@@ -1185,23 +1528,45 @@ int launch_gram(const T* G, long long sr, long long sc, long long gl, const T* c
 }
 
 // K1b with the wrapper's plan (kernels/cd_epoch.py: gram_block_plan): one
-// CTA (cluster == 1) or a cluster of `cluster` CTAs with q's rows in shared
-// memory (use_smem) or global memory, `dyn` bytes of dynamic shared memory
-// and the register path when per == kGramPer. LANES: K1bl's kernels (a lane
-// a CTA or cluster, the lane strides, the mask).
+// CTA (cluster == 1) or a cluster of `cluster` CTAs, `dyn` bytes of dynamic
+// shared memory a CTA. One CTA: beta and c staged in shared memory
+// (use_smem), q's entries in `owners` threads' registers (per ==
+// kBlockPer) or in shared memory (0), G staged whole (g_whole) or through
+// the column ring; it refuses a plan whose `dyn` cannot hold that, more
+// than 32 kBlockChain tasks, or owners that cannot hold q. A cluster: q's
+// rows in shared memory (use_smem) or global memory and the register path
+// when per == kGramPer. LANES: K1bl's kernels (a lane a CTA or cluster,
+// the lane strides, the mask).
 template <typename T, bool LANES>
 int launch_gram_block(const T* G, long long sr, long long sc, long long gl, const T* c,
                       const T* L, const T* beta0, const T* q0, T* beta, T* q, int K, int nt,
                       int epochs, int pen, const double* prm, int pl,
                       const unsigned char* active, int lanes, int cluster, int use_smem, int dyn,
-                      int threads, int per, void* stream) {
+                      int threads, int per, int owners, int g_whole, void* stream) {
   if (lanes < 1 || lanes > 65535) return (int)cudaErrorInvalidValue;
   if (cluster == 1) {
-    cudaError_t err = cudaFuncSetAttribute(cd_gram_block_kernel<T, LANES>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    const long long KT = (long long)K * nt;
+    const long long need = (2LL + kBlockSlots) * nt + 2LL * K +
+                           (g_whole ? (long long)K * K : (long long)kBlockRing * K) +
+                           (use_smem ? 2 * KT : 0) + (per ? 0 : KT);
+    if (threads < 64 || threads > 1024 || threads % 32 || nt < 1 ||
+        nt > 32 * kBlockChain || owners < 1 || owners > threads - 32 ||
+        (per != 0 && per != kBlockPer) || (per && threads > kBlockThreads) ||
+        (per && KT > (long long)per * owners) ||
+        (long long)dyn < need * (long long)sizeof(T))
+      return (int)cudaErrorInvalidValue;
+    const bool l1 = pen == rt::PEN_BLOCK_L1;
+    if (!l1 && pen != rt::PEN_BLOCK_MCP) return (int)cudaErrorInvalidValue;
+    auto kernel = per ? (l1 ? cd_gram_block_kernel<T, LANES, kBlockPer, rt::PEN_BLOCK_L1>
+                            : cd_gram_block_kernel<T, LANES, kBlockPer, rt::PEN_BLOCK_MCP>)
+                      : (l1 ? cd_gram_block_kernel<T, LANES, 0, rt::PEN_BLOCK_L1>
+                            : cd_gram_block_kernel<T, LANES, 0, rt::PEN_BLOCK_MCP>);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
     if (err != cudaSuccess) return (int)err;
-    cd_gram_block_kernel<T, LANES><<<dim3(1, lanes), threads, dyn, (cudaStream_t)stream>>>(
-        G, sr, sc, gl, c, L, beta0, q0, beta, q, K, nt, epochs, pen, prm, pl, active);
+    kernel<<<dim3(1, lanes), threads, dyn, (cudaStream_t)stream>>>(
+        G, sr, sc, gl, c, L, beta0, q0, beta, q, K, nt, epochs, prm, pl, active, owners,
+        use_smem, g_whole);
     return (int)cudaGetLastError();
   }
   if (per != 0 && per != kGramPer) return (int)cudaErrorInvalidValue;
@@ -1270,20 +1635,20 @@ int cd_epoch_gram_block_f64(const double* G, long long sr, long long sc, const d
                             const double* L, const double* beta0, const double* q0,
                             double* beta, double* q, int K, int nt, int epochs, int pen,
                             const double* prm, int cluster, int use_smem, int dyn,
-                            int threads, int per, void* stream) {
+                            int threads, int per, int owners, int g_whole, void* stream) {
   return launch_gram_block<double, false>(G, sr, sc, 0, c, L, beta0, q0, beta, q, K, nt, epochs,
                                           pen, prm, 0, nullptr, 1, cluster, use_smem, dyn,
-                                          threads, per, stream);
+                                          threads, per, owners, g_whole, stream);
 }
 
 int cd_epoch_gram_block_f32(const float* G, long long sr, long long sc, const float* c,
                             const float* L, const float* beta0, const float* q0, float* beta,
                             float* q, int K, int nt, int epochs, int pen, const double* prm,
                             int cluster, int use_smem, int dyn, int threads, int per,
-                            void* stream) {
+                            int owners, int g_whole, void* stream) {
   return launch_gram_block<float, false>(G, sr, sc, 0, c, L, beta0, q0, beta, q, K, nt, epochs,
                                          pen, prm, 0, nullptr, 1, cluster, use_smem, dyn,
-                                         threads, per, stream);
+                                         threads, per, owners, g_whole, stream);
 }
 
 // K1bl: K1b on `lanes` lanes (G's lanes g_lane apart, c, beta, q K * nt
@@ -1294,10 +1659,11 @@ int cd_epoch_gram_block_lanes_f64(const double* G, long long sr, long long sc, l
                                   const double* q0, double* beta, double* q, int K, int nt,
                                   int epochs, int pen, const double* prm, int prm_lane,
                                   const unsigned char* active, int lanes, int cluster,
-                                  int use_smem, int dyn, int threads, int per, void* stream) {
+                                  int use_smem, int dyn, int threads, int per, int owners,
+                                  int g_whole, void* stream) {
   return launch_gram_block<double, true>(G, sr, sc, g_lane, c, L, beta0, q0, beta, q, K, nt,
                                          epochs, pen, prm, prm_lane, active, lanes, cluster,
-                                         use_smem, dyn, threads, per, stream);
+                                         use_smem, dyn, threads, per, owners, g_whole, stream);
 }
 
 int cd_epoch_xb_f64(const double* Xt, const double* y, const double* w, const double* L,
@@ -1396,6 +1762,18 @@ int gram_chain_floor(int K, int epochs, int threads, double* out, void* stream) 
   if (threads < 2 * kGramB || threads % 32 || threads > kGramMaxThreads)
     return (int)cudaErrorInvalidValue;
   gram_chain_floor_kernel<double><<<1, threads, 0, (cudaStream_t)stream>>>(K, epochs, 0.0, out);
+  return (int)cudaGetLastError();
+}
+
+// K1b's one-CTA chain floor in float64 on one CTA of `threads` threads:
+// `epochs` passes of K chain steps (a norm over nt tasks by the kernel's
+// shuffle tree, a sqrt and a divide) with the kernel's hand-off every step;
+// `out` takes 32 doubles
+int gram_block_chain_floor(int K, int nt, int epochs, int threads, double* out, void* stream) {
+  if (threads < 64 || threads > 1024 || threads % 32 || nt < 1 || nt > 32 * kBlockChain)
+    return (int)cudaErrorInvalidValue;
+  block_chain_floor_kernel<double><<<1, threads, 0, (cudaStream_t)stream>>>(K, nt, epochs, 0.0,
+                                                                           out);
   return (int)cudaGetLastError();
 }
 

@@ -116,8 +116,9 @@ _SIGNATURES = {
                           _P, _I, _I, _I, _P],
         "cd_epoch_xb": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _P, _I, _I, _I, _I, _I, _P],
+        # the plan's (cluster, use_smem, dyn, threads, per, owners, g_whole)
         "cd_epoch_gram_block": [_P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _P, _I, _I, _I, _I, _I, _P],
+                                _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         # the lane forms: a lane stride, the lanes' parameter rows, the
         # active-lane mask and the lane count beside the single-lane
         # arguments
@@ -152,8 +153,9 @@ _PLAIN_SIGNATURES = {
                  # K1bl: float64 only
                  "cd_epoch_gram_block_lanes_f64": [
                      _P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                     _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
+                     _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                  "gram_chain_floor": [_I, _I, _I, _P, _P],
+                 "gram_block_chain_floor": [_I, _I, _I, _I, _P, _P],
                  "fill_shared_memory": [_P],
                  "cluster_capacity": [_I, _I, _I, _I, _I, _I, _I, _P],
                  # K1's / K1l's attributes

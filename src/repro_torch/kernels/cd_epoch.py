@@ -14,11 +14,13 @@ wrappers are in ``kernels/ops.py``.
 K1 runs a blocked chain (a chain warp over blocks of 32 coordinates; the
 previous block's deltas applied to the other rows beside it) on one CTA at
 small K and on a thread-block cluster above, K2 on a thread-block cluster
-of C CTAs that split the epoch state, K1b on one CTA at small shapes and
-on a cluster above them
-(``csrc/cd_epoch.cu`` describes the designs). ``gram_plan``, ``xb_plan``
-and ``gram_block_plan`` are the one place that chooses a call's launch
-layout, from its shape alone: the cluster size C, the threads, whether the
+of C CTAs that split the epoch state, K1b on one CTA at small shapes (a
+chain warp over the rows, q's entries in owner threads' registers, the
+next row handed over on named barriers) and on a cluster above them
+(``csrc/cd_epoch.cu`` describes the designs; ``emulate_block_epoch`` is
+the one-CTA kernel's arithmetic in torch, which it equals bit for bit).
+``gram_plan``, ``xb_plan`` and ``gram_block_plan`` are the one place
+that chooses a call's launch layout, from its shape alone: the cluster size C, the threads, whether the
 state lives in shared or in global memory (K1's always in shared memory),
 the dynamic shared memory per CTA and the register path. The wrappers hand the plan to the C
 launchers as ints; a launch that the card refuses raises, and nothing
@@ -57,6 +59,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.datafits import Logistic, Quadratic, QuadraticSVC
+from ..core.penalties import MCP as _MCP
 from ._build import BUILD
 from .common import PENALTY_IDS, make_penalty, penalty_arity
 from .ref import cd_epoch_gram_ref, cd_epoch_xb_ref
@@ -66,11 +69,13 @@ __all__ = ["KIND_IDS", "cd_epoch_gram_plain", "cd_epoch_xb_plain",
            "cd_epoch_xb_cuda", "cd_epoch_gram_lanes_plain",
            "cd_epoch_xb_lanes_plain", "cd_epoch_gram_lanes_cuda",
            "cd_epoch_xb_lanes_cuda", "cd_epoch_gram_block_lanes_plain",
-           "cd_epoch_gram_block_lanes_cuda", "kernel_params", "EpochPlan",
+           "cd_epoch_gram_block_lanes_cuda", "emulate_block_epoch",
+           "kernel_params", "EpochPlan",
            "GramPlan",
            "gram_plan", "gram_lanes_plan", "xb_plan",
            "gram_block_plan", "BRANCHES",
            "SMEM_DYN_MAX", "cluster_barrier_cuda", "gram_chain_floor_cuda",
+           "gram_block_chain_floor_cuda",
            "fill_shared_memory_cuda", "card_placeable", "card_capacity",
            "lane_capacity",
            "placement", "gram_kernel_attrs_cuda", "STEP_DOWN"]
@@ -78,14 +83,29 @@ __all__ = ["KIND_IDS", "cd_epoch_gram_plain", "cd_epoch_xb_plain",
 # dynamic shared memory a CTA may take: the H100's 232,448 bytes per CTA
 # less 1 KB for the kernels' few static shared values
 SMEM_DYN_MAX = 232_448 - 1024
-# the cluster size, and the largest K1b shape that keeps one CTA because
-# the cluster barrier costs more there than the split saves (measured on the
-# H100 by `cd_sweep.py` at the root of the checkout; the numbers are in
-# PERF.md). 16 CTAs is beyond the portable 8: the plans step down where the
-# card cannot place them (STEP_DOWN), and the launcher still refuses a
-# cluster no GPC can place.
+# the cluster size, and the largest K1b shape that keeps one CTA: all the
+# one-CTA kernel's registers hold (GRAM_BLOCK_PER entries on each of
+# GRAM_BLOCK_MAX_THREADS - 32 owners), where it ran 1.9-2.8x faster than
+# the better cluster at every K T measured, up to 5880 (`cd_sweep.py k1b`
+# on the H100; the numbers are in PERF.md). 16 CTAs is beyond the portable
+# 8: the plans step down where the card cannot place them (STEP_DOWN), and
+# the launcher still refuses a cluster no GPC can place.
 CLUSTER = 16
-GRAM_BLOCK_SINGLE_MAX_KT = 256 * 20
+# K1b on one CTA (csrc/cd_epoch.cu: kBlockPer, kBlockChain, kBlockRing,
+# kBlockSlots, which the kernel alone sets): the entries of q an owner
+# thread keeps in registers, on at most GRAM_BLOCK_MAX_THREADS threads
+# (the register path's launch bounds); the most tasks T (the chain warp's
+# lanes hold a row's entries t = l + 32 m, m < 2); the columns of G's ring
+# where G is not staged whole; the steps whose deltas are kept. The fewest
+# threads a CTA (the chain warp and the owners; `cd_sweep.py k1b`: the
+# fewest that hold q were within 2% of the fastest count at every shape).
+GRAM_BLOCK_PER = 8
+GRAM_BLOCK_MAX_THREADS = 768
+GRAM_BLOCK_CHAIN_T = 64
+GRAM_BLOCK_RING = 5
+GRAM_BLOCK_SLOTS = 3
+GRAM_BLOCK_MIN_THREADS = 256
+GRAM_BLOCK_SINGLE_MAX_KT = GRAM_BLOCK_PER * (GRAM_BLOCK_MAX_THREADS - 32)
 # values a thread keeps in registers on the register paths (K2's samples,
 # K1b's q entries), which the kernels run on at most PER_THREADS threads
 XB_PER, GRAM_PER, PER_THREADS = 4, 8, 768
@@ -172,12 +192,12 @@ def placement(test):
         _PLACEMENT.pop()
 
 
-def _step_down(kernel, first, dtype, layout, placeable):
+def _step_down(kernel, first, dtype, layout, placeable, last=1):
     """The first layout(C) from cluster size `first` down through
-    STEP_DOWN whose shared memory a CTA can hold and that the placement
-    test accepts."""
+    STEP_DOWN to `last` whose shared memory a CTA can hold and that the
+    placement test accepts."""
     test = _PLACEMENT[-1] if placeable is None else placeable
-    for C in (first,) + tuple(c for c in STEP_DOWN if c < first):
+    for C in (first,) + tuple(c for c in STEP_DOWN if last <= c < first):
         plan = layout(C)
         if plan.dyn_bytes <= SMEM_DYN_MAX and test(kernel, plan, dtype):
             return plan
@@ -189,12 +209,18 @@ class EpochPlan(NamedTuple):
     """How one K2 or K1b launch runs: ``cluster`` CTAs (1: K1b's one-CTA
     kernel), the state's slices in shared memory (``smem``) or in global
     memory, ``dyn_bytes`` of dynamic shared memory, ``threads`` per CTA and
-    ``per`` values a thread keeps in registers (0: no register path)."""
+    ``per`` values a thread keeps in registers (0: no register path). On
+    K1b's one CTA, ``smem`` says whether beta and c are staged in shared
+    memory, ``per`` whether ``owners`` threads hold q's entries in
+    registers (GRAM_BLOCK_PER each) or in shared memory (0), and
+    ``g_whole`` whether G is staged whole or through a ring of columns."""
     cluster: int
     smem: bool
     dyn_bytes: int
     threads: int
     per: int
+    owners: int = 0
+    g_whole: bool = False
 
     @property
     def branch(self) -> str:
@@ -321,24 +347,67 @@ def xb_plan(n: int, weighted: bool, dtype, cluster: int | None = None,
                      XB_PER if threads <= PER_THREADS else 0)
 
 
+def _block_one_cta(K: int, T: int, dtype, threads: int | None) -> EpochPlan:
+    """K1b's one-CTA layout (``csrc/cd_epoch.cu: cd_gram_block_kernel``):
+    q's K T entries in registers, GRAM_BLOCK_PER an owner thread, where
+    GRAM_BLOCK_MAX_THREADS threads hold them (else in shared memory, on
+    1024 threads); `threads` (default: the chain warp and owners enough,
+    at least GRAM_BLOCK_MIN_THREADS); the owners a multiple of T where
+    that holds q (an owner's entries then
+    share one task, one delta load a step); in shared memory the next rows
+    [2][T], the deltas [3][T], L and step [K], then beta and c [K T] where
+    they fit, then G whole where it fits (else a ring of GRAM_BLOCK_RING
+    columns). Raises ValueError past GRAM_BLOCK_CHAIN_T tasks."""
+    if T > GRAM_BLOCK_CHAIN_T:
+        raise ValueError(f"cd_epoch_gram_block: one CTA runs at most "
+                         f"{GRAM_BLOCK_CHAIN_T} tasks, got T = {T}")
+    KT = K * T
+    top = GRAM_BLOCK_MAX_THREADS
+    per = GRAM_BLOCK_PER if KT <= GRAM_BLOCK_PER * (top - 32) else 0
+    if threads is None:
+        threads = 1024 if not per else min(top, max(
+            GRAM_BLOCK_MIN_THREADS, 32 + _threads(-(-KT // per))))
+    n = threads - 32
+    owners = n - n % T if T <= n else n
+    if per and (owners < 1 or KT > per * owners):
+        owners = n
+    if per and (KT > per * owners or threads > top):
+        per = 0                 # forced threads off the register path
+    head = (2 + GRAM_BLOCK_SLOTS) * T + 2 * K + (0 if per else KT)
+    for bc, whole in ((True, True), (True, False), (False, False)):
+        vals = head + (2 * KT if bc else 0) + \
+            (K * K if whole else GRAM_BLOCK_RING * K)
+        if vals * dtype.itemsize <= SMEM_DYN_MAX:
+            break
+    return EpochPlan(1, bc, vals * dtype.itemsize, threads, per, owners,
+                     whole)
+
+
 def gram_block_plan(K: int, T: int, dtype, cluster: int | None = None,
-                    placeable=None) -> EpochPlan:
-    """K1b's layout for q [K, T]: one CTA holding delta_j and all of q for
-    K * T <= GRAM_BLOCK_SINGLE_MAX_KT; above, a cluster of CLUSTER CTAs
-    (stepping down while `placeable` refuses it), each holding the slots of
-    3 (T + 1) values and ceil(K / C) rows of q (in shared memory while they
-    fit), about GRAM_PER entries a thread. `cluster` forces C (a forced
-    single CTA may ask for more shared memory than a CTA has: the launch
-    then fails)."""
+                    placeable=None, threads: int | None = None) -> EpochPlan:
+    """K1b's layout for q [K, T]: one CTA (``_block_one_cta``) for T <=
+    GRAM_BLOCK_CHAIN_T and K * T <= GRAM_BLOCK_SINGLE_MAX_KT where it holds
+    the state on chip (q in registers, beta and c in shared memory); else a
+    cluster of CLUSTER CTAs (stepping down while `placeable` refuses it),
+    each holding the slots of 3 (T + 1) values and ceil(K / C) rows of q
+    (in shared memory while they fit), about GRAM_PER entries a thread.
+    `cluster` forces C (a forced single CTA may ask for more shared memory
+    than a CTA has: the launch then fails), `threads` the one CTA's
+    threads (``cd_sweep.py`` times them)."""
     if cluster is None:
-        first = 1 if K * T <= GRAM_BLOCK_SINGLE_MAX_KT else CLUSTER
+        first = CLUSTER
+        if T <= GRAM_BLOCK_CHAIN_T and K * T <= GRAM_BLOCK_SINGLE_MAX_KT:
+            one = _block_one_cta(K, T, dtype, threads)
+            if one.smem and one.per and one.dyn_bytes <= SMEM_DYN_MAX:
+                first = 1
         return _step_down("cd_epoch_gram_block", first, dtype,
-                          lambda C: gram_block_plan(K, T, dtype, C),
-                          placeable)
+                          lambda C: gram_block_plan(K, T, dtype, C,
+                                                    threads=threads),
+                          placeable, 1 if T <= GRAM_BLOCK_CHAIN_T else 2)
     item = dtype.itemsize
     C = cluster
     if C == 1:
-        return EpochPlan(1, True, (T + K * T) * item, _threads(K * T), 0)
+        return _block_one_cta(K, T, dtype, threads)
     rows = -(-K // C)
     head = 3 * (T + 1) * item
     state = rows * T * item
@@ -422,6 +491,70 @@ def cd_epoch_gram_lanes_plain(G, c, beta0, q0, L, penalty_cls, params,
 cd_epoch_gram_block_lanes_plain = cd_epoch_gram_lanes_plain
 
 
+def _lane_norms(x):
+    """The row norms of x [S, T] in the one-CTA kernel's order: lane l of
+    a warp sums x_t^2 over t = l, l + 32, ... in ascending t from +0, then
+    a shuffle-down tree adds lane l + o into lane l for o = 16, 8, 4, 2, 1;
+    lane 0's sum, square-rooted."""
+    S, T = x.shape
+    m = -(-T // 32)
+    xx = torch.zeros(S, m * 32, dtype=x.dtype, device=x.device)
+    xx[:, :T] = x * x
+    xx = xx.view(S, m, 32)
+    part = torch.zeros(S, 32, dtype=x.dtype, device=x.device)
+    for k in range(m):
+        part = part + xx[:, k]
+    for o in (16, 8, 4, 2, 1):
+        part = torch.cat([part[:, :o] + part[:, o:2 * o], part[:, o:]], 1)
+    return torch.sqrt(part[:, :1])
+
+
+def emulate_block_epoch(G, c, beta0, q0, L, penalty_cls, params, *,
+                        epochs=1, active=None):
+    """K1b's and K1bl's one-CTA kernel in torch, in its arithmetic order:
+    `epochs` cyclic passes; for each row j the row x = beta_j - (q_j - c_j)
+    step_j (step = 1 / max(L_j, 1e-30)), its norm by ``_lane_norms``, the
+    block prox of BlockL1 or BlockMCP on that norm (``rt::block_prox``),
+    beta_j unchanged where L_j = 0, then q += G[:, j] (x) delta_j, one j at
+    a time, skipped where every entry of delta_j is zero. G [S, K, K] (or
+    [K, K]), c, beta0, q0 [S, K, T] (or [K, T]), L [S, K], params [S,
+    arity] (or [arity]): the lanes run side by side; a lane with
+    active[s] False comes back unchanged. Only the norm's order differs
+    from ``cd_epoch_gram_plain``; on the card the kernel equals this bit for
+    bit. Returns (beta, q)."""
+    lanes = beta0.ndim == 3
+    if not lanes:
+        G, c, beta0, q0, L, params = (G[None], c[None], beta0[None],
+                                      q0[None], L[None], params[None])
+    S, K, T = beta0.shape
+    on = torch.ones(S, dtype=torch.bool, device=beta0.device) \
+        if active is None else active.to(beta0.device)
+    prm = params.to(device=beta0.device, dtype=beta0.dtype)
+    lam = prm[:, 0:1]
+    mcp = None if penalty_cls.__name__ == "BlockL1" else \
+        _MCP(lam, prm[:, 1:2])
+    beta, q = beta0.clone(), q0.clone()
+    step = 1.0 / torch.clamp(L, min=1e-30)
+    for _ in range(epochs):
+        for j in range(K):
+            b, st = beta[:, j], step[:, j:j + 1]
+            x = b - (q[:, j] - c[:, j]) * st
+            nrm = _lane_norms(x)
+            den = torch.clamp(nrm, min=1e-30)
+            if mcp is None:
+                nw = x * (torch.clamp(nrm - st * lam, min=0.0) / den)
+            else:
+                nw = x * mcp.prox(nrm, st) / den
+            nw = torch.where(L[:, j:j + 1] > 0.0, nw, b)
+            nw = torch.where(on[:, None], nw, b)
+            d = nw - b
+            beta[:, j] = nw
+            nz = torch.any(d != 0.0, dim=1) & on
+            q = torch.where(nz[:, None, None],
+                            q + G[:, :, j, None] * d[:, None, :], q)
+    return (beta, q) if lanes else (beta[0], q[0])
+
+
 def cd_epoch_xb_lanes_plain(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls,
                             params, active, datafit_kind="quadratic", *,
                             w=None, epochs=1):
@@ -471,8 +604,9 @@ def cd_epoch_gram_block_cuda(G, c, beta0, q0, L, penalty_cls, params, *,
         rc = fn(G.data_ptr(), G.stride(0), G.stride(1), c.data_ptr(),
                 L.data_ptr(), beta0.data_ptr(), q0.data_ptr(),
                 beta.data_ptr(), q.data_ptr(), K, T, epochs, pid,
-                prm.data_ptr(), plan.cluster, int(plan.smem), plan.dyn_bytes, plan.threads,
-                plan.per, stream)
+                prm.data_ptr(), plan.cluster, int(plan.smem), plan.dyn_bytes,
+                plan.threads, plan.per, plan.owners, int(plan.g_whole),
+                stream)
     _check_rc(rc, "cd_epoch_gram_block", plan)
     return beta, q
 
@@ -557,7 +691,7 @@ def cd_epoch_gram_block_lanes_cuda(G, c, beta0, q0, L, penalty_cls, params,
                 beta.data_ptr(), q.data_ptr(), K, T, epochs, pid,
                 prm.data_ptr(), prm.shape[1], mask.data_ptr(), S,
                 plan.cluster, int(plan.smem), plan.dyn_bytes, plan.threads,
-                plan.per, stream)
+                plan.per, plan.owners, int(plan.g_whole), stream)
     _check_rc(rc, "cd_epoch_gram_block_lanes", plan)
     return beta, q
 
@@ -616,6 +750,20 @@ def gram_chain_floor_cuda(K, epochs, threads, device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.gram_chain_floor(K, epochs, threads, out.data_ptr(), stream)
     _check_rc(rc, "gram_chain_floor")
+
+
+def gram_block_chain_floor_cuda(K, T, epochs, threads, device):
+    """Enqueue K1b's one-CTA chain floor in float64: `epochs` passes of K
+    chain steps (a norm over T tasks by the kernel's shuffle tree, a sqrt
+    and a divide, no loads) with the kernel's hand-off every step, on one
+    CTA of `threads` threads (counted in no launch count)."""
+    lib = BUILD.lib("cd_epoch")
+    out = torch.empty(32, dtype=torch.float64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.gram_block_chain_floor(K, T, epochs, threads, out.data_ptr(),
+                                        stream)
+    _check_rc(rc, "gram_block_chain_floor")
 
 
 def gram_kernel_attrs_cuda(lanes: bool, cluster: bool, pen: int = 0):

@@ -32,11 +32,22 @@ def _gram_block_state(K, T, C, item):
     return (3 * (T + 1) + -(-K // C) * T) * item
 
 
+def _one_cta_state(K, T, plan, item):
+    """K1b's one-CTA kernel: the next rows [2][T] and deltas [3][T], L and
+    step [K], G whole or its ring of columns, beta and c where staged, q
+    where the owners do not hold it in registers."""
+    KT = K * T
+    return ((2 + 3) * T + 2 * K
+            + (K * K if plan.g_whole else cd.GRAM_BLOCK_RING * K)
+            + (2 * KT if plan.smem else 0) + (0 if plan.per else KT)) * item
+
+
 def _threads_ok(plan):
     assert 32 <= plan.threads <= 1024 and plan.threads % 32 == 0
-    # the register paths run on at most PER_THREADS threads (the kernels'
-    # launch bounds)
-    assert plan.per == 0 or plan.threads <= cd.PER_THREADS
+    # the cluster kernels' register paths run on at most PER_THREADS threads
+    # (their launch bounds); K1b's one CTA on up to 1024
+    assert plan.per == 0 or plan.threads <= cd.PER_THREADS or \
+        plan.cluster == 1
 
 
 @pytest.mark.parametrize("n,weighted", [(10_000, False), (10_000, True),
@@ -93,9 +104,12 @@ def test_gram_block_plan_fits_the_card(K, T, dtype):
     assert plan.branch in cd.BRANCHES
     _threads_ok(plan)
     if plan.cluster == 1:
-        # one CTA holds delta_j and all of q in shared memory
-        assert plan.smem and plan.per == 0
-        assert plan.dyn_bytes == (T + K * T) * item <= cd.SMEM_DYN_MAX
+        # one CTA holds the whole state on chip: q in its owners'
+        # registers, beta, c, L and G (or G's ring) in shared memory
+        assert plan.smem and plan.per == cd.GRAM_BLOCK_PER
+        assert plan.per * plan.owners >= K * T
+        assert plan.dyn_bytes == _one_cta_state(K, T, plan, item) \
+            <= cd.SMEM_DYN_MAX
     else:
         full = _gram_block_state(K, T, plan.cluster, item)
         assert plan.smem == (full <= cd.SMEM_DYN_MAX)
@@ -107,12 +121,19 @@ def test_gram_block_plan_fits_the_card(K, T, dtype):
 
 def test_plans_take_every_branch_where_they_say():
     """K1b on one CTA at or below its single-CTA threshold and on a cluster
-    above it; K2 and K1b on the global-memory branch of a cluster past C
-    slices of shared memory (float32 halves the bytes: the shared branch
-    reaches twice as far)."""
+    above it, and on the cluster where one CTA cannot hold the state on
+    chip (T = 1 at K = the threshold: beta, c, L, step and G's ring in
+    shared memory) or runs more tasks than its chain warp holds; K2 and
+    K1b on the global-memory branch of a cluster past C slices of shared
+    memory (float32 halves the bytes: the shared branch reaches twice as
+    far)."""
     kt = cd.GRAM_BLOCK_SINGLE_MAX_KT
-    assert cd.gram_block_plan(kt, 1, F64).branch == "single"
+    assert cd.gram_block_plan(kt // 20, 20, F64).branch == "single"
+    assert cd.gram_block_plan(kt // 20 + 1, 20, F64).cluster == cd.CLUSTER
+    assert cd.gram_block_plan(kt, 1, F64).cluster == cd.CLUSTER
     assert cd.gram_block_plan(kt + 1, 1, F64).cluster == cd.CLUSTER
+    assert cd.gram_block_plan(2, cd.GRAM_BLOCK_CHAIN_T + 1,
+                              F64).cluster == cd.CLUSTER
     assert cd.gram_block_plan(2048, 240, F64).branch == "cluster-global"
     assert cd.gram_block_plan(2048, 240, F32).branch == "cluster-shared"
     assert cd.xb_plan(1, True, F64).branch == "cluster-shared"

@@ -1768,7 +1768,7 @@ def _gram_block_lanes(S, K, T, dev, seed=0):
                                    (2, 2048, 240)])
 def test_k1b_lanes_cuda_equals_k1b_lane_by_lane(cuda, pen, S, K, T):
     """K1bl equals K1b launched on each lane's inputs and parameter row bit
-    for bit on K1b's one-CTA branch (K * T <= 5120) and its cluster
+    for bit on K1b's one-CTA branch (K * T within its threshold) and its cluster
     branches (q's rows in shared and in global memory), every SM's shared
     memory NaN-filled first; frozen lanes come back unchanged; within K1's
     bound of the plain version."""
@@ -1797,6 +1797,75 @@ def test_k1b_lanes_cuda_equals_k1b_lane_by_lane(cuda, pen, S, K, T):
                                  type(pen), params[0], epochs=2)
     torch.testing.assert_close(b[0], bp, atol=1e-12, rtol=1e-5)
     torch.testing.assert_close(q[0], qp, atol=1e-12, rtol=1e-5)
+
+
+# the one-CTA block epoch at the grids' shapes (the leadfield's K = 64, T =
+# 50; (m4)'s K = 512, T = 5), T past a warp (33) and at the chain's 64, one
+# row, K = 2 and 3 (the next rows wrap), G whole and through its ring
+ONECTA = [(3, 64, 50), (4, 512, 5), (2, 256, 20), (3, 128, 20), (2, 64, 33),
+          (2, 20, 64), (3, 1, 7), (2, 2, 5), (2, 3, 1), (2, 2049, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pen", BLOCK_PENALTIES, ids=BLOCK_IDS)
+@pytest.mark.parametrize("S,K,T", ONECTA)
+def test_k1b_onecta_equals_emulation(cuda, pen, S, K, T):
+    """K1bl and K1b on the one-CTA kernel equal ``emulate_block_epoch``
+    bit for bit (beta and q, 1 and 3 epochs), every SM's shared memory
+    NaN-filled first, every third lane frozen and unchanged, row 1's L = 0;
+    K1bl equals K1b lane by lane."""
+    from repro_torch.kernels.cd_epoch import (emulate_block_epoch,
+                                              fill_shared_memory_cuda,
+                                              gram_block_plan)
+    assert gram_block_plan(K, T, torch.float64).cluster == 1
+    G, c, beta0, q0, L = _gram_block_lanes(S, K, T, cuda, seed=K + 3 * T)
+    if K > 1:
+        L[:, 1] = 0.0
+    params = _lane_params(pen, S, cuda, seed=S + T)
+    active = torch.arange(S, device=cuda) % 3 != 1
+    for epochs in (1, 3):
+        fill_shared_memory_cuda(cuda)
+        got = ops.cd_epoch_gram_block_lanes(G, c, beta0, q0, L, type(pen),
+                                            params, active, epochs=epochs)
+        want = emulate_block_epoch(G, c, beta0, q0, L, type(pen), params,
+                                   epochs=epochs, active=active)
+        assert _same(got, want)
+        for s in range(S):
+            if not active[s]:
+                assert torch.equal(got[0][s], beta0[s])
+                assert torch.equal(got[1][s], q0[s])
+                continue
+            fill_shared_memory_cuda(cuda)
+            one = ops.cd_epoch_gram_block(G[s], c[s], beta0[s], q0[s], L[s],
+                                          type(pen), params[s],
+                                          epochs=epochs)
+            assert _same(one, (got[0][s], got[1][s])), s
+    assert torch.any(got[0][0] != beta0[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,T", [(64, 50), (512, 5), (256, 20), (1024, 20),
+                                 (300, 50)])
+@pytest.mark.parametrize("threads", [None, 64, 512, 1024])
+def test_k1b_onecta_layouts_equal_emulation(cuda, K, T, threads):
+    """Every layout of the one-CTA kernel equals the emulation bit for bit:
+    the plan's and forced thread counts (owners a multiple of T or not),
+    q in registers or in shared memory (64 threads, and K * T past the
+    registers' reach), beta and c in shared or global memory (K = 1024,
+    T = 20: the step-down's last resort), in float64 and float32."""
+    from repro_torch.kernels.cd_epoch import (cd_epoch_gram_block_cuda,
+                                              emulate_block_epoch,
+                                              fill_shared_memory_cuda,
+                                              gram_block_plan)
+    G, c, beta0, q0, L = (a[0] for a in _gram_block_lanes(1, K, T, cuda,
+                                                          seed=K))
+    for dtype in (torch.float64, torch.float32):
+        args = tuple(a.to(dtype) for a in (G, c, beta0, q0, L)) + (
+            P.BlockMCP, penalty_params(P.BlockMCP(0.11, 3.0), cuda))
+        plan = gram_block_plan(K, T, dtype, cluster=1, threads=threads)
+        fill_shared_memory_cuda(cuda)
+        got = cd_epoch_gram_block_cuda(*args, epochs=2, plan=plan)
+        assert _same(got, emulate_block_epoch(*args, epochs=2)), plan
 
 
 @pytest.mark.gpu
