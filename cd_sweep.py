@@ -3,9 +3,18 @@
 (``cd_epoch_xb``) and K1b (``cd_epoch_gram_block``) at fixed cluster sizes,
 on one CUDA card.
 
-    python3 cd_sweep.py [k1|k2|k1b|k1l|k1l_rule|csc|k3bl|heads|emulate|
-                         mgrids ...]
+    python3 cd_sweep.py [k1|k2|k1b|k1l|k1l_rule|k2l_rule|csc|k3bl|heads|
+                         emulate|mgrids|k2trace|csc_walls ...]
                         [--src=SRC]
+
+``k2l_rule``: K2l's lane plan (``xb_lanes_plan``) against every cluster
+size in repeated rounds (``sweep_k2l_rule``). ``k2trace`` alone: K2's
+chain traced by clock stamps in a throwaway copy of SRC's (or this tree's)
+kernel under ``build/k2trace`` (``k2_trace_copy``, ``sweep_k2trace``).
+``csc_walls`` alone: the sparse fits' and path (c)'s walls, each run
+twice for equal bits (``sweep_csc_walls``). ``heads`` also splits K3l by
+launch (``chip_smoke.launch_split``) at random and shared lanes and times it at
+(g1)'s deepest bucket, with U / (S K), the distinct rows its lanes select.
 
 With names, only those kernels are swept (default: k1, k2, k1b; ``k1l``,
 K1's lane form over lane counts and cluster sizes, ``k1l_rule``, its lane
@@ -86,7 +95,11 @@ SWEEP = dict(k1=(64, 128, 256, 512, 1024, 2048, 4096),
              # the lane plan's rule: lane counts and K where a wave's
              # count decides, every cluster size timed in interleaved rounds
              k1l_rule_S=(10, 20, 50, 100), k1l_rule_K=(512, 1024, 2048, 4096),
-             k1l_rounds=7)
+             k1l_rounds=7,
+             # K2l's lane plan's rule: lane counts and K of the grids' K2l
+             # launches and K2's, at (g3)'s n, weighted logistic
+             k2l_rule_S=(5, 10, 50), k2l_rule_K=(64, 128, 512),
+             k2l_rule_n=10_000, k2l_rounds=5)
 
 
 def _record(out, fails, key, rec, run):
@@ -294,6 +307,275 @@ def sweep_k1l_rule(dev, cfg, out, fails):
         torch.cuda.empty_cache()
 
 
+def sweep_k2l_rule(dev, cfg, out, fails):
+    """K2l's lane plan held to repeated times: at each S of ``k2l_rule_S``
+    and K of ``k2l_rule_K`` (n = 10,000, weighted logistic, as (g3)
+    launches it), K2l (one epoch, every lane active) on each cluster size
+    of STEP_DOWN whose slice fits shared memory and that the card places,
+    each lane checked against K2 forced to the same plan (bit for bit),
+    timed in ``k2l_rounds`` rounds that take the sizes in turn (CUDA
+    events, warm; min, median and max), beside the card's clusters at once
+    and the waves; the record of each (S, K) names the fastest size by
+    median, the size ``xb_lanes_plan`` picks, and the fewest waves then
+    the smallest and then the largest cluster, each with its loss to the
+    fastest."""
+    import statistics
+
+    import torch
+    from repro_torch.kernels.cd_epoch import (
+        STEP_DOWN, cd_epoch_xb_cuda, cd_epoch_xb_lanes_cuda, lane_capacity,
+        xb_lanes_plan, xb_plan)
+    f64 = torch.float64
+    n = cfg["k2l_rule_n"]
+    for K in cfg["k2l_rule_K"]:
+        Smax = max(cfg["k2l_rule_S"])
+        args, w = xb_lane_inputs(Smax, K, n, dev, seed=K)
+        (Xt, y, b0, Xb0, L2, off, pen, prm, _, kind) = args
+        for S in cfg["k2l_rule_S"]:
+            on = torch.ones(S, dtype=torch.bool, device=dev)
+            lane = (Xt[:S], y, b0[:S], Xb0[:S], L2[:S], off[:S], pen,
+                    prm[:S], on, kind)
+            cells = {}
+            for C in STEP_DOWN:
+                plan = xb_plan(n, True, f64, cluster=C)
+                if not plan.smem:
+                    continue
+                at_once, _ = lane_capacity(plan, f64, 0, None, "cd_epoch_xb")
+                if at_once < 1:
+                    continue
+                b, x = cd_epoch_xb_lanes_cuda(*lane, w=w[:S], plan=plan)
+                b0s, x0s = cd_epoch_xb_cuda(Xt[0], y, b0[0], Xb0[0], L2[0],
+                                            off[0], pen, prm[0], kind,
+                                            w=w[0], plan=plan)
+                torch.cuda.synchronize()
+                cells[C] = dict(plan=plan, C=C, threads=plan.threads,
+                                per=plan.per, at_once=at_once,
+                                waves=-(-S // at_once),
+                                ok=bool(torch.equal(b[0], b0s)
+                                        and torch.equal(x[0], x0s)), ms=[])
+            for _ in range(cfg["k2l_rounds"]):
+                for cell in cells.values():
+                    cell["ms"].append(cs.time_ms(
+                        lambda plan=cell["plan"]: cd_epoch_xb_lanes_cuda(
+                            *lane, w=w[:S], plan=plan), dev, 4 * cfg["reps"]))
+
+            def run(rec, cells=cells, S=S):
+                for cell in cells.values():
+                    ms = cell.pop("ms")
+                    del cell["plan"]
+                    cell.update(median=statistics.median(ms), min=min(ms),
+                                max=max(ms))
+                best = min(cells, key=lambda C: cells[C]["median"])
+                # the plan's pick, and the fewest waves then the smallest
+                # or the largest cluster
+                picks = dict(
+                    plan=xb_lanes_plan(S, n, True, f64).cluster,
+                    smallest=min(cells, key=lambda C: (cells[C]["waves"], C)),
+                    largest=min(cells, key=lambda C: (cells[C]["waves"], -C)))
+                rec.update(ok=all(cell["ok"] for cell in cells.values()),
+                           cells=list(cells.values()), best=best, picks=picks,
+                           loss={k: cells[C]["median"] /
+                                 cells[best]["median"] - 1
+                                 for k, C in picks.items()})
+            _record(out, fails, "k2l_rule", dict(S=S, K=K, n=n), run)
+        del Xt, args
+        torch.cuda.empty_cache()
+
+
+# K2's chain traced by clock stamps in a throwaway copy of a tree: a stamp
+# goes after the first line of each anchor ("after") or before the anchor
+# ("before") in csrc/cd_epoch.cu's cd_xb_cluster_kernel (the parent's or
+# this tree's); thread 0 of lane 0's rank 0 adds the cycles since the
+# previous stamp to the phase the stamp closes (the first stamp opens the
+# coordinate), and ``k2_trace_read`` reads the sums back
+_K2_STAMPS = {
+    "parent": (
+        ("      T acc = T(0);\n", "after", None),
+        ("      const T gsum = block_sum_tree(acc, red);\n", "before",
+         "local dot"),
+        ("      const T gsum = block_sum_tree(acc, red);\n", "after",
+         "block_sum_tree and its __syncthreads"),
+        ("      cluster_arrive_release();\n      // while the cluster", "after",
+         "partial published, arrive"),
+        ("      cluster_wait_acquire();\n      if (tid < 32) {", "after",
+         "prefetch of x_{j+1}, wait"),
+        ("      __syncthreads();\n      const T d = s_delta[0];\n", "before",
+         "rank-order DSMEM sum and the prox"),
+        ("      const T d = s_delta[0];\n", "before", "second __syncthreads"),
+        ("        for (int k = 0; k < PER; ++k) xc[k] = xn[k];\n", "after",
+         "axpy with raw_grad's exp")),
+    "change": (
+        ("    const int j = (int)(g % K), par = (int)(g & 1);\n", "after",
+         None),
+        ("    const T v = __shfl_sync(0xffffffffu, acc, 0);\n", "after",
+         "warp tree"),
+        ("      st_async_remote(&slot[par * parts + rank * nw + warp]",
+         "after", "expect_tx, pushes of the warp sum"),
+        ("    mbar_wait(&bar[par], (unsigned)((g >> 1) & 1));\n", "after",
+         "prefetch of x_{j+1}, wait for the cluster's sums"),
+        ("    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync", "after",
+         "reads of the warp sums and the butterfly"),
+        ("    st.prepare(pen, L[j1], p0, p1);\n", "after",
+         "prox, the next coordinate's beta, offset and step"),
+        ("      for (int k = 0; k < PER; ++k) xc[k] = xn[k];\n", "after",
+         "axpy with raw_grad's exp, the next dot")),
+}
+# the line before which each version writes its stamps back
+_K2_CLOSE = {
+    "parent": "  // no CTA leaves while another may still read its partial slots",
+    "change": "  // no CTA leaves while a push into it may be in flight"}
+_K2_TRACE_HEAD = r"""
+__device__ unsigned long long g_k2_trace[16];
+#define K2_STAMP(k) do { if (k2_me) { const long long c_ = clock64(); k2_acc[k] += c_ - k2_prev; k2_prev = c_; } } while (0)
+extern "C" int k2_trace_read(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_k2_trace, sizeof(g_k2_trace));
+}
+"""
+
+
+def k2_trace_copy(src, dst):
+    """Copy `src`/repro_torch to `dst`/repro_torch with K2's kernel
+    stamped (``_K2_STAMPS``: the parent's kernel or this tree's, whichever
+    the source holds); returns the phase names."""
+    import shutil
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(Path(src) / "repro_torch", Path(dst) / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    cu = Path(dst) / "repro_torch" / "csrc" / "cd_epoch.cu"
+    text = cu.read_text()
+    a = text.index("    cd_xb_cluster_kernel(")
+    b = text.index("// K1b on a cluster.", a)
+    body = text[a:b]
+    which = "change" if "st_async_remote" in body else "parent"
+    stamps = _K2_STAMPS[which]
+    for k, (anchor, where, _) in enumerate(stamps):
+        if body.count(anchor) != 1:
+            raise RuntimeError(f"k2trace: anchor {k} of {which} not found "
+                               f"once: {anchor!r}")
+        code = ("      if (k2_me) k2_prev = clock64();\n" if k == 0 else
+                f"      K2_STAMP({k - 1});\n")
+        if where == "before":
+            body = body.replace(anchor, code + anchor)
+        else:
+            i = body.index(anchor)
+            i = body.index("\n", i) + 1
+            body = body[:i] + code + body[i:]
+    # the stamping thread and its sums, after the lane prologue; the sums
+    # and the kernel's globaltimer span written at the end
+    open_at = "  const T p0 = rt::param0<T>(prm)"
+    body = body.replace(open_at, (
+        "  const bool k2_me = blockIdx.y == 0 && cluster.block_rank() == 0 "
+        "&& threadIdx.x == 0;\n  long long k2_acc[8] = {0, 0, 0, 0, 0, 0, "
+        "0, 0}, k2_prev = 0;\n  unsigned long long k2_t0 = 0;\n  if (k2_me) "
+        "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(k2_t0));\n"
+        "  const long long k2_c0 = clock64();\n") + open_at, 1)
+    close_at = _K2_CLOSE[which]
+    body = body.replace(close_at, (
+        "  if (k2_me) {\n    unsigned long long t1;\n    asm volatile("
+        "\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t1));\n    for (int k = 0;"
+        " k < 8; ++k) g_k2_trace[k] = k2_acc[k];\n    g_k2_trace[8] = "
+        "clock64() - k2_c0;\n    g_k2_trace[9] = t1 - k2_t0;\n  }\n")
+        + close_at, 1)
+    text = text[:a] + body + text[b:]
+    inc = '#include "prox.cuh"\n'
+    text = text.replace(inc, inc + _K2_TRACE_HEAD, 1)
+    cu.write_text(text)
+    return [name for _, _, name in stamps[1:]]
+
+
+def sweep_k2trace(dev, names):
+    """Run K2l at (S, K, n) = (10, 64, 10,000), weighted logistic, on the
+    stamped build this process imported (``k2_trace_copy``), on K2l's plan
+    and on K2's 16-CTA plan, and print each phase's cycles a coordinate
+    and its share of the chain (2 epochs; the first launch warms)."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import cd_epoch as cde
+    from repro_torch.kernels._build import BUILD
+    S, K, n = 10, 64, 10_000
+    args, w = xb_lane_inputs(S, K, n, dev, seed=7)
+    plans = {"K2's 16-CTA plan": cde.xb_plan(n, True, torch.float64)}
+    if hasattr(cde, "xb_lanes_plan"):
+        plans["the lane plan"] = cde.xb_lanes_plan(S, n, True, torch.float64)
+    lib = BUILD.lib("cd_epoch")
+    lib.k2_trace_read.argtypes = [ctypes.c_void_p]
+    res = {}
+    for label, plan in plans.items():
+        for _ in range(2):
+            cde.cd_epoch_xb_lanes_cuda(*args, w=w, plan=plan, epochs=2)
+            torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * 16)()
+        if lib.k2_trace_read(ctypes.cast(buf, ctypes.c_void_p)) != 0:
+            raise RuntimeError("k2trace: reading the stamps failed")
+        coords = 2 * K
+        cyc = [buf[k] / coords for k in range(len(names))]
+        ns_per_cycle = buf[9] / max(1, buf[8])
+        res[label] = dict(
+            cluster=plan.cluster, threads=plan.threads,
+            cycles_a_coordinate={nm: round(c, 1) for nm, c in zip(names, cyc)},
+            ns_a_coordinate={nm: round(c * ns_per_cycle, 1)
+                             for nm, c in zip(names, cyc)},
+            kernel_us=buf[9] / 1e3, ghz=1 / ns_per_cycle)
+    cs.log(f"sweep k2trace {json.dumps(res)}")
+    return res
+
+
+def sweep_csc_walls(dev):
+    """The sparse fits' and path (c)'s walls on the kernel route
+    (``chip_smoke.py``'s sparse_fig2 and its lambdas: Lasso lmax/10 and
+    lmax/300, weighted logistic lmax/3 and lmax/30; path (c) at 6 lambdas,
+    unscreened and screened), each run twice for the bits; for an A/B of
+    two trees (one process each, alternating)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (L1, Lasso, Logistic,
+                                  SparseLogisticRegression, lambda_max,
+                                  reg_path)
+    c = cs.FULL
+    _, _, d, y, _ = cs.sparse_designs(dev, c)
+    ys = np.sign(y)
+    w = np.random.default_rng(1).uniform(0.5, 1.5, d.n_rows)
+    out = {}
+
+    def wall(key, call):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = call()
+        torch.cuda.synchronize()
+        out.setdefault(key, []).append(time.perf_counter() - t)
+        return r
+
+    lmax = [wall("lambda_max", lambda: lambda_max(d, y, device=dev))
+            for _ in range(2)]
+    lmax_log = lambda_max(d, ys, Logistic(), sample_weight=w, device=dev)
+    same = {"lambda_max": lmax[0] == lmax[1]}
+    for k_lasso, k_log in c["sparse_lam"]:
+        fits = [wall(f"Lasso lmax/{k_lasso}", lambda: Lasso(
+            alpha=lmax[0] / k_lasso, tol=cs.TOL, device=dev).fit(d, y))
+            for _ in range(2)]
+        same[f"Lasso lmax/{k_lasso}"] = bool(np.array_equal(
+            fits[0].coef_, fits[1].coef_))
+        fits = [wall(f"logistic lmax/{k_log}", lambda: (
+            SparseLogisticRegression(alpha=lmax_log / k_log, tol=cs.TOL,
+                                     device=dev).fit(d, ys,
+                                                     sample_weight=w)))
+            for _ in range(2)]
+        same[f"logistic lmax/{k_log}"] = bool(np.array_equal(
+            fits[0].coef_, fits[1].coef_))
+    sc = c["screen"]
+    for screen in (None, "gap_safe"):
+        key = f"path (c) {sc['n_lambdas']} lambdas {screen or 'unscreened'}"
+        paths = [wall(key, lambda: reg_path(
+            d, y, L1(1.0), n_lambdas=sc["n_lambdas"],
+            lambda_min_ratio=sc["ratio"], tol=sc["tol"], screen=screen,
+            device=dev)) for _ in range(2)]
+        same[key] = bool(np.array_equal(paths[0].betas, paths[1].betas))
+    cs.log(f"sweep csc_walls {json.dumps(dict(walls=out, equal_bits=same))}")
+    return out
+
+
 def sweep_csc(dev, cfg, out, fails):
     """K5, K5s and K5b (``csrc/csc_score.cu``) on the full-size sparse
     design of ``chip_smoke.py`` (``sparse_fig2``, float64; K5b at T = 20),
@@ -348,29 +630,6 @@ def sweep_csc(dev, cfg, out, fails):
     torch.cuda.empty_cache()
 
 
-def kernel_split(fn, calls=5):
-    """Device ms a call of `fn` by kernel (``torch.profiler`` over `calls`
-    warm calls; self device time, the kernel's name without its namespace
-    and arguments)."""
-    import re
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    split = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0)
-        if us > 0:
-            m = re.search(r"(\w+)(<[^(]*>)?\(", e.key)
-            name = m.group(1) if m else e.key
-            split[name] = split.get(name, 0.0) + us / 1e3 / calls
-    return split
-
-
 def _lanes_of(N, T0):
     """(S, T) with S * T = N for K3bl at N columns: T = gcd(N, T0) (the
     shape's task count where it divides N)."""
@@ -392,7 +651,7 @@ def sweep_k3bl(dev, cfg, out, fails):
     S lanes of T = gcd(N, 20 or 50) tasks) with its plan, held to its plain
     version (scores and gradient within 1e-12 + 1e-12 / 1e-10 |ref|,
     cand_idx and working sets equal), with its device time split by kernel
-    (``kernel_split``)."""
+    (``chip_smoke.launch_split``)."""
     import torch
     from repro_torch.core.penalties import BlockL1
     from repro_torch.core.working_set import select_working_set
@@ -468,8 +727,8 @@ def sweep_k3bl(dev, cfg, out, fails):
                            scratch_bytes=8 * plan.scratch,
                            ms=cs.time_ms(lambda: ops.fused_ws_block_lanes(
                                *args), dev, reps), mm_ms=mm_ms,
-                           split_ms=kernel_split(
-                               lambda: ops.fused_ws_block_lanes(*args)))
+                           split_ms=cs.launch_split(
+                               lambda: ops.fused_ws_block_lanes(*args), dev))
             _record(out, fails, "k3bl",
                     dict(shape=label, n=n, p=p, N=N, kernel="K3bl", S=S, T=T,
                          ws=wsz), run)
@@ -488,7 +747,7 @@ def sweep(dev, cfg=SWEEP, kernels=("k1", "k2", "k1b")):
         cd_epoch_xb_cuda, cd_epoch_xb_plain, gram_block_plan, xb_plan)
     from repro_torch.kernels.common import penalty_params
     out = dict(barrier=[], k1=[], k1l_rule=[], k2=[], k1b=[], k1l=[],
-               k1l_k1=[], csc=[], k3bl=[])
+               k1l_k1=[], csc=[], k3bl=[], k2l_rule=[])
     fails = []
     if "k1" in kernels:
         sweep_k1(dev, cfg, out, fails)
@@ -496,6 +755,8 @@ def sweep(dev, cfg=SWEEP, kernels=("k1", "k2", "k1b")):
         sweep_k1l(dev, cfg, out, fails)
     if "k1l_rule" in kernels:
         sweep_k1l_rule(dev, cfg, out, fails)
+    if "k2l_rule" in kernels:
+        sweep_k2l_rule(dev, cfg, out, fails)
     if "csc" in kernels:
         sweep_csc(dev, cfg, out, fails)
     if "k3bl" in kernels:
@@ -592,6 +853,139 @@ def sweep(dev, cfg=SWEEP, kernels=("k1", "k2", "k1b")):
     return out, fails
 
 
+def xb_lane_inputs(S, K, n, dev, seed):
+    """K2l's inputs as (g3) launches it: S lanes of one weighted logistic
+    working set (a weight row a lane), L1 with lam a lane, every lane
+    active. Returns (the wrapper's arguments before w, w)."""
+    import torch
+    from repro_torch.core.penalties import L1
+    Xt, y, _, b0, _, L2, off = cs.xb_inputs(K, n, "logistic", dev, seed=seed)
+    Xt = Xt.expand(S, K, n).contiguous()
+    b0 = b0.expand(S, K).contiguous()
+    Xb0 = (b0[:, None, :] @ Xt)[:, 0]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = 0.5 + torch.rand(S, n, generator=g, device=dev, dtype=torch.float64)
+    return (Xt, y, b0, Xb0, L2.expand(S, K).contiguous(),
+            off.expand(S, K).contiguous(), L1,
+            cs.lane_rows(L1(0.07), S, dev, seed=2),
+            torch.ones(S, dtype=torch.bool, device=dev), "logistic"), w
+
+
+def sweep_k3l(dev, cfg):
+    """K3l at S = 10, n = 10,000, p = 20,000: random lanes (little
+    sharing) and shared lanes (a grid's), each eager, from a graph and
+    split by launch beside torch.mm and index_select, and at the deepest
+    working-set bucket (g1) launches, with U / (S K); the narrow product
+    alone at each count of sample spans (``product_plan``'s pick marked),
+    beside torch.mm. Returns {key: ms or record}."""
+    import torch
+    from repro_torch.core.penalties import L1
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_ws import (_cdiv, card_product_plan,
+                                              product_cuda)
+    c = cs.FULL
+    reps = cfg["reps"] * 10
+    n, p = c["k3_n"], c["k3_p"]
+    out = {}
+    # random lanes (little sharing) and shared lanes (a grid's), each
+    # eager, from a graph and split by launch beside its yardsticks; and
+    # at the deepest working-set bucket (g1) launches
+    S = c["k3l"]["S"]
+    for key, shared, ws, r in (("K3l", False, 1024, reps),
+                               ("K3l shared", True, 1024, reps),
+                               ("K3l deep", True, 16384, 5)):
+        Xt, R, beta, Ls, off, gs, prm = cs.k3l_inputs(S, n, p, dev, 3, shared)
+
+        def call(Xt=Xt, R=R, beta=beta, Ls=Ls, off=off, gs=gs, prm=prm,
+                 ws=ws):
+            return ops.fused_ws_lanes(Xt, R, beta, Ls, off, gs, L1, prm, ws)
+        out[key] = cs.time_ms(call, dev, r)
+        out[key + " graph"] = cs.graph_ms(call, dev, r)
+        wsl = call()[3]
+        out[key + " U/SK"] = cs.distinct_rows(wsl) / wsl.numel()
+        out[key + " index_select"] = cs.time_ms(
+            lambda: Xt.index_select(0, wsl.reshape(-1)), dev, r)
+        if ws == 1024:
+            out[key + " split"] = cs.launch_split(call, dev)
+            out[key + " torch.mm"] = cs.time_ms(lambda: torch.mm(Xt, R), dev,
+                                                r)
+        del Xt, wsl
+        torch.cuda.empty_cache()
+    # the product alone at S columns, at each count of sample spans
+    S = c["k3l"]["S"]
+    Xt, R = cs.k3l_inputs(S, n, p, dev, 3, True)[:2]
+    base = card_product_plan(Xt, S)
+    spans = {}
+    for k in (1, 2, 3, 4, 5, 6, 8, 10, 12, 16):
+        bk = base.tile.bk
+        plan = base._replace(spans=k, span=_cdiv(_cdiv(n, k), bk) * bk,
+                             scratch=k * p * base.ld)
+        spans[k] = cs.time_ms(lambda plan=plan: product_cuda(Xt, R, plan),
+                              dev, reps)
+    out["K3l product by spans"] = dict(picked=base.spans, ms=spans)
+    out["K3l product torch.mm"] = cs.time_ms(lambda: torch.mm(Xt, R), dev,
+                                             reps)
+    del Xt
+    return out
+
+
+def sweep_k2(dev, cfg):
+    """K2 at (K, n) = (512, 10,000), logistic, and at the deep weighted
+    sparse fit's (4096, 50,000); K2l at (S, K, n) = (10, 64 and 128,
+    10,000), weighted logistic, eager and from a graph, with the plan it
+    takes, the card's clusters at once, the waves and the chain floor.
+    Returns {key: ms or record}."""
+    import torch
+    from repro_torch.core.penalties import L1
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.common import penalty_params
+    c = cs.FULL
+    reps = cfg["reps"] * 10
+    out = {}
+    Xt, y, w, beta0, Xb0, L, off = cs.xb_inputs(c["k2_K"], c["k2_n"],
+                                                "logistic", dev, seed=7)
+    args = (Xt, y, beta0, Xb0, L, off, L1, penalty_params(L1(0.07), dev),
+            "logistic")
+    out["K2"] = cs.time_ms(lambda: ops.cd_epoch_xb(*args), dev, reps)
+    # the deep weighted sparse fit's K2 shape
+    Xt, y, w, beta0, Xb0, L, off = cs.xb_inputs(4096, 50_000, "logistic",
+                                                dev, seed=11)
+    args = (Xt, y, beta0, Xb0, L, off, L1, penalty_params(L1(0.07), dev),
+            "logistic")
+    out["K2 K=4096 n=50000"] = cs.time_ms(
+        lambda: ops.cd_epoch_xb(*args, w=w), dev, 5)
+    del Xt
+    # K2l where (g3) launches it (K = 64 and 128; 10 lanes, n = 10,000,
+    # weighted logistic), eager and replayed from a graph
+    # with the plan it takes (the tree's lane plan, or K2's where the tree
+    # has none), the card's clusters at once for it, the waves and the
+    # chain floor (K cluster barriers on its cluster, times the waves)
+    from repro_torch.kernels import cd_epoch as cde
+    S, n = 10, c["k2l"]["n"]
+    for K in (64, 128):
+        args, w = xb_lane_inputs(S, K, n, dev, seed=7)
+        out[f"K2l K={K}"] = cs.time_ms(
+            lambda: ops.cd_epoch_xb_lanes(*args, w=w), dev, cfg["reps"] * 4)
+        out[f"K2l K={K} graph"] = cs.graph_ms(
+            lambda: ops.cd_epoch_xb_lanes(*args, w=w), dev, cfg["reps"] * 4)
+        plan = cde.xb_lanes_plan(S, n, True, torch.float64) \
+            if hasattr(cde, "xb_lanes_plan") else \
+            cde.xb_plan(n, True, torch.float64)
+        at_once = cde.card_capacity("cd_epoch_xb", plan, torch.float64)
+        waves = -(-S // max(1, at_once))
+        out[f"K2l K={K} plan"] = dict(
+            cluster=plan.cluster, threads=plan.threads, per=plan.per,
+            at_once=at_once, waves=waves,
+            floor_ms=waves * K * cs.chain_floor_us(
+                dev, plan.cluster, plan.threads, 10_000) / 1e3)
+        del args
+    out["K2 clusters at once, n=10000 weighted"] = {
+        C: cde.card_capacity("cd_epoch_xb",
+                             cde.xb_plan(n, True, torch.float64, cluster=C),
+                             torch.float64) for C in cde.STEP_DOWN}
+    return out
+
+
 def sweep_heads(dev, cfg):
     """K3 (the head at ws = 1024, and its score launch alone), K4
     (weighted), K3b (T = 20, ws = 512, and the leadfield's T = 50, ws =
@@ -647,16 +1041,7 @@ def sweep_heads(dev, cfg):
     out["K3b T=50 graph"] = cs.graph_ms(lambda: ops.fused_ws_block(*args),
                                         dev, reps)
     del Xt
-    S = c["k3l"]["S"]
-    Xt, _, _, L, off = cs.fused_inputs(n, p, dev, seed=3)
-    g = torch.Generator(device=dev).manual_seed(8)
-    R = torch.randn(n, S, generator=g, device=dev, dtype=torch.float64)
-    beta = torch.randn(S, p, generator=g, device=dev, dtype=torch.float64) \
-        * (torch.rand(S, p, generator=g, device=dev) < 0.3)
-    prm = cs.lane_rows(L1(0.11), S, dev, seed=9)
-    args = (Xt, R, beta, L.expand(S, p), off, beta != 0, L1, prm, 1024)
-    out["K3l"] = cs.time_ms(lambda: ops.fused_ws_lanes(*args), dev, reps)
-    del Xt
+    out.update(sweep_k3l(dev, cfg))
     t = c["mt_lane_time"]
     for key, (T, n3, p3, ws3) in (
             ("K3bl", (t["T"], b["n"], b["p"], t["ws"])),
@@ -690,11 +1075,7 @@ def sweep_heads(dev, cfg):
         args = (G, cc, beta0, q0, L, L1, penalty_params(L1(0.11), dev))
         out[f"K1 K={K}"] = cs.time_ms(lambda: ops.cd_epoch_gram(*args), dev,
                                       reps)
-    Xt, y, w, beta0, Xb0, L, off = cs.xb_inputs(c["k2_K"], c["k2_n"],
-                                                "logistic", dev, seed=7)
-    args = (Xt, y, beta0, Xb0, L, off, L1, penalty_params(L1(0.07), dev),
-            "logistic")
-    out["K2"] = cs.time_ms(lambda: ops.cd_epoch_xb(*args), dev, reps)
+    out.update(sweep_k2(dev, cfg))
     G, cc, beta0, q0, L = cs.gram_block_inputs(1024, c["k1b_T"], dev,
                                                seed=1024)
     args = (G, cc, beta0, q0, L, BlockL1, penalty_params(BlockL1(0.11), dev))
@@ -739,24 +1120,6 @@ def sweep_heads(dev, cfg):
         out[f"K1b K={K} T={T} graph"] = cs.graph_ms(
             lambda: ops.cd_epoch_gram_block(*args), dev, cfg["reps"] * 4)
     del G
-    # K2l where (g3) launches it (K = 64 and 128; 10 lanes, n = 10,000,
-    # weighted logistic), eager and replayed from a graph
-    S, n = 10, c["k2l"]["n"]
-    for K in (64, 128):
-        Xt, y, _, b0, _, L2, off = cs.xb_inputs(K, n, "logistic", dev, seed=7)
-        Xt = Xt.expand(S, K, n).contiguous()
-        b0 = b0.expand(S, K).contiguous()
-        Xb0 = (b0[:, None, :] @ Xt)[:, 0]
-        w = 0.5 + torch.rand(S, n, device=dev, dtype=torch.float64)
-        args = (Xt, y, b0, Xb0, L2.expand(S, K).contiguous(),
-                off.expand(S, K).contiguous(), L1,
-                cs.lane_rows(L1(0.07), S, dev, seed=2),
-                torch.ones(S, dtype=torch.bool, device=dev), "logistic")
-        out[f"K2l K={K}"] = cs.time_ms(
-            lambda: ops.cd_epoch_xb_lanes(*args, w=w), dev, cfg["reps"] * 4)
-        out[f"K2l K={K} graph"] = cs.graph_ms(
-            lambda: ops.cd_epoch_xb_lanes(*args, w=w), dev, cfg["reps"] * 4)
-        del Xt
     # the one-CTA chain floor (a tree where the parent tree has none)
     from repro_torch.kernels import cd_epoch
     if hasattr(cd_epoch, "gram_block_chain_floor_cuda"):
@@ -770,9 +1133,23 @@ def sweep_heads(dev, cfg):
     return out
 
 
+def k2trace(here, src):
+    """Stamp a copy of `src` (this tree's src by default) into
+    build/k2trace/<name> and run ``k2trace_run`` on it in a process of its
+    own (the copy builds its kernels under build/k2trace/build)."""
+    import subprocess
+    src = Path(src).resolve() if src else here / "src"
+    dst = here / "build" / "k2trace" / src.parent.name
+    k2_trace_copy(src, dst)
+    return subprocess.run([sys.executable, str(here / "cd_sweep.py"),
+                           "k2trace_run", f"--src={dst}"]).returncode
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     src = [a.split("=", 1)[1] for a in sys.argv[1:] if a.startswith("--src=")]
+    if sys.argv[1:2] == ["k2trace"]:
+        return k2trace(here, src[0] if src else None)
     sys.path.insert(0, str(Path(src[0]).resolve() if src else here / "src"))
     import torch
     if not torch.cuda.is_available():
@@ -786,6 +1163,24 @@ def main() -> int:
         or ("k1", "k2", "k1b")
     if kernels == ("heads",):
         sweep_heads(torch.device("cuda"), SWEEP)
+        return 0
+    if kernels == ("k2",):
+        cs.log(f"sweep k2 {json.dumps(sweep_k2(torch.device('cuda'), SWEEP))}")
+        return 0
+    if kernels == ("k3l",):
+        cs.log(f"sweep k3l {json.dumps(sweep_k3l(torch.device('cuda'), SWEEP))}")
+        return 0
+    if kernels == ("k2trace_run",):
+        cu = Path(src[0]) / "repro_torch" / "csrc" / "cd_epoch.cu"
+        text = cu.read_text()
+        a = text.index("    cd_xb_cluster_kernel(")
+        which = "change" if "st_async_remote" in \
+            text[a:text.index("// K1b on a cluster.", a)] else "parent"
+        sweep_k2trace(torch.device("cuda"),
+                      [name for _, _, name in _K2_STAMPS[which][1:]])
+        return 0
+    if kernels == ("csc_walls",):
+        sweep_csc_walls(torch.device("cuda"))
         return 0
     if kernels == ("mgrids",):
         # the multitask lane runs (m1)-(m4) of chip_smoke.py alone, with

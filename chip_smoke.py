@@ -65,13 +65,17 @@ Phases, each of which must pass (any failure exits non-zero):
    NaN-filled before the first launch, run twice (the kernel must be
    deterministic), on it and on a small design with empty columns and
    columns at the window cap, where each must also equal the torch
-   emulation of its summation order (``csc_score.emulate``) bit for bit.
-   Then, on both routes with the checks of
+   emulation of its summation order (``csc_score.emulate``) bit for bit;
+   K5r (``csc_row_sum``, the design's ``matvec`` at [p] and [p, 20] and
+   its ``update_xb`` on a 2048-column working set) on both designs, run
+   twice for equal bits and equal bit for bit to the CPU route
+   (``index_add_``, which adds in its order). Then, on both routes with the checks of
    phase 4, a Lasso at lambda_max/10 and a weighted sparse logistic
    regression at lambda_max/3, the same two at lambda_max/300 and
    lambda_max/30 (working sets of 2048 and 4096 columns), and a LinearSVC
    on a scipy sparse X (label-signed Z^T converted by the estimator): the
-   kernel route must launch K5 on every outer head, K5s once in each
+   kernel route must launch K5 on every outer head (and K5r in the
+   Lasso fits), K5s once in each
    weighted fit, K1 (Lasso, SVC: once for every inner epoch) or K2
    (logistic, on a cluster), and never K3. The deep logistic fit is held
    to its eager oracle bit for bit; the shallow one is run with 16 CTAs
@@ -128,7 +132,8 @@ Phases, each of which must pass (any failure exits non-zero):
    per-coordinate Python epochs take 4-5 minutes a penalty for the whole
    grid on an H100), each penalty's best F1 printed; (c) a gap-safe
    screened Lasso path on the full ``sparse_fig2`` design (6 lambdas to
-   lambda_max/20, tol 1e-9) within 1e-7 of the unscreened one, its
+   lambda_max/20, tol 1e-9) within 1e-7 of the unscreened one, the
+   screened path run twice for equal bits (the CSC sums in a fixed order), its
    screened fractions printed (their maximum above 0.1) and each (bucket,
    slot design) key captured once, then the same on a grid of 20
    lambdas, where survivors keep their power-of-two width from one lambda
@@ -147,15 +152,19 @@ Phases, each of which must pass (any failure exits non-zero):
    waves printed; K1's and K1l's registers and local bytes a thread
    (``cudaFuncGetAttributes``, every penalty, one CTA and the cluster): a
    K1l instance with more local memory than K1's fails;
-   K2l (``cd_epoch_xb_lanes``) at S = 10, K = 512,
-   n = 10,000, weighted logistic with a weight row a lane, bit for bit per
-   lane against K2 and within K2's bound; K3l (``fused_ws_lanes``) at S =
+   K2l (``cd_epoch_xb_lanes``, on its lane plan ``xb_lanes_plan``) at
+   S = 10, K = 512, n = 10,000, weighted logistic with a weight row a
+   lane, bit for bit per lane against K2 forced to that plan and within
+   K2's bound; K3l (``fused_ws_lanes``) at S =
    10 on the K3 shapes, ws 64 and 1024, random and tied-integer data,
    within K3's bounds (equal on the integers), cand_idx exact, each lane's
    working set ``select_working_set`` of its plain scores and its rows bit
    for bit, and at S = 50 (the (g4) lanes: the wide product) on random
    data at ws 1024 within 1e-12 + 1e-12 |ref| (scores) and 1e-12 + 1e-10
-   |ref| (gradient), cand_idx, working sets and rows exact. Then the
+   |ref| (gradient), cand_idx, working sets and rows exact; K3g
+   (``ws_gather``, K3l's gather of its lanes' rows) at S = 10, ws 64 and
+   1024, random and shared lanes, equal to ``index_select`` of the S K rows
+   bit for bit, with U / (S K) printed. Then the
    grids at full width on the kernel route, each with
    its wall time, rounds, occupancy, dispatches, outer steps, captures and
    their seconds, peak memory, alpha_ and launches printed, held to
@@ -166,15 +175,16 @@ Phases, each of which must pass (any failure exits non-zero):
    sequential path on their row subsets, and its BIC selection (the
    chunked path, 2 lanes) bit for bit; (g2) ``LassoCV(cv=5, n_alphas=10,
    eps=0.1, vmap_chunk=2)`` on ``sparse_fig2`` (K5b at T = 10, K1l, K5s
-   once a fold); (g3) ``SparseLogisticRegressionCV(cv=5, n_alphas=10,
+   once a fold; lambda_max twice and the grid twice, equal bits); (g3) ``SparseLogisticRegressionCV(cv=5, n_alphas=10,
    eps=1/3, vmap_chunk=2)`` on ``make_classification(n=10000, p=20000)``
    (K3l + K2l); (g4) the reference's acceptance grid (n = 200, p = 400,
    5 x 30, 50 lanes, tol 1e-8) with its budget contract (one lane count,
    dispatches = reads <= outer steps, an interior minimum), a second grid
    on the same engine and design capturing nothing, and the plain route
    within 1e-6. Each grid's kernels must have launched. The lane epochs'
-   launches over the grids are printed by shape (K rounded up to a power
-   of two, cluster size), here and after 7d.
+   and heads' launches over the grids are printed by shape (K rounded up
+   to a power of two, cluster size or lanes), with K3g's rows filled
+   (S K) and distinct rows read (U) by bucket, here and after 7d.
 7d. multitask lanes: K3bl (``fused_ws_block_lanes``) at S*T = 200
    (n = 10,000, p = 20,000), 500 (the leadfield), an odd 91 (odd n,
    ragged tile) and 25 (one column past 24), BlockL1 and BlockMCP, a
@@ -230,9 +240,14 @@ Phases, each of which must pass (any failure exits non-zero):
    clusters the card runs at once, the waves and its launches by shape;
    beside it K1l at S = 10, K = 256 and 4096 and S = 50, K = 256 and 1024,
    each with one K1 launch at its K), K2l (S = 10, K = 512, n =
-   10,000, weighted logistic) and K3l (S = 10, ws = 1024, with torch.mm
-   of X by the lanes' raw gradients as its library call), each beside S
-   single-lane launches of its kernel on the same inputs; K3bl (S = 10,
+   10,000, weighted logistic, on its lane plan, with the card's clusters
+   at once and the waves) and K3l (S = 10, ws = 1024, random lanes, with
+   torch.mm of X by the lanes' raw gradients as its library call; split
+   by launch with torch.profiler, at shared lanes and at (g1)'s deepest
+   bucket too, U / (S K) and both bounds: the S K rows read and written,
+   or U read and S K written), each beside S single-lane launches of its
+   kernel on the same inputs; K3g (shared lanes, beside index_select);
+   K5r (matvec on sparse_fig2, beside a CSR sparse product); K3bl (S = 10,
    T = 20, K3b's shape, and at the leadfield's S*T = 500) beside ten K3b
    heads, with its product launches a call (counted by torch.profiler
    over one call) and its scratch bytes, and K3b alone at the leadfield's
@@ -302,7 +317,9 @@ FULL = dict(k1_sizes=(256,),
             # K1l forced to each cluster size its lane plan can choose
             k1l_sizes=dict(S=10, K=(1024, 4096)),
             k2l=dict(S=10, K=512, n=10_000),
-            k3l=dict(S=10, ws=(64, 1024), wide_S=50),
+            # K3l's lanes; its row also at (g1)'s deepest working-set
+            # bucket
+            k3l=dict(S=10, ws=(64, 1024), wide_S=50, deep_ws=16384),
             lane_time=dict(S=10, K1=1024,
                            k1l_other=((10, 256), (50, 256), (50, 512),
                                       (50, 1024), (10, 4096))),
@@ -449,6 +466,37 @@ def fused_inputs(n, p, dev, seed, ties=False):
             * (torch.rand(p, generator=g, device=dev) < 0.3)
     L = torch.clamp(torch.sum(Xt * Xt, dim=1) / n, min=1e-12)
     return Xt, r, beta, L, torch.zeros(p, dtype=torch.float64, device=dev)
+
+
+def k3l_inputs(S, n, p, dev, seed, shared):
+    """K3l's inputs at S lanes: Xt [p, n], R [n, S], beta [S, p], L (one
+    row, broadcast), offset, gsupp and L1 codec rows (lam a lane). Random
+    lanes: independent Gaussian raw gradients and betas (30% nonzero, a
+    support each). Shared lanes, as a grid's folds at neighbouring
+    lambdas: one raw gradient plus per-lane noise of 1e-3 of its scale and
+    one support of 1% of the features (each lane's values perturbed)."""
+    import torch
+    from repro_torch.core.penalties import L1
+    Xt, r, _, L, off = fused_inputs(n, p, dev, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    f64 = dict(generator=g, device=dev, dtype=torch.float64)
+    if shared:
+        R = r[:, None] + 1e-3 * torch.std(r) * torch.randn(n, S, **f64)
+        supp = torch.rand(p, generator=g, device=dev) < 0.01
+        beta = (torch.randn(p, **f64) * supp)[None] * \
+            (1 + 1e-3 * torch.randn(S, p, **f64))
+    else:
+        R = torch.randn(n, S, **f64)
+        beta = torch.randn(S, p, **f64) * \
+            (torch.rand(S, p, generator=g, device=dev) < 0.3)
+    return (Xt, R.contiguous(), beta, L.expand(S, p), off, beta != 0,
+            lane_rows(L1(0.11), S, dev, seed=seed))
+
+
+def distinct_rows(ws):
+    """U: the distinct features the lanes' working sets ws [S, K] hold."""
+    import torch
+    return int(torch.unique(ws).numel())
 
 
 # ----------------------------------------------------------- kernel checks
@@ -836,6 +884,50 @@ def check_k5(dev, designs, errs):
     return fails
 
 
+def check_k5r(dev, designs, errs):
+    """K5r (``csc_row_sum``), the CSC scatters summed in a fixed order:
+    ``matvec`` (beta [p] and [p, 20]) and ``update_xb`` (the windows of a
+    working set of 2048 columns, delta [K]) on the card, twice (equal
+    bits) and against the design's CPU route (``index_add_``, which adds
+    in the same order) bit for bit; updates `errs`, returns the
+    failures."""
+    import numpy as np
+    import torch
+    fails = []
+    errs["csc_row_sum"] = 0.0
+    for label, d in designs:
+        dc = d.to("cpu")
+        rng = np.random.default_rng(12)
+        for shape in ((d.width,), (d.width, 20)):
+            beta = torch.as_tensor(rng.standard_normal(shape) * (rng.random(
+                shape[:1]) < 0.01).reshape((-1,) + (1,) * (len(shape) - 1)))
+            k = [d.matvec(beta.to(dev)) for _ in range(2)]
+            want = dc.matvec(beta)
+            same = bool(torch.equal(k[0], k[1])
+                        and torch.equal(k[0].cpu(), want))
+            e = float(torch.max(torch.abs(k[0].cpu() - want)))
+            errs["csc_row_sum"] = max(errs["csc_row_sum"], e)
+            if not same:
+                fails.append(f"K5r {label} matvec {shape}: err={e:.3e}, "
+                             f"not the CPU route's bits or not repeated")
+        K = min(2048, d.width)
+        ws = torch.as_tensor(rng.choice(d.width, K, replace=False))
+        _, aux = d.gather_ws(ws.to(dev))
+        _, auxc = dc.gather_ws(ws)
+        delta = torch.as_tensor(rng.standard_normal(K))
+        Xb = torch.as_tensor(rng.standard_normal(d.n_rows))
+        k = [d.update_xb(Xb.to(dev), None, aux, delta.to(dev))
+             for _ in range(2)]
+        want = dc.update_xb(Xb, None, auxc, delta)
+        e = float(torch.max(torch.abs(k[0].cpu() - want)))
+        errs["csc_row_sum"] = max(errs["csc_row_sum"], e)
+        if not (torch.equal(k[0], k[1]) and torch.equal(k[0].cpu(), want)):
+            fails.append(f"K5r {label} update_xb K={K}: err={e:.3e}, not "
+                         f"the CPU route's bits or not repeated")
+        del dc
+    return fails
+
+
 # --------------------------------------------------------------- main path
 def all_counts():
     """The launch counts of every kernel, and those of K1, K2 and K1b by
@@ -1203,7 +1295,8 @@ def sparse_path(dev, cfg, d, y):
             alpha=lmax_log / k_log, **k)
         fit_both(f"sparse Lasso(lmax/{k_lasso})",
                  lambda **k: Lasso(alpha=lmax / k_lasso, **k),
-                 d, y, dev, total, fails, ("csc_score", "cd_epoch_gram"),
+                 d, y, dev, total, fails,
+                 ("csc_score", "cd_epoch_gram", "csc_row_sum"),
                  exact={"fused_ws": 0, "csc_weighted_col_sq": 0},
                  per_head="csc_score", per_epoch="cd_epoch_gram")
         label = f"sparse SparseLogisticRegression(lmax/{k_log}, weighted)"
@@ -1476,12 +1569,7 @@ def run_path(label, call, dev, total=None):
     wall = time.perf_counter() - t
     counts = all_counts()
     if total is not None:
-        for k in total:
-            total[k] += counts[k]
-        for k, per in ops.shape_counts().items():
-            mine = SHAPES.setdefault(k, {})
-            for shape, n in per.items():
-                mine[shape] = mine.get(shape, 0) + n
+        add_counts(total, counts)
     peak, reserved = (torch.cuda.max_memory_allocated() / 2**30,
                       torch.cuda.max_memory_reserved() / 2**30) \
         if dev.type == "cuda" else (float("nan"), float("nan"))
@@ -1640,6 +1728,18 @@ def path_phase(dev, cfg, sparse_design, sparse_y):
         sc, _ = run_path(f"screened,   {n_lam} lambdas", lambda: reg_path(
             sparse_design, sparse_y, L1(1.0), screen="gap_safe", **kw), dev,
             total)
+        if n_lam == c["n_lambdas"]:
+            # CSC sums in a fixed order on the card (K5r, and lambda_max's
+            # walk): a second run gives the same bits
+            sc2, _ = run_path(f"screened,   {n_lam} lambdas, again",
+                              lambda: reg_path(sparse_design, sparse_y,
+                                               L1(1.0), screen="gap_safe",
+                                               **kw), dev, total)
+            again = bool(np.array_equal(sc.betas, sc2.betas)
+                         and np.array_equal(sc.lambdas, sc2.lambdas))
+            log(f"  {tag} screened, run twice: equal bits {again}")
+            if not again:
+                fails.append(f"{tag}: two screened runs differ")
         converged(f"{tag} unscreened", uc, c["tol"])
         converged(f"{tag} screened", sc, c["tol"])
         within(f"{tag} screened vs unscreened", sc.betas, uc.betas, 1e-7)
@@ -1811,11 +1911,14 @@ def check_lane_kernels(dev, cfg, errs):
     from repro_torch.core.working_set import select_working_set
     from repro_torch.kernels import ops
     from repro_torch.kernels.cd_epoch import (cd_epoch_gram_plain,
-                                              cd_epoch_xb_lanes_plain)
+                                              cd_epoch_xb_cuda,
+                                              cd_epoch_xb_lanes_plain,
+                                              xb_lanes_plan)
     from repro_torch.kernels.fused_ws import (fused_ws_lanes_plain,
                                               fused_ws_plain)
     fails = []
-    for k in ("cd_epoch_gram_lanes", "cd_epoch_xb_lanes", "fused_ws_lanes"):
+    for k in ("cd_epoch_gram_lanes", "cd_epoch_xb_lanes", "fused_ws_lanes",
+              "ws_gather"):
         errs[k] = 0.0
 
     def note(key, a, b, atol, rtol, tag):
@@ -1888,12 +1991,19 @@ def check_lane_kernels(dev, cfg, errs):
                                      active, "logistic", w=w, epochs=1)
     note("cd_epoch_xb_lanes", b, bp, 1e-11, 1e-8, f"K2l S={S} K={K} beta")
     note("cd_epoch_xb_lanes", x, xp, 1e-11, 1e-8, f"K2l S={S} K={K} Xb")
+    # K2 forced to K2l's lane plan: the same cluster, the same sums
+    plan = xb_lanes_plan(S, n, True, torch.float64)
+    log(f"  K2l lane plan at S={S}, n={n}: {plan}")
     for s in range(S):
         if bool(active[s]):
-            bs, xs = ops.cd_epoch_xb(Xt[s], y, beta0[s], Xb0[s], L[s], off[s],
-                                     L1, prm[s], "logistic", w=w[s], epochs=1)
+            bs, xs = cd_epoch_xb_cuda(Xt[s], y, beta0[s], Xb0[s], L[s],
+                                      off[s], L1, prm[s], "logistic",
+                                      w=w[s], epochs=1, plan=plan) \
+                if dev.type == "cuda" else ops.cd_epoch_xb(
+                    Xt[s], y, beta0[s], Xb0[s], L[s], off[s], L1, prm[s],
+                    "logistic", w=w[s], epochs=1)
             if not (torch.equal(b[s], bs) and torch.equal(x[s], xs)):
-                fails.append(f"K2l lane {s}: not K2 bit for bit")
+                fails.append(f"K2l lane {s}: not K2 at its plan bit for bit")
         elif not (torch.equal(b[s], beta0[s]) and torch.equal(x[s], Xb0[s])):
             fails.append(f"K2l frozen lane {s} changed")
     del Xt
@@ -1968,6 +2078,29 @@ def check_lane_kernels(dev, cfg, errs):
             S = c3["S"]
         del Xt
     log(f"  K3l checks: {time.perf_counter() - t:.1f} s")
+
+    # K3g: the gather of the lanes' rows against index_select, bit for bit
+    t = time.perf_counter()
+    S = c3["S"]
+    for shared in (False, True):
+        Xt, R, beta, Ls, off, gs, prm = k3l_inputs(S, n, p, dev, 13, shared)
+        for ws in c3["ws"]:
+            wsl = ops.fused_ws_lanes(Xt, R, beta, Ls, off, gs, L1, prm,
+                                     ws)[3]
+            got = ops.ws_gather(Xt, wsl)
+            want = Xt.index_select(0, wsl.reshape(-1)).view(S, ws, n)
+            e = float(torch.max(torch.abs(got - want)))
+            errs["ws_gather"] = max(errs["ws_gather"], e)
+            U = distinct_rows(wsl)
+            log(f"  K3g S={S} ws={ws} {'shared' if shared else 'random'} "
+                f"lanes: U/(S K) = {U}/{S * ws} = {U / (S * ws):.4f}, equal "
+                f"to index_select {torch.equal(got, want)}")
+            if not torch.equal(got, want):
+                fails.append(f"K3g S={S} ws={ws} shared={shared}: not "
+                             f"index_select's rows bit for bit")
+            del got, want
+        del Xt
+    log(f"  K3g checks: {time.perf_counter() - t:.1f} s")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return fails
@@ -1977,6 +2110,50 @@ def check_lane_kernels(dev, cfg, errs):
 # power of two, the cluster size) over the captured kernel-route grids
 # run_grid counts into a total
 SHAPES: dict = {}
+# K3g's launches, rows filled and distinct rows read by working-set
+# bucket over the same runs ("K=<K>": {launches, rows, distinct})
+GATHERS: dict = {}
+
+
+def add_counts(total, counts):
+    """Add a run's launch counts to `total`, and its lane shapes and
+    gathers to SHAPES and GATHERS."""
+    from repro_torch.kernels import ops
+    for k in total:
+        total[k] += counts[k]
+    for k, per in ops.shape_counts().items():
+        mine = SHAPES.setdefault(k, {})
+        for shape, n in per.items():
+            mine[shape] = mine.get(shape, 0) + n
+    for key, got in ops.gather_counts().items():
+        mine = GATHERS.setdefault(key, dict.fromkeys(got, 0))
+        for f, v in got.items():
+            mine[f] += v
+
+
+def launch_split(fn, dev, calls=5):
+    """Device ms a call of `fn` by kernel (``torch.profiler`` over `calls`
+    warm calls; self device time, the kernel's name without its namespace
+    and arguments); None without a card."""
+    import re
+    import torch
+    if dev.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        if us > 0:
+            m = re.search(r"(\w+)(<[^(]*>)?\(", e.key)
+            name = m.group(1) if m else e.key
+            split[name] = split.get(name, 0.0) + us / 1e3 / calls
+    return split
 
 
 def run_grid(label, call, dev, total=None):
@@ -2000,12 +2177,7 @@ def run_grid(label, call, dev, total=None):
     wall = time.perf_counter() - t
     counts = all_counts()
     if total is not None:
-        for k in total:
-            total[k] += counts[k]
-        for k, per in ops.shape_counts().items():
-            mine = SHAPES.setdefault(k, {})
-            for shape, n in per.items():
-                mine[shape] = mine.get(shape, 0) + n
+        add_counts(total, counts)
     peak, reserved = (torch.cuda.max_memory_allocated() / 2**30,
                       torch.cuda.max_memory_reserved() / 2**30) \
         if dev.type == "cuda" else (float("nan"), float("nan"))
@@ -2099,7 +2271,8 @@ def grid_phase(dev, cfg, sparse_design, sparse_y):
         f"{cfg['reg_p']})")
     k1, counts, walls["g1"] = run_grid("kernels", lambda: LassoCV(**kw).fit(
         design, y), dev, total)
-    need("grid (g1)", counts, ("fused_ws_lanes", "cd_epoch_gram_lanes"))
+    need("grid (g1)", counts, ("fused_ws_lanes", "ws_gather",
+                               "cd_epoch_gram_lanes"))
     o1, _, _ = run_grid("oracle ", lambda: LassoCV(
         engine=eager(Quadratic()), **kw).fit(design, y), dev)
     held("grid (g1)", k1, o1, TOL)
@@ -2135,10 +2308,12 @@ def grid_phase(dev, cfg, sparse_design, sparse_y):
         torch.cuda.empty_cache()
 
     # (g2) LassoCV on sparse_fig2: K5b at T = 10, K1l, K5s a fold. The
-    # alphas are made once: lambda_max's plain CSC score pass adds with
-    # atomics on the card, so two fits' grids can differ in the last bit
+    # alphas are made from lambda_max, whose CSC score pass walks in a
+    # fixed order (K5): two calls give one lambda, two grids the same bits
     c = cfg["g2"]
     lmax = lambda_max(sparse_design, sparse_y, device=dev)
+    if lambda_max(sparse_design, sparse_y, device=dev) != lmax:
+        fails.append("grid (g2): two lambda_max calls differ")
     kw = dict(cv=c["cv"], alphas=lmax * np.geomspace(1.0, c["eps"],
                                                      c["n_alphas"]),
               vmap_chunk=c["vmap_chunk"], tol=TOL, device=dev)
@@ -2155,6 +2330,14 @@ def grid_phase(dev, cfg, sparse_design, sparse_y):
     o2, _, _ = run_grid("oracle ", lambda: LassoCV(
         engine=eager(Quadratic()), **kw).fit(sparse_design, sparse_y), dev)
     held("grid (g2)", k2, o2, TOL)
+    k2b, _, walls["g2 again"] = run_grid("again  ", lambda: LassoCV(
+        **kw).fit(sparse_design, sparse_y), dev, total)
+    g2a, g2b = k2.grid_result_, k2b.grid_result_
+    again = bool(np.array_equal(g2a.betas, g2b.betas)
+                 and np.array_equal(g2a.cv_loss, g2b.cv_loss))
+    log(f"  grid (g2) run twice: equal bits {again}")
+    if not again:
+        fails.append("grid (g2): two runs differ")
 
     # (g3) SparseLogisticRegressionCV on make_classification: K3l + K2l
     c = cfg["g3"]
@@ -2217,8 +2400,9 @@ def grid_phase(dev, cfg, sparse_design, sparse_y):
                      f"route")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    log(f"  lane epochs' launches by shape over (g1)-(g4): "
-        f"{json.dumps(SHAPES)}")
+    log(f"  lane epochs' and heads' launches by shape over (g1)-(g4): "
+        f"{json.dumps(SHAPES)}; K3g's gathers by bucket (rows: S K, "
+        f"distinct: U): {json.dumps(GATHERS)}")
     return total, walls, fails
 
 
@@ -2253,23 +2437,28 @@ def k1l_shapes(dev, cfg, reps):
 
 
 def lane_times(dev, cfg, launches, errs, card):
-    """The rows of K1l, K2l and K3l at S = 10 lanes: K1l at K = 1024
+    """The rows of K1l, K2l, K3l and K3g at S = 10 lanes: K1l at K = 1024
     (L1, 1 epoch) beside ten K1 launches; K2l at (K, n) = (512, 10,000)
-    (weighted logistic) beside ten K2 launches; K3l at ws = 1024 beside
-    ten K3 heads, with torch.mm(Xt, R) as the library call. Bounds: K1l
-    and K2l S times their single lane's bytes and operations (chain floor:
-    K1's or K2's per lane, times the waves of lanes the card runs at
-    once); K3l X once, R, beta, L and gsupp read, scores, grad and ws
-    written, the S K rows read and written once (the gather)."""
+    (weighted logistic, its lane plan) beside ten K2 launches on that
+    plan; K3l at ws = 1024 beside ten K3 heads, with torch.mm(Xt, R) as
+    the library call, split by launch, at random and shared lanes and at
+    (g1)'s deepest bucket; K3g at the shared lanes beside index_select.
+    Bounds: K1l and K2l S times their single lane's bytes and operations
+    (chain floor: K1's or K2's per lane, times the waves of lanes the card
+    runs at once); K3l X once, R, beta, L and gsupp read, scores, grad and
+    ws written, and its rows: U distinct rows read and S K written (K3g's;
+    ``bound_old_ms``: the S K rows read and written)."""
     import torch
     from repro_torch.core.penalties import L1
     from repro_torch.kernels import ops
     from repro_torch.kernels.cd_epoch import (cd_epoch_gram_lanes_plain,
+                                              cd_epoch_xb_cuda,
                                               cd_epoch_xb_lanes_plain,
                                               gram_chain_floor_cuda,
                                               gram_lanes_plan, lane_capacity,
-                                              xb_plan)
-    from repro_torch.kernels.fused_ws import fused_ws_lanes_plain, pick_bp
+                                              xb_lanes_plan)
+    from repro_torch.kernels.fused_ws import (fused_ws_lanes_plain,
+                                              gather_bytes, pick_bp)
     reps = cfg["reps"]
     S, K = cfg["lane_time"]["S"], cfg["lane_time"]["K1"]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count \
@@ -2318,7 +2507,7 @@ def lane_times(dev, cfg, launches, errs, card):
         other_shapes=k1l_shapes(dev, cfg, reps)))
     del G
 
-    # K2l
+    # K2l, on its lane plan
     c2 = cfg["k2l"]
     K2, n = c2["K"], c2["n"]
     Xt, y, _, b0, _, L2, off = xb_inputs(K2, n, "logistic", dev, seed=7)
@@ -2331,16 +2520,18 @@ def lane_times(dev, cfg, launches, errs, card):
     prm = lane_rows(L1(0.07), S, dev, seed=2)
     args = (Xt, y, b0, Xb0, L2, off, L1, prm, on, "logistic")
     ms = time_ms(lambda: ops.cd_epoch_xb_lanes(*args, w=w), dev, reps)
-    ten = time_ms(lambda: [ops.cd_epoch_xb(Xt[s], y, b0[s], Xb0[s], L2[s],
-                                           off[s], L1, prm[s], "logistic",
-                                           w=w[s]) for s in range(S)],
-                  dev, reps)
+    replay = graph_ms(lambda: ops.cd_epoch_xb_lanes(*args, w=w), dev, reps)
+    plan = xb_lanes_plan(S, n, True, torch.float64)
+    ten = time_ms(lambda: [cd_epoch_xb_cuda(
+        Xt[s], y, b0[s], Xb0[s], L2[s], off[s], L1, prm[s], "logistic",
+        w=w[s], plan=plan) for s in range(S)], dev, reps) \
+        if dev.type == "cuda" else None
     plain = time_ms(lambda: cd_epoch_xb_lanes_plain(*args, w=w), dev, 1)
     moved = int(torch.sum(ops.cd_epoch_xb_lanes(*args, w=w)[0] != b0))
     b = bound(8 * S * (K2 * n + 4 * n + 5 * K2),
               2 * S * K2 * n + 4 * moved * n)
-    plan = xb_plan(n, True, torch.float64)
-    waves = -(-S // max(1, sms // plan.cluster))
+    cap = lane_capacity(plan, torch.float64, 0, dev, "cd_epoch_xb")[0]
+    waves = -(-S // max(1, cap))
     row = dict(
         name="cd_epoch_xb_lanes", route="cuda",
         source="src/repro_torch/csrc/cd_epoch.cu",
@@ -2349,51 +2540,106 @@ def lane_times(dev, cfg, launches, errs, card):
         max_abs_err=errs["cd_epoch_xb_lanes"], ms=ms, plain_ms=plain,
         bound_ms=b[0], bound_by=b[1], library_ms=None,
         library_call="none: no single call", ten_single_ms=ten,
+        graph_ms=replay,
         shape=f"S={S} lanes, K={K2}, n={n}, logistic, weighted a lane, "
               f"epochs=1, L1 (lam a lane), {moved} coordinates moved",
-        lane_waves=waves, **plan_fields(dev, "cd_epoch_xb_lanes", plan, K2,
-                                        launches))
+        lane_waves=waves, clusters_at_once=cap,
+        launches_by_shape=SHAPES.get("cd_epoch_xb_lanes", {}),
+        **plan_fields(dev, "cd_epoch_xb_lanes", plan, K2, launches))
     if row["chain_floor_ms"] is not None:
         row["chain_floor_ms"] *= waves
     rows.append(row)
     del Xt
 
-    # K3l
+    # K3l: random lanes, shared lanes and (g1)'s deepest bucket, each
+    # split by launch, beside torch.mm (the product and reduce's
+    # yardstick) and index_select of the S K rows (the gather's); bounds:
+    # X once, R, beta, L and gsupp read, scores, grad and ws written, and
+    # the S K rows read and written (the old contract) or U rows read and
+    # S K written (K3g's)
     n, p = cfg["k3_n"], cfg["k3_p"]
-    ws = max(cfg["k3l"]["ws"])
-    Xt, _, _, L, off = fused_inputs(n, p, dev, seed=3)
-    g = torch.Generator(device=dev).manual_seed(4)
-    R = torch.randn(n, S, generator=g, device=dev, dtype=torch.float64)
-    beta = torch.randn(S, p, generator=g, device=dev, dtype=torch.float64) \
-        * (torch.rand(S, p, generator=g, device=dev) < 0.3)
-    gs = beta != 0
-    Ls = L.expand(S, p)
-    prm = lane_rows(L1(0.11), S, dev, seed=3)
-    args = (Xt, R, beta, Ls, off, gs, L1, prm, ws)
-    ms = time_ms(lambda: ops.fused_ws_lanes(*args), dev, reps)
-    ten = time_ms(lambda: [ops.fused_ws(Xt, R[:, s].contiguous(), beta[s],
-                                        L, off, gs[s], L1, prm[s], ws)
-                           for s in range(S)], dev, reps)
-    plain = time_ms(lambda: fused_ws_lanes_plain(*args), dev, 1)
-    lib = time_ms(lambda: torch.mm(Xt, R), dev, reps)
+    c3 = cfg["k3l"]
     bp = pick_bp(p)
-    C = -(-p // bp) * min(bp, ws)
-    b = bound(8 * (p * n + S * n + S * p * 3 + p + S * ws
-                   + 2 * S * ws * n) + S * p + 4 * S * C, 2 * S * p * n)
+    heads = {}
+    for key, shared, ws, r in (("random", False, max(c3["ws"]), reps),
+                               ("shared", True, max(c3["ws"]), reps),
+                               ("deep", True, c3["deep_ws"], 3)):
+        Xt, R, beta, Ls, off, gs, prm = k3l_inputs(S, n, p, dev, 3, shared)
+        args = (Xt, R, beta, Ls, off, gs, L1, prm, ws)
+        out = ops.fused_ws_lanes(*args)
+        U = distinct_rows(out[3])
+        C = -(-p // bp) * min(bp, ws)
+        head = 8 * (p * n + S * n + S * p * 3 + p + S * ws) + S * p \
+            + 4 * S * C
+        h = dict(ms=time_ms(lambda: ops.fused_ws_lanes(*args), dev, r),
+                 U=U, SK=S * ws, U_over_SK=U / (S * ws),
+                 bound_old_ms=bound(head + 2 * S * ws * n * 8,
+                                    2 * S * p * n)[0],
+                 bound_ms=bound(head + gather_bytes(S, ws, n, U),
+                                2 * S * p * n)[0],
+                 gather_ms=time_ms(lambda: ops.ws_gather(Xt, out[3]), dev,
+                                   r),
+                 gather_bound_ms=bound(gather_bytes(S, ws, n, U), 0)[0],
+                 index_select_ms=time_ms(lambda: Xt.index_select(
+                     0, out[3].reshape(-1)), dev, r),
+                 index_select_bound_ms=bound(2 * S * ws * n * 8, 0)[0])
+        if key != "deep":
+            h.update(graph_ms=graph_ms(lambda: ops.fused_ws_lanes(*args),
+                                       dev, r),
+                     mm_ms=time_ms(lambda: torch.mm(Xt, R), dev, r),
+                     split=launch_split(lambda: ops.fused_ws_lanes(*args),
+                                        dev))
+        if key == "random":
+            h.update(plain_ms=time_ms(lambda: fused_ws_lanes_plain(*args),
+                                      dev, 1),
+                     ten_single_ms=time_ms(lambda: [ops.fused_ws(
+                         Xt, R[:, s].contiguous(), beta[s], Ls[s].contiguous(),
+                         off, gs[s], L1, prm[s], ws) for s in range(S)], dev,
+                         r))
+        heads[key] = dict(ws=ws, **h)
+        del Xt, out, args
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    main = heads["random"]
     rows.append(dict(
         name="fused_ws_lanes", route="cuda",
         source="src/repro_torch/csrc/fused_ws.cu",
         replaces="src/repro/kernels/fused_ws.py:125",
         launches=launches["fused_ws_lanes"],
-        max_abs_err=errs["fused_ws_lanes"], ms=ms, plain_ms=plain,
-        bound_ms=b[0], bound_by=b[1], library_ms=lib,
+        max_abs_err=errs["fused_ws_lanes"], ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by="bytes", library_ms=main["mm_ms"],
         library_call="torch.mm(Xt, R): the gradient part only",
-        ten_single_ms=ten,
-        shape=f"S={S} lanes, n={n}, p={p}, ws={ws}, bp={bp}, L1 (lam a "
-              f"lane)"))
-    del Xt
+        ten_single_ms=main["ten_single_ms"], graph_ms=main["graph_ms"],
+        shape=f"S={S} lanes, n={n}, p={p}, ws={main['ws']}, bp={bp}, L1 "
+              f"(lam a lane), random lanes",
+        lanes=heads, launches_by_shape=SHAPES.get("fused_ws_lanes", {}),
+        gathers_by_bucket=GATHERS))
+    sh = heads["shared"]
+    rows.append(dict(
+        name="ws_gather", route="cuda",
+        source="src/repro_torch/csrc/fused_ws.cu",
+        replaces="src/repro/kernels/fused_ws.py:125 (fused_ws_pallas's "
+                 "candidate-column copy, under vmap)",
+        launches=launches["ws_gather"], max_abs_err=errs["ws_gather"],
+        ms=sh["gather_ms"], plain_ms=sh["index_select_ms"],
+        bound_ms=sh["gather_bound_ms"], bound_by="bytes",
+        library_ms=sh["index_select_ms"],
+        library_call="Xt.index_select(0, ws.reshape(-1)) (also the plain "
+                     "version)",
+        shape=f"S={S} lanes, n={n}, p={p}, ws={sh['ws']}, shared lanes, "
+              f"U={sh['U']} of S K={sh['SK']}",
+        random_lanes=dict(U=main["U"], ms=main["gather_ms"],
+                          bound_ms=main["gather_bound_ms"],
+                          index_select_ms=main["index_select_ms"]),
+        deep=dict(ws=heads["deep"]["ws"], U=heads["deep"]["U"],
+                  ms=heads["deep"]["gather_ms"],
+                  bound_ms=heads["deep"]["gather_bound_ms"],
+                  index_select_ms=heads["deep"]["index_select_ms"])))
     log_rows(rows, card)
     for row in rows:
+        if row.get("ten_single_ms") is None:
+            continue
         log(f"  {row['name']}: one lane launch {row['ms']:.4f} ms against "
             f"{S} single-lane launches {row['ten_single_ms']:.4f} ms on "
             f"{card}")
@@ -2744,9 +2990,8 @@ def mt_lane_phase(dev, cfg, sparse_design, sparse_Y, card):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    # (m3) sparse_fig2 with T = 20: 5 lanes, K5b at S*T = 100 columns. The
-    # lambdas are made once: lambda_max's plain CSC score pass adds with
-    # atomics on the card, so two grids' lambdas can differ in the last bit
+    # (m3) sparse_fig2 with T = 20: 5 lanes, K5b at S*T = 100 columns, on
+    # one lambda grid (lambda_max walks with K5b: one grid for both runs)
     c = cfg["m3"]
     w = np.random.default_rng(1).uniform(0.5, 1.5, sparse_design.n_rows)
     for sw in (None, w):
@@ -3298,6 +3543,32 @@ def sparse_times(dev, cfg, launches, errs, d):
                          shape=f"n={n}, p={p}, nnz={nnz}, {layout}"
                                + (", square" if square else "")),
                             floor, 32 * nnz))
+    # K5r: X @ beta (matvec) over the design's row order
+    from repro_torch.kernels.csc_score import csc_row_sum_plain
+    order, ptr = d._row_order()
+    E = int(ptr[-1])                  # the entries summed: the padding is not
+    beta = torch.randn(p, generator=g, device=dev, dtype=torch.float64)
+    rargs = (d.data, order, d.col_ids, ptr, beta)
+    ms = time_ms(lambda: ops.csc_row_sum(*rargs), dev, reps)
+    plain = time_ms(lambda: csc_row_sum_plain(*rargs), dev, reps)
+    sel = order[:E].long()
+    Xcsr = torch.sparse_csr_tensor(ptr, d.col_ids[sel].long(), d.data[sel],
+                                   (n, p))
+    lib = time_ms(lambda: Xcsr @ beta, dev, reps)
+    del Xcsr
+    b = bound(E * (8 + 4 + 4) + (n + 1) * 8 + p * 8 + n * 8, 2 * E)
+    rows.append(dict(name="csc_row_sum", route="cuda",
+                     source="src/repro_torch/csrc/csc_score.cu",
+                     replaces="none: the reference's CSC scatter-add "
+                              "(src/repro/sparse/ops.py: csc_matvec, "
+                              "csc_incremental_xb) is an XLA op",
+                     launches=launches["csc_row_sum"],
+                     max_abs_err=errs["csc_row_sum"], ms=ms, plain_ms=plain,
+                     bound_ms=b[0], bound_by=b[1], library_ms=lib,
+                     library_call="a CSR sparse matrix-vector product "
+                                  "(torch.sparse_csr_tensor @ beta)",
+                     shape=f"matvec on sparse_fig2: n={n}, p={p}, {E} "
+                           f"entries"))
     return rows
 
 
@@ -3498,9 +3769,12 @@ def run(dev, cfg):
     X_sparse, beta_true, design, y, small = sparse_designs(dev, cfg)
     t = time.perf_counter()
     fails = check_k5(dev, (("sparse_fig2", design), ("small", small)), errs)
+    fails += check_k5r(dev, (("sparse_fig2", design), ("small", small)),
+                       errs)
     failures += fails
     report("sparse kernels", t, fails,
-           (("csc_score", "K5"), ("csc_weighted_col_sq", "K5s")))
+           (("csc_score", "K5"), ("csc_weighted_col_sq", "K5s"),
+            ("csc_row_sum", "K5r")))
     t = time.perf_counter()
     sparse_launches, fails = sparse_path(dev, cfg, design, y)
     failures += fails
@@ -3541,7 +3815,7 @@ def run(dev, cfg):
     failures += fails
     report("lane kernels", t, fails,
            (("cd_epoch_gram_lanes", "K1l"), ("cd_epoch_xb_lanes", "K2l"),
-            ("fused_ws_lanes", "K3l")))
+            ("fused_ws_lanes", "K3l"), ("ws_gather", "K3g")))
     t = time.perf_counter()
     grid_launches, walls, fails = grid_phase(dev, cfg, design, y)
     failures += fails

@@ -31,12 +31,15 @@ def lambda_max(X, y, datafit=None, sample_weight=None, device=None):
     y = torch.as_tensor(y, dtype=design.dtype, device=device)
     Xb0 = torch.zeros((design.n_rows,) + tuple(y.shape[1:]),
                       dtype=design.dtype, device=device)
+    # a CSC design scores in the walk's fixed order (K5/K5b on a card), so
+    # two calls on one design give one lambda
+    score = design.score_walk if design.KIND == "csc" else design.score
     if sample_weight is None:
-        grad0 = design.score(datafit.raw_grad(Xb0, y))
+        grad0 = score(datafit.raw_grad(Xb0, y))
     else:
         w = normalize_weights(sample_weight, design.n_rows, design.dtype,
                               device)
-        grad0 = design.score(datafit.raw_grad(Xb0, y, w))
+        grad0 = score(datafit.raw_grad(Xb0, y, w))
     if grad0.ndim == 2:
         return float(torch.max(torch.sqrt(torch.sum(grad0 ** 2, dim=-1))))
     return float(torch.max(torch.abs(grad0)))

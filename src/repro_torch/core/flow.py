@@ -158,6 +158,8 @@ class CapturedFlow:
         self.device = _indexed(device)
         self.pools = pools
         self.capture_stream, *self.streams = graph_streams(self.device)
+        # device-side launch statistics must exist before the capture
+        kops.rows_read_counter(self.device)
         self.lib = BUILD.lib("graph_ctl")
         self.depth = 0
         self.scopes = []

@@ -65,21 +65,28 @@
 // ragged slice [r*N/C, (r+1)*N/C) of the state (N = n samples for K2, K rows
 // of q for K1b) and keeps it in its own shared memory for all epochs (in
 // global memory, still C-way split, past the shared-memory capacity). The
-// CTAs agree on each coordinate's step through distributed shared memory
-// behind ONE hardware cluster barrier per coordinate (arrive.release +
+// CTAs agree on each coordinate's step through distributed shared memory:
+// K1b behind ONE hardware cluster barrier per coordinate (arrive.release +
 // wait.acquire), with parity double-buffered slots: a CTA rewrites slot
 // j & 1 only at coordinate j + 2, after barrier j + 1, which every CTA
-// reaches only after reading the slots of j.
-//   K2: each CTA reduces x_j[slice] . raw[slice] (raw kept per sample and
-//   recomputed only where Xb moved, so coordinates with delta = 0 cost no
-//   exp), publishes its partial, and after the barrier warp 0 of EVERY CTA
-//   reads the C partials in rank order 0..C-1 and runs the same coordinate
-//   step, so all CTAs hold the same delta bit for bit; each updates its own
-//   slice. Each CTA keeps its own copy of beta (rank 0's is the output), so
-//   no CTA reads another's beta. While the barrier completes, each thread
-//   loads its samples of x_{j+1} into registers (the register path: 4
-//   samples a thread) or, on longer slices, the CTA prefetches x_{j+1} into
-//   L2; x_{j+2} is prefetched into L2, so the column read is off the chain.
+// reaches only after reading the slots of j; K2 with no barrier at all.
+//   K2: each warp reduces its threads' part of x_j[slice] . raw[slice]
+//   (raw kept per sample, times n, and recomputed only where Xb moved, so
+//   coordinates with delta = 0 cost no exp) and pushes it into every
+//   rank's shared memory by st.async, which completes its bytes on that
+//   rank's mbarrier; EVERY warp of every CTA waits on its own mbarrier,
+//   reads the cluster's C * W warp sums in one fixed order and runs the
+//   same coordinate step, so all threads hold the same delta bit for bit
+//   (in the barrier version this replaced, traced by clock stamps, the
+//   cluster barrier's arrive.release cost ~0.5 us a coordinate, and two
+//   __syncthreads, warp 0's second tree and a rank-order chain of C
+//   shuffles ~0.8 us more; PERF.md section 6); each thread updates its
+//   own samples and adds x_{j+1} . raw for the next coordinate as it goes.
+//   Each CTA keeps its own copy of beta (rank 0's is the output), so no
+//   CTA reads another's beta. While the sums travel, each thread loads its
+//   samples of x_{j+1} into registers (the register path: 4 samples a
+//   thread) or, on longer slices, the CTA prefetches x_{j+1} into L2;
+//   x_{j+2} is prefetched into L2, so the column read is off the chain.
 //   K1b: the owner of row j runs the warp-0 row prox on its local q row and
 //   publishes delta_j and a nonzero flag; after the barrier every CTA copies
 //   delta_j from the owner and updates its own rows in the flat-walk order,
@@ -1075,50 +1082,53 @@ __global__ void __launch_bounds__(1024)
 
 enum DatafitKind { KIND_QUADRATIC = 0, KIND_LOGISTIC = 1, KIND_SVC = 2 };
 
-// the datafit's raw gradient at one sample, as repro_torch.core.datafits
+// the datafit's raw gradient at one sample times n (quadratic, logistic;
+// svc's is not scaled), as repro_torch.core.datafits: the kernel scales
+// each coordinate's dot product by 1 / n once instead of every sample by
+// n, and the logistic's weight and label share its one division
 template <typename T>
-__device__ __forceinline__ T raw_grad(int kind, T xb, T y, const T* w, int i, T n) {
+__device__ __forceinline__ T raw_grad(int kind, T xb, T y, const T* w, int i) {
   if (kind == KIND_QUADRATIC) {
     const T d = xb - y;
-    return (w ? d * w[i] : d) / n;
+    return w ? d * w[i] : d;
   }
-  if (kind == KIND_LOGISTIC) {
-    const T s = T(1.0) / (T(1.0) + exp(-((-y) * xb)));
-    const T v = (-y) * s;
-    return (w ? v * w[i] : v) / n;
-  }
+  if (kind == KIND_LOGISTIC) return (w ? (-y) * w[i] : -y) / (T(1.0) + exp(y * xb));
   return xb;  // svc
-}
-
-// sum over the block, the warp sums added by a fixed shuffle tree in warp 0
-template <typename T>
-__device__ T block_sum_tree(T v, T* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const int nw = (blockDim.x + 31) >> 5;
-    v = lane < nw ? red[lane] : T(0);
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  }
-  return v;  // valid on thread 0 only
 }
 
 // values per thread that the register paths of the cluster kernels hold
 // (K2's samples, K1b's q entries; the plan's `per`), and the largest CTA
 // they run with (so that 85 registers a thread fit)
-constexpr int kXbPer = 4;
+constexpr int kXbPer = 2;
 constexpr int kGramPer = 8;
 constexpr int kPerThreads = 768;
 
 // K2 on a cluster. With PER > 0 every thread owns samples tid + k * bd
 // (k < PER) of its CTA's slice and keeps their x_j values in registers: it
-// loads x_{j+1}'s while the cluster barrier of j completes and reuses x_j's
-// for the axpy. With PER = 0 (slices longer than PER * bd) the same steps
-// read x_j from global memory twice. Dynamic shared memory holds the
-// slices (Xb, raw, y, w: ceil(n / C) values each) on the shared branch and
-// nothing on the global one.
+// loads x_{j+1}'s while the partial sums of j travel and adds x_{j+1} .
+// raw into the next coordinate's sum as it updates raw. With PER = 0
+// (slices longer than PER * bd) the same steps read x from global memory.
+// Dynamic shared memory holds the slots of the cluster's warp sums
+// (2 C W values), then the slices (Xb, raw, y, w: ceil(n / C) values each)
+// on the shared branch and nothing more on the global one.
+// A coordinate has no barrier, neither a CTA's nor the cluster's: each
+// warp sums its threads' products by a shuffle tree and its lanes r < C
+// push the sum into slot [rank][warp] of rank r's shared memory by
+// st.async, which completes its bytes on rank r's mbarrier of that
+// coordinate's parity (its thread 0 expects C W sums a phase); every warp
+// of every CTA waits on its own mbarrier, reads the C W sums in one fixed
+// order (lane l those of index l, l + 32, ...; a butterfly over the lanes,
+// every lane ending with the same bits), scales it by 1 / n and runs the
+// coordinate step (its step and penalty constants prepared from L_j while
+// the previous axpy ran: rt::PreparedStep), so all threads hold the same
+// delta bit for bit. A
+// slot of parity g & 1 (g the coordinate's index in the launch) is pushed
+// again at g + 2 only by a CTA past g + 1, whose sums need every warp of
+// every CTA past its reads of g. Thread 0 writes the CTA's beta; the next
+// coordinate's beta, offset and L are loaded and its step prepared before
+// the axpy (beta_{j+1} was written a phase or more ago, and thread 0's
+// arrive on the mbarrier releases it to the CTA), so no division of it
+// waits on the next coordinate's chain.
 template <typename T, int PER>
 __global__ void __launch_bounds__(PER > 0 ? kPerThreads : 1024)
     cd_xb_cluster_kernel(const T* __restrict__ Xt, const T* __restrict__ y_in,
@@ -1156,18 +1166,21 @@ __global__ void __launch_bounds__(PER > 0 ? kPerThreads : 1024)
   }
   const T p0 = rt::param0<T>(prm), p1 = rt::param1<T>(pen, prm);
   const int lo = split_lo(n, C, rank), m = split_lo(n, C, rank + 1) - lo;
-  const int tid = threadIdx.x, bd = blockDim.x;
+  const int tid = threadIdx.x, bd = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = (bd + 31) >> 5, parts = C * nw;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T part[2];  // this CTA's partial sum, by parity
-  __shared__ T s_delta[1];
-  __shared__ T red[32];
+  // the head of dynamic shared memory: the cluster's warp sums of a
+  // coordinate, [parity][rank][warp] (one offset in every CTA, so a push
+  // lands where its rank reads it); the mbarriers the pushes complete on
+  T* slot = reinterpret_cast<T*>(smem_raw);
+  __shared__ __align__(8) unsigned long long bar[2];
   // scratch: the beta copies of ranks 1..C-1 ([C-1, K]), then (global
   // branch) the raw gradient [n]
   T* beta = rank == 0 ? beta_out : scratch + (long long)(rank - 1) * K;
   T *xb, *raw;
   const T *y, *w = nullptr;
   if (use_smem) {
-    T* a = reinterpret_cast<T*>(smem_raw);
+    T* a = slot + 2 * parts;
     xb = a;
     raw = a + m;
     T* ys = a + 2 * m;
@@ -1178,114 +1191,120 @@ __global__ void __launch_bounds__(PER > 0 ? kPerThreads : 1024)
       for (int i = tid; i < m; i += bd) ws[i] = w_in[lo + i];
       w = ws;
     }
-    __syncthreads();
   } else {
     xb = Xb_out + lo;
     raw = scratch + (long long)(C - 1) * K + lo;
     y = y_in + lo;
     if (w_in) w = w_in + lo;
   }
-  const T nn = T(n);
+  // a thread's samples are its own: staged, updated and read by it alone
   for (int i = tid; i < m; i += bd) {
     const T v = Xb0[lo + i];
     xb[i] = v;
-    raw[i] = raw_grad(kind, v, y[i], w, i, nn);
+    raw[i] = raw_grad(kind, v, y[i], w, i);
   }
   for (int i = tid; i < K; i += bd) beta[i] = beta0[i];
+  if (tid == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   constexpr int kLine = 128 / sizeof(T);
-  T xc[PER > 0 ? PER : 1], xn[PER > 0 ? PER : 1];
+  T xc[PER > 0 ? PER : 1], xn[PER > 0 ? PER : 1] = {};
+  T acc = T(0);  // this thread's part of x_j . raw, for the next coordinate
   if constexpr (PER > 0) {
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
       const int i = tid + k * bd;
       xc[k] = i < m ? Xt[lo + i] : T(0);
+      if (i < m) acc = acc + xc[k] * raw[i];
     }
+  } else {
+    for (int i = tid; i < m; i += bd) acc = acc + Xt[lo + i] * raw[i];
   }
-  __syncthreads();
-  for (int e = 0; e < epochs; ++e) {
-    for (int j = 0; j < K; ++j) {
-      const T* x = Xt + (long long)j * n + lo;
-      T acc = T(0);
+  // every CTA's mbarriers exist before any rank pushes into them
+  cluster_arrive_release();
+  cluster_wait_acquire();
+  const T inv_n = T(1.0) / T(n);
+  const unsigned bytes = (unsigned)(parts * sizeof(T));
+  T bj = beta[0], offj = off[0];
+  rt::PreparedStep<T> st;  // the coordinate's step and penalty constants
+  st.prepare(pen, L[0], p0, p1);
+  const long long last = (long long)epochs * K;
+  for (long long g = 0; g < last; ++g) {
+    const int j = (int)(g % K), par = (int)(g & 1);
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
+    const T v = __shfl_sync(0xffffffffu, acc, 0);
+    if (tid == 0) mbar_arrive_expect_tx(&bar[par], bytes);
+    if (lane < C)
+      st_async_remote(&slot[par * parts + rank * nw + warp], v, &bar[par], (unsigned)lane);
+    // while the sums travel: x_{j+1}'s values into registers (or L2),
+    // x_{j+2}'s slice into L2
+    const int j1 = j + 1 == K ? 0 : j + 1;
+    if (g + 1 < last) {
+      const T* x1 = Xt + (long long)j1 * n + lo;
       if constexpr (PER > 0) {
 #pragma unroll
         for (int k = 0; k < PER; ++k) {
           const int i = tid + k * bd;
-          if (i < m) acc = acc + xc[k] * raw[i];
+          xn[k] = i < m ? x1[i] : T(0);
         }
       } else {
-        for (int i = tid; i < m; i += bd) acc = acc + x[i] * raw[i];
+        for (int i = tid * kLine; i < m; i += bd * kLine) prefetch_l2(x1 + i);
       }
-      const T gsum = block_sum_tree(acc, red);
-      const int par = j & 1;
-      T bj = T(0), gj_off = T(0), Lj = T(0);
-      if (tid == 0) {
-        part[par] = gsum;
-        bj = beta[j];
-        gj_off = off[j];
-        Lj = L[j];
-      }
-      cluster_arrive_release();
-      // while the cluster gathers: x_{j+1}'s values into registers (or L2),
-      // x_{j+2}'s slice into L2
-      const long long step = (long long)e * K + j;
-      const long long last = (long long)epochs * K;
-      if (step + 1 < last) {
-        const T* x1 = Xt + (long long)((j + 1) % K) * n + lo;
-        if constexpr (PER > 0) {
+    }
+    if (PER > 0 && g + 2 < last) {
+      const T* x2 = Xt + (long long)((j1 + 1) % K) * n + lo;
+      for (int i = tid * kLine; i < m; i += bd * kLine) prefetch_l2(x2 + i);
+    }
+    mbar_wait(&bar[par], (unsigned)((g >> 1) & 1));
+    // the cluster's warp sums, rank-major: lane l adds those of index l,
+    // l + 32, ... in order, then a butterfly over the lanes
+    T s = T(0);
+    for (int q = lane; q < parts; q += 32) s = s + slot[par * parts + q];
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const T gj = (kind == KIND_SVC ? s : s * inv_n) + offj;
+    const T nb = st.apply(bj, gj);
+    const T d = nb - bj;
+    if (tid == 0) beta[j] = nb;
+    // the next coordinate's beta (written a phase or more ago), offset,
+    // step and penalty constants, off the chain while the axpy runs
+    bj = K == 1 ? nb : beta[j1];
+    offj = off[j1];
+    st.prepare(pen, L[j1], p0, p1);
+    acc = T(0);
+    if constexpr (PER > 0) {
 #pragma unroll
-          for (int k = 0; k < PER; ++k) {
-            const int i = tid + k * bd;
-            xn[k] = i < m ? x1[i] : T(0);
+      for (int k = 0; k < PER; ++k) {
+        const int i = tid + k * bd;
+        if (i < m) {
+          if (d != T(0)) {
+            const T u = xb[i] + xc[k] * d;
+            xb[i] = u;
+            raw[i] = raw_grad(kind, u, y[i], w, i);
           }
-        } else {
-          for (int i = tid * kLine; i < m; i += bd * kLine) prefetch_l2(x1 + i);
+          acc = acc + xn[k] * raw[i];
         }
       }
-      if (PER > 0 && step + 2 < last) {
-        const T* x2 = Xt + (long long)((j + 2) % K) * n + lo;
-        for (int i = tid * kLine; i < m; i += bd * kLine) prefetch_l2(x2 + i);
-      }
-      cluster_wait_acquire();
-      if (tid < 32) {
-        // lane r fetches rank r's partial; the sum runs in rank order
-        const T v = tid < C ? *cluster.map_shared_rank(part + par, tid) : T(0);
-        T s = T(0);
-        for (int r = 0; r < C; ++r) s = s + __shfl_sync(0xffffffffu, v, r);
-        if (tid == 0) {
-          const T nw = rt::coord_step(pen, bj, s + gj_off, Lj, p0, p1);
-          s_delta[0] = nw - bj;
-          beta[j] = nw;
-        }
-      }
-      __syncthreads();
-      const T d = s_delta[0];
-      if constexpr (PER > 0) {
+#pragma unroll
+      for (int k = 0; k < PER; ++k) xc[k] = xn[k];
+    } else {
+      const T* x = Xt + (long long)j * n + lo;
+      const T* x1 = Xt + (long long)j1 * n + lo;
+      for (int i = tid; i < m; i += bd) {
         if (d != T(0)) {
-#pragma unroll
-          for (int k = 0; k < PER; ++k) {
-            const int i = tid + k * bd;
-            if (i < m) {
-              const T v = xb[i] + xc[k] * d;
-              xb[i] = v;
-              raw[i] = raw_grad(kind, v, y[i], w, i, nn);
-            }
-          }
+          const T u = xb[i] + x[i] * d;
+          xb[i] = u;
+          raw[i] = raw_grad(kind, u, y[i], w, i);
         }
-#pragma unroll
-        for (int k = 0; k < PER; ++k) xc[k] = xn[k];
-      } else if (d != T(0)) {
-        for (int i = tid; i < m; i += bd) {
-          const T v = xb[i] + x[i] * d;
-          xb[i] = v;
-          raw[i] = raw_grad(kind, v, y[i], w, i, nn);
-        }
+        acc = acc + x1[i] * raw[i];
       }
     }
   }
   if (use_smem) {
     for (int i = tid; i < m; i += bd) Xb_out[lo + i] = xb[i];
   }
-  // no CTA leaves while another may still read its partial slots
+  // no CTA leaves while a push into it may be in flight
   cluster_arrive_release();
   cluster_wait_acquire();
 }

@@ -5,8 +5,9 @@
 //
 // Device side: the hardware cluster barrier (arrive.release /
 // wait.acquire), cp.async of one value, mbarriers (init, remote arrive
-// with release at cluster scope, parity wait with acquire at cluster
-// scope).
+// with release at cluster scope, a local arrive that expects bytes, parity
+// wait with acquire at cluster scope), and st.async, a store into another
+// rank's shared memory that completes its bytes on that rank's mbarrier.
 //
 // Host side: the launch configuration of one C-CTA cluster, the card's
 // answer to how many such clusters it can place at once
@@ -61,6 +62,39 @@ __device__ __forceinline__ void mbar_arrive_remote(unsigned long long* b, unsign
       " mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}\n" ::"r"(smem_u32(b)),
       "r"(rank)
       : "memory");
+}
+
+// arrive on this CTA's mbarrier `b` (release at CTA scope) and add `bytes`
+// to the transactions its current phase waits for
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned long long* b, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(bytes)
+               : "memory");
+}
+
+// store v into `slot` of cluster rank `rank` (slot and b: the addresses of
+// the same slot and mbarrier in this CTA) and complete its size in bytes
+// on that rank's mbarrier `b`: a push that needs no cluster barrier
+template <typename T>
+__device__ __forceinline__ void st_async_remote(T* slot, T v, unsigned long long* b,
+                                                unsigned rank) {
+  if constexpr (sizeof(T) == 8) {
+    asm volatile(
+        "{\n .reg .b32 ra, rb;\n mapa.shared::cluster.u32 ra, %0, %3;\n"
+        " mapa.shared::cluster.u32 rb, %1, %3;\n"
+        " st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [ra], %2, [rb];\n}\n" ::"r"(
+            smem_u32(slot)),
+        "r"(smem_u32(b)), "l"(__double_as_longlong((double)v)), "r"(rank)
+        : "memory");
+  } else {
+    asm volatile(
+        "{\n .reg .b32 ra, rb;\n mapa.shared::cluster.u32 ra, %0, %3;\n"
+        " mapa.shared::cluster.u32 rb, %1, %3;\n"
+        " st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [ra], %2, [rb];\n}\n" ::"r"(
+            smem_u32(slot)),
+        "r"(smem_u32(b)), "r"(__float_as_uint((float)v)), "r"(rank)
+        : "memory");
+  }
 }
 
 // wait, with acquire at cluster scope, until the phase of parity `par` of

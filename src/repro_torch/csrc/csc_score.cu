@@ -51,6 +51,23 @@
 // values (at WIDTH = 20, 8 rows with 5 reads a lane; at WIDTH = 1, 128
 // rows with 4), every lane keeping its reads in flight: the floor of the
 // walk, not a bound of the function.
+//
+// K5r (csc_row_sum) is the transpose walk: the CSC scatters of the sparse
+// design, X @ beta (CSCDesign.matvec) and the working set's incremental
+// residual Xb + X_ws delta (CSCDesign.update_xb), as a sum over each row's
+// entries in a fixed order. The reference adds them with a scatter-add
+// (jax .at[].add); the port's plain version is index_add_, which adds with
+// atomics on a CUDA device, so two runs could round differently. Here
+// `order` lists the entries row by row (a stable sort of their row ids,
+// kernels/csc_score.py: row_order) and ptr [rows + 1] bounds each row's
+// run; one thread a (row, task) sums its run in that order from 0.0:
+//   out[i, t] = base[i, t] + sum_e val[x_e] * coef[key(x_e), t]
+// with x_e = order[e], key(x) = keys[x] (matvec: the entry's column) or
+// x / kdiv (update_xb: the window's working-set slot). That is the order in
+// which index_add_ adds on the CPU, so the two agree bit for bit. It
+// replaces no TPU kernel: the reference's scatter is an XLA op. What
+// bounds it: the gathers of each entry's order, value, key and coef (L2
+// latency, several loads of each entry in flight a thread).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -221,6 +238,55 @@ __global__ void l2_gather_kernel(const double* __restrict__ buf, unsigned rows,
   if (acc == -1.0) out[0] = acc;  // keeps the reads; buf holds no negatives
 }
 
+// K5r: one thread a (row, task); four entries' loads in flight
+template <typename T>
+__global__ void __launch_bounds__(256)
+    row_sum_kernel(const T* __restrict__ val, const int* __restrict__ order,
+                   const int* __restrict__ keys, int kdiv, const long long* __restrict__ ptr,
+                   const T* __restrict__ coef, const T* __restrict__ base, T* __restrict__ out,
+                   int rows, int nt) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)rows * nt) return;
+  const int i = (int)(idx / nt), t = (int)(idx - (long long)i * nt);
+  const long long e1 = ptr[i + 1];
+  long long e = ptr[i];
+  T acc = T(0);
+  for (; e + 4 <= e1; e += 4) {
+    int x[4];
+    long long c[4];
+    T v[4], w[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) x[u] = order[e + u];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      v[u] = val[x[u]];
+      c[u] = keys ? keys[x[u]] : x[u] / kdiv;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) w[u] = coef[c[u] * nt + t];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc = acc + v[u] * w[u];
+  }
+  for (; e < e1; ++e) {
+    const int x = order[e];
+    const long long c = keys ? keys[x] : x / kdiv;
+    acc = acc + val[x] * coef[c * nt + t];
+  }
+  out[idx] = base ? base[idx] + acc : acc;
+}
+
+template <typename T>
+int launch_row_sum(const T* val, const int* order, const int* keys, int kdiv,
+                   const long long* ptr, const T* coef, const T* base, T* out, int rows, int nt,
+                   void* stream) {
+  if (rows < 0 || nt < 1 || (!keys && kdiv < 1)) return (int)cudaErrorInvalidValue;
+  const long long threads = (long long)rows * nt;
+  if (threads == 0) return 0;
+  row_sum_kernel<T><<<(unsigned)((threads + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      val, order, keys, kdiv, ptr, coef, base, out, rows, nt);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -252,6 +318,20 @@ int csc_walk_f32(const float* data, const int* indices, const long long* indptr,
                  const float* raw, float* out, int p, int R, int square, int V, int G,
                  void* stream) {
   return launch_walk<float>(data, indices, indptr, raw, out, p, R, square, V, G, stream);
+}
+
+// K5r: out [rows, nt] = base + each row's entries summed in `order` (keys
+// or x / kdiv the coef row of entry x; base may be null)
+int csc_row_sum_f64(const double* val, const int* order, const int* keys, int kdiv,
+                    const long long* ptr, const double* coef, const double* base, double* out,
+                    int rows, int nt, void* stream) {
+  return launch_row_sum<double>(val, order, keys, kdiv, ptr, coef, base, out, rows, nt, stream);
+}
+
+int csc_row_sum_f32(const float* val, const int* order, const int* keys, int kdiv,
+                    const long long* ptr, const float* coef, const float* base, float* out,
+                    int rows, int nt, void* stream) {
+  return launch_row_sum<float>(val, order, keys, kdiv, ptr, coef, base, out, rows, nt, stream);
 }
 
 }  // extern "C"

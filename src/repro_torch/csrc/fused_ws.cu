@@ -109,6 +109,23 @@
 // select and merge launches then run with the lane on their grids' y
 // index.
 //
+// K3g (ws_gather), K3l's gather of its S lanes' working-set rows
+// Xt_ws [S, K, n] (ws [S, K]): the port's counterpart of the candidate-row
+// copy that fused_ws_pallas does in its own body, for the lanes. A grid's
+// lanes share X and their working sets overlap (folds are weight rows of
+// one design, neighbouring lambdas keep most of a support), so it reads
+// each distinct row of Xt once, U rows for S K slots, and writes it into
+// every slot that selected it. Bound: bytes, U n + S K n values (an
+// index_select of the S K rows moves 2 S K n). Design: a slot map pos
+// [p, S] (pos[j, s] = k where ws[s, k] = j, else -1) is set on the caller's
+// scratch by a memset and a small mark launch; then CTA b takes features
+// 4b .. 4b + 3: warp f compacts feature f's selecting lanes (a ballot
+// over S, in lane order) into slot offsets in shared memory, and the CTA
+// copies each selected row: every thread loads four 16-byte pieces (8-byte
+// ones at an odd n) and stores each to every slot. No atomics on data, no
+// host read: the copy is exact and capturable. Each CTA adds its count of
+// rows read to an optional counter (the launch statistics).
+//
 // K4 (ws_score) replaces repro/kernels/ws_score.py:ws_score_pallas (body
 // _score_kernel): the score pass alone, with optional sample weights fused
 // into the load, grad_j = Xt[j] . (r * w) + offset_j, and only the scores
@@ -1045,6 +1062,82 @@ int launch_fused_block(const T* Xt, const T* R, const T* beta, const T* L, const
   return launch_select<T>(pri, cand_idx, p, bp, kc, st);
 }
 
+// K3g: features a CTA and threads a CTA of the gather
+constexpr int kGatherF = 4;
+constexpr int kGatherThreads = 256;
+
+// pos[ws[s, k] * S + s] = k for every slot of ws [S, K]
+__global__ void ws_mark_kernel(const long long* __restrict__ ws, int* __restrict__ pos, int S,
+                               int K) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)S * K) return;
+  const int s = (int)(i / K), k = (int)(i - (long long)s * K);
+  pos[ws[i] * S + s] = k;
+}
+
+template <int VEC>
+struct alignas(8 * VEC) Row {
+  double v[VEC];
+};
+
+// K3g's copy: features j0 .. j0 + kGatherF - 1 of CTA blockIdx.x, each
+// selected row read once (VEC values a load) and stored to its slots
+template <int VEC>
+__global__ void __launch_bounds__(kGatherThreads)
+    ws_gather_kernel(const double* __restrict__ Xt, const int* __restrict__ pos,
+                     double* __restrict__ out, int n, int p, int S, int K,
+                     unsigned long long* rows_read) {
+  extern __shared__ long long slot[];  // [kGatherF][S] slot offsets in values
+  __shared__ int cnt[kGatherF];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, bd = blockDim.x;
+  const long long j0 = (long long)blockIdx.x * kGatherF;
+  if (warp < kGatherF) {
+    const long long j = j0 + warp;
+    int c = 0;
+    if (j < p) {
+      for (int s0 = 0; s0 < S; s0 += 32) {
+        const int s = s0 + lane;
+        const int k = s < S ? pos[j * S + s] : -1;
+        const unsigned m = __ballot_sync(0xffffffffu, k >= 0);
+        if (k >= 0)
+          slot[warp * S + c + __popc(m & ((1u << lane) - 1u))] = ((long long)s * K + k) * n;
+        c += __popc(m);
+      }
+    }
+    if (lane == 0) cnt[warp] = c;
+  }
+  __syncthreads();
+  using V = Row<VEC>;
+  const long long nv = n / VEC;
+  for (int f = 0; f < kGatherF; ++f) {
+    const int D = cnt[f];
+    if (!D) continue;
+    const V* src = reinterpret_cast<const V*>(Xt + (j0 + f) * n);
+    const long long* sl = slot + f * S;
+    for (long long v0 = tid; v0 < nv; v0 += 4LL * bd) {
+      V x[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const long long i = v0 + (long long)u * bd;
+        if (i < nv) x[u] = src[i];
+      }
+      for (int d = 0; d < D; ++d) {
+        V* dst = reinterpret_cast<V*>(out + sl[d]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const long long i = v0 + (long long)u * bd;
+          if (i < nv) dst[i] = x[u];
+        }
+      }
+    }
+  }
+  if (rows_read && tid == 0) {
+    unsigned long long u = 0;
+    for (int f = 0; f < kGatherF; ++f) u += cnt[f] > 0;
+    if (u) atomicAdd(rows_read, u);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1208,6 +1301,30 @@ int fused_ws_product_info(int wide, int what) {
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem) != cudaSuccess)
     return -1;
   return per_sm;
+}
+
+// K3g: Xt_ws [S, K, n] from ws [S, K] (int64), each distinct row of Xt
+// [p, n] read once; pos is the caller's int32 scratch [p, S] (the slot
+// map, set here); rows_read (optional) gains the rows read
+int ws_gather_f64(const double* Xt, const long long* ws, int* pos, double* out, int n, int p,
+                  int S, int K, unsigned long long* rows_read, void* stream) {
+  if (n <= 0 || p <= 0 || S < 1 || K < 1 || K > p) return (int)cudaErrorInvalidValue;
+  const size_t dyn = (size_t)kGatherF * S * sizeof(long long);
+  if (dyn > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(pos, 0xff, (size_t)p * S * sizeof(int), st);
+  if (err != cudaSuccess) return (int)err;
+  const long long slots = (long long)S * K;
+  ws_mark_kernel<<<(unsigned)((slots + 255) / 256), 256, 0, st>>>(ws, pos, S, K);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const bool pairs = n % 2 == 0 && ((uintptr_t)Xt | (uintptr_t)out) % 16 == 0;
+  auto kernel = pairs ? ws_gather_kernel<2> : ws_gather_kernel<1>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)((p + kGatherF - 1) / kGatherF), kGatherThreads, dyn, st>>>(
+      Xt, pos, out, n, p, S, K, rows_read);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

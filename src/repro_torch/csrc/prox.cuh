@@ -212,6 +212,62 @@ __device__ __forceinline__ T coord_step(int pen, T bj, T gj, T Lj, T p0, T p1) {
   return (Lj > T(0)) ? nw : bj;
 }
 
+// coord_step split in two: `prepare` (a coordinate's step and the
+// penalty's constants at that step, from L_j alone, so a kernel can work
+// them out before the coordinate's gradient is known) and `apply` (the
+// step once g_j is known). apply(bj, gj) equals coord_step(pen, bj, gj,
+// Lj, p0, p1) bit for bit: the same expressions, evaluated earlier.
+template <typename T>
+struct PreparedStep {
+  int pen;
+  T step, thr, den, lim, k, p0, p1;
+  bool moves;
+
+  __device__ __forceinline__ void prepare(int pen_, T Lj, T p0_, T p1_) {
+    pen = pen_;
+    p0 = p0_;
+    p1 = p1_;
+    moves = Lj > T(0);
+    step = T(1.0) / clamp_min(Lj, T(1e-30));
+    thr = step * p0;
+    den = T(1.0);
+    lim = p1 * p0;
+    k = T(0);
+    if (pen == PEN_L1L2) {
+      thr = (step * p0) * p1;
+      den = T(1.0) + (step * p0) * (T(1.0) - p1);
+    } else if (pen == PEN_MCP) {
+      den = T(1.0) - step / p1;
+    } else if (pen == PEN_SCAD) {
+      den = (p1 - T(1.0)) - step;
+      k = (p1 * p0) * step;
+      lim = p0 * (T(1.0) + step);
+    }
+  }
+
+  __device__ __forceinline__ T apply(T bj, T gj) const {
+    const T x = bj - gj * step;
+    T nw;
+    if (pen == PEN_L1) {
+      nw = soft_threshold(x, thr);
+    } else if (pen == PEN_L1L2) {
+      nw = soft_threshold(x, thr) / den;
+    } else if (pen == PEN_MCP) {
+      const T a = fabs(x);
+      const T out = (a <= lim) ? soft_threshold(x, thr) / den : x;
+      nw = (a <= thr) ? T(0) : out;
+    } else if (pen == PEN_SCAD) {
+      // ((sgn(x) p1) p0) step is sgn(x) ((p1 p0) step) exactly
+      const T a = fabs(x);
+      const T r2 = ((p1 - T(1.0)) * x - sgn(x) * k) / den;
+      nw = (a <= lim) ? soft_threshold(x, thr) : ((a <= p1 * p0) ? r2 : x);
+    } else {
+      nw = prox(pen, x, step, p0, p1);
+    }
+    return moves ? nw : bj;
+  }
+};
+
 // ---------------------------------------------------------------- blocks
 // The block prox of a row x of norm nrm (Proposition 18), in the plain
 // version's order: BlockL1  x * (max(nrm - step lam, 0) / max(nrm, 1e-30)),

@@ -139,6 +139,8 @@ _SIGNATURES = {
     },
     "csc_score": {
         "csc_walk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # K5r: val, order, keys, kdiv, ptr, coef, base, out, rows, nt
+        "csc_row_sum": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P],
     },
 }
 
@@ -169,6 +171,8 @@ _PLAIN_SIGNATURES = {
                  "fused_ws_lanes_f64": [_P, _P, _P, _P, _I, _P, _P, _P, _P,
                                         _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                         _I, _I, _I, _I, _I, _P, _I, _P],
+                 # K3g, K3l's gather of the lanes' rows: float64 only
+                 "ws_gather_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
                  # K3b over lanes of blocks: float64 only, as K3l
                  "fused_ws_block_lanes_f64": [
                      _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,

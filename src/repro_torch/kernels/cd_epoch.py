@@ -31,8 +31,11 @@ K2 over a lane dimension, the counterpart of ``pallas_call`` under the
 reference's ``vmap`` (the chunked driver and the CV grid): one launch runs
 S independent epochs, each lane on its own tensors and its own row of the
 codec vector, as a grid of S CTAs or S clusters. K2l's clusters take the
-single-lane plan; K1l's take ``gram_lanes_plan``, the cluster size that
-runs the S lanes in the fewest waves on the card (one, where one fits).
+lane plan ``xb_lanes_plan`` (the fewest waves, then the fewest CTAs on
+an SM, then the largest cluster whose slice keeps shared memory); K1l's
+take
+``gram_lanes_plan``, the cluster size that runs the S lanes in the fewest
+waves on the card (one, where one fits).
 An active-lane mask freezes lanes: a frozen K1l lane runs zero epochs,
 which copies its state through; a frozen K2l lane copies it and returns
 at entry. K1bl (``cd_epoch_gram_block_lanes``) is
@@ -72,7 +75,7 @@ __all__ = ["KIND_IDS", "cd_epoch_gram_plain", "cd_epoch_xb_plain",
            "cd_epoch_gram_block_lanes_cuda", "emulate_block_epoch",
            "kernel_params", "EpochPlan",
            "GramPlan",
-           "gram_plan", "gram_lanes_plan", "xb_plan",
+           "gram_plan", "gram_lanes_plan", "xb_plan", "xb_lanes_plan",
            "gram_block_plan", "BRANCHES",
            "SMEM_DYN_MAX", "cluster_barrier_cuda", "gram_chain_floor_cuda",
            "gram_block_chain_floor_cuda",
@@ -108,7 +111,10 @@ GRAM_BLOCK_MIN_THREADS = 256
 GRAM_BLOCK_SINGLE_MAX_KT = GRAM_BLOCK_PER * (GRAM_BLOCK_MAX_THREADS - 32)
 # values a thread keeps in registers on the register paths (K2's samples,
 # K1b's q entries), which the kernels run on at most PER_THREADS threads
-XB_PER, GRAM_PER, PER_THREADS = 4, 8, 768
+XB_PER, GRAM_PER, PER_THREADS = 2, 8, 768
+# K2's samples a thread past the register path (its threads, and so the
+# warp sums a coordinate reads, stay fewer there)
+XB_GLOBAL_PER = 4
 # K1: coordinates a block (the chain warp's lanes: csrc/cd_epoch.cu's
 # kGramB, which the kernel alone sets); the head of its dynamic shared
 # memory in values (tiles [2][2][32][32], staged c, L, step, beta [4][2][32],
@@ -279,12 +285,14 @@ def gram_plan(K: int, dtype, cluster: int | None = None,
     return GramPlan(cluster, dyn, threads)
 
 
-def lane_capacity(plan, dtype, pen: int = 0, device=None):
-    """The card of `device` for K1l's `plan`: (how many of its clusters
-    the card places at once, ``card_capacity`` of K1l's instance for
-    penalty id `pen`, two CTAs sharing an SM where they fit; the SMs they
-    share). (0, 0) without a card."""
-    n = card_capacity("cd_epoch_gram_lanes", plan, dtype, pen, device)
+def lane_capacity(plan, dtype, pen: int = 0, device=None,
+                  kernel: str = "cd_epoch_gram_lanes"):
+    """The card of `device` for a lane kernel's `plan` (K1l's, or with
+    `kernel` "cd_epoch_xb" K2l's, which is K2's kernel): (how many of its
+    clusters the card places at once, ``card_capacity`` of that instance
+    (K1l's for penalty id `pen`), several CTAs sharing an SM where they
+    fit; the SMs they share). (0, 0) without a card."""
+    n = card_capacity(kernel, plan, dtype, pen, device)
     if not n:
         return 0, 0
     dev = torch.device("cuda") if device is None else torch.device(device)
@@ -332,19 +340,59 @@ def _threads(m: int) -> int:
 def xb_plan(n: int, weighted: bool, dtype, cluster: int | None = None,
             placeable=None) -> EpochPlan:
     """K2's layout for n samples: each of `cluster` CTAs (CLUSTER unless
-    forced, stepping down while `placeable` refuses it) holds a slice of
-    ceil(n / C) samples of Xb, the raw gradient, y (and w), in shared memory
-    while they fit, and takes about XB_PER samples a thread."""
+    forced, stepping down while `placeable` refuses it) holds the slots of
+    the cluster's warp sums (2 C warps values) and a slice of ceil(n / C)
+    samples of Xb, the raw gradient, y (and w), in shared memory while they
+    fit, and takes XB_PER samples a thread in registers where PER_THREADS
+    threads hold the slice, else about XB_GLOBAL_PER from memory.
+    (``cd_sweep.py k2``: 2 samples a thread ran K2 at (512, 10,000) 12%
+    faster than 4, whose axpy serialized each thread's exps, PERF.md.)"""
     if cluster is None:
         return _step_down("cd_epoch_xb", CLUSTER, dtype,
                           lambda C: xb_plan(n, weighted, dtype, C),
                           placeable)
     m = -(-n // cluster)
+    threads, per = max(128, _threads(-(-m // XB_PER))), XB_PER
+    if threads > PER_THREADS:
+        threads, per = max(128, _threads(-(-m // XB_GLOBAL_PER))), 0
+    # the head: the cluster's warp sums of a coordinate, by parity
+    # (csrc/cd_epoch.cu: K2's slots [2][C][warps])
+    head = 2 * cluster * (threads // 32) * dtype.itemsize
     state = m * dtype.itemsize * (4 if weighted else 3)
-    smem = state <= SMEM_DYN_MAX
-    threads = max(128, _threads(-(-m // XB_PER)))
-    return EpochPlan(cluster, smem, state if smem else 0, threads,
-                     XB_PER if threads <= PER_THREADS else 0)
+    smem = head + state <= SMEM_DYN_MAX
+    return EpochPlan(cluster, smem, head + state if smem else head, threads,
+                     per)
+
+
+def xb_lanes_plan(S: int, n: int, weighted: bool, dtype, device=None,
+                  capacity=None) -> EpochPlan:
+    """K2l's layout for S lanes of n samples on the card of `device`, each
+    lane on K2's layout of one cluster size (``xb_plan(n, weighted, dtype,
+    cluster=C)``): of the sizes of STEP_DOWN whose slice fits the
+    shared-memory branch, the one that runs the S lanes in the fewest
+    waves as the card places the clusters (``lane_capacity`` of K2's
+    instance; `capacity(plan, dtype)` -> (clusters at once, SMs) stands in
+    for it in the tests); of those, the fewest CTAs on an SM in a wave
+    (the axpy with its exp is the chain's longest step and runs on the
+    SM's float64 units, which CTAs sharing an SM share); of those, the
+    largest (a lane's samples over more SMs); of those, the fewest
+    threads. ``cd_sweep.py k2l_rule`` times every size against it
+    (PERF.md). Where no size qualifies (no card, or a slice past shared
+    memory at every size), K2's own plan, ``xb_plan(n, weighted,
+    dtype)``."""
+    best = None
+    for C in STEP_DOWN:
+        plan = xb_plan(n, weighted, dtype, cluster=C)
+        if not plan.smem:
+            continue
+        at_once, sms = lane_capacity(plan, dtype, 0, device, "cd_epoch_xb") \
+            if capacity is None else capacity(plan, dtype)
+        if at_once >= 1:
+            share = -(-min(S, at_once) * C // sms)
+            key = (-(-S // at_once), share, -C, plan.threads)
+            if best is None or key < best[0]:
+                best = (key, plan)
+    return xb_plan(n, weighted, dtype) if best is None else best[1]
 
 
 def _block_one_cta(K: int, T: int, dtype, threads: int | None) -> EpochPlan:

@@ -20,6 +20,13 @@ design). ``lane_plan`` is the one place that chooses its layout, from T:
 the values a lane reads, the lanes an entry and the entries a warp
 iteration. ``emulate`` computes the kernel's result in torch, in its
 summation order, bit for bit.
+
+K5r (``csc_row_sum``) is the transpose walk, the CSC scatters of
+``CSCDesign.matvec`` and ``CSCDesign.update_xb`` summed row by row in a
+fixed order: ``row_order`` sorts the entries by row (stably, so each row
+keeps its entries' order) and the kernel sums each row's run in that
+order, which is the order ``index_add_`` adds in on the CPU. Its plain
+version, ``csc_row_sum_plain``, is that ``index_add_``.
 """
 from __future__ import annotations
 
@@ -29,7 +36,8 @@ from ._build import BUILD
 from .cd_epoch import _check_rc, _suffix
 
 __all__ = ["csc_score_plain", "csc_score_cuda", "csc_score_block_cuda",
-           "csc_walk_cuda", "l2_gather_probe_cuda", "lane_plan", "emulate"]
+           "csc_walk_cuda", "l2_gather_probe_cuda", "lane_plan", "emulate",
+           "row_order", "csc_row_sum_plain", "csc_row_sum_cuda"]
 
 
 # lanes a column at T = 1 (K5, K5s; csrc/csc_score.cu's kK5Lanes): a warp
@@ -147,3 +155,62 @@ def l2_gather_probe_cuda(buf, gathers, blocks=132 * 8):
         rc = lib.l2_gather_probe(buf.data_ptr(), rows, width, gathers, blocks,
                                  out.data_ptr(), _stream(buf))
     _check_rc(rc, "l2_gather_probe")
+
+
+def row_order(rows, n_rows, vals=None):
+    """(order int32 [E], ptr int64 [n_rows + 1]) of the row ids `rows` [E]
+    (int32): the entries sorted by row, stably (a row's entries keep their
+    order), and where each row's run starts. With `vals`, entries whose
+    value is 0.0 (the flat arrays' padding, the windows' tails) are sorted
+    past the last row and left out of every run: they add a zero, so the
+    sums keep their bits, and a design's padding (all on row 0) does not
+    make one long run. On the tensors' device, with no host read (a
+    captured step computes it)."""
+    key = rows.reshape(-1)
+    if vals is not None:
+        key = torch.where(vals.reshape(-1) != 0, key, n_rows)
+    srt, order = torch.sort(key, stable=True)
+    bounds = torch.arange(n_rows + 1, dtype=srt.dtype, device=srt.device)
+    return order.to(torch.int32), torch.searchsorted(srt, bounds)
+
+
+def _keys_of(order, keys, kdiv):
+    x = order.long()
+    return x, (keys[x].long() if keys is not None else x // kdiv)
+
+
+def csc_row_sum_plain(val, order, keys, ptr, coef, *, kdiv=0, base=None):
+    """K5r's plain version: ``base + out`` where out[i] sums val[x] *
+    coef[key(x)] over row i's entries x of `order` (key(x) = keys[x], or x
+    // kdiv without keys; entries past ptr[-1] are in no row) by
+    ``index_add_`` in that order: on the CPU, bit for bit the kernel's
+    result. coef [P] or [P, T]; base None or the output's shape [rows] /
+    [rows, T]."""
+    x, k = _keys_of(order[:int(ptr[-1])], keys, kdiv)
+    g = coef[k]
+    contrib = val[x] * g if g.ndim == 1 else val[x][:, None] * g
+    rows = ptr.shape[0] - 1
+    rid = torch.repeat_interleave(
+        torch.arange(rows, device=ptr.device), ptr[1:] - ptr[:-1])
+    out = torch.zeros((rows,) + tuple(coef.shape[1:]), dtype=val.dtype,
+                      device=val.device).index_add_(0, rid, contrib)
+    return out if base is None else base + out
+
+
+def csc_row_sum_cuda(val, order, keys, ptr, coef, *, kdiv=0, base=None):
+    """Launch K5r on the tensors' stream: one thread a (row, task) sums its
+    row's run of `order` in order. coef contiguous [P] or [P, T]; base
+    None or contiguous as the output. Returns [rows] or [rows, T]."""
+    fn = getattr(BUILD.lib("csc_score"), f"csc_row_sum_{_suffix(val)}")
+    rows = ptr.shape[0] - 1
+    T = 1 if coef.ndim == 1 else coef.shape[1]
+    out = torch.empty((rows,) + tuple(coef.shape[1:]), dtype=val.dtype,
+                      device=val.device)
+    with torch.cuda.device(val.device):
+        rc = fn(val.data_ptr(), order.data_ptr(),
+                None if keys is None else keys.data_ptr(), int(kdiv),
+                ptr.data_ptr(), coef.data_ptr(),
+                None if base is None else base.data_ptr(), out.data_ptr(),
+                rows, T, _stream(val))
+    _check_rc(rc, "csc_row_sum")
+    return out

@@ -33,6 +33,12 @@ priorities, and K3's select and merge launches run with a lane index on
 their grids. Float64 only on the card. Its plain
 version applies K3's lane by lane.
 
+K3l's working-set rows come from K3g (``ws_gather_cuda``): one copy of
+each distinct row of Xt that the S lanes selected into every lane slot
+that selected it (``slot_map`` is its map of slots; ``ws_gather_plain``,
+the same copy through the map, is its plain version, and equals
+``index_select`` of the S K rows).
+
 K3bl (``fused_ws_block_lanes``) is K3b over S lanes of multitask blocks
 that share X: R [n, S*T] holds the lanes' raw gradients lane-major, beta
 is [S, p, T]. One product launch runs over all S*T columns (the wide
@@ -66,7 +72,8 @@ __all__ = ["pick_bp", "fused_ws_plain", "fused_ws_cuda", "score_cuda",
            "merge_lanes_cuda", "fused_ws_block_lanes_plain",
            "fused_ws_block_lanes_cuda", "ProductTile", "NARROW", "WIDE",
            "ProductPlan", "product_plan", "card_product_plan",
-           "product_cuda", "dmma_rate_cuda"]
+           "product_cuda", "dmma_rate_cuda", "slot_map", "ws_gather_plain",
+           "ws_gather_cuda", "gather_bytes"]
 
 # columns of the narrow float64 product (csrc/fused_ws.cu: kMmaT)
 MMA_TASKS = 24
@@ -530,3 +537,58 @@ def merge_lanes_cuda(pri, cand_idx, bp, ws_size):
                 S, stream)
     _check_rc(rc, "merge_lanes")
     return ws
+
+
+def slot_map(ws, p):
+    """K3g's map of slots: pos [p, S] int32, pos[j, s] = k where lane s
+    selected feature j at slot k (ws[s, k] = j), else -1."""
+    S, K = ws.shape
+    pos = torch.full((p, S), -1, dtype=torch.int32, device=ws.device)
+    lanes = torch.arange(S, device=ws.device)[:, None].expand(S, K)
+    slots = torch.arange(K, dtype=torch.int32, device=ws.device)
+    pos[ws, lanes] = slots.expand(S, K)
+    return pos
+
+
+def ws_gather_plain(Xt, ws):
+    """K3g's plain version, the kernel's copy in torch: for each feature
+    any lane selected (a row of ``slot_map`` with a slot), its row of Xt
+    [p, n] written to every slot (s, pos[j, s]). Returns (Xt_ws [S, K, n],
+    U, the distinct rows read); Xt_ws equals ``Xt.index_select(0,
+    ws.reshape(-1))`` viewed [S, K, n]."""
+    S, K = ws.shape
+    pos = slot_map(ws, Xt.shape[0])
+    rows = torch.nonzero(torch.any(pos >= 0, dim=1)).reshape(-1)
+    out = torch.empty((S, K, Xt.shape[1]), dtype=Xt.dtype, device=Xt.device)
+    sel = pos[rows]
+    for s in range(S):
+        hit = sel[:, s] >= 0
+        out[s, sel[hit, s].long()] = Xt[rows[hit]]
+    return out, int(rows.shape[0])
+
+
+def gather_bytes(S, K, n, U, itemsize=8):
+    """The bytes K3g must move: U distinct rows of n values read and S K
+    written (an ``index_select`` of the S K rows reads S K rows, not U)."""
+    return (U + S * K) * n * itemsize
+
+
+def ws_gather_cuda(Xt, ws, rows_read=None):
+    """Launch K3g on Xt's stream (float64): Xt contiguous [p, n], ws
+    contiguous int64 [S, K] (each lane's K distinct features). Returns
+    Xt_ws [S, K, n]; `rows_read` (a 0-d int64 tensor on the card, or None)
+    gains the distinct rows read."""
+    if Xt.dtype != torch.float64:
+        raise TypeError("ws_gather: the card runs it in float64 only")
+    p, n = Xt.shape
+    S, K = ws.shape
+    pos = torch.empty((p, S), dtype=torch.int32, device=Xt.device)
+    out = torch.empty((S, K, n), dtype=Xt.dtype, device=Xt.device)
+    with torch.cuda.device(Xt.device):
+        stream = torch.cuda.current_stream(Xt.device).cuda_stream
+        rc = BUILD.lib("fused_ws").ws_gather_f64(
+            Xt.data_ptr(), ws.data_ptr(), pos.data_ptr(), out.data_ptr(), n,
+            p, S, K, None if rows_read is None else rows_read.data_ptr(),
+            stream)
+    _check_rc(rc, "ws_gather")
+    return out

@@ -23,10 +23,14 @@ kernel to the plain version. ``launches`` is a plain int on the wrapper;
                        driver and the CV grid), with an active-lane mask
   cd_epoch_xb_lanes    K2l, K2 over S lanes in one launch, with the mask
   fused_ws_lanes       K3l, K3 over S lanes sharing X (X read once)
+  ws_gather            K3g, K3l's gather of the lanes' working-set rows,
+                       each distinct row of X read once
   cd_epoch_gram_block_lanes
                        K1bl, K1b over S lanes of multitask blocks in one
                        launch, with the mask
   fused_ws_block_lanes K3bl, K3b over S lanes of multitask blocks sharing X
+  csc_row_sum          K5r, the CSC scatters (X @ beta, Xb + X_ws delta)
+                       as row sums in a fixed order
 
 The block and lane forms have counters of their own, so a run can tell
 them from the single-lane scalar launches. K1, K2, K1b, K1l, K2l and
@@ -37,7 +41,11 @@ dict over ``BRANCHES`` ("single", "cluster-shared", "cluster-global"),
 and by the plan's cluster size in ``cluster_launches``;
 ``branch_counts`` and ``cluster_counts`` read them. The lane epochs K1l,
 K2l and K1bl also count by shape in ``shape_launches``: (K rounded up to
-a power of two, cluster size), which ``shape_counts`` reads.
+a power of two, cluster size), and the lane heads K3l and K3bl by (ws
+rounded up to a power of two, lane count), which ``shape_counts`` reads.
+K3l's gathers count the rows they fill (S K) and, on the card, the
+distinct rows they read (U, a device counter each launch adds to, so a
+replayed launch adds at each replay) by ws bucket: ``gather_counts``.
 
 A kernel captured into a CUDA graph launches at each replay of the graph:
 inside ``deferred_launches`` the wrappers record their launches instead of
@@ -58,26 +66,29 @@ from .cd_epoch import (BRANCHES, KIND_IDS, cd_epoch_gram_block_cuda,
                        cd_epoch_xb_cuda, cd_epoch_xb_lanes_cuda,
                        cd_epoch_xb_lanes_plain, cd_epoch_xb_plain,
                        gram_block_plan, gram_lanes_plan, gram_plan,
-                       xb_plan)
+                       xb_lanes_plan, xb_plan)
 from .common import (PENALTY_IDS, UnsupportedPenaltyError,
                      check_block_kernel_penalty,
                      check_kernel_penalty, check_score_kernel_penalty,
                      make_penalty, penalty_params)
-from .csc_score import csc_score_block_cuda, csc_score_cuda, csc_score_plain
+from .csc_score import (csc_row_sum_cuda, csc_row_sum_plain,
+                        csc_score_block_cuda, csc_score_cuda, csc_score_plain)
 from ..core.working_set import candidate_columns, select_working_set
 from .fused_ws import (fused_ws_block_cuda, fused_ws_block_lanes_cuda,
                        fused_ws_block_lanes_plain, fused_ws_cuda,
                        fused_ws_lanes_cuda, fused_ws_lanes_plain,
-                       fused_ws_plain, score_cuda)
+                       fused_ws_plain, score_cuda, ws_gather_cuda)
 from .ws_score import ws_score_plain
 
 __all__ = ["cd_epoch_gram", "cd_epoch_xb", "fused_ws", "ws_score",
            "csc_score", "csc_weighted_col_sq", "cd_epoch_gram_block",
            "fused_ws_block", "csc_score_block", "cd_epoch_gram_lanes",
            "cd_epoch_xb_lanes", "fused_ws_lanes",
-           "cd_epoch_gram_block_lanes", "fused_ws_block_lanes", "KERNELS",
+           "cd_epoch_gram_block_lanes", "fused_ws_block_lanes",
+           "csc_row_sum", "ws_gather", "KERNELS",
            "launch_counts", "reset_launch_counts", "branch_counts",
-           "cluster_counts", "shape_counts", "deferred_launches",
+           "cluster_counts", "shape_counts", "gather_counts",
+           "rows_read_counter", "deferred_launches",
            "add_launches",
            "penalty_params",
            "make_penalty", "check_kernel_penalty",
@@ -89,24 +100,32 @@ __all__ = ["cd_epoch_gram", "cd_epoch_xb", "fused_ws", "ws_score",
 _DEFERRED: list = []
 
 
-def _count(wrapper, plan=None, times=1, K=None):
-    """Add a launch to `wrapper`'s counts (and to its plan's branch and
-    cluster size; with `K`, a lane kernel's, to its shape: K rounded up to
-    a power of two and the cluster size), or, while a graph captures,
-    record it for the replays (a captured kernel launches when its graph
-    replays, not when the wrapper runs)."""
+def _count(wrapper, plan=None, times=1, K=None, lanes=None, rows=0):
+    """Add a launch to `wrapper`'s counts (and, for a branched kernel, to
+    its plan's branch and cluster size; with `K`, to its shape: K rounded
+    up to a power of two and the plan's cluster size, or without a plan
+    the `lanes`; `rows`, the slots a gather fills, to its bucket), or,
+    while a graph captures, record it for the replays (a captured kernel
+    launches when its graph replays, not when the wrapper runs)."""
     if _DEFERRED:
-        _DEFERRED[-1].append((wrapper, plan, K))
+        _DEFERRED[-1].append((wrapper, plan, K, lanes, rows))
         return
     wrapper.launches += times
-    if plan is not None:
+    if plan is not None and hasattr(wrapper, "branch_launches"):
         wrapper.branch_launches[plan.branch] += times
         sizes = wrapper.cluster_launches
         sizes[plan.cluster] = sizes.get(plan.cluster, 0) + times
     if K is not None:
-        key = (1 << (K - 1).bit_length(), plan.cluster)
-        shapes = wrapper.shape_launches
-        shapes[key] = shapes.get(key, 0) + times
+        kb = 1 << (K - 1).bit_length()
+        if hasattr(wrapper, "shape_launches"):
+            key = (kb, f"C={plan.cluster}" if plan is not None
+                   else f"S={lanes}")
+            shapes = wrapper.shape_launches
+            shapes[key] = shapes.get(key, 0) + times
+        if rows:
+            got = wrapper.bucket_rows.setdefault(kb, [0, 0])
+            got[0] += times
+            got[1] += rows * times
 
 
 @contextmanager
@@ -125,8 +144,8 @@ def add_launches(records, times=1):
     """Count the launches in `records` (from ``deferred_launches``)
     `times` times over."""
     if times:
-        for wrapper, plan, K in records:
-            _count(wrapper, plan, times, K)
+        for wrapper, plan, K, lanes, rows in records:
+            _count(wrapper, plan, times, K, lanes, rows)
 
 
 def _route(name, **tensors) -> bool:
@@ -313,7 +332,8 @@ def cd_epoch_gram_block_lanes(G, c, beta0, q0, L, penalty_cls, params,
 
 def cd_epoch_xb_lanes(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls, params,
                       active, datafit_kind="quadratic", *, w=None, epochs=1):
-    """K2l: K2's `epochs` on each of S lanes in one launch. Xt_ws:
+    """K2l: K2's `epochs` on each of S lanes in one launch, on its own lane
+    plan (``xb_lanes_plan``). Xt_ws:
     contiguous [S, K, n]; y: [n], shared; beta0, L, offset: contiguous
     [S, K]; Xb0: contiguous [S, n]; w: None, [n] or [S, n]; params: [S,
     arity]; active: bool [S]. Returns (beta, Xb)."""
@@ -343,7 +363,7 @@ def cd_epoch_xb_lanes(Xt_ws, y, beta0, Xb0, L, offset, penalty_cls, params,
         return cd_epoch_xb_lanes_plain(Xt_ws, y, beta0, Xb0, L, offset,
                                        penalty_cls, params, active,
                                        datafit_kind, w=w, epochs=epochs)
-    plan = xb_plan(n, w is not None, Xt_ws.dtype)
+    plan = xb_lanes_plan(S, n, w is not None, Xt_ws.dtype, Xt_ws.device)
     out = cd_epoch_xb_lanes_cuda(Xt_ws, y, beta0, Xb0, L, offset,
                                  penalty_cls, params, active, datafit_kind,
                                  w=w, epochs=epochs, plan=plan)
@@ -486,9 +506,8 @@ def fused_ws_lanes(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
     scores, grad, cand_idx, ws = fused_ws_lanes_cuda(
         Xt, R, beta, L, offset, gsupp, penalty_cls, params, ws_size,
         use_fp=use_fp, bp=bp)
-    _count(fused_ws_lanes)
-    return (scores, grad, cand_idx, ws,
-            Xt.index_select(0, ws.reshape(-1)).view(S, ws_size, n))
+    _count(fused_ws_lanes, K=ws_size, lanes=S)
+    return scores, grad, cand_idx, ws, ws_gather(Xt, ws)
 
 
 def _check_lane_L(name, L, S, p):
@@ -537,9 +556,54 @@ def fused_ws_block_lanes(Xt, R, beta, L, offset, gsupp, penalty_cls, params,
     scores, grad, cand_idx, ws = fused_ws_block_lanes_cuda(
         Xt, R, beta, L, offset, gsupp, penalty_cls, params, ws_size,
         use_fp=use_fp, bp=bp)
-    _count(fused_ws_block_lanes)
+    _count(fused_ws_block_lanes, K=ws_size, lanes=S)
     return (scores, grad, cand_idx, ws,
             Xt.index_select(0, ws.reshape(-1)).view(S, ws_size, n))
+
+
+# K3g's distinct rows read on the card: an int64 counter a power of two of
+# ws a device, made outside any capture (``rows_read_counter``)
+_ROWS_READ: dict = {}
+
+
+def rows_read_counter(device):
+    """The card's counters of K3g's distinct rows read, [64] int64 by
+    log2 of the ws bucket; made at the first call, which must come before
+    any graph capture that launches K3g (``core/flow.py`` asks for it
+    before each capture)."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    if dev not in _ROWS_READ:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("ws_gather: its row counter must be made "
+                               "before a graph capture")
+        _ROWS_READ[dev] = torch.zeros(64, dtype=torch.int64, device=dev)
+    return _ROWS_READ[dev]
+
+
+def ws_gather(Xt, ws):
+    """K3g: the lanes' working-set rows Xt_ws [S, K, n] of the
+    feature-major design Xt [p, n] (contiguous) for ws [S, K] (int64, each
+    lane's K distinct features), each distinct row read once. Float64 on
+    the card. Equal bit for bit to ``Xt.index_select(0, ws.reshape(-1))``
+    viewed [S, K, n], its CPU route."""
+    if Xt.ndim != 2 or not Xt.is_contiguous():
+        raise ValueError("ws_gather: Xt must be a contiguous [p, n] matrix, "
+                         f"got shape {tuple(Xt.shape)}")
+    if ws.ndim != 2 or ws.dtype != torch.int64 or not ws.is_contiguous() \
+            or ws.device != Xt.device:
+        raise TypeError("ws_gather: ws must be a contiguous int64 [S, K] "
+                        "tensor on Xt's device")
+    S, K = ws.shape
+    on_card = _route("ws_gather", Xt=Xt)
+    if not on_card:
+        return Xt.index_select(0, ws.reshape(-1)).view(S, K, Xt.shape[1])
+    kb = 1 << (K - 1).bit_length()
+    counter = rows_read_counter(Xt.device)
+    out = ws_gather_cuda(Xt, ws, counter[kb.bit_length() - 1])
+    _count(ws_gather, K=K, rows=S * K)
+    return out
 
 
 def ws_score(Xt, r, beta, L, offset, penalty_cls, params, *, w=None,
@@ -629,15 +693,54 @@ def csc_score_block(data, indices, col_ids, indptr, raw):
     return out
 
 
+def csc_row_sum(val, order, keys, ptr, coef, *, kdiv=0, base=None):
+    """K5r: ``base + out``, out[i] the sum of val[x] * coef[key(x)] over
+    row i's entries x in the order `order` lists them (int32 [E], rows
+    bounded by ptr, int64 [rows + 1]: ``csc_score.row_order``); key(x) =
+    keys[x] (int32, the entry's column) or, without keys, x // kdiv. coef:
+    contiguous [P] or [P, T]; base: None or contiguous [rows] / [rows, T].
+    The CSC scatters of a ``CSCDesign`` (``matvec``, ``update_xb``) in an
+    order no scheduling changes."""
+    extra = {} if base is None else {"base": base}
+    on_card = _route("csc_row_sum", val=val, coef=coef, **extra)
+    for key, t, dtype in (("order", order, torch.int32),
+                          ("keys", keys, torch.int32),
+                          ("ptr", ptr, torch.int64)):
+        if t is not None and (t.dtype != dtype or t.device != val.device
+                              or t.ndim != 1 or not t.is_contiguous()):
+            raise TypeError(f"csc_row_sum: {key} must be a contiguous 1-D "
+                            f"{dtype} tensor on {val.device}")
+    if keys is None and kdiv < 1:
+        raise ValueError("csc_row_sum: without keys, kdiv must be >= 1")
+    if coef.ndim not in (1, 2) or not coef.is_contiguous() or \
+            not val.is_contiguous():
+        raise ValueError("csc_row_sum: coef must be a contiguous [P] or "
+                         "[P, T] tensor and val contiguous")
+    shape = (ptr.shape[0] - 1,) + tuple(coef.shape[1:])
+    if base is not None and (tuple(base.shape) != shape
+                             or not base.is_contiguous()):
+        raise ValueError(f"csc_row_sum: base must be contiguous {shape}, "
+                         f"got {tuple(base.shape)}")
+    if not on_card:
+        return csc_row_sum_plain(val, order, keys, ptr, coef, kdiv=kdiv,
+                                 base=base)
+    out = csc_row_sum_cuda(val, order, keys, ptr, coef, kdiv=kdiv,
+                           base=base)
+    _count(csc_row_sum)
+    return out
+
+
 KERNELS = (cd_epoch_gram, cd_epoch_xb, fused_ws, ws_score, csc_score,
            csc_weighted_col_sq, cd_epoch_gram_block, fused_ws_block,
            csc_score_block, cd_epoch_gram_lanes, cd_epoch_xb_lanes,
-           fused_ws_lanes, cd_epoch_gram_block_lanes, fused_ws_block_lanes)
+           fused_ws_lanes, cd_epoch_gram_block_lanes, fused_ws_block_lanes,
+           csc_row_sum, ws_gather)
 # the kernels with more than one launch branch
 BRANCHED = (cd_epoch_gram, cd_epoch_xb, cd_epoch_gram_block,
             cd_epoch_gram_lanes, cd_epoch_xb_lanes, cd_epoch_gram_block_lanes)
-# the lane epochs, counted by shape too
-SHAPED = (cd_epoch_gram_lanes, cd_epoch_xb_lanes, cd_epoch_gram_block_lanes)
+# the lane epochs and heads, counted by shape too
+SHAPED = (cd_epoch_gram_lanes, cd_epoch_xb_lanes, cd_epoch_gram_block_lanes,
+          fused_ws_lanes, fused_ws_block_lanes)
 
 
 def reset_launch_counts():
@@ -648,6 +751,9 @@ def reset_launch_counts():
         k.cluster_launches = {}
     for k in SHAPED:
         k.shape_launches = {}
+    ws_gather.bucket_rows = {}
+    for t in _ROWS_READ.values():
+        t.zero_()
 
 
 def launch_counts() -> dict:
@@ -669,11 +775,27 @@ def cluster_counts() -> dict:
 
 
 def shape_counts() -> dict:
-    """{kernel name: {"K=<K> C=<C>": launches}} for K1l, K2l and K1bl: K
-    rounded up to a power of two (the working-set bucket), C the cluster
-    size of the launch's plan (1: one CTA a lane)."""
-    return {k.__name__: {f"K={K} C={C}": n for (K, C), n in
+    """{kernel name: {"K=<K> C=<C>": launches}} for K1l, K2l and K1bl and
+    {"K=<K> S=<S>": launches} for K3l and K3bl: K rounded up to a power of
+    two (the working-set bucket), C the cluster size of the launch's plan
+    (1: one CTA a lane), S the lanes."""
+    return {k.__name__: {f"K={K} {tag}": n for (K, tag), n in
                          sorted(k.shape_launches.items())} for k in SHAPED}
+
+
+def gather_counts() -> dict:
+    """K3g's launches by ws bucket: {"K=<K>": {"launches": n, "rows": the
+    slots filled (S K summed), "distinct": the distinct rows read (U summed;
+    on the card, read back from its counter: a host read)}}. U / rows is
+    the share of the slots' rows that a gather of distinct rows reads."""
+    read = {}
+    for t in _ROWS_READ.values():
+        for i, v in enumerate(t.tolist()):
+            if v:
+                read[1 << i] = read.get(1 << i, 0) + v
+    return {f"K={kb}": dict(launches=n, rows=rows,
+                            distinct=read.get(kb, 0))
+            for kb, (n, rows) in sorted(ws_gather.bucket_rows.items())}
 
 
 reset_launch_counts()

@@ -17,6 +17,16 @@ stored: ``ell_rows`` / ``ell_vals`` derive it from the CSC arrays when
 asked (validation only). The flag keeps the reference's public contract:
 ``has_ell``, ``score_ell_reference``, and ``use_kernels=True`` on a sparse
 design requires it (``PALLAS_SPARSE_ELL_ERROR``).
+
+On a card, the scatters of the design (``matvec``: X @ beta, and
+``update_xb``: Xb + X_ws delta over the working set's windows) run K5r
+(``kernels.ops.csc_row_sum``): each row's entries summed in a fixed order
+(their column order, or the working-set order of the windows), the order
+in which ``index_add_``, the CPU route, adds them; ``index_add_`` on a
+card adds with atomics, in an order that may change from run to run.
+``matvec``'s row order is sorted once a design (cached on it), the
+windows' once a working set. ``score_walk`` is the score pass in the
+walk's fixed order whatever the ELL flag (``lambda_max`` takes it).
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ import torch
 from .. import resolve_device
 from ..core.engine import Design
 from ..kernels import ops as kops
+from ..kernels.csc_score import row_order
 from .ops import (csc_column_windows, csc_gather_columns, csc_incremental_xb,
                   csc_matvec, csc_score, csc_score_ell, csc_weighted_col_sq)
 
@@ -181,6 +192,30 @@ class CSCDesign(Design):
         return csc_score(self.data, self.indices, self.col_ids, raw,
                          self.width)
 
+    def score_walk(self, raw):
+        """X.T @ raw summed in the CSC walk's fixed order: K5 (raw [n]) or
+        K5b (raw [n, T]) on a card, whatever the ELL flag; the plain
+        segment sum on the CPU."""
+        kern = kops.csc_score_block if raw.ndim == 2 else kops.csc_score
+        return kern(self.data, self.indices, self.col_ids, self.indptr, raw)
+
+    @property
+    def ordered_sums(self) -> bool:
+        """Whether ``matvec`` and ``update_xb`` take K5r's row sums (on a
+        card; the CPU's ``index_add_`` adds in that order already)."""
+        return self.device.type == "cuda"
+
+    def _row_order(self):
+        """(order, ptr) of ``row_order`` over the flat arrays' rows (their
+        zeros, the padding among them, left out), sorted at the first call
+        and kept on the design (``take_columns(out=)`` drops it with the
+        arrays it rewrites)."""
+        cached = self.__dict__.get("_rows")
+        if cached is None:
+            cached = row_order(self.indices, self.n_rows, self.data)
+            object.__setattr__(self, "_rows", cached)
+        return cached
+
     def gather_ws(self, ws):
         """Densify the working-set columns: (Xt_ws [K, n] feature-major,
         the (rows, vals) windows for the incremental Xb update)."""
@@ -189,14 +224,26 @@ class CSCDesign(Design):
         return csc_gather_columns(rows, vals, self.n_rows).T, (rows, vals)
 
     def update_xb(self, Xb, Xt_ws, aux, delta):
-        """Xb + X_ws @ delta by a scatter add on the windows in `aux`."""
+        """Xb + X_ws @ delta by a scatter add on the windows in `aux`; on a
+        card K5r over the windows sorted by row (no host read: a captured
+        step runs it)."""
         rows, vals = aux
-        return csc_incremental_xb(Xb, rows, vals, delta)
+        if not self.ordered_sums:
+            return csc_incremental_xb(Xb, rows, vals, delta)
+        order, ptr = row_order(rows, self.n_rows, vals)
+        return kops.csc_row_sum(vals.reshape(-1), order, None, ptr,
+                                delta.contiguous(), kdiv=rows.shape[1],
+                                base=Xb.contiguous())
 
     def matvec(self, beta):
-        """X @ beta for [p] (or [p, T]) coefficients."""
-        return csc_matvec(self.data, self.indices, self.col_ids, beta,
-                          self.n_rows)
+        """X @ beta for [p] (or [p, T]) coefficients; on a card K5r over
+        the design's row order."""
+        if not self.ordered_sums:
+            return csc_matvec(self.data, self.indices, self.col_ids, beta,
+                              self.n_rows)
+        order, ptr = self._row_order()
+        return kops.csc_row_sum(self.data, order, self.col_ids, ptr,
+                                beta.contiguous())
 
     def lipschitz(self, datafit, w=None, use_kernels: bool = False):
         """Per-coordinate Lipschitz constants from the cached column norms,
@@ -278,6 +325,7 @@ class CSCDesign(Design):
         out.col_ids.copy_(col.to(torch.int32))
         out.indptr.copy_(indptr)
         out.col_sq.copy_(torch.where(valid, self.col_sq[sel], 0.0))
+        out.__dict__.pop("_rows", None)
         return out
 
     def score_ell_reference(self, raw):

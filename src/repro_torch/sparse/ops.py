@@ -17,9 +17,13 @@ exact 0.0 to every scatter they join.
 The scatters are ``index_add_`` / ``index_put_(accumulate=True)``: on a
 CUDA device they add with atomics, so ``csc_score``, ``csc_incremental_xb``
 and ``csc_matvec`` are not bit-reproducible there (sums of several entries
-land in any order). The gather only ever adds 0.0 to an entry, so it stays
-exact. The score kernel K5 (``kernels/csc_score.py``) is the deterministic
-route.
+land in any order); on the CPU they add in entry order. The gather only
+ever adds 0.0 to an entry, so it stays exact. On a card ``CSCDesign``
+takes the fixed-order routes instead: the score walk K5/K5b for
+``lambda_max`` and the kernel route's heads, and K5r
+(``kernels.ops.csc_row_sum``, each row's entries in the CPU's order) for
+``matvec`` and ``update_xb``; these functions stay their CPU route and
+plain versions.
 """
 from __future__ import annotations
 

@@ -20,10 +20,17 @@ F64, F32 = torch.float64, torch.float32
 CARD_SMEM = 232_448
 
 
-def _xb_state(n, C, weighted, item):
-    """What K2's cluster kernel keeps per CTA in dynamic shared memory: Xb,
-    the raw gradient, y (and w) for ceil(n / C) samples."""
-    return -(-n // C) * (4 if weighted else 3) * item
+def _xb_head(C, threads, item):
+    """K2's slots of the cluster's warp sums, by parity: 2 C warps values."""
+    return 2 * C * (threads // 32) * item
+
+
+def _xb_state(n, C, weighted, item, threads):
+    """What K2's cluster kernel keeps per CTA in dynamic shared memory: its
+    slots (``_xb_head``), then Xb, the raw gradient, y (and w) for
+    ceil(n / C) samples."""
+    return _xb_head(C, threads, item) + \
+        -(-n // C) * (4 if weighted else 3) * item
 
 
 def _gram_block_state(K, T, C, item):
@@ -59,7 +66,8 @@ def test_xb_plan_clusters_the_main_path(n, weighted):
     plan = cd.xb_plan(n, weighted, F64)
     assert plan.cluster == cd.CLUSTER >= 2
     assert plan.branch == "cluster-shared"
-    assert plan.dyn_bytes == _xb_state(n, plan.cluster, weighted, 8)
+    assert plan.dyn_bytes == _xb_state(n, plan.cluster, weighted, 8,
+                                       plan.threads)
     assert plan.dyn_bytes <= cd.SMEM_DYN_MAX < CARD_SMEM
 
 
@@ -86,9 +94,10 @@ def test_xb_plan_fits_the_card(n, weighted, dtype):
     assert plan.cluster == cd.CLUSTER
     assert plan.branch in cd.BRANCHES
     _threads_ok(plan)
-    full = _xb_state(n, plan.cluster, weighted, item)
+    full = _xb_state(n, plan.cluster, weighted, item, plan.threads)
     assert plan.smem == (full <= cd.SMEM_DYN_MAX)
-    assert plan.dyn_bytes == (full if plan.smem else 0)
+    assert plan.dyn_bytes == (full if plan.smem else
+                              _xb_head(plan.cluster, plan.threads, item))
     # the register path covers the slice: per samples a thread
     if plan.per:
         assert plan.per * plan.threads >= -(-n // plan.cluster)

@@ -1514,9 +1514,12 @@ def test_k1_lanes_instances_use_no_local_memory(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("wform", [None, "shared", "lanes"])
 def test_k2_lanes_cuda_equals_k2_lane_by_lane(cuda, wform):
-    """K2l (weighted logistic) equals K2 on each lane bit for bit and its
-    plain version within K2's bound; frozen lanes come back unchanged."""
-    from repro_torch.kernels.cd_epoch import cd_epoch_xb_lanes_plain
+    """K2l (weighted logistic) equals K2 forced to K2l's lane plan on each
+    lane bit for bit and its plain version within K2's bound; frozen lanes
+    come back unchanged."""
+    from repro_torch.kernels.cd_epoch import (cd_epoch_xb_cuda,
+                                              cd_epoch_xb_lanes_plain,
+                                              xb_lanes_plan)
     S, K, n = 5, 128, 3000
     g = torch.Generator(device="cpu").manual_seed(9)
     Xt = torch.randn(S, K, n, generator=g, dtype=torch.float64).to(cuda)
@@ -1534,6 +1537,7 @@ def test_k2_lanes_cuda_equals_k2_lane_by_lane(cuda, wform):
              + 0.5).to(cuda)
     params = _lane_params(P.L1(0.002), S, cuda)
     active = torch.tensor([True, False, True, True, False], device=cuda)
+    plan = xb_lanes_plan(S, n, w is not None, torch.float64)
     b, x = ops.cd_epoch_xb_lanes(Xt, y, beta0, Xb0, L, off, P.L1, params,
                                  active, "logistic", w=w, epochs=2)
     bp, xp = cd_epoch_xb_lanes_plain(Xt, y, beta0, Xb0, L, off, P.L1,
@@ -1546,8 +1550,10 @@ def test_k2_lanes_cuda_equals_k2_lane_by_lane(cuda, wform):
             assert torch.equal(b[s], beta0[s]) and torch.equal(x[s], Xb0[s])
             continue
         ws = w if w is None or w.ndim == 1 else w[s]
-        bs, xs = ops.cd_epoch_xb(Xt[s], y, beta0[s], Xb0[s], L[s], off[s],
-                                 P.L1, params[s], "logistic", w=ws, epochs=2)
+        # K2 forced to K2l's own lane plan: the same summation order
+        bs, xs = cd_epoch_xb_cuda(Xt[s], y, beta0[s], Xb0[s], L[s], off[s],
+                                  P.L1, params[s], "logistic", w=ws,
+                                  epochs=2, plan=plan)
         assert torch.equal(b[s], bs) and torch.equal(x[s], xs), s
 
 
@@ -1736,7 +1742,8 @@ def test_sparse_grid_on_card_runs_k5b_and_k5s(cuda):
     counts = ops.launch_counts()
     assert counts["csc_score_block"] > 0 and counts["cd_epoch_gram_lanes"] > 0
     assert counts["csc_weighted_col_sq"] == 3
-    assert counts["csc_score"] == 0 and counts["cd_epoch_gram"] == 0
+    # the one scalar K5 walk is lambda_max's (the CSC sums in a fixed order)
+    assert counts["csc_score"] == 1 and counts["cd_epoch_gram"] == 0
     plain = cross_val_path(d, y, Quadratic(), L1(1.0), device=cuda,
                            use_kernels=False, **kw)
     assert np.max(g.kkts) <= 1e-10
@@ -1985,3 +1992,146 @@ def test_sparse_multitask_grid_on_card_runs_k5b_and_k1bl(cuda):
                            device=cuda, use_kernels=False, **kw)
     assert np.max(g.kkts) <= 1e-10
     assert np.max(np.abs(g.betas - plain.betas)) < 1e-8
+
+
+# --------------------------------------------- K3g, K2l's plan, CSC order
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", [False, True], ids=["random", "shared"])
+@pytest.mark.parametrize("ws", [64, 1024])
+@pytest.mark.parametrize("S,n", [(1, 3000), (10, 3000), (10, 3001)])
+def test_k3l_gather_cuda_equals_index_select(cuda, shared, ws, S, n):
+    """K3g (``ops.ws_gather``) against ``index_select`` of the S K rows, bit
+    for bit, at an even n (16-byte copies) and an odd one, shared and
+    random lanes; its device counter gains the distinct rows it read (U),
+    and K3l's head returns its rows."""
+    from repro_torch.kernels.fused_ws import ws_gather_plain
+    p = 4000
+    g = torch.Generator(device="cpu").manual_seed(ws + S)
+    Xt = torch.randn(p, n, generator=g, dtype=torch.float64).to(cuda)
+    if shared:
+        # each lane a subset of one pool of 9 ws / 8 features
+        pool = torch.randperm(p, generator=g)[:ws + ws // 8]
+        ws_ = torch.stack([pool[torch.randperm(pool.numel(), generator=g)
+                                [:ws]] for _ in range(S)])
+    else:
+        ws_ = torch.stack([torch.randperm(p, generator=g)[:ws]
+                           for _ in range(S)])
+    ws_ = ws_.contiguous().to(cuda)
+    ops.reset_launch_counts()
+    out = ops.ws_gather(Xt, ws_)
+    want = Xt.index_select(0, ws_.reshape(-1)).view(S, ws, n)
+    assert torch.equal(out, want)
+    plain, U = ws_gather_plain(Xt, ws_)
+    assert torch.equal(plain, want)
+    assert ops.gather_counts() == {f"K={ws}": dict(launches=1, rows=S * ws,
+                                                    distinct=U)}
+    assert ops.launch_counts()["ws_gather"] == 1
+
+
+@pytest.mark.gpu
+def test_k3l_gather_cuda_selects_all_of_p(cuda):
+    """A lane that selects every feature, beside lanes that select some of
+    them: the gather still equals ``index_select`` and reads p rows."""
+    p, n, S = 500, 777, 3
+    g = torch.Generator(device="cpu").manual_seed(3)
+    Xt = torch.randn(p, n, generator=g, dtype=torch.float64).to(cuda)
+    ws_ = torch.stack([torch.randperm(p, generator=g) for _ in range(S)])
+    ops.reset_launch_counts()
+    out = ops.ws_gather(Xt, ws_.to(cuda))
+    assert torch.equal(out, Xt.index_select(0, ws_.to(cuda).reshape(-1))
+                       .view(S, p, n))
+    assert ops.gather_counts()["K=512"]["distinct"] == p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,K", [(5, 64), (10, 64), (10, 128), (50, 64)])
+def test_k2l_plan_cuda_equals_k2_at_its_plan(cuda, S, K):
+    """K2l on its lane plan (``xb_lanes_plan``, the card's own placement)
+    equals K2 forced to that plan lane by lane, bit for bit; the plan
+    keeps the slices in shared memory and takes no more waves than K2's
+    16-CTA plan."""
+    from repro_torch.kernels.cd_epoch import (card_capacity,
+                                              cd_epoch_xb_cuda,
+                                              xb_lanes_plan, xb_plan)
+    n = 10_000
+    g = torch.Generator(device="cpu").manual_seed(K)
+    Xt = torch.randn(S, K, n, generator=g, dtype=torch.float64).to(cuda)
+    y = torch.sign(torch.randn(n, generator=g, dtype=torch.float64)).to(cuda)
+    w = (torch.rand(S, n, generator=g, dtype=torch.float64) + 0.5).to(cuda)
+    beta0 = (0.05 * torch.randn(S, K, generator=g,
+                                dtype=torch.float64)).to(cuda)
+    Xb0 = (beta0[:, None, :] @ Xt)[:, 0]
+    L = torch.sum(Xt * Xt, dim=2) / (4 * n)
+    off = torch.zeros(S, K, dtype=torch.float64, device=cuda)
+    params = _lane_params(P.L1(0.002), S, cuda)
+    on = torch.ones(S, dtype=torch.bool, device=cuda)
+    plan = xb_lanes_plan(S, n, True, torch.float64)
+    assert plan.smem
+    at_once = card_capacity("cd_epoch_xb", plan, torch.float64)
+    k2 = xb_plan(n, True, torch.float64)
+    k2_once = card_capacity("cd_epoch_xb", k2, torch.float64)
+    assert -(-S // at_once) <= -(-S // k2_once)
+    b, x = ops.cd_epoch_xb_lanes(Xt, y, beta0, Xb0, L, off, P.L1, params,
+                                 on, "logistic", w=w)
+    for s in range(S):
+        bs, xs = cd_epoch_xb_cuda(Xt[s], y, beta0[s], Xb0[s], L[s], off[s],
+                                  P.L1, params[s], "logistic", w=w[s],
+                                  plan=plan)
+        assert torch.equal(b[s], bs) and torch.equal(x[s], xs), s
+
+
+def _csc_small(dev, seed=0, n=3000, p=6000):
+    from repro_torch.data import make_sparse_design
+    from repro_torch.sparse import CSCDesign
+    X, y, _ = make_sparse_design(n=n, p=p, density=5e-3, n_nonzero=40,
+                                 seed=seed)
+    return X, y, CSCDesign.from_scipy(X, ell=True, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [None, 3])
+def test_csc_order_cuda_equals_the_cpu_route(cuda, T):
+    """``matvec`` and ``update_xb`` on the card (K5r over the rows in a
+    fixed order) equal the CPU route's ``index_add_`` bit for bit, twice,
+    for [p] and [p, T] coefficients; K5r counts its launches."""
+    _, _, d = _csc_small(cuda)
+    dc = d.to("cpu")
+    rng = np.random.default_rng(2)
+    shape = (d.width,) if T is None else (d.width, T)
+    beta = torch.as_tensor(rng.standard_normal(shape) *
+                           (rng.random(shape[:1]) < 0.2).reshape(
+                               (-1,) + (1,) * (len(shape) - 1)))
+    ops.reset_launch_counts()
+    mv = [d.matvec(beta.to(cuda)) for _ in range(2)]
+    assert torch.equal(mv[0], mv[1])
+    assert torch.equal(mv[0].cpu(), dc.matvec(beta))
+    ws = torch.as_tensor(rng.choice(d.width, 512, replace=False))
+    _, aux = d.gather_ws(ws.to(cuda))
+    _, auxc = dc.gather_ws(ws)
+    delta = torch.as_tensor(rng.standard_normal((512,) + shape[1:]))
+    Xb = torch.as_tensor(rng.standard_normal((d.n_rows,) + shape[1:]))
+    up = [d.update_xb(Xb.to(cuda), None, aux, delta.to(cuda))
+          for _ in range(2)]
+    assert torch.equal(up[0], up[1])
+    assert torch.equal(up[0].cpu(), dc.update_xb(Xb, None, auxc, delta))
+    assert ops.launch_counts()["csc_row_sum"] == 4
+
+
+@pytest.mark.gpu
+def test_csc_order_cuda_lambda_max_and_path_repeat(cuda):
+    """``lambda_max`` on a CSC design walks with K5 on the card, with or
+    without the ELL flag, and repeats to the bit (within 1e-14 of the CPU
+    route); a screened sparse path run twice gives equal bits."""
+    from repro_torch.core import L1, lambda_max, reg_path
+    from repro_torch.sparse import CSCDesign
+    X, y, d = _csc_small(cuda, seed=3)
+    plain = CSCDesign.from_scipy(X, device=cuda)         # no ELL flag
+    ops.reset_launch_counts()
+    lm = [lambda_max(d, y, device=cuda), lambda_max(plain, y, device=cuda)]
+    assert lm[0] == lm[1] and ops.launch_counts()["csc_score"] == 2
+    assert abs(lm[0] - lambda_max(X, y, device="cpu")) <= 1e-14 * lm[0]
+    kw = dict(n_lambdas=6, lambda_min_ratio=0.05, tol=1e-9,
+              screen="gap_safe", device=cuda)
+    a = reg_path(d, y, L1(1.0), **kw)
+    b = reg_path(d, y, L1(1.0), **kw)
+    np.testing.assert_array_equal(a.betas, b.betas)

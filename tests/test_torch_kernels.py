@@ -274,4 +274,5 @@ def test_cpu_route_launches_nothing():
                                    "cd_epoch_xb_lanes": 0,
                                    "fused_ws_lanes": 0,
                                    "cd_epoch_gram_block_lanes": 0,
-                                   "fused_ws_block_lanes": 0}
+                                   "fused_ws_block_lanes": 0,
+                                   "csc_row_sum": 0, "ws_gather": 0}
