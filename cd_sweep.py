@@ -4,8 +4,21 @@
 on one CUDA card.
 
     python3 cd_sweep.py [k1|k2|k1b|k1l|k1l_rule|k2l_rule|csc|k3bl|heads|
-                         emulate|mgrids|k2trace|csc_walls ...]
+                         emulate|mgrids|k2trace|csc_walls|k5r|k5r_sorts
+                         ...]
                         [--src=SRC]
+
+``k5r`` alone: the sparse design's scatters on sparse_fig2 through its
+public methods (``matvec`` at [p] and [p, 20] beside a CSR product, the
+Xb update route at ws = 64, 256, 1024 and 4096 split by launch), a
+Gram-form outer step of the sparse Lasso split by launch (with the
+calls a fit of its sorts and K5r's launches), and the sparse fits' peak
+memory (``sweep_k5r``); for an A/B of two trees (one process each,
+alternating). ``k5r long``: also a design with one 100,000-entry row,
+with and without it.
+``k5r_sorts`` alone: the device sorts of a sparse Lasso fit, captured and
+with ``capture=False``, each by the host call that launched it or as a
+captured graph's replay (``sweep_k5r_sorts``).
 
 ``k2l_rule``: K2l's lane plan (``xb_lanes_plan``) against every cluster
 size in repeated rounds (``sweep_k2l_rule``). ``k2trace`` alone: K2's
@@ -574,6 +587,277 @@ def sweep_csc_walls(dev):
         same[key] = bool(np.array_equal(paths[0].betas, paths[1].betas))
     cs.log(f"sweep csc_walls {json.dumps(dict(walls=out, equal_bits=same))}")
     return out
+
+
+def sweep_k5r(dev):
+    """K5r's two call sites on ``chip_smoke.py``'s sparse_fig2 through the
+    design's public methods, so one process times either tree: the first
+    ``matvec`` (it makes the design's row order or row-major copy), then
+    ``matvec`` at [p] and [p, 20] beside a CSR sparse product; the Xb
+    update route (``gather_ws`` then ``update_xb``) at ws = 64, 256, 1024
+    and 4096, the columns of the top scores of X.T raw as a step selects them, with
+    E_ws (their entries) and its split by launch (``chip_smoke.
+    launch_split``, torch.profiler); the sparse Lasso at lambda_max/300
+    (its graphs captured by a first fit) profiled over a second fit, ms a
+    step by kernel (the fit's set-up included) and the calls a fit of the
+    sorts, ``searchsorted`` and K5r's kernels, then a third fit's host
+    calls of ``torch.sort``, ``argsort`` and ``searchsorted`` by input
+    shape (each solve captures its steps, so these are what its graphs
+    hold), with its working sets;
+    the peak and reserved memory of
+    the Lasso at lambda_max/300 and of the MultiTaskLasso at
+    lambda_max/300 (T = 20). Times are CUDA events over warm calls."""
+    import torch
+    from repro_torch.core import (Lasso, MultiTaskLasso, MultitaskQuadratic,
+                                  Quadratic, lambda_max)
+    from torch.profiler import ProfilerActivity, profile
+    c = cs.FULL
+    reps = 20
+    X, beta_true, d, y, _ = cs.sparse_designs(dev, c)
+    n, p = d.shape
+    g = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    beta = torch.randn(p, generator=g, device=dev, dtype=torch.float64)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    d.matvec(beta)
+    torch.cuda.synchronize()
+    out["first_matvec_ms"] = (time.perf_counter() - t) * 1e3
+    out["matvec_ms"] = cs.time_ms(lambda: d.matvec(beta), dev, reps)
+    B = torch.randn(p, 20, generator=g, device=dev, dtype=torch.float64)
+    out["matvec_T20_ms"] = cs.time_ms(lambda: d.matvec(B), dev, reps)
+    nnz = d.nnz
+    A = torch.sparse_csr_tensor(*_csr_of(d, nnz), (n, p))
+    out["csr_product_ms"] = cs.time_ms(lambda: A @ beta, dev, reps)
+    out["csr_product_T20_ms"] = cs.time_ms(lambda: A @ B, dev, reps)
+    del A
+    raw = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+    score = torch.abs(d.score_walk(raw))
+    Xb = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+    for K in (64, 256, 1024, 4096):
+        ws = torch.topk(score, K).indices
+        _, aux = d.gather_ws(ws)
+        delta = torch.randn(K, generator=g, device=dev, dtype=torch.float64)
+        fn = lambda: d.update_xb(Xb, None, aux, delta)  # noqa: E731
+        out[f"update K={K}"] = dict(
+            E_ws=int(torch.sum(d.indptr[ws + 1] - d.indptr[ws])),
+            window_entries=K * d.max_col_nnz,
+            ms=cs.time_ms(fn, dev, reps),
+            split=cs.launch_split(fn, dev))
+    if hasattr(d, "row_major"):
+        out["layouts"] = _k5r_layouts(d, beta, B, score, Xb, dev, reps)
+    if "long" in sys.argv[1:]:
+        out["long row"] = _k5r_long_row(dev, reps)
+    lmax = lambda_max(d, y, device=dev)
+    est = Lasso(alpha=lmax / 300, tol=cs.TOL, device=dev).fit(d, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        est = Lasso(alpha=lmax / 300, tol=cs.TOL, device=dev).fit(d, y)
+        torch.cuda.synchronize()
+    steps = est.result_.n_outer
+    split, calls = {}, {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        if us > 0:
+            # a kernel's whole name: cut short, the instances of one
+            # template (cub's sorts by key type) would share a key
+            split[e.key] = split.get(e.key, 0.0) + us / 1e3 / steps
+            if any(k in e.key for k in ("Radix", "searchsorted", "row_",
+                                        "slot_mark")):
+                calls[e.key] = calls.get(e.key, 0) + e.count
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        Lasso(alpha=lmax / 300, tol=cs.TOL, device=dev).fit(d, y)
+        torch.cuda.synchronize()
+    host = {f"{e.key} {e.input_shapes[:1]}": e.count
+            for e in prof.key_averages(group_by_input_shape=True)
+            if e.key in ("aten::sort", "aten::argsort", "aten::searchsorted")}
+    out["lasso lmax/300 step"] = dict(
+        steps=steps, ws=list(est.result_.ws_history),
+        ms_a_step=dict(sorted(split.items(), key=lambda kv: -kv[1])),
+        calls_a_fit=calls, host_sorts_a_fit=host)
+    Y = cs.sparse_mt_target(X, beta_true, c["mt_sparse_T"])
+    frac = c["mt_sparse_frac"]
+    for label, make, target, df in (
+            ("Lasso lmax/300", lambda m: Lasso(alpha=m / 300, tol=cs.TOL,
+                                               device=dev), y, Quadratic()),
+            (f"MultiTaskLasso lmax/{frac} T={Y.shape[1]}",
+             lambda m: MultiTaskLasso(alpha=m / frac, tol=cs.TOL,
+                                      device=dev), Y, MultitaskQuadratic())):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        m = lambda_max(d, target, df, device=dev)
+        t = time.perf_counter()
+        est = make(m).fit(d, target)
+        torch.cuda.synchronize()
+        out[label] = dict(
+            wall_s=time.perf_counter() - t,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            reserved_gib=torch.cuda.memory_reserved() / 2**30,
+            design_and_inputs_gib=base / 2**30,
+            ws=list(est.result_.ws_history))
+    cs.log(f"sweep k5r {json.dumps(out)}")
+    return out
+
+
+def sweep_k5r_sorts(dev):
+    """Which calls launch the device sorts of the sparse Lasso at
+    lambda_max/300 on ``chip_smoke.py``'s sparse_fig2 (a tree's own
+    ``repro_torch``, for an A/B of two trees). A first fit, then two
+    profiled on the host and the card with Python stacks: the fit as
+    users run it (captured steps), and the same solve on an engine with
+    ``capture=False``, where every launch is eager. Each sort kernel (a
+    kernel name with "Sort" or "Radix") is counted with its device ms a
+    fit, by the host op that launched it eagerly (its name, first input
+    shapes and innermost frames in this repo's files), the rest as
+    captured-graph replays. The fits' outer steps and working sets are
+    logged beside them."""
+    import torch
+    from repro_torch.core import (L1, Lasso, Quadratic, lambda_max,
+                                  make_engine, solve)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _, _, d, y, _ = cs.sparse_designs(dev, cs.FULL)
+    lmax = lambda_max(d, y, device=dev)
+    Lasso(alpha=lmax / 300, tol=cs.TOL, device=dev).fit(d, y)
+    torch.cuda.synchronize()
+
+    def is_sort(name):
+        return "Sort" in name or "Radix" in name
+
+    def sorts_of(fit):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True, with_stack=True) as prof:
+            res = fit()
+            torch.cuda.synchronize()
+        kernels, owners = {}, {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and is_sort(e.name):
+                k = kernels.setdefault(e.name[:100], [0, 0.0])
+                k[0] += 1
+                k[1] += e.time_range.elapsed_us() / 1e3
+            elif e.device_type == DeviceType.CPU:
+                for kn in e.kernels:
+                    if not is_sort(kn.name):
+                        continue
+                    top = e                 # the nearest op with a stack
+                    while not top.stack and top.cpu_parent is not None:
+                        top = top.cpu_parent
+                    frames = [f for f in top.stack
+                              if "repro_torch" in f or "cd_sweep" in f][:4]
+                    key = (f"{top.name} < {e.name} {e.input_shapes[:2]} "
+                           f"{' <- '.join(frames)} :: {kn.name[:60]}")
+                    o = owners.setdefault(key, [0, 0.0])
+                    o[0] += 1
+                    o[1] += kn.duration / 1e3
+        eager = sum(o[0] for o in owners.values())
+        return dict(steps=res.n_outer, ws=list(res.ws_history),
+                    sort_kernels={k: dict(count=v[0], ms=v[1])
+                                  for k, v in kernels.items()},
+                    eager_launches={k: dict(count=v[0], ms=v[1])
+                                    for k, v in owners.items()},
+                    captured_graph_replay_launches=sum(
+                        v[0] for v in kernels.values()) - eager)
+
+    out = {"captured": sorts_of(lambda: Lasso(
+        alpha=lmax / 300, tol=cs.TOL, device=dev).fit(d, y).result_)}
+    engine = make_engine(L1(lmax / 300), Quadratic(), device=dev,
+                         capture=False)
+    out["capture=False"] = sorts_of(lambda: solve(
+        d, y, Quadratic(), L1(lmax / 300), tol=cs.TOL, engine=engine))
+    cs.log(f"sweep k5r_sorts {json.dumps(out)}")
+    return out
+
+
+def _k5r_layouts(d, beta, B, score, Xb, dev, reps):
+    """K5r's kernels alone at other layouts (a tree with the row-major
+    copy), launched through ``csc_score.csc_row_sum_cuda`` with a plan
+    made here: matvec at [p] a thread a row at each thread count, at
+    [p, 20] at each slice and thread count, the update at ws = 4096 at
+    each count of rows a CTA, buffer and thread count, each checked bit
+    for bit against the default plans' result."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.csc_score import (K5R_LONG, MatvecPlan,
+                                               UpdatePlan, csc_row_sum_cuda)
+    rm = d.row_major()
+    K = 4096
+    ws = torch.topk(score, K).indices
+    slots, bits = ops.ws_slot_map(ws, d.width)
+    delta = torch.randn(K, dtype=torch.float64, device=dev)
+    args = (rm.vals, rm.cols, rm.ptr)
+    calls = {"matvec": lambda pl: csc_row_sum_cuda(*args, beta, pl),
+             "matvec T=20": lambda pl: csc_row_sum_cuda(*args, B, pl),
+             f"update K={K}": lambda pl: csc_row_sum_cuda(
+                 *args, delta, pl, base=Xb, slots=slots, bits=bits)}
+    want = {k: f(None) for k, f in calls.items()}
+    plans = [("matvec", MatvecPlan(threads, 0, K5R_LONG, threads))
+             for threads in (64, 128, 256)]
+    plans += [("matvec T=20", MatvecPlan(threads // 20, C, K5R_LONG,
+                                         threads))
+              for threads in (256, 512) for C in (16, 32, 64)]
+    plans += [(f"update K={K}", UpdatePlan(R, kmax, K5R_LONG, t))
+              for R in (32, 64, 128) for kmax in (64, 128, 256)
+              for t in (128, 256)]
+    out = []
+    for name, plan in plans:
+        f = calls[name]
+        same = bool(torch.equal(f(plan), want[name]))
+        out.append(dict(call=name, plan=plan._asdict(),
+                        ms=cs.time_ms(lambda: f(plan), dev, reps)
+                        if same else "differs"))
+    return out
+
+
+def _k5r_long_row(dev, reps):
+    """``matvec`` and the Xb update (ws = 4096, random columns) on
+    ``chip_smoke._long_row_design`` (one row of 100,000 entries, ~24 a
+    row elsewhere, 3000 rows) and on the same design without that row:
+    what the long row costs."""
+    import numpy as np
+    import torch
+    from repro_torch.sparse import CSCDesign
+    out = {}
+    d = cs._long_row_design(dev)
+    dc = d.to("cpu")
+    nnz = dc.nnz
+    keep = dc.indices[:nnz] != 2
+    short = CSCDesign.from_arrays(
+        dc.data[:nnz][keep].numpy(), dc.indices[:nnz][keep].numpy(),
+        np.concatenate([[0], np.cumsum(np.bincount(
+            dc.col_ids[:nnz][keep].numpy(), minlength=d.width))]),
+        d.shape, device=dev)
+    rng = np.random.default_rng(3)
+    ws = torch.as_tensor(rng.choice(d.width, 4096, replace=False),
+                         device=dev)
+    for label, x in (("with the 100,000-entry row", d),
+                     ("without it", short)):
+        beta = torch.randn(x.width, dtype=torch.float64, device=dev)
+        delta = torch.randn(4096, dtype=torch.float64, device=dev)
+        Xb = torch.randn(x.n_rows, dtype=torch.float64, device=dev)
+        _, aux = x.gather_ws(ws)
+        out[label] = dict(
+            nnz=x.nnz, matvec_ms=cs.time_ms(lambda: x.matvec(beta), dev, reps),
+            update_ms=cs.time_ms(lambda: x.update_xb(Xb, None, aux, delta),
+                                 dev, reps))
+    return out
+
+
+def _csr_of(d, nnz):
+    """(crow, col, values) of the design's entries sorted by row, made with
+    scipy on the host (a yardstick's input, in no tree's route)."""
+    import scipy.sparse as sp
+    import torch
+    dc = d.to("cpu")
+    A = sp.csc_matrix((dc.data[:nnz].numpy(), dc.indices[:nnz].numpy(),
+                       dc.indptr.numpy()), shape=d.shape).tocsr()
+    dev = d.device
+    return (torch.as_tensor(A.indptr.astype("int64"), device=dev),
+            torch.as_tensor(A.indices.astype("int64"), device=dev),
+            torch.as_tensor(A.data, device=dev))
 
 
 def sweep_csc(dev, cfg, out, fails):
@@ -1181,6 +1465,12 @@ def main() -> int:
         return 0
     if kernels == ("csc_walls",):
         sweep_csc_walls(torch.device("cuda"))
+        return 0
+    if kernels == ("k5r_sorts",):
+        sweep_k5r_sorts(torch.device("cuda"))
+        return 0
+    if kernels[:1] == ("k5r",):
+        sweep_k5r(torch.device("cuda"))
         return 0
     if kernels == ("mgrids",):
         # the multitask lane runs (m1)-(m4) of chip_smoke.py alone, with

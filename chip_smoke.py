@@ -66,16 +66,18 @@ Phases, each of which must pass (any failure exits non-zero):
    deterministic), on it and on a small design with empty columns and
    columns at the window cap, where each must also equal the torch
    emulation of its summation order (``csc_score.emulate``) bit for bit;
-   K5r (``csc_row_sum``, the design's ``matvec`` at [p] and [p, 20] and
-   its ``update_xb`` on a 2048-column working set) on both designs, run
-   twice for equal bits and equal bit for bit to the CPU route
-   (``index_add_``, which adds in its order). Then, on both routes with the checks of
+   K5r (``csc_row_sum`` over the design's row-major copy: its ``matvec``
+   at [p] and [p, 20] and its ``update_xb`` on working sets of 2048 and
+   4096 columns) on both designs, on one with a 100,000-entry row (K5r's
+   long path) and empty rows, and on the small one in float32, run twice
+   for equal bits and equal bit for bit to the CPU route (``index_add_``,
+   which adds in its order). Then, on both routes with the checks of
    phase 4, a Lasso at lambda_max/10 and a weighted sparse logistic
    regression at lambda_max/3, the same two at lambda_max/300 and
    lambda_max/30 (working sets of 2048 and 4096 columns), and a LinearSVC
    on a scipy sparse X (label-signed Z^T converted by the estimator): the
-   kernel route must launch K5 on every outer head (and K5r in the
-   Lasso fits), K5s once in each
+   kernel route must launch K5 on every outer head (and K5r's ``matvec``
+   and ``update_xb`` in the Lasso fits), K5s once in each
    weighted fit, K1 (Lasso, SVC: once for every inner epoch) or K2
    (logistic, on a cluster), and never K3. The deep logistic fit is held
    to its eager oracle bit for bit; the shallow one is run with 16 CTAs
@@ -247,7 +249,9 @@ Phases, each of which must pass (any failure exits non-zero):
    bucket too, U / (S K) and both bounds: the S K rows read and written,
    or U read and S K written), each beside S single-lane launches of its
    kernel on the same inputs; K3g (shared lanes, beside index_select);
-   K5r (matvec on sparse_fig2, beside a CSR sparse product); K3bl (S = 10,
+   K5r (``matvec`` on sparse_fig2, beside a CSR sparse product, and
+   ``update_xb`` at ws = 4096, the slot map's launch beside it, beside
+   ``torch.addmv`` on the dense working-set columns); K3bl (S = 10,
    T = 20, K3b's shape, and at the leadfield's S*T = 500) beside ten K3b
    heads, with its product launches a call (counted by torch.profiler
    over one call) and its scratch bytes, and K3b alone at the leadfield's
@@ -884,23 +888,52 @@ def check_k5(dev, designs, errs):
     return fails
 
 
+def _long_row_design(dev, n=3000, p=120_000, L=100_000, seed=0):
+    """A CSC design with one row of L entries (K5r's long path; rows 1 and
+    n - 1 empty, the rest ~24 entries a row)."""
+    import numpy as np
+    import scipy.sparse as sp
+    from repro_torch.sparse import CSCDesign
+    rng = np.random.default_rng(seed)
+    X = sp.random(n, p, density=2e-4, random_state=seed, format="coo")
+    keep = (X.row != 1) & (X.row != n - 1) & (X.row != 2)
+    rows = np.concatenate([X.row[keep], np.full(L, 2)])
+    cols = np.concatenate([X.col[keep], rng.choice(p, L, replace=False)])
+    vals = np.concatenate([X.data[keep], rng.standard_normal(L)])
+    X = sp.coo_matrix((vals, (rows, cols)), shape=(n, p)).tocsc()
+    return CSCDesign.from_scipy(X, device=dev)
+
+
 def check_k5r(dev, designs, errs):
-    """K5r (``csc_row_sum``), the CSC scatters summed in a fixed order:
-    ``matvec`` (beta [p] and [p, 20]) and ``update_xb`` (the windows of a
-    working set of 2048 columns, delta [K]) on the card, twice (equal
-    bits) and against the design's CPU route (``index_add_``, which adds
-    in the same order) bit for bit; updates `errs`, returns the
+    """K5r (``csc_row_sum``), the CSC scatters summed in a fixed order over
+    the row-major copy: ``matvec`` (beta [p] and [p, 20]) and
+    ``update_xb`` (working sets of 2048 and 4096 columns, delta [K]) on
+    the card, twice (equal bits) and against the design's CPU route
+    (``index_add_``, which adds in the same order) bit for bit, on
+    `designs`, on a design with a 100,000-entry row and empty rows, and on
+    the last of `designs` in float32; updates `errs`, returns the
     failures."""
     import numpy as np
     import torch
+    from repro_torch.sparse import CSCDesign
     fails = []
     errs["csc_row_sum"] = 0.0
+    label, d = designs[-1]
+    dc = d.to("cpu")
+    nnz = dc.nnz
+    designs = list(designs) + [
+        ("long-row", _long_row_design(dev)),
+        (f"{label} float32", CSCDesign.from_arrays(
+            dc.data[:nnz].numpy().astype(np.float32),
+            dc.indices[:nnz].numpy(), dc.indptr.numpy(), dc.shape,
+            device=dev))]
     for label, d in designs:
         dc = d.to("cpu")
         rng = np.random.default_rng(12)
         for shape in ((d.width,), (d.width, 20)):
             beta = torch.as_tensor(rng.standard_normal(shape) * (rng.random(
-                shape[:1]) < 0.01).reshape((-1,) + (1,) * (len(shape) - 1)))
+                shape[:1]) < 0.01).reshape((-1,) + (1,) * (len(shape) - 1)),
+                dtype=d.dtype)
             k = [d.matvec(beta.to(dev)) for _ in range(2)]
             want = dc.matvec(beta)
             same = bool(torch.equal(k[0], k[1])
@@ -910,32 +943,37 @@ def check_k5r(dev, designs, errs):
             if not same:
                 fails.append(f"K5r {label} matvec {shape}: err={e:.3e}, "
                              f"not the CPU route's bits or not repeated")
-        K = min(2048, d.width)
-        ws = torch.as_tensor(rng.choice(d.width, K, replace=False))
-        _, aux = d.gather_ws(ws.to(dev))
-        _, auxc = dc.gather_ws(ws)
-        delta = torch.as_tensor(rng.standard_normal(K))
-        Xb = torch.as_tensor(rng.standard_normal(d.n_rows))
-        k = [d.update_xb(Xb.to(dev), None, aux, delta.to(dev))
-             for _ in range(2)]
-        want = dc.update_xb(Xb, None, auxc, delta)
-        e = float(torch.max(torch.abs(k[0].cpu() - want)))
-        errs["csc_row_sum"] = max(errs["csc_row_sum"], e)
-        if not (torch.equal(k[0], k[1]) and torch.equal(k[0].cpu(), want)):
-            fails.append(f"K5r {label} update_xb K={K}: err={e:.3e}, not "
-                         f"the CPU route's bits or not repeated")
+        for K in sorted({min(2048, d.width), min(4096, d.width)}):
+            ws = torch.as_tensor(rng.choice(d.width, K, replace=False))
+            _, aux = d.gather_ws(ws.to(dev))
+            _, auxc = dc.gather_ws(ws)
+            delta = torch.as_tensor(rng.standard_normal(K), dtype=d.dtype)
+            Xb = torch.as_tensor(rng.standard_normal(d.n_rows),
+                                 dtype=d.dtype)
+            k = [d.update_xb(Xb.to(dev), None, aux, delta.to(dev))
+                 for _ in range(2)]
+            want = dc.update_xb(Xb, None, auxc, delta)
+            e = float(torch.max(torch.abs(k[0].cpu() - want)))
+            errs["csc_row_sum"] = max(errs["csc_row_sum"], e)
+            if not (torch.equal(k[0], k[1])
+                    and torch.equal(k[0].cpu(), want)):
+                fails.append(f"K5r {label} update_xb K={K}: err={e:.3e}, "
+                             f"not the CPU route's bits or not repeated")
         del dc
     return fails
 
 
 # --------------------------------------------------------------- main path
 def all_counts():
-    """The launch counts of every kernel, and those of K1, K2 and K1b by
-    branch under "<kernel>/<branch>"."""
+    """The launch counts of every kernel, those of K1, K2 and K1b by
+    branch under "<kernel>/<branch>" and K5r's by site under
+    "csc_row_sum/<site>"."""
     from repro_torch.kernels import ops
     counts = ops.launch_counts()
     for k, per in ops.branch_counts().items():
         counts.update({f"{k}/{b}": v for b, v in per.items()})
+    counts.update({f"csc_row_sum/{k}": v
+                   for k, v in ops.row_sum_counts().items()})
     return counts
 
 
@@ -1296,7 +1334,8 @@ def sparse_path(dev, cfg, d, y):
         fit_both(f"sparse Lasso(lmax/{k_lasso})",
                  lambda **k: Lasso(alpha=lmax / k_lasso, **k),
                  d, y, dev, total, fails,
-                 ("csc_score", "cd_epoch_gram", "csc_row_sum"),
+                 ("csc_score", "cd_epoch_gram", "csc_row_sum/matvec",
+                  "csc_row_sum/update_xb"),
                  exact={"fused_ws": 0, "csc_weighted_col_sq": 0},
                  per_head="csc_score", per_epoch="cd_epoch_gram")
         label = f"sparse SparseLogisticRegression(lmax/{k_log}, weighted)"
@@ -3427,6 +3466,11 @@ def log_rows(rows, card):
                       f"not a bound of the function) "
                       f"{row['walk_floor_ms']:.4f} ms "
                       f"({row['l2_bytes'] / 1e9:.3f} GB of L2 reads)")
+        if row.get("route_ms") is not None:
+            extra += (f", route {row['route_ms']:.4f} ms (slot map "
+                      f"included; {row['slot_map_launches']} slot maps on "
+                      f"the main path), floor of a walk of the whole copy "
+                      f"{row['copy_floor_ms']:.4f} ms")
         log(f"time {row['name']} [{row['shape']}] on {card}: kernel "
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}){extra}, library "
@@ -3543,32 +3587,67 @@ def sparse_times(dev, cfg, launches, errs, d):
                          shape=f"n={n}, p={p}, nnz={nnz}, {layout}"
                                + (", square" if square else "")),
                             floor, 32 * nnz))
-    # K5r: X @ beta (matvec) over the design's row order
-    from repro_torch.kernels.csc_score import csc_row_sum_plain
-    order, ptr = d._row_order()
-    E = int(ptr[-1])                  # the entries summed: the padding is not
+    # K5r over the row-major copy: X @ beta (matvec), and the Xb update
+    # of a Gram-form step at ws = 4096 (the columns of the top scores of
+    # X.T raw, as a step selects them)
+    from repro_torch.kernels.csc_score import (UPDATE_PLAN, csc_row_sum_plain,
+                                               matvec_plan)
+    rm = d.row_major()
+    E = int(rm.ptr[-1])               # the entries summed: the padding is not
     beta = torch.randn(p, generator=g, device=dev, dtype=torch.float64)
-    rargs = (d.data, order, d.col_ids, ptr, beta)
+    rargs = (rm.vals, None, rm.cols, rm.ptr, beta)
     ms = time_ms(lambda: ops.csc_row_sum(*rargs), dev, reps)
     plain = time_ms(lambda: csc_row_sum_plain(*rargs), dev, reps)
-    sel = order[:E].long()
-    Xcsr = torch.sparse_csr_tensor(ptr, d.col_ids[sel].long(), d.data[sel],
+    Xcsr = torch.sparse_csr_tensor(rm.ptr, rm.cols[:E].long(), rm.vals[:E],
                                    (n, p))
     lib = time_ms(lambda: Xcsr @ beta, dev, reps)
     del Xcsr
-    b = bound(E * (8 + 4 + 4) + (n + 1) * 8 + p * 8 + n * 8, 2 * E)
-    rows.append(dict(name="csc_row_sum", route="cuda",
+    b = bound(E * (8 + 4) + (n + 1) * 8 + p * 8 + n * 8, 2 * E)
+    replaces = ("none: the reference's CSC scatter-add (src/repro/sparse/"
+                "ops.py: csc_matvec, csc_incremental_xb) is an XLA op")
+    rows.append(dict(name="csc_row_sum/matvec", route="cuda",
                      source="src/repro_torch/csrc/csc_score.cu",
-                     replaces="none: the reference's CSC scatter-add "
-                              "(src/repro/sparse/ops.py: csc_matvec, "
-                              "csc_incremental_xb) is an XLA op",
-                     launches=launches["csc_row_sum"],
+                     replaces=replaces,
+                     launches=launches["csc_row_sum/matvec"],
                      max_abs_err=errs["csc_row_sum"], ms=ms, plain_ms=plain,
                      bound_ms=b[0], bound_by=b[1], library_ms=lib,
                      library_call="a CSR sparse matrix-vector product "
                                   "(torch.sparse_csr_tensor @ beta)",
                      shape=f"matvec on sparse_fig2: n={n}, p={p}, {E} "
-                           f"entries"))
+                           f"entries, {matvec_plan(1)}"))
+    K = 4096
+    ws = torch.topk(torch.abs(d.score_walk(raw)), K).indices
+    E_ws = int(torch.sum(d.indptr[ws + 1] - d.indptr[ws]))
+    Xt_ws, aux = d.gather_ws(ws)
+    delta = torch.randn(K, generator=g, device=dev, dtype=torch.float64)
+    Xb = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+    slots, bits = ops.ws_slot_map(ws, p)
+    uargs = (rm.vals, None, rm.cols, rm.ptr, delta)
+    ms = time_ms(lambda: ops.csc_row_sum(*uargs, base=Xb, slots=slots,
+                                         bits=bits), dev, reps)
+    route = time_ms(lambda: d.update_xb(Xb, None, aux, delta), dev, reps)
+    plain = time_ms(lambda: csc_row_sum_plain(*uargs, base=Xb, slots=slots),
+                    dev, reps)
+    # the same function in one call on the dense working-set columns the
+    # step already holds (DenseDesign.update_xb's call)
+    lib = time_ms(lambda: torch.addmv(Xb, Xt_ws.T, delta), dev, reps)
+    del Xt_ws
+    b = bound(E_ws * (8 + 4) + K * 8 + 2 * n * 8, 2 * E_ws)
+    rows.append(dict(name="csc_row_sum/update_xb", route="cuda",
+                     source="src/repro_torch/csrc/csc_score.cu",
+                     replaces=replaces,
+                     launches=launches["csc_row_sum/update_xb"],
+                     max_abs_err=errs["csc_row_sum"], ms=ms, plain_ms=plain,
+                     bound_ms=b[0], bound_by=b[1], library_ms=lib,
+                     library_call="torch.addmv(Xb, Xt_ws.T, delta) on "
+                                  "gather_ws's dense working-set columns",
+                     route_ms=route,
+                     slot_map_launches=launches["csc_row_sum/slot_map"],
+                     copy_floor_ms=bound(E * (8 + 4), 0)[0],
+                     shape=f"update_xb on sparse_fig2 at ws={K} (top "
+                           f"scores), E_ws={E_ws} of {E} entries, "
+                           f"{UPDATE_PLAN}; route_ms adds the slot map's "
+                           f"memsets and mark launch"))
     return rows
 
 

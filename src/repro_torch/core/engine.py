@@ -75,7 +75,7 @@ CSC arrays and densifies only the working-set columns. Both offer
 ``score``, ``gather_ws`` (-> ``(Xt_ws [K, n], aux)``), ``update_xb``,
 ``matvec``, ``lipschitz``, ``col_sq_norms`` and ``take_columns`` (a column
 subset, or a refill in place of one); ``aux`` is None for a dense design
-and the (rows, vals) column windows for a CSC one.
+and the (rows, vals) column windows, with the working set, for a CSC one.
 """
 from __future__ import annotations
 
@@ -142,6 +142,10 @@ class Design:
 
     def update_xb(self, Xb, Xt_ws, aux, delta):
         raise NotImplementedError
+
+    def before_capture(self):
+        """Make what a captured step reads of the design in place (a CSC
+        design's row-major copy); nothing for a dense design."""
 
     def matvec(self, beta):
         raise NotImplementedError
@@ -1250,6 +1254,7 @@ class SolveEngine:
                         if t is not None}, design)
         ins = g.inputs
         flow = CapturedFlow(self.device, self._pools)
+        design.before_capture()
         with torch.cuda.stream(flow.capture_stream), \
                 kops.deferred_launches() as head:
             g.graph.capture_begin(pool=self._pools.ids[0],

@@ -139,8 +139,14 @@ _SIGNATURES = {
     },
     "csc_score": {
         "csc_walk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        # K5r: val, order, keys, kdiv, ptr, coef, base, out, rows, nt
-        "csc_row_sum": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P],
+        # K5r's matvec: val, col, ptr, coef, base, out, rows, R, C,
+        # longer, threads, nt
+        "csc_row_matvec": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _P],
+        # K5r's update: val, col, ptr, slot, bits, coef, base, out, rows,
+        # R, kmax, longer, threads, nt, K
+        "csc_row_update": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _P],
     },
 }
 
@@ -177,7 +183,9 @@ _PLAIN_SIGNATURES = {
                  "fused_ws_block_lanes_f64": [
                      _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P]},
-    "csc_score": {"l2_gather_probe": [_P, _I, _I, _LL, _I, _P, _P]},
+    "csc_score": {"l2_gather_probe": [_P, _I, _I, _LL, _I, _P, _P],
+                  # K5r's update's slot map and its bitmap
+                  "csc_slot_map": [_P, _P, _P, _I, _I, _P]},
     "graph_ctl": {"cond_begin": [_P, _P, _I, _P, _P],
                   "cond_end": [_P, ctypes.c_ulonglong, _P],
                   "runtime_version": []},

@@ -23,12 +23,21 @@ summation order, bit for bit.
 
 K5r (``csc_row_sum``) is the transpose walk, the CSC scatters of
 ``CSCDesign.matvec`` and ``CSCDesign.update_xb`` summed row by row in a
-fixed order: ``row_order`` sorts the entries by row (stably, so each row
-keeps its entries' order) and the kernel sums each row's run in that
-order, which is the order ``index_add_`` adds in on the CPU. Its plain
-version, ``csc_row_sum_plain``, is that ``index_add_``.
+fixed order, the order ``index_add_`` adds in on the CPU: ``matvec`` a
+row's entries by ascending column, ``update_xb`` the row's entries in the
+working-set columns by ascending slot. It walks ``row_major``, a copy of
+the design's entries sorted by row once a design (``row_order``: stably,
+so a row keeps its entries' column order; zeros and padding left out):
+``matvec`` a thread a row, or at T tasks a slice of every row of a
+CTA's rows at a time (``matvec_plan``), the update a warp a row
+(``UPDATE_PLAN``), keeping the entries whose column has a slot (a slot
+map and its bitmap) and ordering each row's kept entries by slot by
+counting, with no sort. Its plain version,
+``csc_row_sum_plain``, is that ``index_add_`` over the copy.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -37,7 +46,10 @@ from .cd_epoch import _check_rc, _suffix
 
 __all__ = ["csc_score_plain", "csc_score_cuda", "csc_score_block_cuda",
            "csc_walk_cuda", "l2_gather_probe_cuda", "lane_plan", "emulate",
-           "row_order", "csc_row_sum_plain", "csc_row_sum_cuda"]
+           "row_order", "MatvecPlan", "matvec_plan", "UpdatePlan",
+           "UPDATE_PLAN", "plan_ctas", "RowMajor", "row_major",
+           "slot_bitmap", "slot_map_cuda", "csc_row_sum_plain",
+           "csc_row_sum_cuda"]
 
 
 # lanes a column at T = 1 (K5, K5s; csrc/csc_score.cu's kK5Lanes): a warp
@@ -174,43 +186,208 @@ def row_order(rows, n_rows, vals=None):
     return order.to(torch.int32), torch.searchsorted(srt, bounds)
 
 
+# K5r: a row of more than K5R_LONG entries takes the long path
+K5R_LONG = 1024
+# K5r's matvec at T > 1: the entries of each row staged a slice at a time
+K5R_SLICE = 64
+# K5r's update: rows a CTA of 256 threads (a warp a row at a time) and
+# the kept entries a warp's buffer holds
+K5R_UPDATE_ROWS = 64
+K5R_KMAX = 128
+
+
+class MatvecPlan(NamedTuple):
+    """K5r's ``matvec`` launch: CTA c takes rows [c R, (c + 1) R) (R =
+    ``rows``, R T <= ``threads``: a thread a (row, task)); ``slice`` 0 at
+    one task: a thread walks its row, else (T > 1) the CTA stages
+    ``slice`` entries of each row at a time; a row of more than ``longer``
+    entries takes the long path."""
+    rows: int
+    slice: int
+    longer: int
+    threads: int
+
+
+def matvec_plan(T):
+    """K5r's ``matvec`` plan for coef [P, T]: at one task a thread a row
+    on 128 threads, no slice; else slices of ``K5R_SLICE`` on the fewest
+    warps of at least 256 threads that hold T tasks (T = 20: 12 rows of
+    20 on 256 threads)."""
+    if T == 1:
+        return MatvecPlan(128, 0, K5R_LONG, 128)
+    threads = max(256, -(-T // 32) * 32)
+    if T < 1 or threads > 512:
+        raise ValueError(f"csc_row_sum: no matvec plan for T={T} tasks "
+                         f"(1 to 512)")
+    return MatvecPlan(threads // T, K5R_SLICE, K5R_LONG, threads)
+
+
+class UpdatePlan(NamedTuple):
+    """K5r's ``update_xb`` launch: CTA c takes rows [c R, (c + 1) R) (R =
+    ``rows``), a warp a row at a time, with a buffer of ``kmax`` kept
+    entries a warp; a row of more than ``longer`` entries, or with more
+    than ``kmax`` kept, takes the CTA's long path."""
+    rows: int
+    kmax: int
+    longer: int
+    threads: int
+
+
+# K5r's update: 64 rows a CTA of 8 warps, 128 kept entries a warp's buffer
+UPDATE_PLAN = UpdatePlan(K5R_UPDATE_ROWS, K5R_KMAX, K5R_LONG, 256)
+
+
+def plan_ctas(plan, ptr):
+    """A plan (``matvec_plan`` or ``UPDATE_PLAN``) as K5r reads it: for
+    each CTA, (its rows summed in the main loop, its long rows). Host
+    reads: tests only."""
+    ptr = ptr.tolist()
+    out = []
+    for r0 in range(0, len(ptr) - 1, plan.rows):
+        mine = range(r0, min(r0 + plan.rows, len(ptr) - 1))
+        long_rows = [r for r in mine if ptr[r + 1] - ptr[r] > plan.longer]
+        out.append(([r for r in mine if r not in long_rows], long_rows))
+    return out
+
+
+class RowMajor(NamedTuple):
+    """A design's entries sorted by row (``row_order``): vals and cols
+    (int32) [capacity], the zeros and padding last, past ptr[-1]; ptr
+    int64 [rows + 1]."""
+    vals: torch.Tensor
+    cols: torch.Tensor
+    ptr: torch.Tensor
+
+
+def row_major(data, indices, col_ids, n_rows, out=None):
+    """The row-major copy of flat CSC arrays on their device: one stable
+    sort, no host read. With `out` (a copy of the same capacity and rows),
+    written into its tensors in place, so what reads them (a captured
+    step) reads the new design."""
+    order, ptr = row_order(indices, n_rows, data)
+    order = order.long()
+    if out is None:
+        return RowMajor(data[order], col_ids[order], ptr)
+    out.vals.copy_(data[order])
+    out.cols.copy_(col_ids[order])
+    out.ptr.copy_(ptr)
+    return out
+
+
+def slot_bitmap(slots):
+    """The bitmap of a slot map (int32 [p]): int32 [ceil(p / 32)], bit j %
+    32 of word j // 32 set where column j has a slot (slots[j] >= 0)."""
+    p = slots.shape[0]
+    on = torch.zeros(-(-p // 32) * 32, dtype=torch.int64, device=slots.device)
+    on[:p] = (slots >= 0).long()
+    words = torch.sum(on.view(-1, 32) << torch.arange(32, device=on.device),
+                      dim=1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def slot_map_cuda(ws, p):
+    """The update's slot map on the card: (int32 [p], slot_of[ws[k]] = k,
+    else -1; its ``slot_bitmap``), by two memsets and a mark launch; ws
+    contiguous int64 [K] of distinct features."""
+    pos = torch.empty(p, dtype=torch.int32, device=ws.device)
+    bits = torch.empty(-(-p // 32), dtype=torch.int32, device=ws.device)
+    with torch.cuda.device(ws.device):
+        rc = BUILD.lib("csc_score").csc_slot_map(
+            ws.data_ptr(), pos.data_ptr(), bits.data_ptr(), p, ws.shape[0],
+            _stream(ws))
+    _check_rc(rc, "slot_map")
+    return pos, bits
+
+
+def _slot_ranks(row, slot, rows):
+    """The permutation that puts kept entries (rows ascending, as in the
+    copy) in (row, slot) order, as K5r ranks them: each entry counts its
+    row's entries with a smaller slot. No sort; Σ (kept a row)² pairs."""
+    M = row.shape[0]
+    dev = row.device
+    cnt = torch.bincount(row, minlength=rows)
+    start = torch.cumsum(cnt, 0) - cnt
+    k = cnt[row]
+    rep = torch.repeat_interleave(torch.arange(M, device=dev), k)
+    off = torch.arange(rep.shape[0], device=dev) - \
+        torch.repeat_interleave(torch.cumsum(k, 0) - k, k)
+    partner = start[row][rep] + off
+    rank = torch.zeros(M, dtype=torch.int64, device=dev).index_add_(
+        0, rep, (slot[partner] < slot[rep]).long())
+    perm = torch.empty(M, dtype=torch.int64, device=dev)
+    perm[start[row] + rank] = torch.arange(M, device=dev)
+    return perm
+
+
 def _keys_of(order, keys, kdiv):
     x = order.long()
     return x, (keys[x].long() if keys is not None else x // kdiv)
 
 
-def csc_row_sum_plain(val, order, keys, ptr, coef, *, kdiv=0, base=None):
+def csc_row_sum_plain(val, order, keys, ptr, coef, *, kdiv=0, base=None,
+                      slots=None):
     """K5r's plain version: ``base + out`` where out[i] sums val[x] *
-    coef[key(x)] over row i's entries x of `order` (key(x) = keys[x], or x
-    // kdiv without keys; entries past ptr[-1] are in no row) by
-    ``index_add_`` in that order: on the CPU, bit for bit the kernel's
-    result. coef [P] or [P, T]; base None or the output's shape [rows] /
-    [rows, T]."""
-    x, k = _keys_of(order[:int(ptr[-1])], keys, kdiv)
-    g = coef[k]
-    contrib = val[x] * g if g.ndim == 1 else val[x][:, None] * g
+    coef[key(x)] over row i's entries x by ``index_add_`` in their order:
+    on the CPU, bit for bit the kernel's result. With `order` None, val and
+    keys are a row-major copy (``row_major``: its vals and cols, rows
+    bounded by ptr) and key(x) = keys[x] (``matvec``) or, with `slots` (a
+    map of columns to slots, -1: none), slots[keys[x]], the entries without
+    a slot left out and each row's entries taken by ascending slot
+    (``update_xb``; ranked by counting, no sort). With `order` (``row_order``
+    over any flat arrays), row i's entries are its run of order and key(x)
+    = keys[x], or x // kdiv without keys. coef [P] or [P, T]; base None or
+    the output's shape [rows] / [rows, T]."""
     rows = ptr.shape[0] - 1
+    E = int(ptr[-1])
     rid = torch.repeat_interleave(
         torch.arange(rows, device=ptr.device), ptr[1:] - ptr[:-1])
+    if order is not None:
+        x, k = _keys_of(order[:E], keys, kdiv)
+        v = val[x]
+    else:
+        v, k = val[:E], keys[:E].long()
+        if slots is not None:
+            s = slots[k]
+            keep = s >= 0
+            rid, s, v = rid[keep], s[keep].long(), v[keep]
+            perm = _slot_ranks(rid, s, rows)
+            rid, k, v = rid[perm], s[perm], v[perm]
+    g = coef[k]
+    contrib = v * g if g.ndim == 1 else v[:, None] * g
     out = torch.zeros((rows,) + tuple(coef.shape[1:]), dtype=val.dtype,
                       device=val.device).index_add_(0, rid, contrib)
     return out if base is None else base + out
 
 
-def csc_row_sum_cuda(val, order, keys, ptr, coef, *, kdiv=0, base=None):
-    """Launch K5r on the tensors' stream: one thread a (row, task) sums its
-    row's run of `order` in order. coef contiguous [P] or [P, T]; base
-    None or contiguous as the output. Returns [rows] or [rows, T]."""
-    fn = getattr(BUILD.lib("csc_score"), f"csc_row_sum_{_suffix(val)}")
+def csc_row_sum_cuda(val, cols, ptr, coef, plan=None, *, base=None,
+                     slots=None, bits=None):
+    """Launch K5r on the tensors' stream over a row-major copy (val, cols,
+    ptr): ``matvec`` (coef contiguous [P] or [P, T]; `plan` a
+    ``MatvecPlan``, by default ``matvec_plan(T)``) or, with `slots` and
+    `bits` (int32 [P'] and [ceil(P' / 32)], the update's slot map and its
+    bitmap), ``update_xb`` (coef the delta [K] or [K, T]; `plan` an
+    ``UpdatePlan``, by default ``UPDATE_PLAN``); base None or contiguous
+    as the output. Returns [rows] or [rows, T]. Another `plan` is for
+    tests and ``cd_sweep.py k5r``'s layouts: the main path takes the
+    defaults."""
+    lib = BUILD.lib("csc_score")
     rows = ptr.shape[0] - 1
     T = 1 if coef.ndim == 1 else coef.shape[1]
     out = torch.empty((rows,) + tuple(coef.shape[1:]), dtype=val.dtype,
                       device=val.device)
+    args = (val.data_ptr(), cols.data_ptr(), ptr.data_ptr())
+    tail = (None if base is None else base.data_ptr(), out.data_ptr())
     with torch.cuda.device(val.device):
-        rc = fn(val.data_ptr(), order.data_ptr(),
-                None if keys is None else keys.data_ptr(), int(kdiv),
-                ptr.data_ptr(), coef.data_ptr(),
-                None if base is None else base.data_ptr(), out.data_ptr(),
-                rows, T, _stream(val))
+        if slots is None:
+            plan = plan or matvec_plan(T)
+            rc = getattr(lib, f"csc_row_matvec_{_suffix(val)}")(
+                *args, coef.data_ptr(), *tail, rows, plan.rows, plan.slice,
+                plan.longer, plan.threads, T, _stream(val))
+        else:
+            plan = plan or UPDATE_PLAN
+            rc = getattr(lib, f"csc_row_update_{_suffix(val)}")(
+                *args, slots.data_ptr(), bits.data_ptr(), coef.data_ptr(),
+                *tail, rows, plan.rows, plan.kmax, plan.longer, plan.threads,
+                T, coef.shape[0], _stream(val))
     _check_rc(rc, "csc_row_sum")
     return out

@@ -30,7 +30,9 @@ kernel to the plain version. ``launches`` is a plain int on the wrapper;
                        launch, with the mask
   fused_ws_block_lanes K3bl, K3b over S lanes of multitask blocks sharing X
   csc_row_sum          K5r, the CSC scatters (X @ beta, Xb + X_ws delta)
-                       as row sums in a fixed order
+                       as row sums in a fixed order over a row-major
+                       copy of the design (``ws_slot_map`` makes the
+                       update's map of slots)
 
 The block and lane forms have counters of their own, so a run can tell
 them from the single-lane scalar launches. K1, K2, K1b, K1l, K2l and
@@ -46,6 +48,8 @@ rounded up to a power of two, lane count), which ``shape_counts`` reads.
 K3l's gathers count the rows they fill (S K) and, on the card, the
 distinct rows they read (U, a device counter each launch adds to, so a
 replayed launch adds at each replay) by ws bucket: ``gather_counts``.
+K5r counts its launches by call site, ``matvec`` and ``update_xb``, and
+the update's slot maps: ``row_sum_counts``.
 
 A kernel captured into a CUDA graph launches at each replay of the graph:
 inside ``deferred_launches`` the wrappers record their launches instead of
@@ -72,12 +76,14 @@ from .common import (PENALTY_IDS, UnsupportedPenaltyError,
                      check_kernel_penalty, check_score_kernel_penalty,
                      make_penalty, penalty_params)
 from .csc_score import (csc_row_sum_cuda, csc_row_sum_plain,
-                        csc_score_block_cuda, csc_score_cuda, csc_score_plain)
+                        csc_score_block_cuda, csc_score_cuda, csc_score_plain,
+                        slot_bitmap, slot_map_cuda)
 from ..core.working_set import candidate_columns, select_working_set
 from .fused_ws import (fused_ws_block_cuda, fused_ws_block_lanes_cuda,
                        fused_ws_block_lanes_plain, fused_ws_cuda,
                        fused_ws_lanes_cuda, fused_ws_lanes_plain,
-                       fused_ws_plain, score_cuda, ws_gather_cuda)
+                       fused_ws_plain, score_cuda, slot_map,
+                       ws_gather_cuda)
 from .ws_score import ws_score_plain
 
 __all__ = ["cd_epoch_gram", "cd_epoch_xb", "fused_ws", "ws_score",
@@ -85,9 +91,10 @@ __all__ = ["cd_epoch_gram", "cd_epoch_xb", "fused_ws", "ws_score",
            "fused_ws_block", "csc_score_block", "cd_epoch_gram_lanes",
            "cd_epoch_xb_lanes", "fused_ws_lanes",
            "cd_epoch_gram_block_lanes", "fused_ws_block_lanes",
-           "csc_row_sum", "ws_gather", "KERNELS",
+           "csc_row_sum", "ws_slot_map", "ws_gather", "KERNELS",
            "launch_counts", "reset_launch_counts", "branch_counts",
            "cluster_counts", "shape_counts", "gather_counts",
+           "row_sum_counts",
            "rows_read_counter", "deferred_launches",
            "add_launches",
            "penalty_params",
@@ -100,16 +107,22 @@ __all__ = ["cd_epoch_gram", "cd_epoch_xb", "fused_ws", "ws_score",
 _DEFERRED: list = []
 
 
-def _count(wrapper, plan=None, times=1, K=None, lanes=None, rows=0):
+def _count(wrapper, plan=None, times=1, K=None, lanes=None, rows=0,
+           site=None):
     """Add a launch to `wrapper`'s counts (and, for a branched kernel, to
     its plan's branch and cluster size; with `K`, to its shape: K rounded
     up to a power of two and the plan's cluster size, or without a plan
-    the `lanes`; `rows`, the slots a gather fills, to its bucket), or,
-    while a graph captures, record it for the replays (a captured kernel
-    launches when its graph replays, not when the wrapper runs)."""
+    the `lanes`; `rows`, the slots a gather fills, to its bucket; `site`,
+    K5r's call site, to its sites), or, while a graph captures, record it
+    for the replays (a captured kernel launches when its graph replays,
+    not when the wrapper runs)."""
     if _DEFERRED:
-        _DEFERRED[-1].append((wrapper, plan, K, lanes, rows))
+        _DEFERRED[-1].append((wrapper, plan, K, lanes, rows, site))
         return
+    if site is not None:
+        wrapper.site_launches[site] += times
+        if site == "slot_map":             # the update's map: not K5r's
+            return
     wrapper.launches += times
     if plan is not None and hasattr(wrapper, "branch_launches"):
         wrapper.branch_launches[plan.branch] += times
@@ -144,8 +157,8 @@ def add_launches(records, times=1):
     """Count the launches in `records` (from ``deferred_launches``)
     `times` times over."""
     if times:
-        for wrapper, plan, K, lanes, rows in records:
-            _count(wrapper, plan, times, K, lanes, rows)
+        for wrapper, plan, K, lanes, rows, site in records:
+            _count(wrapper, plan, times, K, lanes, rows, site)
 
 
 def _route(name, **tensors) -> bool:
@@ -693,25 +706,39 @@ def csc_score_block(data, indices, col_ids, indptr, raw):
     return out
 
 
-def csc_row_sum(val, order, keys, ptr, coef, *, kdiv=0, base=None):
+def csc_row_sum(val, order, keys, ptr, coef, *, kdiv=0, base=None,
+                slots=None, bits=None):
     """K5r: ``base + out``, out[i] the sum of val[x] * coef[key(x)] over
-    row i's entries x in the order `order` lists them (int32 [E], rows
-    bounded by ptr, int64 [rows + 1]: ``csc_score.row_order``); key(x) =
-    keys[x] (int32, the entry's column) or, without keys, x // kdiv. coef:
-    contiguous [P] or [P, T]; base: None or contiguous [rows] / [rows, T].
-    The CSC scatters of a ``CSCDesign`` (``matvec``, ``update_xb``) in an
-    order no scheduling changes."""
+    row i's entries x in a fixed order, the order ``index_add_`` adds in on
+    the CPU. The card takes a row-major copy (``csc_score.row_major``:
+    `order` None, val and keys its vals and cols (int32), ptr its int64
+    [rows + 1]): key(x) = keys[x], row i's entries in the copy's order
+    (``matvec``), or, with `slots` and `bits` (int32, the update's map of
+    columns to slots and its bitmap, ``ws_slot_map``; the CPU reads slots
+    alone), key(x) = slots[keys[x]], the entries without a slot left out
+    and the rest by ascending slot (``update_xb``), on the plans
+    ``csc_score.matvec_plan(T)`` and ``UPDATE_PLAN``. The CPU also takes
+    `order` (int32 [E], ``csc_score.row_order``) over any flat arrays: row
+    i's entries are its run of order, key(x) = keys[x] or, without keys,
+    x // kdiv. coef: contiguous [P] or [P, T]; base: None or contiguous
+    [rows] / [rows, T]. Launches count by site: ``row_sum_counts``."""
     extra = {} if base is None else {"base": base}
     on_card = _route("csc_row_sum", val=val, coef=coef, **extra)
     for key, t, dtype in (("order", order, torch.int32),
                           ("keys", keys, torch.int32),
-                          ("ptr", ptr, torch.int64)):
+                          ("ptr", ptr, torch.int64),
+                          ("slots", slots, torch.int32),
+                          ("bits", bits, torch.int32)):
         if t is not None and (t.dtype != dtype or t.device != val.device
                               or t.ndim != 1 or not t.is_contiguous()):
             raise TypeError(f"csc_row_sum: {key} must be a contiguous 1-D "
                             f"{dtype} tensor on {val.device}")
-    if keys is None and kdiv < 1:
-        raise ValueError("csc_row_sum: without keys, kdiv must be >= 1")
+    if keys is None and (order is None or kdiv < 1):
+        raise ValueError("csc_row_sum: without keys, an order and kdiv >= 1 "
+                         "are needed")
+    if slots is not None and order is not None:
+        raise ValueError("csc_row_sum: slots take a row-major copy (order "
+                         "None)")
     if coef.ndim not in (1, 2) or not coef.is_contiguous() or \
             not val.is_contiguous():
         raise ValueError("csc_row_sum: coef must be a contiguous [P] or "
@@ -723,11 +750,43 @@ def csc_row_sum(val, order, keys, ptr, coef, *, kdiv=0, base=None):
                          f"got {tuple(base.shape)}")
     if not on_card:
         return csc_row_sum_plain(val, order, keys, ptr, coef, kdiv=kdiv,
-                                 base=base)
-    out = csc_row_sum_cuda(val, order, keys, ptr, coef, kdiv=kdiv,
-                           base=base)
-    _count(csc_row_sum)
+                                 base=base, slots=slots)
+    if order is not None:
+        raise ValueError("csc_row_sum: the card walks a row-major copy "
+                         "(csc_score.row_major), not an order")
+    if keys.shape != val.shape:
+        raise ValueError("csc_row_sum: vals and cols must have one length")
+    if slots is not None and (bits is None or bits.shape[0] !=
+                              -(-slots.shape[0] // 32)):
+        raise ValueError("csc_row_sum: the card's update takes the slot "
+                         "map's bitmap, int32 [ceil(P / 32)]")
+    out = csc_row_sum_cuda(val, keys, ptr, coef, base=base, slots=slots,
+                           bits=bits)
+    _count(csc_row_sum, site="matvec" if slots is None else "update_xb")
     return out
+
+
+def ws_slot_map(ws, p):
+    """The map of slots of a working set ws (int64 [K], distinct features
+    of [0, p)) and its bitmap: (int32 [p], slot_of[ws[k]] = k, else -1, as
+    K3g's ``fused_ws.slot_map`` at S = 1; int32 [ceil(p / 32)],
+    ``csc_score.slot_bitmap``); on the card two memsets and a mark launch,
+    counted in ``row_sum_counts``."""
+    if ws.ndim != 1 or ws.dtype != torch.int64 or not ws.is_contiguous():
+        raise TypeError("ws_slot_map: ws must be a contiguous int64 [K] "
+                        "tensor")
+    if ws.device.type != "cuda":
+        slots = slot_map(ws.view(1, -1), p).view(p)
+        return slots, slot_bitmap(slots)
+    out = slot_map_cuda(ws, p)
+    _count(csc_row_sum, site="slot_map")
+    return out
+
+
+def row_sum_counts() -> dict:
+    """K5r's launches by call site ("matvec", "update_xb") and the
+    update's slot maps ("slot_map")."""
+    return dict(csc_row_sum.site_launches)
 
 
 KERNELS = (cd_epoch_gram, cd_epoch_xb, fused_ws, ws_score, csc_score,
@@ -752,6 +811,8 @@ def reset_launch_counts():
     for k in SHAPED:
         k.shape_launches = {}
     ws_gather.bucket_rows = {}
+    csc_row_sum.site_launches = dict.fromkeys(
+        ("matvec", "update_xb", "slot_map"), 0)
     for t in _ROWS_READ.values():
         t.zero_()
 

@@ -19,14 +19,16 @@ asked (validation only). The flag keeps the reference's public contract:
 design requires it (``PALLAS_SPARSE_ELL_ERROR``).
 
 On a card, the scatters of the design (``matvec``: X @ beta, and
-``update_xb``: Xb + X_ws delta over the working set's windows) run K5r
-(``kernels.ops.csc_row_sum``): each row's entries summed in a fixed order
-(their column order, or the working-set order of the windows), the order
-in which ``index_add_``, the CPU route, adds them; ``index_add_`` on a
-card adds with atomics, in an order that may change from run to run.
-``matvec``'s row order is sorted once a design (cached on it), the
-windows' once a working set. ``score_walk`` is the score pass in the
-walk's fixed order whatever the ELL flag (``lambda_max`` takes it).
+``update_xb``: Xb + X_ws delta) run K5r (``kernels.ops.csc_row_sum``):
+each row's entries summed in a fixed order (their column order, or the
+working set's slot order), the order in which ``index_add_``, the CPU
+route, adds them; ``index_add_`` on a card adds with atomics, in an order
+that may change from run to run. K5r walks a row-major copy of the
+entries (``row_major``: values, columns and row bounds, 12 bytes an entry
+in float64), sorted once a design and kept on it; the update keeps the
+entries whose column has a slot in the working set (a slot map, no sort).
+``score_walk`` is the score pass in the walk's fixed order whatever the
+ELL flag (``lambda_max`` takes it).
 """
 from __future__ import annotations
 
@@ -40,11 +42,22 @@ import torch
 from .. import resolve_device
 from ..core.engine import Design
 from ..kernels import ops as kops
-from ..kernels.csc_score import row_order
+from ..kernels.csc_score import row_major as _row_major
 from .ops import (csc_column_windows, csc_gather_columns, csc_incremental_xb,
                   csc_matvec, csc_score, csc_score_ell, csc_weighted_col_sq)
 
-__all__ = ["CSCDesign"]
+__all__ = ["CSCDesign", "Windows"]
+
+
+class Windows(tuple):
+    """``gather_ws``'s aux: the pair (rows, vals) of the working set's
+    column windows (the CPU route's Xb update), with the working set
+    itself, ``ws``, for the card's (K5r over the slot map of ws)."""
+
+    def __new__(cls, rows, vals, ws):
+        out = super().__new__(cls, (rows, vals))
+        out.ws = ws
+        return out
 
 
 def _ell_from_flat(data, indices, col_ids, indptr, m):
@@ -205,44 +218,60 @@ class CSCDesign(Design):
         card; the CPU's ``index_add_`` adds in that order already)."""
         return self.device.type == "cuda"
 
-    def _row_order(self):
-        """(order, ptr) of ``row_order`` over the flat arrays' rows (their
-        zeros, the padding among them, left out), sorted at the first call
-        and kept on the design (``take_columns(out=)`` drops it with the
-        arrays it rewrites)."""
-        cached = self.__dict__.get("_rows")
+    def row_major(self):
+        """The row-major copy of the entries (``csc_score.RowMajor``:
+        vals, cols and ptr, zeros and padding left out),
+        sorted on the design's device at the first call, outside any graph
+        capture (``before_capture``), and kept on the design;
+        ``take_columns(out=)`` rewrites it in place with the arrays."""
+        cached = self.__dict__.get("_csr")
         if cached is None:
-            cached = row_order(self.indices, self.n_rows, self.data)
-            object.__setattr__(self, "_rows", cached)
+            if self.device.type == "cuda" and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("CSCDesign: the row-major copy must be "
+                                   "made before a graph capture")
+            cached = _row_major(self.data, self.indices, self.col_ids,
+                                self.n_rows)
+            object.__setattr__(self, "_csr", cached)
         return cached
+
+    def before_capture(self):
+        """Make what a captured step reads in place: on the ordered route,
+        the row-major copy."""
+        if self.ordered_sums:
+            self.row_major()
 
     def gather_ws(self, ws):
         """Densify the working-set columns: (Xt_ws [K, n] feature-major,
-        the (rows, vals) windows for the incremental Xb update)."""
+        ``Windows``: the (rows, vals) windows and ws, for the incremental
+        Xb update)."""
         rows, vals = csc_column_windows(self.data, self.indices, self.indptr,
                                         ws, self.max_col_nnz)
-        return csc_gather_columns(rows, vals, self.n_rows).T, (rows, vals)
+        return (csc_gather_columns(rows, vals, self.n_rows).T,
+                Windows(rows, vals, ws))
 
     def update_xb(self, Xb, Xt_ws, aux, delta):
-        """Xb + X_ws @ delta by a scatter add on the windows in `aux`; on a
-        card K5r over the windows sorted by row (no host read: a captured
-        step runs it)."""
-        rows, vals = aux
+        """Xb + X_ws @ delta: a scatter add on the windows in `aux`, or, on
+        a card, K5r over the row-major copy, keeping the entries whose
+        column has a slot in ``aux.ws`` (a slot map; no sort, no host read:
+        a captured step runs it)."""
         if not self.ordered_sums:
+            rows, vals = aux
             return csc_incremental_xb(Xb, rows, vals, delta)
-        order, ptr = row_order(rows, self.n_rows, vals)
-        return kops.csc_row_sum(vals.reshape(-1), order, None, ptr,
-                                delta.contiguous(), kdiv=rows.shape[1],
-                                base=Xb.contiguous())
+        rm = self.row_major()
+        slots, bits = kops.ws_slot_map(aux.ws.long().contiguous(), self.width)
+        return kops.csc_row_sum(rm.vals, None, rm.cols, rm.ptr,
+                                delta.contiguous(), base=Xb.contiguous(),
+                                slots=slots, bits=bits)
 
     def matvec(self, beta):
         """X @ beta for [p] (or [p, T]) coefficients; on a card K5r over
-        the design's row order."""
+        the row-major copy."""
         if not self.ordered_sums:
             return csc_matvec(self.data, self.indices, self.col_ids, beta,
                               self.n_rows)
-        order, ptr = self._row_order()
-        return kops.csc_row_sum(self.data, order, self.col_ids, ptr,
+        rm = self.row_major()
+        return kops.csc_row_sum(rm.vals, None, rm.cols, rm.ptr,
                                 beta.contiguous())
 
     def lipschitz(self, datafit, w=None, use_kernels: bool = False):
@@ -279,7 +308,8 @@ class CSCDesign(Design):
         subset is written into its arrays in place and `out` is returned
         (the screened path refills one design a (width, capacity), so its
         captured steps, which read the design in place, replay); its
-        padding beyond the subset is rewritten as padding. `nnz`, the
+        padding beyond the subset is rewritten as padding, and its
+        row-major copy, if it has one, is rebuilt in place. `nnz`, the
         subset's nnz when the caller knows it, saves the one host read that
         sizes the arrays."""
         dev = self.device
@@ -325,7 +355,10 @@ class CSCDesign(Design):
         out.col_ids.copy_(col.to(torch.int32))
         out.indptr.copy_(indptr)
         out.col_sq.copy_(torch.where(valid, self.col_sq[sel], 0.0))
-        out.__dict__.pop("_rows", None)
+        rm = out.__dict__.get("_csr")
+        if rm is not None:
+            _row_major(out.data, out.indices, out.col_ids, out.n_rows,
+                       out=rm)
         return out
 
     def score_ell_reference(self, raw):

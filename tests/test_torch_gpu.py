@@ -2135,3 +2135,196 @@ def test_csc_order_cuda_lambda_max_and_path_repeat(cuda):
     a = reg_path(d, y, L1(1.0), **kw)
     b = reg_path(d, y, L1(1.0), **kw)
     np.testing.assert_array_equal(a.betas, b.betas)
+
+
+def _long_row_matrix(seed=0, n=3000, p=120_000, L=100_000):
+    """A sparse n x p matrix with one row of L entries (K5r's long path),
+    rows 1 and n - 1 empty, the rest ~24 entries a row."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    X = sp.random(n, p, density=2e-4, random_state=seed, format="coo")
+    keep = (X.row != 1) & (X.row != n - 1) & (X.row != 2)
+    cols = rng.choice(p, L, replace=False)
+    rows = np.concatenate([X.row[keep], np.full(L, 2)])
+    cols = np.concatenate([X.col[keep], cols])
+    vals = np.concatenate([X.data[keep], rng.standard_normal(L)])
+    return sp.coo_matrix((vals, (rows, cols)), shape=(n, p)).tocsc()
+
+
+@pytest.fixture(scope="module")
+def k5r_designs():
+    """{kind: (design on the card, its CPU copy)}, made once a module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU or "
+                    "interpret mode")
+    from repro_torch.data import make_sparse_design
+    from repro_torch.sparse import CSCDesign
+    fig2, _, _ = make_sparse_design(n=20_000, p=80_000, density=1e-3,
+                                    n_nonzero=40, seed=5)
+    out = {}
+    for kind, X, dtype in (("fig2-like", fig2, None),
+                           ("long-row", _long_row_matrix(), None),
+                           ("float32", fig2, np.float32)):
+        d = CSCDesign.from_scipy(X, dtype=dtype, device="cuda")
+        out[kind] = (d, d.to("cpu"))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [None, 3, 20])
+@pytest.mark.parametrize("kind", ["fig2-like", "long-row", "float32"])
+def test_k5r_csr_matvec_cuda_equals_its_plain_version(cuda, k5r_designs,
+                                                     kind, T):
+    """K5r's ``matvec`` over the row-major copy equals its plain version
+    (``index_add_`` over the copy, on the CPU, where it adds in order) bit
+    for bit, twice, on a sparse_fig2-like design, on one with a
+    100,000-entry row (the long path) and empty rows, and in float32, at
+    T = 1, 3 and 20."""
+    from repro_torch.kernels.csc_score import csc_row_sum_plain
+    d, dc = k5r_designs[kind]
+    rm = d.row_major()
+    if kind == "long-row":
+        assert int(rm.ptr[3] - rm.ptr[2]) == 100_000
+        assert int(rm.ptr[2] - rm.ptr[1]) == 0
+    rng = np.random.default_rng(7)
+    shape = (d.width,) if T is None else (d.width, T)
+    beta = torch.as_tensor(rng.standard_normal(shape), dtype=d.dtype)
+    ops.reset_launch_counts()
+    got = [d.matvec(beta.to(cuda)) for _ in range(2)]
+    assert torch.equal(got[0], got[1])
+    want = csc_row_sum_plain(rm.vals.cpu(), None, rm.cols.cpu(), rm.ptr.cpu(),
+                             beta)
+    assert torch.equal(got[0].cpu(), want)
+    assert torch.equal(got[0].cpu(), dc.matvec(beta))
+    assert ops.row_sum_counts() == {"matvec": 2, "update_xb": 0,
+                                    "slot_map": 0}
+    assert ops.launch_counts()["csc_row_sum"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [None, 20])
+@pytest.mark.parametrize("K", [1, 512, 4096])
+@pytest.mark.parametrize("kind", ["fig2-like", "long-row", "float32"])
+def test_k5r_csr_update_xb_cuda_equals_the_cpu_route(cuda, k5r_designs, kind,
+                                                     K, T):
+    """K5r's ``update_xb`` (the slot map's memsets and mark launch, then
+    the walk over the copy keeping the working set's columns, each row by
+    ascending slot) equals the CPU route over the windows bit for bit,
+    twice, at K = 1, 512 and 4096; the slot map and its bitmap equal the
+    CPU's; launches count by site."""
+    from repro_torch.kernels.csc_score import slot_bitmap
+    d, dc = k5r_designs[kind]
+    rng = np.random.default_rng(K)
+    # the long row's columns among the slots, in random order
+    ws = torch.as_tensor(rng.choice(d.width, K, replace=False))
+    tail = () if T is None else (T,)
+    delta = torch.as_tensor(rng.standard_normal((K,) + tail), dtype=d.dtype)
+    Xb = torch.as_tensor(rng.standard_normal((d.n_rows,) + tail),
+                         dtype=d.dtype)
+    _, aux = d.gather_ws(ws.to(cuda))
+    _, auxc = dc.gather_ws(ws)
+    d.row_major()
+    slots, bits = ops.ws_slot_map(ws.to(cuda), d.width)
+    assert torch.equal(bits.cpu(), slot_bitmap(slots.cpu()))
+    assert torch.equal(slots.cpu(), ops.ws_slot_map(ws, d.width)[0])
+    ops.reset_launch_counts()
+    got = [d.update_xb(Xb.to(cuda), None, aux, delta.to(cuda))
+           for _ in range(2)]
+    assert torch.equal(got[0], got[1])
+    assert torch.equal(got[0].cpu(), dc.update_xb(Xb, None, auxc, delta))
+    assert ops.row_sum_counts() == {"matvec": 0, "update_xb": 2,
+                                    "slot_map": 2}
+
+
+@pytest.mark.gpu
+def test_k5r_csr_update_xb_replays_from_a_graph_after_a_refill(cuda):
+    """The update captured into a CUDA graph reads the copy in place: after
+    ``take_columns(out=)`` refills the design (its copy rebuilt in place),
+    a replay equals an eager update of the new columns."""
+    from repro_torch.data import make_sparse_design
+    from repro_torch.sparse import CSCDesign
+    X, _, _ = make_sparse_design(n=5000, p=20_000, density=2e-3, seed=9)
+    d = CSCDesign.from_scipy(X, device=cuda)
+    rng = np.random.default_rng(1)
+    a = torch.as_tensor(rng.choice(d.width, 3000, replace=False), device=cuda)
+    b = torch.as_tensor(rng.choice(d.width, 3000, replace=False), device=cuda)
+    slot = d.take_columns(a)
+    slot.before_capture()
+    ws = torch.as_tensor(rng.choice(3000, 512, replace=False), device=cuda)
+    delta = torch.randn(512, dtype=torch.float64, device=cuda)
+    Xb = torch.randn(d.n_rows, dtype=torch.float64, device=cuda)
+    _, aux = slot.gather_ws(ws)
+    slot.update_xb(Xb, None, aux, delta)            # builds before capture
+    g = torch.cuda.CUDAGraph()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        with ops.deferred_launches():
+            g.capture_begin()
+            out = slot.update_xb(Xb, None, aux, delta)
+            g.capture_end()
+    torch.cuda.current_stream().wait_stream(s)
+    d.take_columns(b, out=slot)
+    g.replay()
+    _, aux2 = slot.gather_ws(ws)
+    assert torch.equal(out, slot.update_xb(Xb, None, aux2, delta))
+    assert torch.equal(out.cpu(), slot.to("cpu").update_xb(
+        Xb.cpu(), None, slot.to("cpu").gather_ws(ws.cpu())[1], delta.cpu()))
+
+
+def _dense_row_matrix(seed=4, n=400, p=1024, L=700):
+    """A sparse n x p matrix with one row of L entries, short for K5r's
+    long path (L <= K5R_LONG) but more than a warp's update buffer holds
+    when the working set takes every column, and row 7 empty."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    X = sp.random(n, p, density=0.01, random_state=seed, format="coo")
+    keep = (X.row != 5) & (X.row != 7)
+    rows = np.concatenate([X.row[keep], np.full(L, 5)])
+    cols = np.concatenate([X.col[keep], rng.choice(p, L, replace=False)])
+    vals = np.concatenate([X.data[keep], rng.standard_normal(L)])
+    return sp.coo_matrix((vals, (rows, cols)), shape=(n, p)).tocsc()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["700-entry row, every column",
+                                  "fig2-like, buffers of 16"])
+def test_k5r_csr_update_hands_a_full_buffer_to_the_long_path(
+        cuda, k5r_designs, case):
+    """A row of at most K5R_LONG entries that keeps more entries than its
+    warp's buffer (kmax) fills the buffer, then goes to the CTA's long
+    path: a 700-entry row with every column in the working set (700 kept
+    against 128), and the fig2-like design at half its columns on a plan
+    forced to buffers of 16 (~40 kept a row). Bit for bit the CPU route,
+    twice."""
+    from repro_torch.kernels.csc_score import (K5R_KMAX, K5R_LONG,
+                                               UpdatePlan, csc_row_sum_cuda,
+                                               csc_row_sum_plain)
+    from repro_torch.sparse import CSCDesign
+    rng = np.random.default_rng(11)
+    if case.startswith("700"):
+        d = CSCDesign.from_scipy(_dense_row_matrix(), device="cuda")
+        dc = d.to("cpu")
+        ws = torch.as_tensor(rng.permutation(d.width))
+        plan = None
+    else:
+        d, dc = k5r_designs["fig2-like"]
+        ws = torch.as_tensor(rng.choice(d.width, d.width // 2,
+                                        replace=False))
+        plan = UpdatePlan(64, 16, K5R_LONG, 256)
+    rm = d.row_major()
+    kept = int(rm.ptr[6] - rm.ptr[5])
+    assert K5R_KMAX < kept <= K5R_LONG or plan is not None
+    K = ws.shape[0]
+    delta = torch.as_tensor(rng.standard_normal(K))
+    Xb = torch.as_tensor(rng.standard_normal(d.n_rows))
+    slots, bits = ops.ws_slot_map(ws.to(cuda), d.width)
+    got = [csc_row_sum_cuda(rm.vals, rm.cols, rm.ptr, delta.to(cuda), plan,
+                            base=Xb.to(cuda), slots=slots, bits=bits)
+           for _ in range(2)]
+    assert torch.equal(got[0], got[1])
+    want = dc.update_xb(Xb, None, dc.gather_ws(ws)[1], delta)
+    assert torch.equal(got[0].cpu(), want)
+    assert torch.equal(want, csc_row_sum_plain(
+        rm.vals.cpu(), None, rm.cols.cpu(), rm.ptr.cpu(), delta, base=Xb,
+        slots=slots.cpu()))
